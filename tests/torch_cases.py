@@ -1,0 +1,65 @@
+"""Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py):
+the collections of tests/test_ms_jump.py, and carriers that move JAX
+results into the port's types as numpy arrays."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from helpers import mutate, random_dna
+from cmsbwt_tpu.io.fasta import SEPARATOR, augment_reference
+
+# (seed, ref_len, n_docs, snp, kwargs) — tests/test_ms_jump.py:39-46
+CASES = [
+    (0, 1500, 5, 0.02, {}),
+    (1, 900, 4, 0.001, {}),              # low divergence
+    (2, 1200, 6, 0.05, {"dup_pairs": 2}),  # duplicate documents
+    (3, 400, 2, 0.0, {}),                # identical copies
+    (4, 300, 20, 0.03, {"doc_len": 7}),  # separator-dense
+    (5, 2000, 3, 0.01, {}),
+]
+CASE_IDS = ["snp2", "lowdiv", "dupdocs", "identical", "sepdense", "snp1"]
+
+
+def collection(seed, ref_len, n_docs, snp, dup_pairs=0, doc_len=None):
+    """(x_aug, sx) exactly as tests/test_ms_jump.py builds them."""
+    rng = np.random.default_rng(seed)
+    ref = random_dna(rng, ref_len)
+    docs = [np.frombuffer(mutate(rng, ref, snp), np.uint8)[:doc_len]
+            for _ in range(n_docs)]
+    for k in range(dup_pairs):
+        if 2 * k + 1 < n_docs:
+            docs[2 * k + 1] = docs[2 * k].copy()
+    sep = np.full(1, SEPARATOR, np.uint8)
+    sx = np.concatenate([sep] + [np.concatenate([dc, sep]) for dc in docs])
+    x_aug = np.frombuffer(augment_reference(ref), np.uint8)
+    return x_aug, sx
+
+
+def case_collection(case):
+    seed, ref_len, n_docs, snp, kw = case
+    return collection(seed, ref_len, n_docs, snp, **kw)
+
+
+def to_torch(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def carry_heads(jres):
+    """A JAX DeviceHeadsResult as the port's DeviceHeadsResult (CPU)."""
+    from cmsbwt_tpu_torch.ops.ms_dense import DeviceHeadsResult
+    f = ("head_t", "head_pos", "head_len", "head_smaller", "head_char",
+         "ref_sa", "ref_isa", "ref_bwt")
+    return DeviceHeadsResult(h=jres.h, n=jres.n, sn=jres.sn,
+                             irreducible=jres.irreducible,
+                             **{k: to_torch(getattr(jres, k)) for k in f})
+
+
+def assert_same(jax_value, torch_value, name=""):
+    """Exact equality of values, shape and dtype."""
+    a = np.asarray(jax_value)
+    b = torch_value.numpy() if isinstance(torch_value, torch.Tensor) \
+        else np.asarray(torch_value)
+    assert a.shape == b.shape, (name, a.shape, b.shape)
+    assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+    np.testing.assert_array_equal(a, b, err_msg=name)
