@@ -14,13 +14,23 @@ every phase passed):
    still counted, and viol is raised), a separator-dense case, an
    identical-copies case, and the bench's primary shape. Tolerance: exact equality (every value
    is an integer or a byte).
-4. slice   — the port's CLI (jump scan + device merge, --device cuda) on the
-   bench's primary workload (2 Mbp reference x 10 docs at 1% SNP, about
-   20 Mchars), plain and -r. Outputs must be byte-equal to the C++
+4. dense kernels — the CUDA lcp_lift and dense_neighbors against their
+   plain torch versions (lift_pairs, neighbors_reference) on the card, on
+   inputs from the port's own dense stages, on the bench's primary shape
+   (wide seed), on 200 Kbp x 8 docs with an N run in each doc (narrow
+   seed) and on a separator-dense case. Tolerance: exact equality.
+5. jump slice — the port's CLI (jump scan + device merge, --device cuda)
+   on the bench's primary workload (2 Mbp reference x 10 docs at 1% SNP,
+   about 20 Mchars), plain and -r. Outputs must be byte-equal to the C++
    reference tool's (baseline/cms-bwt-ref, run on the same input list),
    the scan's heads equal to those of the native C++ PLCP-skip scan
    (native/cmsbwt_scan.cpp, built here with g++) at 4096 and 32768 lanes,
    and the CUDA kernel must have carried the scan.
+6. dense slice — the same CLI with --backend dense --merge-backend device
+   on the same workload, plain and -r: bytes equal to the reference
+   tool's, the dense scan's heads equal to the native scan's, and the
+   lcp_lift and dense_neighbors kernels (not their plain versions) must
+   have carried it. Prints the .log phases and the dense stage split.
 
 Imports nothing of JAX or of the JAX package: its oracles are the two C++
 programs above.
@@ -88,11 +98,14 @@ def _wrap(b: bytes, width: int = 60) -> bytes:
 
 
 def write_workload(d: pathlib.Path, seed: int, ref_len: int, n_docs: int,
-                   snp: float, doc_len: int | None = None) -> pathlib.Path:
+                   snp: float, doc_len: int | None = None,
+                   n_run: int = 0) -> pathlib.Path:
     """Reference and collection FASTA files plus their input list, made as
     bench.py's make_workload makes them (uniform ACGT reference; each
     document a copy with max(1, ref_len * snp) random substitutions, none
-    when snp is 0), so seed 42 at 2 Mbp x 10 docs x 1% is its primary."""
+    when snp is 0), so seed 42 at 2 Mbp x 10 docs x 1% is its primary.
+    ``n_run`` > 0 overwrites a run of that many N bytes at a random place
+    in each document (the dense scan then takes its narrow seed)."""
     d.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -104,6 +117,9 @@ def write_workload(d: pathlib.Path, seed: int, ref_len: int, n_docs: int,
             k = max(1, int(ref_len * snp)) if snp else 0
             idx = rng.choice(ref_len, k, replace=False)
             arr[idx] = rng.choice(acgt, size=k)
+            if n_run:
+                at = int(rng.integers(0, ref_len - n_run))
+                arr[at:at + n_run] = ord("N")
             f.write(b">doc%d\n" % i + _wrap(arr[:doc_len].tobytes()) + b"\n")
     lst = d / "input.txt"
     lst.write_text(f"{d / 'ref.fa'}\n{d / 'coll.fa'}\n")
@@ -160,6 +176,57 @@ def kernel_case(name, lst, lanes=4096, cap=None, expect_viol=None,
     if expect_viol is not None and viol != expect_viol:
         fail(f"kernel case {name}: viol={viol}, expected {expect_viol}")
     return dict(err=err, ms=ms, plain_ms=plain_ms)
+
+
+def dense_kernel_case(name, lst, reps=5):
+    """The CUDA lcp_lift and dense_neighbors against lift_pairs and
+    neighbors_reference on the card, fed the port's own dense stages on
+    ``lst`` (as ms_dense_heads_on_device runs them); returns
+    {kernel: result dict}."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import joint_sa as js
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    x_aug, coll = load_inputs(str(lst))
+    n, sn = len(x_aug), coll.sn
+    b, sp, wide, n_pad, _, m = md.joint_string(x_aug, coll.sx, "cuda")
+    sa, isa, hist, packs, _, split_lv = js.joint_suffix_array(b, sp, m, wide)
+    stats, ai, bi, lv = md._irreducible_slots(b, sp, sa, isa, split_lv, n,
+                                              sn, m, n_pad)
+    rho = int(stats[0])
+    rows = min(md._pow2_pad(rho), m)
+    ai, bi, lv = ai[:rows], bi[:rows], lv[:rows]
+    out = {}
+
+    def compare(kernel, plain, cuda_fn, plain_fn, what):
+        want = plain_fn()
+        got = cuda_fn()
+        torch.cuda.synchronize()
+        if any(a.dtype != b.dtype or a.shape != b.shape
+               for a, b in zip(want, got)):
+            fail(f"{kernel}[{name}]: dtype or shape differs from {plain}")
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(want, got))
+        ms = cuda_ms(cuda_fn, reps)
+        plain_ms = cuda_ms(plain_fn, 2)
+        log(f"kernel {kernel}[{name}]: {what} max_abs_err={err} "
+            f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+        if err > TOL:
+            fail(f"{kernel}[{name}]: CUDA kernel disagrees with {plain}")
+        out[kernel] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        return want
+
+    h = compare("lcp_lift", "lift_pairs",
+                lambda: (kernels.lcp_lift_cuda(hist, packs, ai, bi, lv, m),),
+                lambda: (js.lift_pairs(hist, packs, ai, bi, lv, m),),
+                f"m={m} seed={'wide' if wide else 'narrow'} rho={rho} "
+                f"rows={rows}")[0]
+    ell = md._fill_ell(h, ai, isa, m)
+    compare("dense_neighbors", "neighbors_reference",
+            lambda: kernels.dense_neighbors_cuda(sa, ell, n, m),
+            lambda: md.neighbors_reference(sa, ell, n, m),
+            f"m={m} ref_slots={n}")
+    return out
 
 
 def reference_outputs(lst: pathlib.Path) -> dict:
@@ -259,6 +326,8 @@ def main() -> int:
 def run_phases(card: str, kind: str) -> int:
     from cmsbwt_tpu_torch import cli, kernels
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import joint_sa as js
+    from cmsbwt_tpu_torch.ops import ms_dense as md
     from cmsbwt_tpu_torch.ops import ms_jump as mj
 
     # phase 2: build
@@ -268,42 +337,65 @@ def run_phases(card: str, kind: str) -> int:
         if "registers" in line or "spill" in line:
             log(f"build: {line.strip()}")
 
-    # phase 3: the kernel against its plain version
+    # phase 3: the scan kernel against its plain version
     lst = write_workload(WORK / "k200k", 1, 200_000, 8, 0.01)
     kernel_case("200Kbp_x8_snp1%", lst, expect_viol=False)
     kernel_case("200Kbp_x8_snp1%_cap8", lst, cap=8, expect_viol=True)
-    kernel_case("separator_dense",
-                write_workload(WORK / "ksep", 2, 5_000, 2000, 0.03, 7))
+    sep_lst = write_workload(WORK / "ksep", 2, 5_000, 2000, 0.03, 7)
+    kernel_case("separator_dense", sep_lst)
     kernel_case("identical_copies",
                 write_workload(WORK / "kid", 3, 100_000, 6, 0.0))
     lst = write_workload(WORK / "primary", 42, 2_000_000, 10, 0.01)
     prim = kernel_case("primary_2Mbp_x10", lst)
+
+    # phase 4: the dense kernels against their plain versions
+    dense = {}
+    for name, klst in (
+            ("primary_2Mbp_x10", lst),
+            ("200Kbp_x8_Nrun", write_workload(WORK / "knrun", 5, 200_000, 8,
+                                              0.01, n_run=64)),
+            ("separator_dense", sep_lst)):
+        for k, r in dense_kernel_case(name, klst).items():
+            dense.setdefault(k, []).append(r)
+        torch.cuda.empty_cache()
     oracle = reference_outputs(lst)
 
-    # phase 4: the slice through the CLI, kernel launches counted
-    kernels.reset_launch_counts()
-    mj.REFERENCE_CALLS["ms_jump_scan_reference"] = 0
-    for rle in (False, True):
-        out = WORK / ("port_rle" if rle else "port")
-        argv = [str(lst), "-o", str(out), "--device", "cuda", "--backend",
-                "jump", "--merge-backend", "device"] + (["-r"] if rle else [])
-        t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            fail("cli returned non-zero")
-        wall = time.perf_counter() - t0
-        got = out.with_suffix(".rl_bwt" if rle else ".bwt").read_bytes()
-        if got != oracle[rle]:
-            fail(f"{'rl_bwt' if rle else 'bwt'} differs from the reference "
-                 f"tool's ({len(got)} vs {len(oracle[rle])} bytes)")
-        log(f"slice[{'rle' if rle else 'plain'}]: bytes equal to the "
-            f"reference tool's ({len(got)} bytes); wall {wall:.2f} s; "
-            "phases ms " + json.dumps(phases_from_log(
-                out.with_suffix(".log"))))
-    launches = dict(kernels.LAUNCHES)
-    plain_calls = mj.REFERENCE_CALLS["ms_jump_scan_reference"]
-    log(f"slice: kernel launches {launches}; plain scan calls {plain_calls}")
-    if launches["ms_jump_scan"] < 1 or plain_calls:
-        fail("the CUDA ms_jump_scan did not carry the slice's scan")
+    # phase 5: the jump slice through the CLI, kernel launches counted
+    def run_cli(backend: str, tag: str) -> dict:
+        kernels.reset_launch_counts()
+        js.REFERENCE_CALLS["lift_pairs"] = 0
+        md.REFERENCE_CALLS["neighbors_reference"] = 0
+        mj.REFERENCE_CALLS["ms_jump_scan_reference"] = 0
+        for rle in (False, True):
+            out = WORK / f"port_{tag}{'_rle' if rle else ''}"
+            argv = [str(lst), "-o", str(out), "--device", "cuda",
+                    "--backend", backend, "--merge-backend", "device"] \
+                + (["-r"] if rle else [])
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                fail(f"cli ({backend}) returned non-zero")
+            wall = time.perf_counter() - t0
+            got = out.with_suffix(".rl_bwt" if rle else ".bwt").read_bytes()
+            if got != oracle[rle]:
+                fail(f"{backend}: {'rl_bwt' if rle else 'bwt'} differs from "
+                     f"the reference tool's ({len(got)} vs "
+                     f"{len(oracle[rle])} bytes)")
+            log(f"slice[{backend},{'rle' if rle else 'plain'}]: bytes equal "
+                f"to the reference tool's ({len(got)} bytes); wall "
+                f"{wall:.2f} s; phases ms " + json.dumps(phases_from_log(
+                    out.with_suffix(".log"))))
+        counts = dict(kernels.LAUNCHES)
+        plain = {**js.REFERENCE_CALLS, **md.REFERENCE_CALLS,
+                 **mj.REFERENCE_CALLS}
+        log(f"slice[{backend}]: kernel launches {counts}; plain calls "
+            f"{plain}")
+        if any(plain.values()):
+            fail(f"{backend}: a plain version ran on the card's main path")
+        return counts
+
+    jump_counts = run_cli("jump", "jump")
+    if jump_counts["ms_jump_scan"] < 1:
+        fail("the CUDA ms_jump_scan did not carry the jump slice's scan")
 
     # heads at two lane counts against the native scan
     x_aug, coll = load_inputs(str(lst))
@@ -311,8 +403,8 @@ def run_phases(card: str, kind: str) -> int:
     nat = native_heads(x_aug, coll)
     log(f"oracle: native scan h={len(nat[0])} "
         f"({time.perf_counter() - t0:.2f} s)")
-    for lanes in (4096, 32768):
-        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda", lanes=lanes)
+
+    def check_heads(res, what):
         h = res.h
         got = [a[:h].cpu().numpy() for a in (res.head_t, res.head_pos,
                                              res.head_len, res.head_smaller,
@@ -320,17 +412,45 @@ def run_phases(card: str, kind: str) -> int:
         if h != len(nat[0]) or any(
                 not np.array_equal(g.astype(w.dtype), w)
                 for g, w in zip(got, nat)):
-            fail(f"heads at lanes={lanes} differ from the native scan "
+            fail(f"heads of {what} differ from the native scan "
                  f"(h={h} vs {len(nat[0])})")
-        log(f"heads[lanes={lanes}]: h={h} equal to the native scan")
+        log(f"heads[{what}]: h={h} equal to the native scan")
 
-    log(json.dumps({"kernels": [{
-        "name": "ms_jump_scan", "route": "cuda",
-        "source": "cmsbwt_tpu_torch/kernels/csrc/ms_jump_scan.cu",
-        "replaces": "docs/retired_pallas_scan.py:525",
-        "launches": launches["ms_jump_scan"],
-        "max_abs_err": prim["err"], "ms": prim["ms"],
-        "plain_ms": prim["plain_ms"]}]}))
+    for lanes in (4096, 32768):
+        check_heads(mj.ms_jump_heads(x_aug, coll.sx, "cuda", lanes=lanes),
+                    f"jump lanes={lanes}")
+
+    # phase 6: the dense slice through the CLI, kernel launches counted
+    dense_counts = run_cli("dense", "dense")
+    if dense_counts["lcp_lift"] < 1 or dense_counts["dense_neighbors"] < 1:
+        fail("the CUDA lcp_lift and dense_neighbors did not carry the "
+             "dense slice")
+    os.environ["CMSBWT_PROFILE"] = "1"
+    log("dense stages (device-synced marks, stderr):")
+    try:
+        check_heads(md.ms_dense_heads_on_device(x_aug, coll.sx, "cuda"),
+                    "dense")
+    finally:
+        del os.environ["CMSBWT_PROFILE"]
+    sys.stderr.flush()
+
+    def row(name, source, replaces, launches, res):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["err"] for r in res),
+                "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"]}
+
+    csrc = "cmsbwt_tpu_torch/kernels/csrc/"
+    log(json.dumps({"kernels": [
+        row("ms_jump_scan", csrc + "ms_jump_scan.cu",
+            "docs/retired_pallas_scan.py:525", jump_counts["ms_jump_scan"],
+            [prim]),
+        row("lcp_lift", csrc + "lcp_lift.cu",
+            "cmsbwt_tpu/ops/joint_sa.py:429", dense_counts["lcp_lift"],
+            dense["lcp_lift"]),
+        row("dense_neighbors", csrc + "dense_neighbors.cu",
+            "cmsbwt_tpu/ops/ms_dense.py:366",
+            dense_counts["dense_neighbors"], dense["dense_neighbors"])]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,8 +40,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend",
                    choices=["auto", "host", "device", "dense", "jump"],
                    default="jump",
-                   help="compute backend (default jump, the only one ported "
-                        "so far)")
+                   help="compute backend: jump (default; head-jumping scan "
+                        "over a reference index, the CUDA ms_jump_scan "
+                        "kernel) or dense (one joint suffix sort of "
+                        "reference and collection; the CUDA lcp_lift and "
+                        "dense_neighbors kernels), the two ported so far")
     p.add_argument("--lanes", type=int, default=Config.lanes,
                    help="parallel MS cursors of the jump scan "
                         "(default %(default)s)")

@@ -1,9 +1,13 @@
 """End-to-end pipeline of the port — the counterpart of
-cmsbwt_tpu/engine/pipeline.py, for the route ported so far:
+cmsbwt_tpu/engine/pipeline.py, for the routes ported so far:
 
-parse (cmsbwt_tpu/io/fasta.py) -> build_device_index -> ms_jump_heads
-(the CUDA ``ms_jump_scan`` kernel on a CUDA device) ->
-merge_heads_device_resident -> _write_outputs
+* backend=jump: parse (cmsbwt_tpu/io/fasta.py) -> build_device_index ->
+  ms_jump_heads (the CUDA ``ms_jump_scan`` kernel on a CUDA device) ->
+  merge_heads_device_resident -> _write_outputs
+* backend=dense (unblocked, one device): parse -> ms_dense_heads_on_device
+  (joint suffix sort; the CUDA ``lcp_lift`` and ``dense_neighbors``
+  kernels on a CUDA device) -> merge_heads_device_resident ->
+  _write_outputs
 
 Other backends and merge engines raise NotImplementedError naming their
 ROADMAP.md entry; nothing silently routes elsewhere.
@@ -26,7 +30,6 @@ from ..utils.timing import maybe_torch_trace
 
 _NOT_PORTED = {
     "auto": "queue 1 item 5 (the auto dispatch)",
-    "dense": "queue 1 items 2-3 (the dense joint-sort route)",
     "device": "queue 1 item 10 (ops/ms_device.py)",
     "host": "queue 1 item 9 (the host and native routes)",
     "native": "queue 1 item 9 (the host and native routes)",
@@ -59,10 +62,11 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_route(cfg: Config) -> None:
-    if cfg.backend != "jump":
+    if cfg.backend not in ("jump", "dense"):
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED.get(cfg.backend, 'queue 1')}; use backend='jump'")
+            f"{_NOT_PORTED.get(cfg.backend, 'queue 1')}; use backend='jump' "
+            "or 'dense'")
     if cfg.merge_backend not in ("device", "auto"):
         raise NotImplementedError(
             f"merge_backend={cfg.merge_backend!r} is not ported yet: "
@@ -120,26 +124,35 @@ def compute_bwt(cfg: Config, device) -> dict:
     if coll.sn >= sn_bound():
         raise ValueError(
             f"collection has {coll.sn} chars (>= the int32 bound "
-            f"{sn_bound()}): backend=jump uses int32 device scans")
+            f"{sn_bound()}): backend={cfg.backend} uses int32 device scans")
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    with timer.phase("build_index"):
-        dindex = build_device_index(x_aug, device)
-        sync()
-    with maybe_torch_trace("ms_scan"):
-        jres = ms_jump_heads(x_aug, coll.sx, device, lanes=cfg.lanes,
-                             window=cfg.skip_window, index=dindex,
-                             timer=timer)
-    del dindex
+    if cfg.backend == "dense":
+        from ..ops.ms_dense import (dense_memory_check,
+                                    ms_dense_heads_on_device)
+        if device.type == "cuda":
+            dense_memory_check(n, coll.sn, torch.cuda.mem_get_info(device)[0])
+        with timer.phase("ms_scan"), maybe_torch_trace("ms_scan"):
+            heads = ms_dense_heads_on_device(x_aug, coll.sx, device)
+            sync()
+    else:
+        with timer.phase("build_index"):
+            dindex = build_device_index(x_aug, device)
+            sync()
+        with maybe_torch_trace("ms_scan"):
+            heads = ms_jump_heads(x_aug, coll.sx, device, lanes=cfg.lanes,
+                                  window=cfg.skip_window, index=dindex,
+                                  timer=timer)
+        del dindex
     rq = cfg.rle and cfg.replicate_reference_rle_quirk
     with timer.phase("merge_device"), maybe_torch_trace("merge_device"):
         run_len, run_char, counter = merge_heads_device_resident(
-            jres, coll.d, rq, want_counter=n < cfg.small_ref_threshold)
+            heads, coll.d, rq, want_counter=n < cfg.small_ref_threshold)
     result = PipelineResult(run_len=run_len, run_char=run_char, d=coll.d,
-                            sn=coll.sn, h=jres.h, counter=counter)
+                            sn=coll.sn, h=heads.h, counter=counter)
     return _write_outputs(cfg, outname, n, result, timer)
 
 
@@ -172,4 +185,4 @@ def _write_outputs(cfg: Config, outname: str, n: int,
         f.write(timer.report())
         f.write(f"\nsn: {result.sn}\nheads: {result.h}\nD: {result.d}\n")
     return {"out_path": out_path, "bytes": nbytes, "timer": timer,
-            "result": result, "backend": "jump"}
+            "result": result, "backend": cfg.backend}

@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels of the port: build, load and launch.
 
 Each kernel lives in ``csrc/`` as CUDA C++ for Hopper (sm_90a) with a plain
-C entry point. ``load()`` compiles the sources with ``nvcc`` into a shared
-library at first use (into ``build/`` beside this file, or
-``$CMSBWT_TORCH_BUILD_DIR``; the file name carries a hash of the sources
-and flags, so an edited source rebuilds) and binds it with ctypes. A build
-or launch failure raises; nothing falls back to a plain version.
+C entry point. ``load()`` compiles each source with its own ``nvcc``
+process, all at once, into a shared library per source at first use (into
+``build/`` beside this file, or ``$CMSBWT_TORCH_BUILD_DIR``; each file
+name carries a hash of its source and the flags, so an edited source
+rebuilds) and binds them with ctypes. A build or launch failure raises;
+nothing falls back to a plain version.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show it went through
@@ -25,16 +26,17 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ms_jump_scan.cu",)
+SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 THREADS = 128
+LIFT_THREADS = 256
 
-LAUNCHES = {"ms_jump_scan": 0}
+LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
-_lib = None
+_libs = None
 
 
 def reset_launch_counts() -> None:
@@ -62,39 +64,71 @@ def _nvcc() -> str:
     return found
 
 
-def load():
-    """Build (first use) and load the kernel library; returns the ctypes
-    handle. ``BUILD`` records the build time and the compiler's log."""
-    global _lib
+def _bind(libs: dict) -> None:
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f = libs["ms_jump_scan"].ms_jump_scan_launch
+    f.restype = I
+    f.argtypes = [P, LL, P, P, P, P, I, I, P, I, I, I, P, I, I] \
+        + [P] * 13 + [I, P]
+    f = libs["lcp_lift"].lcp_lift_launch
+    f.restype = I
+    f.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, P]
+    f = libs["dense_neighbors"].dense_neighbors_scratch_bytes
+    f.restype = LL
+    f.argtypes = [I]
+    f = libs["dense_neighbors"].dense_neighbors_launch
+    f.restype = I
+    f.argtypes = [P, P, I, I, P, P, P, P, P, P]
+
+
+def load() -> dict:
+    """Build (first use) and load the kernel libraries, one shared library
+    per source, all compiled at once by parallel nvcc processes; returns
+    {kernel name: ctypes handle}. ``BUILD`` records the build time and
+    the compilers' logs."""
+    global _libs
     with _lock:
-        if _lib is not None:
-            return _lib
-        srcs = [CSRC / s for s in SOURCES]
-        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
-            digest.update(s.read_bytes())
-        so = _build_dir() / f"libcmsbwt_kernels-{digest.hexdigest()[:12]}.so"
+        if _libs is not None:
+            return _libs
         t0 = time.perf_counter()
-        if not so.exists():
-            tmp = so.with_name(f".{so.name}.{os.getpid()}")
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                *map(str, srcs)],
-                               capture_output=True, text=True)
-            BUILD["log"] = r.stdout + r.stderr
-            if r.returncode != 0:
+        nvcc, bdir = None, _build_dir()
+        sos, jobs = {}, []
+        for s in SOURCES:
+            src = CSRC / s
+            digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+            digest.update(src.read_bytes())
+            so = bdir / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
+            sos[src.stem] = so
+            if not so.exists():
+                nvcc = nvcc or _nvcc()
+                tmp = so.with_name(f".{so.name}.{os.getpid()}")
+                jobs.append((src, so, tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        logs, failed = [], []
+        for src, so, tmp, proc in jobs:   # wait for every build
+            out = proc.communicate()[0]
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError("nvcc failed:\n" + BUILD["log"])
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ms_jump_scan_launch.restype = I
-        lib.ms_jump_scan_launch.argtypes = (
-            [P, LL, P, P, P, P, I, I, P, I, I, I, P, I, I]
-            + [P] * 13 + [I, P])
+                failed.append(src.name)
+            else:
+                os.replace(tmp, so)
+        BUILD["log"] = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + BUILD["log"])
+        libs = {k: ctypes.CDLL(str(so)) for k, so in sos.items()}
+        _bind(libs)
         BUILD["seconds"] = time.perf_counter() - t0
-        BUILD["path"] = str(so)
-        _lib = lib
-        return lib
+        BUILD["path"] = str(bdir)
+        _libs = libs
+        return libs
+
+
+def _ptr(a: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.data_ptr())
 
 
 def _check(name, a, dtype, shape=None, device=None):
@@ -138,20 +172,80 @@ def ms_jump_scan_cuda(x_padded, sa, isa, jump, gmax, sx_padded, state: dict,
     _check("out_sml", state["out_sml"], b, (L, cap), dev)
     if x_padded.shape[0] <= n or window < 1 or L < 1:
         raise ValueError("ms_jump_scan: bad geometry")
-    lib = load()
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+    lib = load()["ms_jump_scan"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.ms_jump_scan_launch(
-            ptr(x_padded), x_padded.shape[0], ptr(sa), ptr(isa), ptr(jump),
-            ptr(gmax), levels, n, ptr(sx_padded), sn, window, rounds,
-            ptr(chunk_ends), L, cap,
-            *(ptr(state[k]) for k in ("t", "length", "lb", "rb", "pos",
-                                      "fin", "done", "nrec", "viol",
-                                      "out_t", "out_pos", "out_len",
-                                      "out_sml")),
+            _ptr(x_padded), x_padded.shape[0], _ptr(sa), _ptr(isa),
+            _ptr(jump), _ptr(gmax), levels, n, _ptr(sx_padded), sn, window,
+            rounds, _ptr(chunk_ends), L, cap,
+            *(_ptr(state[k]) for k in ("t", "length", "lb", "rb", "pos",
+                                       "fin", "done", "nrec", "viol",
+                                       "out_t", "out_pos", "out_len",
+                                       "out_sml")),
             THREADS, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"ms_jump_scan launch failed: CUDA error {err}")
     LAUNCHES["ms_jump_scan"] += 1
     return state
+
+
+def lcp_lift_cuda(hist, packs, ai, bi, lv, m: int) -> torch.Tensor:
+    """Launch ``lcp_lift`` on CUDA tensors: the lcp of each pair (ai, bi)
+    by lifting from its split level lv through the rank history ``hist``
+    [n_hist, m] and the seed ``packs`` [1 or 2, m]. Same contract as
+    ops/joint_sa.lift_pairs; returns int32[len(ai)]."""
+    from ..ops.joint_sa import seed_level_of
+    dev = ai.device
+    rows = int(ai.shape[0])
+    i32 = torch.int32
+    _check("ai", ai, i32, (rows,), dev)
+    _check("bi", bi, i32, (rows,), dev)
+    _check("lv", lv, i32, (rows,), dev)
+    _check("hist", hist, i32, (int(hist.shape[0]), m), dev)
+    _check("packs", packs, torch.int64, (int(packs.shape[0]), m), dev)
+    if packs.shape[0] not in (1, 2) or m < 1:
+        raise ValueError("lcp_lift: bad geometry")
+    sl = seed_level_of(packs)
+    valid = (ai < m) & (bi < m)
+    lmax = int(torch.where(valid, lv, 0).max()) if rows else 0
+    if lmax - 2 - sl >= int(hist.shape[0]):
+        raise ValueError("lcp_lift: split level beyond the rank history")
+    h = torch.empty(rows, dtype=i32, device=dev)
+    lib = load()["lcp_lift"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.lcp_lift_launch(
+            _ptr(hist), _ptr(packs), int(packs.shape[0]), _ptr(ai),
+            _ptr(bi), _ptr(lv), _ptr(h), rows, m, sl, lmax, LIFT_THREADS,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"lcp_lift launch failed: CUDA error {err}")
+    LAUNCHES["lcp_lift"] += 1
+    return h
+
+
+def dense_neighbors_cuda(sa, ell, n: int, m: int):
+    """Launch ``dense_neighbors`` on CUDA tensors sa, ell (int32[m]):
+    returns (pred_pos, succ_pos, a, b), each int32[m]. Same contract as
+    ops/ms_dense.neighbors_reference."""
+    dev = sa.device
+    i32 = torch.int32
+    _check("sa", sa, i32, (m,), dev)
+    _check("ell", ell, i32, (m,), dev)
+    if m < 1:
+        raise ValueError("dense_neighbors: empty input")
+    lib = load()["dense_neighbors"]
+    scratch = torch.empty(int(lib.dense_neighbors_scratch_bytes(m)),
+                          dtype=torch.uint8, device=dev)
+    outs = [torch.empty(m, dtype=i32, device=dev) for _ in range(4)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.dense_neighbors_launch(
+            _ptr(sa), _ptr(ell), n, m, _ptr(scratch), *map(_ptr, outs),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"dense_neighbors launch failed: CUDA error {err}")
+    LAUNCHES["dense_neighbors"] += 1
+    return tuple(outs)

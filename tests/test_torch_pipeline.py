@@ -1,7 +1,7 @@
 """The port end to end (cmsbwt_tpu_torch.engine.pipeline.compute_bwt and
 its CLI, on the CPU): `.bwt`, `.rl_bwt` and the counter debug artifact are
-byte-equal to the JAX package's backend='jump' and backend='host' runs and
-to the brute-force BWT; the run never loads JAX; cuda without a card
+byte-equal to the JAX package's backend='jump', 'dense' and 'host' runs
+and to the brute-force BWT; the run never loads JAX; cuda without a card
 raises. Tolerance: exact bytes."""
 from __future__ import annotations
 
@@ -55,6 +55,38 @@ def test_compute_bwt_matches_jax_jump_and_host(tmp_path, rle):
     assert (tmp_path / ("t" + ART)).read_bytes() == \
         (tmp_path / ("h" + ART)).read_bytes()
     assert (tmp_path / "t.log").read_text().count("merge_device") == 1
+    assert out["backend"] == "jump"
+
+
+@pytest.mark.parametrize("rle", [False, True])
+def test_dense_compute_bwt_matches_jax_dense(tmp_path, rle):
+    """backend='dense' (joint suffix sort + device merge) against the JAX
+    package's dense device-resident route, the artifact included."""
+    lst, _, _ = _inputs(tmp_path, 5, 700, 5, 0.004, dup=True)
+    ext = ".rl_bwt" if rle else ".bwt"
+    jax_compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "j"),
+                           backend="dense", merge_backend="device", rle=rle))
+    out = compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "t"),
+                             backend="dense", merge_backend="device",
+                             rle=rle), "cpu")
+    assert out["backend"] == "dense"
+    assert (tmp_path / ("t" + ext)).read_bytes() == \
+        (tmp_path / ("j" + ext)).read_bytes()
+    assert (tmp_path / ("t" + ART)).read_bytes() == \
+        (tmp_path / ("j" + ART)).read_bytes()
+    log = (tmp_path / "t.log").read_text()
+    assert "ms_scan" in log and "merge_device" in log
+    assert "build_index" not in log
+
+
+def test_dense_cli_matches_brute_force(tmp_path):
+    lst, _, docs = _inputs(tmp_path, 29, 400, 5, 0.03)
+    assert cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cpu",
+                     "--backend", "dense"]) == 0
+    sep = np.full(1, 2, np.uint8)
+    sx = np.concatenate([sep] + [np.concatenate(
+        [np.frombuffer(d, np.uint8), sep]) for d in docs])
+    assert (tmp_path / "t.bwt").read_bytes() == brute_multidoc_bwt(sx)
 
 
 @pytest.mark.parametrize("rle", [False, True])
@@ -92,13 +124,13 @@ def test_empty_collection(tmp_path):
     assert out["bytes"] == 0 and (tmp_path / "t.bwt").read_bytes() == b""
 
 
-def test_cli_run_leaves_jax_unloaded(tmp_path):
+def _cli_loads_no_jax(tmp_path, *flags):
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
     code = (
         "import sys\n"
         "from cmsbwt_tpu_torch.cli import main\n"
         f"main([{str(lst)!r}, '-o', {str(tmp_path / 't')!r}, "
-        "'--device', 'cpu', '--lanes', '4'])\n"
+        f"'--device', 'cpu', *{list(flags)!r}])\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib'))\n"
         "assert not loaded, loaded\n"
@@ -109,6 +141,14 @@ def test_cli_run_leaves_jax_unloaded(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "NO_JAX" in r.stdout
     assert (tmp_path / "t.bwt").stat().st_size > 0
+
+
+def test_cli_run_leaves_jax_unloaded(tmp_path):
+    _cli_loads_no_jax(tmp_path, "--lanes", "4")
+
+
+def test_dense_cli_run_leaves_jax_unloaded(tmp_path):
+    _cli_loads_no_jax(tmp_path, "--backend", "dense")
 
 
 def test_port_sources_never_import_jax():
@@ -131,11 +171,13 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
         compute_bwt(cfg, "cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([str(lst), "-o", str(tmp_path / "t")])  # default: cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([str(lst), "-o", str(tmp_path / "t"), "--backend", "dense"])
     assert not (tmp_path / "t.bwt").exists()
 
 
 @pytest.mark.parametrize("backend,merge_backend", [
-    ("auto", "auto"), ("dense", "device"), ("host", "auto"),
+    ("auto", "auto"), ("dense", "host"), ("host", "auto"),
     ("jump", "host"), ("jump", "sharded")])
 def test_unported_routes_raise(tmp_path, backend, merge_backend):
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
