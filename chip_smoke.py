@@ -7,13 +7,16 @@ every phase passed):
 
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — build the port's CUDA kernels from cmsbwt_tpu_torch/kernels/csrc.
-3. kernel  — the CUDA ms_jump_scan against its plain torch version
-   (ms_jump_scan_reference) on the card, on the raw scan state (records,
+3. kernel  — the CUDA ms_jump_scan (fed the index's 128-wide block trees)
+   against its plain torch version (ms_jump_scan_reference, fed the
+   [levels, n] sparse tables) on the card, on the raw scan state (records,
    nrec, viol): 200 Kbp x 8 docs at 1% SNP, the same with 8 record slots
    per lane (lanes overflow: records past the capacity are dropped and
    still counted, and viol is raised), a separator-dense case, an
-   identical-copies case, and the bench's primary shape. Tolerance: exact equality (every value
-   is an integer or a byte).
+   identical-copies case, a 4-char reference (augmented to 127 chars: a
+   tree with no level above its one block), and the bench's primary shape,
+   where the kernel is also timed at 32768 and 131072 lanes. Tolerance:
+   exact equality (every value is an integer or a byte).
 4. dense kernels — the CUDA lcp_lift and dense_neighbors against their
    plain torch versions (lift_pairs, neighbors_reference) on the card, on
    inputs from the port's own dense stages, on the bench's primary shape
@@ -32,8 +35,17 @@ every phase passed):
    lcp_lift and dense_neighbors kernels (not their plain versions) must
    have carried it. Prints the .log phases and the dense stage split.
 
-Imports nothing of JAX or of the JAX package: its oracles are the two C++
-programs above.
+Imports nothing of JAX or of the JAX package (an import hook refuses
+``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
+alone): its oracles are the two C++ programs above.
+
+The kernels line gives, per kernel, its time at the primary shape (CUDA
+events), its plain version's, its launches on the main path (the CLI run
+plain and -r) and per CLI run, and bound_ms: the bytes the function must
+move at these inputs (each input read once, each output written once; for
+gathers, the entries this run's data touches) over 3.35 TB/s, the H100
+SXM's memory rate. No single PyTorch call computes any of the three
+functions, so library_ms is null.
 """
 from __future__ import annotations
 
@@ -52,11 +64,12 @@ import torch
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
-    """Refuse JAX: the port must run without it."""
+    """Refuse JAX and the JAX package: the port must run without them."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"{name}: JAX is blocked in chip_smoke.py")
+        if name.split(".")[0] in ("jax", "jaxlib", "cmsbwt_tpu"):
+            raise ImportError(f"{name}: blocked in chip_smoke.py (the port "
+                              "imports neither JAX nor the JAX package)")
         return None
 
 
@@ -67,6 +80,7 @@ WORK = ROOT / "_smoke_work"
 REF_BIN = ROOT / "baseline" / "cms-bwt-ref"
 NATIVE_SCAN = ROOT / "native" / "cmsbwt_scan.cpp"
 TOL = 0  # exact: integer and byte outputs
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 
 
 def log(msg: str) -> None:
@@ -126,11 +140,47 @@ def write_workload(d: pathlib.Path, seed: int, ref_len: int, n_docs: int,
     return lst
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(moved: int) -> float:
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def scan_bytes(ix, trees, split, st, cap: int) -> int:
+    """Bytes the scan must move: the padded collection, the text, SA, ISA
+    and both trees read once, the lane state read and written, and the
+    records this run writes (13 bytes each)."""
+    lane_state = nbytes(*(st[k] for k in ("t", "length", "lb", "rb", "pos",
+                                          "fin", "done", "nrec", "viol")))
+    written = int(torch.clamp(st["nrec"], max=cap).to(torch.int64).sum())
+    return (nbytes(split.sx_padded, split.ends_dev, ix.x_padded, ix.sa,
+                   ix.isa, trees.lcp, trees.g)
+            + 2 * lane_state + 13 * written)
+
+
+def write_short_reference(d: pathlib.Path, seed: int) -> pathlib.Path:
+    """A 4-char reference (127 chars once augmented: the block trees have
+    no level above their one block) and 40 random 300-char documents."""
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    (d / "ref.fa").write_bytes(b">ref\nACGT\n")
+    (d / "coll.fa").write_bytes(b"".join(
+        b">doc%d\n" % i + _wrap(rng.choice(acgt, 300).tobytes()) + b"\n"
+        for i in range(40)))
+    lst = d / "input.txt"
+    lst.write_text(f"{d / 'ref.fa'}\n{d / 'coll.fa'}\n")
+    return lst
+
+
 def kernel_case(name, lst, lanes=4096, cap=None, expect_viol=None,
-                window=64, reps=5):
-    """CUDA kernel vs plain version on one input list, at the lane split
-    and capacity that ms_jump_heads launches (or ``cap`` record slots per
-    lane); returns a result dict."""
+                window=64, reps=5, sweep=()):
+    """CUDA kernel (block trees) vs plain version (sparse tables) on one
+    input list, at the lane split and capacity that ms_jump_heads launches
+    (or ``cap`` record slots per lane); then the kernel alone at each lane
+    count of ``sweep``. Returns a result dict."""
     from cmsbwt_tpu_torch import kernels
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.index.device import build_device_index
@@ -139,19 +189,22 @@ def kernel_case(name, lst, lanes=4096, cap=None, expect_viol=None,
     ix = build_device_index(x_aug, "cuda")
     n, sn = ix.n, coll.sn
     gmax = mj.build_gmax_table(ix.plcp, n)
+    trees = mj.build_block_trees(ix.lcp, ix.plcp, n)
     split = mj.split_lanes(coll.sx, lanes, window, "cuda")
     cap = split.cap if cap is None else cap
-    args = (ix.x_padded, ix.sa, ix.isa, ix.jump, gmax, split.sx_padded)
+    head = (ix.x_padded, ix.sa, ix.isa)
     kw = dict(n=n, sn=sn, cap=cap, window=window)
     fresh = lambda: split.init_state(n, cap)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref_st = mj.ms_jump_scan_reference(*args, fresh(), split.ends_dev, **kw)
+    ref_st = mj.ms_jump_scan_reference(*head, ix.jump, gmax,
+                                       split.sx_padded, fresh(),
+                                       split.ends_dev, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    cu_st = kernels.ms_jump_scan_cuda(*args, fresh(), split.ends_dev,
-                                      rounds=mj._bs_rounds(n), **kw)
+    cu_st = kernels.ms_jump_scan_cuda(*head, trees, split.sx_padded, fresh(),
+                                      split.ends_dev, **kw)
     torch.cuda.synchronize()
     err = 0
     for k in mj.STATE_FIELDS:
@@ -160,22 +213,34 @@ def kernel_case(name, lst, lanes=4096, cap=None, expect_viol=None,
             fail(f"kernel case {name}: field {k} shape/dtype differs")
         err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
                            .abs().max()) if a.numel() else 0)
-    states = [fresh() for _ in range(reps)]
-    it = iter(states)
-    ms = cuda_ms(lambda: kernels.ms_jump_scan_cuda(
-        *args, next(it), split.ends_dev, rounds=mj._bs_rounds(n), **kw),
-        reps)
+
+    def timed(sp, c):
+        it = iter([sp.init_state(n, c) for _ in range(reps)])
+        return cuda_ms(lambda: kernels.ms_jump_scan_cuda(
+            *head, trees, sp.sx_padded, next(it), sp.ends_dev, n=n, sn=sn,
+            cap=c, window=window), reps)
+    ms = timed(split, cap)
+    bound = bound_ms(scan_bytes(ix, trees, split, ref_st, cap))
     viol = bool(ref_st["viol"].any())
     log(f"kernel[{name}]: n={n} sn={sn} lanes={split.lanes} cap={cap} "
+        f"tree_levels={len(trees.offsets)} "
         f"records={int(ref_st['nrec'].sum())} viol={viol} "
         f"max_abs_err={err} (tolerance {TOL}) cuda_ms={ms:.3f} "
-        f"plain_ms={plain_ms:.1f}")
+        f"plain_ms={plain_ms:.1f} bound_ms={bound:.4f}")
     if err > TOL:
         fail(f"kernel case {name}: CUDA ms_jump_scan disagrees with "
              "ms_jump_scan_reference")
     if expect_viol is not None and viol != expect_viol:
         fail(f"kernel case {name}: viol={viol}, expected {expect_viol}")
-    return dict(err=err, ms=ms, plain_ms=plain_ms)
+    for more in sweep:
+        sp = mj.split_lanes(coll.sx, more, window, "cuda")
+        warm = kernels.ms_jump_scan_cuda(
+            *head, trees, sp.sx_padded, sp.init_state(n), sp.ends_dev, n=n,
+            sn=sn, cap=sp.cap, window=window)
+        log(f"kernel[{name}]: lanes={sp.lanes} cap={sp.cap} "
+            f"viol={bool(warm['viol'].any())} "
+            f"cuda_ms={timed(sp, sp.cap):.3f}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
 
 
 def dense_kernel_case(name, lst, reps=5):
@@ -198,7 +263,7 @@ def dense_kernel_case(name, lst, reps=5):
     ai, bi, lv = ai[:rows], bi[:rows], lv[:rows]
     out = {}
 
-    def compare(kernel, plain, cuda_fn, plain_fn, what):
+    def compare(kernel, plain, cuda_fn, plain_fn, what, moved):
         want = plain_fn()
         got = cuda_fn()
         torch.cuda.synchronize()
@@ -209,24 +274,42 @@ def dense_kernel_case(name, lst, reps=5):
                   for a, b in zip(want, got))
         ms = cuda_ms(cuda_fn, reps)
         plain_ms = cuda_ms(plain_fn, 2)
+        bound = bound_ms(moved)
         log(f"kernel {kernel}[{name}]: {what} max_abs_err={err} "
-            f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+            f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={bound:.4f}")
         if err > TOL:
             fail(f"{kernel}[{name}]: CUDA kernel disagrees with {plain}")
-        out[kernel] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        out[kernel] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
         return want
 
     h = compare("lcp_lift", "lift_pairs",
                 lambda: (kernels.lcp_lift_cuda(hist, packs, ai, bi, lv, m),),
                 lambda: (js.lift_pairs(hist, packs, ai, bi, lv, m),),
                 f"m={m} seed={'wide' if wide else 'narrow'} rho={rho} "
-                f"rows={rows}")[0]
+                f"rows={rows}", lift_bytes(packs, ai, bi, lv, m))[0]
     ell = md._fill_ell(h, ai, isa, m)
     compare("dense_neighbors", "neighbors_reference",
             lambda: kernels.dense_neighbors_cuda(sa, ell, n, m),
             lambda: md.neighbors_reference(sa, ell, n, m),
-            f"m={m} ref_slots={n}")
+            f"m={m} ref_slots={n}", 24 * m)   # sa, ell in; 4 int32 rows out
     return out
+
+
+def lift_bytes(packs, ai, bi, lv, m: int) -> int:
+    """Bytes lcp_lift must move: ai, bi, lv read and h written per row;
+    per valid row, two 4-byte history entries per lifting level it runs
+    (from its own level lv - 2, or the shared top for lv below the seed
+    level, down to the seed level) and two seed packs."""
+    from cmsbwt_tpu_torch.ops.joint_sa import seed_level_of
+    sl = seed_level_of(packs)
+    valid = (ai < m) & (bi < m)
+    lmax = int(torch.where(valid, lv, 0).max()) if ai.numel() else 0
+    top = torch.where(lv >= sl, lv - 2, lmax - 2)
+    levels = torch.clamp(top - sl + 1, min=0)
+    gathers = int(torch.where(valid, 8 * levels + 16, 0).to(torch.int64)
+                  .sum())
+    return 16 * int(ai.numel()) + gathers
 
 
 def reference_outputs(lst: pathlib.Path) -> dict:
@@ -345,8 +428,10 @@ def run_phases(card: str, kind: str) -> int:
     kernel_case("separator_dense", sep_lst)
     kernel_case("identical_copies",
                 write_workload(WORK / "kid", 3, 100_000, 6, 0.0))
+    kernel_case("short_reference_n127",
+                write_short_reference(WORK / "kshort", 4))
     lst = write_workload(WORK / "primary", 42, 2_000_000, 10, 0.01)
-    prim = kernel_case("primary_2Mbp_x10", lst)
+    prim = kernel_case("primary_2Mbp_x10", lst, sweep=(32768, 131072))
 
     # phase 4: the dense kernels against their plain versions
     dense = {}
@@ -435,10 +520,14 @@ def run_phases(card: str, kind: str) -> int:
     sys.stderr.flush()
 
     def row(name, source, replaces, launches, res):
+        # launches: the main path's run, the CLI plain and -r (two runs)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                "launches_per_run": launches / 2,
                 "max_abs_err": max(r["err"] for r in res),
-                "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"]}
+                "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
+                "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
+                "library_ms": None}
 
     csrc = "cmsbwt_tpu_torch/kernels/csrc/"
     log(json.dumps({"kernels": [

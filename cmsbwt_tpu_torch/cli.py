@@ -12,7 +12,7 @@ import argparse
 import sys
 import time
 
-from cmsbwt_tpu.config import UINT64_MAX, Config
+from .config import UINT64_MAX, Config
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,7 +1,7 @@
 """End-to-end pipeline of the port — the counterpart of
 cmsbwt_tpu/engine/pipeline.py, for the routes ported so far:
 
-* backend=jump: parse (cmsbwt_tpu/io/fasta.py) -> build_device_index ->
+* backend=jump: parse (io/fasta.py) -> build_device_index ->
   ms_jump_heads (the CUDA ``ms_jump_scan`` kernel on a CUDA device) ->
   merge_heads_device_resident -> _write_outputs
 * backend=dense (unblocked, one device): parse -> ms_dense_heads_on_device
@@ -20,13 +20,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cmsbwt_tpu.config import UINT64_MAX, Config
-from cmsbwt_tpu.engine.merge import runs_to_plain, runs_to_rle
-from cmsbwt_tpu.io import fasta
-from cmsbwt_tpu.io import native
-from cmsbwt_tpu.utils.timing import PhaseTimer
-
-from ..utils.timing import maybe_torch_trace
+from ..config import UINT64_MAX, Config
+from ..io import fasta, native
+from ..utils.timing import PhaseTimer, maybe_torch_trace
+from .merge import runs_to_plain, runs_to_rle
 
 _NOT_PORTED = {
     "auto": "queue 1 item 5 (the auto dispatch)",

@@ -29,7 +29,6 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-THREADS = 128
 LIFT_THREADS = 256
 
 LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0}
@@ -68,8 +67,8 @@ def _bind(libs: dict) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f = libs["ms_jump_scan"].ms_jump_scan_launch
     f.restype = I
-    f.argtypes = [P, LL, P, P, P, P, I, I, P, I, I, I, P, I, I] \
-        + [P] * 13 + [I, P]
+    f.argtypes = [P, LL, P, P, P, P, ctypes.POINTER(I), I, I, P, I, I, P, I,
+                  I] + [P] * 13 + [P]
     f = libs["lcp_lift"].lcp_lift_launch
     f.restype = I
     f.argtypes = [P, P, I, P, P, P, P, I, I, I, I, I, P]
@@ -146,22 +145,28 @@ def _check(name, a, dtype, shape=None, device=None):
                          f"{tuple(a.shape)}")
 
 
-def ms_jump_scan_cuda(x_padded, sa, isa, jump, gmax, sx_padded, state: dict,
-                      chunk_ends, *, n: int, sn: int, cap: int, window: int,
-                      rounds: int) -> dict:
+def ms_jump_scan_cuda(x_padded, sa, isa, trees, sx_padded, state: dict,
+                      chunk_ends, *, n: int, sn: int, cap: int,
+                      window: int) -> dict:
     """Launch ``ms_jump_scan`` on CUDA tensors: every lane runs to the end
     of its chunk; ``state`` (see ops/ms_jump.jump_init_state) is updated in
-    place and returned. Same contract as ms_jump_scan_reference."""
+    place and returned. ``trees`` is the ops/ms_jump.BlockTrees of the
+    index. Same contract as ms_jump_scan_reference, which reads the sparse
+    tables instead."""
+    from ..ops.ms_jump import TREE_MAX_LEVELS, tree_geometry
     dev = chunk_ends.device
     L = int(chunk_ends.shape[0])
-    levels = int(jump.shape[0])
     i32, u8, b = torch.int32, torch.uint8, torch.bool
+    offsets, _, size = tree_geometry(n)
+    if trees.n != n or tuple(trees.offsets) != offsets \
+            or len(offsets) > TREE_MAX_LEVELS:
+        raise ValueError("ms_jump_scan: block trees of another geometry")
     _check("chunk_ends", chunk_ends, i32, (L,), dev)
     _check("x_padded", x_padded, u8, None, dev)
     _check("sa", sa, i32, (n,), dev)
     _check("isa", isa, i32, (n,), dev)
-    _check("jump", jump, i32, (levels, n), dev)
-    _check("gmax", gmax, i32, (levels, n), dev)
+    _check("lcp tree", trees.lcp, i32, (size,), dev)
+    _check("g tree", trees.g, i32, (size,), dev)
     _check("sx_padded", sx_padded, u8, (sn + window,), dev)
     for k in ("t", "length", "lb", "rb", "pos", "nrec"):
         _check(k, state[k], i32, (L,), dev)
@@ -177,13 +182,14 @@ def ms_jump_scan_cuda(x_padded, sa, isa, jump, gmax, sx_padded, state: dict,
     with torch.cuda.device(dev):
         err = lib.ms_jump_scan_launch(
             _ptr(x_padded), x_padded.shape[0], _ptr(sa), _ptr(isa),
-            _ptr(jump), _ptr(gmax), levels, n, _ptr(sx_padded), sn, window,
-            rounds, _ptr(chunk_ends), L, cap,
+            _ptr(trees.lcp), _ptr(trees.g),
+            (ctypes.c_int * len(offsets))(*offsets), len(offsets), n,
+            _ptr(sx_padded), sn, window, _ptr(chunk_ends), L, cap,
             *(_ptr(state[k]) for k in ("t", "length", "lb", "rb", "pos",
                                        "fin", "done", "nrec", "viol",
                                        "out_t", "out_pos", "out_len",
                                        "out_sml")),
-            THREADS, ctypes.c_void_p(stream))
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"ms_jump_scan launch failed: CUDA error {err}")
     LAUNCHES["ms_jump_scan"] += 1

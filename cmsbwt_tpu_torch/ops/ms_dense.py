@@ -23,8 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cmsbwt_tpu.config import SEPARATOR
-
+from ..config import SEPARATOR
 from ..utils.buckets import bucket_size
 from ..utils.timing import stage_timer
 from .joint_sa import joint_suffix_array, lcp_lift

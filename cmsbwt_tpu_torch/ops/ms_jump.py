@@ -3,21 +3,27 @@ cmsbwt_tpu/ops/ms_jump.py.
 
 Each lane walks one chunk of the collection and emits candidate head
 records (t, pos, len, smaller) only at factor ends; the tail run after a
-factor is skipped in one range-max descent over g[p] = p + PLCP[p]
-(``build_gmax_table``), and the SA interval is re-expanded by PSV/NSV over
-the LCP sparse table. The candidates are then concatenated in text order
-and the global head test ``pos != prev.pos + (t - prev.t)`` keeps the true
-heads (``_compact_candidates``).
+factor is skipped by finding the first p with g[p] = p + PLCP[p] past it,
+and the SA interval is re-expanded by PSV/NSV over the LCP array. The
+candidates are then concatenated in text order and the global head test
+``pos != prev.pos + (t - prev.t)`` keeps the true heads
+(``_compact_candidates``).
 
 The scan has two forms with one contract:
 
 * ``ms_jump_scan_reference`` — lane-vectorised, masked torch ops, a
-  line-by-line port of the JAX ``ms_jump_step`` wave loop. It is what the
-  port runs on the CPU; on the card only tests and chip_smoke.py call it.
-* the CUDA kernel ``kernels/csrc/ms_jump_scan.cu`` — one thread per lane
-  running the same per-lane state machine to completion in one launch.
+  line-by-line port of the JAX ``ms_jump_step`` wave loop, reading the JAX
+  package's [levels, n] sparse tables (``index.jump`` and
+  ``build_gmax_table``). It is what the port runs on the CPU; on the card
+  only tests and chip_smoke.py call it.
+* the CUDA kernel ``kernels/csrc/ms_jump_scan.cu`` — one warp per lane
+  running the same per-lane state machine to completion in one launch,
+  reading 128-wide block trees (``build_block_trees``) in place of the
+  sparse tables. ``tree_next_ge`` and ``tree_psv_nsv`` are the plain torch
+  form of its tree queries.
 
-``ms_jump_scan`` picks between them by the device of its tensors.
+``ms_jump_scan`` picks between them by the device of its tensors, and
+``scan_tables`` builds what each form reads.
 """
 from __future__ import annotations
 
@@ -27,8 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cmsbwt_tpu.config import SEPARATOR
-
+from ..config import SEPARATOR
 from ..index.device import (DeviceIndex, build_device_index,
                             sparse_table_levels)
 from ..utils.buckets import bucket_size
@@ -99,6 +104,147 @@ def _psv_nsv_fused(jump: torch.Tensor, pi: torch.Tensor, ni: torch.Tensor,
     rn = ni + dn
     return (torch.where(rp >= 0, rp, -1).to(I32),
             torch.where(rn < n, rn, -1).to(I32))
+
+
+# Block trees: level 0 is a base row padded to a multiple of TREE_BLOCK
+# with a value that answers no query; level k >= 1 holds the min (or max)
+# of TREE_ARITY nodes of level k-1 (of TREE_BLOCK base entries for k = 1),
+# padded to a multiple of TREE_ARITY likewise; levels are added while the
+# one below spans more than one group. A 128-entry block and a 32-node
+# group are each one coalesced warp load in the CUDA kernel.
+TREE_BLOCK = 128
+TREE_ARITY = 32
+TREE_MAX_LEVELS = 6        # the kernel's bound: enough for n < 2^31
+
+
+def _ceil_to(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tree_geometry(n: int) -> tuple[tuple[int, ...], tuple[int, ...], int]:
+    """(offsets, counts, size) of a block tree over a base row of n >= 1
+    entries: level k starts at offsets[k] and has counts[k] real
+    entries."""
+    offsets, counts = [0], [n]
+    size = _ceil_to(n, TREE_BLOCK)
+    group = TREE_BLOCK
+    while counts[-1] > group:
+        c = -(-counts[-1] // group)
+        offsets.append(size)
+        counts.append(c)
+        size += _ceil_to(c, TREE_ARITY)
+        group = TREE_ARITY
+    return tuple(offsets), tuple(counts), size
+
+
+@dataclass
+class BlockTrees:
+    """What the CUDA scan reads in place of the two sparse tables: one
+    geometry (``tree_geometry(n)``), two int32 trees."""
+
+    lcp: torch.Tensor          # minima over LCP[0..n), padded with INT_MAX
+    g: torch.Tensor            # maxima over p + PLCP[p], padded with -1
+    offsets: tuple[int, ...]   # start of each level in both
+    n: int
+
+
+def _block_tree(base: torch.Tensor, n: int, fill: int, reduce):
+    offsets, counts, size = tree_geometry(n)
+    data = torch.full((size,), fill, dtype=I32, device=base.device)
+    data[:n] = base[:n]
+    for k in range(1, len(offsets)):
+        width = TREE_BLOCK if k == 1 else TREE_ARITY
+        lo = offsets[k - 1]
+        children = data[lo:lo + counts[k] * width].view(counts[k], width)
+        data[offsets[k]:offsets[k] + counts[k]] = reduce(children, dim=1)
+    return data
+
+
+def build_block_trees(lcp: torch.Tensor, plcp: torch.Tensor,
+                      n: int) -> BlockTrees:
+    """The min tree over LCP[0..n) and the max tree over g[p] = p +
+    PLCP[p], on the device of ``lcp``."""
+    offsets = tree_geometry(n)[0]
+    if len(offsets) > TREE_MAX_LEVELS:
+        raise ValueError(f"block tree of n={n}: more than "
+                         f"{TREE_MAX_LEVELS} levels")
+    g = torch.arange(n, dtype=I32, device=plcp.device) + plcp[:n]
+    return BlockTrees(lcp=_block_tree(lcp, n, INT_MAX, torch.amin),
+                      g=_block_tree(g, n, -1, torch.amax),
+                      offsets=offsets, n=n)
+
+
+def _tree_search(data, offsets, s, thr, hit, forward: bool):
+    """Per query, as the kernel walks a tree: the first base index p >= s
+    (``forward``) or the last p <= s with ``hit(value, thr)``, else -1;
+    0 <= s < padded base length. Scans s's own block, climbs to the lowest
+    level whose group holds an answering node past (before) s's ancestor,
+    and descends the first (last) answering child at each level."""
+    s = s.to(torch.int64)
+    thr = thr.to(torch.int64)[:, None]
+    big = torch.iinfo(torch.int64).max
+
+    def first_hit(idx, ok):
+        """Per row: the first (last) column index with ok, else -1."""
+        if forward:
+            v = torch.where(ok, idx, big).amin(dim=1)
+            return torch.where(v == big, -1, v)
+        return torch.where(ok, idx, -1).amax(dim=1)
+
+    def block(start):
+        return start[:, None] + torch.arange(TREE_BLOCK, device=s.device)
+
+    j = block((s // TREE_BLOCK) * TREE_BLOCK)
+    side = (j >= s[:, None]) if forward else (j <= s[:, None])
+    res = first_hit(j, side & hit(data[j], thr))
+    level = torch.zeros_like(s)
+    node = torch.zeros_like(s)
+    idx = s // TREE_BLOCK
+    for k in range(1, len(offsets)):
+        j = (idx & ~(TREE_ARITY - 1))[:, None] + torch.arange(
+            TREE_ARITY, device=s.device)
+        past = (j > idx[:, None]) if forward else (j < idx[:, None])
+        found = first_hit(j, past & hit(data[offsets[k] + j], thr))
+        take = (res < 0) & (level == 0) & (found >= 0)
+        level = torch.where(take, k, level)
+        node = torch.where(take, found, node)
+        idx = idx // TREE_ARITY
+    for k in range(len(offsets) - 2, 0, -1):
+        down = level > k
+        j = (node * TREE_ARITY)[:, None] + torch.arange(TREE_ARITY,
+                                                        device=s.device)
+        child = first_hit(j, hit(data[offsets[k] + torch.where(
+            down[:, None], j, 0)], thr))
+        node = torch.where(down, child, node)
+    j = block(node * TREE_BLOCK)
+    deep = first_hit(j, hit(data[j], thr))
+    return torch.where(res >= 0, res, torch.where(level > 0, deep, -1))
+
+
+def tree_next_ge(trees: BlockTrees, start: torch.Tensor,
+                 t_val: torch.Tensor) -> torch.Tensor:
+    """next_ge_device over the g max tree: smallest p >= start with g[p] >=
+    t_val (p < n), else n; 0 <= start <= n."""
+    n = trees.n
+    inside = start < n
+    p = _tree_search(trees.g, trees.offsets, torch.where(inside, start, 0),
+                     t_val, lambda v, t: v >= t, True)
+    return torch.where(inside & (p >= 0) & (p < n), p, n).to(I32)
+
+
+def tree_psv_nsv(trees: BlockTrees, pi: torch.Tensor, ni: torch.Tensor,
+                 ub: torch.Tensor):
+    """_psv_nsv_fused over the LCP min tree: (largest p <= pi with LCP[p]
+    < ub, else -1; smallest p >= ni, p < n, with LCP[p] < ub, else -1);
+    0 <= pi < n, 0 <= ni <= n."""
+    n = trees.n
+    hit = lambda v, u: v < u
+    p = _tree_search(trees.lcp, trees.offsets, pi, ub, hit, False)
+    inside = ni < n
+    q = _tree_search(trees.lcp, trees.offsets, torch.where(inside, ni, 0),
+                     ub, hit, True)
+    return p.to(I32), torch.where(inside & (q >= 0) & (q < n), q,
+                                  -1).to(I32)
 
 
 def _where(c, a, b):
@@ -246,18 +392,29 @@ def ms_jump_scan_reference(x_padded, sa, isa, jump, gmax, sx_padded,
     return st
 
 
-def ms_jump_scan(x_padded, sa, isa, jump, gmax, sx_padded, state: dict,
+def scan_tables(index: DeviceIndex):
+    """What the scan reads beside the text, SA and ISA, on the device of
+    ``index``: the block trees for the CUDA kernel, the sparse tables
+    ``(jump, gmax)`` for the plain version."""
+    if index.sa.device.type == "cuda":
+        return build_block_trees(index.lcp, index.plcp, index.n)
+    return index.jump, build_gmax_table(index.plcp, index.n)
+
+
+def ms_jump_scan(x_padded, sa, isa, tables, sx_padded, state: dict,
                  chunk_ends, *, n: int, sn: int, cap: int,
                  window: int) -> dict:
     """The scan on the device of its tensors: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors; ``tables`` as
+    ``scan_tables`` builds them for that device."""
     dev = chunk_ends.device.type
     if dev == "cuda":
         from ..kernels import ms_jump_scan_cuda
-        return ms_jump_scan_cuda(x_padded, sa, isa, jump, gmax, sx_padded,
+        return ms_jump_scan_cuda(x_padded, sa, isa, tables, sx_padded,
                                  state, chunk_ends, n=n, sn=sn, cap=cap,
-                                 window=window, rounds=_bs_rounds(n))
+                                 window=window)
     if dev == "cpu":
+        jump, gmax = tables
         return ms_jump_scan_reference(x_padded, sa, isa, jump, gmax,
                                       sx_padded, state, chunk_ends, n=n,
                                       sn=sn, cap=cap, window=window)
@@ -390,14 +547,14 @@ def ms_jump_heads(x_aug: np.ndarray, sx: np.ndarray, device,
         if index is None:
             index = build_device_index(np.asarray(x_aug), device)
         n = index.n
-        gmax = build_gmax_table(index.plcp, n)
+        tables = scan_tables(index)
         sync()
     with phase("ms_scan"):
         split = split_lanes(sx, lanes, window, device)
         sx_dev, cap = split.sx_padded, split.cap
         while True:
             state = ms_jump_scan(index.x_padded, index.sa, index.isa,
-                                 index.jump, gmax, sx_dev,
+                                 tables, sx_dev,
                                  split.init_state(n, cap), split.ends_dev,
                                  n=n, sn=sn, cap=cap, window=window)
             if not bool(state["viol"].any()):

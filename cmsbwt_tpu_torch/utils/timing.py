@@ -1,4 +1,7 @@
-"""Stage timing and tracing for the port.
+"""Phase and stage timing and tracing for the port.
+
+``PhaseTimer`` is the port's copy of the one in cmsbwt_tpu/utils/timing.py:
+the per-phase wall times a run writes to its ``.log``.
 
 ``stage_timer`` is the counterpart of ``_stage_timer`` in
 cmsbwt_tpu/ops/ms_dense.py: per-stage wall times printed to stderr when
@@ -21,6 +24,27 @@ import time
 import torch
 
 _clock = threading.local()
+
+
+class PhaseTimer:
+    def __init__(self):
+        self.phases: list[tuple[str, float]] = []
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phases.append((name, time.perf_counter() - t0))
+
+    def total(self) -> float:
+        return sum(t for _, t in self.phases)
+
+    def report(self) -> str:
+        lines = [f"{n}: {t * 1000:.1f} ms" for n, t in self.phases]
+        lines.append(f"total: {self.total() * 1000:.1f} ms")
+        return "\n".join(lines)
 
 
 def stage_timer(device=None):

@@ -42,7 +42,7 @@ def _raw_scans(x_aug, sx, lanes, window, cap):
     tg = tj.build_gmax_table(ti.plcp, n)
     assert_same(gm, tg, "gmax")
     ts = tj.jump_init_state(starts, ends, lanes, n, cap, "cpu")
-    ts = tj.ms_jump_scan(ti.x_padded, ti.sa, ti.isa, ti.jump, tg,
+    ts = tj.ms_jump_scan(ti.x_padded, ti.sa, ti.isa, (ti.jump, tg),
                          to_torch(sxp), ts, to_torch(ends), n=n, sn=sn,
                          cap=cap, window=window)
     return st, ts
@@ -102,9 +102,9 @@ def test_cuda_wrapper_rejects_cpu_tensors():
                             np.full(1, len(sx), np.int32), 1, ti.n, 64,
                             "cpu")
     with pytest.raises(ValueError, match="cuda"):
-        ms_jump_scan_cuda(ti.x_padded, ti.sa, ti.isa, ti.jump,
-                          tj.build_gmax_table(ti.plcp, ti.n),
+        ms_jump_scan_cuda(ti.x_padded, ti.sa, ti.isa,
+                          tj.build_block_trees(ti.lcp, ti.plcp, ti.n),
                           to_torch(np.concatenate([sx, np.zeros(16,
                                                                 np.uint8)])),
                           st, to_torch(np.full(1, len(sx), np.int32)),
-                          n=ti.n, sn=len(sx), cap=64, window=16, rounds=8)
+                          n=ti.n, sn=len(sx), cap=64, window=16)

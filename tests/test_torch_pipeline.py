@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from helpers import brute_multidoc_bwt, make_inputs, mutate, random_dna
-from cmsbwt_tpu.config import Config
+from cmsbwt_tpu.config import Config as JaxConfig
 from cmsbwt_tpu.engine.pipeline import compute_bwt as jax_compute_bwt
 from cmsbwt_tpu_torch import cli
+from cmsbwt_tpu_torch.config import Config
 from cmsbwt_tpu_torch.engine.pipeline import compute_bwt
 
 torch.set_num_threads(1)
@@ -42,9 +43,10 @@ def test_compute_bwt_matches_jax_jump_and_host(tmp_path, rle):
     lst, _, _ = _inputs(tmp_path, 5, 700, 5, 0.004, dup=True)
     ext = ".rl_bwt" if rle else ".bwt"
     for name, backend in (("h", "host"), ("j", "jump")):
-        jax_compute_bwt(Config(filename=str(lst),
-                               outname=str(tmp_path / name), backend=backend,
-                               rle=rle, lanes=8, skip_window=16))
+        jax_compute_bwt(JaxConfig(filename=str(lst),
+                                  outname=str(tmp_path / name),
+                                  backend=backend, rle=rle, lanes=8,
+                                  skip_window=16))
     out = compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "t"),
                              backend="jump", rle=rle, lanes=8,
                              skip_window=16), "cpu")
@@ -64,8 +66,9 @@ def test_dense_compute_bwt_matches_jax_dense(tmp_path, rle):
     package's dense device-resident route, the artifact included."""
     lst, _, _ = _inputs(tmp_path, 5, 700, 5, 0.004, dup=True)
     ext = ".rl_bwt" if rle else ".bwt"
-    jax_compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "j"),
-                           backend="dense", merge_backend="device", rle=rle))
+    jax_compute_bwt(JaxConfig(filename=str(lst),
+                              outname=str(tmp_path / "j"), backend="dense",
+                              merge_backend="device", rle=rle))
     out = compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "t"),
                              backend="dense", merge_backend="device",
                              rle=rle), "cpu")
@@ -93,8 +96,9 @@ def test_dense_cli_matches_brute_force(tmp_path):
 def test_cli_matches_jax(tmp_path, rle):
     lst, _, _ = _inputs(tmp_path, 17, 600, 6, 0.01)
     ext = ".rl_bwt" if rle else ".bwt"
-    jax_compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "h"),
-                           backend="host", rle=rle))
+    jax_compute_bwt(JaxConfig(filename=str(lst),
+                              outname=str(tmp_path / "h"), backend="host",
+                              rle=rle))
     argv = [str(lst), "-o", str(tmp_path / "t"), "--device", "cpu",
             "--lanes", "8"] + (["-r"] if rle else [])
     assert cli.main(argv) == 0

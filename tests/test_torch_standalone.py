@@ -1,0 +1,100 @@
+"""The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
+``cmsbwt_tpu`` refused by a meta-path finder, a fresh interpreter imports
+every module of cmsbwt_tpu_torch and runs ``python -m cmsbwt_tpu_torch
+--device cpu`` on both backends in both formats; the bytes equal the JAX
+package's CLI outputs on the same input. The port's Config keeps the JAX
+Config's fields and defaults. Tolerance: exact bytes."""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import make_inputs, mutate, random_dna
+from cmsbwt_tpu import cli as jax_cli
+from cmsbwt_tpu.config import Config as JaxConfig
+from cmsbwt_tpu_torch.config import Config
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+REFUSE = '''
+import importlib.abc, sys
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cmsbwt_tpu"):
+            raise ImportError(f"{name}: refused (the port stands alone)")
+        return None
+sys.meta_path.insert(0, _Refuse())
+'''
+
+
+def _run(code: str, cwd, *args) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", REFUSE + code, *args],
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    return r
+
+
+def test_every_module_imports_without_jax(tmp_path):
+    r = _run('''
+import pkgutil
+import cmsbwt_tpu_torch
+names = ["cmsbwt_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(cmsbwt_tpu_torch.__path__,
+                                          "cmsbwt_tpu_torch.")
+    if not m.name.endswith(".__main__")]   # runs the CLI: see below
+for name in names:
+    __import__(name)
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "cmsbwt_tpu")]
+print("IMPORTED", len(names))
+''', tmp_path)
+    assert "IMPORTED" in r.stdout
+    n = int(r.stdout.split("IMPORTED")[1].split()[0])
+    sources = [f for f in (ROOT / "cmsbwt_tpu_torch").rglob("*.py")
+               if f.name != "__main__.py"]
+    assert n == len(sources)   # every module of the package
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("backend", ["jump", "dense"])
+def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
+    rng = np.random.default_rng(11)
+    ref = random_dna(rng, 500)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [mutate(rng, ref, 0.01) for _ in range(4)])
+    fmt = ["-r"] if rle else []
+    ext = ".rl_bwt" if rle else ".bwt"
+    _run('''
+import runpy
+sys.argv = ["cmsbwt_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("cmsbwt_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+''', tmp_path, str(lst), "-o", str(tmp_path / "port"), "--device", "cpu",
+         "--backend", backend, "--lanes", "8", *fmt)
+    assert jax_cli.main([str(lst), "-o", str(tmp_path / "jax"), "--backend",
+                         backend, "--lanes", "8", *fmt]) == 0
+    port = (tmp_path / ("port" + ext)).read_bytes()
+    assert len(port) > 0
+    assert port == (tmp_path / ("jax" + ext)).read_bytes()
+
+
+def test_config_matches_jax_config():
+    """Same field names, in the same order, with the same defaults."""
+    ours = [(f.name, f.default) for f in dataclasses.fields(Config)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    assert ours == theirs
+    assert Config(filename="in").resolved_outname() == \
+        JaxConfig(filename="in").resolved_outname()

@@ -1,7 +1,8 @@
 """Profile the port on one CUDA card.
 
-    python3 tools/profile_slice.py           # jump + device-merge slice
-    python3 tools/profile_slice.py --dense   # dense + device-merge slice
+    python3 tools/profile_slice.py             # jump + device-merge slice
+    python3 tools/profile_slice.py --cli-only  # its step 3 alone
+    python3 tools/profile_slice.py --dense     # dense + device-merge slice
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -10,11 +11,16 @@ The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 2. the ms_jump_scan kernel alone at 4096 .. 131072 lanes: mean device ms
    over 5 launches (CUDA events), after one warm launch;
 3. the CLI (--device cuda) at lanes 4096, 32768, 4096, 32768 in one
-   process: wall seconds and the phase split of each run's .log;
+   process: wall seconds, the phase split of each run's .log and its peak
+   device memory (torch.cuda.max_memory_allocated);
 4. merge_device stage by stage (CMSBWT_PROFILE=1: device-synced marks, on
    stderr) at 32768 lanes;
 5. one merge under torch.profiler: wall ms, the sum of device kernel and
    copy time, and the top operators by device time.
+
+``--cli-only`` drives the port through its CLI alone, so a copy of this
+script placed in an older checkout's tools/ measures that checkout's port
+the same way.
 
 The dense mode prints the card's name and power limit, then at the
 primary shape: the CLI (--backend dense) three times in one process (wall
@@ -77,12 +83,14 @@ def profiled(fn, rows: int = 22) -> None:
 def cli_run(lst, out, *flags) -> dict:
     """One CLI run on the card; returns its .log phases (ms)."""
     from cmsbwt_tpu_torch import cli
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if cli.main([str(lst), "-o", str(out), "--device", "cuda", *flags]):
         raise RuntimeError("cli failed")
     wall = time.perf_counter() - t0
     phases = cs.phases_from_log(out.with_suffix(".log"))
-    print(f"cli {' '.join(flags)} wall_s={wall:.3f} phases_ms "
+    print(f"cli {' '.join(flags)} wall_s={wall:.3f} peak_bytes="
+          f"{torch.cuda.max_memory_allocated()} phases_ms "
           + json.dumps(phases), flush=True)
     return phases
 
@@ -143,19 +151,27 @@ def dense_main() -> None:
         raise RuntimeError("ecoli -r bytes differ from the reference tool")
 
 
-def jump_main() -> None:
+def jump_main(cli_only: bool) -> None:
+    lst = cs.write_workload(WORK, 42, 2_000_000, 10, 0.01)
+    if not cli_only:
+        kernel_sweep(lst)
+    for lanes in (4096, 32768, 4096, 32768):
+        cli_run(lst, WORK / f"t{lanes}", "--lanes", str(lanes))
+    if not cli_only:
+        merge_profile(lst)
+
+
+def kernel_sweep(lst) -> None:
     from cmsbwt_tpu_torch import kernels
-    from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.index.device import build_device_index
     from cmsbwt_tpu_torch.ops import ms_jump as mj
 
-    lst = cs.write_workload(WORK, 42, 2_000_000, 10, 0.01)
     x_aug, coll = load_inputs(str(lst))
     kernels.load()
     ix = build_device_index(x_aug, "cuda")
     n, sn = ix.n, coll.sn
-    gmax = mj.build_gmax_table(ix.plcp, n)
+    trees = mj.build_block_trees(ix.lcp, ix.plcp, n)
     for lanes in SWEEP:
         split = mj.split_lanes(coll.sx, lanes, 64, "cuda")
         states = iter([split.init_state(n) for _ in range(6)])
@@ -163,18 +179,21 @@ def jump_main() -> None:
 
         def launch():
             last["st"] = kernels.ms_jump_scan_cuda(
-                ix.x_padded, ix.sa, ix.isa, ix.jump, gmax, split.sx_padded,
+                ix.x_padded, ix.sa, ix.isa, trees, split.sx_padded,
                 next(states), split.ends_dev, n=n, sn=sn, cap=split.cap,
-                window=64, rounds=mj._bs_rounds(n))
+                window=64)
         launch()
         ms = cs.cuda_ms(launch, 5)
         print(f"kernel lanes={lanes} cap={split.cap} ms={ms:.3f} "
               f"viol={bool(last['st']['viol'].any())}", flush=True)
-    del ix, gmax
 
-    for lanes in (4096, 32768, 4096, 32768):
-        cli_run(lst, WORK / f"t{lanes}", "--lanes", str(lanes))
 
+def merge_profile(lst) -> None:
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+
+    x_aug, coll = load_inputs(str(lst))
     res = mj.ms_jump_heads(x_aug, coll.sx, "cuda", lanes=32768)
     os.environ["CMSBWT_PROFILE"] = "1"
     print("merge stages (stderr, lanes=32768):", flush=True)
@@ -190,6 +209,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dense", action="store_true",
                     help="profile the dense route instead of the jump route")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="jump route: the CLI runs alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
@@ -200,7 +221,10 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
-        (dense_main if args.dense else jump_main)()
+        if args.dense:
+            dense_main()
+        else:
+            jump_main(args.cli_only)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     return 0
