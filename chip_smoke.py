@@ -21,7 +21,13 @@ every phase passed):
    plain torch versions (lift_pairs, neighbors_reference) on the card, on
    inputs from the port's own dense stages, on the bench's primary shape
    (wide seed), on 200 Kbp x 8 docs with an N run in each doc (narrow
-   seed) and on a separator-dense case. Tolerance: exact equality.
+   seed) and on a separator-dense case. The lift runs on the rho
+   irreducible rows with lmax from the stats (the main path's call), on
+   the rho_pad rows of the earlier call. dense_neighbors also runs on
+   synthetic rows at the edges of its tiles, warps and carry rounds
+   (m = 1, 31, 32, 33, a tile +- 1, three tiles +- 1, runs of tiles with
+   no reference slot, every or no slot a reference slot, three carry
+   chunks). Tolerance: exact equality.
 5. jump slice — the port's CLI (jump scan + device merge, --device cuda)
    on the bench's primary workload (2 Mbp reference x 10 docs at 1% SNP,
    about 20 Mchars), plain and -r. Outputs must be byte-equal to the C++
@@ -40,7 +46,8 @@ Imports nothing of JAX or of the JAX package (an import hook refuses
 alone): its oracles are the two C++ programs above.
 
 The kernels line gives, per kernel, its time at the primary shape (CUDA
-events), its plain version's, its launches on the main path (the CLI run
+events around 5 launches back to back; lcp_lift on the rho rows), its
+plain version's, its launches on the main path (the CLI run
 plain and -r) and per CLI run, and bound_ms: the bytes the function must
 move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
@@ -54,6 +61,7 @@ import importlib.abc
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -93,18 +101,18 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` runs (CUDA events)."""
+    """Mean device time of ``fn`` in ms over ``reps`` runs launched back to
+    back between two CUDA events (so the host's launch overhead overlaps
+    the device's work wherever the host keeps ahead)."""
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
-    total = 0.0
+    torch.cuda.synchronize()
+    start.record()
     for _ in range(reps):
-        torch.cuda.synchronize()
-        start.record()
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _wrap(b: bytes, width: int = 60) -> bytes:
@@ -243,12 +251,41 @@ def kernel_case(name, lst, lanes=4096, cap=None, expect_viol=None,
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
 
 
-def dense_kernel_case(name, lst, reps=5):
-    """The CUDA lcp_lift and dense_neighbors against lift_pairs and
-    neighbors_reference on the card, fed the port's own dense stages on
-    ``lst`` (as ms_dense_heads_on_device runs them); returns
-    {kernel: result dict}."""
-    from cmsbwt_tpu_torch import kernels
+def pow2_pad(rho: int, m: int) -> int:
+    """The rows the dense scan lifted before it cut the lift to the rho
+    irreducible rows: rho rounded up to a power of two (at least 16), at
+    most m (the JAX package's compile bucket)."""
+    return min(1 << max(4, (max(rho, 1) - 1).bit_length()), m)
+
+
+def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
+    """A kernel's outputs against its plain version's on the card (exact),
+    then both timed; returns a result dict."""
+    want = plain_fn()
+    got = cuda_fn()
+    torch.cuda.synchronize()
+    if any(a.dtype != b.dtype or a.shape != b.shape
+           for a, b in zip(want, got)):
+        fail(f"{kernel}[{name}]: dtype or shape differs from {plain}")
+    err = max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               if a.numel() else 0) for a, b in zip(want, got))
+    ms = cuda_ms(cuda_fn, reps)
+    plain_ms = cuda_ms(plain_fn, 2)
+    bound = bound_ms(moved)
+    log(f"kernel {kernel}[{name}]: {what} max_abs_err={err} "
+        f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={bound:.4f}")
+    if err > TOL:
+        fail(f"{kernel}[{name}]: CUDA kernel disagrees with {plain}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                outputs=want)
+
+
+def dense_inputs(lst) -> dict:
+    """The dense scan's stages up to the lift on the card, on ``lst``, as
+    ms_dense_heads_on_device runs them: the joint sort's outputs, the
+    sorted pair rows (ai, bi, lv over all m slots), rho, lmax, rho_pad and
+    the split-level histogram of the irreducible rows."""
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
@@ -258,42 +295,117 @@ def dense_kernel_case(name, lst, reps=5):
     sa, isa, hist, packs, _, split_lv = js.joint_suffix_array(b, sp, m, wide)
     stats, ai, bi, lv = md._irreducible_slots(b, sp, sa, isa, split_lv, n,
                                               sn, m, n_pad)
-    rho = int(stats[0])
-    rows = min(md._pow2_pad(rho), m)
-    ai, bi, lv = ai[:rows], bi[:rows], lv[:rows]
+    rho, lmax = md._lift_rows(stats)
+    return dict(sa=sa, isa=isa, hist=hist, packs=packs, ai=ai, bi=bi, lv=lv,
+                n=n, m=m, wide=wide, rho=rho, lmax=lmax,
+                rho_pad=pow2_pad(rho, m),
+                levels={k: c for k, c in enumerate(stats[1:].tolist())
+                        if c})
+
+
+def dense_kernel_case(name, lst, reps=5):
+    """The CUDA lcp_lift and dense_neighbors against lift_pairs and
+    neighbors_reference on the card, fed the port's own dense stages on
+    ``lst`` (as ms_dense_heads_on_device runs them). The lift runs on the
+    rho irreducible rows with lmax from the stats (the main path's call),
+    and on the rho_pad rows of the earlier call (lmax read back by the
+    wrapper). Returns {kernel: result dict}; "lcp_lift" is the main
+    path's call."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.ops import joint_sa as js
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    d = dense_inputs(lst)
+    sa, isa, hist, packs, ai_all, bi_all, lv_all = (
+        d[k] for k in ("sa", "isa", "hist", "packs", "ai", "bi", "lv"))
+    n, m, wide, rho, lmax, rho_pad = (
+        d[k] for k in ("n", "m", "wide", "rho", "lmax", "rho_pad"))
+    seed = "wide" if wide else "narrow"
+    log(f"lift rows[{name}]: m={m} seed={seed} rho={rho} rho_pad={rho_pad} "
+        f"lmax={lmax} irreducible rows by split level {d['levels']}")
+    del d
     out = {}
 
-    def compare(kernel, plain, cuda_fn, plain_fn, what, moved):
-        want = plain_fn()
-        got = cuda_fn()
-        torch.cuda.synchronize()
-        if any(a.dtype != b.dtype or a.shape != b.shape
-               for a, b in zip(want, got)):
-            fail(f"{kernel}[{name}]: dtype or shape differs from {plain}")
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in zip(want, got))
-        ms = cuda_ms(cuda_fn, reps)
-        plain_ms = cuda_ms(plain_fn, 2)
-        bound = bound_ms(moved)
-        log(f"kernel {kernel}[{name}]: {what} max_abs_err={err} "
-            f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={bound:.4f}")
-        if err > TOL:
-            fail(f"{kernel}[{name}]: CUDA kernel disagrees with {plain}")
-        out[kernel] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
-        return want
+    def lift(rows, tag, **kw):
+        ai, bi, lv = ai_all[:rows], bi_all[:rows], lv_all[:rows]
+        return compare(
+            "lcp_lift", f"{name},{tag}", "lift_pairs",
+            lambda: (kernels.lcp_lift_cuda(hist, packs, ai, bi, lv, m,
+                                           **kw),),
+            lambda: (js.lift_pairs(hist, packs, ai, bi, lv, m),),
+            f"m={m} seed={seed} rows={rows}",
+            lift_bytes(packs, ai, bi, lv, m), reps)
 
-    h = compare("lcp_lift", "lift_pairs",
-                lambda: (kernels.lcp_lift_cuda(hist, packs, ai, bi, lv, m),),
-                lambda: (js.lift_pairs(hist, packs, ai, bi, lv, m),),
-                f"m={m} seed={'wide' if wide else 'narrow'} rho={rho} "
-                f"rows={rows}", lift_bytes(packs, ai, bi, lv, m))[0]
+    out["lcp_lift"] = lift(rho, "rho rows", lmax=lmax)
+    out["lcp_lift_rho_pad"] = lift(rho_pad, "rho_pad rows")
+    h = out["lcp_lift"].pop("outputs")[0]
+    ai = ai_all[:rho]
     ell = md._fill_ell(h, ai, isa, m)
-    compare("dense_neighbors", "neighbors_reference",
+    del hist, packs, ai_all, bi_all, lv_all, isa, h, ai
+    out["dense_neighbors"] = compare(
+        "dense_neighbors", name, "neighbors_reference",
+        lambda: kernels.dense_neighbors_cuda(sa, ell, n, m),
+        lambda: md.neighbors_reference(sa, ell, n, m),
+        f"m={m} ref_slots={n}", 24 * m, reps)   # sa, ell in; 4 rows out
+    for r in out.values():
+        r.pop("outputs", None)
+    return out
+
+
+NB_TILE = 4096        # dense_neighbors.cu: TILE
+NB_CHUNK = 4096       # dense_neighbors.cu: CHUNK (tiles per carry block)
+
+
+def neighbor_inputs(m: int, seed: int, ref_share: float, dead=None):
+    """Synthetic sa/ell rows on the card: a share ``ref_share`` of
+    reference slots (sa < n = 1000), none in the tiles [dead[0],
+    dead[1])."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1000
+    is_ref = torch.rand(m, generator=g, device="cuda") < ref_share
+    if dead is not None:
+        is_ref[dead[0] * NB_TILE:dead[1] * NB_TILE] = False
+    sa = torch.where(is_ref,
+                     torch.randint(0, n, (m,), generator=g, device="cuda"),
+                     torch.randint(n, 4 * n, (m,), generator=g,
+                                   device="cuda")).to(torch.int32)
+    ell = torch.randint(0, 50, (m,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    return sa, ell, n
+
+
+# (m, share of reference slots, tiles with no reference slot); the sizes
+# of tests/test_torch_dense_neighbors_tiles.py, then three carry chunks
+NEIGHBOR_CASES = {
+    "m1": (1, 0.5, None), "m31": (31, 0.2, None), "m32": (32, 0.2, None),
+    "m33": (33, 0.2, None), "tile-1": (NB_TILE - 1, 0.05, None),
+    "tile": (NB_TILE, 0.05, None), "tile+1": (NB_TILE + 1, 0.05, None),
+    "3tiles-1": (3 * NB_TILE - 1, 0.01, None),
+    "3tiles+1": (3 * NB_TILE + 1, 0.01, None),
+    "dead_tiles": (6 * NB_TILE + 5, 0.01, (1, 5)),
+    "all_ref": (2 * NB_TILE + 7, 1.0, None),
+    "no_ref": (2 * NB_TILE + 7, 0.0, None),
+    "three_carry_chunks": ((2 * NB_CHUNK + 3) * NB_TILE + 1, 1e-6,
+                           (NB_CHUNK - 40, NB_CHUNK + 2)),
+}
+
+
+def neighbor_cases() -> list:
+    """dense_neighbors against neighbors_reference on synthetic rows at
+    the edge sizes of its tiles, warps and carry chunks (exact)."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    res = []
+    for i, (case, (m, share, dead)) in enumerate(NEIGHBOR_CASES.items()):
+        sa, ell, n = neighbor_inputs(m, 100 + i, share, dead)
+        if case == "no_ref":
+            n = 0
+        res.append(compare(
+            "dense_neighbors", case, "neighbors_reference",
             lambda: kernels.dense_neighbors_cuda(sa, ell, n, m),
             lambda: md.neighbors_reference(sa, ell, n, m),
-            f"m={m} ref_slots={n}", 24 * m)   # sa, ell in; 4 int32 rows out
-    return out
+            f"m={m} ref_share={share} dead_tiles={dead}", 24 * m, 2))
+        res[-1].pop("outputs")
+    return res
 
 
 def lift_bytes(packs, ai, bi, lv, m: int) -> int:
@@ -416,9 +528,14 @@ def run_phases(card: str, kind: str) -> int:
     # phase 2: build
     kernels.load()
     log(f"build: {kernels.BUILD['seconds']:.2f} s -> {kernels.BUILD['path']}")
+    entry = ""
     for line in kernels.BUILD["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)", line)
+        if "Compiling entry function" in line and m:   # mangled name
+            at = m.end()
+            entry = line[at:at + int(m.group(1))]
+        elif "registers" in line or "spill" in line:
+            log(f"build: {entry}: {line.strip()}")
 
     # phase 3: the scan kernel against its plain version
     lst = write_workload(WORK / "k200k", 1, 200_000, 8, 0.01)
@@ -443,6 +560,11 @@ def run_phases(card: str, kind: str) -> int:
         for k, r in dense_kernel_case(name, klst).items():
             dense.setdefault(k, []).append(r)
         torch.cuda.empty_cache()
+    log(f"lcp_lift at primary: rho rows, lmax from the stats "
+        f"{dense['lcp_lift'][0]['ms']:.3f} ms; rho_pad rows, lmax read back "
+        f"{dense['lcp_lift_rho_pad'][0]['ms']:.3f} ms")
+    nb_cases = neighbor_cases()
+    torch.cuda.empty_cache()
     oracle = reference_outputs(lst)
 
     # phase 5: the jump slice through the CLI, kernel launches counted
@@ -536,10 +658,11 @@ def run_phases(card: str, kind: str) -> int:
             [prim]),
         row("lcp_lift", csrc + "lcp_lift.cu",
             "cmsbwt_tpu/ops/joint_sa.py:429", dense_counts["lcp_lift"],
-            dense["lcp_lift"]),
+            dense["lcp_lift"] + dense["lcp_lift_rho_pad"]),
         row("dense_neighbors", csrc + "dense_neighbors.cu",
             "cmsbwt_tpu/ops/ms_dense.py:366",
-            dense_counts["dense_neighbors"], dense["dense_neighbors"])]}))
+            dense_counts["dense_neighbors"],
+            dense["dense_neighbors"] + nb_cases)]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

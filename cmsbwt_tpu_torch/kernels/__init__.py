@@ -196,11 +196,19 @@ def ms_jump_scan_cuda(x_padded, sa, isa, trees, sx_padded, state: dict,
     return state
 
 
-def lcp_lift_cuda(hist, packs, ai, bi, lv, m: int) -> torch.Tensor:
+def lcp_lift_cuda(hist, packs, ai, bi, lv, m: int,
+                  lmax: int | None = None) -> torch.Tensor:
     """Launch ``lcp_lift`` on CUDA tensors: the lcp of each pair (ai, bi)
     by lifting from its split level lv through the rank history ``hist``
     [n_hist, m] and the seed ``packs`` [1 or 2, m]. Same contract as
-    ops/joint_sa.lift_pairs; returns int32[len(ai)]."""
+    ops/joint_sa.lift_pairs; returns int32[len(ai)].
+
+    ``lmax``, the largest lv of a valid row (ai, bi < m), sets the shared
+    top level of the rows whose lv is below the seed level; for rows that
+    all split at or above it any upper bound will do, such as the deepest
+    level of the split-level histogram. Given, the wrapper neither reduces
+    nor synchronises; else it computes lmax on the device and reads it
+    back. No rows launch nothing."""
     from ..ops.joint_sa import seed_level_of
     dev = ai.device
     rows = int(ai.shape[0])
@@ -212,19 +220,21 @@ def lcp_lift_cuda(hist, packs, ai, bi, lv, m: int) -> torch.Tensor:
     _check("packs", packs, torch.int64, (int(packs.shape[0]), m), dev)
     if packs.shape[0] not in (1, 2) or m < 1:
         raise ValueError("lcp_lift: bad geometry")
+    h = torch.empty(rows, dtype=i32, device=dev)
+    if rows == 0:
+        return h
     sl = seed_level_of(packs)
-    valid = (ai < m) & (bi < m)
-    lmax = int(torch.where(valid, lv, 0).max()) if rows else 0
+    if lmax is None:
+        lmax = int(torch.where((ai < m) & (bi < m), lv, 0).max())
     if lmax - 2 - sl >= int(hist.shape[0]):
         raise ValueError("lcp_lift: split level beyond the rank history")
-    h = torch.empty(rows, dtype=i32, device=dev)
     lib = load()["lcp_lift"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.lcp_lift_launch(
             _ptr(hist), _ptr(packs), int(packs.shape[0]), _ptr(ai),
-            _ptr(bi), _ptr(lv), _ptr(h), rows, m, sl, lmax, LIFT_THREADS,
-            ctypes.c_void_p(stream))
+            _ptr(bi), _ptr(lv), _ptr(h), rows, m, sl, int(lmax),
+            LIFT_THREADS, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"lcp_lift launch failed: CUDA error {err}")
     LAUNCHES["lcp_lift"] += 1
@@ -241,6 +251,9 @@ def dense_neighbors_cuda(sa, ell, n: int, m: int):
     _check("ell", ell, i32, (m,), dev)
     if m < 1:
         raise ValueError("dense_neighbors: empty input")
+    if sa.data_ptr() % 16 or ell.data_ptr() % 16:
+        raise ValueError("dense_neighbors: sa and ell must be 16-byte "
+                         "aligned (the kernel loads them as int4)")
     lib = load()["dense_neighbors"]
     scratch = torch.empty(int(lib.dense_neighbors_scratch_bytes(m)),
                           dtype=torch.uint8, device=dev)

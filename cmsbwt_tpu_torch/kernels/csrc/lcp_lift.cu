@@ -16,19 +16,32 @@
 //      and their windows of 2^k have equal rank (hist[k - sl]), h += 2^k;
 //   3. the last sub-seed bits from the seed packs at the clipped positions
 //      ai+h, bi+h: a byte-8 compare (one pack row) or two nibble-16
-//      compares (two rows; the second only when the first matches all 16).
+//      compares (two rows; the second counts only when the first matches
+//      all 16).
 // The top level is the pair's own lv - 2 when lv >= sl: a pair's lcp lies
 // in [2^(lv-1), 2^lv), so every test above its range fails, exactly as in
-// the shared loop from max(lv) - 2 of lift_pairs. Rows that are not
-// irreducible carry lv = 0 and run the shared loop from lmax - 2, as
-// lift_pairs runs them. Invalid rows (ai or bi >= m) give 0.
+// the shared loop from max(lv) - 2 of lift_pairs. Rows with lv below the
+// seed level (rows that are not irreducible carry lv = 0) run the shared
+// loop from lmax - 2, as lift_pairs runs them, so the kernel equals
+// lift_pairs on any rows. Invalid rows (ai or bi >= m) give 0. The dense
+// scan hands it only the irreducible rows, sorted by level, deepest first,
+// so neighbouring threads run the same number of levels.
 //
-// What bounds it on this card: two dependent random 4-byte gathers per
-// level into a [n_hist, m] int32 history far larger than L2 (about 25
-// levels for most pairs at 1% SNP), i.e. memory latency; nothing is
-// reused between pairs. Later work: pairs sorted by level (they already
-// are, deepest first) in warps that share a level schedule, or a direct
-// text compare that drops the history.
+// Loads: ai, bi, lv read and h written coalesced; the history and the
+// packs through the read-only path. The two gathers of a level do not
+// depend on each other and issue together; the chain runs from level to
+// level. The wide seed's second nibble row is gathered only after the
+// first row matched all 16 symbols: issuing its two gathers with the
+// first row's saves a dependent round trip but reads two more random
+// sectors for every pair, and most pairs stop in the first row (that
+// form took twice as long at the bench's primary shape).
+//
+// What bounds it on this card: random 32-byte sectors, not the bytes
+// used. Each 4-byte history gather and each 8-byte pack gather lands in a
+// row far larger than L2 and costs a whole sector; nothing is reused
+// between pairs, and the levels of one pair form a chain of dependent
+// gathers, so the kernel waits on memory latency long before it fills the
+// card's bandwidth.
 //
 // Plain C interface (bound with ctypes): returns cudaGetLastError() after
 // the launch. Launches on the given stream, allocates nothing, does not
@@ -83,7 +96,7 @@ __global__ void lcp_lift_kernel(const int* __restrict__ hist,
                                 int sl, int lmax) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows) return;
-  const int a = ai[i], b = bi[i], l = lv[i];
+  const int a = __ldg(ai + i), b = __ldg(bi + i), l = __ldg(lv + i);
   if (!(a < m && b < m)) {
     h_out[i] = 0;
     return;
@@ -94,17 +107,18 @@ __global__ void lcp_lift_kernel(const int* __restrict__ hist,
     const long long va = (long long)a + h, vb = (long long)b + h;
     if (va < m && vb < m) {
       const int* rk = hist + (size_t)(k - sl) * (size_t)m;
-      if (rk[va] == rk[vb]) h += 1 << k;
+      if (__ldg(rk + va) == __ldg(rk + vb)) h += 1 << k;
     }
   }
   const long long ca = clip((long long)a + h, 0, m - 1);
   const long long cb = clip((long long)b + h, 0, m - 1);
   int rem;
   if (n_packs == 1) {
-    rem = byte8_lcp(packs[ca], packs[cb]);
+    rem = byte8_lcp(__ldg(packs + ca), __ldg(packs + cb));
   } else {
-    rem = nib16_lcp(packs[ca], packs[cb]);
-    if (rem == 16) rem += nib16_lcp(packs[m + ca], packs[m + cb]);
+    rem = nib16_lcp(__ldg(packs + ca), __ldg(packs + cb));
+    if (rem == 16)
+      rem += nib16_lcp(__ldg(packs + m + ca), __ldg(packs + m + cb));
   }
   h_out[i] = h + rem;
 }
@@ -114,7 +128,8 @@ __global__ void lcp_lift_kernel(const int* __restrict__ hist,
 extern "C" int lcp_lift_launch(const int* hist, const long long* packs,
                                int n_packs, const int* ai, const int* bi,
                                const int* lv, int* h_out, int rows, int m,
-                               int sl, int lmax, int threads, void* stream) {
+                               int sl, int lmax, int threads,
+                               void* stream) {
   if (rows <= 0) return 0;
   const int blocks = (rows + threads - 1) / threads;
   lcp_lift_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

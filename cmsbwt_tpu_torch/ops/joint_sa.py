@@ -361,13 +361,15 @@ def lift_pairs(hist, packs, ai, bi, lv, m: int) -> torch.Tensor:
     return h + torch.where(valid, rem, 0).to(I32)
 
 
-def lcp_lift(hist, packs, ai, bi, lv, m: int) -> torch.Tensor:
+def lcp_lift(hist, packs, ai, bi, lv, m: int,
+             lmax: int | None = None) -> torch.Tensor:
     """The lift on the device of its tensors: the CUDA kernel for CUDA
-    tensors, ``lift_pairs`` for CPU tensors."""
+    tensors (given ``lmax``, the largest lv of a valid row, it runs no
+    reduction and no sync), ``lift_pairs`` for CPU tensors."""
     dev = ai.device.type
     if dev == "cuda":
         from ..kernels import lcp_lift_cuda
-        return lcp_lift_cuda(hist, packs, ai, bi, lv, m)
+        return lcp_lift_cuda(hist, packs, ai, bi, lv, m, lmax)
     if dev == "cpu":
         return lift_pairs(hist, packs, ai, bi, lv, m)
     raise ValueError(f"lcp_lift: unsupported device {dev!r}")

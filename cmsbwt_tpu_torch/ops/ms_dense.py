@@ -77,10 +77,6 @@ def _shift_in(v: torch.Tensor, first) -> torch.Tensor:
     return out
 
 
-def _pow2_pad(x: int) -> int:
-    return 1 << max(4, (max(x, 1) - 1).bit_length())
-
-
 def joint_geometry(n: int, sx: np.ndarray):
     """(n_pad, sn_pad, m) of the joint string, as _dense_core pads it
     (bucketed): the seeded sort needs the joint string to end with a
@@ -159,6 +155,23 @@ def _irreducible_slots(b, sp, sa, isa, split_lv, n: int, sn: int, m: int,
                              minlength=LV_BINS + 1)[:LV_BINS]
     stats = torch.cat([irr.sum().reshape(1), hist_lv]).to(I32)
     return stats, ai, bi, lvp
+
+
+def _lift_rows(stats: torch.Tensor):
+    """(rho, lmax) from the stats of _irreducible_slots, in one read: the
+    irreducible row count and the deepest split level among those rows.
+
+    Only the irreducible rows are lifted. Every lift of a pair is a lower
+    bound of its lcp, and at a reducible text position PLCP[i] + i =
+    PLCP[i-1] + i - 1, so the running max of _fill_ell over the
+    irreducible rows alone gives the PLCP at every real text position. The
+    JAX package lifts a pow2-bucketed prefix of rows: its extra rows change
+    nothing there, and only pad slots where the bucket reaches pad rows,
+    which no head reads. lmax only sets the shared top level of rows below
+    the seed level, and the irreducible rows all split at or above it."""
+    st = stats.tolist()
+    live = [k for k, c in enumerate(st[1:]) if c]
+    return st[0], (max(live) if live else 0)
 
 
 def _running_max(v: torch.Tensor, width: int = 4096) -> torch.Tensor:
@@ -365,13 +378,12 @@ def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
     stats, ai_all, bi_all, lv_all = _irreducible_slots(
         b, sp, sa, isa, split_lv, n, sn, m, n_pad)
     del sp, split_lv
-    rho = int(stats[0])
+    rho, lmax = _lift_rows(stats)
     mark("irreducible(rho=%d)" % rho)
-    # one lift over the first rho_pad rows replaces the JAX package's
+    # one lift over the rho irreducible rows replaces the JAX package's
     # per-level _lift_orchestrated (the CUDA lcp_lift kernel on a card)
-    rho_pad = min(_pow2_pad(rho), m)
-    ai = ai_all[:rho_pad]
-    h = lcp_lift(hist, packs, ai, bi_all[:rho_pad], lv_all[:rho_pad], m)
+    ai = ai_all[:rho]
+    h = lcp_lift(hist, packs, ai, bi_all[:rho], lv_all[:rho], m, lmax)
     del hist, packs, bi_all, lv_all
     mark("lift")
     ell = _fill_ell(h, ai, isa, m)

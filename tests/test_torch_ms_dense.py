@@ -41,12 +41,39 @@ def _n_run_collection():
     return np.frombuffer(augment_reference(ref), np.uint8), sx
 
 
+def _narrow_collection():
+    """Mutated copies with N runs in two documents (the narrow seed)."""
+    rng = np.random.default_rng(21)
+    ref = random_dna(rng, 1500)
+    docs = [mutate(rng, ref, 0.01) for _ in range(4)]
+    docs[1] = docs[1][:300] + b"NNN" + docs[1][300:]
+    docs[3] = docs[3][:900] + b"NNNNNN" + docs[3][900:]
+    sep = np.full(1, SEPARATOR, np.uint8)
+    sx = np.concatenate([sep] + [np.concatenate(
+        [np.frombuffer(x, np.uint8), sep]) for x in docs])
+    return np.frombuffer(augment_reference(ref), np.uint8), sx
+
+
+def _near_pow2_collection():
+    """An unrelated reference and document with rho = 521, just above
+    512: the JAX package's pow2 bucket of 1024 rows then runs past the
+    631 real text positions into the pad rows."""
+    rng = np.random.default_rng(7)
+    ref = random_dna(rng, 256)
+    sep = np.full(1, SEPARATOR, np.uint8)
+    sx = np.concatenate([sep, np.frombuffer(random_dna(rng, 250), np.uint8),
+                         sep])
+    return np.frombuffer(augment_reference(ref), np.uint8), sx
+
+
 COLLECTIONS = dict(zip(CASE_IDS, CASES))
+EXTRA = {"nrun": _n_run_collection, "narrow2": _narrow_collection,
+         "nearpow2": _near_pow2_collection}
 
 
 def _collection(cid):
-    if cid == "nrun":
-        return _n_run_collection()
+    if cid in EXTRA:
+        return EXTRA[cid]()
     return case_collection(COLLECTIONS[cid])
 
 
@@ -73,10 +100,16 @@ def _jax_stages(cid) -> dict:
     sa, isa, hist, packs, _, split_lv = joint
     stats, ai_all, bi_all, lv_all = MD._irreducible_slots(
         b, sp, sa, isa, split_lv, n, sn, m, n_pad)
-    rho_pad = min(MD._pow2_pad(int(stats[0])), m)
+    rho = int(stats[0])
+    rho_pad = min(MD._pow2_pad(rho), m)
     ai, bi, lv = ai_all[:rho_pad], bi_all[:rho_pad], lv_all[:rho_pad]
     h = JJ.lift_pairs(hist, packs, ai, bi, lv, m)
     ell = MD._fill_ell(h, ai, isa, m, rho_pad)
+    # the JAX package's two lifts over the rho irreducible rows alone
+    ell_rho = (MD._lift_and_fill(hist, packs, ai_all, bi_all, lv_all, isa,
+                                 m, rho),
+               MD._lift_orchestrated(hist, packs, ai_all, bi_all, lv_all,
+                                     isa, np.asarray(stats), m, rho))
     nbr = MD._neighbors(sa, ell, n, m)
     asm = MD._assemble(sa, *nbr, n, sn, m, n_pad, sn_pad)
     post = MD._postprocess(b, *asm[:3], n, sn, n_pad, sn_pad)
@@ -91,7 +124,8 @@ def _jax_stages(cid) -> dict:
                 wide=wide, b=np.asarray(b), sp=np.asarray(sp),
                 joint=g(joint), stats=np.asarray(stats),
                 slots=g((ai_all, bi_all, lv_all)), rho_pad=rho_pad,
-                h=np.asarray(h), ell=np.asarray(ell), nbr=g(nbr),
+                h=np.asarray(h), ell=np.asarray(ell), ell_rho=g(ell_rho),
+                nbr=g(nbr),
                 asm=g(asm), post=g(post), hh=hh, h_pad=h_pad,
                 comp=g(comp), fin=g(fin))
 
@@ -99,7 +133,7 @@ def _jax_stages(cid) -> dict:
 STAGE_CASES = ["snp2", "identical", "sepdense", "nrun"]
 
 
-@pytest.mark.parametrize("cid", CASE_IDS + ["nrun"])
+@pytest.mark.parametrize("cid", CASE_IDS + list(EXTRA))
 def test_heads_on_device_matches_jax(cid):
     x, sx = _collection(cid)
     want = MD.ms_dense_heads_on_device(x, sx)
@@ -161,6 +195,38 @@ def test_lift_and_fill_match_jax(cid):
     h = TD.lcp_lift(j["hist"], j["packs"], ai[:rp], bi[:rp], lv[:rp], m)
     assert_same(s["h"], h, "h")
     assert_same(s["ell"], TD._fill_ell(h, ai[:rp], j["isa"], m), "ell")
+
+
+@pytest.mark.parametrize("cid", STAGE_CASES + ["narrow2", "nearpow2"])
+def test_lift_of_irreducible_rows_matches_jax(cid):
+    """The dense scan lifts the rho irreducible rows only, with lmax from
+    the stats. Its ell equals the JAX package's from both of its lifts
+    (_lift_and_fill, _lift_orchestrated) over the same rows, and the JAX
+    production ell (the pow2-bucketed prefix of rows) at every slot of a
+    real text position; at every slot when the bucket holds no pad row.
+    (Pad slots differ where the bucket reaches pad rows, as in the
+    nearpow2 case; no head reads them, see test_heads_on_device_matches_jax.)"""
+    s = _jax_stages(cid)
+    j = carry_joint(s["joint"])
+    m, n, sn, n_pad = s["m"], s["n"], s["sn"], s["n_pad"]
+    rho, lmax = TD._lift_rows(to_torch(s["stats"]))
+    assert s["wide"] == (cid not in ("nrun", "narrow2"))
+    assert rho == int(s["stats"][0])
+    assert lmax == max(int(v) for v in s["slots"][2][:rho])
+    ai, bi, lv = (to_torch(a)[:rho] for a in s["slots"])
+    h = TD.lcp_lift(j["hist"], j["packs"], ai, bi, lv, m, lmax)
+    ell = TD._fill_ell(h, ai, j["isa"], m)
+    assert_same(s["ell_rho"][0], ell, "ell vs _lift_and_fill")
+    assert_same(s["ell_rho"][1], ell, "ell vs _lift_orchestrated")
+    sa = s["joint"][0]
+    pad = ((sa >= n) & (sa < n_pad)) | (sa >= n_pad + sn)
+    np.testing.assert_array_equal(s["ell"][~pad], ell.numpy()[~pad])
+    rows = s["slots"][0][rho:s["rho_pad"]]
+    pad_rows = bool((((rows >= n) & (rows < n_pad))
+                     | (rows >= n_pad + sn)).any())
+    assert pad_rows == (cid == "nearpow2")
+    if not pad_rows:
+        assert_same(s["ell"], ell, "ell vs the bucketed JAX ell")
 
 
 @pytest.mark.parametrize("cid", STAGE_CASES)

@@ -3,6 +3,7 @@
     python3 tools/profile_slice.py             # jump + device-merge slice
     python3 tools/profile_slice.py --cli-only  # its step 3 alone
     python3 tools/profile_slice.py --dense     # dense + device-merge slice
+    python3 tools/profile_slice.py --dense --parent DIR  # + A/B vs DIR
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -23,12 +24,18 @@ script placed in an older checkout's tools/ measures that checkout's port
 the same way.
 
 The dense mode prints the card's name and power limit, then at the
+primary shape each dense kernel launch's device time (torch.profiler),
+and with ``--parent DIR`` (an older checkout's root) that checkout's
+lcp_lift and dense_neighbors against this tree's, in turns; then at the
 primary shape: the CLI (--backend dense) three times in one process (wall
 seconds and the .log phases), the dense scan stage by stage
 (CMSBWT_PROFILE=1, device-synced marks, on stderr), and one dense scan
 under torch.profiler (wall ms, device ms, top operators by device time).
 Then once at the bench's ecoli_dense shape (5 Mbp x 20 docs at 1% SNP,
-seed 42, about 100 Mchars, narrow seed): the CLI with -r, its bytes held
+seed 42, about 100 Mchars, narrow seed): both dense kernels alone
+against their plain versions (chip_smoke.dense_kernel_case: exact; the
+lift on the rho and on the rho_pad rows), the launch split and the
+parent A/B again, the CLI with -r, its bytes held
 to the C++ reference tool's (baseline/cms-bwt-ref), its phases, the stage
 split, the peak device memory (torch.cuda.max_memory_allocated) of the
 CLI run and of the scan alone, and both per joint char.
@@ -108,12 +115,146 @@ def stage_split(x_aug, sx, label: str):
     return res
 
 
-def dense_main() -> None:
+def parent_kernels(parent: pathlib.Path) -> dict:
+    """Build an older checkout's lcp_lift.cu and dense_neighbors.cu into
+    WORK with this tree's nvcc flags, bound to their C interface (the
+    same as this tree's); returns {stem: ctypes handle}."""
+    import ctypes
+    from cmsbwt_tpu_torch import kernels
+    csrc = parent / "cmsbwt_tpu_torch" / "kernels" / "csrc"
+    WORK.mkdir(parents=True, exist_ok=True)
+    jobs = {stem: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+         str(WORK / f"parent_{stem}.so"), str(csrc / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for stem in ("lcp_lift", "dense_neighbors")}
+    libs = {}
+    for stem, proc in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the parent's {stem}.cu:\n"
+                               + out)
+        libs[stem] = ctypes.CDLL(str(WORK / f"parent_{stem}.so"))
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f = libs["lcp_lift"].lcp_lift_launch
+    f.restype, f.argtypes = I, [P, P, I, P, P, P, P, I, I, I, I, I, P]
+    f = libs["dense_neighbors"].dense_neighbors_scratch_bytes
+    f.restype, f.argtypes = LL, [I]
+    f = libs["dense_neighbors"].dense_neighbors_launch
+    f.restype, f.argtypes = I, [P, P, I, I, P, P, P, P, P, P]
+    return libs
+
+
+def launch_split(fn, label: str, reps: int = 10) -> None:
+    """Mean device time of each CUDA kernel that ``fn`` launches, over
+    ``reps`` calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            print(f"launch split [{label}]: {name[:48]} "
+                  f"us={e.device_time_total / e.count:.1f} "
+                  f"calls={e.count / reps:g}", flush=True)
+
+
+def dense_kernels(libs, lst, label: str, reps: int = 20) -> None:
+    """This tree's dense kernels on the dense stages of ``lst``: each
+    launch's device time (launch_split); then, given an older checkout's
+    kernels ``libs``, those against these: outputs equal, then CUDA-event
+    times over ``reps`` launches back to back, in turns (parent, this,
+    this, parent). The lift is timed as each tree's main path calls it
+    (parent: the rho_pad rows, lmax read back from the device; this tree:
+    the rho rows, lmax from the stats), and the parent's kernel also on
+    the rho rows."""
+    import ctypes
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    from cmsbwt_tpu_torch.ops.joint_sa import seed_level_of
+    d = cs.dense_inputs(lst)
+    sa, isa, hist, packs = (d[k] for k in ("sa", "isa", "hist", "packs"))
+    n, m, rho, lmax, rho_pad = (d[k] for k in ("n", "m", "rho", "lmax",
+                                               "rho_pad"))
+    sl = seed_level_of(packs)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def rows(k):
+        return d["ai"][:k], d["bi"][:k], d["lv"][:k]
+
+    def old_lift(k):
+        ai, bi, lv = rows(k)
+        top = int(torch.where((ai < m) & (bi < m), lv, 0).max())
+        h = torch.empty(k, dtype=torch.int32, device="cuda")
+        if libs["lcp_lift"].lcp_lift_launch(
+                ptr(hist), ptr(packs), int(packs.shape[0]), ptr(ai), ptr(bi),
+                ptr(lv), ptr(h), k, m, sl, top, kernels.LIFT_THREADS,
+                stream()):
+            raise RuntimeError("parent lcp_lift launch failed")
+        return h
+
+    def new_lift(k, **kw):
+        return kernels.lcp_lift_cuda(hist, packs, *rows(k), m, **kw)
+
+    h = new_lift(rho, lmax=lmax)
+    ell = md._fill_ell(h, rows(rho)[0], isa, m)
+    new_nb = lambda: kernels.dense_neighbors_cuda(sa, ell, n, m)
+    launch_split(new_nb, f"{label}, dense_neighbors")
+    launch_split(lambda: new_lift(rho, lmax=lmax), f"{label}, lcp_lift")
+    if libs is None:
+        return
+    lib = libs["dense_neighbors"]
+
+    def old_nb():
+        scratch = torch.empty(int(lib.dense_neighbors_scratch_bytes(m)),
+                              dtype=torch.uint8, device="cuda")
+        outs = [torch.empty(m, dtype=torch.int32, device="cuda")
+                for _ in range(4)]
+        if lib.dense_neighbors_launch(ptr(sa), ptr(ell), n, m, ptr(scratch),
+                                      *map(ptr, outs), stream()):
+            raise RuntimeError("parent dense_neighbors launch failed")
+        return outs
+
+    same = torch.equal(old_lift(rho), h) and all(
+        torch.equal(a, b) for a, b in zip(old_nb(), new_nb()))
+    torch.cuda.synchronize()
+    print(f"parent A/B [{label}]: m={m} rho={rho} rho_pad={rho_pad} "
+          f"outputs equal: {same}", flush=True)
+    if not same:
+        raise RuntimeError("the parent's dense kernels disagree")
+    runs = {"lcp_lift parent kernel, rho_pad rows (parent main path)":
+            lambda: old_lift(rho_pad),
+            "lcp_lift parent kernel, rho rows": lambda: old_lift(rho),
+            "lcp_lift this kernel, rho rows (this main path)":
+            lambda: new_lift(rho, lmax=lmax),
+            "lcp_lift this kernel, rho_pad rows": lambda: new_lift(rho_pad)}
+    for name, fn in runs.items():
+        fn()
+    for turn in range(4):
+        for name, fn in runs.items():
+            print(f"parent A/B [{label}] turn {turn}: {name} "
+                  f"ms={cs.cuda_ms(fn, reps):.4f}", flush=True)
+    for turn, (who, fn) in enumerate((("parent", old_nb), ("this", new_nb),
+                                      ("this", new_nb),
+                                      ("parent", old_nb))):
+        print(f"parent A/B [{label}] turn {turn}: dense_neighbors {who} "
+              f"ms={cs.cuda_ms(fn, reps):.4f}", flush=True)
+
+
+def dense_main(parent: pathlib.Path | None) -> None:
     from cmsbwt_tpu_torch import kernels
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.ops import ms_dense as md
     kernels.load()
+    libs = parent_kernels(parent) if parent else None
     lst = cs.write_workload(WORK / "primary", 42, 2_000_000, 10, 0.01)
+    dense_kernels(libs, lst, "primary")
+    torch.cuda.empty_cache()
     for i in range(3):
         cli_run(lst, WORK / f"p{i}", "--backend", "dense")
     x_aug, coll = load_inputs(str(lst))
@@ -123,6 +264,11 @@ def dense_main() -> None:
     del x_aug, coll
 
     lst = cs.write_workload(WORK / "ecoli", 42, 5_000_000, 20, 0.01)
+    print("dense kernels alone (ecoli_dense):", flush=True)
+    cs.dense_kernel_case("ecoli_dense", lst)
+    torch.cuda.empty_cache()
+    dense_kernels(libs, lst, "ecoli_dense")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     r = subprocess.run([str(cs.REF_BIN), "-r", "-o", str(WORK / "ref"),
                         str(lst)], capture_output=True, text=True,
@@ -211,6 +357,10 @@ def main() -> int:
                     help="profile the dense route instead of the jump route")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
+    ap.add_argument("--parent", type=pathlib.Path, default=None,
+                    help="dense route: also time an older checkout's "
+                    "dense kernels (its root directory) against this "
+                    "tree's, at both shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
@@ -222,7 +372,7 @@ def main() -> int:
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
         if args.dense:
-            dense_main()
+            dense_main(args.parent)
         else:
             jump_main(args.cli_only)
     finally:
