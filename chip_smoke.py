@@ -40,15 +40,42 @@ every phase passed):
    tool's, the dense scan's heads equal to the native scan's, and the
    lcp_lift and dense_neighbors kernels (not their plain versions) must
    have carried it. Prints the .log phases and the dense stage split.
+7. blocked slice — the same workload through the blocked dense scan: the
+   CLI with --block-chars 4194304, plain and -r (bytes equal to the
+   reference tool's; each dense kernel launched once per block try and no
+   plain version), its heads equal to the native scan's; CMSBWT_HBM_GB=2,
+   so that the memory guard chooses the blocks (its choice printed); a
+   4-char context on the 200 Kbp workload, so that blocks retry (the
+   retries printed; heads and reference index equal to the unblocked
+   scan's); --checkpoint-dir run twice (the second run launches no dense
+   kernel, bytes equal). Both dense kernels are held to their plain
+   versions (exact) on the first 4 Mi-char block as the CLI ran it (its
+   window, separator base and pad, from BlockLog).
+8. 500 Mchar — the bench's ecoli_rle shape at BENCH_FULL=1 (5 Mbp x 100
+   docs at 1% SNP, ~500 Mchars, above what the unblocked scan needs on an
+   80 GB card) through the CLI with -r --no-rle-quirk and no
+   --block-chars, so the guard chooses the blocks: its heads equal to the
+   jump scan's on the card, the .rl_bwt decoding to sn chars with the
+   collection's byte histogram (the quirk's extra residual runs would
+   make it longer; its bytes against the reference tool are
+   tools/profile_slice.py --blocked's check). Prints the blocks, retries,
+   per-block stage marks (CMSBWT_PROFILE=1, stderr), phases, peak device
+   bytes per block and the wall time. Then both dense kernels against
+   their plain versions (exact) on that run's first block (m ~ 252 M,
+   narrow seed).
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
 alone): its oracles are the two C++ programs above.
 
 The kernels line gives, per kernel, its time at the primary shape (CUDA
-events around 5 launches back to back; lcp_lift on the rho rows), its
-plain version's, its launches on the main path (the CLI run
-plain and -r) and per CLI run, and bound_ms: the bytes the function must
+events around 5 launches back to back; lcp_lift on the rho rows; the
+times at the other shapes are on the kernel lines above it), the largest
+error over every comparison, its
+plain version's, its launches on the main path (every CLI run of its
+route, the counts set to 0 before each path and read after it;
+``launches_by_run`` splits them by path, with the runs and the block
+tries of each), and bound_ms: the bytes the function must
 move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
 SXM's memory rate. No single PyTorch call computes any of the three
@@ -89,6 +116,7 @@ REF_BIN = ROOT / "baseline" / "cms-bwt-ref"
 NATIVE_SCAN = ROOT / "native" / "cmsbwt_scan.cpp"
 TOL = 0  # exact: integer and byte outputs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
+BIG_DOCS = 100              # bench ecoli_rle at BENCH_FULL=1 (bench.py:176)
 
 
 def log(msg: str) -> None:
@@ -281,20 +309,30 @@ def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
                 outputs=want)
 
 
-def dense_inputs(lst) -> dict:
-    """The dense scan's stages up to the lift on the card, on ``lst``, as
-    ms_dense_heads_on_device runs them: the joint sort's outputs, the
-    sorted pair rows (ai, bi, lv over all m slots), rho, lmax, rho_pad and
-    the split-level histogram of the irreducible rows."""
-    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+def dense_inputs(x_aug: np.ndarray, sx: np.ndarray, sep_base: int = 0,
+                 pad: int | None = None) -> dict:
+    """The dense scan's stages up to the lift on the card, as the main
+    path runs them on one joint string: the whole collection ``sx``
+    (ms_dense_heads_on_device), or one block's window of it with that
+    block's separator base and collection pad ``pad`` (ms_dense.
+    _scan_block). Returns the joint sort's outputs, the sorted pair rows
+    (ai, bi, lv over all m slots), rho, lmax, rho_pad and the split-level
+    histogram of the irreducible rows."""
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
-    x_aug, coll = load_inputs(str(lst))
-    n, sn = len(x_aug), coll.sn
-    b, sp, wide, n_pad, _, m = md.joint_string(x_aug, coll.sx, "cuda")
+    n, sn = len(x_aug), len(sx)
+    n_pad, sn_pad, _ = md.joint_geometry(n, sx)
+    sn_pad = sn_pad if pad is None else pad
+    m = n_pad + sn_pad
+    x_u8 = md.upload_bytes(x_aug, n_pad, "cuda")
+    sx_u8 = md.upload_bytes(sx, sn_pad, "cuda")
+    wide = md.wide_seed_ok(x_u8[:n], sx_u8[:sn], m)
+    b, sp = md._build_joint_core(x_u8, sx_u8, n, sn, sep_base, n_pad, sn_pad)
+    del x_u8, sx_u8
     sa, isa, hist, packs, _, split_lv = js.joint_suffix_array(b, sp, m, wide)
     stats, ai, bi, lv = md._irreducible_slots(b, sp, sa, isa, split_lv, n,
                                               sn, m, n_pad)
+    del b, sp, split_lv
     rho, lmax = md._lift_rows(stats)
     return dict(sa=sa, isa=isa, hist=hist, packs=packs, ai=ai, bi=bi, lv=lv,
                 n=n, m=m, wide=wide, rho=rho, lmax=lmax,
@@ -303,25 +341,27 @@ def dense_inputs(lst) -> dict:
                         if c})
 
 
-def dense_kernel_case(name, lst, reps=5):
+def dense_kernel_case(name, x_aug, sx, sep_base=0, pad=None, rho_pad=True,
+                      reps=5):
     """The CUDA lcp_lift and dense_neighbors against lift_pairs and
     neighbors_reference on the card, fed the port's own dense stages on
-    ``lst`` (as ms_dense_heads_on_device runs them). The lift runs on the
-    rho irreducible rows with lmax from the stats (the main path's call),
-    and on the rho_pad rows of the earlier call (lmax read back by the
-    wrapper). Returns {kernel: result dict}; "lcp_lift" is the main
-    path's call."""
+    one joint string (dense_inputs: the whole collection, or one block).
+    The lift runs on the rho irreducible rows with lmax from the stats
+    (the main path's call), and with ``rho_pad`` also on the rho_pad rows
+    of the earlier call (lmax read back by the wrapper). Returns {kernel:
+    result dict}; "lcp_lift" is the main path's call."""
     from cmsbwt_tpu_torch import kernels
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
-    d = dense_inputs(lst)
+    d = dense_inputs(x_aug, sx, sep_base, pad)
     sa, isa, hist, packs, ai_all, bi_all, lv_all = (
         d[k] for k in ("sa", "isa", "hist", "packs", "ai", "bi", "lv"))
-    n, m, wide, rho, lmax, rho_pad = (
+    n, m, wide, rho, lmax, rows_pad = (
         d[k] for k in ("n", "m", "wide", "rho", "lmax", "rho_pad"))
     seed = "wide" if wide else "narrow"
-    log(f"lift rows[{name}]: m={m} seed={seed} rho={rho} rho_pad={rho_pad} "
-        f"lmax={lmax} irreducible rows by split level {d['levels']}")
+    log(f"lift rows[{name}]: m={m} seed={seed} rho={rho} "
+        f"rho_pad={rows_pad} lmax={lmax} hist_levels={hist.shape[0]} "
+        f"irreducible rows by split level {d['levels']}")
     del d
     out = {}
 
@@ -336,11 +376,13 @@ def dense_kernel_case(name, lst, reps=5):
             lift_bytes(packs, ai, bi, lv, m), reps)
 
     out["lcp_lift"] = lift(rho, "rho rows", lmax=lmax)
-    out["lcp_lift_rho_pad"] = lift(rho_pad, "rho_pad rows")
+    if rho_pad:
+        out["lcp_lift_rho_pad"] = lift(rows_pad, "rho_pad rows")
     h = out["lcp_lift"].pop("outputs")[0]
     ai = ai_all[:rho]
     ell = md._fill_ell(h, ai, isa, m)
     del hist, packs, ai_all, bi_all, lv_all, isa, h, ai
+    torch.cuda.empty_cache()
     out["dense_neighbors"] = compare(
         "dense_neighbors", name, "neighbors_reference",
         lambda: kernels.dense_neighbors_cuda(sa, ell, n, m),
@@ -349,6 +391,15 @@ def dense_kernel_case(name, lst, reps=5):
     for r in out.values():
         r.pop("outputs", None)
     return out
+
+
+def block_kernel_case(name, x_aug, sx, block: dict) -> dict:
+    """dense_kernel_case on one block try of a blocked run, as BlockLog
+    recorded it (its window, separator base and pad)."""
+    return dense_kernel_case(
+        f"{name}, block@{block['b0']} m={block['m']}", x_aug,
+        sx[block["b0"]:block["end"]], block["sep_base"], block["bs_pad"],
+        rho_pad=False)
 
 
 NB_TILE = 4096        # dense_neighbors.cu: TILE
@@ -494,6 +545,77 @@ def phases_from_log(path: pathlib.Path) -> dict:
     return out
 
 
+class BlockLog:
+    """Records every try of every block the blocked dense scans run, by
+    wrapping ops/ms_dense._scan_block while in use: the block's window,
+    bs_pad and m, whether it was retried, its host-clock seconds (device
+    synced) and the peak device bytes while it ran. The peak statistic is
+    reset as each block starts and ends, so ``gap_peak`` is the peak
+    outside the blocks (the merge, the writer) and ``run_peak`` the peak
+    of the whole span."""
+
+    def __init__(self, md):
+        self.md, self.orig = md, md._scan_block
+        self.tries, self.gap_peak = [], 0
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.md._scan_block = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        self.md._scan_block = self.orig
+        self._gap()
+
+    def _gap(self):
+        torch.cuda.synchronize()
+        self.gap_peak = max(self.gap_peak, torch.cuda.max_memory_allocated())
+
+    def _spy(self, x_u8, sx, n, **kw):
+        self._gap()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self.orig(x_u8, sx, n, **kw)
+        torch.cuda.synchronize()
+        m = int(x_u8.shape[0]) + kw["bs_pad"]
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.tries.append(dict(
+            b0=kw["b0"], end=kw["end"], emit=kw["emit_len"],
+            sep_base=kw["sep_base"], bs_pad=kw["bs_pad"], m=m,
+            retried=out is None,
+            s=round(time.perf_counter() - t0, 4), peak=peak,
+            peak_per_joint_char=round(peak / m, 1)))
+        return out
+
+    @property
+    def retries(self) -> int:
+        return sum(t["retried"] for t in self.tries)
+
+    @property
+    def run_peak(self) -> int:
+        return max([self.gap_peak] + [t["peak"] for t in self.tries])
+
+
+def same_heads(a, b) -> bool:
+    """Two DeviceHeadsResults hold the same h heads (t, pos, len, smaller,
+    char), compared on the card."""
+    h = a.h
+    return h == b.h and all(
+        torch.equal(getattr(a, k)[:h], getattr(b, k)[:h])
+        for k in ("head_t", "head_pos", "head_len", "head_smaller",
+                  "head_char"))
+
+
+def rle_histogram(path: pathlib.Path) -> np.ndarray:
+    """Chars per byte value of an .rl_bwt (records of a uint64 LE run
+    length and the run's char)."""
+    rec = np.fromfile(path, dtype=[("len", "<u8"), ("chr", "u1")])
+    return np.bincount(rec["chr"], weights=rec["len"].astype(np.float64),
+                       minlength=256).astype(np.int64)
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -524,6 +646,7 @@ def run_phases(card: str, kind: str) -> int:
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
     from cmsbwt_tpu_torch.ops import ms_jump as mj
+    from cmsbwt_tpu_torch.utils.buckets import bucket_size
 
     # phase 2: build
     kernels.load()
@@ -538,9 +661,9 @@ def run_phases(card: str, kind: str) -> int:
             log(f"build: {entry}: {line.strip()}")
 
     # phase 3: the scan kernel against its plain version
-    lst = write_workload(WORK / "k200k", 1, 200_000, 8, 0.01)
-    kernel_case("200Kbp_x8_snp1%", lst, expect_viol=False)
-    kernel_case("200Kbp_x8_snp1%_cap8", lst, cap=8, expect_viol=True)
+    k200k = write_workload(WORK / "k200k", 1, 200_000, 8, 0.01)
+    kernel_case("200Kbp_x8_snp1%", k200k, expect_viol=False)
+    kernel_case("200Kbp_x8_snp1%_cap8", k200k, cap=8, expect_viol=True)
     sep_lst = write_workload(WORK / "ksep", 2, 5_000, 2000, 0.03, 7)
     kernel_case("separator_dense", sep_lst)
     kernel_case("identical_copies",
@@ -557,8 +680,10 @@ def run_phases(card: str, kind: str) -> int:
             ("200Kbp_x8_Nrun", write_workload(WORK / "knrun", 5, 200_000, 8,
                                               0.01, n_run=64)),
             ("separator_dense", sep_lst)):
-        for k, r in dense_kernel_case(name, klst).items():
+        xk, ck = load_inputs(str(klst))
+        for k, r in dense_kernel_case(name, xk, ck.sx).items():
             dense.setdefault(k, []).append(r)
+        del xk, ck
         torch.cuda.empty_cache()
     log(f"lcp_lift at primary: rho rows, lmax from the stats "
         f"{dense['lcp_lift'][0]['ms']:.3f} ms; rho_pad rows, lmax read back "
@@ -568,36 +693,54 @@ def run_phases(card: str, kind: str) -> int:
     oracle = reference_outputs(lst)
 
     # phase 5: the jump slice through the CLI, kernel launches counted
-    def run_cli(backend: str, tag: str) -> dict:
+    paths = []    # (route, tag, CLI runs, launch counts, block tries)
+
+    def run_cli(backend: str, tag: str, extra=(), formats=(False, True),
+                inp=lst, want=oracle, blocks=None) -> dict:
+        """The CLI on ``inp`` in each format, bytes held to ``want`` (the
+        reference tool's) unless it is None; the kernel launches and plain
+        calls counted from 0 over these runs."""
         kernels.reset_launch_counts()
         js.REFERENCE_CALLS["lift_pairs"] = 0
         md.REFERENCE_CALLS["neighbors_reference"] = 0
         mj.REFERENCE_CALLS["ms_jump_scan_reference"] = 0
-        for rle in (False, True):
+        tries0 = len(blocks.tries) if blocks else 0
+        for rle in formats:
             out = WORK / f"port_{tag}{'_rle' if rle else ''}"
-            argv = [str(lst), "-o", str(out), "--device", "cuda",
-                    "--backend", backend, "--merge-backend", "device"] \
-                + (["-r"] if rle else [])
+            argv = [str(inp), "-o", str(out), "--device", "cuda",
+                    "--backend", backend, "--merge-backend", "device",
+                    *extra] + (["-r"] if rle else [])
             t0 = time.perf_counter()
             if cli.main(argv) != 0:
-                fail(f"cli ({backend}) returned non-zero")
+                fail(f"cli ({tag}) returned non-zero")
             wall = time.perf_counter() - t0
+            fmt = "rle" if rle else "plain"
+            phases = json.dumps(phases_from_log(out.with_suffix(".log")))
+            if want is None:
+                log(f"slice[{tag},{fmt}]: wall {wall:.2f} s; phases ms "
+                    + phases)
+                continue
             got = out.with_suffix(".rl_bwt" if rle else ".bwt").read_bytes()
-            if got != oracle[rle]:
-                fail(f"{backend}: {'rl_bwt' if rle else 'bwt'} differs from "
+            if got != want[rle]:
+                fail(f"{tag}: {'rl_bwt' if rle else 'bwt'} differs from "
                      f"the reference tool's ({len(got)} vs "
-                     f"{len(oracle[rle])} bytes)")
-            log(f"slice[{backend},{'rle' if rle else 'plain'}]: bytes equal "
-                f"to the reference tool's ({len(got)} bytes); wall "
-                f"{wall:.2f} s; phases ms " + json.dumps(phases_from_log(
-                    out.with_suffix(".log"))))
+                     f"{len(want[rle])} bytes)")
+            log(f"slice[{tag},{fmt}]: bytes equal to the reference tool's "
+                f"({len(got)} bytes); wall {wall:.2f} s; phases ms "
+                + phases)
         counts = dict(kernels.LAUNCHES)
         plain = {**js.REFERENCE_CALLS, **md.REFERENCE_CALLS,
                  **mj.REFERENCE_CALLS}
-        log(f"slice[{backend}]: kernel launches {counts}; plain calls "
-            f"{plain}")
+        tries = len(blocks.tries) - tries0 if blocks else None
+        log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
+            + (f"; block tries {tries}" if blocks else ""))
         if any(plain.values()):
-            fail(f"{backend}: a plain version ran on the card's main path")
+            fail(f"{tag}: a plain version ran on the card's main path")
+        if blocks and not (counts["lcp_lift"] == counts["dense_neighbors"]
+                           == tries):
+            fail(f"{tag}: the dense kernels did not carry every block try "
+                 f"({tries} tries)")
+        paths.append((backend, tag, len(formats), counts, tries))
         return counts
 
     jump_counts = run_cli("jump", "jump")
@@ -641,11 +784,125 @@ def run_phases(card: str, kind: str) -> int:
         del os.environ["CMSBWT_PROFILE"]
     sys.stderr.flush()
 
-    def row(name, source, replaces, launches, res):
-        # launches: the main path's run, the CLI plain and -r (two runs)
+    # phase 7: the blocked dense scan at the primary shape
+    bc = 4 << 20
+    with BlockLog(md) as blk:
+        run_cli("dense", "dense_blocked", ["--block-chars", str(bc)],
+                blocks=blk)
+    log(f"blocked[primary]: block_chars={bc} tries per run "
+        f"{len(blk.tries) // 2} retries {blk.retries}; blocks "
+        + json.dumps(blk.tries[:len(blk.tries) // 2]))
+    check_heads(md.ms_dense_heads_blocked_on_device(x_aug, coll.sx, "cuda",
+                                                    bc), "dense blocked")
+    torch.cuda.empty_cache()
+    for k, r in block_kernel_case("primary_4Mi_blocks", x_aug, coll.sx,
+                                  blk.tries[0]).items():
+        dense[k].append(r)
+    torch.cuda.empty_cache()
+    os.environ["CMSBWT_HBM_GB"] = "2"
+    try:
+        choice = md.dense_block_chars(len(x_aug), coll.sn,
+                                      md.dense_budget("cuda"))
+        log(f"guard: CMSBWT_HBM_GB=2 at primary (sn={coll.sn}) -> "
+            f"block_chars={choice}")
+        with BlockLog(md) as guard:
+            run_cli("dense", "dense_guard", formats=(False,), blocks=guard)
+    finally:
+        del os.environ["CMSBWT_HBM_GB"]
+    starts = sorted({t["b0"] for t in guard.tries})
+    if choice is None or starts != list(range(0, coll.sn, choice)):
+        fail(f"the guard's blocks {starts} are not those of its choice "
+             f"{choice}")
+    x2, c2 = load_inputs(str(k200k))
+    with BlockLog(md) as tiny:
+        res = md.ms_dense_heads_blocked_on_device(x2, c2.sx, "cuda",
+                                                  1 << 16, 4)
+    ref = md.ms_dense_heads_on_device(x2, c2.sx, "cuda")
+    log(f"retry[200Kbp_x8, block_chars=65536, ctx=4]: "
+        f"{len(tiny.tries)} tries, {tiny.retries} retries, h={res.h}")
+    if not tiny.retries:
+        fail("the 4-char context did not make any block retry")
+    if not same_heads(res, ref) or not all(
+            torch.equal(getattr(res, k), getattr(ref, k))
+            for k in ("ref_sa", "ref_isa", "ref_bwt")):
+        fail("the retried blocks' heads differ from the unblocked scan's")
+    del res, ref, x2, c2
+    ck = ["--block-chars", str(bc), "--checkpoint-dir", str(WORK / "ckpt")]
+    with BlockLog(md) as ck1:
+        run_cli("dense", "dense_ckpt_first", ck, formats=(False,),
+                blocks=ck1)
+    with BlockLog(md) as ck2:
+        again = run_cli("dense", "dense_ckpt_again", ck, formats=(False,),
+                        blocks=ck2)
+    if again["lcp_lift"] or again["dense_neighbors"] or not ck1.tries:
+        fail("the checkpointed rerun scanned again")
+    torch.cuda.empty_cache()
+
+    # phase 8: 500 Mchars, above the card, blocks chosen by the guard
+    t0 = time.perf_counter()
+    big = write_workload(WORK / "ecoli_rle", 42, 5_000_000, BIG_DOCS, 0.01)
+    log(f"big: wrote 5 Mbp x {BIG_DOCS} docs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kept = {}
+    scan = md.ms_dense_heads_blocked_on_device
+
+    def keep(*a, **kw):
+        kept["res"] = scan(*a, **kw)
+        return kept["res"]
+
+    md.ms_dense_heads_blocked_on_device = keep
+    os.environ["CMSBWT_PROFILE"] = "1"
+    log("big: per-block stage marks (device-synced, stderr)")
+    try:
+        with BlockLog(md) as bl:
+            t0 = time.perf_counter()
+            run_cli("dense", "dense_500M", ["--no-rle-quirk"],
+                    formats=(True,), inp=big, want=None, blocks=bl)
+            wall = time.perf_counter() - t0
+    finally:
+        del os.environ["CMSBWT_PROFILE"]
+        md.ms_dense_heads_blocked_on_device = scan
+    sys.stderr.flush()
+    xb, cb = load_inputs(str(big))
+    unblocked = md.DENSE_BYTES_PER_CHAR * (bucket_size(len(xb))
+                                           + bucket_size(cb.sn + 1))
+    log(f"big: n={len(xb)} sn={cb.sn} unblocked need {unblocked} B; "
+        f"{len(bl.tries)} block tries, {bl.retries} retries; wall "
+        f"{wall:.2f} s; run peak {bl.run_peak} B (outside the blocks: "
+        f"{bl.gap_peak} B); blocks "
+        + json.dumps(bl.tries))
+    if "res" not in kept or len(bl.tries) < 2:
+        fail("the 500 Mchar run did not go through guard-chosen blocks")
+    dres = kept.pop("res")
+    t0 = time.perf_counter()
+    jres = mj.ms_jump_heads(xb, cb.sx, "cuda")
+    log(f"big: jump heads h={jres.h} ({time.perf_counter() - t0:.2f} s); "
+        f"blocked dense heads h={dres.h} irreducible={dres.irreducible}")
+    if not same_heads(dres, jres):
+        fail("the 500 Mchar blocked heads differ from the jump scan's")
+    del dres, jres
+    torch.cuda.empty_cache()
+    for k, r in block_kernel_case("500M", xb, cb.sx, bl.tries[0]).items():
+        dense[k].append(r)
+    torch.cuda.empty_cache()
+    hist = rle_histogram(WORK / "port_dense_500M_rle.rl_bwt")
+    want_hist = np.bincount(cb.sx, minlength=256)
+    if int(hist.sum()) != cb.sn or not np.array_equal(hist, want_hist):
+        fail(f"the 500 Mchar .rl_bwt decodes to {int(hist.sum())} chars "
+             f"(sn {cb.sn}) or another byte histogram")
+    log(f"big: .rl_bwt decodes to sn={cb.sn} chars with the collection's "
+        "byte histogram")
+    del xb, cb
+
+    def row(name, source, replaces, route, res):
+        runs = [(tag, k, c[name], t) for r, tag, k, c, t in paths
+                if r == route]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "launches_per_run": launches / 2,
+                "replaces": replaces,
+                "launches": sum(c for _, _, c, _ in runs),
+                "launches_by_run": [
+                    {"run": tag, "cli_runs": k, "launches": c,
+                     "block_tries": t} for tag, k, c, t in runs],
                 "max_abs_err": max(r["err"] for r in res),
                 "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
                 "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
@@ -654,14 +911,12 @@ def run_phases(card: str, kind: str) -> int:
     csrc = "cmsbwt_tpu_torch/kernels/csrc/"
     log(json.dumps({"kernels": [
         row("ms_jump_scan", csrc + "ms_jump_scan.cu",
-            "docs/retired_pallas_scan.py:525", jump_counts["ms_jump_scan"],
-            [prim]),
+            "docs/retired_pallas_scan.py:525", "jump", [prim]),
         row("lcp_lift", csrc + "lcp_lift.cu",
-            "cmsbwt_tpu/ops/joint_sa.py:429", dense_counts["lcp_lift"],
+            "cmsbwt_tpu/ops/joint_sa.py:429", "dense",
             dense["lcp_lift"] + dense["lcp_lift_rho_pad"]),
         row("dense_neighbors", csrc + "dense_neighbors.cu",
-            "cmsbwt_tpu/ops/ms_dense.py:366",
-            dense_counts["dense_neighbors"],
+            "cmsbwt_tpu/ops/ms_dense.py:366", "dense",
             dense["dense_neighbors"] + nb_cases)]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {

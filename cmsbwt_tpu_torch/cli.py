@@ -50,18 +50,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default %(default)s)")
     p.add_argument("--block-chars", type=int, default=None,
                    help="dense backend: stream the collection in blocks of "
-                        "this many chars (not ported yet: rejected)")
+                        "this many chars (default: one joint sort, or blocks "
+                        "sized by the memory guard when that would not fit "
+                        "the device's free memory or CMSBWT_HBM_GB)")
     p.add_argument("--parallel", action="store_true",
                    help="fan dense blocks out over all local devices (not "
-                        "ported yet: rejected)")
+                        "ported yet: rejected, ROADMAP.md queue 1 item 11)")
     p.add_argument("--merge-backend",
                    choices=["auto", "host", "device", "sharded"],
                    default="auto",
                    help="downstream merge engine (auto = device, the only "
                         "one ported so far)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="phase-boundary checkpoint/resume directory (not "
-                        "ported yet: rejected)")
+                   help="dense backend: checkpoint/resume directory; each "
+                        "finished block of the scan (unblocked: the whole "
+                        "collection as one block) is saved there, and a "
+                        "rerun loads it instead of scanning it")
     p.add_argument("--no-rle-quirk", action="store_true",
                    help="emit exact RLE(plain) instead of replicating the "
                         "reference RLE writer's multi-class residual bytes")

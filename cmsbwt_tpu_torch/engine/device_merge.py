@@ -47,12 +47,34 @@ def sn_bound() -> int:
     return int(os.environ.get("CMSBWT_SN_BOUND", 1 << 31))
 
 
+# Peak device bytes of merge_device per collection char (torch's
+# max_memory_allocated outside the dense scan's blocks, over sn), measured
+# on an NVIDIA H100 80GB HBM3, 700 W: 88.3 at the 500 Mchar shape (44.2 GB;
+# h = 34.9 M heads, P = 446 M tail pairs); 96 leaves ~8% to spare. The
+# merge is not blocked, so this bounds the collections one card takes
+# (~0.88 Gchars on 84 GB free; PERF.md).
+MERGE_BYTES_PER_CHAR = 96
+
+
+def merge_memory_check(sn: int, free_bytes: float) -> None:
+    """Refuse a collection whose device merge would not fit ``free_bytes``
+    of device memory: the merge that would take it, on the host, is not
+    ported yet."""
+    need = MERGE_BYTES_PER_CHAR * sn
+    if need > free_bytes:
+        raise NotImplementedError(
+            f"collection has {sn} chars: the device merge needs ~{need} B "
+            f"({MERGE_BYTES_PER_CHAR} B per char) and the device has "
+            f"{int(free_bytes)} B free; the host merge for such inputs is "
+            "not ported yet (ROADMAP.md queue 1 item 9)")
+
+
 def _check_sn(sn: int) -> None:
     if sn >= sn_bound():
         raise ValueError(
             f"collection has {sn} chars >= the device merge's int32 bound "
             f"({sn_bound()}): the int64-safe route (blocked scan + host "
-            "merge) is not ported yet (ROADMAP.md)")
+            "merge) is not ported yet (ROADMAP.md queue 1 item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -360,48 +382,47 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     pidx = _ar(p_pad, slot_base)
     total = int(pairs["total"])
     pvalid = pidx < total
-    # per-pair class attributes by a packed max-scatter at each class's
-    # first pair, forward-filled by cummax: ((off+1) << 33) | payload
-    first = cvalid & (cnt > 0)
-    mk = (off.to(I64) + 1) << 33
-    pay = torch.stack([
-        (pairs["pair_lo"] - off + p_pad).to(I64),
-        ((cls["length"].to(I64) + cls["pos"].to(I64)) << 1)
-        | cls["smaller"].to(I64),
-        cls["isa_next"].to(I64),
-        cls["size"].to(I64),
-        cidx.to(I64) + 1,
-    ])
-    base = torch.full((5, p_pad), -1, dtype=I64, device=dev)
-    keep = first & _in_range(off, p_pad)
-    base.scatter_reduce_(1, off[keep].long().expand(5, -1),
-                         (mk[None, :] | pay)[:, keep], reduce="amax",
-                         include_self=True)
-    filled = torch.cummax(base, 1).values & ((1 << 33) - 1)
-    b_idx = (pidx + filled[0] - p_pad).to(I32)
+    # each pair's class: the one whose pair range [off, off + cnt) holds
+    # it, found by a binary search over the range ends; pad pairs take the
+    # last class with pairs. (The JAX stage forward-fills packed class
+    # attributes over 5 x p_pad int64 rows; at P ~ 4.5e8 pairs those rows
+    # and their running max alone would take ~70 GB.)
+    c_p = torch.searchsorted(off + cnt, pidx, right=True)
+    last = int(torch.nonzero(cnt > 0)[-1]) if total else 0
+    c_p = torch.where(pvalid, c_p, last)
+    b_idx = (pidx + (pairs["pair_lo"] - off).to(I64)[c_p]).to(I32)
     b = pairs["bucket_pos"][torch.clamp(b_idx, 0, h_pad - 1)]
-    s1s = filled[1]
-    q_len = ((s1s >> 1) - b.to(I64)).to(I32)
-    q_small = (s1s & 1) != 0
-    q_isa = filled[2].to(I32)
-    q_size = filled[3].to(I32)
-    src_cls = torch.clamp(filled[4].to(I32) - 1, 0, h_pad - 1)
-    q_k = _w32(q_small, q_len, 2 * n - q_len)
+    del b_idx
+    q_len = ((cls["length"].to(I64) + cls["pos"].to(I64))[c_p]
+             - b.to(I64)).to(I32)
+    q_k = _w32(cls["smaller"][c_p], q_len, 2 * n - q_len)
+    del q_len
+    q_k2 = _w64(pvalid, q_k.to(I64) * (n + 1)
+                + cls["isa_next"][c_p].to(I64), I64_BIG)
+    del q_k
+    q_size = cls["size"][c_p].to(I32)
+    src_cls = c_p.to(I32)
+    del c_p
     # global join: targets = classes (pos, K*(n+1)+isa), queries = pairs;
     # the tie flag (queries before equal targets) is key2's low bit
     t_k2 = _w64(cvalid, cls["key_k"].to(I64) * (n + 1)
                 + cls["isa_next"].to(I64), I64_BIG)
-    q_k2 = _w64(pvalid, q_k.to(I64) * (n + 1) + q_isa.to(I64), I64_BIG)
     key1 = _cat(_w32(cvalid, cls["pos"], INT_MAX), _w32(pvalid, b, INT_MAX))
+    del b
     key2f = _cat(_w64(cvalid, (t_k2 << 1) | 1, I64_BIG),
                  _w64(pvalid, q_k2 << 1, I64_BIG))
+    del t_k2, q_k2
     srcidx = _cat(cidx, pidx)
     paycat = _cat(slot_base[:h_pad], q_size)
+    del pidx, pvalid, q_size
     perm = _lexsort(key1, key2f)
-    k1s, k2fs, i_s, pay_s = key1[perm], key2f[perm], srcidx[perm], \
-        paycat[perm]
+    k1s, i_s, pay_s = key1[perm], srcidx[perm], paycat[perm]
+    del key1, srcidx, paycat
+    k2fs = key2f[perm]
+    del key2f, perm
     f_s = (k2fs & 1).to(I32)
     k2s = k2fs >> 1
+    del k2fs
     # nearest at-or-after target's attributes for every row, by packed
     # (row << 31 | payload) suffix minima
     jn_pad = h_pad + p_pad
@@ -416,23 +437,32 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     fp = rev_fill(k1s)
     f_pos = (fp & LOW31).to(I32)
     t_row = (fp >> 31).to(I32)
+    del fp
     f_cls = (rev_fill(i_s) & LOW31).to(I32)
     change_next = _cat((k1s[1:] != k1s[:-1]) | (k2s[1:] != k2s[:-1]),
                        _full(1, True, torch.bool, k1s))
+    del k2s
     run_end = _suffix_min(_w32(change_next, rowsi, jn_pad))
+    del change_next, rowsi
     is_q = f_s == 0
     # pad rows (class and query alike) carry k1 == INT_MAX and never pass
     in_range_s = is_q & (f_pos == k1s) & (k1s < INT_MAX)
+    del is_q, f_pos, k1s
     exact_s = in_range_s & (t_row <= run_end)
+    del t_row, run_end
     good_s = in_range_s & ~exact_s
+    del in_range_s
     # good-path credit: cumsum difference at each target row
     gcum = torch.cumsum(_w64(good_s, pay_s, 0), 0)
-    prev_t = _cat(_full(1, -1, I64, gcum),
-                  _cummax(_w64(f_s == 1, rows, -1))[:-1])
+    del good_s
+    is_t = f_s == 1
+    prev_t = _cat(_full(1, -1, I64, gcum), _cummax(_w64(is_t, rows, -1))[:-1])
+    del rows
     pt = torch.clamp(prev_t, 0, jn_pad - 1)
     base_cum = _w64(prev_t >= 0, gcum[pt], 0)
+    del pt, prev_t
     credit = (gcum - base_cum).to(I32)
-    is_t = f_s == 1
+    del gcum, base_cum
     counter = torch.zeros(h_pad + 2, dtype=I32, device=dev)
     _add(counter, pay_s, credit, is_t & _in_range(pay_s, h_pad + 2))
     n_exact = int(exact_s.sum())
@@ -710,3 +740,4 @@ def merge_heads_device_resident(dres, d: int, rle_quirk: bool,
         dres.head_t, dres.head_pos, dres.head_len, dres.head_smaller,
         dres.head_char, dres.ref_sa, dres.ref_isa, dres.ref_bwt,
         dres.h, dres.n, dres.sn, d, rle_quirk, want_counter=want_counter)
+

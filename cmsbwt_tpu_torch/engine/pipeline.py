@@ -4,13 +4,19 @@ cmsbwt_tpu/engine/pipeline.py, for the routes ported so far:
 * backend=jump: parse (io/fasta.py) -> build_device_index ->
   ms_jump_heads (the CUDA ``ms_jump_scan`` kernel on a CUDA device) ->
   merge_heads_device_resident -> _write_outputs
-* backend=dense (unblocked, one device): parse -> ms_dense_heads_on_device
-  (joint suffix sort; the CUDA ``lcp_lift`` and ``dense_neighbors``
-  kernels on a CUDA device) -> merge_heads_device_resident ->
-  _write_outputs
+* backend=dense, one device: parse -> ms_dense_heads_on_device, or
+  ms_dense_heads_blocked_on_device with ``dense_block_chars``, when the
+  memory guard finds that the unblocked scan does not fit, or with
+  ``checkpoint_dir`` (each finished block saved there; unblocked, the
+  whole collection is one block) (joint suffix sort; the CUDA ``lcp_lift``
+  and ``dense_neighbors`` kernels on a CUDA device) ->
+  merge_heads_device_resident -> _write_outputs
 
-Other backends and merge engines raise NotImplementedError naming their
-ROADMAP.md entry; nothing silently routes elsewhere.
+On a CUDA device a collection whose merge would not fit the card's free
+memory is refused before the scan (device_merge.merge_memory_check).
+
+Other backends, merge engines and options raise NotImplementedError naming
+their ROADMAP.md entry; nothing silently routes elsewhere.
 """
 from __future__ import annotations
 
@@ -69,13 +75,10 @@ def _check_route(cfg: Config) -> None:
             f"merge_backend={cfg.merge_backend!r} is not ported yet: "
             f"ROADMAP.md {_NOT_PORTED.get(cfg.merge_backend, 'queue 1')}; "
             "use merge_backend='device'")
-    for opt, given in (("dense_block_chars", cfg.dense_block_chars),
-                       ("dense_parallel", cfg.dense_parallel),
-                       ("checkpoint_dir", cfg.checkpoint_dir)):
-        if given not in (None, False):
-            raise NotImplementedError(
-                f"{opt} is not ported yet: ROADMAP.md queue 1 item 7 (the "
-                "blocked dense scan and its checkpoints)")
+    if cfg.dense_parallel:
+        raise NotImplementedError(
+            "dense_parallel is not ported yet: ROADMAP.md queue 1 item 11 "
+            "(multi-device)")
 
 
 def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
@@ -106,7 +109,8 @@ def compute_bwt(cfg: Config, device) -> dict:
     _check_route(cfg)
     from ..index.device import build_device_index
     from ..ops.ms_jump import ms_jump_heads
-    from .device_merge import merge_heads_device_resident, sn_bound
+    from .device_merge import (merge_heads_device_resident,
+                               merge_memory_check, sn_bound)
 
     timer = PhaseTimer()
     outname = cfg.resolved_outname()
@@ -121,19 +125,38 @@ def compute_bwt(cfg: Config, device) -> dict:
     if coll.sn >= sn_bound():
         raise ValueError(
             f"collection has {coll.sn} chars (>= the int32 bound "
-            f"{sn_bound()}): backend={cfg.backend} uses int32 device scans")
+            f"{sn_bound()}): backend={cfg.backend} uses int32 device scans "
+            "and the device merge; the int64 route (blocked scan + host "
+            "merge) is not ported yet (ROADMAP.md queue 1 item 9)")
+
+    if device.type == "cuda":
+        # the merge is not blocked: refuse what it cannot hold before the
+        # scan runs
+        merge_memory_check(coll.sn, torch.cuda.mem_get_info(device)[0])
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     if cfg.backend == "dense":
-        from ..ops.ms_dense import (dense_memory_check,
-                                    ms_dense_heads_on_device)
-        if device.type == "cuda":
-            dense_memory_check(n, coll.sn, torch.cuda.mem_get_info(device)[0])
+        from ..ops import ms_dense as md
+        block_chars, ctx = cfg.dense_block_chars, cfg.dense_ctx_chars
+        if block_chars is None:
+            # memory guard: above the budget the scan streams in blocks
+            block_chars = md.dense_block_chars(n, coll.sn,
+                                               md.dense_budget(device))
+        ckpt = None
+        if cfg.checkpoint_dir:
+            if block_chars is None:
+                block_chars, ctx = coll.sn, 0   # the unblocked scan's window
+            ckpt = md.BlockCheckpoints(cfg.checkpoint_dir,
+                                       _dense_fingerprint(cfg), block_chars)
         with timer.phase("ms_scan"), maybe_torch_trace("ms_scan"):
-            heads = ms_dense_heads_on_device(x_aug, coll.sx, device)
+            if block_chars:
+                heads = md.ms_dense_heads_blocked_on_device(
+                    x_aug, coll.sx, device, block_chars, ctx, ckpt)
+            else:
+                heads = md.ms_dense_heads_on_device(x_aug, coll.sx, device)
             sync()
     else:
         with timer.phase("build_index"):
@@ -151,6 +174,16 @@ def compute_bwt(cfg: Config, device) -> dict:
     result = PipelineResult(run_len=run_len, run_char=run_char, d=coll.d,
                             sn=coll.sn, h=heads.h, counter=counter)
     return _write_outputs(cfg, outname, n, result, timer)
+
+
+def _dense_fingerprint(cfg: Config) -> str:
+    """The JAX pipeline's checkpoint fingerprint of a dense run (its
+    pipeline.py:327-330): the two input files' stamps and the prefix."""
+    from ..utils.checkpoint import CheckpointManager, file_stamp
+    ref_path, coll_path = fasta.read_input_list(cfg.filename)
+    return CheckpointManager.fingerprint(
+        ref=file_stamp(ref_path), coll=file_stamp(coll_path),
+        prefix=cfg.prefix_length, phase="dense_heads")
 
 
 def _write_outputs(cfg: Config, outname: str, n: int,

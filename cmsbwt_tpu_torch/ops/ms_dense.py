@@ -1,10 +1,15 @@
 """Dense matching statistics — the counterpart of cmsbwt_tpu/ops/ms_dense.py
-for its unblocked device-resident scan (``ms_dense_heads_on_device``):
+for its device-resident scans, unblocked (``ms_dense_heads_on_device``) and
+blocked (``ms_dense_heads_blocked_on_device``, optionally with per-block
+checkpoints in the JAX package's ``.npz`` layout):
 
 joint string -> joint_suffix_array -> irreducible slots -> lift (CUDA
 ``lcp_lift``) -> PLCP fill -> neighbor scans (CUDA ``dense_neighbors``) ->
 assemble -> postprocess -> compact -> finish, into the DeviceHeadsResult
-that engine/device_merge.py consumes.
+that engine/device_merge.py consumes. The blocked scans run that chain
+once per block of the collection (the whole reference plus the block and
+a right context), and retry a block with its context doubled when a match
+may have been cut by the end of the loaded window.
 
 The JAX code applies every permutation by sorting (a TPU sorts faster than
 it scatters); here a permutation is a gather or a scatter with unique
@@ -18,6 +23,8 @@ kernel; ``_neighbors`` picks between them by the device of its tensors.
 """
 from __future__ import annotations
 
+import os
+import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,10 +43,12 @@ LOW30 = (1 << 30) - 1
 
 # Peak device bytes per joint char of a dense CLI run (torch's
 # max_memory_allocated over m), measured on an NVIDIA H100 80GB HBM3,
-# 700 W: 224.2 at the ecoli_dense shape (m = 111 M, narrow seed), 216 at
-# the primary shape (wide seed). The pipeline refuses an unblocked scan
-# that would not fit the free device memory (PERF.md).
-DENSE_BYTES_PER_CHAR = 225
+# 700 W: 216 at the primary shape (wide seed), 224.2 at the ecoli_dense
+# shape (m = 111 M, narrow seed), 233.2-235.5 per block of m = 272 M at
+# the 500 Mchar shape (a deeper rank history); 240 holds the largest with
+# ~2% to spare. Above the budget the pipeline runs the blocked scan, with
+# blocks sized by dense_block_chars (PERF.md).
+DENSE_BYTES_PER_CHAR = 240
 
 # calls of the plain neighbor scans (the CUDA wrapper keeps its own count)
 REFERENCE_CALLS = {"neighbors_reference": 0}
@@ -284,27 +293,41 @@ def _assemble(sa, pred_pos, succ_pos, a, b, n: int, sn: int, m: int,
     return pos, length, smaller, ref_sa, ref_isa
 
 
-def _postprocess(b, pos, length, smaller, n: int, sn: int, n_pad: int,
-                 sn_pad: int):
-    """Separator fixup, head flags (pos != prev + 1), the head count and
-    the head char (previous collection byte, cyclic)."""
+def _postprocess_block(b, pos, length, smaller, n: int, emit_len: int,
+                       prev_pos0: int, prev_b0: int, n_pad: int,
+                       sn_pad: int):
+    """Separator fixup, head flags (pos != prev + 1), head chars (the
+    previous collection byte) and the context check of one joint string,
+    emitting only its first ``emit_len`` collection positions
+    (ms_dense.py:935-965). ``prev_pos0`` is the pos before the first
+    position (the previous block's last, -2 for none) and ``prev_b0`` the
+    byte before it. ``viol``: a match reaches within 2 chars of the loaded
+    window (the non-pad bytes), so it may have been cut there. Returns
+    (pos, length, smaller, is_head, char, h, viol, last_pos), the three
+    scalars in one host read. The unblocked scan is the case emit_len = sn,
+    prev_pos0 = -2 and prev_b0 the collection's last byte (cyclic)."""
     bc = b[n_pad:n_pad + sn_pad]
     tidx = _ar(sn_pad, b)
-    valid = tidx < sn
+    valid = tidx < emit_len
     sep = valid & (bc == SEPARATOR)
     pos = torch.where(sep, n - 1, pos).to(I32)
     length = torch.where(sep, 0, length).to(I32)
-    is_head = valid & (pos != _shift_in(pos, -2) + 1)
+    is_head = valid & (pos != _shift_in(pos, prev_pos0) + 1)
     smaller = smaller & is_head & ~sep
-    h = int(is_head.sum())
-    prev_b = _shift_in(bc, bc[max(sn - 1, 0)])
-    return pos, length, smaller, is_head, h, prev_b
+    char = _shift_in(bc, prev_b0)
+    sn_block = (bc != 255).sum()
+    viol = (valid & (tidx + length + 2 > sn_block)).any()
+    h, viol, last_pos = torch.stack([
+        is_head.sum(), viol.to(I64),
+        pos[max(emit_len - 1, 0)].to(I64)]).tolist()
+    return pos, length, smaller, is_head, char, h, bool(viol), last_pos
 
 
 def _compact_heads_raw(pos, length, smaller, is_head, char, sn_pad: int,
                        h_pad: int):
     """Heads in text order, then the other positions in text order, cut to
-    h_pad: (t, pos, len, smaller, char int32)."""
+    h_pad: (t, pos, len, smaller, char int32). The JAX package's
+    _compact_heads is the same function."""
     tidx = _ar(sn_pad, pos)
     order = torch.cat([tidx[is_head], tidx[~is_head]])[:h_pad].long()
     return (order.to(I32), pos[order], length[order], smaller[order],
@@ -312,9 +335,10 @@ def _compact_heads_raw(pos, length, smaller, is_head, char, sn_pad: int,
 
 
 def _finish_for_merge(t, pos, length, smaller, char, ref_sa, ref_isa,
-                      b_joint, n: int, h: int, h_pad: int, n_pad: int):
-    """Zero-fill the pads and compute the reference BWT from the joint
-    bytes' [0, n) prefix (ref CMS-BWT-functions.cpp:294-297)."""
+                      x, n: int, h: int, h_pad: int, n_pad: int):
+    """Zero-fill the pads and compute the reference BWT from the reference
+    bytes, the [0, n) prefix of ``x`` (the joint string, or the reference
+    as uploaded; ref CMS-BWT-functions.cpp:294-297)."""
     def hpad(a, dtype):
         out = torch.zeros(h_pad, dtype=dtype, device=a.device)
         k = min(h, a.shape[0])
@@ -324,7 +348,7 @@ def _finish_for_merge(t, pos, length, smaller, char, ref_sa, ref_isa,
     rkeep = _ar(n_pad, ref_sa) < n
     ref_sa = torch.where(rkeep, ref_sa, 0).to(I32)
     ref_isa = torch.where(rkeep, ref_isa, 0).to(I32)
-    x = b_joint[:n_pad]
+    x = x[:n_pad]
     ref_bwt = torch.where(rkeep & (ref_sa > 0),
                           x[torch.clamp(ref_sa - 1, 0, n_pad - 1).long()],
                           0).to(torch.uint8)
@@ -333,46 +357,51 @@ def _finish_for_merge(t, pos, length, smaller, char, ref_sa, ref_isa,
             ref_isa, ref_bwt)
 
 
-def dense_memory_check(n: int, sn: int, free_bytes: int) -> None:
-    """Refuse an unblocked dense scan whose measured peak
-    (DENSE_BYTES_PER_CHAR per joint char) exceeds ``free_bytes``."""
-    m_est = bucket_size(n) + bucket_size(sn + 1)
-    need = DENSE_BYTES_PER_CHAR * m_est
-    if need > free_bytes:
-        raise NotImplementedError(
-            f"the unblocked dense scan needs ~{need / 2**30:.1f} GiB for "
-            f"{m_est} joint chars ({DENSE_BYTES_PER_CHAR} B/char) but "
-            f"{free_bytes / 2**30:.1f} GiB are free: the blocked dense scan "
-            "is not ported yet (ROADMAP.md queue 1 item 7)")
-
-
-def joint_string(x_aug: np.ndarray, sx: np.ndarray, device):
-    """Upload the bytes and build the joint string on ``device``: returns
-    (b, sp, wide, n_pad, sn_pad, m), ``wide`` the JAX package's seed
-    choice for this input."""
-    n, sn = len(x_aug), len(sx)
-    n_pad, sn_pad, m = joint_geometry(n, sx)
-    x_u8 = torch.zeros(n_pad, dtype=torch.uint8, device=device)
-    x_u8[:n] = torch.from_numpy(np.ascontiguousarray(x_aug, np.uint8))
-    sx_u8 = torch.zeros(sn_pad, dtype=torch.uint8, device=device)
-    sx_u8[:sn] = torch.from_numpy(np.ascontiguousarray(sx, np.uint8))
-    wide = wide_seed_ok(x_u8[:n], sx_u8[:sn], m)
-    b, sp = _build_joint_core(x_u8, sx_u8, n, sn, 0, n_pad, sn_pad)
-    return b, sp, wide, n_pad, sn_pad, m
-
-
-def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
-                             device) -> DeviceHeadsResult:
-    """Dense MS of ``sx`` against ``x_aug`` on ``device`` whose result
-    stays there for the device merge; only scalars (rho, h) reach the
-    host. Equal to the JAX ms_dense_heads_on_device field for field.
-    CMSBWT_PROFILE=1 prints device-synced stage marks."""
+def dense_budget(device) -> float | None:
+    """Device bytes the dense scan may use: ``CMSBWT_HBM_GB`` GiB when
+    set (as in the JAX package), else the free memory of a CUDA device;
+    None on the CPU, which has no such reading."""
+    gb = os.environ.get("CMSBWT_HBM_GB")
+    if gb:
+        return float(gb) * 2**30
     device = torch.device(device)
-    mark = stage_timer(device)
-    n, sn = len(x_aug), len(sx)
-    b, sp, wide, n_pad, sn_pad, m = joint_string(x_aug, sx, device)
-    mark("build_joint")
+    if device.type == "cuda":
+        return float(torch.cuda.mem_get_info(device)[0])
+    return None
 
+
+def dense_block_chars(n: int, sn: int, budget: float | None) -> int | None:
+    """The JAX pipeline's memory guard (pipeline.py:341-354) at the port's
+    measured DENSE_BYTES_PER_CHAR: None when the unblocked scan fits
+    ``budget`` bytes (or there is no budget), else the block size of the
+    blocked scan, 60% of what the budget leaves beside the reference (at
+    least 8 Mi chars)."""
+    if budget is None:
+        return None
+    m_est = bucket_size(n) + bucket_size(sn + 1)
+    if DENSE_BYTES_PER_CHAR * m_est <= budget:
+        return None
+    return max(8 << 20,
+               int((budget / DENSE_BYTES_PER_CHAR - bucket_size(n)) * 0.6))
+
+
+def upload_bytes(a: np.ndarray, size: int, device) -> torch.Tensor:
+    """``a`` (uint8) zero-padded to ``size`` bytes on ``device``."""
+    out = torch.zeros(size, dtype=torch.uint8, device=device)
+    out[:len(a)] = torch.from_numpy(np.ascontiguousarray(a, np.uint8))
+    return out
+
+
+def _dense_stages(x_u8, sx_u8, n: int, sn: int, sep_base: int, wide: bool,
+                  mark):
+    """The joint string of the padded reference and collection bytes and
+    the stages from the joint sort to the per-position MS, each tensor
+    freed once the next stage no longer needs it. Returns (b, pos, length,
+    smaller, ref_sa, ref_isa, rho)."""
+    n_pad, sn_pad = x_u8.shape[0], sx_u8.shape[0]
+    m = n_pad + sn_pad
+    b, sp = _build_joint_core(x_u8, sx_u8, n, sn, sep_base, n_pad, sn_pad)
+    mark("build_joint")
     sa, isa, hist, packs, _, split_lv = joint_suffix_array(b, sp, m, wide)
     mark("joint_sa")
     stats, ai_all, bi_all, lv_all = _irreducible_slots(
@@ -394,10 +423,28 @@ def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
     mark("neighbors")
     pos, length, smaller, ref_sa, ref_isa = _assemble(
         sa, pred_pos, succ_pos, av, bv, n, sn, m, n_pad, sn_pad)
-    del sa, pred_pos, succ_pos, av, bv
     mark("assemble")
-    pos, length, smaller, is_head, h, char = _postprocess(
-        b, pos, length, smaller, n, sn, n_pad, sn_pad)
+    return b, pos, length, smaller, ref_sa, ref_isa, rho
+
+
+def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
+                             device) -> DeviceHeadsResult:
+    """Dense MS of ``sx`` (non-empty) against ``x_aug`` on ``device`` whose
+    result stays there for the device merge; only scalars (rho, h) reach
+    the host. Equal to the JAX ms_dense_heads_on_device field for field.
+    CMSBWT_PROFILE=1 prints device-synced stage marks."""
+    device = torch.device(device)
+    mark = stage_timer(device)
+    n, sn = len(x_aug), len(sx)
+    n_pad, sn_pad, m = joint_geometry(n, sx)
+    x_u8 = upload_bytes(x_aug, n_pad, device)
+    sx_u8 = upload_bytes(sx, sn_pad, device)
+    wide = wide_seed_ok(x_u8[:n], sx_u8[:sn], m)
+    b, pos, length, smaller, ref_sa, ref_isa, rho = _dense_stages(
+        x_u8, sx_u8, n, sn, 0, wide, mark)
+    del sx_u8
+    pos, length, smaller, is_head, char, h, _, _ = _postprocess_block(
+        b, pos, length, smaller, n, sn, -2, int(sx[sn - 1]), n_pad, sn_pad)
     mark("postprocess")
     h_pad = bucket_size(h + 1)
     ch_pad = min(h_pad, sn_pad + 1)
@@ -413,3 +460,258 @@ def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
         head_t=t, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
         head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,
         h=h, n=n, sn=sn, irreducible=rho)
+
+
+# ---------------------------------------------------------------------------
+# Blocked execution (ms_dense.py:871-1318)
+# ---------------------------------------------------------------------------
+#
+# The collection is processed in blocks of block_chars with a right context.
+# Exactness: every emitted quantity is an endpoint property — pred/succ are
+# decided by suffix-vs-reference comparisons that resolve within mslen+1
+# chars, and A/B equal lcp(suffix, neighbor-ref) by the range-min identity,
+# independent of the (possibly truncated) suffixes in between. A match that
+# may have been truncated runs into the end of the loaded window; the block
+# is then retried with its context doubled. Head flags chain across blocks
+# through the previous block's last pos, head chars through the byte before
+# the block, separator ranks through the separators before it.
+
+class _SepCounter:
+    """Separators before a block start, counted incrementally (per-block
+    count_nonzero, O(block)); block starts are non-decreasing (a retry
+    re-enters with the same start), and a smaller one restarts the count."""
+
+    def __init__(self, sx):
+        self.sx = sx
+        self.pos = 0
+        self.cnt = 0
+
+    def before(self, b0: int) -> int:
+        if b0 < self.pos:
+            self.pos = 0
+            self.cnt = 0
+        if b0 > self.pos:
+            self.cnt += int(np.count_nonzero(
+                self.sx[self.pos:b0] == SEPARATOR))
+            self.pos = b0
+        return self.cnt
+
+
+def _pow2_pad(x: int) -> int:
+    return 1 << max(4, (max(x, 1) - 1).bit_length())
+
+
+def block_pad(block_chars: int, ctx: int, window: np.ndarray) -> int:
+    """The collection part of a block's joint string (ms_dense.py:
+    1204-1209): one bucket for every block of a scan (the short last one
+    too), one bucket more when the loaded ``window`` fills it and does not
+    end in a separator (the joint string must end with a special)."""
+    bs_pad = bucket_size(block_chars + ctx)
+    if bs_pad == len(window) and window[-1] != SEPARATOR:
+        bs_pad = bucket_size(bs_pad + 1)
+    return bs_pad
+
+
+# stage marks of _dense_stages under the JAX blocked scan's names; the
+# unnamed ones fold into the next named one
+_BLOCK_MARKS = {"build_joint": "blk_build", "joint_sa": "blk_jsa",
+                "irreducible": "blk_irr", "fill_ell": "blk_lift",
+                "assemble": "blk_nbr_asm"}
+
+
+def _block_marks(mark):
+    def blk(name):
+        stage, paren, rest = name.partition("(")
+        if stage in _BLOCK_MARKS:
+            mark("  " + _BLOCK_MARKS[stage] + paren + rest)
+    return blk
+
+
+def _scan_block(x_u8, sx: np.ndarray, n: int, *, b0: int, end: int,
+                emit_len: int, bs_pad: int, sep_base: int, prev_pos0: int,
+                prev_b0: int, mark):
+    """One try of one block: the collection window sx[b0:end] against the
+    resident reference ``x_u8``, the wide seed where the JAX predicate
+    allows it for this window. Returns None when a match may have been cut by
+    the window's end and the window can still grow; else (heads compacted
+    to ch_pad rows, h, rho, last_pos, ref_sa, ref_isa). Every other tensor
+    of the block is freed on return."""
+    n_pad = x_u8.shape[0]
+    window = end - b0
+    sx_u8 = upload_bytes(sx[b0:end], bs_pad, x_u8.device)
+    mark("    blk_put")
+    wide = wide_seed_ok(x_u8[:n], sx_u8[:window], n_pad + bs_pad)
+    b, pos, length, smaller, ref_sa, ref_isa, rho = _dense_stages(
+        x_u8, sx_u8, n, window, sep_base, wide, _block_marks(mark))
+    del sx_u8
+    pos, length, smaller, is_head, char, h, viol, last_pos = \
+        _postprocess_block(b, pos, length, smaller, n, emit_len, prev_pos0,
+                           prev_b0, n_pad, bs_pad)
+    mark("  blk_post")
+    if viol and end < len(sx):
+        return None
+    heads = _compact_heads_raw(pos, length, smaller, is_head, char, bs_pad,
+                               min(_pow2_pad(h + 1), bs_pad))
+    return heads, h, rho, last_pos, ref_sa, ref_isa
+
+
+def _block_with_retries(x_u8, sx: np.ndarray, n: int, b0: int,
+                        emit_len: int, block_chars: int, ctx: int,
+                        sep_base: int, prev_pos0: int, prev_b0: int,
+                        mark):
+    """_scan_block with the adaptive context: doubled until no match
+    reaches the window's end, or the window reaches the collection's."""
+    while True:
+        end = min(b0 + emit_len + ctx, len(sx))
+        out = _scan_block(
+            x_u8, sx, n, b0=b0, end=end, emit_len=emit_len,
+            bs_pad=block_pad(block_chars, ctx, sx[b0:end]),
+            sep_base=sep_base, prev_pos0=prev_pos0, prev_b0=prev_b0,
+            mark=mark)
+        if out is not None:
+            return out
+        print(f"#   block@{b0}: context overflow, retry ctx {ctx} -> "
+              f"{ctx * 2}", file=sys.stderr)
+        ctx *= 2
+        if x_u8.device.type == "cuda":
+            # the larger retry must not find the cache holding the
+            # freed block's segments
+            torch.cuda.empty_cache()
+
+
+def _default_ctx(block_chars: int, ctx_chars: int | None) -> int:
+    return max(1 << 16, block_chars // 8) if ctx_chars is None else ctx_chars
+
+
+def _block_progress(sn: int):
+    """Throughput progress of a blocked scan (chars done, Mchars/s)."""
+    from ..utils.logging import Progress, get_logger
+    return Progress(get_logger(), sn)
+
+
+class BlockCheckpoints:
+    """Per-block head persistence of the blocked scan (ms_dense.py:886-918)
+    in the JAX package's layout: one ``.npz`` per finished block, keyed by
+    (fingerprint, block_chars, block start), holding the block's heads (t
+    global, int64 positions), rho, its last pos, and for the first block
+    the reference order; either package resumes from the other's files.
+    The restartable form of the reference's ``.phrases`` spill (ref
+    CMS-BWT-functions.cpp:1135-1416)."""
+
+    def __init__(self, directory: str, fingerprint: str, block_chars: int):
+        from ..utils.checkpoint import CheckpointManager
+        self.mgr = CheckpointManager(directory)
+        self.fp = f"{fingerprint}:b{block_chars}"
+
+    def load(self, b0: int, device, n_pad: int):
+        """A saved block as device tensors: ((t, pos, len, smaller, char),
+        rho, last_pos, ref_sa, ref_isa), the reference order zero-padded to
+        n_pad (None past the first block); None when it was not saved."""
+        data = self.mgr.load(f"dense_block_{b0}", self.fp)
+        if data is None:
+            return None
+        dev = lambda a, dt: torch.from_numpy(a).to(device=device, dtype=dt)
+        # the dtypes of _compact_heads_raw's columns
+        heads = tuple(dev(data[k], dt) for k, dt in (
+            ("t", I32), ("pos", I32), ("length", I32),
+            ("smaller", torch.bool), ("char", I32)))
+        ref = [None, None]
+        if "ref_sa" in data:
+            for i, k in enumerate(("ref_sa", "ref_isa")):
+                ref[i] = torch.zeros(n_pad, dtype=I32, device=device)
+                ref[i][:len(data[k])] = dev(data[k], I32)
+        return heads, int(data["rho"]), int(data["last_pos"]), *ref
+
+    def save(self, b0: int, heads, rho: int, last_pos: int, ref_sa=None,
+             ref_isa=None) -> None:
+        """Save a finished block: its h_b heads (t global) and, for the
+        first block, the reference order's first n entries."""
+        t, pos, length, smaller, char = (a.cpu().numpy() for a in heads)
+        arrays = dict(t=t.astype(np.int64), pos=pos.astype(np.int64),
+                      length=length.astype(np.int64), smaller=smaller,
+                      char=char.astype(np.uint8), rho=np.int64(rho),
+                      last_pos=np.int64(last_pos))
+        if ref_sa is not None:
+            arrays["ref_sa"] = ref_sa.cpu().numpy()
+            arrays["ref_isa"] = ref_isa.cpu().numpy()
+        self.mgr.save(f"dense_block_{b0}", self.fp, arrays)
+
+
+def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
+                                     device, block_chars: int,
+                                     ctx_chars: int | None = None,
+                                     checkpoint: BlockCheckpoints | None = None
+                                     ) -> DeviceHeadsResult:
+    """Blocked dense MS whose head records stay on ``device`` for the
+    device merge (ms_dense.py:1152-1318): the reference is uploaded once,
+    each block uploads its collection window, and per block only (h, viol,
+    last_pos) and the rho stats reach the host. Each block takes the wide
+    seed where the JAX predicate allows it for that block. ``irreducible``
+    is the sum of the blocks' rho (each block's joint string holds the
+    whole reference). Equal to the JAX function field for field, and its
+    heads, reference index and rho to those of the JAX
+    ms_dense_heads_blocked (which always takes the narrow seed; neither
+    depends on the seed). With ``checkpoint`` each finished block is saved
+    there, and a block found there is loaded instead of scanned.
+    CMSBWT_PROFILE=1 prints device-synced per-block stage marks."""
+    device = torch.device(device)
+    mark = stage_timer(device)
+    n, sn = len(x_aug), len(sx)
+    ctx_chars = _default_ctx(block_chars, ctx_chars)
+    sep_cum = _SepCounter(sx)
+    n_pad = bucket_size(n)
+    x_u8 = upload_bytes(x_aug, n_pad, device)
+    progress = _block_progress(sn)
+    parts = []
+    ref_sa = ref_isa = None
+    prev_pos0, prev_b0 = -2, SEPARATOR   # cyclic: the trailing separator
+    total_rho = 0
+    b0 = 0
+    while b0 < sn:
+        emit_len = min(block_chars, sn - b0)
+        saved = checkpoint.load(b0, device, n_pad) if checkpoint else None
+        if saved is not None:
+            heads, rho, last_pos, rsa, risa = saved
+            mark("  blk_load")
+        else:
+            sep_base = sep_cum.before(b0)
+            mark("    blk_sep")
+            heads, h_b, rho, last_pos, rsa, risa = _block_with_retries(
+                x_u8, sx, n, b0, emit_len, block_chars, ctx_chars, sep_base,
+                prev_pos0, prev_b0, mark)
+            # blocks are in stream order: a block's heads are its first h_b
+            # rows, t shifted by the block start
+            heads = (heads[0][:h_b] + b0,) + tuple(a[:h_b] for a in heads[1:])
+            if checkpoint:
+                first = b0 == 0
+                checkpoint.save(b0, heads, rho, last_pos,
+                                rsa[:n] if first else None,
+                                risa[:n] if first else None)
+        total_rho += rho
+        parts.append(heads)
+        if ref_sa is None:
+            ref_sa, ref_isa = rsa, risa
+        del rsa, risa
+        prev_pos0 = last_pos
+        prev_b0 = int(sx[b0 + emit_len - 1])
+        b0 += emit_len
+        progress.update(emit_len)
+        mark("block@%d(h=%d)" % (b0, heads[0].shape[0]))
+
+    cols = [torch.cat([p[k] for p in parts]) for k in range(5)]
+    del parts
+    h = int(cols[0].shape[0])
+    h_pad = bucket_size(h + 1)
+    mark("concat_blocks(h=%d)" % h)
+    (t, pos_h, len_h, sml_h, chr_h, ref_sa, ref_isa,
+     ref_bwt) = _finish_for_merge(*cols, ref_sa, ref_isa, x_u8, n, h, h_pad,
+                                  n_pad)
+    mark("finish_for_merge")
+    if device.type == "cuda":
+        # the cached segments were cut for a block's peak; what runs next
+        # (the merge) allocates other sizes
+        torch.cuda.empty_cache()
+    return DeviceHeadsResult(
+        head_t=t, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
+        head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,
+        h=h, n=n, sn=sn, irreducible=total_rho)

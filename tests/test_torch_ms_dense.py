@@ -249,12 +249,15 @@ def test_assemble_and_postprocess_match_jax(cid):
     for k, a, b in zip(("pos", "length", "smaller", "ref_sa", "ref_isa"),
                        s["asm"], asm):
         assert_same(a, b, k)
-    post = TD._postprocess(to_torch(s["b"]),
-                           *(to_torch(a) for a in s["asm"][:3]), s["n"],
-                           s["sn"], s["n_pad"], s["sn_pad"])
-    assert post[4] == s["hh"]
+    # the unblocked postprocess: the block form emitting all sn positions,
+    # with no previous pos and the collection's last byte before the first
+    post = TD._postprocess_block(to_torch(s["b"]),
+                                 *(to_torch(a) for a in s["asm"][:3]),
+                                 s["n"], s["sn"], -2, int(s["sx"][-1]),
+                                 s["n_pad"], s["sn_pad"])
+    assert post[5] == s["hh"]
     for k, a, b in zip(("pos", "length", "smaller", "is_head", "_", "char"),
-                       s["post"], post):
+                       s["post"], post[:4] + (None, post[4])):
         if k != "_":
             assert_same(a, b, k)
 
@@ -286,8 +289,13 @@ def test_running_max_equals_cummax(m, width):
 
 
 def test_dense_memory_check_names_the_blocked_scan():
+    """The memory guard runs the unblocked scan while its need fits the
+    budget, and above it names the blocked scan's block size (at least 8
+    Mi chars; 60% of what the budget leaves beside the reference)."""
     n, sn = 1_000_000, 20_000_000
     need = TD.DENSE_BYTES_PER_CHAR * (bucket_size(n) + bucket_size(sn + 1))
-    TD.dense_memory_check(n, sn, need)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TD.dense_memory_check(n, sn, need - 1)
+    assert TD.dense_block_chars(n, sn, need) is None
+    assert TD.dense_block_chars(n, sn, need - 1) == \
+        int(((need - 1) / TD.DENSE_BYTES_PER_CHAR - bucket_size(n)) * 0.6)
+    assert TD.dense_block_chars(n, sn, 2**30) == 8 << 20
+    assert TD.dense_block_chars(n, sn, None) is None

@@ -1,8 +1,9 @@
 """The port end to end (cmsbwt_tpu_torch.engine.pipeline.compute_bwt and
 its CLI, on the CPU): `.bwt`, `.rl_bwt` and the counter debug artifact are
 byte-equal to the JAX package's backend='jump', 'dense' and 'host' runs
-and to the brute-force BWT; the run never loads JAX; cuda without a card
-raises. Tolerance: exact bytes."""
+and to the brute-force BWT, the dense route's blocked and checkpointed
+forms to the JAX CLI's; the memory guard chooses blocks; the run never
+loads JAX; cuda without a card raises. Tolerance: exact bytes."""
 from __future__ import annotations
 
 import os
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from helpers import brute_multidoc_bwt, make_inputs, mutate, random_dna
+from cmsbwt_tpu import cli as jax_cli
 from cmsbwt_tpu.config import Config as JaxConfig
 from cmsbwt_tpu.engine.pipeline import compute_bwt as jax_compute_bwt
 from cmsbwt_tpu_torch import cli
@@ -191,8 +193,7 @@ def test_unported_routes_raise(tmp_path, backend, merge_backend):
         compute_bwt(cfg, "cpu")
 
 
-@pytest.mark.parametrize("flag", [
-    ["--block-chars", "1000"], ["--parallel"], ["--checkpoint-dir", "ck"]])
+@pytest.mark.parametrize("flag", [["--parallel"]])
 def test_unported_options_rejected(tmp_path, flag):
     """Options of routes not ported yet are refused, not ignored."""
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
@@ -200,3 +201,93 @@ def test_unported_options_rejected(tmp_path, flag):
         cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cpu",
                   *flag])
     assert not (tmp_path / "t.bwt").exists()
+
+
+@pytest.mark.parametrize("flag", [["--block-chars", "1000"],
+                                  ["--checkpoint-dir", "CK"]],
+                         ids=["block_chars", "checkpoint_dir"])
+def test_dense_options_match_jax_cli(tmp_path, flag):
+    """--block-chars (the blocked scan) and --checkpoint-dir (unblocked:
+    the whole collection saved as one block, then loaded by a rerun) run,
+    and their bytes and debug artifact equal the JAX CLI's with the same
+    flags."""
+    lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
+    outs = {}
+    runs = (("t", cli.main), ("j", jax_cli.main))
+    if flag[0] == "--checkpoint-dir":
+        runs += (("t2", cli.main),)
+    for who, main in runs:
+        argv = [str(tmp_path / f"ck_{who[0]}") if a == "CK" else a
+                for a in flag]
+        argv += ["--device", "cpu"] if who[0] == "t" else []
+        assert main([str(lst), "-o", str(tmp_path / who), "--backend",
+                     "dense", *argv]) == 0
+        outs[who] = [(tmp_path / (who + ext)).read_bytes()
+                     for ext in (".bwt", ART)]
+    assert outs["t"] == outs["j"] == outs.get("t2", outs["t"])
+    assert len(outs["t"][0]) > 0
+    if flag[0] == "--checkpoint-dir":
+        saved = os.listdir(tmp_path / "ck_t")
+        assert len(saved) == 1 and saved[0].startswith("dense_block_0.")
+
+
+def test_hbm_guard_routes_dense_through_blocks(tmp_path, monkeypatch):
+    """A tiny CMSBWT_HBM_GB budget makes the memory guard choose blocks
+    (tests/test_hbm_guard.py for the port): the blocked scan runs, with
+    the guard's 8 Mi-char floor, and the bytes equal the unblocked run's."""
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    lst, _, _ = _inputs(tmp_path, 3, 3000, 2, 0.01)
+    calls = []
+    orig = md.ms_dense_heads_blocked_on_device
+
+    def spy(*a, **kw):
+        calls.append(a[3])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(md, "ms_dense_heads_blocked_on_device", spy)
+    monkeypatch.setenv("CMSBWT_HBM_GB", "0.000001")
+    compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "a"),
+                       backend="dense"), "cpu")
+    assert calls == [8 << 20]
+    monkeypatch.delenv("CMSBWT_HBM_GB")
+    compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "b"),
+                       backend="dense"), "cpu")
+    assert calls == [8 << 20]    # no budget on the CPU: unblocked
+    assert (tmp_path / "a.bwt").read_bytes() == \
+        (tmp_path / "b.bwt").read_bytes()
+
+
+@pytest.mark.parametrize("n,sn,gib", [
+    (1_000_000, 20_000_000, 1e-6), (1_000_000, 20_000_000, 2.0),
+    (1_000_000, 20_000_000, 6.0), (5_000_128, 500_000_101, 78.2),
+    (5_000_128, 100_000_021, 78.2), (2_000_128, 20_000_011, 80.0)])
+def test_dense_block_chars_matches_jax_formula(n, sn, gib):
+    """The guard's choice is the JAX pipeline's (pipeline.py:341-354) with
+    the port's 240 bytes per joint char in place of 260."""
+    from cmsbwt_tpu.utils.jaxcache import bucket_size as bs
+    from cmsbwt_tpu_torch.ops.ms_dense import (DENSE_BYTES_PER_CHAR,
+                                               dense_block_chars)
+    assert DENSE_BYTES_PER_CHAR == 240
+    budget = gib * 2**30
+    want = None
+    if 240 * (bs(n) + bs(sn + 1)) > budget:
+        want = max(8 << 20, int((budget / 240 - bs(n)) * 0.6))
+    assert dense_block_chars(n, sn, budget) == want
+    assert dense_block_chars(n, sn, None) is None
+
+
+@pytest.mark.parametrize("sn,free,refused", [
+    (500_000_101, 84.4e9, False), (20_000_011, 2**31, False),
+    (900_000_000, 84.4e9, True), (2_000_000_000, 84.4e9, True)])
+def test_merge_memory_check(sn, free, refused):
+    """The device merge is not blocked: a collection whose merge needs
+    more than the free device memory (96 B per char) is refused, naming
+    the host merge's ROADMAP.md item, before any scan runs."""
+    from cmsbwt_tpu_torch.engine.device_merge import (MERGE_BYTES_PER_CHAR,
+                                                      merge_memory_check)
+    assert MERGE_BYTES_PER_CHAR == 96
+    if not refused:
+        merge_memory_check(sn, free)
+        return
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        merge_memory_check(sn, free)

@@ -2,7 +2,8 @@
 (baseline/cms-bwt-ref) on the same input list: `.bwt`, `.rl_bwt` and the
 counter debug artifact byte-equal, the cases of
 tests/test_reference_parity.py, on the jump route and (the `dense_` tests)
-the dense route. Tolerance: exact bytes."""
+the dense route, unblocked, blocked and checkpointed (these also against
+the JAX CLI with the same flags). Tolerance: exact bytes."""
 from __future__ import annotations
 
 import pathlib
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from helpers import make_inputs, mutate, random_dna
+from cmsbwt_tpu import cli as jax_cli
 from cmsbwt_tpu_torch import cli
 
 torch.set_num_threads(1)
@@ -128,3 +130,30 @@ def test_parity_dense_debug_artifact_and_prefix(tmp_path):
     art = ".counterSmallerThanHead_true"
     assert (tmp_path / ("ours" + art)).read_bytes() == \
         (tmp_path / ("ref" + art)).read_bytes()
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("ckpt", [False, True], ids=["blocked",
+                                                     "blocked_ckpt"])
+def test_parity_dense_blocked(tmp_path, ckpt, rle):
+    """--block-chars (tests/test_cli_blocked.py's case), and with
+    --checkpoint-dir run twice (the second run loads the saved heads):
+    byte-equal to the reference tool and to the JAX CLI."""
+    rng = np.random.default_rng(0)
+    ref = random_dna(rng, 600)
+    docs = [mutate(rng, ref, 0.01) for _ in range(4)]
+    lst, _, _ = make_inputs(tmp_path, ref, docs)
+    fmt = ["-r"] if rle else []
+    ext = ".rl_bwt" if rle else ".bwt"
+    subprocess.run([str(REF_BIN), *fmt, "-o", str(tmp_path / "ref"),
+                    str(lst)], check=True, capture_output=True)
+    want = (tmp_path / ("ref" + ext)).read_bytes()
+    flags = ["--backend", "dense", "--block-chars", "700", *fmt]
+    ck = ["--checkpoint-dir", str(tmp_path / "ck")] if ckpt else []
+    for run in range(2 if ckpt else 1):
+        assert cli.main([*flags, *ck, "-o", str(tmp_path / f"ours{run}"),
+                         "--device", "cpu", str(lst)]) == 0
+        assert (tmp_path / (f"ours{run}" + ext)).read_bytes() == want
+    assert jax_cli.main([*flags, "-o", str(tmp_path / "jax"),
+                         str(lst)]) == 0
+    assert (tmp_path / ("jax" + ext)).read_bytes() == want

@@ -1,8 +1,9 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
 ``cmsbwt_tpu`` refused by a meta-path finder, a fresh interpreter imports
 every module of cmsbwt_tpu_torch and runs ``python -m cmsbwt_tpu_torch
---device cpu`` on both backends in both formats; the bytes equal the JAX
-package's CLI outputs on the same input. The port's Config keeps the JAX
+--device cpu`` on both backends in both formats, and the dense backend
+blocked with per-block checkpoints; the bytes equal the JAX package's CLI
+outputs on the same input. The port's Config keeps the JAX
 Config's fields and defaults. Tolerance: exact bytes."""
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ print("IMPORTED", len(names))
 
 
 @pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
-@pytest.mark.parametrize("backend", ["jump", "dense"])
+@pytest.mark.parametrize("backend", ["jump", "dense", "dense_blocked"])
 def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
     rng = np.random.default_rng(11)
     ref = random_dna(rng, 500)
@@ -75,6 +76,13 @@ def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
                             [mutate(rng, ref, 0.01) for _ in range(4)])
     fmt = ["-r"] if rle else []
     ext = ".rl_bwt" if rle else ".bwt"
+    # the blocked scan with per-block checkpoints (utils/checkpoint.py)
+    blocked = lambda who: ["--block-chars", "700", "--checkpoint-dir",
+                           str(tmp_path / f"ck_{who}")]
+    port_flags, jax_flags = fmt, fmt
+    if backend == "dense_blocked":
+        backend = "dense"
+        port_flags, jax_flags = fmt + blocked("port"), fmt + blocked("jax")
     _run('''
 import runpy
 sys.argv = ["cmsbwt_tpu_torch", *sys.argv[1:]]
@@ -83,9 +91,9 @@ try:
 except SystemExit as e:
     assert e.code in (0, None), e.code
 ''', tmp_path, str(lst), "-o", str(tmp_path / "port"), "--device", "cpu",
-         "--backend", backend, "--lanes", "8", *fmt)
+         "--backend", backend, "--lanes", "8", *port_flags)
     assert jax_cli.main([str(lst), "-o", str(tmp_path / "jax"), "--backend",
-                         backend, "--lanes", "8", *fmt]) == 0
+                         backend, "--lanes", "8", *jax_flags]) == 0
     port = (tmp_path / ("port" + ext)).read_bytes()
     assert len(port) > 0
     assert port == (tmp_path / ("jax" + ext)).read_bytes()

@@ -2,8 +2,10 @@
 
     python3 tools/profile_slice.py             # jump + device-merge slice
     python3 tools/profile_slice.py --cli-only  # its step 3 alone
+    python3 tools/profile_slice.py --parent DIR  # jump CLI A/B vs DIR
     python3 tools/profile_slice.py --dense     # dense + device-merge slice
     python3 tools/profile_slice.py --dense --parent DIR  # + A/B vs DIR
+    python3 tools/profile_slice.py --blocked   # the blocked dense scan
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -21,7 +23,10 @@ The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 
 ``--cli-only`` drives the port through its CLI alone, so a copy of this
 script placed in an older checkout's tools/ measures that checkout's port
-the same way.
+the same way. ``--parent DIR`` (an older checkout's root) instead runs the
+jump CLI at the primary shape three times per process, one process per
+turn, in DIR and in this tree in turns (parent, this, this, parent), and
+prints every run's merge_device and other .log phases.
 
 The dense mode prints the card's name and power limit, then at the
 primary shape each dense kernel launch's device time (torch.profiler),
@@ -39,6 +44,21 @@ parent A/B again, the CLI with -r, its bytes held
 to the C++ reference tool's (baseline/cms-bwt-ref), its phases, the stage
 split, the peak device memory (torch.cuda.max_memory_allocated) of the
 CLI run and of the scan alone, and both per joint char.
+
+The blocked mode prints the card's name and power limit, warms the CLI
+up at the primary shape, then at the bench's ecoli_rle shape at
+BENCH_FULL=1 (5 Mbp x 100 docs at 1% SNP, seed 42, ~500 Mchars, above what
+the unblocked dense scan needs on an 80 GB card): the C++ reference
+tool's -r run (its seconds), the CLI with -r and no --block-chars (the
+memory guard chooses the blocks; per-block stage marks on stderr with
+CMSBWT_PROFILE=1), then with --block-chars 33554432 (the bench's choice
+above 160 Mchars, bench.py:194-197): for each, wall seconds, .log phases,
+every block try (window, m, seconds, peak device bytes and per joint
+char, from chip_smoke.BlockLog), the run's peak, and its bytes held to
+the reference tool's. Then at ecoli_dense (5 Mbp x 20 docs), -r,
+unblocked and with 32 Mi-char blocks in turns (unblocked, blocked,
+blocked, unblocked): phases, peaks, block tries, bytes equal to each
+other.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -174,9 +194,12 @@ def dense_kernels(libs, lst, label: str, reps: int = 20) -> None:
     the rho rows."""
     import ctypes
     from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.ops import ms_dense as md
     from cmsbwt_tpu_torch.ops.joint_sa import seed_level_of
-    d = cs.dense_inputs(lst)
+    x_aug, coll = load_inputs(str(lst))
+    d = cs.dense_inputs(x_aug, coll.sx)
+    del x_aug, coll
     sa, isa, hist, packs = (d[k] for k in ("sa", "isa", "hist", "packs"))
     n, m, rho, lmax, rho_pad = (d[k] for k in ("n", "m", "rho", "lmax",
                                                "rho_pad"))
@@ -265,7 +288,9 @@ def dense_main(parent: pathlib.Path | None) -> None:
 
     lst = cs.write_workload(WORK / "ecoli", 42, 5_000_000, 20, 0.01)
     print("dense kernels alone (ecoli_dense):", flush=True)
-    cs.dense_kernel_case("ecoli_dense", lst)
+    x_aug, coll = load_inputs(str(lst))
+    cs.dense_kernel_case("ecoli_dense", x_aug, coll.sx)
+    del x_aug, coll
     torch.cuda.empty_cache()
     dense_kernels(libs, lst, "ecoli_dense")
     torch.cuda.empty_cache()
@@ -297,6 +322,65 @@ def dense_main(parent: pathlib.Path | None) -> None:
         raise RuntimeError("ecoli -r bytes differ from the reference tool")
 
 
+def blocked_run(lst, out, *flags) -> bytes:
+    """One blocked-route CLI run (cli_run) under chip_smoke.BlockLog: its
+    block tries and peaks printed; returns the output's bytes. BlockLog
+    resets the peak statistic per block, so cli_run's own peak_bytes
+    counts from the last block's start; run_peak_bytes is the run's."""
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    torch.cuda.empty_cache()
+    with cs.BlockLog(md) as bl:
+        cli_run(lst, out, "--backend", "dense", *flags)
+    print(f"blocks {' '.join(flags)}: tries={len(bl.tries)} "
+          f"retries={bl.retries} run_peak_bytes={bl.run_peak} "
+          f"peak_outside_blocks={bl.gap_peak} " + json.dumps(bl.tries),
+          flush=True)
+    ext = ".rl_bwt" if "-r" in flags else ".bwt"
+    return out.with_suffix(ext).read_bytes()
+
+
+def blocked_main() -> None:
+    from cmsbwt_tpu_torch import kernels
+    kernels.load()
+    lst = cs.write_workload(WORK / "primary", 42, 2_000_000, 10, 0.01)
+    cli_run(lst, WORK / "warm", "--backend", "dense")   # CUDA set-up
+    big = cs.write_workload(WORK / "big", 42, 5_000_000, 100, 0.01)
+    t0 = time.perf_counter()
+    r = subprocess.run([str(cs.REF_BIN), "-r", "-o", str(WORK / "ref"),
+                        str(big)], capture_output=True, text=True,
+                       timeout=1800)
+    if r.returncode != 0:
+        raise RuntimeError(f"reference tool failed: {r.stderr[-2000:]}")
+    print(f"500M reference tool -r: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    want = (WORK / "ref.rl_bwt").read_bytes()
+    os.environ["CMSBWT_PROFILE"] = "1"
+    print("500M, blocks chosen by the guard (stage marks on stderr):",
+          flush=True)
+    try:
+        got = blocked_run(big, WORK / "g", "-r")
+    finally:
+        del os.environ["CMSBWT_PROFILE"]
+    sys.stderr.flush()
+    same = {"guard": got == want}
+    del got
+    same["32Mi"] = blocked_run(big, WORK / "b", "-r", "--block-chars",
+                               str(32 << 20)) == want
+    print(f"500M -r bytes equal to the reference tool's: {same}",
+          flush=True)
+    if not all(same.values()):
+        raise RuntimeError("500M -r bytes differ from the reference tool")
+    shutil.rmtree(WORK / "big")
+    eco = cs.write_workload(WORK / "ecoli", 42, 5_000_000, 20, 0.01)
+    outs = [blocked_run(eco, WORK / f"e{i}", "-r",
+                        *(["--block-chars", str(32 << 20)] if i in (1, 2)
+                          else [])) for i in range(4)]
+    print(f"ecoli_dense -r blocked bytes equal to unblocked: "
+          f"{len(set(outs)) == 1}", flush=True)
+    if len(set(outs)) != 1:
+        raise RuntimeError("ecoli_dense blocked bytes differ")
+
+
 def jump_main(cli_only: bool) -> None:
     lst = cs.write_workload(WORK, 42, 2_000_000, 10, 0.01)
     if not cli_only:
@@ -305,6 +389,30 @@ def jump_main(cli_only: bool) -> None:
         cli_run(lst, WORK / f"t{lanes}", "--lanes", str(lanes))
     if not cli_only:
         merge_profile(lst)
+
+
+def merge_ab(parent: pathlib.Path, runs: int = 3) -> None:
+    """The jump CLI at the primary shape, ``runs`` times in a fresh process
+    per turn, in the older checkout ``parent`` and in this tree in turns
+    (parent, this, this, parent): every run's merge_device and phases (the
+    first run of a process also pays the card's set-up)."""
+    lst = cs.write_workload(WORK / "ab", 42, 2_000_000, 10, 0.01)
+    code = ("import sys\nfrom cmsbwt_tpu_torch import cli\n"
+            "for o in sys.argv[2:]:\n"
+            "    assert cli.main([sys.argv[1], '-o', o, '--device', "
+            "'cuda']) == 0\n")
+    for turn, (who, root) in enumerate((("parent", parent), ("this", ROOT),
+                                        ("this", ROOT),
+                                        ("parent", parent))):
+        outs = [WORK / f"ab{turn}_{i}" for i in range(runs)]
+        subprocess.run([sys.executable, "-c", code, str(lst),
+                        *map(str, outs)], cwd=root.resolve(), check=True,
+                       timeout=900)
+        for i, out in enumerate(outs):
+            ph = cs.phases_from_log(out.with_suffix(".log"))
+            print(f"merge A/B turn {turn} {who} run {i}: merge_device_ms="
+                  f"{ph['merge_device']} phases_ms {json.dumps(ph)}",
+                  flush=True)
 
 
 def kernel_sweep(lst) -> None:
@@ -355,12 +463,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dense", action="store_true",
                     help="profile the dense route instead of the jump route")
+    ap.add_argument("--blocked", action="store_true",
+                    help="profile the blocked dense scan (500 Mchars)")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
-                    help="dense route: also time an older checkout's "
-                    "dense kernels (its root directory) against this "
-                    "tree's, at both shapes")
+                    help="an older checkout's root: with --dense, also "
+                    "time its dense kernels against this tree's at both "
+                    "shapes; alone, its jump CLI against this tree's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
@@ -371,8 +481,12 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
-        if args.dense:
+        if args.blocked:
+            blocked_main()
+        elif args.dense:
             dense_main(args.parent)
+        elif args.parent:
+            merge_ab(args.parent)
         else:
             jump_main(args.cli_only)
     finally:
