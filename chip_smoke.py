@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; the last line is printed only when
 every phase passed):
 
-1. device  — require CUDA; print the card's name and power limit.
+1. device  — require CUDA; print the card's name and power limit, and the
+   host's CPU model (the host merge's times are the host's).
 2. build   — build the port's CUDA kernels from cmsbwt_tpu_torch/kernels/csrc.
 3. kernel  — the CUDA ms_jump_scan (fed the index's 128-wide block trees)
    against its plain torch version (ms_jump_scan_reference, fed the
@@ -34,12 +35,26 @@ every phase passed):
    reference tool's (baseline/cms-bwt-ref, run on the same input list),
    the scan's heads equal to those of the native C++ PLCP-skip scan
    (native/cmsbwt_scan.cpp, built here with g++) at 4096 and 32768 lanes,
-   and the CUDA kernel must have carried the scan.
+   and the CUDA kernel must have carried the scan. Then the host merge
+   (merge_from_heads: numpy and the native OpenMP runtime) against the
+   device merge on the jump scan's heads, twice each in turns:
+   (run_len, run_char, counter) equal, the host runs normalised as the
+   device merge emits them (empty runs dropped, equal neighbours joined);
+   both times and the host merge's stages printed.
 6. dense slice — the same CLI with --backend dense --merge-backend device
    on the same workload, plain and -r: bytes equal to the reference
    tool's, the dense scan's heads equal to the native scan's, and the
    lcp_lift and dense_neighbors kernels (not their plain versions) must
    have carried it. Prints the .log phases and the dense stage split.
+   Then the routes that end in the host merge, plain and -r, bytes equal
+   to the reference tool's: --backend device (the jump scan's heads
+   expanded to every position), --backend native (its .log must name the
+   native engine), --backend jump and dense with --merge-backend host, and
+   the int64 route for collections at or above 2^31 chars, forced with
+   CMSBWT_SN_BOUND=4000000 (the dense scan in 2 M-char blocks, heads to
+   the host with an int64 t, the host merge; both dense kernels held to
+   their plain versions on its first block); --backend host (the Python
+   spec scan) on 30 Kbp x 8 docs, against the tool run on that input.
 7. blocked slice — the same workload through the blocked dense scan: the
    CLI with --block-chars 4194304, plain and -r (bytes equal to the
    reference tool's; each dense kernel launched once per block try and no
@@ -47,8 +62,10 @@ every phase passed):
    so that the memory guard chooses the blocks (its choice printed); a
    4-char context on the 200 Kbp workload, so that blocks retry (the
    retries printed; heads and reference index equal to the unblocked
-   scan's); --checkpoint-dir run twice (the second run launches no dense
-   kernel, bytes equal). Both dense kernels are held to their plain
+   scan's); --checkpoint-dir run twice (the first saves each block and
+   the whole-run dense_heads bundle; the second loads the bundle, scans no
+   block and launches no dense kernel; bytes equal). Both dense kernels
+   are held to their plain
    versions (exact) on the first 4 Mi-char block as the CLI ran it (its
    window, separator base and pad, from BlockLog).
 8. 500 Mchar — the bench's ecoli_rle shape at BENCH_FULL=1 (5 Mbp x 100
@@ -62,11 +79,15 @@ every phase passed):
    per-block stage marks (CMSBWT_PROFILE=1, stderr), phases, peak device
    bytes per block and the wall time. Then both dense kernels against
    their plain versions (exact) on that run's first block (m ~ 252 M,
-   narrow seed).
+   narrow seed), and the host merge on that run's heads: its .rl_bwt
+   bytes equal to the device merge's (the CLI's), its stages printed.
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
-alone): its oracles are the two C++ programs above.
+alone): its oracles are the two C++ programs above. The reference-index
+cache (CMSBWT_INDEX_CACHE) and the native runtimes' builds
+(CMSBWT_NATIVE_DIR) live in the work directory, so every run builds its
+own.
 
 The kernels line gives, per kernel, its time at the primary shape (CUDA
 events around 5 launches back to back; lcp_lift on the rho rows; the
@@ -74,8 +95,9 @@ times at the other shapes are on the kernel lines above it), the largest
 error over every comparison, its
 plain version's, its launches on the main path (every CLI run of its
 route, the counts set to 0 before each path and read after it;
-``launches_by_run`` splits them by path, with the runs and the block
-tries of each), and bound_ms: the bytes the function must
+``launches_by_run`` splits them by path, with the runs, the block tries
+and the merge engine of each; the native and host routes launch none),
+and bound_ms: the bytes the function must
 move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
 SXM's memory rate. No single PyTorch call computes any of the three
@@ -84,6 +106,7 @@ functions, so library_ms is null.
 from __future__ import annotations
 
 import ctypes
+import filecmp
 import importlib.abc
 import json
 import os
@@ -117,6 +140,10 @@ NATIVE_SCAN = ROOT / "native" / "cmsbwt_scan.cpp"
 TOL = 0  # exact: integer and byte outputs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 BIG_DOCS = 100              # bench ecoli_rle at BENCH_FULL=1 (bench.py:176)
+# the kernels each --backend launches; native and host launch none
+ROUTE_KERNELS = {"jump": ("ms_jump_scan",), "device": ("ms_jump_scan",),
+                 "dense": ("lcp_lift", "dense_neighbors"), "native": (),
+                 "host": ()}
 
 
 def log(msg: str) -> None:
@@ -126,6 +153,53 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# the CPU's brand string (CPUID leaves 0x80000002-4), for hosts whose
+# /proc/cpuinfo reports no model name
+CPUID_BRAND_SRC = r"""
+#include <cpuid.h>
+#include <cstdio>
+#include <cstring>
+int main() {
+  unsigned r[12] = {0};
+  for (unsigned i = 0; i < 3; ++i)
+    if (!__get_cpuid(0x80000002u + i, &r[4 * i], &r[4 * i + 1],
+                     &r[4 * i + 2], &r[4 * i + 3])) return 1;
+  char s[49];
+  std::memcpy(s, r, 48);
+  s[48] = 0;
+  std::puts(s);
+  return 0;
+}
+"""
+
+
+def host_cpu(work: pathlib.Path) -> str:
+    """The host's CPU model and the logical CPUs this process may use (the
+    host merge and the native scan run there): /proc/cpuinfo's model name,
+    else the CPUID brand string (a small program built with g++ in
+    ``work``), else the family and model numbers."""
+    try:
+        text = pathlib.Path("/proc/cpuinfo").read_text()
+    except OSError:
+        text = ""
+    field = lambda k: (re.search(rf"^{k}\s*:\s*(.+)$", text, re.M)
+                       or [None, "unknown"])[1].strip()
+    name = field("model name")
+    if name == "unknown":
+        work.mkdir(parents=True, exist_ok=True)
+        (work / "cpuid.cpp").write_text(CPUID_BRAND_SRC)
+        r = subprocess.run(["g++", "-O2", "-o", str(work / "cpuid"),
+                            str(work / "cpuid.cpp")], capture_output=True,
+                           timeout=120)
+        brand = "" if r.returncode else subprocess.run(
+            [str(work / "cpuid")], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        name = brand or (f"model name unknown (cpu family "
+                         f"{field('cpu family')}, model {field('model')})")
+    return (f"{name}, {len(os.sched_getaffinity(0))} of {os.cpu_count()} "
+            "logical CPUs")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -475,13 +549,13 @@ def lift_bytes(packs, ai, bi, lv, m: int) -> int:
     return 16 * int(ai.numel()) + gathers
 
 
-def reference_outputs(lst: pathlib.Path) -> dict:
+def reference_outputs(lst: pathlib.Path, tag: str = "ref") -> dict:
     """.bwt and .rl_bwt bytes of the C++ reference tool on ``lst``."""
     if not REF_BIN.exists():
         fail(f"reference tool {REF_BIN.relative_to(ROOT)} is missing")
     out = {}
     for rle in (False, True):
-        base = WORK / ("ref_rle" if rle else "ref")
+        base = WORK / (tag + ("_rle" if rle else ""))
         t0 = time.perf_counter()
         r = subprocess.run([str(REF_BIN)] + (["-r"] if rle else [])
                            + ["-o", str(base), str(lst)],
@@ -608,6 +682,33 @@ def same_heads(a, b) -> bool:
                   "head_char"))
 
 
+def normalized_runs(run_len: np.ndarray, run_char: np.ndarray) -> tuple:
+    """A run list as the device merge emits it: empty runs dropped and
+    neighbours of one char joined."""
+    keep = run_len > 0
+    run_len, run_char = run_len[keep], run_char[keep]
+    new = np.ones(len(run_char), dtype=bool)
+    new[1:] = run_char[1:] != run_char[:-1]
+    starts = np.nonzero(new)[0]
+    return np.add.reduceat(run_len, starts) if len(starts) else run_len, \
+        run_char[new]
+
+
+def host_merge(x_aug: np.ndarray, dres, d: int, sn: int, rle_quirk: bool):
+    """The host merge (engine/pipeline.merge_from_heads) on a device scan's
+    heads, downloaded once; returns (PipelineResult, {stage: ms}, ms)."""
+    from cmsbwt_tpu_torch.engine import pipeline as pl
+    from cmsbwt_tpu_torch.utils.timing import PhaseTimer
+    index, heads = pl.dense_result_to_inputs(
+        x_aug, pl.download_heads_result(dres, len(x_aug)))
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pl.merge_from_heads(index, heads, d, sn, rle_quirk, "cuda", timer)
+    ms = (time.perf_counter() - t0) * 1e3
+    return res, {k: round(t * 1e3, 1) for k, t in timer.phases}, ms
+
+
 def rle_histogram(path: pathlib.Path) -> np.ndarray:
     """Chars per byte value of an .rl_bwt (records of a uint64 LE run
     length and the run's char)."""
@@ -634,7 +735,9 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir()
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
+    os.environ["CMSBWT_INDEX_CACHE"] = str(WORK / "index_cache")
     try:
+        log(f"host: {host_cpu(WORK)}")
         return run_phases(card, kind)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -693,28 +796,42 @@ def run_phases(card: str, kind: str) -> int:
     oracle = reference_outputs(lst)
 
     # phase 5: the jump slice through the CLI, kernel launches counted
-    paths = []    # (route, tag, CLI runs, launch counts, block tries)
+    paths = []  # (backend, tag, CLI runs, launch counts, block tries, merge)
 
     def run_cli(backend: str, tag: str, extra=(), formats=(False, True),
-                inp=lst, want=oracle, blocks=None) -> dict:
-        """The CLI on ``inp`` in each format, bytes held to ``want`` (the
-        reference tool's) unless it is None; the kernel launches and plain
-        calls counted from 0 over these runs."""
+                inp=lst, want=oracle, blocks=None, merge="device",
+                launched=True, want_merge=None) -> dict:
+        """The CLI on ``inp`` in each format with ``--merge-backend
+        merge``, bytes held to ``want`` (the reference tool's) unless it is
+        None; the kernel launches and plain calls counted from 0 over these
+        runs: each kernel of the route (ROUTE_KERNELS) launched, unless
+        ``launched`` is False, and no other. The merge engine that ran,
+        read from each .log, must be ``want_merge`` (default: the host
+        merge for --merge-backend host and the device, native and host
+        backends, else the device merge)."""
+        if want_merge is None:
+            want_merge = ("host" if merge == "host" or backend in (
+                "device", "native", "host") else "device")
         kernels.reset_launch_counts()
         js.REFERENCE_CALLS["lift_pairs"] = 0
         md.REFERENCE_CALLS["neighbors_reference"] = 0
         mj.REFERENCE_CALLS["ms_jump_scan_reference"] = 0
         tries0 = len(blocks.tries) if blocks else 0
+        engines = set()
         for rle in formats:
             out = WORK / f"port_{tag}{'_rle' if rle else ''}"
             argv = [str(inp), "-o", str(out), "--device", "cuda",
-                    "--backend", backend, "--merge-backend", "device",
+                    "--backend", backend, "--merge-backend", merge,
                     *extra] + (["-r"] if rle else [])
             t0 = time.perf_counter()
             if cli.main(argv) != 0:
                 fail(f"cli ({tag}) returned non-zero")
             wall = time.perf_counter() - t0
             fmt = "rle" if rle else "plain"
+            text = out.with_suffix(".log").read_text()
+            engines.add("host" if "\nhead_fixup: " in text else "device")
+            if backend == "native" and "scan_engine: native" not in text:
+                fail(f"{tag}: the .log does not name the native scan engine")
             phases = json.dumps(phases_from_log(out.with_suffix(".log")))
             if want is None:
                 log(f"slice[{tag},{fmt}]: wall {wall:.2f} s; phases ms "
@@ -732,20 +849,27 @@ def run_phases(card: str, kind: str) -> int:
         plain = {**js.REFERENCE_CALLS, **md.REFERENCE_CALLS,
                  **mj.REFERENCE_CALLS}
         tries = len(blocks.tries) - tries0 if blocks else None
+        engine = "/".join(sorted(engines))
         log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
-            + (f"; block tries {tries}" if blocks else ""))
+            + (f"; block tries {tries}" if blocks else "")
+            + f"; merge {engine}")
         if any(plain.values()):
             fail(f"{tag}: a plain version ran on the card's main path")
+        if engine != want_merge:
+            fail(f"{tag}: the {engine} merge ran, expected {want_merge}")
+        mine = ROUTE_KERNELS[backend] if launched else ()
+        if any(counts[k] < 1 for k in mine) or any(
+                c for k, c in counts.items() if k not in mine):
+            fail(f"{tag}: kernel launches {counts}, expected "
+                 f"{list(mine) or 'none'}")
         if blocks and not (counts["lcp_lift"] == counts["dense_neighbors"]
                            == tries):
             fail(f"{tag}: the dense kernels did not carry every block try "
                  f"({tries} tries)")
-        paths.append((backend, tag, len(formats), counts, tries))
+        paths.append((backend, tag, len(formats), counts, tries, engine))
         return counts
 
-    jump_counts = run_cli("jump", "jump")
-    if jump_counts["ms_jump_scan"] < 1:
-        fail("the CUDA ms_jump_scan did not carry the jump slice's scan")
+    run_cli("jump", "jump")
 
     # heads at two lane counts against the native scan
     x_aug, coll = load_inputs(str(lst))
@@ -770,11 +894,38 @@ def run_phases(card: str, kind: str) -> int:
         check_heads(mj.ms_jump_heads(x_aug, coll.sx, "cuda", lanes=lanes),
                     f"jump lanes={lanes}")
 
+    # the host merge against the device merge on the jump scan's heads
+    from cmsbwt_tpu_torch.engine.device_merge import \
+        merge_heads_device_resident
+    jres = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+    times = {"device": [], "host": []}
+    for turn in ("device", "host", "host", "device"):
+        if turn == "host":
+            res, stages, ms = host_merge(x_aug, jres, coll.d, coll.sn, False)
+            host = (res.run_len, res.run_char, res.counter)
+            log(f"merge[primary]: host {ms:.1f} ms (h={jres.h}); stages ms "
+                + json.dumps(stages))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev = merge_heads_device_resident(jres, coll.d, False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            log(f"merge[primary]: device {ms:.1f} ms")
+        times[turn].append(ms)
+    want_runs = normalized_runs(host[0], host[1])
+    if not (np.array_equal(dev[0], want_runs[0])
+            and np.array_equal(dev[1], want_runs[1])
+            and np.array_equal(dev[2], host[2])):
+        fail("the host merge's (run_len, run_char, counter) differ from the "
+             "device merge's at primary")
+    log(f"merge[primary]: host and device (run_len, run_char, counter) "
+        f"equal ({len(dev[0])} runs, {len(host[0])} before normalising); "
+        f"host ms {times['host']}, device ms {times['device']}")
+    del jres, host, dev, want_runs
+
     # phase 6: the dense slice through the CLI, kernel launches counted
-    dense_counts = run_cli("dense", "dense")
-    if dense_counts["lcp_lift"] < 1 or dense_counts["dense_neighbors"] < 1:
-        fail("the CUDA lcp_lift and dense_neighbors did not carry the "
-             "dense slice")
+    run_cli("dense", "dense")
     os.environ["CMSBWT_PROFILE"] = "1"
     log("dense stages (device-synced marks, stderr):")
     try:
@@ -783,6 +934,32 @@ def run_phases(card: str, kind: str) -> int:
     finally:
         del os.environ["CMSBWT_PROFILE"]
     sys.stderr.flush()
+
+    # the routes that end in the host merge, at primary
+    run_cli("device", "device", merge="auto")
+    run_cli("native", "native", merge="auto")
+    run_cli("jump", "jump_host", merge="host")
+    run_cli("dense", "dense_host", merge="host")
+    os.environ["CMSBWT_SN_BOUND"] = "4000000"
+    try:
+        with BlockLog(md) as snb:
+            run_cli("dense", "dense_sn_bound", merge="auto", blocks=snb,
+                    want_merge="host")
+    finally:
+        del os.environ["CMSBWT_SN_BOUND"]
+    starts = sorted({t["b0"] for t in snb.tries})
+    log(f"sn_bound[primary, CMSBWT_SN_BOUND=4000000]: {len(snb.tries)} "
+        f"block tries over 2 runs, blocks at {starts}")
+    if starts != list(range(0, coll.sn, 2_000_000)):
+        fail("the int64 route did not scan 2 M-char blocks")
+    torch.cuda.empty_cache()
+    for k, r in block_kernel_case("primary_sn_bound_blocks", x_aug, coll.sx,
+                                  snb.tries[0]).items():
+        dense[k].append(r)
+    small = write_workload(WORK / "small", 7, 30_000, 8, 0.01)
+    run_cli("host", "host_small", merge="auto", inp=small,
+            want=reference_outputs(small, "ref_small"))
+    torch.cuda.empty_cache()
 
     # phase 7: the blocked dense scan at the primary shape
     bc = 4 << 20
@@ -831,10 +1008,14 @@ def run_phases(card: str, kind: str) -> int:
     with BlockLog(md) as ck1:
         run_cli("dense", "dense_ckpt_first", ck, formats=(False,),
                 blocks=ck1)
+    saved = sorted(p.name.split(".")[0] for p in (WORK / "ckpt").iterdir())
+    log(f"checkpoint: saved {saved}")
+    if "dense_heads" not in saved:
+        fail("the checkpointed run saved no dense_heads bundle")
     with BlockLog(md) as ck2:
-        again = run_cli("dense", "dense_ckpt_again", ck, formats=(False,),
-                        blocks=ck2)
-    if again["lcp_lift"] or again["dense_neighbors"] or not ck1.tries:
+        run_cli("dense", "dense_ckpt_again", ck, formats=(False,),
+                blocks=ck2, launched=False)
+    if ck2.tries or not ck1.tries:
         fail("the checkpointed rerun scanned again")
     torch.cuda.empty_cache()
 
@@ -880,8 +1061,25 @@ def run_phases(card: str, kind: str) -> int:
         f"blocked dense heads h={dres.h} irreducible={dres.irreducible}")
     if not same_heads(dres, jres):
         fail("the 500 Mchar blocked heads differ from the jump scan's")
-    del dres, jres
+    del jres
     torch.cuda.empty_cache()
+    # the host merge on the same heads, against the device merge's output
+    from cmsbwt_tpu_torch.io import native
+    res, stages, ms = host_merge(xb, dres, cb.d, cb.sn, False)
+    del dres
+    torch.cuda.empty_cache()
+    host_out = WORK / "host_merge_500M.rl_bwt"
+    if not native.write_rle_native(str(host_out), res.run_len, res.run_char):
+        fail("the native RLE writer could not be built")
+    del res
+    same = filecmp.cmp(host_out, WORK / "port_dense_500M_rle.rl_bwt",
+                       shallow=False)
+    log(f"big: host merge {ms:.1f} ms; stages ms {json.dumps(stages)}; "
+        f".rl_bwt equal to the device merge's: {same}")
+    if not same:
+        fail("the 500 Mchar host merge's .rl_bwt differs from the device "
+             "merge's")
+    host_out.unlink()
     for k, r in block_kernel_case("500M", xb, cb.sx, bl.tries[0]).items():
         dense[k].append(r)
     torch.cuda.empty_cache()
@@ -894,15 +1092,18 @@ def run_phases(card: str, kind: str) -> int:
         "byte histogram")
     del xb, cb
 
-    def row(name, source, replaces, route, res):
-        runs = [(tag, k, c[name], t) for r, tag, k, c, t in paths
-                if r == route]
+    def row(name, source, replaces, res):
+        # every run of a route that launches this kernel, and the routes
+        # that launch none (their 0 shown)
+        runs = [(tag, k, c[name], t, e) for r, tag, k, c, t, e in paths
+                if name in ROUTE_KERNELS[r] or not ROUTE_KERNELS[r]]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(c for _, _, c, _ in runs),
+                "launches": sum(c for _, _, c, _, _ in runs),
                 "launches_by_run": [
                     {"run": tag, "cli_runs": k, "launches": c,
-                     "block_tries": t} for tag, k, c, t in runs],
+                     "block_tries": t, "merge": e}
+                    for tag, k, c, t, e in runs],
                 "max_abs_err": max(r["err"] for r in res),
                 "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
                 "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
@@ -911,12 +1112,12 @@ def run_phases(card: str, kind: str) -> int:
     csrc = "cmsbwt_tpu_torch/kernels/csrc/"
     log(json.dumps({"kernels": [
         row("ms_jump_scan", csrc + "ms_jump_scan.cu",
-            "docs/retired_pallas_scan.py:525", "jump", [prim]),
+            "docs/retired_pallas_scan.py:525", [prim]),
         row("lcp_lift", csrc + "lcp_lift.cu",
-            "cmsbwt_tpu/ops/joint_sa.py:429", "dense",
+            "cmsbwt_tpu/ops/joint_sa.py:429",
             dense["lcp_lift"] + dense["lcp_lift_rho_pad"]),
         row("dense_neighbors", csrc + "dense_neighbors.cu",
-            "cmsbwt_tpu/ops/ms_dense.py:366", "dense",
+            "cmsbwt_tpu/ops/ms_dense.py:366",
             dense["dense_neighbors"] + nb_cases)]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {

@@ -38,13 +38,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device to run on (default cuda; cpu runs the plain "
                         "torch versions of the kernels)")
     p.add_argument("--backend",
-                   choices=["auto", "host", "device", "dense", "jump"],
+                   choices=["auto", "host", "native", "device", "dense",
+                            "jump"],
                    default="jump",
                    help="compute backend: jump (default; head-jumping scan "
                         "over a reference index, the CUDA ms_jump_scan "
-                        "kernel) or dense (one joint suffix sort of "
+                        "kernel), dense (one joint suffix sort of "
                         "reference and collection; the CUDA lcp_lift and "
-                        "dense_neighbors kernels), the two ported so far")
+                        "dense_neighbors kernels), device (the jump scan's "
+                        "heads expanded to every position, then the host "
+                        "merge), native (the C++ OpenMP scan engine and the "
+                        "host merge) or host (the Python spec scan, for "
+                        "small inputs); auto is not ported yet")
     p.add_argument("--lanes", type=int, default=Config.lanes,
                    help="parallel MS cursors of the jump scan "
                         "(default %(default)s)")
@@ -59,13 +64,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--merge-backend",
                    choices=["auto", "host", "device", "sharded"],
                    default="auto",
-                   help="downstream merge engine (auto = device, the only "
-                        "one ported so far)")
+                   help="downstream merge engine of the jump and dense "
+                        "backends: device (sorted joins on the device), "
+                        "host (numpy + native OpenMP) or auto (default: "
+                        "the device merge, but the host merge for dense on "
+                        "the cpu, for jump on cuda with a reference under 1 "
+                        "M chars and a collection over 16 times it, above "
+                        "the card's merge memory ceiling and for "
+                        "collections of 2^31 chars or more; "
+                        "CMSBWT_MERGE_BACKEND=host|device overrides it); "
+                        "sharded is not ported yet")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="dense backend: checkpoint/resume directory; each "
-                        "finished block of the scan (unblocked: the whole "
-                        "collection as one block) is saved there, and a "
-                        "rerun loads it instead of scanning it")
+                   help="dense backend: checkpoint/resume directory; the "
+                        "scan's heads are saved there as one bundle and "
+                        "each finished block of the scan (unblocked: the "
+                        "whole collection as one block) as its own file, "
+                        "and a rerun (of either package) loads them instead "
+                        "of scanning; host/native: also holds the "
+                        "reference-index cache")
     p.add_argument("--no-rle-quirk", action="store_true",
                    help="emit exact RLE(plain) instead of replicating the "
                         "reference RLE writer's multi-class residual bytes")

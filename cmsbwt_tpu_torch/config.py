@@ -56,9 +56,11 @@ class Config:
     replicate_reference_rle_quirk: bool = True  # reproduce ref RLE residual quirk
                                     # (see engine/merge.py; ref :1069-1078 vs :986-994)
 
-    # --- reference-index cache + auto-dispatch probe (routes not ported
-    # yet; kept so a Config means the same in both packages) ---
-    index_cache_dir: Optional[str] = None
+    # --- reference-index cache (the host and native backends) + the
+    # auto-dispatch probe (not ported yet; kept so a Config means the same
+    # in both packages) ---
+    index_cache_dir: Optional[str] = None   # None -> CMSBWT_INDEX_CACHE or
+                                            # ~/.cache/cmsbwt_tpu/ref_index
     probe_threshold: float = 0.72
     probe_kmer: int = 24
     probe_ref_cap: int = 8 << 20
@@ -66,3 +68,16 @@ class Config:
 
     def resolved_outname(self) -> str:
         return self.outname if self.outname else self.filename
+
+    def resolved_index_cache_dir(self) -> Optional[str]:
+        """Index-cache directory or None when disabled ("" disables): the
+        JAX package's default, so the two packages share one cache."""
+        import os
+        if self.index_cache_dir == "":
+            return None
+        if self.index_cache_dir:
+            return self.index_cache_dir
+        env = os.environ.get("CMSBWT_INDEX_CACHE")
+        if env == "":
+            return None
+        return env or os.path.expanduser("~/.cache/cmsbwt_tpu/ref_index")

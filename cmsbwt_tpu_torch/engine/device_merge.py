@@ -51,30 +51,36 @@ def sn_bound() -> int:
 # max_memory_allocated outside the dense scan's blocks, over sn), measured
 # on an NVIDIA H100 80GB HBM3, 700 W: 88.3 at the 500 Mchar shape (44.2 GB;
 # h = 34.9 M heads, P = 446 M tail pairs); 96 leaves ~8% to spare. The
-# merge is not blocked, so this bounds the collections one card takes
-# (~0.88 Gchars on 84 GB free; PERF.md).
+# merge is not blocked, so this is the card's merge ceiling (~0.88 Gchars
+# on 84 GB free; PERF.md): above it merge_backend='auto' takes the host
+# merge.
 MERGE_BYTES_PER_CHAR = 96
 
 
+def merge_fits(sn: int, free_bytes: float) -> bool:
+    """The device merge of ``sn`` collection chars fits ``free_bytes`` of
+    device memory."""
+    return MERGE_BYTES_PER_CHAR * sn <= free_bytes
+
+
 def merge_memory_check(sn: int, free_bytes: float) -> None:
-    """Refuse a collection whose device merge would not fit ``free_bytes``
-    of device memory: the merge that would take it, on the host, is not
-    ported yet."""
-    need = MERGE_BYTES_PER_CHAR * sn
-    if need > free_bytes:
-        raise NotImplementedError(
-            f"collection has {sn} chars: the device merge needs ~{need} B "
-            f"({MERGE_BYTES_PER_CHAR} B per char) and the device has "
-            f"{int(free_bytes)} B free; the host merge for such inputs is "
-            "not ported yet (ROADMAP.md queue 1 item 9)")
+    """Refuse a device merge that would not fit ``free_bytes`` of device
+    memory (asked for with merge_backend='device')."""
+    if not merge_fits(sn, free_bytes):
+        raise ValueError(
+            f"collection has {sn} chars: the device merge needs "
+            f"~{MERGE_BYTES_PER_CHAR * sn} B ({MERGE_BYTES_PER_CHAR} B per "
+            f"char) and the device has {int(free_bytes)} B free; "
+            "merge_backend='host' (or 'auto') merges it on the host")
 
 
 def _check_sn(sn: int) -> None:
     if sn >= sn_bound():
         raise ValueError(
             f"collection has {sn} chars >= the device merge's int32 bound "
-            f"({sn_bound()}): the int64-safe route (blocked scan + host "
-            "merge) is not ported yet (ROADMAP.md queue 1 item 9)")
+            f"({sn_bound()}): such collections take the blocked dense scan "
+            "and the host merge (backend='dense', merge_backend='auto' or "
+            "'host')")
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,35 @@
 """End-to-end pipeline of the port — the counterpart of
-cmsbwt_tpu/engine/pipeline.py, for the routes ported so far:
+cmsbwt_tpu/engine/pipeline.py:
 
-* backend=jump: parse (io/fasta.py) -> build_device_index ->
-  ms_jump_heads (the CUDA ``ms_jump_scan`` kernel on a CUDA device) ->
-  merge_heads_device_resident -> _write_outputs
-* backend=dense, one device: parse -> ms_dense_heads_on_device, or
-  ms_dense_heads_blocked_on_device with ``dense_block_chars``, when the
-  memory guard finds that the unblocked scan does not fit, or with
-  ``checkpoint_dir`` (each finished block saved there; unblocked, the
-  whole collection is one block) (joint suffix sort; the CUDA ``lcp_lift``
-  and ``dense_neighbors`` kernels on a CUDA device) ->
-  merge_heads_device_resident -> _write_outputs
+* backend=jump: parse (io/fasta.py) -> build_device_index -> ms_jump_heads
+  (the CUDA ``ms_jump_scan`` kernel on a CUDA device) -> the device merge
+  (merge_heads_device_resident) or the host merge (merge_from_heads)
+* backend=dense: parse -> the ``dense_heads`` checkpoint bundle when one is
+  saved, else ms_dense_heads_on_device, or ms_dense_heads_blocked_on_device
+  for ``dense_block_chars``, when the memory guard finds that the unblocked
+  scan does not fit, with ``checkpoint_dir`` (each finished block saved;
+  unblocked, the whole collection is one block), and for collections at or
+  above the int32 bound (heads to the host block by block, int64 t) (joint
+  suffix sort; the CUDA ``lcp_lift`` and ``dense_neighbors`` kernels on a
+  CUDA device) -> the device or the host merge
+* backend=device: build_device_index -> ms_scan_device (the jump scan's
+  heads expanded to every position) -> compute_bwt_arrays (the host merge)
+* backend=native: the host reference index (device-built on a card,
+  cached on disk) -> ms_scan_native (native/cmsbwt_scan.cpp; the spec scan
+  when g++ cannot build it) -> the host merge
+* backend=host: the host index (cached) -> ms_scan_collection (the
+  per-phrase spec scan) -> the host merge
 
-On a CUDA device a collection whose merge would not fit the card's free
-memory is refused before the scan (device_merge.merge_memory_check).
+then _write_outputs. The merge engine of the jump and dense routes follows
+the JAX rules with ``cuda`` in the role of an accelerator and ``cpu`` in
+that of a CPU-only process (_choose_merge); on a card, 'auto'
+also takes the host merge above the device merge's memory ceiling
+(device_merge.MERGE_BYTES_PER_CHAR), where merge_backend='device' is
+refused before the scan.
 
-Other backends, merge engines and options raise NotImplementedError naming
-their ROADMAP.md entry; nothing silently routes elsewhere.
+backend='auto', merge_backend='sharded' and dense_parallel raise
+NotImplementedError naming their ROADMAP.md entry; nothing silently routes
+elsewhere, and nothing falls back from a device call.
 """
 from __future__ import annotations
 
@@ -27,17 +40,27 @@ import numpy as np
 import torch
 
 from ..config import UINT64_MAX, Config
+from ..index.host import ReferenceIndex, build_reference_index
 from ..io import fasta, native
 from ..utils.timing import PhaseTimer, maybe_torch_trace
-from .merge import runs_to_plain, runs_to_rle
+from . import heads as heads_mod
+from . import merge as merge_mod
+from . import ranking as ranking_mod
+from . import tails as tails_mod
+from .ms_host import MSArrays, ms_scan_collection
 
+BACKENDS = ("jump", "dense", "device", "native", "host")
 _NOT_PORTED = {
     "auto": "queue 1 item 5 (the auto dispatch)",
-    "device": "queue 1 item 10 (ops/ms_device.py)",
-    "host": "queue 1 item 9 (the host and native routes)",
-    "native": "queue 1 item 9 (the host and native routes)",
     "sharded": "queue 1 item 11 (multi-device)",
 }
+
+# The JAX package's SARS-shape rule (its pipeline.py:657-659): on an
+# accelerator, a small reference under a collection many times its size
+# takes the host merge, whose tail walk beats the device sorted joins
+# there. Measured on a TPU; kept until the card measures it.
+SARS_MAX_REF = 1_000_000
+SARS_RATIO = 16
 
 
 @dataclass
@@ -48,6 +71,7 @@ class PipelineResult:
     sn: int
     h: int
     counter: np.ndarray | None = None  # counterSmallerThanHead (debug artifact)
+    engine: str | None = None          # the native branch's scan engine
 
 
 def resolve_device(device) -> torch.device:
@@ -65,16 +89,19 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_route(cfg: Config) -> None:
-    if cfg.backend not in ("jump", "dense"):
+    if cfg.backend in _NOT_PORTED:
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED.get(cfg.backend, 'queue 1')}; use backend='jump' "
-            "or 'dense'")
-    if cfg.merge_backend not in ("device", "auto"):
+            f"{_NOT_PORTED[cfg.backend]}; use one of {', '.join(BACKENDS)}")
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.merge_backend == "sharded":
         raise NotImplementedError(
             f"merge_backend={cfg.merge_backend!r} is not ported yet: "
-            f"ROADMAP.md {_NOT_PORTED.get(cfg.merge_backend, 'queue 1')}; "
-            "use merge_backend='device'")
+            f"ROADMAP.md {_NOT_PORTED[cfg.merge_backend]}; use "
+            "merge_backend='auto', 'device' or 'host'")
+    if cfg.merge_backend not in ("auto", "device", "host"):
+        raise ValueError(f"unknown merge_backend {cfg.merge_backend!r}")
     if cfg.dense_parallel:
         raise NotImplementedError(
             "dense_parallel is not ported yet: ROADMAP.md queue 1 item 11 "
@@ -103,14 +130,66 @@ def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
     return x_aug, coll
 
 
+def compute_bwt_arrays(index: ReferenceIndex, coll: fasta.Collection,
+                       rle_quirk: bool, device, ms: MSArrays | None = None,
+                       timer: PhaseTimer | None = None,
+                       buffer_bytes: int | None = None) -> PipelineResult:
+    """Run the full CMS pipeline on in-memory arrays: ``ms`` precomputed
+    (the device scan), else the host spec scan, then the host merge."""
+    timer = timer or PhaseTimer()
+    if ms is None:
+        with timer.phase("ms_scan"):
+            ms = ms_scan_collection(index, coll.sx, coll.sep_positions)
+    with timer.phase("head_extract"):
+        heads = heads_mod.extract_heads(index, ms, coll.sx)
+    return merge_from_heads(index, heads, coll.d, coll.sn, rle_quirk, device,
+                            timer, buffer_bytes=buffer_bytes)
+
+
+def merge_from_heads(index: ReferenceIndex, heads, d: int, sn: int,
+                     rle_quirk: bool, device,
+                     timer: PhaseTimer | None = None,
+                     buffer_bytes: int | None = None) -> PipelineResult:
+    """The host merge engine: head fixup -> grouping -> ranking -> tail
+    positioning -> run assembly, numpy plus the native OpenMP runtime
+    (the head-string suffix sort on ``device`` when it is long).
+    Input-agnostic: every scan produces the same head records.
+
+    Tail bucket counts are derived from the head records: head h owns tails
+    at reference positions pos_h+1 .. pos_h+to_next_h (consecutive by the
+    MS sliding property), so a difference array over those spans equals the
+    reference's bucketsForExpandedBWT tail tally (ref :368-377)."""
+    timer = timer or PhaseTimer()
+    with timer.phase("head_fixup"):
+        heads_mod.fixup_heads(index, heads)
+    with timer.phase("bucket_counts"):
+        # bincount, not np.add.at: ~3.5x faster at tens of millions of heads
+        hn = heads.to_next > 0
+        hp = heads.pos[hn] + 1
+        diff = np.bincount(hp, minlength=index.n + 1)[:index.n + 1]
+        diff = diff.astype(np.int64)
+        diff -= np.bincount(hp + heads.to_next[hn],
+                            minlength=index.n + 1)[:index.n + 1]
+        tails_cnt = np.cumsum(diff[:-1])
+    with timer.phase("head_group"):
+        classes = heads_mod.build_classes(index, heads)
+    with timer.phase("head_rank"):
+        ranked = ranking_mod.rank_heads(index, classes, heads, d, device)
+    with timer.phase("tail_position"):
+        counter = tails_mod.position_tails(index, classes, ranked,
+                                           buffer_bytes=buffer_bytes)
+    with timer.phase("merge"):
+        run_len, run_char = merge_mod.build_runs(
+            index, classes, ranked, counter, tails_cnt, d, rle_quirk)
+    return PipelineResult(run_len=run_len, run_char=run_char, d=d,
+                          sn=sn, h=heads.h, counter=counter)
+
+
 def compute_bwt(cfg: Config, device) -> dict:
     """Full file-to-file run on ``device`` (``cuda`` or ``cpu``)."""
     device = resolve_device(device)
     _check_route(cfg)
-    from ..index.device import build_device_index
-    from ..ops.ms_jump import ms_jump_heads
-    from .device_merge import (merge_heads_device_resident,
-                               merge_memory_check, sn_bound)
+    from .device_merge import sn_bound
 
     timer = PhaseTimer()
     outname = cfg.resolved_outname()
@@ -122,43 +201,64 @@ def compute_bwt(cfg: Config, device) -> dict:
                                 run_char=np.zeros(0, np.uint8),
                                 d=coll.d, sn=0, h=0)
         return _write_outputs(cfg, outname, n, result, timer)
-    if coll.sn >= sn_bound():
-        raise ValueError(
-            f"collection has {coll.sn} chars (>= the int32 bound "
-            f"{sn_bound()}): backend={cfg.backend} uses int32 device scans "
-            "and the device merge; the int64 route (blocked scan + host "
-            "merge) is not ported yet (ROADMAP.md queue 1 item 9)")
-
-    if device.type == "cuda":
-        # the merge is not blocked: refuse what it cannot hold before the
-        # scan runs
-        merge_memory_check(coll.sn, torch.cuda.mem_get_info(device)[0])
+    # collections at/above the int32 bound (the reference's sn is uint64,
+    # ref CMS-BWT.h:26,46) take the int64-safe route: the blocked dense
+    # scan with heads assembled on the host, then the host merge
+    sn_big = coll.sn >= sn_bound()
+    if sn_big:
+        if cfg.merge_backend == "device":
+            raise ValueError(
+                f"collection has {coll.sn} chars (>= the int32 device-merge "
+                f"bound {sn_bound()}): merge_backend='device' cannot run "
+                "it; use merge_backend=auto/host")
+        if cfg.backend in ("jump", "device"):
+            raise ValueError(
+                f"collection has {coll.sn} chars (>= the int32 bound "
+                f"{sn_bound()}): backend={cfg.backend} uses int32 device "
+                "scans; use backend=dense (blocked), native or host")
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    if cfg.backend == "dense":
-        from ..ops import ms_dense as md
-        block_chars, ctx = cfg.dense_block_chars, cfg.dense_ctx_chars
-        if block_chars is None:
-            # memory guard: above the budget the scan streams in blocks
-            block_chars = md.dense_block_chars(n, coll.sn,
-                                               md.dense_budget(device))
-        ckpt = None
-        if cfg.checkpoint_dir:
-            if block_chars is None:
-                block_chars, ctx = coll.sn, 0   # the unblocked scan's window
-            ckpt = md.BlockCheckpoints(cfg.checkpoint_dir,
-                                       _dense_fingerprint(cfg), block_chars)
+    rq = cfg.rle and cfg.replicate_reference_rle_quirk
+    buf = cfg.buffer_gib << 30
+    if cfg.backend in ("host", "native"):
+        with timer.phase("build_index"):
+            index = _host_index(cfg, x_aug, device)
+        if cfg.backend == "host":
+            result = compute_bwt_arrays(index, coll, rq, device, timer=timer,
+                                        buffer_bytes=buf)
+        else:
+            heads, engine = _native_heads(index, coll, timer)
+            result = merge_from_heads(index, heads, coll.d, coll.sn, rq,
+                                      device, timer, buffer_bytes=buf)
+            result.engine = engine
+        return _write_outputs(cfg, outname, n, result, timer)
+    if cfg.backend == "device":
+        from ..index.device import build_device_index, export_reference_index
+        from ..ops.ms_device import ms_scan_device
+        with timer.phase("build_index"):
+            dindex = build_device_index(x_aug, device)
+            index = export_reference_index(dindex, x_aug)
         with timer.phase("ms_scan"), maybe_torch_trace("ms_scan"):
-            if block_chars:
-                heads = md.ms_dense_heads_blocked_on_device(
-                    x_aug, coll.sx, device, block_chars, ctx, ckpt)
-            else:
-                heads = md.ms_dense_heads_on_device(x_aug, coll.sx, device)
-            sync()
+            dev = ms_scan_device(dindex, coll.sx, device, lanes=cfg.lanes,
+                                 window=cfg.skip_window)
+        del dindex
+        ms = MSArrays(pos=dev.pos, length=dev.length, smaller=dev.smaller,
+                      is_head=dev.is_head)
+        result = compute_bwt_arrays(index, coll, rq, device, ms=ms,
+                                    timer=timer, buffer_bytes=buf)
+        return _write_outputs(cfg, outname, n, result, timer)
+
+    # jump and dense: the merge engine is chosen before the scan, so that
+    # a device merge the card cannot hold is refused before any work
+    engine = _choose_merge(cfg, device, n, coll.sn, sn_big)
+    if cfg.backend == "dense":
+        heads = _dense_heads(cfg, device, x_aug, coll, sn_big, timer, sync)
     else:
+        from ..index.device import build_device_index
+        from ..ops.ms_jump import ms_jump_heads
         with timer.phase("build_index"):
             dindex = build_device_index(x_aug, device)
             sync()
@@ -167,13 +267,240 @@ def compute_bwt(cfg: Config, device) -> dict:
                                   window=cfg.skip_window, index=dindex,
                                   timer=timer)
         del dindex
-    rq = cfg.rle and cfg.replicate_reference_rle_quirk
+    from ..ops.ms_dense import DenseHeadsResult
+    if engine == "host":
+        dl = (heads if isinstance(heads, DenseHeadsResult)
+              else download_heads_result(heads, n))
+        del heads
+        index, hh = dense_result_to_inputs(x_aug, dl)
+        result = merge_from_heads(index, hh, coll.d, coll.sn, rq, device,
+                                  timer, buffer_bytes=buf)
+        return _write_outputs(cfg, outname, n, result, timer)
+    from .device_merge import merge_heads_device_resident
+    if isinstance(heads, DenseHeadsResult):
+        heads = upload_heads_result(heads, n, device)
     with timer.phase("merge_device"), maybe_torch_trace("merge_device"):
         run_len, run_char, counter = merge_heads_device_resident(
             heads, coll.d, rq, want_counter=n < cfg.small_ref_threshold)
     result = PipelineResult(run_len=run_len, run_char=run_char, d=coll.d,
                             sn=coll.sn, h=heads.h, counter=counter)
     return _write_outputs(cfg, outname, n, result, timer)
+
+
+def _choose_merge(cfg: Config, device: torch.device, n: int, sn: int,
+                  sn_big: bool) -> str:
+    """The merge engine of a jump or dense run, 'device' or 'host': the
+    JAX package's rules (its pipeline.py:269-280, 366, 466, 635-663) with
+    ``cuda`` in the role of an accelerator and ``cpu`` in that of a
+    CPU-only process. CMSBWT_MERGE_BACKEND=host|device overrides auto.
+    Auto on ``cpu`` is the host merge, except on the jump route, whose
+    heads are device-resident; auto on ``cuda`` is the device merge,
+    except on the jump route for the SARS shape (a small reference under
+    a collection many times its size). The int64 route always merges on
+    the host. On a card a device merge above the memory ceiling is auto's
+    host merge, and a refusal when it was asked for."""
+    from .device_merge import merge_fits, merge_memory_check
+    if sn_big:
+        return "host"
+    engine = cfg.merge_backend
+    forced = os.environ.get("CMSBWT_MERGE_BACKEND")
+    auto = engine == "auto" and forced not in ("host", "device")
+    if engine == "auto":
+        jump = cfg.backend == "jump"
+        if not auto:
+            engine = forced
+        elif device.type == "cpu":
+            engine = "device" if jump else "host"
+        else:
+            sars = jump and n < SARS_MAX_REF and sn > SARS_RATIO * max(n, 1)
+            engine = "host" if sars else "device"
+    if engine == "device" and device.type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0]
+        if auto and not merge_fits(sn, free):
+            return "host"
+        merge_memory_check(sn, free)
+    return engine
+
+
+def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
+                 timer: PhaseTimer, sync):
+    """The dense route's heads: the ``dense_heads`` bundle of a
+    checkpoint directory when one is saved there (by either package; no
+    scan), else the scan, whose result is saved as that bundle with the
+    JAX package's keys, dtypes and slicing. A DeviceHeadsResult, or a host
+    DenseHeadsResult for a loaded bundle and for the int64 route."""
+    from ..ops import ms_dense as md
+    from ..utils.checkpoint import CheckpointManager
+    from .device_merge import sn_bound
+    n, sn = len(x_aug), coll.sn
+    mgr = fp = bundle = None
+    if cfg.checkpoint_dir:
+        mgr = CheckpointManager(cfg.checkpoint_dir)
+        fp = _dense_fingerprint(cfg)
+        bundle = mgr.load("dense_heads", fp)
+    block_chars, ctx = cfg.dense_block_chars, cfg.dense_ctx_chars
+    if block_chars is None and bundle is None:
+        # memory guard: above the budget the scan streams in blocks
+        block_chars = md.dense_block_chars(n, sn, md.dense_budget(device))
+    if sn_big:
+        # int64-safe route: per-block scans stay under the int32 bound
+        # while the global head t is assembled in int64 on the host
+        cap = max(min(cfg.chunk_cap_bytes // 8, sn_bound() // 2), 1 << 12)
+        block_chars = min(block_chars, cap) if block_chars else cap
+    with timer.phase("ms_scan"), maybe_torch_trace("ms_scan"):
+        if bundle is not None:
+            h, sn_b, rho = (int(bundle.pop(k))
+                            for k in ("h", "sn", "irreducible"))
+            return md.DenseHeadsResult(h=h, sn=sn_b, irreducible=rho,
+                                       **bundle)
+        blocks = None
+        if mgr is not None:
+            if block_chars is None:
+                block_chars, ctx = sn, 0   # the unblocked scan's window
+            blocks = md.BlockCheckpoints(cfg.checkpoint_dir, fp, block_chars)
+        if block_chars:
+            heads = md.ms_dense_heads_blocked_on_device(
+                x_aug, coll.sx, device, block_chars, ctx, blocks,
+                to_host=sn_big)
+        else:
+            heads = md.ms_dense_heads_on_device(x_aug, coll.sx, device)
+        sync()
+        if mgr is not None:
+            dl = heads if sn_big else download_heads_result(heads, n)
+            mgr.save("dense_heads", fp, {
+                "head_t": dl.head_t, "head_pos": dl.head_pos,
+                "head_len": dl.head_len, "head_smaller": dl.head_smaller,
+                "head_char": dl.head_char, "ref_sa": dl.ref_sa,
+                "ref_isa": dl.ref_isa, "ref_bwt": dl.ref_bwt,
+                "h": np.int64(dl.h), "sn": np.int64(dl.sn),
+                "irreducible": np.int64(dl.irreducible)})
+    return heads
+
+
+def _native_heads(index: ReferenceIndex, coll, timer: PhaseTimer):
+    """Heads of the native OpenMP PLCP-skip scan (native/cmsbwt_scan.cpp),
+    or of the host spec scan when g++ cannot build it (host code either
+    way); returns (HeadArrays, the engine that ran)."""
+    with timer.phase("ms_scan"):
+        res = native.ms_scan_native(
+            index.x_padded, index.sa, index.isa, index.lcp, index.plcp,
+            index.n, coll.sx, coll.sep_positions)
+        if res is None:
+            ms = ms_scan_collection(index, coll.sx, coll.sep_positions)
+            return heads_mod.extract_heads(index, ms, coll.sx), "host_spec"
+        t, pos, ln, sml = res
+        z = lambda: np.zeros(len(t), np.int64)
+        char = coll.sx[(t - 1) % max(coll.sn, 1)]
+        return heads_mod.HeadArrays(
+            t=t, pos=pos, length=ln, smaller=sml, char=char, to_next=z(),
+            isa_next=z(), succ=z(), h=len(t)), "native"
+
+
+def _host_index(cfg: Config, x_aug: np.ndarray, device) -> ReferenceIndex:
+    """The host ReferenceIndex of the host and native backends, through
+    the on-disk cache (the checkpoint directory when given, else
+    Config.resolved_index_cache_dir()): the JAX package's directory and
+    fingerprint, so the two packages share it."""
+    from ..utils.checkpoint import CheckpointManager, file_stamp
+    cache_root = cfg.checkpoint_dir or cfg.resolved_index_cache_dir()
+    mgr = fp = None
+    if cache_root:
+        ref_path, _ = fasta.read_input_list(cfg.filename)
+        mgr = CheckpointManager(cache_root)
+        fp = mgr.fingerprint(ref=file_stamp(ref_path), giant=False,
+                             phase="ref_index")
+        cached = mgr.load("ref_index", fp)
+        if cached is not None:
+            return _index_from_arrays(x_aug, cached)
+    index = (_build_host_index_fast(x_aug, device) if cfg.backend == "native"
+             else build_reference_index(x_aug))
+    if mgr is not None:
+        mgr.save("ref_index", fp, {
+            "sa": index.sa, "isa": index.isa, "lcp": index.lcp,
+            "plcp": index.plcp, "bwt": index.bwt})
+    return index
+
+
+def _build_host_index_fast(x_aug: np.ndarray, device) -> ReferenceIndex:
+    """Host ReferenceIndex for the native scan engine: built on the card
+    (device doubling + one download) when the run is on ``cuda``, else on
+    the host."""
+    if device.type == "cuda":
+        from ..index.device import build_reference_index_device
+        return build_reference_index_device(x_aug, device)
+    return build_reference_index(x_aug)
+
+
+def _index_from_arrays(x_aug: np.ndarray, arrays: dict) -> ReferenceIndex:
+    """ReferenceIndex from a ref_index cache bundle (rank_history is a
+    build intermediate — no downstream consumer, not persisted)."""
+    return ReferenceIndex(
+        x=x_aug,
+        x_padded=np.concatenate([x_aug, np.zeros(1, np.uint8)]),
+        n=len(x_aug), sa=arrays["sa"], isa=arrays["isa"],
+        lcp=arrays["lcp"], plcp=arrays["plcp"], bwt=arrays["bwt"],
+        rank_history=[])
+
+
+def download_heads_result(dres, n: int):
+    """Device-resident DeviceHeadsResult -> host DenseHeadsResult: head
+    arrays sliced to h (int64 t, pos, len), reference arrays sliced to n
+    (the host merge expects unpadded arrays)."""
+    from ..ops.ms_dense import DenseHeadsResult
+    h = dres.h
+    cpu = lambda a, k: a[:k].cpu().numpy()
+    return DenseHeadsResult(
+        head_t=cpu(dres.head_t, h).astype(np.int64),
+        head_pos=cpu(dres.head_pos, h).astype(np.int64),
+        head_len=cpu(dres.head_len, h).astype(np.int64),
+        head_smaller=cpu(dres.head_smaller, h),
+        head_char=cpu(dres.head_char, h).astype(np.uint8),
+        ref_sa=cpu(dres.ref_sa, n), ref_isa=cpu(dres.ref_isa, n),
+        ref_bwt=cpu(dres.ref_bwt, n), h=h, sn=dres.sn,
+        irreducible=dres.irreducible)
+
+
+def upload_heads_result(dl, n: int, device):
+    """Host DenseHeadsResult -> DeviceHeadsResult in merge layout: heads
+    zero-padded to bucket_size(h + 1), the reference to bucket_size(n + 1)
+    (the pads of the JAX package's merge_heads_numpy)."""
+    from ..ops.ms_dense import DeviceHeadsResult
+    from ..utils.buckets import bucket_size
+    h_pad, n_pad = bucket_size(dl.h + 1), bucket_size(n + 1)
+
+    def pad(a, size, dtype):
+        out = torch.zeros(size, dtype=dtype, device=device)
+        out[:len(a)] = torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype)
+        return out
+    i32 = torch.int32
+    return DeviceHeadsResult(
+        head_t=pad(dl.head_t, h_pad, i32), head_pos=pad(dl.head_pos, h_pad, i32),
+        head_len=pad(dl.head_len, h_pad, i32),
+        head_smaller=pad(dl.head_smaller, h_pad, torch.bool),
+        head_char=pad(dl.head_char, h_pad, torch.uint8),
+        ref_sa=pad(dl.ref_sa, n_pad, i32), ref_isa=pad(dl.ref_isa, n_pad, i32),
+        ref_bwt=pad(dl.ref_bwt, n_pad, torch.uint8), h=dl.h, n=n, sn=dl.sn,
+        irreducible=dl.irreducible)
+
+
+def dense_result_to_inputs(x_aug: np.ndarray, dres):
+    """(ReferenceIndex, HeadArrays) of the host merge from a host
+    DenseHeadsResult."""
+    index = ReferenceIndex(
+        x=x_aug,
+        x_padded=np.concatenate([x_aug, np.zeros(1, np.uint8)]),
+        n=len(x_aug), sa=dres.ref_sa, isa=dres.ref_isa,
+        lcp=np.zeros(len(x_aug) + 1, np.int32),
+        plcp=np.zeros(len(x_aug), np.int32),
+        bwt=dres.ref_bwt, rank_history=[])
+    heads = heads_mod.HeadArrays(
+        t=dres.head_t, pos=dres.head_pos, length=dres.head_len,
+        smaller=dres.head_smaller, char=dres.head_char,
+        to_next=np.zeros(dres.h, np.int64),
+        isa_next=np.zeros(dres.h, np.int64),
+        succ=np.zeros(dres.h, np.int64), h=dres.h)
+    return index, heads
 
 
 def _dense_fingerprint(cfg: Config) -> str:
@@ -204,8 +531,9 @@ def _write_outputs(cfg: Config, outname: str, n: int,
         if wrote:
             nbytes = os.path.getsize(out_path)
         else:  # numpy writers when no C++ toolchain is present
-            data = (runs_to_rle if cfg.rle else runs_to_plain)(
-                result.run_len, result.run_char)
+            data = (merge_mod.runs_to_rle if cfg.rle
+                    else merge_mod.runs_to_plain)(result.run_len,
+                                                  result.run_char)
             wb = max(int(cfg.write_buffer_bytes), 1 << 12)
             with open(out_path, "wb") as f:
                 for i in range(0, len(data), wb):  # ref's 1 MiB buffer (:943)
@@ -214,5 +542,7 @@ def _write_outputs(cfg: Config, outname: str, n: int,
     with open(outname + ".log", "w") as f:
         f.write(timer.report())
         f.write(f"\nsn: {result.sn}\nheads: {result.h}\nD: {result.d}\n")
+        if result.engine:
+            f.write(f"scan_engine: {result.engine}\n")
     return {"out_path": out_path, "bytes": nbytes, "timer": timer,
             "result": result, "backend": cfg.backend}

@@ -203,6 +203,23 @@ def build_device_index(x_aug: np.ndarray, device) -> DeviceIndex:
                        plcp=plcp, bwt=bwt, jump=jump)
 
 
+def export_reference_index(d: DeviceIndex, x_aug: np.ndarray):
+    """Host ReferenceIndex view of a device-built index (one download of
+    each array; the JAX pipeline's ``_export_device_index``)."""
+    from .host import ReferenceIndex
+    return ReferenceIndex(
+        x=x_aug,
+        x_padded=np.concatenate([x_aug, np.zeros(1, np.uint8)]),
+        n=d.n, sa=d.sa.cpu().numpy(), isa=d.isa.cpu().numpy(),
+        lcp=d.lcp.cpu().numpy(), plcp=d.plcp.cpu().numpy(),
+        bwt=d.bwt.cpu().numpy(), rank_history=[])
+
+
+def build_reference_index_device(x_aug: np.ndarray, device):
+    """Device-built index exported to the host ReferenceIndex container."""
+    return export_reference_index(build_device_index(x_aug, device), x_aug)
+
+
 def index_from_numpy(arrays: dict, device) -> DeviceIndex:
     """A DeviceIndex from host arrays named as its fields (for example the
     JAX package's DeviceIndex fields through ``np.asarray``)."""

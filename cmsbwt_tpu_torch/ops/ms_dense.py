@@ -603,45 +603,80 @@ class BlockCheckpoints:
         self.mgr = CheckpointManager(directory)
         self.fp = f"{fingerprint}:b{block_chars}"
 
-    def load(self, b0: int, device, n_pad: int):
-        """A saved block as device tensors: ((t, pos, len, smaller, char),
-        rho, last_pos, ref_sa, ref_isa), the reference order zero-padded to
-        n_pad (None past the first block); None when it was not saved."""
+    def load(self, b0: int):
+        """A saved block as host arrays: (part, rho, last_pos, ref_sa,
+        ref_isa), ``part`` as _heads_to_host makes it and the reference
+        order n long (None past the first block); None when it was not
+        saved."""
         data = self.mgr.load(f"dense_block_{b0}", self.fp)
         if data is None:
             return None
-        dev = lambda a, dt: torch.from_numpy(a).to(device=device, dtype=dt)
-        # the dtypes of _compact_heads_raw's columns
-        heads = tuple(dev(data[k], dt) for k, dt in (
-            ("t", I32), ("pos", I32), ("length", I32),
-            ("smaller", torch.bool), ("char", I32)))
-        ref = [None, None]
-        if "ref_sa" in data:
-            for i, k in enumerate(("ref_sa", "ref_isa")):
-                ref[i] = torch.zeros(n_pad, dtype=I32, device=device)
-                ref[i][:len(data[k])] = dev(data[k], I32)
-        return heads, int(data["rho"]), int(data["last_pos"]), *ref
+        part = {k: data[k] for k in _PART_KEYS}
+        return (part, int(data["rho"]), int(data["last_pos"]),
+                data.get("ref_sa"), data.get("ref_isa"))
 
-    def save(self, b0: int, heads, rho: int, last_pos: int, ref_sa=None,
-             ref_isa=None) -> None:
-        """Save a finished block: its h_b heads (t global) and, for the
-        first block, the reference order's first n entries."""
-        t, pos, length, smaller, char = (a.cpu().numpy() for a in heads)
-        arrays = dict(t=t.astype(np.int64), pos=pos.astype(np.int64),
-                      length=length.astype(np.int64), smaller=smaller,
-                      char=char.astype(np.uint8), rho=np.int64(rho),
-                      last_pos=np.int64(last_pos))
+    def save(self, b0: int, part: dict, rho: int, last_pos: int,
+             ref_sa=None, ref_isa=None) -> None:
+        """Save a finished block: its heads (``part``, t global) and, for
+        the first block, the reference order's first n entries."""
+        arrays = dict(part, rho=np.int64(rho), last_pos=np.int64(last_pos))
         if ref_sa is not None:
-            arrays["ref_sa"] = ref_sa.cpu().numpy()
-            arrays["ref_isa"] = ref_isa.cpu().numpy()
+            arrays["ref_sa"] = ref_sa
+            arrays["ref_isa"] = ref_isa
         self.mgr.save(f"dense_block_{b0}", self.fp, arrays)
+
+
+@dataclass
+class DenseHeadsResult:
+    """Head records and reference index as host arrays — the JAX package's
+    DenseHeadsResult: h heads (int64 t, pos, len; bool smaller; uint8
+    char) and the n-long reference index (int32 sa, isa; uint8 bwt). The
+    host merge and the ``dense_heads`` checkpoint bundle take it."""
+
+    head_t: np.ndarray
+    head_pos: np.ndarray
+    head_len: np.ndarray
+    head_smaller: np.ndarray
+    head_char: np.ndarray
+    ref_sa: np.ndarray
+    ref_isa: np.ndarray
+    ref_bwt: np.ndarray
+    h: int
+    sn: int
+    irreducible: int
+
+
+_PART_KEYS = ("t", "pos", "length", "smaller", "char")
+
+
+def _heads_to_host(heads, b0: int) -> dict:
+    """A block's head rows (t local to the block, int32) downloaded once,
+    t made global in int64 on the host: the dtypes of a JAX block file."""
+    t, pos, length, smaller, char = (a.cpu().numpy() for a in heads)
+    return dict(t=t.astype(np.int64) + b0, pos=pos.astype(np.int64),
+                length=length.astype(np.int64), smaller=smaller,
+                char=char.astype(np.uint8))
+
+
+def _part_to_device(part: dict, device) -> tuple:
+    """Host block heads (t global) in the columns of _compact_heads_raw."""
+    return tuple(torch.from_numpy(part[k]).to(device=device, dtype=dt)
+                 for k, dt in zip(_PART_KEYS, (I32, I32, I32, torch.bool,
+                                               I32)))
+
+
+def _ref_to_device(a, n_pad: int, device) -> torch.Tensor:
+    """A saved n-long reference order, zero-padded to n_pad."""
+    out = torch.zeros(n_pad, dtype=I32, device=device)
+    out[:len(a)] = torch.from_numpy(a).to(device=device, dtype=I32)
+    return out
 
 
 def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
                                      device, block_chars: int,
                                      ctx_chars: int | None = None,
-                                     checkpoint: BlockCheckpoints | None = None
-                                     ) -> DeviceHeadsResult:
+                                     checkpoint: BlockCheckpoints | None = None,
+                                     to_host: bool = False):
     """Blocked dense MS whose head records stay on ``device`` for the
     device merge (ms_dense.py:1152-1318): the reference is uploaded once,
     each block uploads its collection window, and per block only (h, viol,
@@ -653,7 +688,12 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
     ms_dense_heads_blocked (which always takes the narrow seed; neither
     depends on the seed). With ``checkpoint`` each finished block is saved
     there, and a block found there is loaded instead of scanned.
-    CMSBWT_PROFILE=1 prints device-synced per-block stage marks."""
+
+    With ``to_host`` (the route for collections at or above the int32
+    bound) each block's heads go to the host once, t offset by the block
+    start in int64 there, and the result is a host DenseHeadsResult: no
+    tensor on the device holds a global position. CMSBWT_PROFILE=1 prints
+    device-synced per-block stage marks."""
     device = torch.device(device)
     mark = stage_timer(device)
     n, sn = len(x_aug), len(sx)
@@ -669,9 +709,10 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
     b0 = 0
     while b0 < sn:
         emit_len = min(block_chars, sn - b0)
-        saved = checkpoint.load(b0, device, n_pad) if checkpoint else None
+        saved = checkpoint.load(b0) if checkpoint else None
+        heads = None
         if saved is not None:
-            heads, rho, last_pos, rsa, risa = saved
+            part, rho, last_pos, rsa, risa = saved
             mark("  blk_load")
         else:
             sep_base = sep_cum.before(b0)
@@ -680,37 +721,59 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
                 x_u8, sx, n, b0, emit_len, block_chars, ctx_chars, sep_base,
                 prev_pos0, prev_b0, mark)
             # blocks are in stream order: a block's heads are its first h_b
-            # rows, t shifted by the block start
-            heads = (heads[0][:h_b] + b0,) + tuple(a[:h_b] for a in heads[1:])
+            # rows
+            heads = tuple(a[:h_b] for a in heads)
+            part = (_heads_to_host(heads, b0) if checkpoint or to_host
+                    else None)
+            if ref_sa is None:
+                rsa, risa = rsa[:n].cpu().numpy(), risa[:n].cpu().numpy()
             if checkpoint:
                 first = b0 == 0
-                checkpoint.save(b0, heads, rho, last_pos,
-                                rsa[:n] if first else None,
-                                risa[:n] if first else None)
+                checkpoint.save(b0, part, rho, last_pos,
+                                rsa if first else None,
+                                risa if first else None)
         total_rho += rho
-        parts.append(heads)
+        if to_host:
+            parts.append(part)
+        elif heads is None:
+            parts.append(_part_to_device(part, device))
+        else:
+            parts.append((heads[0] + b0,) + heads[1:])
         if ref_sa is None:
             ref_sa, ref_isa = rsa, risa
-        del rsa, risa
+        del heads, part, rsa, risa
         prev_pos0 = last_pos
         prev_b0 = int(sx[b0 + emit_len - 1])
         b0 += emit_len
         progress.update(emit_len)
-        mark("block@%d(h=%d)" % (b0, heads[0].shape[0]))
+        mark("block@%d(h=%d)" % (b0, len(parts[-1][0]) if not to_host
+                                 else len(parts[-1]["t"])))
 
+    if device.type == "cuda":
+        # the cached segments were cut for a block's peak; what runs next
+        # (the merge) allocates other sizes
+        torch.cuda.empty_cache()
+    if to_host:
+        cat = lambda k: np.concatenate([p[k] for p in parts])
+        head_t = cat("t")
+        ref_bwt = np.where(ref_sa > 0, x_aug[np.maximum(ref_sa - 1, 0)],
+                           np.uint8(0)).astype(np.uint8)
+        mark("concat_blocks(h=%d)" % len(head_t))
+        return DenseHeadsResult(
+            head_t=head_t, head_pos=cat("pos"), head_len=cat("length"),
+            head_smaller=cat("smaller"), head_char=cat("char"),
+            ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt, h=len(head_t),
+            sn=sn, irreducible=total_rho)
     cols = [torch.cat([p[k] for p in parts]) for k in range(5)]
     del parts
     h = int(cols[0].shape[0])
     h_pad = bucket_size(h + 1)
     mark("concat_blocks(h=%d)" % h)
     (t, pos_h, len_h, sml_h, chr_h, ref_sa, ref_isa,
-     ref_bwt) = _finish_for_merge(*cols, ref_sa, ref_isa, x_u8, n, h, h_pad,
-                                  n_pad)
+     ref_bwt) = _finish_for_merge(*cols, _ref_to_device(ref_sa, n_pad, device),
+                                  _ref_to_device(ref_isa, n_pad, device),
+                                  x_u8, n, h, h_pad, n_pad)
     mark("finish_for_merge")
-    if device.type == "cuda":
-        # the cached segments were cut for a block's peak; what runs next
-        # (the merge) allocates other sizes
-        torch.cuda.empty_cache()
     return DeviceHeadsResult(
         head_t=t, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
         head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,

@@ -1,9 +1,14 @@
 """The port end to end (cmsbwt_tpu_torch.engine.pipeline.compute_bwt and
 its CLI, on the CPU): `.bwt`, `.rl_bwt` and the counter debug artifact are
-byte-equal to the JAX package's backend='jump', 'dense' and 'host' runs
-and to the brute-force BWT, the dense route's blocked and checkpointed
-forms to the JAX CLI's; the memory guard chooses blocks; the run never
-loads JAX; cuda without a card raises. Tolerance: exact bytes."""
+byte-equal to the JAX package's runs on every ported route (backend jump,
+dense, device, native and host; the device and the host merge) and to the
+brute-force BWT, the dense route's blocked and checkpointed forms to the
+JAX CLI's; a checkpoint directory written by either package is resumed by
+the other without a scan; the reference-index cache is shared with the
+JAX package; collections at or above the int32 bound take the blocked
+scan and the host merge; the merge engine follows the JAX rules and, on a
+card, the merge's memory ceiling; the memory guard chooses blocks; the
+run never loads JAX; cuda without a card raises. Tolerance: exact bytes."""
 from __future__ import annotations
 
 import os
@@ -183,8 +188,8 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("backend,merge_backend", [
-    ("auto", "auto"), ("dense", "host"), ("host", "auto"),
-    ("jump", "host"), ("jump", "sharded")])
+    ("auto", "auto"), ("dense", "sharded"), ("device", "sharded"),
+    ("native", "sharded"), ("jump", "sharded")])
 def test_unported_routes_raise(tmp_path, backend, merge_backend):
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
     cfg = Config(filename=str(lst), outname=str(tmp_path / "t"),
@@ -227,8 +232,11 @@ def test_dense_options_match_jax_cli(tmp_path, flag):
     assert outs["t"] == outs["j"] == outs.get("t2", outs["t"])
     assert len(outs["t"][0]) > 0
     if flag[0] == "--checkpoint-dir":
-        saved = os.listdir(tmp_path / "ck_t")
-        assert len(saved) == 1 and saved[0].startswith("dense_block_0.")
+        # the whole run's bundle (the JAX package's) and the one block
+        saved = sorted(os.listdir(tmp_path / "ck_t"))
+        assert len(saved) == 2 and saved[0].startswith("dense_block_0.")
+        assert saved[1].startswith("dense_heads.")
+        assert saved[1] in os.listdir(tmp_path / "ck_j")
 
 
 def test_hbm_guard_routes_dense_through_blocks(tmp_path, monkeypatch):
@@ -280,14 +288,240 @@ def test_dense_block_chars_matches_jax_formula(n, sn, gib):
     (500_000_101, 84.4e9, False), (20_000_011, 2**31, False),
     (900_000_000, 84.4e9, True), (2_000_000_000, 84.4e9, True)])
 def test_merge_memory_check(sn, free, refused):
-    """The device merge is not blocked: a collection whose merge needs
-    more than the free device memory (96 B per char) is refused, naming
-    the host merge's ROADMAP.md item, before any scan runs."""
+    """The device merge is not blocked: asked for, a merge that needs more
+    than the free device memory (96 B per char) is refused, naming the
+    host merge that takes it."""
     from cmsbwt_tpu_torch.engine.device_merge import (MERGE_BYTES_PER_CHAR,
+                                                      merge_fits,
                                                       merge_memory_check)
     assert MERGE_BYTES_PER_CHAR == 96
+    assert merge_fits(sn, free) is not refused
     if not refused:
         merge_memory_check(sn, free)
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="merge_backend='host'"):
         merge_memory_check(sn, free)
+
+
+GB = 1e9
+SN_1G = 1_000_000_101        # 5 Mbp x 200 docs: above the card's ceiling
+
+
+@pytest.mark.parametrize("backend,mb,dev,n,sn,env,want", [
+    ("jump", "auto", "cpu", 2000, 20000, None, "device"),
+    ("dense", "auto", "cpu", 2000, 20000, None, "host"),
+    ("jump", "auto", "cuda", 2_000_128, 20_000_011, None, "device"),
+    ("jump", "auto", "cuda", 30_000, 90_000_000, None, "host"),   # SARS
+    ("dense", "auto", "cuda", 30_000, 90_000_000, None, "device"),
+    ("dense", "auto", "cuda", 5_000_128, SN_1G, None, "host"),    # ceiling
+    ("jump", "auto", "cuda", 5_000_128, SN_1G, None, "host"),
+    ("dense", "device", "cuda", 5_000_128, SN_1G, None, ValueError),
+    ("dense", "auto", "cuda", 5_000_128, SN_1G, "device", ValueError),
+    ("dense", "host", "cuda", 2000, 20000, None, "host"),
+    ("dense", "auto", "cpu", 2000, 20000, "device", "device"),
+    ("jump", "auto", "cpu", 2000, 20000, "host", "host"),
+    ("jump", "device", "cpu", 5_000_128, SN_1G, None, "device"),
+], ids=["jump-cpu", "dense-cpu", "jump-card", "jump-card-sars",
+        "dense-card-no-sars-rule", "dense-ceiling", "jump-ceiling",
+        "device-above-ceiling", "env-device-above-ceiling", "host",
+        "env-device", "env-host", "no-ceiling-on-cpu"])
+def test_merge_engine_routing(monkeypatch, backend, mb, dev, n, sn, env,
+                              want):
+    """The merge engine of the jump and dense routes: the JAX rules with
+    cuda as the accelerator and cpu as the CPU-only process (the SARS
+    shape on the jump route only), CMSBWT_MERGE_BACKEND over auto, and on
+    a card (84.4 GB free here) auto's host merge above the device merge's
+    ceiling, where an asked-for device merge is refused."""
+    from cmsbwt_tpu_torch.engine import pipeline as pl
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (84.4 * GB, 85.0 * GB))
+    if env:
+        monkeypatch.setenv("CMSBWT_MERGE_BACKEND", env)
+    else:
+        monkeypatch.delenv("CMSBWT_MERGE_BACKEND", raising=False)
+    cfg = Config(backend=backend, merge_backend=mb)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="merge_backend='host'"):
+            pl._choose_merge(cfg, torch.device(dev), n, sn, False)
+        return
+    assert pl._choose_merge(cfg, torch.device(dev), n, sn, False) == want
+    assert pl._choose_merge(cfg, torch.device(dev), n, sn, True) == "host"
+
+
+ROUTES = [("host", "auto"), ("native", "auto"), ("device", "auto"),
+          ("jump", "host"), ("dense", "host")]
+ROUTE_IDS = ["host", "native", "device", "jump-host", "dense-host"]
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("backend,merge_backend", ROUTES, ids=ROUTE_IDS)
+def test_host_merge_routes_match_jax_cli(tmp_path, monkeypatch, backend,
+                                         merge_backend, rle):
+    """--backend host|native|device and --merge-backend host through the
+    port's CLI: bytes and debug artifact equal to the JAX CLI's (JAX's
+    compute_bwt for native, which its CLI does not offer); the native
+    engine names itself in the .log."""
+    monkeypatch.setenv("CMSBWT_INDEX_CACHE", str(tmp_path / "cache"))
+    lst, _, _ = _inputs(tmp_path, 5, 700, 5, 0.004, dup=True)
+    ext = ".rl_bwt" if rle else ".bwt"
+    fmt = ["-r"] if rle else []
+    argv = [str(lst), "--backend", backend, "--merge-backend",
+            merge_backend, "--lanes", "8", *fmt]
+    assert cli.main(argv + ["-o", str(tmp_path / "t"), "--device",
+                            "cpu"]) == 0
+    if backend == "native":
+        jax_compute_bwt(JaxConfig(filename=str(lst), rle=rle,
+                                  outname=str(tmp_path / "j"),
+                                  backend="native", index_cache_dir=""))
+    else:
+        assert jax_cli.main(argv + ["-o", str(tmp_path / "j")]) == 0
+    for e in (ext, ART):
+        assert (tmp_path / ("t" + e)).read_bytes() == \
+            (tmp_path / ("j" + e)).read_bytes(), e
+    log = (tmp_path / "t.log").read_text()
+    assert "head_fixup" in log and "merge_device" not in log
+    assert ("scan_engine: native" in log) == (backend == "native")
+
+
+def test_native_without_toolchain_runs_the_spec_scan(tmp_path, monkeypatch):
+    """When g++ cannot build the scan engine the native backend runs the
+    host spec scan (host code), names it in the .log, and gives the same
+    bytes."""
+    from cmsbwt_tpu_torch.io import native as tn
+    lst, _, _ = _inputs(tmp_path, 17, 600, 6, 0.01)
+    cfg = lambda o: Config(filename=str(lst), outname=str(tmp_path / o),
+                           backend="native", index_cache_dir="")
+    compute_bwt(cfg("a"), "cpu")
+    monkeypatch.setattr(tn, "get_scan_lib", lambda: None)
+    compute_bwt(cfg("b"), "cpu")
+    assert (tmp_path / "a.bwt").read_bytes() == \
+        (tmp_path / "b.bwt").read_bytes()
+    assert "scan_engine: native" in (tmp_path / "a.log").read_text()
+    assert "scan_engine: host_spec" in (tmp_path / "b.log").read_text()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_index_cache_shared_with_jax(tmp_path, monkeypatch, writer):
+    """The reference-index cache has the JAX package's directory and
+    fingerprint: an index one package saved is loaded by the other, which
+    then builds none; the bytes are equal."""
+    from cmsbwt_tpu.engine import pipeline as jpl
+    from cmsbwt_tpu_torch.engine import pipeline as tpl
+    lst, _, _ = _inputs(tmp_path, 17, 600, 6, 0.01)
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("CMSBWT_INDEX_CACHE", str(cache))
+    runs = {"jax": lambda: jax_compute_bwt(JaxConfig(
+                filename=str(lst), outname=str(tmp_path / "j"),
+                backend="native")),
+            "port": lambda: compute_bwt(Config(
+                filename=str(lst), outname=str(tmp_path / "t"),
+                backend="native"), "cpu")}
+    runs[writer]()
+    assert [f.startswith("ref_index.") for f in os.listdir(cache)] == [True]
+    reader = "port" if writer == "jax" else "jax"
+    mod = tpl if reader == "port" else jpl
+
+    def built(*a, **k):
+        raise AssertionError("the cached index was not used")
+    monkeypatch.setattr(mod, "build_reference_index", built)
+    monkeypatch.setattr(mod, "_build_host_index_fast", built)
+    runs[reader]()
+    assert (tmp_path / "t.bwt").read_bytes() == \
+        (tmp_path / "j.bwt").read_bytes()
+
+
+def _no_scan(monkeypatch, md, names):
+    def scanned(*a, **k):
+        raise AssertionError("the resuming run scanned")
+    for name in names:
+        monkeypatch.setattr(md, name, scanned)
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_resumes_across_packages(tmp_path, monkeypatch, writer,
+                                            rle):
+    """A --checkpoint-dir that one package's dense run wrote is resumed by
+    the other's from the whole-run dense_heads bundle: no scan runs (every
+    scan entry of the resuming package raises), and the bytes and debug
+    artifact equal the writer's."""
+    from cmsbwt_tpu.ops import ms_dense as jmd
+    from cmsbwt_tpu_torch.ops import ms_dense as tmd
+    lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
+    ck = str(tmp_path / "ck")
+    fmt = ["-r"] if rle else []
+    port = lambda o: cli.main([str(lst), "-o", str(tmp_path / o), "--device",
+                               "cpu", "--backend", "dense",
+                               "--checkpoint-dir", ck, *fmt])
+    jax = lambda o: jax_cli.main([str(lst), "-o", str(tmp_path / o),
+                                  "--backend", "dense", "--checkpoint-dir",
+                                  ck, *fmt])
+    first, second = (jax, port) if writer == "jax" else (port, jax)
+    assert first("a") == 0
+    assert any(f.startswith("dense_heads.") for f in os.listdir(ck))
+    if writer == "jax":
+        _no_scan(monkeypatch, tmd, ["ms_dense_heads_on_device",
+                                    "ms_dense_heads_blocked_on_device"])
+    else:
+        _no_scan(monkeypatch, jmd, ["ms_dense_heads", "ms_dense_heads_blocked",
+                                    "ms_dense_heads_on_device",
+                                    "ms_dense_heads_blocked_on_device"])
+    assert second("b") == 0
+    ext = ".rl_bwt" if rle else ".bwt"
+    for e in (ext, ART):
+        assert (tmp_path / ("a" + e)).read_bytes() == \
+            (tmp_path / ("b" + e)).read_bytes(), e
+
+
+@pytest.mark.parametrize("rle", [False, True])
+def test_sn_bound_route_byte_equal(tmp_path, monkeypatch, rle):
+    """tests/test_sn_bound.py for the port (backend=auto is not ported):
+    with CMSBWT_SN_BOUND=1000 the dense route runs blocks of
+    max(min(chunk_cap_bytes // 8, bound // 2), 4096) = 4096 chars (two
+    over this collection) whose heads go to the host (int64 t), then the
+    host merge: bytes equal to the JAX run without the bound and to the
+    JAX run with it."""
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    rng = np.random.default_rng(21)
+    ref = random_dna(rng, 1000)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [mutate(rng, ref, 0.02) for _ in range(6)])
+    ext = ".rl_bwt" if rle else ".bwt"
+    jax_compute_bwt(JaxConfig(filename=str(lst), outname=str(tmp_path / "a"),
+                              rle=rle))
+    calls = []
+    orig = md.ms_dense_heads_blocked_on_device
+
+    def spy(*a, **kw):
+        calls.append((a[3], kw.get("to_host")))
+        return orig(*a, **kw)
+    monkeypatch.setattr(md, "ms_dense_heads_blocked_on_device", spy)
+    monkeypatch.setenv("CMSBWT_SN_BOUND", "1000")
+    jax_compute_bwt(JaxConfig(filename=str(lst), outname=str(tmp_path / "j"),
+                              rle=rle, backend="dense"))
+    compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "t"),
+                       rle=rle, backend="dense"), "cpu")
+    assert calls == [(4096, True)]
+    want = (tmp_path / ("a" + ext)).read_bytes()
+    assert (tmp_path / ("t" + ext)).read_bytes() == want
+    assert (tmp_path / ("j" + ext)).read_bytes() == want
+    assert "head_fixup" in (tmp_path / "t.log").read_text()
+
+
+@pytest.mark.parametrize("backend,merge_backend", [
+    ("jump", "auto"), ("device", "auto"), ("dense", "device"),
+    ("host", "device")])
+def test_sn_bound_rejects_int32_paths(tmp_path, monkeypatch, backend,
+                                      merge_backend):
+    """tests/test_sn_bound.py::test_sn_bound_rejects_int32_paths for the
+    port: the int32 scans and an asked-for device merge refuse."""
+    rng = np.random.default_rng(22)
+    ref = random_dna(rng, 800)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [mutate(rng, ref, 0.02) for _ in range(4)])
+    monkeypatch.setenv("CMSBWT_SN_BOUND", "1000")
+    cfg = Config(filename=str(lst), outname=str(tmp_path / "x"),
+                 backend=backend, merge_backend=merge_backend)
+    with pytest.raises(ValueError, match="int32"):
+        compute_bwt(cfg, "cpu")
+    assert not (tmp_path / "x.bwt").exists()

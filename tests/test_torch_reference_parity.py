@@ -1,9 +1,12 @@
 """The port's CLI (on the CPU) against the C++ reference tool
 (baseline/cms-bwt-ref) on the same input list: `.bwt`, `.rl_bwt` and the
 counter debug artifact byte-equal, the cases of
-tests/test_reference_parity.py, on the jump route and (the `dense_` tests)
+tests/test_reference_parity.py, on the jump route, (the `dense_` tests)
 the dense route, unblocked, blocked and checkpointed (these also against
-the JAX CLI with the same flags). Tolerance: exact bytes."""
+the JAX CLI with the same flags), and the routes that end in the host
+merge: --backend host|native|device, --merge-backend host after jump and
+dense, and the forced int64 route (CMSBWT_SN_BOUND). Tolerance: exact
+bytes."""
 from __future__ import annotations
 
 import pathlib
@@ -23,14 +26,16 @@ REF_BIN = pathlib.Path(__file__).resolve().parents[1] / "baseline" / \
     "cms-bwt-ref"
 
 
-def run_both(tmp_path, lst, rle=False, prefix=None, backend="jump"):
+def run_both(tmp_path, lst, rle=False, prefix=None, backend="jump",
+             extra=()):
     """Outputs of the reference tool and of the port on ``lst``."""
     flags = (["-r"] if rle else []) + \
         (["-p", str(prefix)] if prefix is not None else [])
     subprocess.run([str(REF_BIN), *flags, "-o", str(tmp_path / "ref"),
                     str(lst)], check=True, capture_output=True)
     assert cli.main([*flags, "-o", str(tmp_path / "ours"), "--device", "cpu",
-                     "--lanes", "8", "--backend", backend, str(lst)]) == 0
+                     "--lanes", "8", "--backend", backend, *extra,
+                     str(lst)]) == 0
     ext = ".rl_bwt" if rle else ".bwt"
     return ((tmp_path / ("ours" + ext)).read_bytes(),
             (tmp_path / ("ref" + ext)).read_bytes())
@@ -157,3 +162,40 @@ def test_parity_dense_blocked(tmp_path, ckpt, rle):
     assert jax_cli.main([*flags, "-o", str(tmp_path / "jax"),
                          str(lst)]) == 0
     assert (tmp_path / ("jax" + ext)).read_bytes() == want
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("backend,merge_backend", [
+    ("host", "auto"), ("native", "auto"), ("device", "auto"),
+    ("jump", "host"), ("dense", "host")],
+    ids=["host", "native", "device", "jump-host", "dense-host"])
+def test_parity_host_merge_routes(tmp_path, monkeypatch, backend,
+                                  merge_backend, rle):
+    """The routes that end in the host merge, on the duplicates-and-N
+    collection: bytes and debug artifact equal to the reference tool's."""
+    monkeypatch.setenv("CMSBWT_INDEX_CACHE", str(tmp_path / "cache"))
+    rng = np.random.default_rng(3)
+    ref = random_dna(rng, 600)
+    d = mutate(rng, ref, 0.01)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [d, d, b"ACGTNNNNACGT" + d[:100], d])
+    ours, refs = run_both(tmp_path, lst, rle=rle, backend=backend,
+                          extra=["--merge-backend", merge_backend])
+    assert ours == refs
+    art = ".counterSmallerThanHead_true"
+    assert (tmp_path / ("ours" + art)).read_bytes() == \
+        (tmp_path / ("ref" + art)).read_bytes()
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+def test_parity_sn_bound_route(tmp_path, monkeypatch, rle):
+    """The int64 route forced at toy scale (CMSBWT_SN_BOUND=1000: 4096-char
+    blocks, heads assembled on the host, the host merge), byte-equal to
+    the reference tool."""
+    monkeypatch.setenv("CMSBWT_SN_BOUND", "1000")
+    rng = np.random.default_rng(1)
+    ref = random_dna(rng, 1500)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [mutate(rng, ref, 0.002) for _ in range(6)])
+    ours, refs = run_both(tmp_path, lst, rle=rle, backend="dense")
+    assert ours == refs

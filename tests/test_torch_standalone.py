@@ -1,10 +1,12 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
 ``cmsbwt_tpu`` refused by a meta-path finder, a fresh interpreter imports
 every module of cmsbwt_tpu_torch and runs ``python -m cmsbwt_tpu_torch
---device cpu`` on both backends in both formats, and the dense backend
-blocked with per-block checkpoints; the bytes equal the JAX package's CLI
-outputs on the same input. The port's Config keeps the JAX
-Config's fields and defaults. Tolerance: exact bytes."""
+--device cpu`` on the jump and dense backends in both formats, the dense
+backend blocked with per-block checkpoints, and the routes of the host
+merge (the host, native and device backends, --merge-backend host after
+jump and dense); the bytes equal the JAX package's outputs on the same
+input. The port's Config keeps the JAX Config's fields and defaults.
+Tolerance: exact bytes."""
 from __future__ import annotations
 
 import dataclasses
@@ -97,6 +99,34 @@ except SystemExit as e:
     port = (tmp_path / ("port" + ext)).read_bytes()
     assert len(port) > 0
     assert port == (tmp_path / ("jax" + ext)).read_bytes()
+
+
+@pytest.mark.parametrize("backend,merge_backend", [
+    ("host", "auto"), ("native", "auto"), ("device", "auto"),
+    ("jump", "host"), ("dense", "host")],
+    ids=["host", "native", "device", "jump-host", "dense-host"])
+def test_host_merge_routes_without_jax(tmp_path, monkeypatch, backend,
+                                       merge_backend):
+    from cmsbwt_tpu.engine.pipeline import compute_bwt as jax_compute_bwt
+    monkeypatch.setenv("CMSBWT_INDEX_CACHE", str(tmp_path / "cache"))
+    rng = np.random.default_rng(12)
+    ref = random_dna(rng, 500)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [mutate(rng, ref, 0.01) for _ in range(4)])
+    _run('''
+from cmsbwt_tpu_torch.cli import main
+assert main(sys.argv[1:]) == 0
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "cmsbwt_tpu")]
+''', tmp_path, str(lst), "-o", str(tmp_path / "port"), "--device", "cpu",
+         "--backend", backend, "--merge-backend", merge_backend, "--lanes",
+         "8")
+    jax_compute_bwt(JaxConfig(filename=str(lst), outname=str(tmp_path / "jax"),
+                              backend=backend, merge_backend=merge_backend,
+                              lanes=8, index_cache_dir=""))
+    port = (tmp_path / "port.bwt").read_bytes()
+    assert len(port) > 0
+    assert port == (tmp_path / "jax.bwt").read_bytes()
 
 
 def test_config_matches_jax_config():

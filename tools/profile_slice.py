@@ -6,6 +6,7 @@
     python3 tools/profile_slice.py --dense     # dense + device-merge slice
     python3 tools/profile_slice.py --dense --parent DIR  # + A/B vs DIR
     python3 tools/profile_slice.py --blocked   # the blocked dense scan
+    python3 tools/profile_slice.py --host-merge  # ~1 Gchar, host merge
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -60,6 +61,16 @@ unblocked and with 32 Mi-char blocks in turns (unblocked, blocked,
 blocked, unblocked): phases, peaks, block tries, bytes equal to each
 other.
 
+The host-merge mode prints the card's name and power limit, the host's
+CPU model and its memory (free -g), warms the CLI up at the primary shape, then runs
+the CLI once at 5 Mbp x 200 docs at 1% SNP (seed 42, ~1.0 Gchars), -r
+--no-rle-quirk, above the device merge's memory ceiling: the guard
+chooses the blocks and merge_backend=auto takes the host merge. It prints
+the .log phases, every block try, the peak device bytes and the host's
+peak RSS, with the host merge's stage marks on stderr (CMSBWT_PROFILE=1),
+and checks that the .rl_bwt decodes to sn chars with the collection's
+byte histogram.
+
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
 """
@@ -74,6 +85,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -381,6 +393,57 @@ def blocked_main() -> None:
         raise RuntimeError("ecoli_dense blocked bytes differ")
 
 
+def host_merge_main() -> None:
+    """One CLI run above the device merge's memory ceiling: 5 Mbp x 200
+    docs at 1% SNP (~1.0 Gchars), -r --no-rle-quirk, no --block-chars, so
+    the guard chooses the blocks and merge_backend=auto the host merge.
+    Prints the host's memory first (free -g), then the run's phases, its
+    blocks, the peak device bytes and the host's peak RSS, and checks that
+    the .rl_bwt decodes to sn chars with the collection's byte
+    histogram."""
+    import resource
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine.device_merge import MERGE_BYTES_PER_CHAR
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    print(f"host: {cs.host_cpu(WORK)}", flush=True)
+    print(subprocess.run(["free", "-g"], capture_output=True, text=True,
+                         timeout=60).stdout, flush=True)
+    kernels.load()
+    lst = cs.write_workload(WORK / "primary", 42, 2_000_000, 10, 0.01)
+    cli_run(lst, WORK / "warm", "--backend", "dense")   # CUDA set-up
+    t0 = time.perf_counter()
+    big = cs.write_workload(WORK / "big", 42, 5_000_000, 200, 0.01)
+    rss = lambda: resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
+    print(f"1G: wrote 5 Mbp x 200 docs in {time.perf_counter() - t0:.1f} s; "
+          f"host peak RSS so far {rss()} B; device free "
+          f"{torch.cuda.mem_get_info()[0]} B (the device merge needs "
+          f"{MERGE_BYTES_PER_CHAR} B per collection char)", flush=True)
+    os.environ["CMSBWT_PROFILE"] = "1"
+    print("1G, blocks chosen by the guard (stage marks on stderr):",
+          flush=True)
+    try:
+        with cs.BlockLog(md) as bl:
+            phases = cli_run(big, WORK / "h", "--backend", "dense", "-r",
+                             "--no-rle-quirk")
+    finally:
+        del os.environ["CMSBWT_PROFILE"]
+    sys.stderr.flush()
+    print(f"1G: blocks tries={len(bl.tries)} retries={bl.retries} "
+          f"run_peak_bytes={bl.run_peak} peak_outside_blocks={bl.gap_peak} "
+          f"host_peak_rss_bytes={rss()} " + json.dumps(bl.tries), flush=True)
+    if "head_fixup" not in phases or "merge_device" in phases:
+        raise RuntimeError("the 1G run did not take the host merge")
+    _, coll = load_inputs(str(big))
+    hist = cs.rle_histogram(WORK / "h.rl_bwt")
+    same = int(hist.sum()) == coll.sn and np.array_equal(
+        hist, np.bincount(coll.sx, minlength=256))
+    print(f"1G: sn={coll.sn}; .rl_bwt decodes to {int(hist.sum())} chars "
+          f"with the collection's byte histogram: {same}", flush=True)
+    if not same:
+        raise RuntimeError("the 1G .rl_bwt decodes to another histogram")
+
+
 def jump_main(cli_only: bool) -> None:
     lst = cs.write_workload(WORK, 42, 2_000_000, 10, 0.01)
     if not cli_only:
@@ -465,6 +528,9 @@ def main() -> int:
                     help="profile the dense route instead of the jump route")
     ap.add_argument("--blocked", action="store_true",
                     help="profile the blocked dense scan (500 Mchars)")
+    ap.add_argument("--host-merge", action="store_true",
+                    help="one ~1.0 Gchar run above the device merge's "
+                    "ceiling, through the host merge")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -481,7 +547,9 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
-        if args.blocked:
+        if args.host_merge:
+            host_merge_main()
+        elif args.blocked:
             blocked_main()
         elif args.dense:
             dense_main(args.parent)
