@@ -81,6 +81,19 @@ every phase passed):
    their plain versions (exact) on that run's first block (m ~ 252 M,
    narrow seed), and the host merge on that run's heads: its .rl_bwt
    bytes equal to the device merge's (the CLI's), its stages printed.
+9. auto, model, parallel — at the primary workload: the CLI with no
+   --backend (auto), plain and -r, bytes equal to the reference tool's,
+   the backend its .log names printed, and that route's kernels
+   (ROUTE_KERNELS) must have carried it; the CMSBWT model on cuda,
+   transform(backend="jump"), "dense" and "jump" again, each .bwt equal to
+   the reference tool's, the device index built once; ms_dense on the
+   200 Kbp workload against the jump scan's heads expanded per position
+   (ops/ms_device.ms_scan_device): pos, length and is_head equal at every
+   position, smaller at the heads; --parallel --block-chars 4194304
+   (five blocks), plain and -r, bytes equal to the reference tool's,
+   heads equal to the native scan's (and those of
+   parallel/blocked.ms_dense_heads_parallel on the card), each dense
+   kernel launched once per block try and no plain version.
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
@@ -94,9 +107,10 @@ events around 5 launches back to back; lcp_lift on the rho rows; the
 times at the other shapes are on the kernel lines above it), the largest
 error over every comparison, its
 plain version's, its launches on the main path (every CLI run of its
-route, the counts set to 0 before each path and read after it;
-``launches_by_run`` splits them by path, with the runs, the block tries
-and the merge engine of each; the native and host routes launch none),
+route, the model's transforms and ms_dense, the counts set to 0 before
+each path and read after it; ``launches_by_run`` splits them by path,
+with the runs, the block tries and the merge engine of each; the native
+and host routes launch none),
 and bound_ms: the bytes the function must
 move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
@@ -717,7 +731,95 @@ def rle_histogram(path: pathlib.Path) -> np.ndarray:
                        minlength=256).astype(np.int64)
 
 
+def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
+           oracle, k200k, x_aug, coll) -> None:
+    """auto (the CLI with no --backend), the CMSBWT model, ms_dense and
+    --parallel on the card, each held to its oracle and its kernels
+    counted."""
+    from cmsbwt_tpu_torch import CMSBWT
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.index import device as idev
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    from cmsbwt_tpu_torch.ops.ms_device import ms_scan_device
+    from cmsbwt_tpu_torch.parallel import blocked as pb
+
+    # the default CLI: auto resolves, and the resolved route's kernels
+    # carry it
+    run_cli(None, "auto_default", merge="auto")
+    log(f"auto[primary]: the default CLI ran backend {paths[-1][0]}")
+
+    # the model: the device index built once over three transforms
+    built = []
+    orig = idev.build_device_index
+
+    def spy(*a, **kw):
+        built.append(1)
+        return orig(*a, **kw)
+    idev.build_device_index = spy
+    try:
+        ref_path, coll_path = lst.read_text().split()
+        model = CMSBWT(ref_path, device="cuda")
+        for tag, be in (("model_jump", "jump"), ("model_dense", "dense"),
+                        ("model_jump_again", "jump")):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = model.transform(coll_path, backend=be)
+            wall = time.perf_counter() - t0
+            if res.bwt != oracle[False]:
+                fail(f"{tag}: CMSBWT.transform's bwt differs from the "
+                     "reference tool's")
+            log(f"model[{tag}]: bytes equal to the reference tool's; wall "
+                f"{wall:.2f} s; phases ms " + json.dumps(
+                    {k: round(t * 1e3, 1) for k, t in res.timer.phases}))
+            check_counts(be, tag, 1, ROUTE_KERNELS[be])
+        del model, res
+    finally:
+        idev.build_device_index = orig
+    log(f"model: device index built {len(built)} time(s) over 3 transforms")
+    if len(built) != 1:
+        fail("CMSBWT built its device index more than once")
+    torch.cuda.empty_cache()
+
+    # ms_dense against the jump scan's heads expanded per position
+    x2, c2 = load_inputs(str(k200k))
+    reset_counts()
+    dm = md.ms_dense(x2, c2.sx, "cuda")
+    check_counts("dense", "ms_dense", 1, ROUTE_KERNELS["dense"],
+                 engine="none")
+    dv = ms_scan_device(idev.build_device_index(x2, "cuda"), c2.sx, "cuda")
+    heads = dv.is_head
+    same = (np.array_equal(dm.pos, dv.pos)
+            and np.array_equal(dm.length, dv.length)
+            and np.array_equal(dm.is_head, dv.is_head)
+            and np.array_equal(dm.smaller[heads], dv.smaller[heads]))
+    log(f"ms_dense[200Kbp_x8]: sn={c2.sn} m={dm.m} heads={int(heads.sum())} "
+        f"irreducible={dm.irreducible}; pos, length, is_head at every "
+        f"position and smaller at the heads equal to the expanded jump "
+        f"scan's: {same}")
+    if not same:
+        fail("ms_dense differs from the expanded jump scan")
+    del dm, dv, x2, c2
+    torch.cuda.empty_cache()
+
+    # --parallel in 4 Mi-char blocks: bytes, heads, a kernel launch per
+    # block try
+    bc = 4 << 20
+    with BlockLog(md) as blk:
+        run_cli("dense", "dense_parallel",
+                ["--parallel", "--block-chars", str(bc)], blocks=blk)
+    starts = sorted({t["b0"] for t in blk.tries})
+    if starts != list(range(0, coll.sn, bc)):
+        fail(f"--parallel ran blocks at {starts}")
+    log(f"parallel[primary]: {len(starts)} blocks, {len(blk.tries)} tries "
+        "over 2 runs")
+    check_heads(pb.ms_dense_heads_parallel(x_aug, coll.sx, bc,
+                                           device="cuda"), "dense parallel")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    started = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
@@ -738,12 +840,12 @@ def main() -> int:
     os.environ["CMSBWT_INDEX_CACHE"] = str(WORK / "index_cache")
     try:
         log(f"host: {host_cpu(WORK)}")
-        return run_phases(card, kind)
+        return run_phases(card, kind, started)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
 
-def run_phases(card: str, kind: str) -> int:
+def run_phases(card: str, kind: str, started: float) -> int:
     from cmsbwt_tpu_torch import cli, kernels
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.ops import joint_sa as js
@@ -798,31 +900,56 @@ def run_phases(card: str, kind: str) -> int:
     # phase 5: the jump slice through the CLI, kernel launches counted
     paths = []  # (backend, tag, CLI runs, launch counts, block tries, merge)
 
-    def run_cli(backend: str, tag: str, extra=(), formats=(False, True),
-                inp=lst, want=oracle, blocks=None, merge="device",
-                launched=True, want_merge=None) -> dict:
-        """The CLI on ``inp`` in each format with ``--merge-backend
-        merge``, bytes held to ``want`` (the reference tool's) unless it is
-        None; the kernel launches and plain calls counted from 0 over these
-        runs: each kernel of the route (ROUTE_KERNELS) launched, unless
-        ``launched`` is False, and no other. The merge engine that ran,
-        read from each .log, must be ``want_merge`` (default: the host
-        merge for --merge-backend host and the device, native and host
-        backends, else the device merge)."""
-        if want_merge is None:
-            want_merge = ("host" if merge == "host" or backend in (
-                "device", "native", "host") else "device")
+    def reset_counts():
         kernels.reset_launch_counts()
         js.REFERENCE_CALLS["lift_pairs"] = 0
         md.REFERENCE_CALLS["neighbors_reference"] = 0
         mj.REFERENCE_CALLS["ms_jump_scan_reference"] = 0
+
+    def check_counts(backend, tag, runs, mine, tries=None, engine="host"):
+        """The launch counts since reset_counts(): each kernel of ``mine``
+        launched, no other, no plain version; recorded as a path."""
+        counts = dict(kernels.LAUNCHES)
+        plain = {**js.REFERENCE_CALLS, **md.REFERENCE_CALLS,
+                 **mj.REFERENCE_CALLS}
+        log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
+            + (f"; block tries {tries}" if tries is not None else "")
+            + f"; merge {engine}")
+        if any(plain.values()):
+            fail(f"{tag}: a plain version ran on the card's main path")
+        if any(counts[k] < 1 for k in mine) or any(
+                c for k, c in counts.items() if k not in mine):
+            fail(f"{tag}: kernel launches {counts}, expected "
+                 f"{list(mine) or 'none'}")
+        if tries is not None and not (counts["lcp_lift"]
+                                      == counts["dense_neighbors"] == tries):
+            fail(f"{tag}: the dense kernels did not carry every block try "
+                 f"({tries} tries)")
+        paths.append((backend, tag, runs, counts, tries, engine))
+        return counts
+
+    def run_cli(backend: str | None, tag: str, extra=(),
+                formats=(False, True), inp=lst, want=oracle, blocks=None,
+                merge="device", launched=True, want_merge=None) -> dict:
+        """The CLI on ``inp`` in each format with ``--merge-backend
+        merge``, bytes held to ``want`` (the reference tool's) unless it is
+        None; the kernel launches and plain calls counted from 0 over these
+        runs: each kernel of the route (ROUTE_KERNELS) launched, unless
+        ``launched`` is False, and no other. ``backend`` None passes no
+        --backend (the default, auto): the backend each .log names is the
+        route. The merge engine that ran, read from each .log, must be
+        ``want_merge`` (default: the host merge for --merge-backend host
+        and the device, native and host backends, else the device
+        merge)."""
+        reset_counts()
         tries0 = len(blocks.tries) if blocks else 0
-        engines = set()
+        engines, ran = set(), set()
         for rle in formats:
             out = WORK / f"port_{tag}{'_rle' if rle else ''}"
             argv = [str(inp), "-o", str(out), "--device", "cuda",
-                    "--backend", backend, "--merge-backend", merge,
-                    *extra] + (["-r"] if rle else [])
+                    "--merge-backend", merge, *extra] + (
+                        ["--backend", backend] if backend else []) + (
+                        ["-r"] if rle else [])
             t0 = time.perf_counter()
             if cli.main(argv) != 0:
                 fail(f"cli ({tag}) returned non-zero")
@@ -830,6 +957,7 @@ def run_phases(card: str, kind: str) -> int:
             fmt = "rle" if rle else "plain"
             text = out.with_suffix(".log").read_text()
             engines.add("host" if "\nhead_fixup: " in text else "device")
+            ran.add(re.search(r"^backend: (\w+)$", text, re.M).group(1))
             if backend == "native" and "scan_engine: native" not in text:
                 fail(f"{tag}: the .log does not name the native scan engine")
             phases = json.dumps(phases_from_log(out.with_suffix(".log")))
@@ -845,29 +973,19 @@ def run_phases(card: str, kind: str) -> int:
             log(f"slice[{tag},{fmt}]: bytes equal to the reference tool's "
                 f"({len(got)} bytes); wall {wall:.2f} s; phases ms "
                 + phases)
-        counts = dict(kernels.LAUNCHES)
-        plain = {**js.REFERENCE_CALLS, **md.REFERENCE_CALLS,
-                 **mj.REFERENCE_CALLS}
-        tries = len(blocks.tries) - tries0 if blocks else None
+        if len(ran) != 1 or (backend and ran != {backend}):
+            fail(f"{tag}: the .log names the backends {sorted(ran)}")
+        backend = ran.pop()
+        if want_merge is None:
+            want_merge = ("host" if merge == "host" or backend in (
+                "device", "native", "host") else "device")
         engine = "/".join(sorted(engines))
-        log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
-            + (f"; block tries {tries}" if blocks else "")
-            + f"; merge {engine}")
-        if any(plain.values()):
-            fail(f"{tag}: a plain version ran on the card's main path")
         if engine != want_merge:
             fail(f"{tag}: the {engine} merge ran, expected {want_merge}")
-        mine = ROUTE_KERNELS[backend] if launched else ()
-        if any(counts[k] < 1 for k in mine) or any(
-                c for k, c in counts.items() if k not in mine):
-            fail(f"{tag}: kernel launches {counts}, expected "
-                 f"{list(mine) or 'none'}")
-        if blocks and not (counts["lcp_lift"] == counts["dense_neighbors"]
-                           == tries):
-            fail(f"{tag}: the dense kernels did not carry every block try "
-                 f"({tries} tries)")
-        paths.append((backend, tag, len(formats), counts, tries, engine))
-        return counts
+        return check_counts(
+            backend, tag, len(formats),
+            ROUTE_KERNELS[backend] if launched else (),
+            len(blocks.tries) - tries0 if blocks else None, engine)
 
     run_cli("jump", "jump")
 
@@ -880,9 +998,9 @@ def run_phases(card: str, kind: str) -> int:
 
     def check_heads(res, what):
         h = res.h
-        got = [a[:h].cpu().numpy() for a in (res.head_t, res.head_pos,
-                                             res.head_len, res.head_smaller,
-                                             res.head_char)]
+        got = [a[:h].cpu().numpy() if torch.is_tensor(a) else a[:h]
+               for a in (res.head_t, res.head_pos, res.head_len,
+                         res.head_smaller, res.head_char)]
         if h != len(nat[0]) or any(
                 not np.array_equal(g.astype(w.dtype), w)
                 for g, w in zip(got, nat)):
@@ -1092,6 +1210,10 @@ def run_phases(card: str, kind: str) -> int:
         "byte histogram")
     del xb, cb
 
+    # phase 9: auto, the model API, ms_dense and --parallel
+    phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
+           oracle, k200k, x_aug, coll)
+
     def row(name, source, replaces, res):
         # every run of a route that launches this kernel, and the routes
         # that launch none (their 0 shown)
@@ -1109,6 +1231,8 @@ def run_phases(card: str, kind: str) -> int:
                 "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
 
+    log(f"smoke: every phase passed in "
+        f"{time.perf_counter() - started:.1f} s")
     csrc = "cmsbwt_tpu_torch/kernels/csrc/"
     log(json.dumps({"kernels": [
         row("ms_jump_scan", csrc + "ms_jump_scan.cu",

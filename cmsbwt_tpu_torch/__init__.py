@@ -3,23 +3,35 @@
 Mirrors the JAX package's module paths and function names, and imports
 nothing of it: what it takes from framework-free modules there (the
 config, FASTA parsing, the native IO bindings, the numpy writers, the
-phase timer) it keeps as its own copies under the same paths. Two routes
-are ported, each feeding the device merge (engine/device_merge.py) and
-driven by engine/pipeline.compute_bwt and the CLI:
+phase timer, the divergence probe) it keeps as its own copies under the
+same paths. engine/pipeline.compute_bwt and the CLI drive every backend:
+``auto`` (the default: on ``cuda`` the rule measured on the H100, on
+``cpu`` the JAX package's), ``jump`` (a hand-written CUDA scan kernel,
+kernels/csrc/ms_jump_scan.cu), ``dense`` (one joint suffix sort per block,
+with the CUDA kernels kernels/csrc/lcp_lift.cu and dense_neighbors.cu;
+``--parallel`` on one card scans its blocks one after another),
+``device``, ``native`` and ``host``, with the device or the host merge.
 
-* ``jump`` (the default): the head-jumping scan over a reference index, a
-  hand-written CUDA kernel (kernels/csrc/ms_jump_scan.cu);
-* ``dense``: one joint suffix sort of reference and collection (unblocked),
-  with the CUDA kernels kernels/csrc/lcp_lift.cu and dense_neighbors.cu.
+Public API:
+    Config                      run configuration (the JAX package's)
+    compute_bwt(cfg, device)    file-to-file pipeline (CLI core)
+    CMSBWT                      index-once / transform-many model object
 
 Every entry point takes an explicit ``device``; nothing falls back from
 ``cuda`` to ``cpu``.
 """
 from .config import Config
 
-__all__ = ["Config", "compute_bwt"]
+__all__ = ["CMSBWT", "Config", "compute_bwt"]
 
 
-def compute_bwt(cfg, device):
+def compute_bwt(cfg, device="cuda"):
     from .engine.pipeline import compute_bwt as _impl
     return _impl(cfg, device)
+
+
+def __getattr__(name):
+    if name == "CMSBWT":
+        from .models.cms_bwt import CMSBWT
+        return CMSBWT
+    raise AttributeError(name)

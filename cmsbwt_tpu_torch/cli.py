@@ -40,16 +40,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend",
                    choices=["auto", "host", "native", "device", "dense",
                             "jump"],
-                   default="jump",
-                   help="compute backend: jump (default; head-jumping scan "
-                        "over a reference index, the CUDA ms_jump_scan "
-                        "kernel), dense (one joint suffix sort of "
-                        "reference and collection; the CUDA lcp_lift and "
-                        "dense_neighbors kernels), device (the jump scan's "
-                        "heads expanded to every position, then the host "
-                        "merge), native (the C++ OpenMP scan engine and the "
-                        "host merge) or host (the Python spec scan, for "
-                        "small inputs); auto is not ported yet")
+                   default="auto",
+                   help="compute backend: auto (default; on cuda the jump "
+                        "scan, by the rule measured on the H100, and the "
+                        "blocked dense scan for collections of 2^31 chars "
+                        "or more; on cpu the JAX package's rule: native, "
+                        "else host below 2 M chars and jump above), jump "
+                        "(head-jumping scan over a reference index, the "
+                        "CUDA ms_jump_scan kernel), dense (one joint suffix "
+                        "sort of reference and collection; the CUDA "
+                        "lcp_lift and dense_neighbors kernels), device (the "
+                        "jump scan's heads expanded to every position, then "
+                        "the host merge), native (the C++ OpenMP scan engine "
+                        "and the host merge) or host (the Python spec scan, "
+                        "for small inputs); the .log names the backend that "
+                        "ran")
     p.add_argument("--lanes", type=int, default=Config.lanes,
                    help="parallel MS cursors of the jump scan "
                         "(default %(default)s)")
@@ -59,8 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "sized by the memory guard when that would not fit "
                         "the device's free memory or CMSBWT_HBM_GB)")
     p.add_argument("--parallel", action="store_true",
-                   help="fan dense blocks out over all local devices (not "
-                        "ported yet: rejected, ROADMAP.md queue 1 item 11)")
+                   help="dense backend: scan in blocks (of --block-chars, "
+                        "default one per device, capped by the phrase-chunk "
+                        "cap and the memory guard); one card only, which "
+                        "scans the blocks one after another (more raise: "
+                        "ROADMAP.md queue 1 item 11)")
     p.add_argument("--merge-backend",
                    choices=["auto", "host", "device", "sharded"],
                    default="auto",
@@ -68,10 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "backends: device (sorted joins on the device), "
                         "host (numpy + native OpenMP) or auto (default: "
                         "the device merge, but the host merge for dense on "
-                        "the cpu, for jump on cuda with a reference under 1 "
-                        "M chars and a collection over 16 times it, above "
-                        "the card's merge memory ceiling and for "
-                        "collections of 2^31 chars or more; "
+                        "the cpu, above the card's merge memory ceiling and "
+                        "for collections of 2^31 chars or more; "
                         "CMSBWT_MERGE_BACKEND=host|device overrides it); "
                         "sharded is not ported yet")
     p.add_argument("--checkpoint-dir", default=None,

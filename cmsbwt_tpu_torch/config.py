@@ -57,8 +57,9 @@ class Config:
                                     # (see engine/merge.py; ref :1069-1078 vs :986-994)
 
     # --- reference-index cache (the host and native backends) + the
-    # auto-dispatch probe (not ported yet; kept so a Config means the same
-    # in both packages) ---
+    # auto-dispatch probe (the JAX package's rule reads these; the port's
+    # auto rule reads no probe, and they are kept so a Config means the
+    # same in both packages) ---
     index_cache_dir: Optional[str] = None   # None -> CMSBWT_INDEX_CACHE or
                                             # ~/.cache/cmsbwt_tpu/ref_index
     probe_threshold: float = 0.72

@@ -7,11 +7,13 @@ cmsbwt_tpu/engine/pipeline.py:
 * backend=dense: parse -> the ``dense_heads`` checkpoint bundle when one is
   saved, else ms_dense_heads_on_device, or ms_dense_heads_blocked_on_device
   for ``dense_block_chars``, when the memory guard finds that the unblocked
-  scan does not fit, with ``checkpoint_dir`` (each finished block saved;
-  unblocked, the whole collection is one block), and for collections at or
-  above the int32 bound (heads to the host block by block, int64 t) (joint
-  suffix sort; the CUDA ``lcp_lift`` and ``dense_neighbors`` kernels on a
-  CUDA device) -> the device or the host merge
+  scan does not fit, with ``dense_parallel`` (on one device the JAX
+  package's block size; the blocks' order does not matter there), with
+  ``checkpoint_dir`` (each finished block saved; unblocked, the whole
+  collection is one block), and for collections at or above the int32
+  bound (heads to the host block by block, int64 t) (joint suffix sort;
+  the CUDA ``lcp_lift`` and ``dense_neighbors`` kernels on a CUDA device)
+  -> the device or the host merge
 * backend=device: build_device_index -> ms_scan_device (the jump scan's
   heads expanded to every position) -> compute_bwt_arrays (the host merge)
 * backend=native: the host reference index (device-built on a card,
@@ -19,20 +21,24 @@ cmsbwt_tpu/engine/pipeline.py:
   when g++ cannot build it) -> the host merge
 * backend=host: the host index (cached) -> ms_scan_collection (the
   per-phrase spec scan) -> the host merge
+* backend=auto: one of the above, chosen after parsing (auto_backend): on
+  ``cpu`` by the JAX package's rule, on ``cuda`` by the rule measured on
+  the H100 (PERF.md §5)
 
-then _write_outputs. The merge engine of the jump and dense routes follows
-the JAX rules with ``cuda`` in the role of an accelerator and ``cpu`` in
-that of a CPU-only process (_choose_merge); on a card, 'auto'
-also takes the host merge above the device merge's memory ceiling
-(device_merge.MERGE_BYTES_PER_CHAR), where merge_backend='device' is
-refused before the scan.
+then _write_outputs, whose ``.log`` names the backend that ran. The merge
+engine of the jump and dense routes follows the JAX rules with ``cuda`` in
+the role of an accelerator and ``cpu`` in that of a CPU-only process
+(_choose_merge); on a card, 'auto' also takes the host merge above the
+device merge's memory ceiling (device_merge.MERGE_BYTES_PER_CHAR), where
+merge_backend='device' is refused before the scan.
 
-backend='auto', merge_backend='sharded' and dense_parallel raise
-NotImplementedError naming their ROADMAP.md entry; nothing silently routes
-elsewhere, and nothing falls back from a device call.
+merge_backend='sharded' and dense_parallel on more than one CUDA device
+raise NotImplementedError naming their ROADMAP.md entry; nothing silently
+routes elsewhere, and nothing falls back from a device call.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -50,17 +56,14 @@ from . import tails as tails_mod
 from .ms_host import MSArrays, ms_scan_collection
 
 BACKENDS = ("jump", "dense", "device", "native", "host")
-_NOT_PORTED = {
-    "auto": "queue 1 item 5 (the auto dispatch)",
-    "sharded": "queue 1 item 11 (multi-device)",
-}
+MESH_ITEM = "queue 1 item 11 (the mesh modules, multi-device)"
 
-# The JAX package's SARS-shape rule (its pipeline.py:657-659): on an
-# accelerator, a small reference under a collection many times its size
-# takes the host merge, whose tail walk beats the device sorted joins
-# there. Measured on a TPU; kept until the card measures it.
-SARS_MAX_REF = 1_000_000
-SARS_RATIO = 16
+# The JAX package's auto constants (its pipeline.py:608 and :669), measured
+# on a TPU and on a CPU: below AUTO_DENSE_MIN_CHARS collection chars a
+# CPU-only process scans on the host, and an auto-resolved jump scan on
+# the CPU runs at most AUTO_CPU_JUMP_LANES lanes.
+AUTO_DENSE_MIN_CHARS = 2_000_000
+AUTO_CPU_JUMP_LANES = 1024
 
 
 @dataclass
@@ -88,24 +91,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_route(cfg: Config) -> None:
-    if cfg.backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[cfg.backend]}; use one of {', '.join(BACKENDS)}")
-    if cfg.backend not in BACKENDS:
+def device_count(device: torch.device) -> int:
+    """The devices a --parallel run could fan its blocks out over: the
+    process's CUDA devices on ``cuda``, one on ``cpu``."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _check_route(cfg: Config, device: torch.device) -> None:
+    if cfg.backend not in BACKENDS + ("auto",):
         raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.merge_backend == "sharded":
         raise NotImplementedError(
             f"merge_backend={cfg.merge_backend!r} is not ported yet: "
-            f"ROADMAP.md {_NOT_PORTED[cfg.merge_backend]}; use "
-            "merge_backend='auto', 'device' or 'host'")
+            f"ROADMAP.md {MESH_ITEM}; use merge_backend='auto', 'device' "
+            "or 'host'")
     if cfg.merge_backend not in ("auto", "device", "host"):
         raise ValueError(f"unknown merge_backend {cfg.merge_backend!r}")
-    if cfg.dense_parallel:
+    if cfg.dense_parallel and device_count(device) > 1:
         raise NotImplementedError(
-            "dense_parallel is not ported yet: ROADMAP.md queue 1 item 11 "
-            "(multi-device)")
+            f"dense_parallel over {device_count(device)} CUDA devices is not "
+            f"ported yet: ROADMAP.md {MESH_ITEM}; run on one card "
+            "(CUDA_VISIBLE_DEVICES)")
 
 
 def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
@@ -121,8 +127,7 @@ def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
     if n >= 1 << 31:
         raise ValueError(
             f"reference is {n} chars (>= the int32 index bound): the "
-            "sharded int64 index is not ported yet (ROADMAP.md queue 1 "
-            "item 11)")
+            f"sharded int64 index is not ported yet (ROADMAP.md {MESH_ITEM})")
     sn_limit = fasta.collection_sn_limit(coll_path, prefix_length)
     with timer.phase("parse_collection"):
         coll = fasta.parse_collection(coll_path, sn_limit)
@@ -188,19 +193,25 @@ def merge_from_heads(index: ReferenceIndex, heads, d: int, sn: int,
 def compute_bwt(cfg: Config, device) -> dict:
     """Full file-to-file run on ``device`` (``cuda`` or ``cpu``)."""
     device = resolve_device(device)
-    _check_route(cfg)
+    _check_route(cfg, device)
     from .device_merge import sn_bound
 
     timer = PhaseTimer()
     outname = cfg.resolved_outname()
     x_aug, coll = load_inputs(cfg.filename, cfg.prefix_length, timer)
     n = len(x_aug)
+    # auto resolves after parsing, as in the JAX package
+    auto = cfg.backend == "auto"
+    cfg = dataclasses.replace(cfg, backend=_resolve_backend(cfg, device))
+
+    def finish(result: PipelineResult) -> dict:
+        return _write_outputs(cfg, outname, n, result, timer)
+
     if coll.sn == 0:
         # empty collection -> empty BWT (the reference emits nothing)
-        result = PipelineResult(run_len=np.zeros(0, np.int64),
-                                run_char=np.zeros(0, np.uint8),
-                                d=coll.d, sn=0, h=0)
-        return _write_outputs(cfg, outname, n, result, timer)
+        return finish(PipelineResult(run_len=np.zeros(0, np.int64),
+                                     run_char=np.zeros(0, np.uint8),
+                                     d=coll.d, sn=0, h=0))
     # collections at/above the int32 bound (the reference's sn is uint64,
     # ref CMS-BWT.h:26,46) take the int64-safe route: the blocked dense
     # scan with heads assembled on the host, then the host merge
@@ -211,11 +222,14 @@ def compute_bwt(cfg: Config, device) -> dict:
                 f"collection has {coll.sn} chars (>= the int32 device-merge "
                 f"bound {sn_bound()}): merge_backend='device' cannot run "
                 "it; use merge_backend=auto/host")
-        if cfg.backend in ("jump", "device"):
+        if cfg.backend in ("jump", "device") and not auto:
             raise ValueError(
                 f"collection has {coll.sn} chars (>= the int32 bound "
                 f"{sn_bound()}): backend={cfg.backend} uses int32 device "
                 "scans; use backend=dense (blocked), native or host")
+        if cfg.backend in ("jump", "device"):
+            # auto's device scans: the blocked int64 route
+            cfg = dataclasses.replace(cfg, backend="dense")
 
     def sync():
         if device.type == "cuda":
@@ -234,7 +248,7 @@ def compute_bwt(cfg: Config, device) -> dict:
             result = merge_from_heads(index, heads, coll.d, coll.sn, rq,
                                       device, timer, buffer_bytes=buf)
             result.engine = engine
-        return _write_outputs(cfg, outname, n, result, timer)
+        return finish(result)
     if cfg.backend == "device":
         from ..index.device import build_device_index, export_reference_index
         from ..ops.ms_device import ms_scan_device
@@ -249,11 +263,11 @@ def compute_bwt(cfg: Config, device) -> dict:
                       is_head=dev.is_head)
         result = compute_bwt_arrays(index, coll, rq, device, ms=ms,
                                     timer=timer, buffer_bytes=buf)
-        return _write_outputs(cfg, outname, n, result, timer)
+        return finish(result)
 
     # jump and dense: the merge engine is chosen before the scan, so that
     # a device merge the card cannot hold is refused before any work
-    engine = _choose_merge(cfg, device, n, coll.sn, sn_big)
+    engine = _choose_merge(cfg, device, coll.sn, sn_big)
     if cfg.backend == "dense":
         heads = _dense_heads(cfg, device, x_aug, coll, sn_big, timer, sync)
     else:
@@ -262,8 +276,13 @@ def compute_bwt(cfg: Config, device) -> dict:
         with timer.phase("build_index"):
             dindex = build_device_index(x_aug, device)
             sync()
+        lanes = cfg.lanes
+        if auto and device.type == "cpu":
+            # the JAX rule: the accelerator's lane default over-subscribes
+            # the CPU (AUTO_CPU_JUMP_LANES)
+            lanes = min(lanes, AUTO_CPU_JUMP_LANES)
         with maybe_torch_trace("ms_scan"):
-            heads = ms_jump_heads(x_aug, coll.sx, device, lanes=cfg.lanes,
+            heads = ms_jump_heads(x_aug, coll.sx, device, lanes=lanes,
                                   window=cfg.skip_window, index=dindex,
                                   timer=timer)
         del dindex
@@ -275,7 +294,7 @@ def compute_bwt(cfg: Config, device) -> dict:
         index, hh = dense_result_to_inputs(x_aug, dl)
         result = merge_from_heads(index, hh, coll.d, coll.sn, rq, device,
                                   timer, buffer_bytes=buf)
-        return _write_outputs(cfg, outname, n, result, timer)
+        return finish(result)
     from .device_merge import merge_heads_device_resident
     if isinstance(heads, DenseHeadsResult):
         heads = upload_heads_result(heads, n, device)
@@ -284,21 +303,26 @@ def compute_bwt(cfg: Config, device) -> dict:
             heads, coll.d, rq, want_counter=n < cfg.small_ref_threshold)
     result = PipelineResult(run_len=run_len, run_char=run_char, d=coll.d,
                             sn=coll.sn, h=heads.h, counter=counter)
-    return _write_outputs(cfg, outname, n, result, timer)
+    return finish(result)
 
 
-def _choose_merge(cfg: Config, device: torch.device, n: int, sn: int,
+def _choose_merge(cfg: Config, device: torch.device, sn: int,
                   sn_big: bool) -> str:
     """The merge engine of a jump or dense run, 'device' or 'host': the
     JAX package's rules (its pipeline.py:269-280, 366, 466, 635-663) with
     ``cuda`` in the role of an accelerator and ``cpu`` in that of a
     CPU-only process. CMSBWT_MERGE_BACKEND=host|device overrides auto.
     Auto on ``cpu`` is the host merge, except on the jump route, whose
-    heads are device-resident; auto on ``cuda`` is the device merge,
-    except on the jump route for the SARS shape (a small reference under
-    a collection many times its size). The int64 route always merges on
+    heads are device-resident; auto on ``cuda`` is the device merge. (The
+    JAX package's SARS-shape rule, the host merge for jump with a
+    reference under 1 M chars and a collection over 16 times it, measured
+    on a TPU, does not hold on the H100: at the bench's sars_stream shape
+    the jump CLI ran in 0.65-0.71 s with the device merge against
+    1.02-1.12 s with the host merge, and in 2.30-2.39 s against 2.97-3.17
+    s at its 80 M-char cut; PERF.md §5.) The int64 route always merges on
     the host. On a card a device merge above the memory ceiling is auto's
     host merge, and a refusal when it was asked for."""
+    from ..ops.ms_dense import free_device_bytes
     from .device_merge import merge_fits, merge_memory_check
     if sn_big:
         return "host"
@@ -306,20 +330,61 @@ def _choose_merge(cfg: Config, device: torch.device, n: int, sn: int,
     forced = os.environ.get("CMSBWT_MERGE_BACKEND")
     auto = engine == "auto" and forced not in ("host", "device")
     if engine == "auto":
-        jump = cfg.backend == "jump"
         if not auto:
             engine = forced
         elif device.type == "cpu":
-            engine = "device" if jump else "host"
+            engine = "device" if cfg.backend == "jump" else "host"
         else:
-            sars = jump and n < SARS_MAX_REF and sn > SARS_RATIO * max(n, 1)
-            engine = "host" if sars else "device"
+            engine = "device"
     if engine == "device" and device.type == "cuda":
-        free = torch.cuda.mem_get_info(device)[0]
+        free = free_device_bytes(device)
         if auto and not merge_fits(sn, free):
             return "host"
         merge_memory_check(sn, free)
     return engine
+
+
+def auto_backend(coll_chars: int, device_type: str, native_ok: bool) -> str:
+    """The backend ``auto`` runs, from what a run knows once its inputs
+    are parsed: the collection file's chars (cut to the prefix), the
+    device type and whether the native scan library is built.
+
+    ``cpu`` is the JAX package's rule for a CPU-only process, decision for
+    decision (its pipeline.py:735-749): the native scan when the library
+    is built, else the host spec scan below AUTO_DENSE_MIN_CHARS and the
+    jump scan above it; no probe.
+
+    ``cuda`` is the rule read off the route table measured on the H100
+    (PERF.md §5, tools/profile_slice.py --routes): the jump scan with the
+    device merge ran the CLI fastest at every shape measured, from 1.6 M
+    to 500 M collection chars, 0.1% to 10% SNP, and a 30 Kbp reference
+    under 25 M and 80 M chars. Dense came closest at 5% and 10% SNP,
+    about 0.1 s behind, which at 5% is inside the spread between calls:
+    both spend 0.85-1.64 s there in the same merge, and the jump scan
+    phase took 20-32 ms against the dense scan's 95-116 ms. Native was
+    1.3-8 times slower everywhere. So neither the divergence probe nor the
+    native library changes the choice, nor do sn and n, and the JAX
+    package's accelerator rule (the native scan below the probe's 0.72,
+    else dense: TPU measurements) is not copied. Collections of 2^31
+    chars or more take the blocked dense scan in compute_bwt, as the JAX
+    package turns its device routes there."""
+    if device_type == "cpu":
+        if native_ok:
+            return "native"
+        return "host" if coll_chars < AUTO_DENSE_MIN_CHARS else "jump"
+    return "jump"
+
+
+def _resolve_backend(cfg: Config, device: torch.device) -> str:
+    """cfg.backend, or auto_backend's choice for 'auto' (the native
+    library is looked up, and built, only where the rule reads it: on the
+    CPU)."""
+    if cfg.backend != "auto":
+        return cfg.backend
+    _, coll_path = fasta.read_input_list(cfg.filename)
+    coll_chars = min(os.path.getsize(coll_path), cfg.prefix_length)
+    native_ok = device.type == "cpu" and native.get_scan_lib() is not None
+    return auto_backend(coll_chars, device.type, native_ok)
 
 
 def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
@@ -342,6 +407,12 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
     if block_chars is None and bundle is None:
         # memory guard: above the budget the scan streams in blocks
         block_chars = md.dense_block_chars(n, sn, md.dense_budget(device))
+        if cfg.dense_parallel:
+            # the JAX pipeline's per-device block (its pipeline.py:333-340)
+            # on one device: sn, capped by the phrase-chunk cap and by the
+            # guard's block
+            par = max(min(sn, cfg.chunk_cap_bytes // 8), 1 << 16)
+            block_chars = min(block_chars, par) if block_chars else par
     if sn_big:
         # int64-safe route: per-block scans stay under the int32 bound
         # while the global head t is assembled in int64 on the host
@@ -515,6 +586,9 @@ def _dense_fingerprint(cfg: Config) -> str:
 
 def _write_outputs(cfg: Config, outname: str, n: int,
                    result: PipelineResult, timer: PhaseTimer) -> dict:
+    """The output file, the counter debug artifact and the ``.log``: the
+    phases, then sn, heads, D, the backend that ran and the native
+    branch's scan engine."""
     # small-path debug artifact (ref :919-924, written unconditionally by
     # the small-reference variant)
     if n < cfg.small_ref_threshold and result.counter is not None:
@@ -542,6 +616,7 @@ def _write_outputs(cfg: Config, outname: str, n: int,
     with open(outname + ".log", "w") as f:
         f.write(timer.report())
         f.write(f"\nsn: {result.sn}\nheads: {result.h}\nD: {result.d}\n")
+        f.write(f"backend: {cfg.backend}\n")
         if result.engine:
             f.write(f"scan_engine: {result.engine}\n")
     return {"out_path": out_path, "bytes": nbytes, "timer": timer,

@@ -1,7 +1,8 @@
 """Dense matching statistics — the counterpart of cmsbwt_tpu/ops/ms_dense.py
 for its device-resident scans, unblocked (``ms_dense_heads_on_device``) and
 blocked (``ms_dense_heads_blocked_on_device``, optionally with per-block
-checkpoints in the JAX package's ``.npz`` layout):
+checkpoints in the JAX package's ``.npz`` layout), and for its per-position
+test path (``ms_dense``):
 
 joint string -> joint_suffix_array -> irreducible slots -> lift (CUDA
 ``lcp_lift``) -> PLCP fill -> neighbor scans (CUDA ``dense_neighbors``) ->
@@ -357,16 +358,27 @@ def _finish_for_merge(t, pos, length, smaller, char, ref_sa, ref_isa,
             ref_isa, ref_bwt)
 
 
+def free_device_bytes(device) -> int:
+    """The bytes a new allocation on a CUDA device can have: the free
+    memory torch.cuda.mem_get_info reports plus what torch's caching
+    allocator holds reserved but unallocated (a process that ran before
+    keeps its freed segments, which mem_get_info counts as used)."""
+    device = torch.device(device)
+    return (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
 def dense_budget(device) -> float | None:
     """Device bytes the dense scan may use: ``CMSBWT_HBM_GB`` GiB when
-    set (as in the JAX package), else the free memory of a CUDA device;
-    None on the CPU, which has no such reading."""
+    set (as in the JAX package), else the free memory of a CUDA device
+    (free_device_bytes); None on the CPU, which has no such reading."""
     gb = os.environ.get("CMSBWT_HBM_GB")
     if gb:
         return float(gb) * 2**30
     device = torch.device(device)
     if device.type == "cuda":
-        return float(torch.cuda.mem_get_info(device)[0])
+        return float(free_device_bytes(device))
     return None
 
 
@@ -427,6 +439,26 @@ def _dense_stages(x_u8, sx_u8, n: int, sn: int, sep_base: int, wide: bool,
     return b, pos, length, smaller, ref_sa, ref_isa, rho
 
 
+def _unblocked_scan(x_aug: np.ndarray, sx: np.ndarray, device, mark):
+    """The unblocked scan up to its postprocess, on ``device``: the whole
+    collection as one joint string, emitting all sn positions with no
+    previous pos and the collection's last byte before the first (cyclic).
+    Returns (b, (pos, length, smaller, is_head, char), h, ref_sa, ref_isa,
+    rho, (n_pad, sn_pad, m))."""
+    n, sn = len(x_aug), len(sx)
+    n_pad, sn_pad, m = joint_geometry(n, sx)
+    x_u8 = upload_bytes(x_aug, n_pad, device)
+    sx_u8 = upload_bytes(sx, sn_pad, device)
+    wide = wide_seed_ok(x_u8[:n], sx_u8[:sn], m)
+    b, pos, length, smaller, ref_sa, ref_isa, rho = _dense_stages(
+        x_u8, sx_u8, n, sn, 0, wide, mark)
+    del sx_u8
+    post = _postprocess_block(b, pos, length, smaller, n, sn, -2,
+                              int(sx[sn - 1]), n_pad, sn_pad)
+    mark("postprocess")
+    return b, post[:5], post[5], ref_sa, ref_isa, rho, (n_pad, sn_pad, m)
+
+
 def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
                              device) -> DeviceHeadsResult:
     """Dense MS of ``sx`` (non-empty) against ``x_aug`` on ``device`` whose
@@ -436,16 +468,8 @@ def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
     device = torch.device(device)
     mark = stage_timer(device)
     n, sn = len(x_aug), len(sx)
-    n_pad, sn_pad, m = joint_geometry(n, sx)
-    x_u8 = upload_bytes(x_aug, n_pad, device)
-    sx_u8 = upload_bytes(sx, sn_pad, device)
-    wide = wide_seed_ok(x_u8[:n], sx_u8[:sn], m)
-    b, pos, length, smaller, ref_sa, ref_isa, rho = _dense_stages(
-        x_u8, sx_u8, n, sn, 0, wide, mark)
-    del sx_u8
-    pos, length, smaller, is_head, char, h, _, _ = _postprocess_block(
-        b, pos, length, smaller, n, sn, -2, int(sx[sn - 1]), n_pad, sn_pad)
-    mark("postprocess")
+    b, (pos, length, smaller, is_head, char), h, ref_sa, ref_isa, rho, \
+        (n_pad, sn_pad, _) = _unblocked_scan(x_aug, sx, device, mark)
     h_pad = bucket_size(h + 1)
     ch_pad = min(h_pad, sn_pad + 1)
     heads = _compact_heads_raw(pos, length, smaller, is_head, char, sn_pad,
@@ -460,6 +484,51 @@ def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
         head_t=t, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
         head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,
         h=h, n=n, sn=sn, irreducible=rho)
+
+
+@dataclass
+class DenseMSResult:
+    """Matching statistics at every collection position (the JAX
+    package's DenseMSResult): pos, length (int64), smaller and is_head
+    (bool), cut to sn; the n-long reference index (int32 sa, isa; uint8
+    bwt); the irreducible row count and the joint string's length m."""
+
+    pos: np.ndarray
+    length: np.ndarray
+    smaller: np.ndarray
+    is_head: np.ndarray
+    ref_sa: np.ndarray
+    ref_isa: np.ndarray
+    ref_bwt: np.ndarray
+    irreducible: int
+    m: int
+
+
+def ms_dense(x_aug: np.ndarray, sx: np.ndarray, device="cuda",
+             bucketed: bool = True) -> DenseMSResult:
+    """Dense MS of ``sx`` (non-empty) against ``x_aug`` on ``device`` at
+    every position, as host arrays: the test path of the JAX package's
+    ms_dense (ms_dense.py:684-706), equal to it field for field: the
+    unblocked scan (_unblocked_scan, as ms_dense_heads_on_device runs it)
+    without the head compaction. Only the bucketed pads are ported:
+    nothing in the repository passes ``bucketed=False``."""
+    if not bucketed:
+        raise ValueError("ms_dense: only bucketed=True is ported (the JAX "
+                         "package's default; nothing passes False)")
+    device = torch.device(device)
+    n, sn = len(x_aug), len(sx)
+    _, (pos, length, smaller, is_head, _), _, ref_sa, ref_isa, rho, \
+        (_, _, m) = _unblocked_scan(x_aug, sx, device, stage_timer(device))
+    cut = lambda a, k: a[:k].cpu().numpy()
+    ref_sa, ref_isa = cut(ref_sa, n), cut(ref_isa, n)
+    ref_bwt = np.where(ref_sa > 0,
+                       np.asarray(x_aug)[np.maximum(ref_sa - 1, 0)],
+                       np.uint8(0)).astype(np.uint8)
+    return DenseMSResult(
+        pos=cut(pos, sn).astype(np.int64),
+        length=cut(length, sn).astype(np.int64),
+        smaller=cut(smaller, sn), is_head=cut(is_head, sn), ref_sa=ref_sa,
+        ref_isa=ref_isa, ref_bwt=ref_bwt, irreducible=rho, m=m)
 
 
 # ---------------------------------------------------------------------------
@@ -649,6 +718,22 @@ class DenseHeadsResult:
 _PART_KEYS = ("t", "pos", "length", "smaller", "char")
 
 
+def chain_block(part: dict, b0: int, prev_last: int) -> dict:
+    """A block's heads (``part``, t global) chained to the block before it:
+    row 0 dropped when it is the block's first position and its pos
+    follows the previous block's last pos (``pos != prev + 1`` makes a
+    head, ref :360). The JAX package's parallel scan computes every
+    block as if it had no predecessor, saves it so, and applies this
+    afterwards (its parallel/blocked.py:161-167, 213-222); the blocked scan
+    applies it to every block it loads, so a file saved before the fixup
+    loads as the chained block it stands for. A chained block is returned
+    as it is, and so is the first block (b0 = 0)."""
+    t, pos = part["t"], part["pos"]
+    if b0 and len(t) and t[0] == b0 and pos[0] == prev_last + 1:
+        return {k: part[k][1:] for k in _PART_KEYS}
+    return part
+
+
 def _heads_to_host(heads, b0: int) -> dict:
     """A block's head rows (t local to the block, int32) downloaded once,
     t made global in int64 on the host: the dtypes of a JAX block file."""
@@ -713,6 +798,7 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
         heads = None
         if saved is not None:
             part, rho, last_pos, rsa, risa = saved
+            part = chain_block(part, b0, prev_pos0)
             mark("  blk_load")
         else:
             sep_base = sep_cum.before(b0)

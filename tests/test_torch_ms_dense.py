@@ -299,3 +299,24 @@ def test_dense_memory_check_names_the_blocked_scan():
         int(((need - 1) / TD.DENSE_BYTES_PER_CHAR - bucket_size(n)) * 0.6)
     assert TD.dense_block_chars(n, sn, 2**30) == 8 << 20
     assert TD.dense_block_chars(n, sn, None) is None
+
+
+@pytest.mark.parametrize("cid", CASE_IDS + list(EXTRA))
+def test_ms_dense_matches_jax(cid):
+    """ms_dense, the per-position test path: the JAX package's
+    DenseMSResult field for field (values, shapes, dtypes)."""
+    x, sx = _collection(cid)
+    want = MD.ms_dense(x, sx)
+    got = TD.ms_dense(x, sx, "cpu")
+    for f in ("pos", "length", "smaller", "is_head", "ref_sa", "ref_isa",
+              "ref_bwt"):
+        assert_same(getattr(want, f), getattr(got, f), f)
+    assert (got.irreducible, got.m) == (want.irreducible, want.m)
+    assert int(got.is_head.sum()) == TD.ms_dense_heads_on_device(
+        x, sx, "cpu").h
+
+
+def test_ms_dense_unbucketed_is_refused():
+    x, sx = _collection("snp2")
+    with pytest.raises(ValueError, match="bucketed"):
+        TD.ms_dense(x, sx, "cpu", bucketed=False)

@@ -107,7 +107,7 @@ def test_cli_matches_jax(tmp_path, rle):
                               outname=str(tmp_path / "h"), backend="host",
                               rle=rle))
     argv = [str(lst), "-o", str(tmp_path / "t"), "--device", "cpu",
-            "--lanes", "8"] + (["-r"] if rle else [])
+            "--backend", "jump", "--lanes", "8"] + (["-r"] if rle else [])
     assert cli.main(argv) == 0
     assert (tmp_path / ("t" + ext)).read_bytes() == \
         (tmp_path / ("h" + ext)).read_bytes()
@@ -155,7 +155,7 @@ def _cli_loads_no_jax(tmp_path, *flags):
 
 
 def test_cli_run_leaves_jax_unloaded(tmp_path):
-    _cli_loads_no_jax(tmp_path, "--lanes", "4")
+    _cli_loads_no_jax(tmp_path, "--backend", "jump", "--lanes", "4")
 
 
 def test_dense_cli_run_leaves_jax_unloaded(tmp_path):
@@ -191,20 +191,47 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
     ("auto", "auto"), ("dense", "sharded"), ("device", "sharded"),
     ("native", "sharded"), ("jump", "sharded")])
 def test_unported_routes_raise(tmp_path, backend, merge_backend):
+    """merge_backend='sharded' raises, naming ROADMAP.md; backend='auto',
+    refused until it was ported, now runs (test_torch_auto.py holds its
+    choices): bytes equal to the JAX package's auto run."""
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
     cfg = Config(filename=str(lst), outname=str(tmp_path / "t"),
                  backend=backend, merge_backend=merge_backend)
+    if backend == "auto":
+        out = compute_bwt(cfg, "cpu")
+        want = jax_compute_bwt(JaxConfig(filename=str(lst),
+                                         outname=str(tmp_path / "j")))
+        assert out["backend"] == want["backend"]
+        assert (tmp_path / "t.bwt").read_bytes() == \
+            (tmp_path / "j.bwt").read_bytes()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         compute_bwt(cfg, "cpu")
 
 
 @pytest.mark.parametrize("flag", [["--parallel"]])
 def test_unported_options_rejected(tmp_path, flag):
-    """Options of routes not ported yet are refused, not ignored."""
+    """--parallel, refused until it was ported, now runs on one device
+    (test_torch_parallel_blocked.py holds it to the JAX package): the
+    dense route's bytes, equal to the JAX CLI's."""
+    lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
+    assert cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cpu",
+                     "--backend", "dense", *flag]) == 0
+    assert jax_cli.main([str(lst), "-o", str(tmp_path / "j"), "--backend",
+                         "dense", *flag]) == 0
+    assert (tmp_path / "t.bwt").read_bytes() == \
+        (tmp_path / "j.bwt").read_bytes()
+
+
+def test_parallel_on_more_than_one_card_raises(tmp_path, monkeypatch):
+    """--parallel over more than one CUDA device is the mesh program, not
+    ported: refused before any work, naming ROADMAP.md."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cpu",
-                  *flag])
+        cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cuda",
+                  "--backend", "dense", "--parallel"])
     assert not (tmp_path / "t.bwt").exists()
 
 
@@ -265,6 +292,39 @@ def test_hbm_guard_routes_dense_through_blocks(tmp_path, monkeypatch):
         (tmp_path / "b.bwt").read_bytes()
 
 
+def test_parallel_block_chars_capped_by_guard(tmp_path, monkeypatch):
+    """dense_parallel without dense_block_chars takes the JAX pipeline's
+    one-device block (sn, with its 64 Ki floor), and the memory guard's
+    block where the guard gives a smaller one (here a guard made to give
+    1000 chars under a budget); both run the blocked loop, and the bytes
+    equal the unblocked run's."""
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    lst, _, _ = _inputs(tmp_path, 3, 3000, 2, 0.01)
+    calls = []
+    orig = md.ms_dense_heads_blocked_on_device
+
+    def spy(*a, **kw):
+        calls.append(a[3])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(md, "ms_dense_heads_blocked_on_device", spy)
+    monkeypatch.setattr(md, "dense_block_chars",
+                        lambda n, sn, budget: budget and 1000)
+    for tag, gb in (("a", "0.000001"), ("b", None)):
+        if gb:
+            monkeypatch.setenv("CMSBWT_HBM_GB", gb)
+        else:
+            monkeypatch.delenv("CMSBWT_HBM_GB", raising=False)
+        compute_bwt(Config(filename=str(lst), outname=str(tmp_path / tag),
+                           backend="dense", dense_parallel=True), "cpu")
+    compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "c"),
+                       backend="dense"), "cpu")
+    assert calls == [1000, 1 << 16]
+    for tag in "ab":
+        assert (tmp_path / f"{tag}.bwt").read_bytes() == \
+            (tmp_path / "c.bwt").read_bytes()
+
+
 @pytest.mark.parametrize("n,sn,gib", [
     (1_000_000, 20_000_000, 1e-6), (1_000_000, 20_000_000, 2.0),
     (1_000_000, 20_000_000, 6.0), (5_000_128, 500_000_101, 78.2),
@@ -307,11 +367,35 @@ GB = 1e9
 SN_1G = 1_000_000_101        # 5 Mbp x 200 docs: above the card's ceiling
 
 
+def test_free_memory_counts_the_allocator_cache(monkeypatch):
+    """The memory guard's budget and the merge's ceiling read a card's
+    free memory as a new allocation can have it: mem_get_info's free bytes
+    plus what torch's caching allocator holds reserved but unallocated.
+    (Read from mem_get_info alone, a 500 Mchar run took the host merge
+    whenever an earlier run in the same process had left its segments
+    cached.)"""
+    from cmsbwt_tpu_torch.engine import pipeline as pl
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (30 * GB, 85 * GB))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 50 * GB)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 2 * GB)
+    monkeypatch.delenv("CMSBWT_HBM_GB", raising=False)
+    monkeypatch.delenv("CMSBWT_MERGE_BACKEND", raising=False)
+    assert md.free_device_bytes("cuda") == 78 * GB
+    assert md.dense_budget("cuda") == 78 * GB
+    assert pl._choose_merge(Config(backend="dense"), torch.device("cuda"),
+                            500_000_101, False) == "device"
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 2 * GB)
+    assert pl._choose_merge(Config(backend="dense"), torch.device("cuda"),
+                            500_000_101, False) == "host"
+
+
 @pytest.mark.parametrize("backend,mb,dev,n,sn,env,want", [
     ("jump", "auto", "cpu", 2000, 20000, None, "device"),
     ("dense", "auto", "cpu", 2000, 20000, None, "host"),
     ("jump", "auto", "cuda", 2_000_128, 20_000_011, None, "device"),
-    ("jump", "auto", "cuda", 30_000, 90_000_000, None, "host"),   # SARS
+    ("jump", "auto", "cuda", 30_000, 90_000_000, None, "device"),  # SARS
     ("dense", "auto", "cuda", 30_000, 90_000_000, None, "device"),
     ("dense", "auto", "cuda", 5_000_128, SN_1G, None, "host"),    # ceiling
     ("jump", "auto", "cuda", 5_000_128, SN_1G, None, "host"),
@@ -328,13 +412,18 @@ SN_1G = 1_000_000_101        # 5 Mbp x 200 docs: above the card's ceiling
 def test_merge_engine_routing(monkeypatch, backend, mb, dev, n, sn, env,
                               want):
     """The merge engine of the jump and dense routes: the JAX rules with
-    cuda as the accelerator and cpu as the CPU-only process (the SARS
-    shape on the jump route only), CMSBWT_MERGE_BACKEND over auto, and on
-    a card (84.4 GB free here) auto's host merge above the device merge's
-    ceiling, where an asked-for device merge is refused."""
+    cuda as the accelerator and cpu as the CPU-only process, but on a card
+    the device merge at the SARS shape too (the JAX package's host merge
+    there was measured on a TPU; on the H100 the device merge is faster,
+    PERF.md §5), CMSBWT_MERGE_BACKEND over auto, and on a card (84.4 GB
+    free here: 80.4 GB free by mem_get_info and 4 GB cached by torch's
+    allocator) auto's host merge above the device merge's ceiling, where
+    an asked-for device merge is refused."""
     from cmsbwt_tpu_torch.engine import pipeline as pl
     monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda *a: (84.4 * GB, 85.0 * GB))
+                        lambda *a: (80.4 * GB, 85.0 * GB))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda *a: 5.0 * GB)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 1.0 * GB)
     if env:
         monkeypatch.setenv("CMSBWT_MERGE_BACKEND", env)
     else:
@@ -342,10 +431,10 @@ def test_merge_engine_routing(monkeypatch, backend, mb, dev, n, sn, env,
     cfg = Config(backend=backend, merge_backend=mb)
     if want is ValueError:
         with pytest.raises(ValueError, match="merge_backend='host'"):
-            pl._choose_merge(cfg, torch.device(dev), n, sn, False)
+            pl._choose_merge(cfg, torch.device(dev), sn, False)
         return
-    assert pl._choose_merge(cfg, torch.device(dev), n, sn, False) == want
-    assert pl._choose_merge(cfg, torch.device(dev), n, sn, True) == "host"
+    assert pl._choose_merge(cfg, torch.device(dev), sn, False) == want
+    assert pl._choose_merge(cfg, torch.device(dev), sn, True) == "host"
 
 
 ROUTES = [("host", "auto"), ("native", "auto"), ("device", "auto"),
@@ -475,7 +564,8 @@ def test_checkpoint_resumes_across_packages(tmp_path, monkeypatch, writer,
 
 @pytest.mark.parametrize("rle", [False, True])
 def test_sn_bound_route_byte_equal(tmp_path, monkeypatch, rle):
-    """tests/test_sn_bound.py for the port (backend=auto is not ported):
+    """tests/test_sn_bound.py for the port (test_sn_bound_route_auto has
+    its backend=auto cases):
     with CMSBWT_SN_BOUND=1000 the dense route runs blocks of
     max(min(chunk_cap_bytes // 8, bound // 2), 4096) = 4096 chars (two
     over this collection) whose heads go to the host (int64 t), then the
@@ -505,6 +595,52 @@ def test_sn_bound_route_byte_equal(tmp_path, monkeypatch, rle):
     want = (tmp_path / ("a" + ext)).read_bytes()
     assert (tmp_path / ("t" + ext)).read_bytes() == want
     assert (tmp_path / ("j" + ext)).read_bytes() == want
+    assert "head_fixup" in (tmp_path / "t.log").read_text()
+
+
+@pytest.mark.parametrize("native_ok", [True, False], ids=["native", "no_lib"])
+def test_sn_bound_route_auto(tmp_path, monkeypatch, native_ok):
+    """backend='auto' above the bound (CMSBWT_SN_BOUND=1000), as the JAX
+    package resolves it: with the native library, its int64-safe native
+    scan and the host merge (no blocked scan); without it (and
+    AUTO_DENSE_MIN_CHARS lowered to 1, so the CPU rule picks jump), the
+    jump scan turned into the blocked dense int64 route. Bytes equal to
+    the JAX runs with and without the bound."""
+    from cmsbwt_tpu.engine import pipeline as jpl
+    from cmsbwt_tpu.io import native as jnative
+    from cmsbwt_tpu_torch.engine import pipeline as tpl
+    from cmsbwt_tpu_torch.io import native as tnative
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    monkeypatch.setenv("CMSBWT_INDEX_CACHE", "")
+    if not native_ok:
+        for mod in (jnative, tnative):
+            monkeypatch.setattr(mod, "get_scan_lib", lambda: None)
+        for mod in (jpl, tpl):
+            monkeypatch.setattr(mod, "AUTO_DENSE_MIN_CHARS", 1)
+    rng = np.random.default_rng(21)
+    ref = random_dna(rng, 1000)
+    lst, _, _ = make_inputs(tmp_path, ref,
+                            [mutate(rng, ref, 0.02) for _ in range(6)])
+    jax_compute_bwt(JaxConfig(filename=str(lst), outname=str(tmp_path / "a"),
+                              backend="host"))
+    calls = []
+    orig = md.ms_dense_heads_blocked_on_device
+
+    def spy(*a, **kw):
+        calls.append((a[3], kw.get("to_host")))
+        return orig(*a, **kw)
+    monkeypatch.setattr(md, "ms_dense_heads_blocked_on_device", spy)
+    monkeypatch.setenv("CMSBWT_SN_BOUND", "1000")
+    want = jax_compute_bwt(JaxConfig(filename=str(lst),
+                                     outname=str(tmp_path / "j")))
+    out = compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "t")),
+                      "cpu")
+    assert out["backend"] == want["backend"] == \
+        ("native" if native_ok else "dense")
+    assert calls == ([] if native_ok else [(4096, True)])
+    for who in ("t", "j"):
+        assert (tmp_path / f"{who}.bwt").read_bytes() == \
+            (tmp_path / "a.bwt").read_bytes(), who
     assert "head_fixup" in (tmp_path / "t.log").read_text()
 
 

@@ -1,8 +1,10 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
 ``cmsbwt_tpu`` refused by a meta-path finder, a fresh interpreter imports
-every module of cmsbwt_tpu_torch and runs ``python -m cmsbwt_tpu_torch
---device cpu`` on the jump and dense backends in both formats, the dense
-backend blocked with per-block checkpoints, and the routes of the host
+every module of cmsbwt_tpu_torch (the auto probe, the model API and the
+--parallel loop among them) and runs ``python -m cmsbwt_tpu_torch --device
+cpu`` on the jump and dense backends and the default (auto) in both
+formats, the dense backend blocked with per-block checkpoints and with
+--parallel, and the routes of the host
 merge (the host, native and device backends, --merge-backend host after
 jump and dense); the bytes equal the JAX package's outputs on the same
 input. The port's Config keeps the JAX Config's fields and defaults.
@@ -60,9 +62,11 @@ for name in names:
     __import__(name)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "cmsbwt_tpu")]
-print("IMPORTED", len(names))
+print("IMPORTED", len(names), " ".join(names))
 ''', tmp_path)
     assert "IMPORTED" in r.stdout
+    for name in ("engine.probe", "models.cms_bwt", "parallel.blocked"):
+        assert f" cmsbwt_tpu_torch.{name}" in r.stdout, name
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
     sources = [f for f in (ROOT / "cmsbwt_tpu_torch").rglob("*.py")
                if f.name != "__main__.py"]
@@ -70,7 +74,8 @@ print("IMPORTED", len(names))
 
 
 @pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
-@pytest.mark.parametrize("backend", ["jump", "dense", "dense_blocked"])
+@pytest.mark.parametrize("backend", ["jump", "dense", "dense_blocked",
+                                     "auto", "dense_parallel"])
 def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
     rng = np.random.default_rng(11)
     ref = random_dna(rng, 500)
@@ -85,6 +90,10 @@ def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
     if backend == "dense_blocked":
         backend = "dense"
         port_flags, jax_flags = fmt + blocked("port"), fmt + blocked("jax")
+    elif backend == "dense_parallel":
+        backend = "dense"
+        port_flags = jax_flags = fmt + ["--parallel", "--block-chars", "700"]
+    backend_flags = [] if backend == "auto" else ["--backend", backend]
     _run('''
 import runpy
 sys.argv = ["cmsbwt_tpu_torch", *sys.argv[1:]]
@@ -93,9 +102,9 @@ try:
 except SystemExit as e:
     assert e.code in (0, None), e.code
 ''', tmp_path, str(lst), "-o", str(tmp_path / "port"), "--device", "cpu",
-         "--backend", backend, "--lanes", "8", *port_flags)
-    assert jax_cli.main([str(lst), "-o", str(tmp_path / "jax"), "--backend",
-                         backend, "--lanes", "8", *jax_flags]) == 0
+         *backend_flags, "--lanes", "8", *port_flags)
+    assert jax_cli.main([str(lst), "-o", str(tmp_path / "jax"),
+                         *backend_flags, "--lanes", "8", *jax_flags]) == 0
     port = (tmp_path / ("port" + ext)).read_bytes()
     assert len(port) > 0
     assert port == (tmp_path / ("jax" + ext)).read_bytes()

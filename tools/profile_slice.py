@@ -7,6 +7,7 @@
     python3 tools/profile_slice.py --dense --parent DIR  # + A/B vs DIR
     python3 tools/profile_slice.py --blocked   # the blocked dense scan
     python3 tools/profile_slice.py --host-merge  # ~1 Gchar, host merge
+    python3 tools/profile_slice.py --routes [SHAPE]  # jump/dense/native
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -70,6 +71,16 @@ the .log phases, every block try, the peak device bytes and the host's
 peak RSS, with the host merge's stage marks on stderr (CMSBWT_PROFILE=1),
 and checks that the .rl_bwt decodes to sn chars with the collection's
 byte histogram.
+
+The routes mode prints the card's name and power limit, warms each route
+up on a small input, then at each shape of ROUTE_SHAPES (the bench's
+toy_lowdiv, primary, primary at 5% and at 10% SNP, sars_stream at its
+default and its BENCH_FULL prefix, the 500 Mchar ecoli_rle shape, and 200
+Kbp x 8 docs) runs the CLI 3 times on each of the jump, dense and native
+routes (see routes_main): wall seconds, .log phases and the backend it
+names, the probe's absent fraction, and a check that every route wrote
+the same bytes, then a one-line JSON summary. The auto rule's cuda branch
+(engine/pipeline.auto_backend) is read off this table.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -449,7 +460,8 @@ def jump_main(cli_only: bool) -> None:
     if not cli_only:
         kernel_sweep(lst)
     for lanes in (4096, 32768, 4096, 32768):
-        cli_run(lst, WORK / f"t{lanes}", "--lanes", str(lanes))
+        cli_run(lst, WORK / f"t{lanes}", "--backend", "jump", "--lanes",
+                str(lanes))
     if not cli_only:
         merge_profile(lst)
 
@@ -463,7 +475,7 @@ def merge_ab(parent: pathlib.Path, runs: int = 3) -> None:
     code = ("import sys\nfrom cmsbwt_tpu_torch import cli\n"
             "for o in sys.argv[2:]:\n"
             "    assert cli.main([sys.argv[1], '-o', o, '--device', "
-            "'cuda']) == 0\n")
+            "'cuda', '--backend', 'jump']) == 0\n")
     for turn, (who, root) in enumerate((("parent", parent), ("this", ROOT),
                                         ("this", ROOT),
                                         ("parent", parent))):
@@ -522,6 +534,94 @@ def merge_profile(lst) -> None:
                                                     want_counter=False))
 
 
+# (name, seed, reference chars, docs, SNP rate, extra CLI flags): the bench
+# shapes (chip_smoke.write_workload writes bench.make_workload's bytes),
+# and one under the JAX package's AUTO_DENSE_MIN_CHARS
+ROUTE_SHAPES = (
+    ("small_200Kbp_x8", 1, 200_000, 8, 0.01, ()),
+    ("toy_lowdiv", 42, 1_000_000, 10, 0.001, ()),
+    ("primary", 42, 2_000_000, 10, 0.01, ()),
+    ("primary_snp5", 42, 2_000_000, 10, 0.05, ()),
+    ("primary_snp10", 42, 2_000_000, 10, 0.10, ()),
+    ("sars_stream", 42, 30_000, 1000, 0.005, ("-p", "25000000")),
+    ("sars_full", 42, 30_000, 3000, 0.005, ("-p", "80000000")),
+    ("500M", 42, 5_000_000, 100, 0.01, ("-r", "--no-rle-quirk")),
+)
+ROUTE_RUNS = 3
+
+
+def routes_main(only: str | None) -> None:
+    """Every shape of ROUTE_SHAPES through the CLI on each route (jump,
+    dense and native; at the two SARS shapes also jump with the host
+    merge, the JAX package's rule there),
+    ROUTE_RUNS warm runs each in one process: the wall seconds, the .log
+    phases, the backend the .log names and, per shape, the probe's absent
+    fraction and whether every route wrote the same bytes; then one line,
+    "routes summary" and a JSON object: per shape and route the min, mean
+    and max seconds."""
+    import filecmp
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.engine.probe import kmer_absent_fraction
+    kernels.load()
+    os.environ["CMSBWT_INDEX_CACHE"] = str(WORK / "index_cache")
+    warm = cs.write_workload(WORK / "warm", 1, 200_000, 8, 0.01)
+    for be in ("jump", "dense", "native"):            # CUDA set-up, g++
+        cli_run(warm, WORK / f"warm_{be}", "--backend", be)
+    summary = {}
+    for name, seed, ref_len, docs, snp, flags in ROUTE_SHAPES:
+        if only and name not in only.split(","):
+            continue
+        t0 = time.perf_counter()
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        x_aug, coll = load_inputs(str(lst), *(
+            [int(flags[1])] if flags[:1] == ("-p",) else []))
+        t1 = time.perf_counter()
+        frac = kmer_absent_fraction(x_aug, coll.sx)
+        probe_s = time.perf_counter() - t1
+        print(f"routes[{name}]: n={len(x_aug)} sn={coll.sn} written in "
+              f"{t1 - t0:.1f} s; probe absent fraction {frac!r} "
+              f"({probe_s * 1e3:.1f} ms)", flush=True)
+        routes = [("jump", ("--backend", "jump")),
+                  ("dense", ("--backend", "dense")),
+                  ("native", ("--backend", "native"))]
+        if name.startswith("sars"):
+            # the JAX package's SARS rule: jump with the host merge
+            routes.append(("jump+host_merge", ("--backend", "jump",
+                                               "--merge-backend", "host")))
+        del x_aug, coll
+        ext = ".rl_bwt" if "-r" in flags else ".bwt"
+        first = None
+        for route, rflags in routes:
+            walls = []
+            for i in range(ROUTE_RUNS):
+                out = WORK / name / f"{route}_{i}"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cli_run(lst, out, *rflags, *flags)
+                walls.append(time.perf_counter() - t0)
+                text = out.with_suffix(".log").read_text()
+                ran = text.split("backend: ")[1].split()[0]
+                print(f"routes[{name},{route}] run {i}: wall_s "
+                      f"{walls[-1]:.3f}; .log backend {ran}",
+                      flush=True)
+                res = out.with_suffix(ext)
+                if first is None:
+                    first = res
+                elif not filecmp.cmp(first, res, shallow=False):
+                    raise RuntimeError(f"{name}: {route} wrote other bytes "
+                                       f"than {first.name}")
+                if res != first:
+                    res.unlink()
+            summary.setdefault(name, {"probe_absent_fraction": frac})[
+                route] = {"min_s": min(walls), "max_s": max(walls),
+                          "mean_s": sum(walls) / len(walls)}
+            torch.cuda.empty_cache()
+        print(f"routes[{name}]: every route wrote the same bytes", flush=True)
+        shutil.rmtree(WORK / name)
+    print("routes summary " + json.dumps(summary), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dense", action="store_true",
@@ -531,6 +631,11 @@ def main() -> int:
     ap.add_argument("--host-merge", action="store_true",
                     help="one ~1.0 Gchar run above the device merge's "
                     "ceiling, through the host merge")
+    ap.add_argument("--routes", nargs="?", const="", default=None,
+                    metavar="SHAPE",
+                    help="time the CLI on the jump, dense and native routes "
+                    "at every shape of ROUTE_SHAPES (or at SHAPE alone; "
+                    "a comma list names several)")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -547,7 +652,9 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
-        if args.host_merge:
+        if args.routes is not None:
+            routes_main(args.routes or None)
+        elif args.host_merge:
             host_merge_main()
         elif args.blocked:
             blocked_main()
