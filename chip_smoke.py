@@ -94,6 +94,19 @@ every phase passed):
    heads equal to the native scan's (and those of
    parallel/blocked.ms_dense_heads_parallel on the card), each dense
    kernel launched once per block try and no plain version.
+10. mesh — the mesh modules on R = torch.cuda.device_count() ranks, one
+   NCCL rank per card (a one-rank group on one card): the CLI with
+   --backend jump and dense and --merge-backend sharded at the primary
+   workload, plain and -r, bytes equal to the reference tool's (the .log
+   must name merge_sharded); the mesh scan
+   (parallel/mesh.ms_dense_heads_mesh) in 4 Mi-char blocks, its heads
+   equal to the jump scan's and both dense kernels launched for every
+   block on one rank; the giant-reference route
+   (CMSBWT_GIANT_THRESHOLD=64: the sharded int64 index, the native int64
+   scan, the host merge) on the short reference, plain and -r, bytes
+   equal to the normal route's, launching no kernel. Prints each mesh
+   run's rank start-up and work seconds and peak device bytes per rank
+   (parallel/distributed.LAST_RUN).
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
@@ -818,6 +831,71 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
     torch.cuda.empty_cache()
 
 
+def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
+    """The sharded merge after jump and dense, the mesh scan and the giant
+    route, on R = torch.cuda.device_count() ranks (one NCCL rank per card),
+    each held to its oracle and its kernels counted."""
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    from cmsbwt_tpu_torch.parallel import distributed
+    from cmsbwt_tpu_torch.parallel.mesh import ms_dense_heads_mesh
+    t10 = time.perf_counter()
+    ranks = torch.cuda.device_count()
+    # the sharded merge: bytes against the reference tool's (phase 5's)
+    for be in ("jump", "dense"):
+        run_cli(be, f"{be}_sharded", merge="sharded")
+        log(f"mesh[{be}_sharded]: {ranks} NCCL rank(s); last run "
+            + json.dumps(distributed.LAST_RUN))
+    # the mesh scan in 4 Mi-char blocks: heads against the jump scan's
+    bc = 4 << 20
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mres = ms_dense_heads_mesh(x_aug, coll.sx, bc, device="cuda")
+    wall = time.perf_counter() - t0
+    blocks = -(-coll.sn // bc)
+    counts = check_counts("dense", "mesh_scan", 1, ROUTE_KERNELS["dense"],
+                          engine="none")
+    if ranks == 1 and not (counts["lcp_lift"] == counts["dense_neighbors"]
+                           >= blocks):
+        fail(f"the mesh scan's {blocks} blocks launched {counts}")
+    jres = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+    h = jres.h
+    want = [getattr(jres, k)[:h].cpu().numpy() for k in (
+        "head_t", "head_pos", "head_len", "head_smaller", "head_char")]
+    got = [mres.head_t, mres.head_pos, mres.head_len, mres.head_smaller,
+           mres.head_char]
+    if mres.h != h or any(not np.array_equal(g.astype(w.dtype), w)
+                          for g, w in zip(got, want)):
+        fail(f"the mesh scan's heads differ from the jump scan's "
+             f"(h={mres.h} vs {h})")
+    log(f"mesh[scan]: {ranks} rank(s), {blocks} blocks of {bc}, h={h} equal "
+        f"to the jump scan's; irreducible={mres.irreducible}; wall "
+        f"{wall:.2f} s; last run " + json.dumps(distributed.LAST_RUN))
+    del jres, mres
+    torch.cuda.empty_cache()
+    # the giant route on the short reference: the normal route's bytes
+    short = WORK / "kshort" / "input.txt"
+    normal = run_cli("jump", "giant_normal", inp=short, want=None)
+    del normal
+    os.environ["CMSBWT_GIANT_THRESHOLD"] = "64"
+    try:
+        run_cli(None, "giant", inp=short, want=None, merge="auto",
+                want_merge="host")
+    finally:
+        del os.environ["CMSBWT_GIANT_THRESHOLD"]
+    for ext in (".bwt", ".rl_bwt"):
+        a = (WORK / f"port_giant{'_rle' if ext == '.rl_bwt' else ''}"
+             ).with_suffix(ext).read_bytes()
+        b = (WORK / f"port_giant_normal{'_rle' if ext == '.rl_bwt' else ''}"
+             ).with_suffix(ext).read_bytes()
+        if a != b:
+            fail(f"the giant route's {ext} differs from the normal route's")
+    log(f"mesh[giant]: CMSBWT_GIANT_THRESHOLD=64 on the short reference: "
+        f"bytes equal to the normal route's; last run "
+        + json.dumps(distributed.LAST_RUN))
+    log(f"mesh: phase 10 took {time.perf_counter() - t10:.1f} s")
+
+
 def main() -> int:
     started = time.perf_counter()
     # phase 1: device
@@ -956,7 +1034,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
             wall = time.perf_counter() - t0
             fmt = "rle" if rle else "plain"
             text = out.with_suffix(".log").read_text()
-            engines.add("host" if "\nhead_fixup: " in text else "device")
+            engines.add("host" if "\nhead_fixup: " in text else
+                        "sharded" if "\nmerge_sharded: " in text else
+                        "device")
             ran.add(re.search(r"^backend: (\w+)$", text, re.M).group(1))
             if backend == "native" and "scan_engine: native" not in text:
                 fail(f"{tag}: the .log does not name the native scan engine")
@@ -978,7 +1058,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
         backend = ran.pop()
         if want_merge is None:
             want_merge = ("host" if merge == "host" or backend in (
-                "device", "native", "host") else "device")
+                "device", "native", "host") else
+                "sharded" if merge == "sharded" else "device")
         engine = "/".join(sorted(engines))
         if engine != want_merge:
             fail(f"{tag}: the {engine} merge ran, expected {want_merge}")
@@ -1213,6 +1294,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
     # phase 9: auto, the model API, ms_dense and --parallel
     phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
            oracle, k200k, x_aug, coll)
+
+    # phase 10: the mesh modules on the card's ranks
+    phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll)
 
     def row(name, source, replaces, res):
         # every run of a route that launches this kernel, and the routes

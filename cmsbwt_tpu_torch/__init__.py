@@ -9,8 +9,12 @@ same paths. engine/pipeline.compute_bwt and the CLI drive every backend:
 ``cpu`` the JAX package's), ``jump`` (a hand-written CUDA scan kernel,
 kernels/csrc/ms_jump_scan.cu), ``dense`` (one joint suffix sort per block,
 with the CUDA kernels kernels/csrc/lcp_lift.cu and dense_neighbors.cu;
-``--parallel`` on one card scans its blocks one after another),
-``device``, ``native`` and ``host``, with the device or the host merge.
+``--parallel`` on one card scans its blocks one after another, over
+several the mesh scan of parallel/mesh.py), ``device``, ``native`` and
+``host``, with the device, the host or the sharded merge
+(parallel/sharded_merge.py); references of 2^31 chars or more take the
+sharded int64 index (parallel/sharded_index.py). The mesh routes run on
+torch.distributed ranks (parallel/distributed.py).
 
 Public API:
     Config                      run configuration (the JAX package's)

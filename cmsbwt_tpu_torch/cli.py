@@ -5,6 +5,11 @@ The input list file has the reference path on line 1 and the collection
 path on line 2. Outputs ``<out>.bwt`` or ``<out>.rl_bwt`` (with ``-r``)
 plus ``<out>.log``. ``--device cuda`` (the default) on a machine without a
 usable CUDA device is an error.
+
+Under a launcher (torchrun, or CMSBWT_COORDINATOR, CMSBWT_NUM_PROCESSES
+and CMSBWT_PROCESS_ID) every process runs this CLI as one rank of the mesh
+routes (NCCL on cuda, gloo on cpu), and rank 0 writes the outputs.
+Without one, a mesh route on cuda starts one rank per visible card itself.
 """
 from __future__ import annotations
 
@@ -65,10 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "the device's free memory or CMSBWT_HBM_GB)")
     p.add_argument("--parallel", action="store_true",
                    help="dense backend: scan in blocks (of --block-chars, "
-                        "default one per device, capped by the phrase-chunk "
-                        "cap and the memory guard); one card only, which "
-                        "scans the blocks one after another (more raise: "
-                        "ROADMAP.md queue 1 item 11)")
+                        "default one per rank, capped by the phrase-chunk "
+                        "cap and the memory guard); one card scans them one "
+                        "after another, R > 1 ranks (the visible cards, or "
+                        "a launcher's processes) in waves of R, one block "
+                        "per rank (the mesh scan)")
     p.add_argument("--merge-backend",
                    choices=["auto", "host", "device", "sharded"],
                    default="auto",
@@ -78,8 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the device merge, but the host merge for dense on "
                         "the cpu, above the card's merge memory ceiling and "
                         "for collections of 2^31 chars or more; "
-                        "CMSBWT_MERGE_BACKEND=host|device overrides it); "
-                        "sharded is not ported yet")
+                        "CMSBWT_MERGE_BACKEND=host|device overrides it) or "
+                        "sharded (every stage spread over the ranks: the "
+                        "visible cards, or a launcher's processes; int64, "
+                        "for any collection size)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="dense backend: checkpoint/resume directory; the "
                         "scan's heads are saved there as one bundle and "
@@ -110,17 +118,20 @@ def main(argv=None) -> int:
         checkpoint_dir=args.checkpoint_dir,
         replicate_reference_rle_quirk=not args.no_rle_quirk,
     )
-    print("==== CMS-BWT (PyTorch/CUDA)")
-    print(f"Input file: {cfg.filename}")
-    print(f"Output basename: {cfg.resolved_outname()}")
-    print(f"Prefix length: {cfg.prefix_length}")
-    print(f"Output format: {'RLE' if cfg.rle else 'FULL'}")
-    print(f"Device: {args.device}")
+    from .parallel import distributed
+    distributed.maybe_initialize(device=args.device)
+    say = print if distributed.is_primary() else (lambda *a: None)
+    say("==== CMS-BWT (PyTorch/CUDA)")
+    say(f"Input file: {cfg.filename}")
+    say(f"Output basename: {cfg.resolved_outname()}")
+    say(f"Prefix length: {cfg.prefix_length}")
+    say(f"Output format: {'RLE' if cfg.rle else 'FULL'}")
+    say(f"Device: {args.device}")
     t0 = time.time()
     from .engine.pipeline import compute_bwt
     out = compute_bwt(cfg, args.device)
-    print(f"==== Wrote {out['out_path']} ({out['bytes']} bytes)")
-    print(f"==== Time elapsed: {(time.time() - t0) * 1000:.0f} ms")
+    say(f"==== Wrote {out['out_path']} ({out['bytes']} bytes)")
+    say(f"==== Time elapsed: {(time.time() - t0) * 1000:.0f} ms")
     return 0
 
 

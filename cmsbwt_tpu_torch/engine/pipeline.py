@@ -3,17 +3,19 @@ cmsbwt_tpu/engine/pipeline.py:
 
 * backend=jump: parse (io/fasta.py) -> build_device_index -> ms_jump_heads
   (the CUDA ``ms_jump_scan`` kernel on a CUDA device) -> the device merge
-  (merge_heads_device_resident) or the host merge (merge_from_heads)
+  (merge_heads_device_resident), the host merge (merge_from_heads) or the
+  sharded merge (merge_from_heads_sharded)
 * backend=dense: parse -> the ``dense_heads`` checkpoint bundle when one is
   saved, else ms_dense_heads_on_device, or ms_dense_heads_blocked_on_device
   for ``dense_block_chars``, when the memory guard finds that the unblocked
-  scan does not fit, with ``dense_parallel`` (on one device the JAX
+  scan does not fit, with ``dense_parallel`` on one device (the JAX
   package's block size; the blocks' order does not matter there), with
   ``checkpoint_dir`` (each finished block saved; unblocked, the whole
   collection is one block), and for collections at or above the int32
   bound (heads to the host block by block, int64 t) (joint suffix sort;
-  the CUDA ``lcp_lift`` and ``dense_neighbors`` kernels on a CUDA device)
-  -> the device or the host merge
+  the CUDA ``lcp_lift`` and ``dense_neighbors`` kernels on a CUDA device);
+  ``dense_parallel`` over R > 1 ranks is the mesh scan
+  (parallel/mesh.ms_dense_heads_mesh) -> the device, host or sharded merge
 * backend=device: build_device_index -> ms_scan_device (the jump scan's
   heads expanded to every position) -> compute_bwt_arrays (the host merge)
 * backend=native: the host reference index (device-built on a card,
@@ -24,17 +26,26 @@ cmsbwt_tpu/engine/pipeline.py:
 * backend=auto: one of the above, chosen after parsing (auto_backend): on
   ``cpu`` by the JAX package's rule, on ``cuda`` by the rule measured on
   the H100 (PERF.md §5)
+* a reference at or above the giant threshold (the int32 bound, or
+  CMSBWT_GIANT_THRESHOLD): the sharded int64 index
+  (parallel/sharded_index.build_sharded_reference_index, cached like the
+  host indexes) -> the native int64 scan (the spec scan for backend=host)
+  -> the host merge; only backend auto and host run it
 
 then _write_outputs, whose ``.log`` names the backend that ran. The merge
 engine of the jump and dense routes follows the JAX rules with ``cuda`` in
 the role of an accelerator and ``cpu`` in that of a CPU-only process
 (_choose_merge); on a card, 'auto' also takes the host merge above the
 device merge's memory ceiling (device_merge.MERGE_BYTES_PER_CHAR), where
-merge_backend='device' is refused before the scan.
+merge_backend='device' is refused before the scan. 'auto' never takes the
+sharded merge, as in the JAX package.
 
-merge_backend='sharded' and dense_parallel on more than one CUDA device
-raise NotImplementedError naming their ROADMAP.md entry; nothing silently
-routes elsewhere, and nothing falls back from a device call.
+The mesh steps (the sharded index, the mesh scan, the sharded merge) run
+over R ranks (parallel/distributed): a launcher's processes, or ranks this
+process starts, one per visible card on ``cuda`` (one rank on ``cpu``).
+Under a launcher every process runs compute_bwt; the ranks other than 0
+join the mesh steps and write nothing. Nothing falls back from a device
+call.
 """
 from __future__ import annotations
 
@@ -56,7 +67,7 @@ from . import tails as tails_mod
 from .ms_host import MSArrays, ms_scan_collection
 
 BACKENDS = ("jump", "dense", "device", "native", "host")
-MESH_ITEM = "queue 1 item 11 (the mesh modules, multi-device)"
+MERGE_BACKENDS = ("auto", "device", "host", "sharded")
 
 # The JAX package's auto constants (its pipeline.py:608 and :669), measured
 # on a TPU and on a CPU: below AUTO_DENSE_MIN_CHARS collection chars a
@@ -91,27 +102,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def device_count(device: torch.device) -> int:
-    """The devices a --parallel run could fan its blocks out over: the
-    process's CUDA devices on ``cuda``, one on ``cpu``."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 def _check_route(cfg: Config, device: torch.device) -> None:
     if cfg.backend not in BACKENDS + ("auto",):
         raise ValueError(f"unknown backend {cfg.backend!r}")
-    if cfg.merge_backend == "sharded":
-        raise NotImplementedError(
-            f"merge_backend={cfg.merge_backend!r} is not ported yet: "
-            f"ROADMAP.md {MESH_ITEM}; use merge_backend='auto', 'device' "
-            "or 'host'")
-    if cfg.merge_backend not in ("auto", "device", "host"):
+    if cfg.merge_backend not in MERGE_BACKENDS:
         raise ValueError(f"unknown merge_backend {cfg.merge_backend!r}")
-    if cfg.dense_parallel and device_count(device) > 1:
-        raise NotImplementedError(
-            f"dense_parallel over {device_count(device)} CUDA devices is not "
-            f"ported yet: ROADMAP.md {MESH_ITEM}; run on one card "
-            "(CUDA_VISIBLE_DEVICES)")
 
 
 def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
@@ -123,11 +118,6 @@ def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
     ref_path, coll_path = fasta.read_input_list(filename)
     with timer.phase("load_reference"):
         x_aug = fasta.augment_reference(fasta.load_reference_bytes(ref_path))
-    n = len(x_aug)
-    if n >= 1 << 31:
-        raise ValueError(
-            f"reference is {n} chars (>= the int32 index bound): the "
-            f"sharded int64 index is not ported yet (ROADMAP.md {MESH_ITEM})")
     sn_limit = fasta.collection_sn_limit(coll_path, prefix_length)
     with timer.phase("parse_collection"):
         coll = fasta.parse_collection(coll_path, sn_limit)
@@ -191,20 +181,41 @@ def merge_from_heads(index: ReferenceIndex, heads, d: int, sn: int,
 
 
 def compute_bwt(cfg: Config, device) -> dict:
-    """Full file-to-file run on ``device`` (``cuda`` or ``cpu``)."""
+    """Full file-to-file run on ``device`` (``cuda`` or ``cpu``). Under a
+    launcher's group only rank 0 writes the outputs; the other ranks join
+    the mesh steps and return with ``out_path`` None."""
     device = resolve_device(device)
     _check_route(cfg, device)
+    from ..parallel import distributed
     from .device_merge import sn_bound
 
     timer = PhaseTimer()
     outname = cfg.resolved_outname()
     x_aug, coll = load_inputs(cfg.filename, cfg.prefix_length, timer)
     n = len(x_aug)
+    # references at or above the int32 index bound (the reference tool's
+    # own cap, ref CMS-BWT-functions.cpp:246, CMS-BWT.h:44) take the
+    # sharded int64 index; the threshold can be lowered to run the route
+    # at toy scale
+    giant = n >= giant_threshold()
+    if giant and cfg.backend not in ("auto", "host"):
+        raise ValueError(
+            f"reference is {n} chars (>= the int32 index bound "
+            f"{giant_threshold()}): backend={cfg.backend} uses int32 device "
+            "paths (the reference tool's own cap); giant references run "
+            "backend=auto or host through the sharded int64 index")
     # auto resolves after parsing, as in the JAX package
     auto = cfg.backend == "auto"
-    cfg = dataclasses.replace(cfg, backend=_resolve_backend(cfg, device))
+    cfg = dataclasses.replace(cfg, backend=(
+        ("host" if cfg.backend == "host" or native.get_scan_lib() is None
+         else "native") if giant else _resolve_backend(cfg, device)))
+    # a launcher's rank other than 0: joins the mesh steps, writes nothing
+    follower = distributed.process_index() != 0
 
-    def finish(result: PipelineResult) -> dict:
+    def finish(result: PipelineResult | None) -> dict:
+        if follower or result is None:
+            return {"out_path": None, "bytes": 0, "timer": timer,
+                    "result": None, "backend": cfg.backend}
         return _write_outputs(cfg, outname, n, result, timer)
 
     if coll.sn == 0:
@@ -214,14 +225,15 @@ def compute_bwt(cfg: Config, device) -> dict:
                                      d=coll.d, sn=0, h=0))
     # collections at/above the int32 bound (the reference's sn is uint64,
     # ref CMS-BWT.h:26,46) take the int64-safe route: the blocked dense
-    # scan with heads assembled on the host, then the host merge
+    # scan with heads assembled on the host, then the host (or sharded)
+    # merge
     sn_big = coll.sn >= sn_bound()
     if sn_big:
         if cfg.merge_backend == "device":
             raise ValueError(
                 f"collection has {coll.sn} chars (>= the int32 device-merge "
                 f"bound {sn_bound()}): merge_backend='device' cannot run "
-                "it; use merge_backend=auto/host")
+                "it; use merge_backend=auto/host/sharded")
         if cfg.backend in ("jump", "device") and not auto:
             raise ValueError(
                 f"collection has {coll.sn} chars (>= the int32 bound "
@@ -238,8 +250,12 @@ def compute_bwt(cfg: Config, device) -> dict:
     rq = cfg.rle and cfg.replicate_reference_rle_quirk
     buf = cfg.buffer_gib << 30
     if cfg.backend in ("host", "native"):
+        if follower and not giant:
+            return finish(None)
         with timer.phase("build_index"):
-            index = _host_index(cfg, x_aug, device)
+            index = _host_index(cfg, x_aug, device, giant)
+        if index is None or follower:
+            return finish(None)
         if cfg.backend == "host":
             result = compute_bwt_arrays(index, coll, rq, device, timer=timer,
                                         buffer_bytes=buf)
@@ -250,6 +266,8 @@ def compute_bwt(cfg: Config, device) -> dict:
             result.engine = engine
         return finish(result)
     if cfg.backend == "device":
+        if follower:
+            return finish(None)
         from ..index.device import build_device_index, export_reference_index
         from ..ops.ms_device import ms_scan_device
         with timer.phase("build_index"):
@@ -268,9 +286,15 @@ def compute_bwt(cfg: Config, device) -> dict:
     # jump and dense: the merge engine is chosen before the scan, so that
     # a device merge the card cannot hold is refused before any work
     engine = _choose_merge(cfg, device, coll.sn, sn_big)
-    if cfg.backend == "dense":
-        heads = _dense_heads(cfg, device, x_aug, coll, sn_big, timer, sync)
-    else:
+    ranks = distributed.n_ranks(device)
+    mesh_scan = cfg.backend == "dense" and cfg.dense_parallel and ranks > 1
+    if follower and not mesh_scan and engine != "sharded":
+        return finish(None)
+    heads = None
+    if cfg.backend == "dense" and (mesh_scan or not follower):
+        heads = _dense_heads(cfg, device, x_aug, coll, sn_big, timer, sync,
+                             ranks)
+    elif not follower:
         from ..index.device import build_device_index
         from ..ops.ms_jump import ms_jump_heads
         with timer.phase("build_index"):
@@ -286,6 +310,11 @@ def compute_bwt(cfg: Config, device) -> dict:
                                   window=cfg.skip_window, index=dindex,
                                   timer=timer)
         del dindex
+    if engine == "sharded":
+        return finish(merge_from_heads_sharded(x_aug, heads, coll.d, coll.sn,
+                                               rq, device, timer))
+    if follower or heads is None:
+        return finish(None)
     from ..ops.ms_dense import DenseHeadsResult
     if engine == "host":
         dl = (heads if isinstance(heads, DenseHeadsResult)
@@ -306,10 +335,45 @@ def compute_bwt(cfg: Config, device) -> dict:
     return finish(result)
 
 
+def merge_from_heads_sharded(x_aug: np.ndarray, dres, d: int, sn: int,
+                             rle_quirk: bool, device,
+                             timer: PhaseTimer | None = None,
+                             n_devices: int | None = None
+                             ) -> PipelineResult | None:
+    """The downstream merge sharded over a group of ranks
+    (parallel/sharded_merge.py), phase ``merge_sharded``: every stage a
+    sample-sort join or a routed collective with int64 keys, so no device
+    holds the whole head set and collections past the int32 device
+    merge's bound are safe. ``dres`` is rank 0's DeviceHeadsResult or host
+    DenseHeadsResult (None on the other ranks, which get None back)."""
+    from ..parallel.sharded_merge import merge_heads_sharded
+    timer = timer or PhaseTimer()
+    fields = ("head_t", "head_pos", "head_len", "head_smaller", "head_char",
+              "ref_sa", "ref_isa", "ref_bwt")
+    arrays = [getattr(dres, f) if dres is not None else None for f in fields]
+    h = dres.h if dres is not None else 0
+    with timer.phase("merge_sharded"), maybe_torch_trace("merge_sharded"):
+        out = merge_heads_sharded(*arrays, h, len(x_aug), sn, d, rle_quirk,
+                                  n_devices=n_devices, device=device)
+    if out is None:
+        return None
+    return PipelineResult(run_len=out[0], run_char=out[1], d=d, sn=sn, h=h,
+                          counter=None)
+
+
+def giant_threshold() -> int:
+    """Reference length at which the int32 index paths stop and the sharded
+    int64 index takes over: the int32 bound, or CMSBWT_GIANT_THRESHOLD
+    (the JAX package's variable, which runs the route at toy scale)."""
+    return int(os.environ.get("CMSBWT_GIANT_THRESHOLD", 1 << 31))
+
+
 def _choose_merge(cfg: Config, device: torch.device, sn: int,
                   sn_big: bool) -> str:
-    """The merge engine of a jump or dense run, 'device' or 'host': the
-    JAX package's rules (its pipeline.py:269-280, 366, 466, 635-663) with
+    """The merge engine of a jump or dense run, 'device', 'host' or
+    'sharded' (only when asked for, and then even for the int64 route, as
+    in the JAX package: the sharded merge is int64-safe): the JAX
+    package's rules (its pipeline.py:269-280, 366, 466, 635-663) with
     ``cuda`` in the role of an accelerator and ``cpu`` in that of a
     CPU-only process. CMSBWT_MERGE_BACKEND=host|device overrides auto.
     Auto on ``cpu`` is the host merge, except on the jump route, whose
@@ -324,6 +388,8 @@ def _choose_merge(cfg: Config, device: torch.device, sn: int,
     host merge, and a refusal when it was asked for."""
     from ..ops.ms_dense import free_device_bytes
     from .device_merge import merge_fits, merge_memory_check
+    if cfg.merge_backend == "sharded":
+        return "sharded"
     if sn_big:
         return "host"
     engine = cfg.merge_backend
@@ -388,12 +454,14 @@ def _resolve_backend(cfg: Config, device: torch.device) -> str:
 
 
 def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
-                 timer: PhaseTimer, sync):
+                 timer: PhaseTimer, sync, ranks: int = 1):
     """The dense route's heads: the ``dense_heads`` bundle of a
     checkpoint directory when one is saved there (by either package; no
     scan), else the scan, whose result is saved as that bundle with the
     JAX package's keys, dtypes and slicing. A DeviceHeadsResult, or a host
-    DenseHeadsResult for a loaded bundle and for the int64 route."""
+    DenseHeadsResult for a loaded bundle, for the int64 route and for the
+    mesh scan (dense_parallel over ``ranks`` > 1; None on the ranks other
+    than 0)."""
     from ..ops import ms_dense as md
     from ..utils.checkpoint import CheckpointManager
     from .device_merge import sn_bound
@@ -403,15 +471,21 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
         mgr = CheckpointManager(cfg.checkpoint_dir)
         fp = _dense_fingerprint(cfg)
         bundle = mgr.load("dense_heads", fp)
+        if cfg.dense_parallel and ranks > 1:
+            if not _rank0_says(device, bundle is not None):
+                bundle = None        # every rank joins the mesh scan
+            elif bundle is None:
+                return None          # rank 0 loads the bundle, no scan runs
     block_chars, ctx = cfg.dense_block_chars, cfg.dense_ctx_chars
     if block_chars is None and bundle is None:
         # memory guard: above the budget the scan streams in blocks
         block_chars = md.dense_block_chars(n, sn, md.dense_budget(device))
         if cfg.dense_parallel:
-            # the JAX pipeline's per-device block (its pipeline.py:333-340)
-            # on one device: sn, capped by the phrase-chunk cap and by the
-            # guard's block
-            par = max(min(sn, cfg.chunk_cap_bytes // 8), 1 << 16)
+            # the JAX pipeline's per-device block (its pipeline.py:333-340):
+            # sn over the ranks, capped by the phrase-chunk cap and by the
+            # guard's block (each rank's card holds one block at a time)
+            par = max(min(-(-sn // ranks), cfg.chunk_cap_bytes // 8),
+                      1 << 16)
             block_chars = min(block_chars, par) if block_chars else par
     if sn_big:
         # int64-safe route: per-block scans stay under the int32 bound
@@ -429,15 +503,20 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
             if block_chars is None:
                 block_chars, ctx = sn, 0   # the unblocked scan's window
             blocks = md.BlockCheckpoints(cfg.checkpoint_dir, fp, block_chars)
-        if block_chars:
+        if cfg.dense_parallel and ranks > 1:
+            from ..parallel.mesh import ms_dense_heads_mesh
+            heads = ms_dense_heads_mesh(x_aug, coll.sx, block_chars, ctx,
+                                        device=device, checkpoint=blocks)
+        elif block_chars:
             heads = md.ms_dense_heads_blocked_on_device(
                 x_aug, coll.sx, device, block_chars, ctx, blocks,
                 to_host=sn_big)
         else:
             heads = md.ms_dense_heads_on_device(x_aug, coll.sx, device)
         sync()
-        if mgr is not None:
-            dl = heads if sn_big else download_heads_result(heads, n)
+        if mgr is not None and heads is not None:
+            dl = (heads if isinstance(heads, md.DenseHeadsResult)
+                  else download_heads_result(heads, n))
             mgr.save("dense_heads", fp, {
                 "head_t": dl.head_t, "head_pos": dl.head_pos,
                 "head_len": dl.head_len, "head_smaller": dl.head_smaller,
@@ -446,6 +525,20 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
                 "h": np.int64(dl.h), "sn": np.int64(dl.sn),
                 "irreducible": np.int64(dl.irreducible)})
     return heads
+
+
+def _rank0_says(device, local: bool) -> bool:
+    """Rank 0's ``local`` on every rank of a launcher's group, ``local``
+    itself without one: whether a cache or checkpoint file is there must be
+    one answer for all ranks, or their mesh steps' collectives part ways
+    (rank 0 may save the file while another rank looks for it)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return local
+    from ..parallel import distributed
+    from ..parallel.dist import bcast_object
+    return bool(bcast_object(distributed.current(device),
+                             local if distributed.is_primary() else None))
 
 
 def _native_heads(index: ReferenceIndex, coll, timer: PhaseTimer):
@@ -467,25 +560,38 @@ def _native_heads(index: ReferenceIndex, coll, timer: PhaseTimer):
             isa_next=z(), succ=z(), h=len(t)), "native"
 
 
-def _host_index(cfg: Config, x_aug: np.ndarray, device) -> ReferenceIndex:
+def _host_index(cfg: Config, x_aug: np.ndarray, device,
+                giant: bool = False) -> ReferenceIndex | None:
     """The host ReferenceIndex of the host and native backends, through
     the on-disk cache (the checkpoint directory when given, else
     Config.resolved_index_cache_dir()): the JAX package's directory and
-    fingerprint, so the two packages share it."""
+    fingerprint, so the two packages share it. A ``giant`` reference's is
+    the sharded int64 build over the mesh's ranks, which returns it on
+    rank 0 and None on the others."""
     from ..utils.checkpoint import CheckpointManager, file_stamp
     cache_root = cfg.checkpoint_dir or cfg.resolved_index_cache_dir()
     mgr = fp = None
     if cache_root:
         ref_path, _ = fasta.read_input_list(cfg.filename)
         mgr = CheckpointManager(cache_root)
-        fp = mgr.fingerprint(ref=file_stamp(ref_path), giant=False,
+        fp = mgr.fingerprint(ref=file_stamp(ref_path), giant=giant,
                              phase="ref_index")
         cached = mgr.load("ref_index", fp)
-        if cached is not None:
-            return _index_from_arrays(x_aug, cached)
-    index = (_build_host_index_fast(x_aug, device) if cfg.backend == "native"
-             else build_reference_index(x_aug))
-    if mgr is not None:
+        hit = cached is not None
+        if giant:
+            hit = _rank0_says(device, hit)
+        if hit:
+            # a rank that missed rank 0's fresh save: rank 0 goes on alone
+            return (_index_from_arrays(x_aug, cached) if cached is not None
+                    else None)
+    if giant:
+        from ..parallel.sharded_index import build_sharded_reference_index
+        index = build_sharded_reference_index(x_aug, device=device)
+    elif cfg.backend == "native":
+        index = _build_host_index_fast(x_aug, device)
+    else:
+        index = build_reference_index(x_aug)
+    if mgr is not None and index is not None:
         mgr.save("ref_index", fp, {
             "sa": index.sa, "isa": index.isa, "lcp": index.lcp,
             "plcp": index.plcp, "bwt": index.bwt})

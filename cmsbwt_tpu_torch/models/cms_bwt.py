@@ -6,8 +6,10 @@ host index for the native and host backends, the device index for the
 jump and device backends), and ``transform`` computes the BWT of one
 collection after another against it: one pangenome reference, many
 batches of haplotypes. Every backend ends in the host merge, as in the
-JAX package. It is a plain class, not a torch.nn.Module: it holds
-indexes, not parameters.
+JAX package, or, after the jump and dense scans with the config's
+merge_backend 'sharded', in the sharded merge over the mesh's ranks
+(engine/pipeline.merge_from_heads_sharded). It is a plain class, not a
+torch.nn.Module: it holds indexes, not parameters.
 """
 from __future__ import annotations
 
@@ -109,12 +111,19 @@ class CMSBWT:
                                          lanes=cfg.lanes,
                                          window=cfg.skip_window,
                                          index=self.device_index)
-                dl = pipeline_mod.download_heads_result(dres, n)
-                del dres
-            index, heads = pipeline_mod.dense_result_to_inputs(self.x_aug, dl)
-            result = pipeline_mod.merge_from_heads(
-                index, heads, coll.d, coll.sn, rq, dev, timer,
-                buffer_bytes=buf)
+                sharded = cfg.merge_backend == "sharded"
+                if not sharded:
+                    dres = pipeline_mod.download_heads_result(dres, n)
+            if sharded:
+                result = pipeline_mod.merge_from_heads_sharded(
+                    self.x_aug, dres, coll.d, coll.sn, rq, dev, timer)
+            else:
+                index, heads = pipeline_mod.dense_result_to_inputs(
+                    self.x_aug, dres)
+                result = pipeline_mod.merge_from_heads(
+                    index, heads, coll.d, coll.sn, rq, dev, timer,
+                    buffer_bytes=buf)
+            del dres
         elif backend == "device":
             from ..index.device import export_reference_index
             from ..ops.ms_device import ms_scan_device

@@ -1,4 +1,4 @@
-"""The ``--parallel`` dense scan on one device — the counterpart of
+"""The ``--parallel`` dense scan — the counterpart of
 cmsbwt_tpu/parallel/blocked.py (``ms_dense_heads_parallel``).
 
 The JAX function scans the blocks as independent tries, round-robin over
@@ -7,13 +7,12 @@ block's joint sort already fills the device, so the blocks run one after
 another whatever the order; the port runs them through the sequential
 blocked loop (ops/ms_dense.ms_dense_heads_blocked_on_device), which
 chains each block as it goes and gives the same heads, reference index
-and irreducible count. Independent blocks pay only where there are
-several devices to take them: that is the mesh program (ROADMAP.md queue
-1 item 11), and more than one device raises here.
+and irreducible count. Over several cards the blocks are the mesh scan's
+(parallel/mesh.ms_dense_heads_mesh), one rank per card.
 
-Block files are saved chained, as the sequential loops save them; a file
-the JAX parallel loop saved before its fixup loads through
-ops/ms_dense.chain_block like any other.
+Block files are saved chained by the sequential loop and unchained by the
+mesh scan, as the JAX parallel loop saves them; both load through
+ops/ms_dense.chain_block.
 """
 from __future__ import annotations
 
@@ -28,17 +27,23 @@ def ms_dense_heads_parallel(x_aug, sx, block_chars: int,
                             fingerprint: str | None = None,
                             device="cuda") -> md.DenseHeadsResult:
     """Blocked dense MS of ``sx`` (non-empty) against ``x_aug`` on
-    ``device`` (or on ``devices``, which must all name one device): the
-    heads, reference index and irreducible count of the JAX package's
-    ms_dense_heads_parallel, as a host DenseHeadsResult. With
-    ``checkpoint_dir`` each finished block is saved there, and a saved
-    block is loaded instead of scanned."""
-    devs = {torch.device(d) for d in (devices or [device])}
-    if len(devs) > 1:
-        raise NotImplementedError(
-            f"ms_dense_heads_parallel over {len(devs)} devices is not ported "
-            "yet: ROADMAP.md queue 1 item 11 (the mesh modules)")
+    ``device``, or on ``devices``: one device, or R distinct CUDA devices
+    cuda:0..cuda:R-1, one mesh rank each. The heads, reference index and
+    irreducible count of the JAX package's ms_dense_heads_parallel, as a
+    host DenseHeadsResult. With ``checkpoint_dir`` each finished block is
+    saved there, and a saved block is loaded instead of scanned."""
+    devs = sorted({torch.device(d) for d in (devices or [device])}, key=str)
     ckpt = (md.BlockCheckpoints(checkpoint_dir, fingerprint or "",
                                 block_chars) if checkpoint_dir else None)
+    if len(devs) > 1:
+        want = [torch.device("cuda", i) for i in range(len(devs))]
+        if sorted(devs, key=lambda d: (d.type, d.index or 0)) != want:
+            raise ValueError(
+                f"the mesh scan runs one rank on each of cuda:0..cuda:R-1, "
+                f"not on {[str(d) for d in devs]}")
+        from .mesh import ms_dense_heads_mesh
+        return ms_dense_heads_mesh(x_aug, sx, block_chars, ctx_chars,
+                                   n_devices=len(devs), device="cuda",
+                                   checkpoint=ckpt)
     return md.ms_dense_heads_blocked_on_device(
-        x_aug, sx, devs.pop(), block_chars, ctx_chars, ckpt, to_host=True)
+        x_aug, sx, devs[0], block_chars, ctx_chars, ckpt, to_host=True)

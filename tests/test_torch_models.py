@@ -2,8 +2,8 @@
 against the JAX package's: the twins of tests/test_models.py's three tests
 on the CPU; every backend's bytes (plain and run-length) equal to those of
 the JAX package's CMSBWT on the same reference and collection; each index
-built once over several transforms; the package exports CMSBWT lazily, as
-the JAX package does. Inputs are made with numpy from seeds. Tolerance:
+built once over several transforms; the sharded merge after the jump and
+dense scans; the package exports CMSBWT lazily, as the JAX package does. Inputs are made with numpy from seeds. Tolerance:
 exact bytes."""
 from __future__ import annotations
 
@@ -96,6 +96,23 @@ def test_transform_matches_jax(tmp_path, backend, rle):
                                                      backend=backend)
     assert (got.bwt, got.rle, got.sn, got.heads) == \
         (want.bwt, want.rle, want.sn, want.heads)
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("backend", ["jump", "dense"])
+def test_transform_sharded_merge_matches_jax(tmp_path, backend, rle):
+    """merge_backend='sharded' in the config: the jump and dense
+    transforms merge on the sharded merge's ranks (one on the CPU) and
+    give the JAX package's CMSBWT bytes (which always merges on the
+    host)."""
+    ref, coll = _collection(tmp_path, 5, dup=True)
+    cfg = Config(lanes=8, skip_window=16, merge_backend="sharded")
+    want = JaxCMSBWT(ref, LANES8).transform(coll, rle=rle, backend=backend)
+    got = CMSBWT(ref, cfg, device="cpu").transform(coll, rle=rle,
+                                                  backend=backend)
+    assert (got.bwt, got.rle, got.sn, got.heads) == \
+        (want.bwt, want.rle, want.sn, want.heads)
+    assert "merge_sharded" in got.timer.report()
 
 
 @pytest.mark.parametrize("backends,index", [

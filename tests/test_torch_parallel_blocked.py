@@ -3,7 +3,7 @@ against the JAX package's: ms_dense_heads_parallel with devices=[cpu, cpu]
 field for field against JAX's ms_dense_heads_parallel (on its 8 virtual
 CPU devices) and against the port's sequential blocked loop and unblocked
 scan, the twins of tests/test_parallel_blocked.py included; two distinct
-devices raise; the CLI's --parallel bytes equal the JAX CLI's; block
+cards run the mesh scan; the CLI's --parallel bytes equal the JAX CLI's; block
 checkpoints resume across {parallel, sequential} x {port, JAX} with every
 scan entry of the resuming side made to raise, the port chaining every
 block it loads (the JAX sequential loop does not: its resume of blocks
@@ -114,11 +114,25 @@ def test_parallel_matches_jax_and_sequential(cid, layout):
         TD.ms_dense_heads_blocked_on_device(x, sx, "cpu", block, ctx), got)
 
 
-def test_distinct_devices_raise():
-    """Blocks over more than one device are the mesh program's (ROADMAP.md
-    queue 1 item 11): refused before any scan."""
+def test_distinct_devices_raise(monkeypatch):
+    """Blocks over more than one device, refused until it was ported, are
+    the mesh scan's: two cards run it on two ranks (here gloo ranks on the
+    CPU, the ranks' device monkeypatched), field for field JAX's
+    ms_dense_heads_parallel; devices other than cuda:0..R-1 raise."""
+    from cmsbwt_tpu_torch.parallel import distributed
+    seen = []
+    real = distributed.run
+
+    def on_cpu(fn, inputs, device, n_devices=None):
+        seen.append((str(device), n_devices))
+        return real(fn, inputs, "cpu", n_devices)
+    monkeypatch.setattr(distributed, "run", on_cpu)
     x, sx = case_collection(CASES[0])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    got = TP.ms_dense_heads_parallel(x, sx, 1000, 64,
+                                     devices=["cuda:1", "cuda:0"])
+    assert seen == [("cuda", 2)]
+    _assert_result(jax_par(x, sx, block_chars=1000, ctx_chars=64), got)
+    with pytest.raises(ValueError, match="cuda:0"):
         TP.ms_dense_heads_parallel(x, sx, 1000, 64, devices=["cpu", "meta"])
 
 

@@ -8,7 +8,8 @@ the other without a scan; the reference-index cache is shared with the
 JAX package; collections at or above the int32 bound take the blocked
 scan and the host merge; the merge engine follows the JAX rules and, on a
 card, the merge's memory ceiling; the memory guard chooses blocks; the
-run never loads JAX; cuda without a card raises. Tolerance: exact bytes."""
+sharded merge and --parallel over two cards run; the run never loads JAX;
+cuda without a card raises. Tolerance: exact bytes."""
 from __future__ import annotations
 
 import os
@@ -191,22 +192,28 @@ def test_cuda_without_card_raises(tmp_path, monkeypatch):
     ("auto", "auto"), ("dense", "sharded"), ("device", "sharded"),
     ("native", "sharded"), ("jump", "sharded")])
 def test_unported_routes_raise(tmp_path, backend, merge_backend):
-    """merge_backend='sharded' raises, naming ROADMAP.md; backend='auto',
-    refused until it was ported, now runs (test_torch_auto.py holds its
-    choices): bytes equal to the JAX package's auto run."""
+    """merge_backend='sharded' and backend='auto', each refused until it
+    was ported, now run: bytes equal to the JAX package's run. JAX's
+    device and native routes ignore merge_backend, as the port's do; after
+    jump and dense the port runs the sharded merge (one rank on the CPU;
+    test_torch_sharded_merge.py holds it at R = 1, 2 and 4) and JAX here
+    its device merge, whose bytes its tests hold equal to its sharded
+    merge's (its 8-device sharded programs take ~50 s to build on the
+    CPU). test_torch_auto.py holds auto's choices."""
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
     cfg = Config(filename=str(lst), outname=str(tmp_path / "t"),
                  backend=backend, merge_backend=merge_backend)
-    if backend == "auto":
-        out = compute_bwt(cfg, "cpu")
-        want = jax_compute_bwt(JaxConfig(filename=str(lst),
-                                         outname=str(tmp_path / "j")))
-        assert out["backend"] == want["backend"]
-        assert (tmp_path / "t.bwt").read_bytes() == \
-            (tmp_path / "j.bwt").read_bytes()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compute_bwt(cfg, "cpu")
+    out = compute_bwt(cfg, "cpu")
+    jax_mb = "device" if backend in ("dense", "jump") else merge_backend
+    want = jax_compute_bwt(JaxConfig(filename=str(lst),
+                                     outname=str(tmp_path / "j"),
+                                     backend=backend, merge_backend=jax_mb,
+                                     index_cache_dir=""))
+    assert out["backend"] == want["backend"]
+    assert (tmp_path / "t.bwt").read_bytes() == \
+        (tmp_path / "j.bwt").read_bytes()
+    if backend in ("dense", "jump"):
+        assert "merge_sharded" in (tmp_path / "t.log").read_text()
 
 
 @pytest.mark.parametrize("flag", [["--parallel"]])
@@ -224,15 +231,31 @@ def test_unported_options_rejected(tmp_path, flag):
 
 
 def test_parallel_on_more_than_one_card_raises(tmp_path, monkeypatch):
-    """--parallel over more than one CUDA device is the mesh program, not
-    ported: refused before any work, naming ROADMAP.md."""
+    """--parallel over more than one CUDA device, refused until it was
+    ported, is the mesh scan: with two cards (the count monkeypatched, to
+    reach the decision on the CPU) the CLI hands the scan and the sharded
+    merge to two ranks, which run here as gloo ranks on the CPU; bytes
+    equal to the JAX CLI's --parallel run."""
+    from cmsbwt_tpu_torch.parallel import distributed
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    real = distributed.run
+
+    def on_cpu(fn, inputs, device, n_devices=None):
+        calls.append((torch.device(device).type,
+                      distributed.n_ranks(device, n_devices)))
+        return real(fn, inputs, "cpu", 2)
+    monkeypatch.setattr(distributed, "run", on_cpu)
     lst, _, _ = _inputs(tmp_path, 3, 300, 3, 0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cuda",
-                  "--backend", "dense", "--parallel"])
-    assert not (tmp_path / "t.bwt").exists()
+    flags = ["--backend", "dense", "--parallel", "--block-chars", "300"]
+    assert cli.main([str(lst), "-o", str(tmp_path / "t"), "--device", "cuda",
+                     *flags, "--merge-backend", "sharded"]) == 0
+    assert calls == [("cuda", 2), ("cuda", 2)]   # the mesh scan, the merge
+    assert jax_cli.main([str(lst), "-o", str(tmp_path / "j"), *flags]) == 0
+    assert (tmp_path / "t.bwt").read_bytes() == \
+        (tmp_path / "j.bwt").read_bytes()
 
 
 @pytest.mark.parametrize("flag", [["--block-chars", "1000"],

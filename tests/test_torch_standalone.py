@@ -1,10 +1,11 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the JAX package
 ``cmsbwt_tpu`` refused by a meta-path finder, a fresh interpreter imports
-every module of cmsbwt_tpu_torch (the auto probe, the model API and the
---parallel loop among them) and runs ``python -m cmsbwt_tpu_torch --device
+every module of cmsbwt_tpu_torch (the auto probe, the model API, the
+--parallel loop and the mesh modules among them) and runs ``python -m cmsbwt_tpu_torch --device
 cpu`` on the jump and dense backends and the default (auto) in both
 formats, the dense backend blocked with per-block checkpoints and with
---parallel, and the routes of the host
+--parallel, jump and dense with --merge-backend sharded, and the routes
+of the host
 merge (the host, native and device backends, --merge-backend host after
 jump and dense); the bytes equal the JAX package's outputs on the same
 input. The port's Config keeps the JAX Config's fields and defaults.
@@ -65,7 +66,9 @@ assert not [m for m in sys.modules
 print("IMPORTED", len(names), " ".join(names))
 ''', tmp_path)
     assert "IMPORTED" in r.stdout
-    for name in ("engine.probe", "models.cms_bwt", "parallel.blocked"):
+    for name in ("engine.probe", "models.cms_bwt", "parallel.blocked",
+                 "parallel.distributed", "parallel.dist", "parallel.mesh",
+                 "parallel.sharded_merge", "parallel.sharded_index"):
         assert f" cmsbwt_tpu_torch.{name}" in r.stdout, name
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
     sources = [f for f in (ROOT / "cmsbwt_tpu_torch").rglob("*.py")
@@ -75,7 +78,8 @@ print("IMPORTED", len(names), " ".join(names))
 
 @pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
 @pytest.mark.parametrize("backend", ["jump", "dense", "dense_blocked",
-                                     "auto", "dense_parallel"])
+                                     "auto", "dense_parallel",
+                                     "jump_sharded", "dense_sharded"])
 def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
     rng = np.random.default_rng(11)
     ref = random_dna(rng, 500)
@@ -93,6 +97,12 @@ def test_cli_without_jax_matches_jax_cli(tmp_path, backend, rle):
     elif backend == "dense_parallel":
         backend = "dense"
         port_flags = jax_flags = fmt + ["--parallel", "--block-chars", "700"]
+    elif backend.endswith("_sharded"):
+        # the port's sharded merge on one rank; JAX's device merge, whose
+        # bytes its tests hold equal to its sharded merge's
+        backend = backend.split("_")[0]
+        port_flags = fmt + ["--merge-backend", "sharded"]
+        jax_flags = fmt + ["--merge-backend", "device"]
     backend_flags = [] if backend == "auto" else ["--backend", backend]
     _run('''
 import runpy

@@ -8,6 +8,7 @@
     python3 tools/profile_slice.py --blocked   # the blocked dense scan
     python3 tools/profile_slice.py --host-merge  # ~1 Gchar, host merge
     python3 tools/profile_slice.py --routes [SHAPE]  # jump/dense/native
+    python3 tools/profile_slice.py --mesh      # mesh routes, every card
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -81,6 +82,36 @@ routes (see routes_main): wall seconds, .log phases and the backend it
 names, the probe's absent fraction, and a check that every route wrote
 the same bytes, then a one-line JSON summary. The auto rule's cuda branch
 (engine/pipeline.auto_backend) is read off this table.
+
+The mesh mode (run it on a host with four cards) prints
+every card's name and power limit, then, each part on its own lines and
+each failure printed without stopping the next part:
+
+1. primary (2 Mbp x 10 docs, 1%): the jump scan's heads once, the device
+   merge three times, then merge_heads_sharded at R = 1, 2 and 4 ranks
+   (up to the visible cards), twice each, runs equal to the device
+   merge's: wall seconds, and of each run the ranks' start-up and work
+   seconds and peak device bytes per rank
+   (parallel/distributed.LAST_RUN); the stage marks of one run at the
+   largest R on stderr (CMSBWT_PROFILE=1);
+2. the giant route at toy scale: the CLI (auto) at primary under
+   CMSBWT_GIANT_THRESHOLD=1000 (the sharded int64 index over R ranks, the
+   native int64 scan, the host merge), its phases, bytes equal to the
+   jump CLI's;
+3. 500 Mchars (5 Mbp x 100 docs): the mesh scan over R ranks and the
+   one-card blocked loop in the same blocks (the CLI's --parallel block,
+   sn / R capped by the phrase-chunk cap and the guard), in turns (one
+   card, mesh, mesh, one card), heads equal; the device merge on one card
+   and the sharded merge over R ranks of the same heads, in turns, runs
+   equal; then the CLI with --backend dense --parallel --merge-backend
+   sharded -r --no-rle-quirk: phases, and the .rl_bwt decoding to sn
+   chars with the collection's byte histogram;
+4. ~1.0 Gchars (5 Mbp x 200 docs), on four cards or more: the CLI with
+   --backend jump --merge-backend sharded -r --no-rle-quirk: phases, the
+   sharded merge's peak device bytes per rank, rank 0's peak host RSS,
+   the histogram check;
+
+then a ``mesh summary {json}`` line.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -455,6 +486,204 @@ def host_merge_main() -> None:
         raise RuntimeError("the 1G .rl_bwt decodes to another histogram")
 
 
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _part(summary: dict, name: str, fn) -> None:
+    """One part of the mesh mode; a failure is printed, not raised."""
+    try:
+        summary[name] = fn()
+    except Exception as e:       # the next part still runs
+        import traceback
+        traceback.print_exc()
+        print(f"mesh[{name}]: FAILED {type(e).__name__}: {e}", flush=True)
+        summary[name] = {"failed": f"{type(e).__name__}: {e}"}
+
+
+def _histogram_ok(path: pathlib.Path, coll) -> bool:
+    hist = cs.rle_histogram(path)
+    return int(hist.sum()) == coll.sn and np.array_equal(
+        hist, np.bincount(coll.sx, minlength=256))
+
+
+def mesh_main() -> None:
+    """The mesh routes over every visible card (see the module docstring,
+    mesh mode)."""
+    import resource
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine.device_merge import \
+        merge_heads_device_resident
+    from cmsbwt_tpu_torch.engine.pipeline import (load_inputs,
+                                                  upload_heads_result)
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    from cmsbwt_tpu_torch.parallel import distributed
+    from cmsbwt_tpu_torch.parallel.mesh import ms_dense_heads_mesh
+    from cmsbwt_tpu_torch.parallel.sharded_merge import merge_heads_sharded
+    # a lost rank ends the part within 2 minutes (no collective of these
+    # runs waits that long)
+    os.environ.setdefault("CMSBWT_DIST_TIMEOUT", "120")
+    cards = torch.cuda.device_count()
+    rs = [r for r in (1, 2, 4) if r <= cards]
+    kernels.load()
+    summary = {"cards": cards, "names": [torch.cuda.get_device_name(i)
+                                         for i in range(cards)]}
+    fields = ("head_t", "head_pos", "head_len", "head_smaller", "head_char",
+              "ref_sa", "ref_isa", "ref_bwt")
+    lst = cs.write_workload(WORK / "primary", 42, 2_000_000, 10, 0.01)
+    rss = lambda: resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
+
+    def sharded(heads, coll, n, R, rq=False):
+        out, s = _timed(lambda: merge_heads_sharded(
+            *[getattr(heads, f) for f in fields], heads.h, n, coll.sn,
+            coll.d, rq, n_devices=R, device="cuda"))
+        return out, s, dict(distributed.LAST_RUN)
+
+    def primary():
+        x, coll = load_inputs(str(lst))
+        jres = mj.ms_jump_heads(x, coll.sx, "cuda")
+        dev = []
+        for _ in range(3):
+            want, s = _timed(lambda: merge_heads_device_resident(
+                jres, coll.d, False))
+            dev.append(round(s, 4))
+        print(f"mesh[primary]: h={jres.h} device merge s {dev}", flush=True)
+        out = {"h": jres.h, "device_merge_s": dev}
+        for R in rs:
+            runs = []
+            for _ in range(2):
+                (rl, rc), s, last = sharded(jres, coll, len(x), R)
+                if not (np.array_equal(rl, want[0])
+                        and np.array_equal(rc, want[1])):
+                    raise RuntimeError(f"R={R}: runs differ from the device "
+                                       "merge's")
+                runs.append(dict(wall_s=round(s, 4), **last))
+                print(f"mesh[primary]: merge_sharded R={R} wall {s:.3f} s, "
+                      "runs equal to the device merge's; "
+                      + json.dumps(last), flush=True)
+            out[f"sharded_R{R}"] = runs
+        os.environ["CMSBWT_PROFILE"] = "1"
+        print(f"mesh[primary]: stage marks at R={rs[-1]} (stderr)",
+              flush=True)
+        try:
+            sharded(jres, coll, len(x), rs[-1])
+        finally:
+            del os.environ["CMSBWT_PROFILE"]
+        sys.stderr.flush()
+        return out
+
+    def giant():
+        normal = cli_run(lst, WORK / "normal", "--backend", "jump")
+        os.environ["CMSBWT_GIANT_THRESHOLD"] = "1000"
+        os.environ["CMSBWT_INDEX_CACHE"] = str(WORK / "cache")
+        try:
+            phases = cli_run(lst, WORK / "giant")
+        finally:
+            del os.environ["CMSBWT_GIANT_THRESHOLD"]
+        last = dict(distributed.LAST_RUN)
+        same = (WORK / "giant.bwt").read_bytes() == \
+            (WORK / "normal.bwt").read_bytes()
+        print(f"mesh[giant]: bytes equal to the jump CLI's: {same}; index "
+              "build " + json.dumps(last), flush=True)
+        if not same:
+            raise RuntimeError("the giant route's bytes differ")
+        return {"phases_ms": phases, "index_run": last,
+                "jump_phases_ms": normal}
+
+    def big():
+        t0 = time.perf_counter()
+        blst = cs.write_workload(WORK / "big", 42, 5_000_000, 100, 0.01)
+        x, coll = load_inputs(str(blst))
+        print(f"mesh[500M]: wrote and parsed in "
+              f"{time.perf_counter() - t0:.1f} s; sn={coll.sn}", flush=True)
+        R = rs[-1]
+        guard = md.dense_block_chars(len(x), coll.sn, md.dense_budget("cuda"))
+        block = max(min(-(-coll.sn // R), 1_000_000_000 // 8), 1 << 16)
+        block = min(block, guard) if guard else block
+        out = {"ranks": R, "block_chars": block, "one_card_s": [],
+               "mesh_s": [], "mesh_runs": []}
+        res = {}
+        for turn in ("one_card", "mesh", "mesh", "one_card"):
+            if turn == "mesh":
+                r, s = _timed(lambda: ms_dense_heads_mesh(
+                    x, coll.sx, block, device="cuda"))
+                out["mesh_runs"].append(dict(distributed.LAST_RUN))
+            else:
+                r, s = _timed(lambda: md.ms_dense_heads_blocked_on_device(
+                    x, coll.sx, "cuda", block, to_host=True))
+            out[f"{turn}_s"].append(round(s, 3))
+            res[turn] = r
+            torch.cuda.empty_cache()
+            print(f"mesh[500M]: {turn} scan, blocks of {block}: {s:.3f} s "
+                  f"h={r.h} irreducible={r.irreducible}", flush=True)
+        a, b = res["one_card"], res["mesh"]
+        if a.h != b.h or any(not np.array_equal(getattr(a, f), getattr(b, f))
+                             for f in fields):
+            raise RuntimeError("the mesh scan's heads differ at 500M")
+        del res, a
+        out["merge_device_s"], out["merge_sharded_s"] = [], []
+        out["merge_sharded_runs"] = []
+        want = None
+        for turn in ("device", "sharded", "sharded", "device"):
+            if turn == "device":
+                up = upload_heads_result(b, len(x), "cuda")
+                got, s = _timed(lambda: merge_heads_device_resident(
+                    up, coll.d, False, want_counter=False))
+                del up
+            else:
+                got, s, last = sharded(b, coll, len(x), R)
+                out["merge_sharded_runs"].append(last)
+            torch.cuda.empty_cache()
+            out[f"merge_{turn}_s"].append(round(s, 3))
+            if want is None:
+                want = got[:2]
+            elif not (np.array_equal(got[0], want[0])
+                      and np.array_equal(got[1], want[1])):
+                raise RuntimeError("the 500M merges' runs differ")
+            print(f"mesh[500M]: merge {turn} {s:.3f} s", flush=True)
+        del b, want, got
+        torch.cuda.empty_cache()
+        out["cli_phases_ms"] = cli_run(
+            blst, WORK / "b", "--backend", "dense", "--parallel",
+            "--merge-backend", "sharded", "-r", "--no-rle-quirk")
+        out["cli_histogram_ok"] = _histogram_ok(WORK / "b.rl_bwt", coll)
+        print(f"mesh[500M]: CLI .rl_bwt histogram ok: "
+              f"{out['cli_histogram_ok']}", flush=True)
+        return out
+
+    def gchar():
+        if cards < 4:   # its sharded merge needs the memory of four cards
+            print(f"mesh[1G]: skipped on {cards} card(s)", flush=True)
+            return {"skipped": cards}
+        t0 = time.perf_counter()
+        glst = cs.write_workload(WORK / "g", 42, 5_000_000, 200, 0.01)
+        print(f"mesh[1G]: wrote in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        phases = cli_run(glst, WORK / "g", "--backend", "jump",
+                         "--merge-backend", "sharded", "-r",
+                         "--no-rle-quirk")
+        last = dict(distributed.LAST_RUN)
+        _, coll = load_inputs(str(glst))
+        ok = _histogram_ok(WORK / "g.rl_bwt", coll)
+        print(f"mesh[1G]: sn={coll.sn}; sharded merge " + json.dumps(last)
+              + f"; rank 0 peak host RSS {rss()} B; histogram ok: {ok}",
+              flush=True)
+        return {"sn": coll.sn, "phases_ms": phases, "merge_run": last,
+                "rank0_peak_rss_bytes": rss(), "histogram_ok": ok}
+
+    for name, fn in (("primary", primary), ("giant", giant),
+                     ("500M", big), ("1G", gchar)):
+        _part(summary, name, fn)
+        torch.cuda.empty_cache()
+    print("mesh summary " + json.dumps(summary), flush=True)
+
+
 def jump_main(cli_only: bool) -> None:
     lst = cs.write_workload(WORK, 42, 2_000_000, 10, 0.01)
     if not cli_only:
@@ -636,6 +865,9 @@ def main() -> int:
                     help="time the CLI on the jump, dense and native routes "
                     "at every shape of ROUTE_SHAPES (or at SHAPE alone; "
                     "a comma list names several)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the mesh routes over every visible card (the "
+                    "sharded merge, the mesh scan, the giant route)")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -652,7 +884,9 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
-        if args.routes is not None:
+        if args.mesh:
+            mesh_main()
+        elif args.routes is not None:
             routes_main(args.routes or None)
         elif args.host_merge:
             host_merge_main()
