@@ -107,6 +107,24 @@ every phase passed):
    equal to the normal route's, launching no kernel. Prints each mesh
    run's rank start-up and work seconds and peak device bytes per rank
    (parallel/distributed.LAST_RUN).
+11. merge kernels — the device merge's CUDA kernels against their plain
+   torch versions on the card (exact): running_fill
+   (running_fill_reference: torch.cummax / cummin, flipped for reverse)
+   at 1, 4095, 4096, 4097 and 3 * 4096 + 5 rows in int32 and int64, max
+   and min, forward and reverse, with the dtype's extremes and the merge's
+   sentinels, and at 2^29 + 1 int64 rows forward (max) and reverse (min),
+   timed beside one 1-D torch.cummax / cummin and the row-blocked form the
+   port used before; running_fill (the merge's largest fill),
+   tail_good_join (_tail_good_join_reference), tail_exact_credit
+   (_exact_credit_reference) and run_merge (_run_merge_reference) on the
+   inputs a real device merge gave them (MergeCapture), of the jump
+   scan's heads at primary (in phase 5) and of the 500 Mchar run's heads
+   (in phase 8, which also holds the peak outside the blocks to the
+   merge's ceiling, MERGE_BYTES_PER_CHAR per collection char). Every run
+   that merges on the device launches running_fill, tail_good_join and
+   run_merge, and tail_exact_credit once per merge with exact pairs
+   (MERGE_KERNELS); the sharded merge and the dense scan launch
+   running_fill; no run launches a plain version.
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
@@ -127,8 +145,11 @@ and host routes launch none),
 and bound_ms: the bytes the function must
 move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
-SXM's memory rate. No single PyTorch call computes any of the three
-functions, so library_ms is null.
+SXM's memory rate. The merge kernels' rows give running_fill at 2^29 + 1
+int64 rows (forward max), and tail_good_join, tail_exact_credit and
+run_merge on the 500 Mchar merge's inputs. library_ms is one 1-D
+torch.cummax for running_fill; no single PyTorch call computes any of the
+other six functions, so theirs is null.
 """
 from __future__ import annotations
 
@@ -167,10 +188,19 @@ NATIVE_SCAN = ROOT / "native" / "cmsbwt_scan.cpp"
 TOL = 0  # exact: integer and byte outputs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 BIG_DOCS = 100              # bench ecoli_rle at BENCH_FULL=1 (bench.py:176)
-# the kernels each --backend launches; native and host launch none
+# the kernels each --backend's scan launches (the dense scan's PLCP fill
+# is a running_fill); native and host launch none
 ROUTE_KERNELS = {"jump": ("ms_jump_scan",), "device": ("ms_jump_scan",),
-                 "dense": ("lcp_lift", "dense_neighbors"), "native": (),
-                 "host": ()}
+                 "dense": ("lcp_lift", "dense_neighbors", "running_fill"),
+                 "native": (), "host": ()}
+# the kernels each merge engine launches ("none": a scan alone); the
+# device merge launches tail_exact_credit once per merge with exact pairs
+MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
+                            "tail_exact_credit", "run_merge"),
+                 "sharded": ("running_fill",), "host": (), "none": ()}
+FILL_SIZES = (1, 4095, 4096, 4097, 3 * 4096 + 5)
+BIG_FILL = (1 << 29) + 1
+FILL_BIG = (1 << 62) - 1    # the merge's packed-fill sentinel
 
 
 def log(msg: str) -> None:
@@ -389,7 +419,8 @@ def pow2_pad(rho: int, m: int) -> int:
 
 def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
     """A kernel's outputs against its plain version's on the card (exact),
-    then both timed; returns a result dict."""
+    then both timed; returns a result dict. ``moved`` is the bytes of the
+    bound, or a function of the plain version's outputs giving them."""
     want = plain_fn()
     got = cuda_fn()
     torch.cuda.synchronize()
@@ -400,7 +431,7 @@ def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
                if a.numel() else 0) for a, b in zip(want, got))
     ms = cuda_ms(cuda_fn, reps)
     plain_ms = cuda_ms(plain_fn, 2)
-    bound = bound_ms(moved)
+    bound = bound_ms(moved(want) if callable(moved) else moved)
     log(f"kernel {kernel}[{name}]: {what} max_abs_err={err} "
         f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"bound_ms={bound:.4f}")
@@ -637,6 +668,188 @@ def native_heads(x_aug: np.ndarray, coll) -> tuple:
     return t, pos, ln, sml, sx[(t - 1) % max(sn, 1)]
 
 
+def fill_input(m: int, dtype, seed: int, trend: int) -> torch.Tensor:
+    """m values on the card: a ramp of slope ``trend`` plus noise (so a
+    running max or min changes often in one direction and rarely in the
+    other), with the dtype's extremes and the merge's sentinels (INT_MAX,
+    FILL_BIG in int64, -1) at a few rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    info = torch.iinfo(dtype)
+    v = torch.arange(m, dtype=torch.int64, device="cuda") * trend
+    v += torch.randint(-(1 << 20), 1 << 20, (m,), generator=g,
+                       device="cuda")
+    special = [info.min, info.max, -1, 2**31 - 1] + (
+        [FILL_BIG] if dtype == torch.int64 else [])
+    at = torch.randint(0, m, (len(special),), generator=g, device="cuda")
+    v[at] = torch.tensor(special, dtype=torch.int64, device="cuda")
+    return v.to(dtype)
+
+
+def row_blocked_fill(v, op: str, reverse: bool, width: int = 4096):
+    """The row-blocked running max / min the port used before running_fill
+    (rows of ``width`` scanned by torch, then a carry across the rows; flips
+    for reverse), timed beside the kernel."""
+    if reverse:
+        return torch.flip(row_blocked_fill(torch.flip(v, [0]), op, False,
+                                           width), [0])
+    m = v.shape[0]
+    cum = torch.cummax if op == "max" else torch.cummin
+    rows = -(-m // width)
+    info = torch.iinfo(v.dtype)
+    x = torch.full((rows * width,), info.min if op == "max" else info.max,
+                   dtype=v.dtype, device=v.device)
+    x[:m] = v
+    loc = cum(x.view(rows, width), 1).values
+    carry = cum(loc[:, -1], 0).values
+    both = torch.maximum if op == "max" else torch.minimum
+    loc[1:] = both(loc[1:], carry[:-1, None])
+    return loc.reshape(-1)[:m]
+
+
+def fill_cases() -> list:
+    """running_fill against its plain version (exact) on the card: every
+    size of FILL_SIZES in int32 and int64, max and min, forward and
+    reverse, on a rising and a falling ramp; then int64 at BIG_FILL rows,
+    forward max and reverse min (the merge's two forms), each timed beside
+    the library call (one 1-D torch.cummax / torch.cummin) and the
+    row-blocked form. Returns the two timed results."""
+    from cmsbwt_tpu_torch.kernels import running_fill_cuda
+    from cmsbwt_tpu_torch.ops.fill import running_fill_reference
+    cases = 0
+    for m in FILL_SIZES:
+        for dt in (torch.int32, torch.int64):
+            for op in ("max", "min"):
+                for rev in (False, True):
+                    for trend in (3, -3):
+                        v = fill_input(m, dt, m + cases, trend)
+                        got = running_fill_cuda(v, op, rev)
+                        want = running_fill_reference(v, op, rev)
+                        if not torch.equal(got, want):
+                            fail(f"running_fill[m={m}, {dt}, {op}, "
+                                 f"reverse={rev}] differs from its plain "
+                                 "version")
+                        cases += 1
+    log(f"kernel running_fill: {cases} cases (m in {FILL_SIZES}, int32 and "
+        "int64, max and min, forward and reverse, rising and falling) "
+        f"exact (tolerance {TOL})")
+    out = []
+    for op, rev, trend in (("max", False, 5), ("min", True, 5)):
+        v = fill_input(BIG_FILL, torch.int64, 9, trend)
+        name = f"int64_{BIG_FILL}_{op}{'_reverse' if rev else ''}"
+        r = compare("running_fill", name, "running_fill_reference",
+                    lambda: (running_fill_cuda(v, op, rev),),
+                    lambda: (running_fill_reference(v, op, rev),),
+                    f"m={BIG_FILL} int64 {op}{' reverse' if rev else ''}",
+                    2 * nbytes(v))
+        cum = torch.cummax if op == "max" else torch.cummin
+        r["library_ms"] = cuda_ms(lambda: cum(v, 0), 2)
+        if not torch.equal(row_blocked_fill(v, op, rev), r["outputs"][0]):
+            fail(f"running_fill[{name}]: the row-blocked form differs")
+        r["row_blocked_ms"] = cuda_ms(lambda: row_blocked_fill(v, op, rev),
+                                      2)
+        log(f"kernel running_fill[{name}]: library_ms (1-D torch."
+            f"{cum.__name__}) {r['library_ms']:.3f}, row-blocked form "
+            f"{r['row_blocked_ms']:.3f}, kernel {r['ms']:.3f}")
+        del r["outputs"], v
+        out.append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
+class MergeCapture:
+    """Keeps the inputs of the device merge's kernels from the merges run
+    while in use, by wrapping engine/device_merge's running_fill,
+    tail_good_join, exact_credit and run_merge: the largest running_fill
+    input (with its op and direction), and the last inputs of the other
+    three."""
+
+    def __enter__(self):
+        from cmsbwt_tpu_torch.engine import device_merge as dm
+        self.dm, self.fill, self.join, self.runs = dm, None, None, None
+        self.exact = None
+        self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
+                     dm.exact_credit)
+
+        def fill(v, op="max", reverse=False):
+            if self.fill is None or v.numel() > self.fill[0].numel():
+                self.fill = (v, op, reverse)
+            return self.orig[0](v, op, reverse)
+
+        def join(*a):
+            self.join = a
+            return self.orig[1](*a)
+
+        def runs(*a):
+            self.runs = a
+            return self.orig[2](*a)
+
+        def exact(*a):
+            self.exact = a
+            return self.orig[3](*a)
+        (dm.running_fill, dm.tail_good_join, dm.run_merge,
+         dm.exact_credit) = fill, join, runs, exact
+        return self
+
+    def __exit__(self, *exc):
+        (self.dm.running_fill, self.dm.tail_good_join, self.dm.run_merge,
+         self.dm.exact_credit) = self.orig
+
+
+def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
+    """The merge's four kernels against their plain versions (exact) on
+    the inputs one device merge gave them (MergeCapture), then timed."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.ops.fill import running_fill_reference
+    out = {}
+    v, op, rev = cap.fill
+    out["running_fill"] = compare(
+        "running_fill", f"{tag}_merge", "running_fill_reference",
+        lambda: (K.running_fill_cuda(v, op, rev),),
+        lambda: (running_fill_reference(v, op, rev),),
+        f"the merge's largest fill: m={v.numel()} {v.dtype} {op}"
+        f"{' reverse' if rev else ''}", 2 * nbytes(v))
+    k1s, k2fs, i_s, pay_s, h_pad = cap.join
+
+    def join_out(res):
+        counter, ekey, f_cls, n_exact, members = res
+        return (counter, ekey, f_cls,
+                torch.tensor([n_exact, members], device=counter.device))
+    J = k1s.numel()
+    out["tail_good_join"] = compare(
+        "tail_good_join", tag, "_tail_good_join_reference",
+        lambda: join_out(K.tail_good_join_cuda(k1s, k2fs, i_s, pay_s,
+                                               h_pad)),
+        lambda: join_out(dm._tail_good_join_reference(k1s, k2fs, i_s, pay_s,
+                                                      h_pad)),
+        f"J={J} join rows, h_pad={h_pad}",
+        nbytes(k1s, k2fs, i_s, pay_s) + 8 * J + 4 * (h_pad + 2))
+    if cap.exact is None:
+        fail(f"the {tag} merge had no exact pairs: no tail_exact_credit "
+             "case")
+    a = cap.exact
+    f_s, h_pad_x = a[1], a[-1]
+    out["tail_exact_credit"] = compare(
+        "tail_exact_credit", tag, "_exact_credit_reference",
+        lambda: (K.tail_exact_credit_cuda(*a),),
+        lambda: (dm._exact_credit_reference(*a),),
+        f"J={f_s.numel()} join rows, {a[4].numel()} queries (tot={a[5]})",
+        # the three row columns and dst read once, the class arrays'
+        # h_pad slots once each, the counter read and written
+        nbytes(a[1], a[2], a[3], a[4]) + 4 * 4 * h_pad_x
+        + 2 * nbytes(a[0]))
+    k_s, len_s, chr_s = cap.runs
+    out["run_merge"] = compare(
+        "run_merge", tag, "_run_merge_reference",
+        lambda: K.run_merge_cuda(k_s, len_s, chr_s)[:2],
+        lambda: dm._run_merge_reference(k_s, len_s, chr_s)[:2],
+        f"L={k_s.numel()} lanes",
+        lambda want: nbytes(k_s, len_s, chr_s) + nbytes(*want))
+    for r in out.values():
+        del r["outputs"]
+    return out
+
+
 def phases_from_log(path: pathlib.Path) -> dict:
     out = {}
     for line in path.read_text().splitlines():
@@ -785,7 +998,7 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
             log(f"model[{tag}]: bytes equal to the reference tool's; wall "
                 f"{wall:.2f} s; phases ms " + json.dumps(
                     {k: round(t * 1e3, 1) for k, t in res.timer.phases}))
-            check_counts(be, tag, 1, ROUTE_KERNELS[be])
+            check_counts(be, tag, 1, "host")
         del model, res
     finally:
         idev.build_device_index = orig
@@ -798,8 +1011,7 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
     x2, c2 = load_inputs(str(k200k))
     reset_counts()
     dm = md.ms_dense(x2, c2.sx, "cuda")
-    check_counts("dense", "ms_dense", 1, ROUTE_KERNELS["dense"],
-                 engine="none")
+    check_counts("dense", "ms_dense", 1, "none")
     dv = ms_scan_device(idev.build_device_index(x2, "cuda"), c2.sx, "cuda")
     heads = dv.is_head
     same = (np.array_equal(dm.pos, dv.pos)
@@ -853,8 +1065,7 @@ def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
     mres = ms_dense_heads_mesh(x_aug, coll.sx, bc, device="cuda")
     wall = time.perf_counter() - t0
     blocks = -(-coll.sn // bc)
-    counts = check_counts("dense", "mesh_scan", 1, ROUTE_KERNELS["dense"],
-                          engine="none")
+    counts = check_counts("dense", "mesh_scan", 1, "none")
     if ranks == 1 and not (counts["lcp_lift"] == counts["dense_neighbors"]
                            >= blocks):
         fail(f"the mesh scan's {blocks} blocks launched {counts}")
@@ -925,11 +1136,17 @@ def main() -> int:
 
 def run_phases(card: str, kind: str, started: float) -> int:
     from cmsbwt_tpu_torch import cli, kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dmg
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import fill
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
     from cmsbwt_tpu_torch.ops import ms_jump as mj
     from cmsbwt_tpu_torch.utils.buckets import bucket_size
+    # the plain versions' call counts
+    PLAIN_CALLS = (js.REFERENCE_CALLS, md.REFERENCE_CALLS,
+                   mj.REFERENCE_CALLS, fill.REFERENCE_CALLS,
+                   dmg.REFERENCE_CALLS)
 
     # phase 2: build
     kernels.load()
@@ -976,23 +1193,43 @@ def run_phases(card: str, kind: str, started: float) -> int:
     oracle = reference_outputs(lst)
 
     # phase 5: the jump slice through the CLI, kernel launches counted
-    paths = []  # (backend, tag, CLI runs, launch counts, block tries, merge)
+    # (backend, tag, CLI runs, launch counts, block tries, merge engine,
+    # the kernels the path launches)
+    paths = []
+
+    # the device merges with exact pairs, each of which launches
+    # tail_exact_credit once
+    exact_merges = [0]
+    tail_exact = dmg.tail_exact_dev
+
+    def counted_tail_exact(*a, **kw):
+        exact_merges[0] += 1
+        return tail_exact(*a, **kw)
+    dmg.tail_exact_dev = counted_tail_exact
 
     def reset_counts():
         kernels.reset_launch_counts()
-        js.REFERENCE_CALLS["lift_pairs"] = 0
-        md.REFERENCE_CALLS["neighbors_reference"] = 0
-        mj.REFERENCE_CALLS["ms_jump_scan_reference"] = 0
+        exact_merges[0] = 0
+        for calls in PLAIN_CALLS:
+            for k in calls:
+                calls[k] = 0
 
-    def check_counts(backend, tag, runs, mine, tries=None, engine="host"):
-        """The launch counts since reset_counts(): each kernel of ``mine``
-        launched, no other, no plain version; recorded as a path."""
+    def check_counts(backend, tag, runs, engine, tries=None, scanned=True):
+        """The launch counts since reset_counts(): each kernel of the
+        backend's scan (unless ``scanned`` is False: the scan was skipped)
+        and of the merge ``engine`` launched, no other, no plain version;
+        recorded as a path."""
+        mine = tuple(k for k in dict.fromkeys(
+            (ROUTE_KERNELS[backend] if scanned else ())
+            + MERGE_KERNELS[engine])
+            if k != "tail_exact_credit" or exact_merges[0])
         counts = dict(kernels.LAUNCHES)
-        plain = {**js.REFERENCE_CALLS, **md.REFERENCE_CALLS,
-                 **mj.REFERENCE_CALLS}
+        plain = {k: v for calls in PLAIN_CALLS for k, v in calls.items()}
         log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
             + (f"; block tries {tries}" if tries is not None else "")
-            + f"; merge {engine}")
+            + f"; merge {engine}"
+            + (f" ({exact_merges[0]} with exact pairs)"
+               if engine == "device" else ""))
         if any(plain.values()):
             fail(f"{tag}: a plain version ran on the card's main path")
         if any(counts[k] < 1 for k in mine) or any(
@@ -1003,17 +1240,21 @@ def run_phases(card: str, kind: str, started: float) -> int:
                                       == counts["dense_neighbors"] == tries):
             fail(f"{tag}: the dense kernels did not carry every block try "
                  f"({tries} tries)")
-        paths.append((backend, tag, runs, counts, tries, engine))
+        if counts["tail_exact_credit"] != exact_merges[0]:
+            fail(f"{tag}: tail_exact_credit did not carry every merge with "
+                 f"exact pairs ({exact_merges[0]})")
+        paths.append((backend, tag, runs, counts, tries, engine, mine))
         return counts
 
     def run_cli(backend: str | None, tag: str, extra=(),
                 formats=(False, True), inp=lst, want=oracle, blocks=None,
-                merge="device", launched=True, want_merge=None) -> dict:
+                merge="device", scanned=True, want_merge=None) -> dict:
         """The CLI on ``inp`` in each format with ``--merge-backend
         merge``, bytes held to ``want`` (the reference tool's) unless it is
         None; the kernel launches and plain calls counted from 0 over these
-        runs: each kernel of the route (ROUTE_KERNELS) launched, unless
-        ``launched`` is False, and no other. ``backend`` None passes no
+        runs: each kernel of the route's scan (ROUTE_KERNELS; none with
+        ``scanned`` False) and merge engine (MERGE_KERNELS) launched, and
+        no other. ``backend`` None passes no
         --backend (the default, auto): the backend each .log names is the
         route. The merge engine that ran, read from each .log, must be
         ``want_merge`` (default: the host merge for --merge-backend host
@@ -1064,9 +1305,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
         if engine != want_merge:
             fail(f"{tag}: the {engine} merge ran, expected {want_merge}")
         return check_counts(
-            backend, tag, len(formats),
-            ROUTE_KERNELS[backend] if launched else (),
-            len(blocks.tries) - tries0 if blocks else None, engine)
+            backend, tag, len(formats), engine,
+            len(blocks.tries) - tries0 if blocks else None, scanned)
 
     run_cli("jump", "jump")
 
@@ -1121,7 +1361,14 @@ def run_phases(card: str, kind: str, started: float) -> int:
     log(f"merge[primary]: host and device (run_len, run_char, counter) "
         f"equal ({len(dev[0])} runs, {len(host[0])} before normalising); "
         f"host ms {times['host']}, device ms {times['device']}")
-    del jres, host, dev, want_runs
+    # phase 11's primary case: the merge kernels on the inputs this
+    # merge gives them
+    with MergeCapture() as cap:
+        again = merge_heads_device_resident(jres, coll.d, False)
+    if not all(np.array_equal(a, b) for a, b in zip(again, dev)):
+        fail("the device merge's runs differ between two runs")
+    merge_cases = {"primary": merge_kernel_cases("primary", cap)}
+    del jres, host, dev, want_runs, again, cap
 
     # phase 6: the dense slice through the CLI, kernel launches counted
     run_cli("dense", "dense")
@@ -1213,7 +1460,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
         fail("the checkpointed run saved no dense_heads bundle")
     with BlockLog(md) as ck2:
         run_cli("dense", "dense_ckpt_again", ck, formats=(False,),
-                blocks=ck2, launched=False)
+                blocks=ck2, scanned=False)
     if ck2.tries or not ck1.tries:
         fail("the checkpointed rerun scanned again")
     torch.cuda.empty_cache()
@@ -1253,6 +1500,14 @@ def run_phases(card: str, kind: str, started: float) -> int:
         + json.dumps(bl.tries))
     if "res" not in kept or len(bl.tries) < 2:
         fail("the 500 Mchar run did not go through guard-chosen blocks")
+    # the merge's ceiling (merge_fits) must count at least what the merge
+    # took: the peak outside the blocks is the merge's and the writer's
+    log(f"big: peak outside the blocks {bl.gap_peak / cb.sn:.1f} B per "
+        f"collection char (the merge's ceiling counts "
+        f"{dmg.MERGE_BYTES_PER_CHAR})")
+    if bl.gap_peak > dmg.MERGE_BYTES_PER_CHAR * cb.sn:
+        fail("the device merge took more than MERGE_BYTES_PER_CHAR per "
+             "collection char")
     dres = kept.pop("res")
     t0 = time.perf_counter()
     jres = mj.ms_jump_heads(xb, cb.sx, "cuda")
@@ -1261,6 +1516,18 @@ def run_phases(card: str, kind: str, started: float) -> int:
     if not same_heads(dres, jres):
         fail("the 500 Mchar blocked heads differ from the jump scan's")
     del jres
+    torch.cuda.empty_cache()
+    # phase 11's 500 Mchar case, while its inputs are on the card: the
+    # merge kernels on the inputs the merge of these heads gives them
+    with MergeCapture() as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merge_heads_device_resident(dres, cb.d, False, want_counter=False)
+        torch.cuda.synchronize()
+        log(f"big: the device merge of the same heads again "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    merge_cases["500M"] = merge_kernel_cases("500M", cap)
+    del cap
     torch.cuda.empty_cache()
     # the host merge on the same heads, against the device merge's output
     from cmsbwt_tpu_torch.io import native
@@ -1298,11 +1565,23 @@ def run_phases(card: str, kind: str, started: float) -> int:
     # phase 10: the mesh modules on the card's ranks
     phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll)
 
-    def row(name, source, replaces, res):
-        # every run of a route that launches this kernel, and the routes
-        # that launch none (their 0 shown)
-        runs = [(tag, k, c[name], t, e) for r, tag, k, c, t, e in paths
-                if name in ROUTE_KERNELS[r] or not ROUTE_KERNELS[r]]
+    # phase 11: the device merge's kernels against their plain versions
+    # (their primary and 500 Mchar cases ran in phases 5 and 8)
+    t11 = time.perf_counter()
+    fills = fill_cases()
+    for name in ("running_fill", "tail_good_join", "tail_exact_credit",
+                 "run_merge"):
+        for tag, res in merge_cases.items():
+            r = res[name]
+            log(f"merge kernel {name}[{tag}]: {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    log(f"merge kernels: phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    def row(name, source, replaces, res, library_ms=None):
+        # every run that launches this kernel, and the runs that launch
+        # none (their 0 shown)
+        runs = [(tag, k, c[name], t, e) for _, tag, k, c, t, e, mine
+                in paths if name in mine or not mine]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(c for _, _, c, _, _ in runs),
@@ -1313,7 +1592,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
                 "max_abs_err": max(r["err"] for r in res),
                 "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
                 "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
-                "library_ms": None}
+                "library_ms": library_ms}
 
     log(f"smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f} s")
@@ -1326,7 +1605,23 @@ def run_phases(card: str, kind: str, started: float) -> int:
             dense["lcp_lift"] + dense["lcp_lift_rho_pad"]),
         row("dense_neighbors", csrc + "dense_neighbors.cu",
             "cmsbwt_tpu/ops/ms_dense.py:366",
-            dense["dense_neighbors"] + nb_cases)]}))
+            dense["dense_neighbors"] + nb_cases),
+        row("running_fill", csrc + "running_fill.cu",
+            "cmsbwt_tpu/engine/device_merge.py:57",
+            fills + [c["running_fill"] for c in merge_cases.values()],
+            fills[0]["library_ms"]),
+        row("tail_good_join", csrc + "tail_good_join.cu",
+            "cmsbwt_tpu/engine/device_merge.py:426",
+            [merge_cases["500M"]["tail_good_join"],
+             merge_cases["primary"]["tail_good_join"]]),
+        row("tail_exact_credit", csrc + "tail_exact_credit.cu",
+            "cmsbwt_tpu/engine/device_merge.py:543",
+            [merge_cases["500M"]["tail_exact_credit"],
+             merge_cases["primary"]["tail_exact_credit"]]),
+        row("run_merge", csrc + "run_merge.cu",
+            "cmsbwt_tpu/engine/device_merge.py:694",
+            [merge_cases["500M"]["run_merge"],
+             merge_cases["primary"]["run_merge"]])]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,7 +20,17 @@ Translation rules from the JAX stages:
   filtered first (torch raises where JAX drops), and each scatter names
   its reduction;
 * every stage returns the dtypes the JAX stage returns (int32 unless the
-  JAX code computes under x64); ``torch.cumsum`` of int32 is cast back.
+  JAX code computes under x64); ``torch.cumsum`` of int32 is cast back;
+* ``lax.cummax`` / ``cummin`` and ``_rev_fill_min`` go through
+  ``ops/fill.running_fill``; ``tail_good_dev``'s pass after its join sort
+  is ``tail_good_join``, ``tail_exact_dev``'s after its join's fill is
+  ``exact_credit``, and the end of ``runs_emit_dev`` is ``run_merge``.
+  Each picks by the device of its tensors: a CUDA kernel
+  (``kernels/csrc/running_fill.cu``, ``tail_good_join.cu``,
+  ``tail_exact_credit.cu``, ``run_merge.cu``) for CUDA tensors, the
+  plain torch version (``running_fill_reference``,
+  ``_tail_good_join_reference``, ``_exact_credit_reference``,
+  ``_run_merge_reference``) for CPU tensors.
 
 All indices are int32 (n, sn < 2^31 — the reference's own caps).
 """
@@ -31,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops.fill import running_fill, running_fill_reference
 from ..utils.buckets import bucket_size
 from ..utils.timing import stage_timer
 
@@ -39,6 +50,11 @@ I64_BIG = 1 << 62
 LOW30 = (1 << 30) - 1
 LOW31 = (1 << 31) - 1
 I32, I64 = torch.int32, torch.int64
+
+# calls of the plain versions (the CUDA wrappers keep their own launch
+# counts)
+REFERENCE_CALLS = {"_tail_good_join_reference": 0,
+                   "_exact_credit_reference": 0, "_run_merge_reference": 0}
 
 
 def sn_bound() -> int:
@@ -50,10 +66,11 @@ def sn_bound() -> int:
 # Peak device bytes of merge_device per collection char (torch's
 # max_memory_allocated outside the dense scan's blocks, over sn), measured
 # on an NVIDIA H100 80GB HBM3, 700 W: 88.3 at the 500 Mchar shape (44.2 GB;
-# h = 34.9 M heads, P = 446 M tail pairs); 96 leaves ~8% to spare. The
-# merge is not blocked, so this is the card's merge ceiling (~0.88 Gchars
-# on 84 GB free; PERF.md): above it merge_backend='auto' takes the host
-# merge.
+# h = 34.9 M heads, P = 446 M tail pairs); 96 leaves ~8% to spare. With
+# the merge's kernels it measured 76.6-76.8 there (38.4 GB); the ceiling
+# stays at 96 until a routing change moves it. The merge is not blocked,
+# so this is the card's merge ceiling (~0.88 Gchars on 84 GB free;
+# PERF.md): above it merge_backend='auto' takes the host merge.
 MERGE_BYTES_PER_CHAR = 96
 
 
@@ -112,12 +129,12 @@ def _cumsum32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _cummax(v: torch.Tensor) -> torch.Tensor:
-    return torch.cummax(v, 0).values
+    return running_fill(v, "max")
 
 
 def _suffix_min(v: torch.Tensor) -> torch.Tensor:
     """Nearest at-or-after fill: running min from the right."""
-    return torch.flip(torch.cummin(torch.flip(v, [0]), 0).values, [0])
+    return running_fill(v, "min", reverse=True)
 
 
 def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
@@ -426,19 +443,53 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     del key1, srcidx, paycat
     k2fs = key2f[perm]
     del key2f, perm
+    counter, ekey, f_cls, n_exact, exact_members = tail_good_join(
+        k1s, k2fs, i_s, pay_s, h_pad)
+    del k1s, k2fs, pay_s
+    # compact exact pairs as (pair idx, found class)
+    eperm = torch.sort(ekey, stable=True).indices
+    e_pidx, e_fnd = i_s[eperm], f_cls[eperm]
+    return (counter, n_exact, exact_members, e_pidx[:p_pad], e_fnd[:p_pad],
+            src_cls)
+
+
+def tail_good_join(k1s, k2fs, i_s, pay_s, h_pad: int):
+    """The join's pass after its sort, on the device of its tensors: the
+    CUDA kernel for CUDA tensors, ``_tail_good_join_reference`` for CPU
+    tensors. Returns (counter int32[h_pad + 2], exact_key int32[J], f_cls
+    int32[J], n_exact, exact_members)."""
+    dev = k1s.device.type
+    if dev == "cuda":
+        from ..kernels import tail_good_join_cuda
+        return tail_good_join_cuda(k1s, k2fs, i_s, pay_s, h_pad)
+    if dev == "cpu":
+        return _tail_good_join_reference(k1s, k2fs, i_s, pay_s, h_pad)
+    raise ValueError(f"tail_good_join: unsupported device {dev!r}")
+
+
+def _tail_good_join_reference(k1s, k2fs, i_s, pay_s, h_pad: int):
+    """Over the J join rows sorted by (k1, k2f) — classes are targets (bit
+    0 of k2f set), pairs are queries: each row's nearest at-or-after
+    target, the exact test (that target lies in the query's own (k1, k2)
+    run) and the good test (it lies later in the same bucket), the good
+    path's credit at each target's slot ``pay_s``, and each row's exact
+    key (its ``i_s`` if exact, else INT_MAX) and found class ``f_cls``.
+    Plain torch throughout (its fills too), on any device."""
+    REFERENCE_CALLS["_tail_good_join_reference"] += 1
+    dev = k1s.device
     f_s = (k2fs & 1).to(I32)
     k2s = k2fs >> 1
-    del k2fs
     # nearest at-or-after target's attributes for every row, by packed
     # (row << 31 | payload) suffix minima
-    jn_pad = h_pad + p_pad
-    rowsi = _ar(jn_pad, slot_base)
+    jn_pad = int(k1s.shape[0])
+    rowsi = _ar(jn_pad, k1s)
     rows = rowsi.to(I64)
     FILL_BIG = (1 << 62) - 1
 
     def rev_fill(payload31):
-        return _suffix_min(_w64(f_s == 1, (rows << 31)
-                                | payload31.to(I64), FILL_BIG))
+        return running_fill_reference(
+            _w64(f_s == 1, (rows << 31) | payload31.to(I64), FILL_BIG),
+            "min", reverse=True)
 
     fp = rev_fill(k1s)
     f_pos = (fp & LOW31).to(I32)
@@ -448,12 +499,13 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     change_next = _cat((k1s[1:] != k1s[:-1]) | (k2s[1:] != k2s[:-1]),
                        _full(1, True, torch.bool, k1s))
     del k2s
-    run_end = _suffix_min(_w32(change_next, rowsi, jn_pad))
+    run_end = running_fill_reference(_w32(change_next, rowsi, jn_pad),
+                                     "min", reverse=True)
     del change_next, rowsi
     is_q = f_s == 0
     # pad rows (class and query alike) carry k1 == INT_MAX and never pass
     in_range_s = is_q & (f_pos == k1s) & (k1s < INT_MAX)
-    del is_q, f_pos, k1s
+    del is_q, f_pos
     exact_s = in_range_s & (t_row <= run_end)
     del t_row, run_end
     good_s = in_range_s & ~exact_s
@@ -462,7 +514,8 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     gcum = torch.cumsum(_w64(good_s, pay_s, 0), 0)
     del good_s
     is_t = f_s == 1
-    prev_t = _cat(_full(1, -1, I64, gcum), _cummax(_w64(is_t, rows, -1))[:-1])
+    prev_t = _cat(_full(1, -1, I64, gcum),
+                  running_fill_reference(_w64(is_t, rows, -1))[:-1])
     del rows
     pt = torch.clamp(prev_t, 0, jn_pad - 1)
     base_cum = _w64(prev_t >= 0, gcum[pt], 0)
@@ -473,11 +526,8 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     _add(counter, pay_s, credit, is_t & _in_range(pay_s, h_pad + 2))
     n_exact = int(exact_s.sum())
     exact_members = int(_w64(exact_s, pay_s, 0).sum())
-    # compact exact pairs as (pair idx, found class)
-    eperm = torch.sort(_w32(exact_s, i_s, INT_MAX), stable=True).indices
-    e_pidx, e_fnd = i_s[eperm], f_cls[eperm]
-    return (counter, n_exact, exact_members, e_pidx[:p_pad], e_fnd[:p_pad],
-            src_cls)
+    return (counter, _w32(exact_s, i_s, INT_MAX), f_cls, n_exact,
+            exact_members)
 
 
 def tail_exact_dev(counter_in, cls: dict, pairs: dict, slot_base,
@@ -521,6 +571,42 @@ def tail_exact_dev(counter_in, cls: dict, pairs: dict, slot_base,
     perm = _lexsort(keys, flag)
     f_s, i_s = flag[perm], srcidx[perm]
     tgt = _suffix_min(_w32(f_s == 1, i_s, h_pad))
+    return exact_credit(counter_in, f_s, i_s, tgt, dst, tot, cls_of_slot,
+                        slot_base, pairs["cls_hi"], pairs["bucket_of_class"],
+                        h_pad)
+
+
+def exact_credit(counter_in, f_s, i_s, tgt, dst, tot: int, cls_of_slot,
+                 slot_base, cls_hi, bucket_of_class, h_pad: int):
+    """The exact path's credit pass after its join's sort and fill, on the
+    device of its tensors: the CUDA kernel for CUDA tensors,
+    ``_exact_credit_reference`` for CPU tensors. Returns counter_in plus
+    this path's credits."""
+    dev = f_s.device.type
+    if dev == "cuda":
+        from ..kernels import tail_exact_credit_cuda
+        return tail_exact_credit_cuda(counter_in, f_s, i_s, tgt, dst, tot,
+                                      cls_of_slot, slot_base, cls_hi,
+                                      bucket_of_class, h_pad)
+    if dev == "cpu":
+        return _exact_credit_reference(counter_in, f_s, i_s, tgt, dst, tot,
+                                       cls_of_slot, slot_base, cls_hi,
+                                       bucket_of_class, h_pad)
+    raise ValueError(f"exact_credit: unsupported device {dev!r}")
+
+
+def _exact_credit_reference(counter_in, f_s, i_s, tgt, dst, tot: int,
+                            cls_of_slot, slot_base, cls_hi, bucket_of_class,
+                            h_pad: int):
+    """Each query row of the sorted join (f_s 0; i_s its id) finds its
+    slot ``tgt`` (clamped); it credits that slot when the slot lies in its
+    destination class ``dst``, else the next class's base slot when that
+    class is in the same bucket; every lane that credits nothing adds to
+    the dump slot h_pad + 1, as in JAX. Plain torch throughout."""
+    REFERENCE_CALLS["_exact_credit_reference"] += 1
+    dev = counter_in.device
+    em_pad = int(dst.shape[0])
+    mvalid = _ar(em_pad, dst) < tot
     # route answers back to query slots (query ids are a permutation)
     is_q = f_s == 0
     p_slot = torch.empty(em_pad, dtype=I32, device=dev)
@@ -532,8 +618,8 @@ def tail_exact_dev(counter_in, cls: dict, pairs: dict, slot_base,
     at = _w32(inb, p_slot, h_pad + 1)
     _add(counter, at, ones, _in_range(at, h_pad + 2))
     # spill: next class's base slot, only if it exists in the same bucket
-    has_next = (dst + 1) < pairs["cls_hi"][
-        torch.clamp(pairs["bucket_of_class"][dst], 0, h_pad - 1)]
+    has_next = (dst + 1) < cls_hi[
+        torch.clamp(bucket_of_class[dst], 0, h_pad - 1)]
     spill_ok = mvalid & ~inb & has_next
     at = _w32(spill_ok, slot_base[torch.clamp(dst + 1, 0, h_pad - 1)],
               h_pad + 1)
@@ -652,13 +738,35 @@ def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
     # lanes sort to the tail and drop out
     k_s, perm = torch.sort(_w32(lens > 0, off, INT_MAX), stable=True)
     len_s, chr_s = lens[perm], chars[perm]
-    L = off.shape[0]
-    rowi = _ar(L, counter)
+    return run_merge(k_s, len_s, chr_s)
+
+
+def run_merge(k_s, len_s, chr_s):
+    """The lanes' merge after the sort by offset, on the device of its
+    tensors: the CUDA kernel for CUDA tensors, ``_run_merge_reference``
+    for CPU tensors. Returns (run_len int32, run_char uint8, n_runs)."""
+    dev = k_s.device.type
+    if dev == "cuda":
+        from ..kernels import run_merge_cuda
+        return run_merge_cuda(k_s, len_s, chr_s)
+    if dev == "cpu":
+        return _run_merge_reference(k_s, len_s, chr_s)
+    raise ValueError(f"run_merge: unsupported device {dev!r}")
+
+
+def _run_merge_reference(k_s, len_s, chr_s):
+    """Adjacent valid lanes (k < INT_MAX, len > 0) of one char merge into
+    one run; the runs' lengths and chars, compacted to the front in lane
+    order, and their count. Plain torch throughout, on any device."""
+    REFERENCE_CALLS["_run_merge_reference"] += 1
+    dev = k_s.device
+    L = k_s.shape[0]
+    rowi = _ar(L, k_s)
     valid_s = (k_s < INT_MAX) & (len_s > 0)
     no = torch.zeros(1, dtype=torch.bool, device=dev)
-    prv_chr = _cat(_full(1, -1, I32, counter), chr_s[:-1])
+    prv_chr = _cat(_full(1, -1, I32, k_s), chr_s[:-1])
     prv_valid = _cat(no, valid_s[:-1])
-    nxt_chr = _cat(chr_s[1:], _full(1, -1, I32, counter))
+    nxt_chr = _cat(chr_s[1:], _full(1, -1, I32, k_s))
     nxt_valid = _cat(valid_s[1:], no)
     new_g = valid_s & (~prv_valid | (prv_chr != chr_s))
     is_last = valid_s & (~nxt_valid | (nxt_chr != chr_s))
@@ -666,8 +774,8 @@ def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
     # group-start exclusive sum forward-filled by a packed cummax
     cum = torch.cumsum(len_s.to(I64), 0)
     exc = cum - len_s
-    fe = _cummax(_w64(new_g, (rowi.to(I64) << 32) | exc, -1)) \
-        & ((1 << 32) - 1)
+    fe = running_fill_reference(
+        _w64(new_g, (rowi.to(I64) << 32) | exc, -1)) & ((1 << 32) - 1)
     lenm = _w32(is_last, cum - fe, 0)
     keep = torch.nonzero(is_last).squeeze(1)
     return lenm[keep], chr_s[keep].to(torch.uint8), int(keep.shape[0])

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port: build, load and launch.
 
 Each kernel lives in ``csrc/`` as CUDA C++ for Hopper (sm_90a) with a plain
-C entry point. ``load()`` compiles each source with its own ``nvcc``
-process, all at once, into a shared library per source at first use (into
-``build/`` beside this file, or ``$CMSBWT_TORCH_BUILD_DIR``; each file
-name carries a hash of its source and the flags, so an edited source
+C entry point; the device merge's share ``csrc/tile_scan.cuh``.
+``load()`` compiles each source with its own ``nvcc`` process, all at
+once, into a shared library per source at first use (into ``build/``
+beside this file, or ``$CMSBWT_TORCH_BUILD_DIR``; each file name carries a
+hash of its source, the shared headers and the flags, so an edited source
 rebuilds) and binds them with ctypes. A build or launch failure raises;
 nothing falls back to a plain version.
 
@@ -26,12 +27,16 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu")
+SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
+           "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
+           "tail_exact_credit.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIFT_THREADS = 256
 
-LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0}
+LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
+            "running_fill": 0, "tail_good_join": 0, "run_merge": 0,
+            "tail_exact_credit": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -78,6 +83,28 @@ def _bind(libs: dict) -> None:
     f = libs["dense_neighbors"].dense_neighbors_launch
     f.restype = I
     f.argtypes = [P, P, I, I, P, P, P, P, P, P]
+    f = libs["running_fill"].running_fill_scratch_bytes
+    f.restype = LL
+    f.argtypes = [LL, I]
+    f = libs["running_fill"].running_fill_launch
+    f.restype = I
+    f.argtypes = [P, P, LL, I, I, I, P, P]
+    f = libs["tail_good_join"].tail_good_join_scratch_bytes
+    f.restype = LL
+    f.argtypes = [I]
+    f = libs["tail_good_join"].tail_good_join_launch
+    f.restype = I
+    f.argtypes = [P, P, P, P, I, P, P, P, I, P, P, P]
+    for k in ("run_merge_scratch_bytes", "run_merge_count_offset"):
+        f = getattr(libs["run_merge"], k)
+        f.restype = LL
+        f.argtypes = [I]
+    f = libs["run_merge"].run_merge_launch
+    f.restype = I
+    f.argtypes = [P, P, P, I, P, P, P, P]
+    f = libs["tail_exact_credit"].tail_exact_credit_launch
+    f.restype = I
+    f.argtypes = [P, P, P, I, P, I, P, P, P, P, I, P, I, P]
 
 
 def load() -> dict:
@@ -92,9 +119,12 @@ def load() -> dict:
         t0 = time.perf_counter()
         nvcc, bdir = None, _build_dir()
         sos, jobs = {}, []
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC.glob("*.cuh")))
         for s in SOURCES:
             src = CSRC / s
             digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+            digest.update(headers)
             digest.update(src.read_bytes())
             so = bdir / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
             sos[src.stem] = so
@@ -145,6 +175,13 @@ def _check(name, a, dtype, shape=None, device=None):
                          f"{tuple(a.shape)}")
 
 
+def _launch(name: str, err: int) -> None:
+    """Raise on a launch that returned a CUDA error; else count it."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
 def ms_jump_scan_cuda(x_padded, sa, isa, trees, sx_padded, state: dict,
                       chunk_ends, *, n: int, sn: int, cap: int,
                       window: int) -> dict:
@@ -190,9 +227,7 @@ def ms_jump_scan_cuda(x_padded, sa, isa, trees, sx_padded, state: dict,
                                        "out_t", "out_pos", "out_len",
                                        "out_sml")),
             ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"ms_jump_scan launch failed: CUDA error {err}")
-    LAUNCHES["ms_jump_scan"] += 1
+    _launch("ms_jump_scan", err)
     return state
 
 
@@ -235,9 +270,7 @@ def lcp_lift_cuda(hist, packs, ai, bi, lv, m: int,
             _ptr(hist), _ptr(packs), int(packs.shape[0]), _ptr(ai),
             _ptr(bi), _ptr(lv), _ptr(h), rows, m, sl, int(lmax),
             LIFT_THREADS, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"lcp_lift launch failed: CUDA error {err}")
-    LAUNCHES["lcp_lift"] += 1
+    _launch("lcp_lift", err)
     return h
 
 
@@ -263,8 +296,142 @@ def dense_neighbors_cuda(sa, ell, n: int, m: int):
         err = lib.dense_neighbors_launch(
             _ptr(sa), _ptr(ell), n, m, _ptr(scratch), *map(_ptr, outs),
             ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"dense_neighbors launch failed: CUDA error {err}")
-    LAUNCHES["dense_neighbors"] += 1
+    _launch("dense_neighbors", err)
     return tuple(outs)
+
+
+def running_fill_cuda(v: torch.Tensor, op: str = "max",
+                      reverse: bool = False) -> torch.Tensor:
+    """Launch ``running_fill`` on a 1-D int32 or int64 CUDA tensor: the
+    inclusive running max (``op`` "max") or min ("min"), from the last row
+    with ``reverse``. Same contract as ops/fill.running_fill_reference. An
+    empty tensor launches nothing."""
+    dev = v.device
+    if v.dim() != 1 or v.dtype not in (torch.int32, torch.int64):
+        raise ValueError("running_fill: expected a 1-D int32 or int64 "
+                         f"tensor, got {v.dtype} of shape {tuple(v.shape)}")
+    if op not in ("max", "min"):
+        raise ValueError(f"running_fill: op must be 'max' or 'min', not "
+                         f"{op!r}")
+    if v.device.type == "cuda":
+        v = v.contiguous()
+    _check("v", v, v.dtype, None, dev)
+    m = int(v.shape[0])
+    out = torch.empty_like(v)
+    if m == 0:
+        return out
+    lib = load()["running_fill"]
+    elem = v.element_size()
+    scratch = torch.empty(int(lib.running_fill_scratch_bytes(m, elem)),
+                          dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.running_fill_launch(
+            _ptr(v), _ptr(out), m, elem, int(op == "min"), int(reverse),
+            _ptr(scratch), ctypes.c_void_p(stream))
+    _launch("running_fill", err)
+    return out
+
+
+def tail_good_join_cuda(k1s, k2fs, i_s, pay_s, h_pad: int):
+    """Launch ``tail_good_join`` on the join's sorted CUDA columns (k1s,
+    i_s, pay_s int32[J]; k2fs int64[J], the target flag in bit 0):
+    returns (counter int32[h_pad + 2], exact_key int32[J], f_cls int32[J],
+    n_exact, exact_members). Same contract as
+    engine/device_merge._tail_good_join_reference; reads the two counts
+    back (one synchronisation)."""
+    dev = k1s.device
+    J = int(k1s.shape[0])
+    i32 = torch.int32
+    _check("k1s", k1s, i32, (J,), dev)
+    _check("k2fs", k2fs, torch.int64, (J,), dev)
+    _check("i_s", i_s, i32, (J,), dev)
+    _check("pay_s", pay_s, i32, (J,), dev)
+    if not 1 <= J < 2**31 - 1:
+        raise ValueError(f"tail_good_join: {J} rows (1 <= J < 2^31 - 1)")
+    lib = load()["tail_good_join"]
+    counter = torch.zeros(h_pad + 2, dtype=i32, device=dev)
+    exact_key = torch.empty(J, dtype=i32, device=dev)
+    f_cls = torch.empty(J, dtype=i32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    scratch = torch.empty(int(lib.tail_good_join_scratch_bytes(J)),
+                          dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.tail_good_join_launch(
+            _ptr(k1s), _ptr(k2fs), _ptr(i_s), _ptr(pay_s), J, _ptr(f_cls),
+            _ptr(exact_key), _ptr(counter), h_pad + 2, _ptr(stats),
+            _ptr(scratch), ctypes.c_void_p(stream))
+    _launch("tail_good_join", err)
+    n_exact, members = stats.tolist()
+    return counter, exact_key, f_cls, n_exact, members
+
+
+def run_merge_cuda(k_s, len_s, chr_s):
+    """Launch ``run_merge`` on the lanes sorted by offset (CUDA int32[L]
+    each): returns (run_len int32[n], run_char uint8[n], n), the merged
+    groups compacted to the front. Same contract as
+    engine/device_merge._run_merge_reference; reads n back (one
+    synchronisation)."""
+    dev = k_s.device
+    L = int(k_s.shape[0])
+    i32 = torch.int32
+    _check("k_s", k_s, i32, (L,), dev)
+    _check("len_s", len_s, i32, (L,), dev)
+    _check("chr_s", chr_s, i32, (L,), dev)
+    if not 1 <= L < 2**31 - 1:
+        raise ValueError(f"run_merge: {L} lanes (1 <= L < 2^31 - 1)")
+    lib = load()["run_merge"]
+    out_len = torch.empty(L, dtype=i32, device=dev)
+    out_chr = torch.empty(L, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(int(lib.run_merge_scratch_bytes(L)),
+                          dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.run_merge_launch(
+            _ptr(k_s), _ptr(len_s), _ptr(chr_s), L, _ptr(out_len),
+            _ptr(out_chr), _ptr(scratch), ctypes.c_void_p(stream))
+    _launch("run_merge", err)
+    at = int(lib.run_merge_count_offset(L))
+    n = int(scratch[at:at + 4].view(i32).item())
+    return out_len[:n], out_chr[:n], n
+
+
+def tail_exact_credit_cuda(counter_in, f_s, i_s, tgt, dst, tot: int,
+                           cls_of_slot, slot_base, cls_hi, bucket_of_class,
+                           h_pad: int):
+    """Launch ``tail_exact_credit`` on the exact path's sorted join (CUDA
+    int32 columns f_s, i_s and their reverse fill tgt; dst by query id;
+    the class arrays of h_pad slots or more): returns counter_in (int32[
+    h_pad + 2]) plus this path's credits. Same contract as
+    engine/device_merge._exact_credit_reference."""
+    dev = f_s.device
+    J = int(f_s.shape[0])
+    i32 = torch.int32
+    _check("counter_in", counter_in, i32, (h_pad + 2,), dev)
+    _check("f_s", f_s, i32, (J,), dev)
+    _check("i_s", i_s, i32, (J,), dev)
+    _check("tgt", tgt, i32, (J,), dev)
+    _check("dst", dst, i32, None, dev)
+    for name, a in (("cls_of_slot", cls_of_slot), ("slot_base", slot_base),
+                    ("cls_hi", cls_hi),
+                    ("bucket_of_class", bucket_of_class)):
+        _check(name, a, i32, None, dev)
+        if a.dim() != 1 or a.shape[0] < h_pad:
+            raise ValueError(f"tail_exact_credit: {name} holds fewer than "
+                             f"h_pad = {h_pad} slots")
+    if dst.dim() != 1 or not 0 <= tot <= dst.shape[0]:
+        raise ValueError("tail_exact_credit: tot exceeds the queries' dst")
+    if not 1 <= J < 2**31 - 1 or h_pad < 1:
+        raise ValueError(f"tail_exact_credit: {J} rows, h_pad {h_pad}")
+    lib = load()["tail_exact_credit"]
+    counter = counter_in.clone()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.tail_exact_credit_launch(
+            _ptr(f_s), _ptr(i_s), _ptr(tgt), J, _ptr(dst), tot,
+            _ptr(cls_of_slot), _ptr(slot_base), _ptr(cls_hi),
+            _ptr(bucket_of_class), h_pad, _ptr(counter), h_pad + 2,
+            ctypes.c_void_p(stream))
+    _launch("tail_exact_credit", err)
+    return counter

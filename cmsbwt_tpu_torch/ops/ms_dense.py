@@ -34,6 +34,7 @@ import torch
 from ..config import SEPARATOR
 from ..utils.buckets import bucket_size
 from ..utils.timing import stage_timer
+from .fill import running_fill
 from .joint_sa import joint_suffix_array, lcp_lift
 
 INT_MIN = -(2**31)
@@ -185,18 +186,10 @@ def _lift_rows(stats: torch.Tensor):
 
 
 def _running_max(v: torch.Tensor, width: int = 4096) -> torch.Tensor:
-    """torch.cummax(v).values, taken over rows of ``width`` and then
-    carried across rows (max is associative, so the result is exact); a
-    1-D CUDA cummax would run in one block."""
-    m = v.shape[0]
-    rows = -(-m // width)
-    x = torch.full((rows * width,), torch.iinfo(v.dtype).min, dtype=v.dtype,
-                   device=v.device)
-    x[:m] = v
-    loc = torch.cummax(x.view(rows, width), 1).values
-    carry = torch.cummax(loc[:, -1], 0).values
-    loc[1:] = torch.maximum(loc[1:], carry[:-1, None])
-    return loc.reshape(-1)[:m]
+    """torch.cummax(v).values through ops/fill.running_fill (the CUDA
+    kernel on the card). ``width``, the row width of the former two-level
+    form, no longer changes anything: the kernel's tiles are its own."""
+    return running_fill(v, "max")
 
 
 def _fill_ell(h, ai, isa, m: int) -> torch.Tensor:

@@ -12,7 +12,9 @@ rows carry sentinel keys.
 * ``dsort``    — global stable sample sort back to the regular layout
 * ``dcumsum`` / ``dcumsum_rev`` / ``dcummax`` / ``dcummin_rev`` /
   ``dcummax_rev`` / ``dcummax_rows`` — local scan plus the exclusive
-  prefix (suffix) of the other ranks' totals (one all_gather)
+  prefix (suffix) of the other ranks' totals (one all_gather); the 1-D
+  running max / min is ``ops/fill.running_fill`` (the CUDA kernel on a
+  card)
 * ``dgather``  — routed gather (out[j] = vals[q[j]])
 * ``dscatter`` / ``dscatter_rows`` — routed scatter, mode set|add|max
 * ``dshift``   — out[i] = vals[i + w] (ppermute: batch_isend_irecv)
@@ -33,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..engine.device_merge import _lexsort
+from ..ops.fill import running_fill
 from .distributed import Ranks
 
 I64 = torch.int64
@@ -169,26 +172,6 @@ def _prefix(g: Ranks, total: torch.Tensor, op: str, init, before: bool):
     return masked.amax(0) if op == "max" else masked.amin(0)
 
 
-def _running(vals, op: str, width: int = 4096):
-    """Running max or min of a 1-D tensor, taken over rows of ``width``
-    and then carried across rows (exact: the op is associative); a 1-D
-    CUDA cummax or cummin runs in one block."""
-    m = vals.shape[0]
-    cum = torch.cummax if op == "max" else torch.cummin
-    if m <= width:
-        return cum(vals, 0).values
-    rows = -(-m // width)
-    fill = _dmin(vals.dtype) if op == "max" else _dmax(vals.dtype)
-    x = torch.full((rows * width,), fill, dtype=vals.dtype,
-                   device=vals.device)
-    x[:m] = vals
-    loc = cum(x.view(rows, width), 1).values
-    carry = cum(loc[:, -1], 0).values
-    both = torch.maximum if op == "max" else torch.minimum
-    loc[1:] = both(loc[1:], carry[:-1, None])
-    return loc.reshape(-1)[:m]
-
-
 def dcumsum(g: Ranks, vals):
     c = torch.cumsum(vals, 0)
     if g.size == 1:
@@ -204,7 +187,7 @@ def dcumsum_rev(g: Ranks, vals):
 
 
 def dcummax(g: Ranks, vals):
-    c = _running(vals, "max")
+    c = running_fill(vals, "max")
     if g.size == 1:
         return c
     return torch.maximum(c, _prefix(g, c[-1], "max", _dmin(vals.dtype), True))
@@ -212,14 +195,14 @@ def dcummax(g: Ranks, vals):
 
 def dcummin_rev(g: Ranks, vals):
     """Reverse running min (the merge engine's rev_fill idiom)."""
-    c = torch.flip(_running(torch.flip(vals, [0]), "min"), [0])
+    c = running_fill(vals, "min", reverse=True)
     if g.size == 1:
         return c
     return torch.minimum(c, _prefix(g, c[0], "min", _dmax(vals.dtype), False))
 
 
 def dcummax_rev(g: Ranks, vals):
-    c = torch.flip(_running(torch.flip(vals, [0]), "max"), [0])
+    c = running_fill(vals, "max", reverse=True)
     if g.size == 1:
         return c
     return torch.maximum(c, _prefix(g, c[0], "max", _dmin(vals.dtype), False))

@@ -8,7 +8,9 @@
     python3 tools/profile_slice.py --blocked   # the blocked dense scan
     python3 tools/profile_slice.py --host-merge  # ~1 Gchar, host merge
     python3 tools/profile_slice.py --routes [SHAPE]  # jump/dense/native
+    python3 tools/profile_slice.py --routes 500M --backends jump
     python3 tools/profile_slice.py --mesh      # mesh routes, every card
+    python3 tools/profile_slice.py --merge-stages [SHAPE]  # merge by op
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -78,9 +80,10 @@ up on a small input, then at each shape of ROUTE_SHAPES (the bench's
 toy_lowdiv, primary, primary at 5% and at 10% SNP, sars_stream at its
 default and its BENCH_FULL prefix, the 500 Mchar ecoli_rle shape, and 200
 Kbp x 8 docs) runs the CLI 3 times on each of the jump, dense and native
-routes (see routes_main): wall seconds, .log phases and the backend it
-names, the probe's absent fraction, and a check that every route wrote
-the same bytes, then a one-line JSON summary. The auto rule's cuda branch
+routes (see routes_main; ``--backends`` keeps some): wall seconds, .log
+phases and the backend it names, the probe's absent fraction, and a
+check that every route wrote the same bytes, then a one-line JSON
+summary. The auto rule's cuda branch
 (engine/pipeline.auto_backend) is read off this table.
 
 The mesh mode (run it on a host with four cards) prints
@@ -112,6 +115,17 @@ each failure printed without stopping the next part:
    the histogram check;
 
 then a ``mesh summary {json}`` line.
+
+The merge-stages mode prints the card's name and power limit, then at
+the primary shape and at the 500 Mchar shape (5 Mbp x 100 docs at 1%
+SNP, seed 42; ``--merge-stages primary`` or ``500M`` for one): the jump
+scan's heads (h, h_pad), one device merge with CMSBWT_PROFILE=1 (stage
+marks on stderr, P read off the tail_pairs_count mark) and its peak
+device bytes (torch.cuda.max_memory_allocated, reset before the merge)
+per collection char, then a second merge with each of tail_good,
+tail_exact and runs_emit under its own torch.profiler: wall and device ms
+and the top operators by device time, and the join's rows jn_pad =
+h_pad + p_pad.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -763,6 +777,77 @@ def merge_profile(lst) -> None:
                                                     want_counter=False))
 
 
+MERGE_SHAPES = (("primary", 42, 2_000_000, 10, 0.01),
+                ("500M", 42, 5_000_000, cs.BIG_DOCS, 0.01))
+
+
+def merge_stages_main(only: str | None) -> None:
+    """The device merge of the jump scan's heads at each shape of
+    MERGE_SHAPES: stage marks and peak device bytes per char, then each of
+    tail_good, tail_exact and runs_emit profiled on its own."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    kernels.load()
+    for name, seed, ref_len, docs, snp in MERGE_SHAPES:
+        if only and name not in only.split(","):
+            continue
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        x_aug, coll = load_inputs(str(lst))
+        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+        print(f"merge[{name}]: n={len(x_aug)} sn={coll.sn} h={res.h} "
+              f"h_pad={int(res.head_t.shape[0])}", flush=True)
+        del x_aug
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        os.environ["CMSBWT_PROFILE"] = "1"
+        t0 = time.perf_counter()
+        try:
+            dm.merge_heads_device_resident(res, coll.d, False,
+                                           want_counter=False)
+        finally:
+            del os.environ["CMSBWT_PROFILE"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sys.stderr.flush()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"merge[{name}]: wall_ms={wall * 1e3:.1f} peak_bytes={peak} "
+              f"({peak / coll.sn:.1f} B per collection char; held before "
+              f"the merge {base})", flush=True)
+        torch.cuda.empty_cache()
+        orig = {k: getattr(dm, k) for k in ("tail_good_dev",
+                                            "tail_exact_dev",
+                                            "runs_emit_dev")}
+
+        def spy(k):
+            def run(*a, **kw):
+                if k == "tail_good_dev":
+                    h_pad, p_pad = a[5], a[6]
+                    print(f"merge[{name}]: tail_good h_pad={h_pad} "
+                          f"p_pad={p_pad} jn_pad={h_pad + p_pad} "
+                          f"P={a[1]['total']}", flush=True)
+                print(f"merge[{name}]: {k} under torch.profiler",
+                      flush=True)
+                out = {}
+                profiled(lambda: out.setdefault("r", orig[k](*a, **kw)))
+                return out["r"]
+            return run
+        for k in orig:
+            setattr(dm, k, spy(k))
+        try:
+            dm.merge_heads_device_resident(res, coll.d, False,
+                                           want_counter=False)
+        finally:
+            for k, f in orig.items():
+                setattr(dm, k, f)
+        del res, coll
+        torch.cuda.empty_cache()
+        shutil.rmtree(WORK / name)
+
+
 # (name, seed, reference chars, docs, SNP rate, extra CLI flags): the bench
 # shapes (chip_smoke.write_workload writes bench.make_workload's bytes),
 # and one under the JAX package's AUTO_DENSE_MIN_CHARS
@@ -779,7 +864,7 @@ ROUTE_SHAPES = (
 ROUTE_RUNS = 3
 
 
-def routes_main(only: str | None) -> None:
+def routes_main(only: str | None, backends: str | None = None) -> None:
     """Every shape of ROUTE_SHAPES through the CLI on each route (jump,
     dense and native; at the two SARS shapes also jump with the host
     merge, the JAX package's rule there),
@@ -818,6 +903,8 @@ def routes_main(only: str | None) -> None:
             # the JAX package's SARS rule: jump with the host merge
             routes.append(("jump+host_merge", ("--backend", "jump",
                                                "--merge-backend", "host")))
+        if backends:
+            routes = [r for r in routes if r[0] in backends.split(",")]
         del x_aug, coll
         ext = ".rl_bwt" if "-r" in flags else ".bwt"
         first = None
@@ -865,9 +952,18 @@ def main() -> int:
                     help="time the CLI on the jump, dense and native routes "
                     "at every shape of ROUTE_SHAPES (or at SHAPE alone; "
                     "a comma list names several)")
+    ap.add_argument("--backends", default=None, metavar="ROUTE",
+                    help="with --routes: only these routes (a comma list "
+                    "of jump, dense, native, jump+host_merge)")
     ap.add_argument("--mesh", action="store_true",
                     help="the mesh routes over every visible card (the "
                     "sharded merge, the mesh scan, the giant route)")
+    ap.add_argument("--merge-stages", nargs="?", const="", default=None,
+                    metavar="SHAPE",
+                    help="the device merge at primary and 500 Mchars (or "
+                    "at SHAPE alone): stage marks, peak bytes, and "
+                    "tail_good, tail_exact and runs_emit under "
+                    "torch.profiler")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -886,8 +982,10 @@ def main() -> int:
     try:
         if args.mesh:
             mesh_main()
+        elif args.merge_stages is not None:
+            merge_stages_main(args.merge_stages or None)
         elif args.routes is not None:
-            routes_main(args.routes or None)
+            routes_main(args.routes or None, args.backends)
         elif args.host_merge:
             host_merge_main()
         elif args.blocked:
