@@ -114,14 +114,17 @@ every phase passed):
    and min, forward and reverse, with the dtype's extremes and the merge's
    sentinels, and at 2^29 + 1 int64 rows forward (max) and reverse (min),
    timed beside one 1-D torch.cummax / cummin and the row-blocked form the
-   port used before; running_fill (the merge's largest fill),
-   tail_good_join (_tail_good_join_reference), tail_exact_credit
-   (_exact_credit_reference) and run_merge (_run_merge_reference) on the
-   inputs a real device merge gave them (MergeCapture), of the jump
-   scan's heads at primary (in phase 5) and of the 500 Mchar run's heads
-   (in phase 8, which also holds the peak outside the blocks to the
-   merge's ceiling, MERGE_BYTES_PER_CHAR per collection char). Every run
-   that merges on the device launches running_fill, tail_good_join and
+   port used before; bucket_sums (_bucket_sums_reference) on built lanes
+   at its tile edges, and on a falling bucket_rank, which its check must
+   refuse; running_fill (the merge's largest fill), tail_good_join
+   (_tail_good_join_reference), tail_exact_credit
+   (_exact_credit_reference), bucket_sums (timed beside three
+   Tensor.index_add_) and run_merge (_run_merge_reference) on the inputs
+   a real device merge gave them (MergeCapture), of the jump scan's heads
+   at primary (in phase 5) and of the 500 Mchar run's heads (in phase 8,
+   which also holds the peak outside the blocks to the merge's ceiling,
+   MERGE_BYTES_PER_CHAR per collection char). Every run that merges on
+   the device launches running_fill, tail_good_join, bucket_sums and
    run_merge, and tail_exact_credit once per merge with exact pairs
    (MERGE_KERNELS); the sharded merge and the dense scan launch
    running_fill; no run launches a plain version.
@@ -196,7 +199,7 @@ ROUTE_KERNELS = {"jump": ("ms_jump_scan",), "device": ("ms_jump_scan",),
 # the kernels each merge engine launches ("none": a scan alone); the
 # device merge launches tail_exact_credit once per merge with exact pairs
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
-                            "tail_exact_credit", "run_merge"),
+                            "tail_exact_credit", "bucket_sums", "run_merge"),
                  "sharded": ("running_fill",), "host": (), "none": ()}
 FILL_SIZES = (1, 4095, 4096, 4097, 3 * 4096 + 5)
 BIG_FILL = (1 << 29) + 1
@@ -759,16 +762,16 @@ def fill_cases() -> list:
 class MergeCapture:
     """Keeps the inputs of the device merge's kernels from the merges run
     while in use, by wrapping engine/device_merge's running_fill,
-    tail_good_join, exact_credit and run_merge: the largest running_fill
-    input (with its op and direction), and the last inputs of the other
-    three."""
+    tail_good_join, exact_credit, bucket_sums and run_merge: the largest
+    running_fill input (with its op and direction), and the last inputs
+    of the other four."""
 
     def __enter__(self):
         from cmsbwt_tpu_torch.engine import device_merge as dm
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
-        self.exact = None
+        self.exact = self.sums = None
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
-                     dm.exact_credit)
+                     dm.exact_credit, dm.bucket_sums)
 
         def fill(v, op="max", reverse=False):
             if self.fill is None or v.numel() > self.fill[0].numel():
@@ -786,17 +789,125 @@ class MergeCapture:
         def exact(*a):
             self.exact = a
             return self.orig[3](*a)
-        (dm.running_fill, dm.tail_good_join, dm.run_merge,
-         dm.exact_credit) = fill, join, runs, exact
+
+        def sums(*a):
+            self.sums = a
+            return self.orig[4](*a)
+        (dm.running_fill, dm.tail_good_join, dm.run_merge, dm.exact_credit,
+         dm.bucket_sums) = fill, join, runs, exact, sums
         return self
 
     def __exit__(self, *exc):
         (self.dm.running_fill, self.dm.tail_good_join, self.dm.run_merge,
-         self.dm.exact_credit) = self.orig
+         self.dm.exact_credit, self.dm.bucket_sums) = self.orig
+
+
+def bucket_sums_bytes(bucket_rank, m_c, nec: int, n_pad: int) -> int:
+    """Bytes bucket_sums must move: bucket_rank and m_c of the nec valid
+    lanes read once, bid of each bucket's last lane, and its three
+    outputs (hb_at, ncls_at over n_pad, hb_b over h_pad) written once."""
+    k = max(nec, 0)
+    br = bucket_rank[:k]
+    buckets = int((br[1:] != br[:-1]).sum()) + 1 if k else 0
+    return 8 * k + 4 * buckets + 4 * (2 * n_pad + bucket_rank.numel())
+
+
+def bucket_sums_library(bucket_rank, bid, m_c, nec: int, n_pad: int):
+    """The three sums as Tensor.index_add_ on the indices and values the
+    plain version scatters (pad lanes at index 0): the library call timed
+    beside the kernel."""
+    h_pad = bucket_rank.numel()
+    dev = bucket_rank.device
+    valid = torch.arange(h_pad, device=dev) < nec
+    br0 = torch.where(valid, bucket_rank, 0).long()
+    bidv = torch.clamp(bid, 0, h_pad - 1)[valid].long()
+
+    def run():
+        z = lambda k: torch.zeros(k, dtype=torch.int32, device=dev)
+        return (z(n_pad).index_add_(0, br0, m_c),
+                z(n_pad).index_add_(0, br0, torch.ones_like(m_c)),
+                z(h_pad).index_add_(0, bidv, m_c[valid]))
+    return run
+
+
+def bucket_sums_lanes(sizes, n_pad: int, h_pad: int, rank0: bool, seed: int):
+    """Class lanes as runs_emit_dev gives them to bucket_sums, on the card:
+    buckets of the given sizes in order of rank (the first of rank 0 when
+    ``rank0``), then pad lanes up to h_pad (bucket_rank INT_MAX, m_c 0);
+    returns (bucket_rank, bid, m_c, nec)."""
+    g = np.random.default_rng(seed)
+    nec = int(sum(sizes))
+    ranks = np.sort(g.choice(np.arange(1, n_pad), len(sizes), replace=False))
+    if rank0 and len(sizes):
+        ranks[0] = 0
+    br = np.full(h_pad, 2**31 - 1, np.int32)
+    br[:nec] = np.repeat(ranks, sizes)
+    bid = np.full(h_pad, len(sizes) - 1, np.int32)
+    bid[:nec] = np.repeat(np.arange(len(sizes)), sizes)
+    mc = np.zeros(h_pad, np.int32)
+    mc[:nec] = g.integers(0, 9, nec)
+    t = lambda a: torch.from_numpy(a).cuda()
+    return t(br), t(bid), t(mc), nec
+
+
+def bucket_sums_cases() -> int:
+    """bucket_sums against its plain version (exact) on built lanes at the
+    kernel's tile edges (2048 lanes): one bucket of every class, each
+    class its own bucket, buckets straddling tiles, nec 0 and 1, a valid
+    class of rank 0, pad lanes only; then a valid lane whose bucket_rank
+    falls, which bucket_sums_check must refuse. Returns the cases run."""
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.kernels import bucket_sums_cuda
+    T = 2048
+    built = {
+        "one_bucket": ([3 * T + 5], False),
+        "own_buckets": ([1] * (3 * T + 5), False),
+        "straddle_2047": ([T - 1, T - 1, 7, T + 1], False),
+        "straddle_2048": ([T, T, 1, 2 * T], True),
+        "straddle_2049": ([T + 1, 5, T + 1, 3], False),
+        "straddle_3x2048_5": ([5, 3 * T, 1, 2 * T + 7], True),
+        "nec_0": ([], False),
+        "nec_1": ([1], False),
+        "nec_1_rank0": ([1], True),
+        "rank0": ([4, 9, T + 3], True),
+        "mixed_100k": (list(np.random.default_rng(3).integers(
+            1, 40, 5000)), True),
+    }
+    cases = 0
+    for name, (sizes, rank0) in built.items():
+        nec = int(sum(sizes))
+        for pads in (0, 1, 3 * T + 1):
+            h_pad = max(nec + pads, 1)
+            a = bucket_sums_lanes(sizes, 4 * T + 11, h_pad, rank0, cases)
+            want = dm._bucket_sums_reference(*a, 4 * T + 11)
+            got = bucket_sums_cuda(*a, 4 * T + 11)
+            dm.bucket_sums_check(got[3])
+            if not all(torch.equal(x, y) for x, y in zip(want, got)):
+                fail(f"bucket_sums[{name}, {pads} pad lanes] differs from "
+                     "its plain version")
+            cases += 1
+    # a falling rank: the plain version and the kernel both flag it, and
+    # the check raises
+    br, bid, mc, nec = bucket_sums_lanes([T, T + 3, 9], 4 * T + 11,
+                                         2 * T + 20, False, 99)
+    br[T + 1] = br[0] - 1
+    for fn in (bucket_sums_cuda, dm._bucket_sums_reference):
+        try:
+            dm.bucket_sums_check(fn(br, bid, mc, nec, 4 * T + 11)[3])
+        except RuntimeError as e:
+            if "below its predecessor" not in str(e):
+                raise
+        else:
+            fail(f"bucket_sums: {fn.__name__} let a falling bucket_rank "
+                 "through")
+    log(f"kernel bucket_sums: {cases} built cases exact (tolerance {TOL}); "
+        "a falling bucket_rank raised in the kernel's and the plain "
+        "version's check")
+    return cases
 
 
 def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
-    """The merge's four kernels against their plain versions (exact) on
+    """The merge's five kernels against their plain versions (exact) on
     the inputs one device merge gave them (MergeCapture), then timed."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.engine import device_merge as dm
@@ -838,6 +949,21 @@ def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
         # h_pad slots once each, the counter read and written
         nbytes(a[1], a[2], a[3], a[4]) + 4 * 4 * h_pad_x
         + 2 * nbytes(a[0]))
+    br, bid, m_c, nec, n_pad = cap.sums
+    out["bucket_sums"] = compare(
+        "bucket_sums", tag, "_bucket_sums_reference",
+        lambda: K.bucket_sums_cuda(br, bid, m_c, nec, n_pad),
+        lambda: dm._bucket_sums_reference(br, bid, m_c, nec, n_pad),
+        f"h_pad={br.numel()} lanes, nec={nec}, n_pad={n_pad}",
+        bucket_sums_bytes(br, m_c, nec, n_pad))
+    library = bucket_sums_library(br, bid, m_c, nec, n_pad)
+    if not all(torch.equal(a, b) for a, b in
+               zip(library(), out["bucket_sums"]["outputs"])):
+        fail(f"bucket_sums[{tag}]: index_add_ differs from the plain "
+             "version")
+    out["bucket_sums"]["library_ms"] = cuda_ms(library, 5)
+    log(f"kernel bucket_sums[{tag}]: library_ms (three Tensor.index_add_) "
+        f"{out['bucket_sums']['library_ms']:.3f}")
     k_s, len_s, chr_s = cap.runs
     out["run_merge"] = compare(
         "run_merge", tag, "_run_merge_reference",
@@ -1569,8 +1695,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
     # (their primary and 500 Mchar cases ran in phases 5 and 8)
     t11 = time.perf_counter()
     fills = fill_cases()
+    bucket_sums_cases()
     for name in ("running_fill", "tail_good_join", "tail_exact_credit",
-                 "run_merge"):
+                 "bucket_sums", "run_merge"):
         for tag, res in merge_cases.items():
             r = res[name]
             log(f"merge kernel {name}[{tag}]: {r['ms']:.3f} ms, plain "
@@ -1618,6 +1745,11 @@ def run_phases(card: str, kind: str, started: float) -> int:
             "cmsbwt_tpu/engine/device_merge.py:543",
             [merge_cases["500M"]["tail_exact_credit"],
              merge_cases["primary"]["tail_exact_credit"]]),
+        row("bucket_sums", csrc + "run_merge.cu",
+            "cmsbwt_tpu/engine/device_merge.py:596",
+            [merge_cases["500M"]["bucket_sums"],
+             merge_cases["primary"]["bucket_sums"]],
+            merge_cases["500M"]["bucket_sums"]["library_ms"]),
         row("run_merge", csrc + "run_merge.cu",
             "cmsbwt_tpu/engine/device_merge.py:694",
             [merge_cases["500M"]["run_merge"],

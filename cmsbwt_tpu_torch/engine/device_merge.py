@@ -24,13 +24,15 @@ Translation rules from the JAX stages:
 * ``lax.cummax`` / ``cummin`` and ``_rev_fill_min`` go through
   ``ops/fill.running_fill``; ``tail_good_dev``'s pass after its join sort
   is ``tail_good_join``, ``tail_exact_dev``'s after its join's fill is
-  ``exact_credit``, and the end of ``runs_emit_dev`` is ``run_merge``.
-  Each picks by the device of its tensors: a CUDA kernel
-  (``kernels/csrc/running_fill.cu``, ``tail_good_join.cu``,
+  ``exact_credit``, ``runs_emit_dev``'s three accumulating scatters are
+  ``bucket_sums`` (segmented sums: its lanes come in bucket order) and
+  its end is ``run_merge``. Each picks by the device of its tensors: a
+  CUDA kernel (``kernels/csrc/running_fill.cu``, ``tail_good_join.cu``,
   ``tail_exact_credit.cu``, ``run_merge.cu``) for CUDA tensors, the
   plain torch version (``running_fill_reference``,
   ``_tail_good_join_reference``, ``_exact_credit_reference``,
-  ``_run_merge_reference``) for CPU tensors.
+  ``_bucket_sums_reference``, ``_run_merge_reference``) for CPU
+  tensors.
 
 All indices are int32 (n, sn < 2^31 — the reference's own caps).
 """
@@ -54,7 +56,8 @@ I32, I64 = torch.int32, torch.int64
 # calls of the plain versions (the CUDA wrappers keep their own launch
 # counts)
 REFERENCE_CALLS = {"_tail_good_join_reference": 0,
-                   "_exact_credit_reference": 0, "_run_merge_reference": 0}
+                   "_exact_credit_reference": 0, "_bucket_sums_reference": 0,
+                   "_run_merge_reference": 0}
 
 
 def sn_bound() -> int:
@@ -631,6 +634,26 @@ def _exact_credit_reference(counter_in, f_s, i_s, tgt, dst, tot: int,
 # Stage 5: run assembly (ref :939-1085 / :1630-1777)
 # ---------------------------------------------------------------------------
 
+def bucket_lanes(cls: dict, sa_ord, ref_isa, h_pad: int, n_pad: int):
+    """runs_emit_dev's class lanes in SA-walk order (the pseudo class
+    dropped): returns (nec, evalid, ecls, m_c, bucket_rank, new_b, bid) —
+    the valid lanes are the first nec, m_c is each class's size (0 beyond
+    nec), bucket_rank its reference rank (INT_MAX beyond nec), new_b marks
+    a lane that starts a bucket and bid is its bucket's index."""
+    dev = ref_isa.device
+    nec = cls["n_classes"] - 1
+    evalid = _ar(h_pad, ref_isa) < nec
+    ecls = _cat(torch.clamp(sa_ord[1:], 0, h_pad - 1),
+                torch.zeros(1, dtype=I32, device=dev))  # drop pseudo
+    m_c = _w32(evalid, cls["size"][ecls], 0)
+    bucket_rank = _w32(evalid, ref_isa[torch.clamp(cls["pos"][ecls], 0,
+                                                   n_pad - 1)], INT_MAX)
+    new_b = _cat(_full(1, True, torch.bool, ref_isa),
+                 bucket_rank[1:] != bucket_rank[:-1]) & evalid
+    bid = _cumsum32(new_b.to(I32)) - 1
+    return nec, evalid, ecls, m_c, bucket_rank, new_b, bid
+
+
 def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
                   bwt_heads, ref_sa, ref_isa, ref_bwt, d: int, n: int,
                   h_pad: int, n_pad: int, rle_quirk: bool):
@@ -642,23 +665,12 @@ def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
     Returns (run_len int32, run_char uint8, n_runs)."""
     dev = counter.device
     cidx = _ar(h_pad, counter)
-    nec = cls["n_classes"] - 1
-    evalid = cidx < nec
-    ecls = _cat(torch.clamp(sa_ord[1:], 0, h_pad - 1),
-                torch.zeros(1, dtype=I32, device=dev))  # drop pseudo
-    m_c = _w32(evalid, cls["size"][ecls], 0)
-    bucket_rank = _w32(evalid, ref_isa[torch.clamp(cls["pos"][ecls], 0,
-                                                   n_pad - 1)], INT_MAX)
-    new_b = _cat(_full(1, True, torch.bool, counter),
-                 bucket_rank[1:] != bucket_rank[:-1]) & evalid
-    bid = _cumsum32(new_b.to(I32)) - 1
+    nec, evalid, ecls, m_c, bucket_rank, new_b, bid = bucket_lanes(
+        cls, sa_ord, ref_isa, h_pad, n_pad)
     bidc = torch.clamp(bid, 0, h_pad - 1)
     # per-rank run counts: 1 per simple rank; mixed = 2*hb + (ncls | 1)
-    br0 = _w32(evalid, bucket_rank, 0)
-    every = torch.ones_like(evalid)
-    hb_at = _add(torch.zeros(n_pad, dtype=I32, device=dev), br0, m_c, every)
-    ncls_at = _add(torch.zeros(n_pad, dtype=I32, device=dev), br0,
-                   torch.ones_like(br0), every)
+    hb_at, ncls_at, hb_b, fault = bucket_sums(bucket_rank, bid, m_c, nec,
+                                              n_pad)
     one_cls = torch.clamp(ncls_at, max=1)
     extra = 2 * hb_at + (ncls_at if rle_quirk else one_cls) - one_cls
     ridx = _ar(n_pad, counter)
@@ -715,8 +727,6 @@ def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
     cum_exc_first = _set(torch.zeros(h_pad, dtype=I32, device=dev), bid,
                          cum_inc - inc, new_b)
     cum_inc_b = cum_inc - cum_exc_first[bidc]
-    hb_b = _add(torch.zeros(h_pad, dtype=I32, device=dev), bidc, m_c,
-                evalid)
     b_total = hb_b[bidc] + tails_cnt[torch.clamp(ref_sa[brc], 0, n_pad - 1)]
     if rle_quirk:
         e_valid = evalid
@@ -738,7 +748,67 @@ def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
     # lanes sort to the tail and drop out
     k_s, perm = torch.sort(_w32(lens > 0, off, INT_MAX), stable=True)
     len_s, chr_s = lens[perm], chars[perm]
-    return run_merge(k_s, len_s, chr_s)
+    out = run_merge(k_s, len_s, chr_s)
+    bucket_sums_check(fault)   # after run_merge's read of the run count
+    return out
+
+
+def bucket_sums(bucket_rank, bid, m_c, nec: int, n_pad: int):
+    """runs_emit_dev's per-bucket sums over its class lanes (int32[h_pad]
+    each, in SA-walk order, the first ``nec`` valid), on the device of its
+    tensors: the CUDA kernel for CUDA tensors, ``_bucket_sums_reference``
+    for CPU tensors. Returns (hb_at int32[n_pad], ncls_at int32[n_pad],
+    hb_b int32[h_pad], fault int32[1]); bucket_sums_check(fault) raises if
+    the lanes were out of order."""
+    dev = bucket_rank.device.type
+    if dev == "cuda":
+        from ..kernels import bucket_sums_cuda
+        return bucket_sums_cuda(bucket_rank, bid, m_c, nec, n_pad)
+    if dev == "cpu":
+        return _bucket_sums_reference(bucket_rank, bid, m_c, nec, n_pad)
+    raise ValueError(f"bucket_sums: unsupported device {dev!r}")
+
+
+def _bucket_sums_reference(bucket_rank, bid, m_c, nec: int, n_pad: int):
+    """The three accumulating scatters of JAX's runs_emit_dev: each class's
+    size m_c and a count of 1 added at its bucket_rank (every pad lane at
+    index 0), and m_c at its bucket ``bid`` (valid lanes only); ``fault``
+    sets bit 0 where a valid lane's bucket_rank is below its
+    predecessor's and bit 1 where one lies outside [0, n_pad), as the
+    kernel does (whose segmented sums need that order). Plain torch, on
+    any device."""
+    REFERENCE_CALLS["_bucket_sums_reference"] += 1
+    dev = bucket_rank.device
+    h_pad = int(bucket_rank.shape[0])
+    k = max(nec, 0)
+    br = bucket_rank[:k]
+    fault = (int(bool((br[1:] < br[:-1]).any()))
+             | 2 * int(bool(((br < 0) | (br >= n_pad)).any())))
+    evalid = _ar(h_pad, bucket_rank) < nec
+    br0 = _w32(evalid, bucket_rank, 0)
+    every = torch.ones_like(evalid)
+    hb_at = _add(torch.zeros(n_pad, dtype=I32, device=dev), br0, m_c, every)
+    ncls_at = _add(torch.zeros(n_pad, dtype=I32, device=dev), br0,
+                   torch.ones_like(br0), every)
+    hb_b = _add(torch.zeros(h_pad, dtype=I32, device=dev),
+                torch.clamp(bid, 0, h_pad - 1), m_c, evalid)
+    return hb_at, ncls_at, hb_b, torch.tensor([fault], dtype=I32,
+                                              device=dev)
+
+
+def bucket_sums_check(fault) -> None:
+    """Raise if bucket_sums found its lanes out of order (``fault``, its
+    fourth output; reading it waits for the kernel)."""
+    f = int(fault[0])
+    if f & 1:
+        raise RuntimeError(
+            "runs_emit_dev: bucket_sums found a valid class lane whose "
+            "bucket_rank is below its predecessor's (the lanes must come "
+            "in SA-walk order); its sums would be wrong")
+    if f:
+        raise RuntimeError(
+            "runs_emit_dev: bucket_sums found a valid class lane whose "
+            "bucket_rank lies outside [0, n_pad)")
 
 
 def run_merge(k_s, len_s, chr_s):

@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIFT_THREADS = 256
 
 LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
-            "running_fill": 0, "tail_good_join": 0, "run_merge": 0,
-            "tail_exact_credit": 0}
+            "running_fill": 0, "tail_good_join": 0, "bucket_sums": 0,
+            "run_merge": 0, "tail_exact_credit": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -95,10 +95,17 @@ def _bind(libs: dict) -> None:
     f = libs["tail_good_join"].tail_good_join_launch
     f.restype = I
     f.argtypes = [P, P, P, P, I, P, P, P, I, P, P, P]
-    for k in ("run_merge_scratch_bytes", "run_merge_count_offset"):
+    for k in ("run_merge_scratch_bytes", "bucket_sums_scratch_bytes"):
         f = getattr(libs["run_merge"], k)
         f.restype = LL
         f.argtypes = [I]
+    for k in ("run_merge_count_offset", "bucket_sums_fault_offset"):
+        f = getattr(libs["run_merge"], k)
+        f.restype = LL
+        f.argtypes = []
+    f = libs["run_merge"].bucket_sums_launch
+    f.restype = I
+    f.argtypes = [P, P, P, I, I, I, P, P, P, P, P]
     f = libs["run_merge"].run_merge_launch
     f.restype = I
     f.argtypes = [P, P, P, I, P, P, P, P]
@@ -354,7 +361,8 @@ def tail_good_join_cuda(k1s, k2fs, i_s, pay_s, h_pad: int):
     exact_key = torch.empty(J, dtype=i32, device=dev)
     f_cls = torch.empty(J, dtype=i32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    scratch = torch.empty(int(lib.tail_good_join_scratch_bytes(J)),
+    # the look-back's ticket and flags start at 0
+    scratch = torch.zeros(int(lib.tail_good_join_scratch_bytes(J)),
                           dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -384,7 +392,8 @@ def run_merge_cuda(k_s, len_s, chr_s):
     lib = load()["run_merge"]
     out_len = torch.empty(L, dtype=i32, device=dev)
     out_chr = torch.empty(L, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(int(lib.run_merge_scratch_bytes(L)),
+    # the look-back's ticket and flags start at 0
+    scratch = torch.zeros(int(lib.run_merge_scratch_bytes(L)),
                           dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -392,9 +401,44 @@ def run_merge_cuda(k_s, len_s, chr_s):
             _ptr(k_s), _ptr(len_s), _ptr(chr_s), L, _ptr(out_len),
             _ptr(out_chr), _ptr(scratch), ctypes.c_void_p(stream))
     _launch("run_merge", err)
-    at = int(lib.run_merge_count_offset(L))
+    at = int(lib.run_merge_count_offset())
     n = int(scratch[at:at + 4].view(i32).item())
     return out_len[:n], out_chr[:n], n
+
+
+def bucket_sums_cuda(bucket_rank, bid, m_c, nec: int, n_pad: int):
+    """Launch ``bucket_sums`` on runs_emit's class lanes (CUDA int32[h_pad]
+    each, in SA-walk order: the first ``nec`` valid, their bucket_rank
+    never decreasing, m_c 0 beyond them): returns (hb_at int32[n_pad],
+    ncls_at int32[n_pad], hb_b int32[h_pad], fault int32[1]). Same
+    contract as engine/device_merge._bucket_sums_reference; the caller
+    reads ``fault`` (engine/device_merge.bucket_sums_check) after its next
+    synchronisation: the wrapper itself does not synchronise."""
+    dev = bucket_rank.device
+    h_pad = int(bucket_rank.shape[0])
+    i32 = torch.int32
+    _check("bucket_rank", bucket_rank, i32, (h_pad,), dev)
+    _check("bid", bid, i32, (h_pad,), dev)
+    _check("m_c", m_c, i32, (h_pad,), dev)
+    if h_pad < 1 or n_pad < 1 or nec > h_pad:
+        raise ValueError(f"bucket_sums: nec {nec}, h_pad {h_pad}, n_pad "
+                         f"{n_pad}")
+    lib = load()["run_merge"]
+    hb_at = torch.zeros(n_pad, dtype=i32, device=dev)
+    ncls_at = torch.zeros(n_pad, dtype=i32, device=dev)
+    hb_b = torch.zeros(h_pad, dtype=i32, device=dev)
+    # the look-back's ticket and flags, and the fault word, start at 0
+    scratch = torch.zeros(int(lib.bucket_sums_scratch_bytes(nec)),
+                          dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.bucket_sums_launch(
+            _ptr(bucket_rank), _ptr(bid), _ptr(m_c), nec, h_pad, n_pad,
+            _ptr(hb_at), _ptr(ncls_at), _ptr(hb_b), _ptr(scratch),
+            ctypes.c_void_p(stream))
+    _launch("bucket_sums", err)
+    at = int(lib.bucket_sums_fault_offset())
+    return hb_at, ncls_at, hb_b, scratch[at:at + 4].view(i32)
 
 
 def tail_exact_credit_cuda(counter_in, f_s, i_s, tgt, dst, tot: int,

@@ -23,31 +23,44 @@
 // Equal to _tail_good_join_reference
 // (cmsbwt_tpu_torch/engine/device_merge.py) element for element.
 //
-// Design: the three launches of tile_scan.cuh over tiles of 2048 rows,
-// 256 threads of 8 consecutive rows each, scanning BACKWARD with the
-// state (first target row, its k1, its class; first run-end row) — "the
-// later row in scan order wins". The reduce launch folds a tile into that
-// state, the carry launch gives each tile the state of every row after
-// it, and the emit launch scans its tile again from that carry and
-// writes f_cls and ekey. The credit needs no per-row atomic: all good
-// queries of one target lie contiguously before it (same bucket, smaller
-// k2), so the emit launch also runs a FORWARD segmented sum of the good
-// rows' pay inside its tile (reset at each target) and credits each
-// target of the tile once with the sum before it; the good rows after the
-// tile's last target belong to the first target after the tile (the
-// carry's), which the tile credits with one atomic. The exact count and
-// pay sum take one atomic per block. A row's next row (for the run end)
-// comes from the next lane by shuffle, across warps and tiles by a 4- and
-// an 8-byte load.
+// Design: one launch, the single-pass look-back scan of tile_scan.cuh
+// over tiles of 4096 rows, 256 threads of 16 consecutive rows each (a
+// launch bound of two blocks per SM caps the registers at 128), scanning
+// BACKWARD with the state (first target row, its k1, its class; first
+// run-end row) — "the later row in scan order wins". The ticket hands out
+// tiles from the last to the first. A block loads its rows' k1, k2f, i
+// and pay once into registers, folds them into its tile's state and
+// publishes it. The state of every row after the tile is that of the
+// first target and the first run end after it: the block reads a halo of
+// the 64 rows after the tile beside its own rows, and when the halo holds
+// both (targets are ~7% of the rows) or reaches the last row, the tile
+// has its prefix without waiting on any other tile and publishes its
+// inclusive state at once; else it looks back. A tile with a target and a
+// run end also publishes its state as inclusive at once (it hides every
+// row after it), so a look-back ends at its first tile. The block then
+// scans its rows from the prefix and writes f_cls and ekey. The credit
+// needs no per-row atomic: all good queries of one target lie
+// contiguously before it (same bucket, smaller k2), so the block also
+// runs a FORWARD segmented sum of the good rows' pay inside its tile
+// (reset at each target) and credits each target of the tile once with
+// the sum before it; the good rows after the tile's last target belong to
+// the first target after the tile (the prefix names it), which the tile
+// credits with one atomic. The exact count and pay sum take one atomic per
+// block. A row's next row (for the run end) comes from the next lane by
+// shuffle, across warps and tiles by a 4- and an 8-byte load.
 //
 // What bounds it on this card: bytes. The function reads 20 B per row and
-// writes 8 (f_cls, ekey) plus the counter; this design reads k1 and k2f
-// twice (reduce and emit), 40 B per row in all.
+// writes 8 (f_cls, ekey) plus the counter; this design reads each row
+// once (single pass: 28 B per row moved), plus 64 halo rows, one state and
+// one flag per tile and 12 B per warp of next rows. Its time beyond the
+// bound is the tiles' fixed waits (ticket, loads, publishing), measured
+// against variants by tools/lookback_variants.py.
 //
 // Plain C interface (bound with ctypes): tail_good_join_launch returns
 // cudaGetLastError() after its launches; it launches on the given stream,
 // allocates nothing (scratch of tail_good_join_scratch_bytes(J) bytes; the
-// caller zeroes counter and stats) and does not synchronise.
+// caller zeroes the scratch, counter and stats) and does not
+// synchronise.
 
 #include "tile_scan.cuh"
 
@@ -56,9 +69,10 @@ namespace {
 using namespace tile_scan;
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 8;
-constexpr int TILE = THREADS * ITEMS;  // 2048 rows
+constexpr int ITEMS = 16;
+constexpr int TILE = THREADS * ITEMS;  // 4096 rows
 constexpr int NONE = INT_MAX;          // no such row
+constexpr int HALO = 64;               // rows read after the tile
 
 // the nearest target at or after a row, and the nearest run end
 struct Fill {
@@ -77,6 +91,10 @@ struct FillOp {
                 yt ? y.t_cls : x.t_cls,
                 y.e_row != NONE ? y.e_row : x.e_row};
   }
+  // a tile with a target and a run end hides every row after it
+  static __device__ __forceinline__ bool absorbs(const Fill& y) {
+    return y.t_row != NONE && y.e_row != NONE;
+  }
 };
 
 // the good rows' pay since the last target (mod 2^32, as the int32
@@ -92,8 +110,8 @@ struct SegOp {
   }
 };
 
-// this thread's 8 rows r0 + j: k1, k2f, and the next row's (k1, k2f >> 1)
-// for the last one
+// this thread's ITEMS rows r0 + j: k1, k2f, and the next row's (k1,
+// k2f >> 1) for the last one
 struct Rows {
   int k1[ITEMS];
   long long k2[ITEMS];
@@ -116,8 +134,7 @@ __device__ __forceinline__ void load_rows(const int* __restrict__ k1s,
   }
 }
 
-// row r0 + j's element of the backward scan (cls: its class, read only
-// for a target)
+// row r0 + j's element of the backward scan (cls: its class)
 __device__ __forceinline__ Fill element(const Rows& w, int j, long long r0,
                                         int J, int cls) {
   const long long r = r0 + j;
@@ -131,40 +148,36 @@ __device__ __forceinline__ Fill element(const Rows& w, int j, long long r0,
               target ? cls : 0, change ? int(r) : NONE};
 }
 
-__global__ void __launch_bounds__(THREADS)
-    tg_reduce(const int* __restrict__ k1s, const long long* __restrict__ k2fs,
-              const int* __restrict__ is, int J, bool vec,
-              Fill* __restrict__ agg) {
-  __shared__ Fill wagg[33];
-  const long long r0 = (long long)blockIdx.x * TILE
-                       + (long long)threadIdx.x * ITEMS;
-  Rows w;
-  load_rows(k1s, k2fs, r0, J, vec, w);
-  Fill acc = FillOp::identity();
-#pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const int j = ITEMS - 1 - q;
-    const bool target = r0 + j < J && (w.k2[j] & 1) != 0;
-    acc = FillOp::combine(acc, element(w, j, r0, J,
-                                       target ? __ldg(is + r0 + j) : 0));
-  }
-  Fill tot;
-  block_scan<true, FillOp>(acc, FillOp::identity(), wagg, &tot);
-  if (threadIdx.x == 0) agg[blockIdx.x] = tot;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    tg_emit(const int* __restrict__ k1s, const long long* __restrict__ k2fs,
+__global__ void __launch_bounds__(THREADS, 2)
+    tg_scan(const int* __restrict__ k1s, const long long* __restrict__ k2fs,
             const int* __restrict__ is, const int* __restrict__ pay_s, int J,
-            bool vec, const Fill* __restrict__ carry, int* __restrict__ f_cls,
+            int tiles, bool vec, Lookback<Fill> lb, int* __restrict__ f_cls,
             int* __restrict__ ekey, int* __restrict__ counter,
             int counter_len, unsigned long long* __restrict__ stats) {
   __shared__ Fill wf[33];
   __shared__ Seg ws[33];
   __shared__ unsigned long long red[2][THREADS / 32];
+  __shared__ int halo_t[HALO / 32][4], halo_e[HALO / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long r0 = (long long)blockIdx.x * TILE
-                       + (long long)threadIdx.x * ITEMS;
+  // backward: scan order's first tile is the last one
+  const int t = take_ticket(lb.ticket);
+  const long long hi = (long long)(tiles - t) * TILE;  // the row after it
+  const long long r0 = hi - TILE + (long long)threadIdx.x * ITEMS;
+  // the halo: the first HALO rows after the tile, loaded with the tile
+  const long long hr = hi + threadIdx.x;
+  const bool in_halo = threadIdx.x < HALO && hr < J;
+  int hk1 = 0, hk1n = 0, hcls = 0, hpay = 0;
+  long long hk2 = 0, hk2n = 0;
+  if (in_halo) {
+    hk1 = __ldg(k1s + hr);
+    hk2 = __ldg(k2fs + hr);
+    hcls = __ldg(is + hr);
+    hpay = __ldg(pay_s + hr);
+    if (hr + 1 < J) {
+      hk1n = __ldg(k1s + hr + 1);
+      hk2n = __ldg(k2fs + hr + 1);
+    }
+  }
   Rows w;
   load_rows(k1s, k2fs, r0, J, vec, w);
   int cls[ITEMS], pay[ITEMS];
@@ -178,9 +191,49 @@ __global__ void __launch_bounds__(THREADS)
     const int j = ITEMS - 1 - q;
     acc = FillOp::combine(acc, element(w, j, r0, J, cls[j]));
   }
-  const Fill tile_carry = carry[blockIdx.x];
+  // the halo's first target and first run end, per warp
+  if (threadIdx.x < HALO) {
+    const bool tgt = in_halo && (hk2 & 1) != 0;
+    const bool end = in_halo && (hr + 1 >= J || hk1n != hk1
+                                 || (hk2n >> 1) != (hk2 >> 1));
+    const unsigned bt = __ballot_sync(FULL, tgt);
+    const unsigned be = __ballot_sync(FULL, end);
+    const int ft = bt ? __ffs(bt) - 1 : 0, fe = be ? __ffs(be) - 1 : 0;
+    const int t_k1 = __shfl_sync(FULL, hk1, ft);
+    const int t_cls = __shfl_sync(FULL, hcls, ft);
+    const int t_pay = __shfl_sync(FULL, hpay, ft);
+    if (lane == 0) {
+      halo_t[warp][0] = bt ? int(hi) + warp * 32 + ft : NONE;
+      halo_t[warp][1] = t_k1;
+      halo_t[warp][2] = t_cls;
+      halo_t[warp][3] = t_pay;
+      halo_e[warp] = be ? int(hi) + warp * 32 + fe : NONE;
+    }
+  }
   Fill ftot;
-  Fill st = block_scan<true, FillOp>(acc, tile_carry, wf, &ftot);
+  const Fill ex = block_scan<true, FillOp>(acc, FillOp::identity(), wf,
+                                           &ftot);
+  // the state of every row after the tile: its first target and first run
+  // end. The halo holds both for nearly every tile (targets are ~7% of the
+  // rows), or shows there are none before the last row; else the
+  // look-back finds them.
+  Fill pre = FillOp::identity();
+  int pre_pay = 0;
+#pragma unroll
+  for (int k = 0; k < HALO / 32; ++k) {
+    if (pre.t_row == NONE && halo_t[k][0] != NONE) {
+      pre.t_row = halo_t[k][0];
+      pre.t_k1 = halo_t[k][1];
+      pre.t_cls = halo_t[k][2];
+      pre_pay = halo_t[k][3];
+    }
+    if (pre.e_row == NONE) pre.e_row = halo_e[k];
+  }
+  const bool covers = hi + HALO >= J;
+  const bool known = (pre.t_row != NONE || covers)
+                     && (pre.e_row != NONE || covers);
+  const Fill tile_carry = lookback<FillOp>(lb, t, ftot, known, pre);
+  Fill st = FillOp::combine(tile_carry, ex);
   int fc[ITEMS], ek[ITEMS];
   unsigned good[ITEMS];
   bool target[ITEMS];
@@ -220,9 +273,9 @@ __global__ void __launch_bounds__(THREADS)
     sx = SegOp::combine(sx, Seg{good[j], int(target[j])});
   }
   // the good rows after the tile's last target: the first target after
-  // the tile (the tile's carry) takes them
+  // the tile (named by the look-back's state) takes them
   if (threadIdx.x == 0 && stot.s != 0u && tile_carry.t_row != NONE) {
-    const int p = __ldg(pay_s + tile_carry.t_row);
+    const int p = known ? pre_pay : __ldg(pay_s + tile_carry.t_row);
     if (p >= 0 && p < counter_len) atomicAdd(counter + p, int(stot.s));
   }
 
@@ -253,16 +306,15 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" {
 
-// bytes of scratch for J rows: each tile's aggregate and carry, and the
-// total
+// bytes of scratch for J rows (zeroed by the caller): the look-back's
+// ticket, flags and per-tile states
 long long tail_good_join_scratch_bytes(int J) {
-  const long long tiles = ((long long)J + TILE - 1) / TILE;
-  return (2 * tiles + 1) * (long long)sizeof(Fill);
+  return lookback_bytes<Fill>(((long long)J + TILE - 1) / TILE);
 }
 
 // k1s, is, pay_s: int32[J]; k2fs: int64[J]; f_cls, ekey: int32[J] out;
 // counter: int32[counter_len], zeroed, credited; stats: uint64[2], zeroed
-// (exact rows, their pay sum); 1 <= J < INT_MAX
+// (exact rows, their pay sum); scratch zeroed; 1 <= J < INT_MAX
 int tail_good_join_launch(const int* k1s, const long long* k2fs,
                           const int* is, const int* pay_s, int J,
                           int* f_cls, int* ekey, int* counter,
@@ -271,17 +323,13 @@ int tail_good_join_launch(const int* k1s, const long long* k2fs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (J < 1 || J == INT_MAX) return int(cudaErrorInvalidValue);
   const int tiles = (J + TILE - 1) / TILE;
-  Fill* agg = static_cast<Fill*>(scratch);
-  Fill* carry = agg + tiles;
   const bool vec = aligned16(k1s) && aligned16(k2fs) && aligned16(is)
                    && aligned16(pay_s) && aligned16(f_cls)
                    && aligned16(ekey);
-  tg_reduce<<<tiles, THREADS, 0, s>>>(k1s, k2fs, is, J, vec, agg);
-  carry_kernel<true, FillOp, Fill>
-      <<<1, CARRY_THREADS, 0, s>>>(agg, carry, tiles);
-  tg_emit<<<tiles, THREADS, 0, s>>>(k1s, k2fs, is, pay_s, J, vec, carry,
-                                     f_cls, ekey, counter, counter_len,
-                                     stats);
+  tg_scan<<<tiles, THREADS, 0, s>>>(k1s, k2fs, is, pay_s, J, tiles, vec,
+                                    lookback_at<Fill>(scratch, tiles),
+                                    f_cls, ekey, counter, counter_len,
+                                    stats);
   return int(cudaGetLastError());
 }
 

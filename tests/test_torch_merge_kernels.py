@@ -1,18 +1,22 @@
 """The device merge's kernel functions in their plain versions, on the
 CPU, against the JAX programs they port (on the card each is a CUDA kernel:
 cmsbwt_tpu_torch/kernels/csrc/{running_fill,tail_good_join,
-tail_exact_credit,run_merge}.cu,
+tail_exact_credit,run_merge}.cu (bucket_sums and run_merge in the last),
 held to these plain versions by chip_smoke.py):
 
 * ops/fill.running_fill against jax.lax.cummax / cummin and the JAX
   merge's _rev_fill_min;
 * engine/device_merge's _tail_good_join_reference,
-  _exact_credit_reference and _run_merge_reference against JAX's
-  tail_good_dev, tail_exact_dev and runs_emit_dev end to end on
-  tests/torch_cases.CASES, and on built join rows and lanes against the
-  JAX passes they port (tail_good_dev after its join sort, tail_exact_dev
-  after its join's fill, runs_emit_dev after its lane sort), run here as
-  written in cmsbwt_tpu/engine/device_merge.py.
+  _exact_credit_reference, _bucket_sums_reference and
+  _run_merge_reference against JAX's tail_good_dev, tail_exact_dev and
+  runs_emit_dev end to end on tests/torch_cases.CASES, and on built join
+  rows and lanes against the JAX passes they port (tail_good_dev after
+  its join sort, tail_exact_dev after its join's fill, runs_emit_dev's
+  three accumulating scatters and its pass after its lane sort), run here
+  as written in cmsbwt_tpu/engine/device_merge.py; the bucket sums also
+  against a numpy np.add.at oracle, and the order the bucket_sums kernel
+  relies on (bucket_rank never falls over the valid lanes) on every
+  CASES input.
 
 Tolerance: exact (integers and bytes), dtypes included."""
 from __future__ import annotations
@@ -200,6 +204,56 @@ def _jax_run_merge(k_s, len_s, chr_s):
     return rl, rc.astype(jnp.uint8), n_groups
 
 
+@functools.partial(jax.jit, static_argnames=("n_pad",))
+def _jax_bucket_sums(bucket_rank, bid, m_c, nec, n_pad: int):
+    """runs_emit_dev's three accumulating scatters (device_merge.py:596-599,
+    668-670) on its class lanes; returns (hb_at, ncls_at, hb_b)."""
+    h_pad = bucket_rank.shape[0]
+    evalid = jnp.arange(h_pad, dtype=jnp.int32) < nec
+    hb_at = jnp.zeros(n_pad, jnp.int32).at[
+        jnp.where(evalid, bucket_rank, 0)].add(m_c, mode="drop")
+    ncls_at = jnp.zeros(n_pad, jnp.int32).at[
+        jnp.where(evalid, bucket_rank, 0)].add(1, mode="drop")
+    hb_b = jnp.zeros(h_pad, jnp.int32).at[
+        jnp.where(evalid, jnp.clip(bid, 0, h_pad - 1), h_pad - 1)].add(
+        m_c, mode="drop")
+    return hb_at, ncls_at, hb_b
+
+
+def _numpy_bucket_sums(bucket_rank, bid, m_c, nec: int, n_pad: int):
+    """The same sums by np.add.at: the oracle."""
+    h_pad = len(bucket_rank)
+    evalid = np.arange(h_pad) < nec
+    br0 = np.where(evalid, bucket_rank, 0)
+    hb_at = np.zeros(n_pad, np.int32)
+    np.add.at(hb_at, br0, m_c)
+    ncls_at = np.zeros(n_pad, np.int32)
+    np.add.at(ncls_at, br0, 1)
+    hb_b = np.zeros(h_pad, np.int32)
+    np.add.at(hb_b, np.clip(bid, 0, h_pad - 1)[evalid], m_c[evalid])
+    return hb_at, ncls_at, hb_b
+
+
+def _check_bucket_sums(bucket_rank, bid, m_c, nec: int, n_pad: int):
+    """The port's bucket sums (plain, CPU) against np.add.at and JAX's
+    scatters on the same lanes; no fault on lanes in order."""
+    with jax.enable_x64(False):
+        want = [np.asarray(w) for w in _jax_bucket_sums(
+            jnp.asarray(bucket_rank), jnp.asarray(bid), jnp.asarray(m_c),
+            jnp.int32(nec), n_pad)]
+    oracle = _numpy_bucket_sums(bucket_rank, bid, m_c, nec, n_pad)
+    calls = tm.REFERENCE_CALLS["_bucket_sums_reference"]
+    got = tm.bucket_sums(*(torch.from_numpy(np.ascontiguousarray(a))
+                           for a in (bucket_rank, bid, m_c)), nec, n_pad)
+    assert tm.REFERENCE_CALLS["_bucket_sums_reference"] == calls + 1
+    for k, w, o, g in zip(("hb_at", "ncls_at", "hb_b"), want, oracle, got):
+        assert_same(w, g, k)
+        np.testing.assert_array_equal(o, g.numpy(), err_msg=k)
+    assert got[3].tolist() == [0]
+    tm.bucket_sums_check(got[3])
+    return got
+
+
 def _check_join(rows: dict, h_pad: int):
     """The port's join pass (plain, CPU) against JAX's on the same rows."""
     k1s, k2fs, i_s, pay_s = (rows[k] for k in ("k1", "k2f", "i", "pay"))
@@ -300,12 +354,17 @@ def _stages(case_idx):
 
 
 class _Spy:
-    """Records the inputs of the port's tail_good_join, exact_credit and
-    run_merge."""
+    """Records the inputs of the port's tail_good_join, exact_credit,
+    bucket_sums and run_merge."""
 
     def __init__(self, monkeypatch):
-        self.join, self.exact, self.runs = [], [], []
+        self.join, self.exact, self.runs, self.sums = [], [], [], []
         join, exact, runs = tm.tail_good_join, tm.exact_credit, tm.run_merge
+        sums = tm.bucket_sums
+
+        def spy_sums(*a):
+            self.sums.append(a)
+            return sums(*a)
 
         def spy_join(*a):
             self.join.append(a)
@@ -321,6 +380,7 @@ class _Spy:
         monkeypatch.setattr(tm, "tail_good_join", spy_join)
         monkeypatch.setattr(tm, "exact_credit", spy_exact)
         monkeypatch.setattr(tm, "run_merge", spy_runs)
+        monkeypatch.setattr(tm, "bucket_sums", spy_sums)
 
 
 @pytest.mark.parametrize("rle_quirk", [False, True])
@@ -375,11 +435,15 @@ def test_tail_good_and_runs_emit_match_jax(case_idx, rle_quirk,
         == calls["_run_merge_reference"] + 1
     assert tm.REFERENCE_CALLS["_exact_credit_reference"] \
         == calls["_exact_credit_reference"] + bool(gt[1])
+    assert tm.REFERENCE_CALLS["_bucket_sums_reference"] \
+        == calls["_bucket_sums_reference"] + 1
     # the same rows and lanes through JAX's passes as written there
     k1s, k2fs, i_s, pay_s, hp = spy.join[0]
     _check_join(dict(k1=k1s.numpy(), k2f=k2fs.numpy(), i=i_s.numpy(),
                      pay=pay_s.numpy()), hp)
     _check_runs(*(a.numpy() for a in spy.runs[0]))
+    br, bid, m_c, nec, n_pad_s = spy.sums[0]
+    _check_bucket_sums(br.numpy(), bid.numpy(), m_c.numpy(), nec, n_pad_s)
     for a in list(spy.exact):   # the check's own call is recorded too
         _check_exact(*(x.numpy() if torch.is_tensor(x) else x for x in a))
 
@@ -525,6 +589,98 @@ def test_run_merge_built_cases(name):
         assert run_len.tolist() == [2, 5, 1, 4]
 
 
+@pytest.mark.parametrize("case_idx", range(len(CASES)), ids=CASE_IDS)
+def test_bucket_rank_never_falls(case_idx):
+    """The order the bucket_sums kernel relies on, on every CASES input:
+    over runs_emit_dev's valid class lanes (SA-walk order) bucket_rank
+    never decreases, so each bucket is one segment of lanes; m_c is 0 on
+    the pad lanes; the plain version flags no fault."""
+    s = _stages(case_idx)
+    ct, (_, rt), p = s["cls"][1], s["ranks"], s["p"]
+    nec, evalid, _, m_c, br, new_b, bid = tm.bucket_lanes(
+        ct, rt[1], p.ref_isa, s["h_pad"], s["n_pad"])
+    assert nec >= 1
+    v = br[:nec]
+    assert bool((v[1:] >= v[:-1]).all())
+    assert bool((v >= 0).all()) and bool((v < s["n_pad"]).all())
+    assert int(m_c[nec:].abs().sum()) == 0
+    # one segment per bucket: bid counts the rank changes
+    assert int(bid[nec - 1]) + 1 == int(torch.unique(v).numel())
+    fault = tm._bucket_sums_reference(br, bid, m_c, nec, s["n_pad"])[3]
+    assert fault.tolist() == [0]
+
+
+def _bucket_lanes(sizes, pads: int, n_pad: int, rank0: bool = False,
+                  seed: int = 0):
+    """Class lanes as runs_emit_dev builds them: buckets of the given
+    sizes in rising rank order (the first of rank 0 when ``rank0``), then
+    ``pads`` pad lanes (bucket_rank INT_MAX, m_c 0); bid = the bucket's
+    index (cumsum of the starts - 1, so -1 everywhere when no lane is
+    valid). Returns (bucket_rank, bid, m_c, nec, n_pad)."""
+    rng = np.random.default_rng(seed)
+    nec = int(sum(sizes))
+    ranks = np.sort(rng.choice(np.arange(1, n_pad), len(sizes),
+                               replace=False))
+    if rank0 and len(sizes):
+        ranks[0] = 0
+    h_pad = nec + pads
+    br = np.full(h_pad, INT_MAX, np.int32)
+    br[:nec] = np.repeat(ranks, sizes)
+    starts = np.zeros(h_pad, np.int32)
+    starts[np.cumsum([0] + list(sizes[:-1])).astype(int)[:len(sizes)]] = 1
+    bid = (np.cumsum(starts) - 1).astype(np.int32)
+    m_c = np.zeros(h_pad, np.int32)
+    m_c[:nec] = rng.integers(0, 9, nec)
+    return br, bid, m_c, nec, n_pad
+
+
+BUILT_BUCKETS = {
+    "one_bucket": _bucket_lanes([700], 9, 50),
+    "own_buckets": _bucket_lanes([1] * 300, 5, 400),
+    "straddle_2047": _bucket_lanes([5, 2047, 2047, 9], 3, 60),
+    "straddle_2048": _bucket_lanes([5, 2048, 2048, 1], 2048, 60),
+    "straddle_2049": _bucket_lanes([2049, 2049, 3], 1, 60, rank0=True),
+    "straddle_3x2048_5": _bucket_lanes([7, 3 * 2048 + 5, 2], 11, 60),
+    "nec_0": _bucket_lanes([], 8, 20),
+    "nec_1": _bucket_lanes([1], 4, 20),
+    "rank0": _bucket_lanes([3, 5, 2], 6, 20, rank0=True),
+    "rank0_one_lane": _bucket_lanes([1], 2, 20, rank0=True),
+    "pad_only": _bucket_lanes([], 2049, 20)[:3] + (-1, 20),
+    "no_pad_lanes": _bucket_lanes([4, 4], 0, 20),
+    "random": _bucket_lanes(list(np.random.default_rng(7).integers(
+        1, 30, 400)), 333, 1000, rank0=True, seed=7),
+}
+
+
+@pytest.mark.parametrize("name", list(BUILT_BUCKETS))
+def test_bucket_sums_built_cases(name):
+    br, bid, m_c, nec, n_pad = BUILT_BUCKETS[name]
+    hb_at, ncls_at, hb_b, _ = _check_bucket_sums(br, bid, m_c, nec, n_pad)
+    pads = len(br) - max(nec, 0)
+    rank0 = int((br[:max(nec, 0)] == 0).sum())
+    assert int(ncls_at[0]) == pads + rank0
+    if name == "one_bucket":
+        assert int(hb_b[0]) == int(m_c.sum()) == int(hb_at[br[0]])
+        assert int(ncls_at[br[0]]) == 700
+
+
+def test_bucket_sums_fault():
+    """A valid lane whose bucket_rank falls below its predecessor's sets
+    bit 0 of the plain version's fault word, and the check raises; the
+    sums themselves are still the scatters'."""
+    br, bid, m_c, nec, n_pad = _bucket_lanes([4, 6, 3], 5, 40, seed=2)
+    br = br.copy()
+    br[5] = br[0] - 1
+    got = tm.bucket_sums(*(torch.from_numpy(a) for a in (br, bid, m_c)),
+                         nec, n_pad)
+    assert got[3].tolist() == [1]
+    for k, o, g in zip(("hb_at", "ncls_at", "hb_b"),
+                       _numpy_bucket_sums(br, bid, m_c, nec, n_pad), got):
+        np.testing.assert_array_equal(o, g.numpy(), err_msg=k)
+    with pytest.raises(RuntimeError, match="below its predecessor"):
+        tm.bucket_sums_check(got[3])
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -549,6 +705,8 @@ def test_dispatch_by_device():
     with pytest.raises(ValueError, match="cuda"):
         kernels.run_merge_cuda(i32, i32, i32)
     with pytest.raises(ValueError, match="cuda"):
+        kernels.bucket_sums_cuda(i32, i32, i32, 2, 8)
+    with pytest.raises(ValueError, match="cuda"):
         kernels.tail_exact_credit_cuda(torch.zeros(4, dtype=torch.int32),
                                        i32, i32, i32, i32, 4, i32, i32, i32,
                                        i32, 2)
@@ -560,6 +718,11 @@ def test_dispatch_by_device():
         tm.tail_good_join(meta, meta.to(torch.int64), meta, meta, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         tm.run_merge(meta, meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tm.bucket_sums(meta, meta, meta, 2, 8)
+    calls = tm.REFERENCE_CALLS["_bucket_sums_reference"]
+    tm.bucket_sums(i32, i32, i32, 0, 8)
+    assert tm.REFERENCE_CALLS["_bucket_sums_reference"] == calls + 1
     with pytest.raises(ValueError, match="unsupported device"):
         tm.exact_credit(meta, meta, meta, meta, meta, 4, meta, meta, meta,
                         meta, 2)

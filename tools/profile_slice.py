@@ -11,6 +11,7 @@
     python3 tools/profile_slice.py --routes 500M --backends jump
     python3 tools/profile_slice.py --mesh      # mesh routes, every card
     python3 tools/profile_slice.py --merge-stages [SHAPE]  # merge by op
+    python3 tools/profile_slice.py --merge-kernels [SHAPE] [--parent DIR]
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -125,7 +126,19 @@ device bytes (torch.cuda.max_memory_allocated, reset before the merge)
 per collection char, then a second merge with each of tail_good,
 tail_exact and runs_emit under its own torch.profiler: wall and device ms
 and the top operators by device time, and the join's rows jn_pad =
-h_pad + p_pad.
+h_pad + p_pad; then runs_emit's three bucket sums on that merge's lanes
+(bucket_sums_case): h_pad, nec and the lanes sent to index 0, each sum
+alone as the plain version's accumulating index_put_ (with and without
+the pad lanes) and as Tensor.index_add_, and the bucket_sums kernel.
+
+The merge-kernels mode runs one device merge of the jump scan's heads
+per shape (primary, 500M) and holds each of the merge's kernels on the
+inputs it got to its plain version (exact), timed with its bound (and
+bucket_sums beside three Tensor.index_add_); with ``--parent DIR`` (an
+older checkout, e.g. ``_export/parent`` from ``git archive``) it also
+times that checkout's tail_good_join and run_merge against this tree's
+on the same inputs, parent, this, this, parent, after checking that
+their outputs are equal.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -781,6 +794,68 @@ MERGE_SHAPES = (("primary", 42, 2_000_000, 10, 0.01),
                 ("500M", 42, 5_000_000, cs.BIG_DOCS, 0.01))
 
 
+def bucket_sums_case(name: str, args: tuple) -> None:
+    """runs_emit_dev's three accumulating sums (hb_at and ncls_at over
+    n_pad, hb_b over h_pad) on the lanes one merge gave it (``args``: its
+    arguments): each timed alone as the merge's plain version runs it
+    (``_add``: a masked ``index_put_`` with accumulate), the same sum with
+    the pad lanes left out, and as ``Tensor.index_add_`` on the same
+    indices and values; then the bucket_sums kernel where the port has
+    one. Prints h_pad, nec and the lanes the sums send to index 0."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    cls, sa_ord, ref_isa = args[0], args[1], args[7]
+    h_pad, n_pad = args[11], args[12]
+    nec, evalid, _, m_c, br, _, bid = dm.bucket_lanes(cls, sa_ord, ref_isa,
+                                                       h_pad, n_pad)
+    br0 = dm._w32(evalid, br, 0)
+    every = torch.ones_like(evalid)
+    bidc = torch.clamp(bid, 0, h_pad - 1)
+    to_zero = int((br0 == 0).sum())
+    print(f"bucket_sums[{name}]: h_pad={h_pad} n_pad={n_pad} nec={nec} "
+          f"lanes to index 0: {to_zero} (pad lanes {h_pad - max(nec, 0)}, "
+          f"valid lanes of rank 0 {to_zero - (h_pad - max(nec, 0))}); "
+          f"buckets {int(bid[max(nec, 1) - 1]) + 1 if nec > 0 else 0}",
+          flush=True)
+
+    def zero(k):
+        return torch.zeros(k, dtype=torch.int32, device=br.device)
+    sums = {"hb_at": (n_pad, br0, m_c, every),
+            "ncls_at": (n_pad, br0, torch.ones_like(br0), every),
+            "hb_b": (h_pad, bidc, m_c, evalid)}
+    total = {"put": 0.0, "lib": 0.0}
+    for k, (size, idx, val, mask) in sums.items():
+        want = dm._add(zero(size), idx, val, mask)
+        put = cs.cuda_ms(lambda: dm._add(zero(size), idx, val, mask), 2)
+        no_pad = cs.cuda_ms(lambda: dm._add(zero(size), idx, val, evalid), 2)
+        il, vl = idx[mask].long(), val[mask]
+        got = zero(size).index_add_(0, il, vl)
+        if not torch.equal(got, want):
+            raise SystemExit(f"bucket_sums[{name}]: index_add_ differs on "
+                             f"{k}")
+        lib = cs.cuda_ms(lambda: zero(size).index_add_(0, il, vl), 2)
+        total["put"] += put
+        total["lib"] += lib
+        print(f"bucket_sums[{name}]: {k}: index_put_ accumulate "
+              f"(the merge's _add) {put:.3f} ms; without the pad lanes "
+              f"{no_pad:.3f} ms; index_add_ {lib:.3f} ms", flush=True)
+    print(f"bucket_sums[{name}]: the three sums: index_put_ "
+          f"{total['put']:.3f} ms, index_add_ {total['lib']:.3f} ms",
+          flush=True)
+    if hasattr(kernels, "bucket_sums_cuda"):
+        outs = kernels.bucket_sums_cuda(br, bid, m_c, nec, n_pad)
+        dm.bucket_sums_check(outs[3])
+        for k, got in zip(sums, outs[:3]):
+            size, idx, val, mask = sums[k]
+            if not torch.equal(got, dm._add(zero(size), idx, val, mask)):
+                raise SystemExit(f"bucket_sums[{name}]: the kernel differs "
+                                 f"on {k}")
+        ms = cs.cuda_ms(lambda: kernels.bucket_sums_cuda(br, bid, m_c, nec,
+                                                         n_pad), 5)
+        print(f"bucket_sums[{name}]: the kernel (zeroed outputs included) "
+              f"{ms:.3f} ms", flush=True)
+
+
 def merge_stages_main(only: str | None) -> None:
     """The device merge of the jump scan's heads at each shape of
     MERGE_SHAPES: stage marks and peak device bytes per char, then each of
@@ -818,6 +893,7 @@ def merge_stages_main(only: str | None) -> None:
               f"({peak / coll.sn:.1f} B per collection char; held before "
               f"the merge {base})", flush=True)
         torch.cuda.empty_cache()
+        emitted = []
         orig = {k: getattr(dm, k) for k in ("tail_good_dev",
                                             "tail_exact_dev",
                                             "runs_emit_dev")}
@@ -829,6 +905,8 @@ def merge_stages_main(only: str | None) -> None:
                     print(f"merge[{name}]: tail_good h_pad={h_pad} "
                           f"p_pad={p_pad} jn_pad={h_pad + p_pad} "
                           f"P={a[1]['total']}", flush=True)
+                if k == "runs_emit_dev":
+                    emitted.append(a)
                 print(f"merge[{name}]: {k} under torch.profiler",
                       flush=True)
                 out = {}
@@ -843,7 +921,79 @@ def merge_stages_main(only: str | None) -> None:
         finally:
             for k, f in orig.items():
                 setattr(dm, k, f)
+        bucket_sums_case(name, emitted[0])
+        emitted.clear()
         del res, coll
+        torch.cuda.empty_cache()
+        shutil.rmtree(WORK / name)
+
+
+def parent_merge_kernels(parent: pathlib.Path):
+    """An older checkout's kernels module (its wrappers and its sources,
+    built at first use as it builds them), loaded beside this tree's."""
+    import importlib.util
+    init = parent / "cmsbwt_tpu_torch" / "kernels" / "__init__.py"
+    spec = importlib.util.spec_from_file_location("parent_kernels", init)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.load()
+    return mod
+
+
+def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
+                       reps: int = 5) -> None:
+    """The device merge's kernels on the inputs one merge of the jump
+    scan's heads gives them (chip_smoke.MergeCapture), at each shape of
+    MERGE_SHAPES: each against its plain version (exact) and timed
+    (chip_smoke.merge_kernel_cases: CUDA events over 5 launches, the byte
+    bound, bucket_sums beside three Tensor.index_add_). With ``parent``,
+    its tail_good_join and run_merge are timed against this tree's on the
+    same inputs, in turns (parent, this, this, parent; ``reps`` launches
+    each), and their outputs must be equal."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    kernels.load()
+    old = parent_merge_kernels(parent) if parent else None
+    for name, seed, ref_len, docs, snp in MERGE_SHAPES:
+        if only and name not in only.split(","):
+            continue
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        x_aug, coll = load_inputs(str(lst))
+        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+        del x_aug
+        with cs.MergeCapture() as cap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dm.merge_heads_device_resident(res, coll.d, False,
+                                           want_counter=False)
+            torch.cuda.synchronize()
+        print(f"merge_kernels[{name}]: sn={coll.sn} h={res.h}; merge wall "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+        del res
+        torch.cuda.empty_cache()
+        out = cs.merge_kernel_cases(name, cap)
+        print(f"merge_kernels[{name}] " + json.dumps(out), flush=True)
+        if old is not None:
+            runs = {"tail_good_join": (cap.join, lambda k, a: k
+                                       .tail_good_join_cuda(*a)[:3]),
+                    "run_merge": (cap.runs, lambda k, a: k
+                                  .run_merge_cuda(*a)[:2])}
+            for kname, (args, fn) in runs.items():
+                a, b = fn(old, args), fn(kernels, args)
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise SystemExit(f"{kname}[{name}]: the parent's kernel "
+                                     "and this tree's differ")
+                del a, b
+                times = []
+                for who, k in (("parent", old), ("this", kernels),
+                               ("this", kernels), ("parent", old)):
+                    times.append((who, cs.cuda_ms(lambda: fn(k, args),
+                                                  reps)))
+                print(f"merge_kernels[{name}] A/B {kname}: " + ", ".join(
+                    f"{w} {ms:.3f} ms" for w, ms in times), flush=True)
+        del cap
         torch.cuda.empty_cache()
         shutil.rmtree(WORK / name)
 
@@ -964,6 +1114,12 @@ def main() -> int:
                     "at SHAPE alone): stage marks, peak bytes, and "
                     "tail_good, tail_exact and runs_emit under "
                     "torch.profiler")
+    ap.add_argument("--merge-kernels", nargs="?", const="", default=None,
+                    metavar="SHAPE",
+                    help="the merge's kernels on a real merge's inputs at "
+                    "primary and 500 Mchars (or at SHAPE alone), against "
+                    "their plain versions and timed; with --parent, its "
+                    "tail_good_join and run_merge against this tree's")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -984,6 +1140,8 @@ def main() -> int:
             mesh_main()
         elif args.merge_stages is not None:
             merge_stages_main(args.merge_stages or None)
+        elif args.merge_kernels is not None:
+            merge_kernels_main(args.merge_kernels or None, args.parent)
         elif args.routes is not None:
             routes_main(args.routes or None, args.backends)
         elif args.host_merge:
