@@ -110,24 +110,31 @@ every phase passed):
 11. merge kernels — the device merge's CUDA kernels against their plain
    torch versions on the card (exact): running_fill
    (running_fill_reference: torch.cummax / cummin, flipped for reverse)
-   at 1, 4095, 4096, 4097 and 3 * 4096 + 5 rows in int32 and int64, max
-   and min, forward and reverse, with the dtype's extremes and the merge's
-   sentinels, and at 2^29 + 1 int64 rows forward (max) and reverse (min),
-   timed beside one 1-D torch.cummax / cummin and the row-blocked form the
-   port used before; bucket_sums (_bucket_sums_reference) on built lanes
-   at its tile edges, and on a falling bucket_rank, which its check must
-   refuse; running_fill (the merge's largest fill), tail_good_join
-   (_tail_good_join_reference), tail_exact_credit
-   (_exact_credit_reference), bucket_sums (timed beside three
-   Tensor.index_add_) and run_merge (_run_merge_reference) on the inputs
-   a real device merge gave them (MergeCapture), of the jump scan's heads
-   at primary (in phase 5) and of the 500 Mchar run's heads (in phase 8,
-   which also holds the peak outside the blocks to the merge's ceiling,
-   MERGE_BYTES_PER_CHAR per collection char). Every run that merges on
-   the device launches running_fill, tail_good_join, bucket_sums and
-   run_merge, and tail_exact_credit once per merge with exact pairs
-   (MERGE_KERNELS); the sharded merge and the dense scan launch
-   running_fill; no run launches a plain version.
+   at the edges of its tiles (FILL_SIZES: 1, 3, 64, a tile +- 1 and three
+   tiles + 5, in int32 and int64), max and min, forward and reverse, with
+   the dtype's extremes and the merge's sentinels, each also on the view
+   v[1:] (rows off the 16-byte frame), and at 2^29 + 1 int64 rows
+   forward (max) and reverse (min), timed alone and as the wrapper runs
+   it beside Tensor.copy_ of the same bytes, one 1-D torch.cummax /
+   cummin and the row-blocked form the port used before; bucket_sums
+   (_bucket_sums_reference) on built lanes at its tile edges (BS_TILE)
+   with short and long rank gaps, its outputs given memory that held
+   0x5A bytes (garbage_outputs: a slot it leaves unwritten shows), and on
+   a falling bucket_rank, which its check must refuse; running_fill (the
+   merge's largest fill), tail_good_join (_tail_good_join_reference),
+   tail_exact_credit (_exact_credit_reference), bucket_sums (timed beside
+   three Tensor.index_add_) and run_merge (_run_merge_reference) on the
+   inputs a real device merge gave them (MergeCapture), of the jump
+   scan's heads at primary (in phase 5) and of the 500 Mchar run's heads
+   (in phase 8, which also holds the peak outside the blocks to the
+   merge's ceiling, MERGE_BYTES_PER_CHAR per collection char);
+   running_fill and bucket_sums there also alone (CUDA events around the
+   launches only), beside Tensor.copy_ of the same bytes and one 1-D
+   torch.cummax of the fill. Every run that merges on the device
+   launches running_fill, tail_good_join, bucket_sums and run_merge, and
+   tail_exact_credit once per merge with exact pairs (MERGE_KERNELS); the
+   sharded merge and the dense scan launch running_fill; no run launches
+   a plain version.
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
@@ -151,8 +158,11 @@ gathers, the entries this run's data touches) over 3.35 TB/s, the H100
 SXM's memory rate. The merge kernels' rows give running_fill at 2^29 + 1
 int64 rows (forward max), and tail_good_join, tail_exact_credit and
 run_merge on the 500 Mchar merge's inputs. library_ms is one 1-D
-torch.cummax for running_fill; no single PyTorch call computes any of the
-other six functions, so theirs is null.
+torch.cummax for running_fill and three Tensor.index_add_ for
+bucket_sums; no single PyTorch call computes any of the other six
+functions, so theirs is null. running_fill's and bucket_sums' rows also
+give alone_ms (the launches alone) and copy_ms (Tensor.copy_ of the same
+bytes).
 """
 from __future__ import annotations
 
@@ -201,8 +211,12 @@ ROUTE_KERNELS = {"jump": ("ms_jump_scan",), "device": ("ms_jump_scan",),
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
                             "tail_exact_credit", "bucket_sums", "run_merge"),
                  "sharded": ("running_fill",), "host": (), "none": ()}
-FILL_SIZES = (1, 4095, 4096, 4097, 3 * 4096 + 5)
+# running_fill's tiles (running_fill.cu: 32 KB) and the sizes at their edges
+FILL_TILE = {torch.int32: 8192, torch.int64: 4096}
+FILL_SIZES = {dt: (1, 3, 64, T - 1, T, T + 1, 3 * T + 5)
+              for dt, T in FILL_TILE.items()}
 BIG_FILL = (1 << 29) + 1
+BS_TILE = 4096              # bucket_sums' tile (run_merge.cu: BS_TILE)
 FILL_BIG = (1 << 62) - 1    # the merge's packed-fill sentinel
 
 
@@ -442,6 +456,82 @@ def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
         fail(f"{kernel}[{name}]: CUDA kernel disagrees with {plain}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 outputs=want)
+
+
+def alone_ms(launch, scratch_bytes: int, reps: int = 5) -> float:
+    """Mean device time of a kernel's launch alone: ``launch(scratch)``
+    ``reps`` times back to back between two CUDA events, each launch
+    given its own zeroed scratch made beforehand, so the wrapper's
+    allocations and memsets fall outside the events."""
+    scratch = [torch.zeros(max(scratch_bytes, 16), dtype=torch.uint8,
+                           device="cuda") for _ in range(reps + 1)]
+    launch(scratch.pop())   # warm
+    it = iter(scratch)
+    return cuda_ms(lambda: launch(next(it)), reps)
+
+
+def copy_ms(nbytes_moved: int, reps: int = 5) -> float:
+    """Tensor.copy_ moving ``nbytes_moved`` bytes (half read, half
+    written): the rate a single pass over the same bytes can hope for."""
+    half = max(nbytes_moved // 2, 1)
+    src = torch.empty(half, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return cuda_ms(lambda: dst.copy_(src), reps)
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _p(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def fill_launch(K, v, op: str, rev: bool):
+    """running_fill's C entry point on ``v`` with its output made
+    beforehand (``K``: this tree's kernels module or an older checkout's,
+    whose C interface is the same); returns (launch(scratch), scratch
+    bytes)."""
+    lib = K.load()["running_fill"]
+    out = torch.empty_like(v)
+    m, elem = v.numel(), v.element_size()
+
+    def launch(scratch):
+        if lib.running_fill_launch(_p(v), _p(out), m, elem, int(op == "min"),
+                                   int(rev), _p(scratch), _stream()):
+            fail("running_fill launch failed")
+    return launch, int(lib.running_fill_scratch_bytes(m, elem))
+
+
+def bucket_sums_launch(K, br, bid, m_c, nec: int, n_pad: int):
+    """bucket_sums' C entry point on these lanes with its outputs made
+    (and zeroed: an older kernel writes only the nonzero slots)
+    beforehand; returns (launch(scratch), scratch bytes)."""
+    lib = K.load()["run_merge"]
+    h_pad = br.numel()
+    outs = [torch.zeros(k, dtype=torch.int32, device="cuda")
+            for k in (n_pad, n_pad, h_pad)]
+
+    def launch(scratch):
+        if lib.bucket_sums_launch(_p(br), _p(bid), _p(m_c), nec, h_pad,
+                                  n_pad, *map(_p, outs), _p(scratch),
+                                  _stream()):
+            fail("bucket_sums launch failed")
+    return launch, int(lib.bucket_sums_scratch_bytes(nec))
+
+
+def fill_times(K, tag: str, r: dict, v, op: str, rev: bool) -> dict:
+    """Beside a running_fill result ``r`` (compare: the wrapper's time):
+    the kernel alone, Tensor.copy_ of the same bytes (m rows in, m rows
+    out) and one 1-D torch.cummax of ``v`` (the library call)."""
+    r["alone_ms"] = alone_ms(*fill_launch(K, v, op, rev))
+    r["copy_ms"] = copy_ms(2 * nbytes(v))
+    r["library_ms"] = cuda_ms(lambda: torch.cummax(v, 0), 2)
+    log(f"kernel running_fill[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, copy_ of the same bytes "
+        f"{r['copy_ms']:.3f} ms, 1-D torch.cummax {r['library_ms']:.3f} ms,"
+        f" bound {r['bound_ms']:.4f} ms")
+    return r
 
 
 def dense_inputs(x_aug: np.ndarray, sx: np.ndarray, sep_base: int = 0,
@@ -711,30 +801,36 @@ def row_blocked_fill(v, op: str, reverse: bool, width: int = 4096):
 
 def fill_cases() -> list:
     """running_fill against its plain version (exact) on the card: every
-    size of FILL_SIZES in int32 and int64, max and min, forward and
-    reverse, on a rising and a falling ramp; then int64 at BIG_FILL rows,
-    forward max and reverse min (the merge's two forms), each timed beside
-    the library call (one 1-D torch.cummax / torch.cummin) and the
+    size of FILL_SIZES (its tiles' edges) in int32 and int64, max and min,
+    forward and reverse, on a rising and a falling ramp, and on the view
+    v[1:] of one row more (its rows start 4 or 8 bytes past a 16-byte
+    boundary: element loads at the head and element stores throughout);
+    then int64 at BIG_FILL rows, forward max and reverse min, each timed
+    alone and as the wrapper runs it, beside Tensor.copy_ of the same
+    bytes, the library call (one 1-D torch.cummax / torch.cummin) and the
     row-blocked form. Returns the two timed results."""
+    from cmsbwt_tpu_torch import kernels
     from cmsbwt_tpu_torch.kernels import running_fill_cuda
     from cmsbwt_tpu_torch.ops.fill import running_fill_reference
     cases = 0
-    for m in FILL_SIZES:
-        for dt in (torch.int32, torch.int64):
+    for dt, sizes in FILL_SIZES.items():
+        for m in sizes:
             for op in ("max", "min"):
                 for rev in (False, True):
                     for trend in (3, -3):
-                        v = fill_input(m, dt, m + cases, trend)
-                        got = running_fill_cuda(v, op, rev)
-                        want = running_fill_reference(v, op, rev)
-                        if not torch.equal(got, want):
-                            fail(f"running_fill[m={m}, {dt}, {op}, "
-                                 f"reverse={rev}] differs from its plain "
-                                 "version")
-                        cases += 1
+                        for view in (False, True):
+                            v = fill_input(m + view, dt, m + cases, trend)
+                            v = v[1:] if view else v
+                            got = running_fill_cuda(v, op, rev)
+                            want = running_fill_reference(v, op, rev)
+                            if not torch.equal(got, want):
+                                fail(f"running_fill[m={m}, {dt}, {op}, "
+                                     f"reverse={rev}, view={view}] differs "
+                                     "from its plain version")
+                            cases += 1
     log(f"kernel running_fill: {cases} cases (m in {FILL_SIZES}, int32 and "
-        "int64, max and min, forward and reverse, rising and falling) "
-        f"exact (tolerance {TOL})")
+        "int64, max and min, forward and reverse, rising and falling, whole "
+        f"and v[1:]) exact (tolerance {TOL})")
     out = []
     for op, rev, trend in (("max", False, 5), ("min", True, 5)):
         v = fill_input(BIG_FILL, torch.int64, 9, trend)
@@ -744,6 +840,7 @@ def fill_cases() -> list:
                     lambda: (running_fill_reference(v, op, rev),),
                     f"m={BIG_FILL} int64 {op}{' reverse' if rev else ''}",
                     2 * nbytes(v))
+        fill_times(kernels, name, r, v, op, rev)
         cum = torch.cummax if op == "max" else torch.cummin
         r["library_ms"] = cuda_ms(lambda: cum(v, 0), 2)
         if not torch.equal(row_blocked_fill(v, op, rev), r["outputs"][0]):
@@ -762,18 +859,21 @@ def fill_cases() -> list:
 class MergeCapture:
     """Keeps the inputs of the device merge's kernels from the merges run
     while in use, by wrapping engine/device_merge's running_fill,
-    tail_good_join, exact_credit, bucket_sums and run_merge: the largest
-    running_fill input (with its op and direction), and the last inputs
-    of the other four."""
+    tail_good_join, exact_credit, bucket_sums and run_merge: every
+    running_fill input with its op and direction (``fills``, in call
+    order; ``fill`` the largest), and the last inputs of the other
+    four."""
 
     def __enter__(self):
         from cmsbwt_tpu_torch.engine import device_merge as dm
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
         self.exact = self.sums = None
+        self.fills = []
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
                      dm.exact_credit, dm.bucket_sums)
 
         def fill(v, op="max", reverse=False):
+            self.fills.append((v, op, reverse))
             if self.fill is None or v.numel() > self.fill[0].numel():
                 self.fill = (v, op, reverse)
             return self.orig[0](v, op, reverse)
@@ -850,22 +950,35 @@ def bucket_sums_lanes(sizes, n_pad: int, h_pad: int, rank0: bool, seed: int):
     return t(br), t(bid), t(mc), nec
 
 
+def garbage_outputs(*sizes) -> None:
+    """Fill int32 tensors of these sizes with the byte 0x5A and free them:
+    the caching allocator hands that memory back to the next allocations
+    of the same sizes, so an output slot a kernel leaves unwritten
+    shows."""
+    junk = [torch.full((k,), 0x5A5A5A5A, dtype=torch.int32, device="cuda")
+            for k in sizes]
+    torch.cuda.synchronize()
+    del junk
+
+
 def bucket_sums_cases() -> int:
     """bucket_sums against its plain version (exact) on built lanes at the
-    kernel's tile edges (2048 lanes): one bucket of every class, each
-    class its own bucket, buckets straddling tiles, nec 0 and 1, a valid
-    class of rank 0, pad lanes only; then a valid lane whose bucket_rank
-    falls, which bucket_sums_check must refuse. Returns the cases run."""
+    kernel's tile edges (BS_TILE lanes), each call's outputs given memory
+    that held 0x5A bytes (garbage_outputs): one bucket of every class,
+    each class its own bucket, buckets straddling tiles, nec 0 and 1, a
+    valid class of rank 0, pad lanes only, rank gaps longer than a tile;
+    then a valid lane whose bucket_rank falls, which bucket_sums_check
+    must refuse. Returns the cases run."""
     from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.kernels import bucket_sums_cuda
-    T = 2048
+    T = BS_TILE
     built = {
         "one_bucket": ([3 * T + 5], False),
         "own_buckets": ([1] * (3 * T + 5), False),
-        "straddle_2047": ([T - 1, T - 1, 7, T + 1], False),
-        "straddle_2048": ([T, T, 1, 2 * T], True),
-        "straddle_2049": ([T + 1, 5, T + 1, 3], False),
-        "straddle_3x2048_5": ([5, 3 * T, 1, 2 * T + 7], True),
+        f"straddle_{T - 1}": ([T - 1, T - 1, 7, T + 1], False),
+        f"straddle_{T}": ([T, T, 1, 2 * T], True),
+        f"straddle_{T + 1}": ([T + 1, 5, T + 1, 3], False),
+        f"straddle_3x{T}_5": ([5, 3 * T, 1, 2 * T + 7], True),
         "nec_0": ([], False),
         "nec_1": ([1], False),
         "nec_1_rank0": ([1], True),
@@ -877,15 +990,17 @@ def bucket_sums_cases() -> int:
     for name, (sizes, rank0) in built.items():
         nec = int(sum(sizes))
         for pads in (0, 1, 3 * T + 1):
-            h_pad = max(nec + pads, 1)
-            a = bucket_sums_lanes(sizes, 4 * T + 11, h_pad, rank0, cases)
-            want = dm._bucket_sums_reference(*a, 4 * T + 11)
-            got = bucket_sums_cuda(*a, 4 * T + 11)
-            dm.bucket_sums_check(got[3])
-            if not all(torch.equal(x, y) for x, y in zip(want, got)):
-                fail(f"bucket_sums[{name}, {pads} pad lanes] differs from "
-                     "its plain version")
-            cases += 1
+            for n_pad in (4 * T + 11, 64 * T):   # short and long rank gaps
+                h_pad = max(nec + pads, 1)
+                a = bucket_sums_lanes(sizes, n_pad, h_pad, rank0, cases)
+                want = dm._bucket_sums_reference(*a, n_pad)
+                garbage_outputs(n_pad, n_pad, h_pad)
+                got = bucket_sums_cuda(*a, n_pad)
+                dm.bucket_sums_check(got[3])
+                if not all(torch.equal(x, y) for x, y in zip(want, got)):
+                    fail(f"bucket_sums[{name}, {pads} pad lanes, n_pad "
+                         f"{n_pad}] differs from its plain version")
+                cases += 1
     # a falling rank: the plain version and the kernel both flag it, and
     # the check raises
     br, bid, mc, nec = bucket_sums_lanes([T, T + 3, 9], 4 * T + 11,
@@ -914,12 +1029,12 @@ def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
     from cmsbwt_tpu_torch.ops.fill import running_fill_reference
     out = {}
     v, op, rev = cap.fill
-    out["running_fill"] = compare(
+    out["running_fill"] = fill_times(K, f"{tag}_merge", compare(
         "running_fill", f"{tag}_merge", "running_fill_reference",
         lambda: (K.running_fill_cuda(v, op, rev),),
         lambda: (running_fill_reference(v, op, rev),),
         f"the merge's largest fill: m={v.numel()} {v.dtype} {op}"
-        f"{' reverse' if rev else ''}", 2 * nbytes(v))
+        f"{' reverse' if rev else ''}", 2 * nbytes(v)), v, op, rev)
     k1s, k2fs, i_s, pay_s, h_pad = cap.join
 
     def join_out(res):
@@ -961,9 +1076,15 @@ def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
                zip(library(), out["bucket_sums"]["outputs"])):
         fail(f"bucket_sums[{tag}]: index_add_ differs from the plain "
              "version")
-    out["bucket_sums"]["library_ms"] = cuda_ms(library, 5)
-    log(f"kernel bucket_sums[{tag}]: library_ms (three Tensor.index_add_) "
-        f"{out['bucket_sums']['library_ms']:.3f}")
+    r = out["bucket_sums"]
+    r["library_ms"] = cuda_ms(library, 5)
+    r["alone_ms"] = alone_ms(*bucket_sums_launch(K, br, bid, m_c, nec,
+                                                 n_pad))
+    r["copy_ms"] = copy_ms(bucket_sums_bytes(br, m_c, nec, n_pad))
+    log(f"kernel bucket_sums[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, copy_ of the same bytes "
+        f"{r['copy_ms']:.3f} ms, three Tensor.index_add_ "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
     k_s, len_s, chr_s = cap.runs
     out["run_merge"] = compare(
         "run_merge", tag, "_run_merge_reference",
@@ -1704,7 +1825,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
     log(f"merge kernels: phase 11 took {time.perf_counter() - t11:.1f} s")
 
-    def row(name, source, replaces, res, library_ms=None):
+    def row(name, source, replaces, res, library_ms=None, **extra):
         # every run that launches this kernel, and the runs that launch
         # none (their 0 shown)
         runs = [(tag, k, c[name], t, e) for _, tag, k, c, t, e, mine
@@ -1719,7 +1840,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
                 "max_abs_err": max(r["err"] for r in res),
                 "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
                 "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
 
     log(f"smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f} s")
@@ -1736,7 +1857,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
         row("running_fill", csrc + "running_fill.cu",
             "cmsbwt_tpu/engine/device_merge.py:57",
             fills + [c["running_fill"] for c in merge_cases.values()],
-            fills[0]["library_ms"]),
+            fills[0]["library_ms"], alone_ms=fills[0]["alone_ms"],
+            copy_ms=fills[0]["copy_ms"]),
         row("tail_good_join", csrc + "tail_good_join.cu",
             "cmsbwt_tpu/engine/device_merge.py:426",
             [merge_cases["500M"]["tail_good_join"],
@@ -1749,7 +1871,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
             "cmsbwt_tpu/engine/device_merge.py:596",
             [merge_cases["500M"]["bucket_sums"],
              merge_cases["primary"]["bucket_sums"]],
-            merge_cases["500M"]["bucket_sums"]["library_ms"]),
+            merge_cases["500M"]["bucket_sums"]["library_ms"],
+            alone_ms=merge_cases["500M"]["bucket_sums"]["alone_ms"],
+            copy_ms=merge_cases["500M"]["bucket_sums"]["copy_ms"]),
         row("run_merge", csrc + "run_merge.cu",
             "cmsbwt_tpu/engine/device_merge.py:694",
             [merge_cases["500M"]["run_merge"],

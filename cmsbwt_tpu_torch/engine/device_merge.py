@@ -805,10 +805,14 @@ def bucket_sums_check(fault) -> None:
             "runs_emit_dev: bucket_sums found a valid class lane whose "
             "bucket_rank is below its predecessor's (the lanes must come "
             "in SA-walk order); its sums would be wrong")
-    if f:
+    if f & 2:
         raise RuntimeError(
             "runs_emit_dev: bucket_sums found a valid class lane whose "
             "bucket_rank lies outside [0, n_pad)")
+    if f:
+        raise RuntimeError(
+            "runs_emit_dev: bucket_sums found a class lane whose bid is not "
+            "its bucket's index (the kernel checks it at its tiles' edges)")
 
 
 def run_merge(k_s, len_s, chr_s):

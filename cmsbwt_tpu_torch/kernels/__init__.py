@@ -329,7 +329,8 @@ def running_fill_cuda(v: torch.Tensor, op: str = "max",
         return out
     lib = load()["running_fill"]
     elem = v.element_size()
-    scratch = torch.empty(int(lib.running_fill_scratch_bytes(m, elem)),
+    # the look-back's ticket and the tiles' states start at 0
+    scratch = torch.zeros(int(lib.running_fill_scratch_bytes(m, elem)),
                           dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -409,7 +410,8 @@ def run_merge_cuda(k_s, len_s, chr_s):
 def bucket_sums_cuda(bucket_rank, bid, m_c, nec: int, n_pad: int):
     """Launch ``bucket_sums`` on runs_emit's class lanes (CUDA int32[h_pad]
     each, in SA-walk order: the first ``nec`` valid, their bucket_rank
-    never decreasing, m_c 0 beyond them): returns (hb_at int32[n_pad],
+    never decreasing, bid their bucket's index, m_c 0 beyond them):
+    returns (hb_at int32[n_pad],
     ncls_at int32[n_pad], hb_b int32[h_pad], fault int32[1]). Same
     contract as engine/device_merge._bucket_sums_reference; the caller
     reads ``fault`` (engine/device_merge.bucket_sums_check) after its next
@@ -420,13 +422,15 @@ def bucket_sums_cuda(bucket_rank, bid, m_c, nec: int, n_pad: int):
     _check("bucket_rank", bucket_rank, i32, (h_pad,), dev)
     _check("bid", bid, i32, (h_pad,), dev)
     _check("m_c", m_c, i32, (h_pad,), dev)
-    if h_pad < 1 or n_pad < 1 or nec > h_pad:
+    if not (1 <= h_pad <= 2**31 - 1 - 8192 and 1 <= n_pad <= 2**31 - 1
+            - 8192 and nec <= h_pad):
         raise ValueError(f"bucket_sums: nec {nec}, h_pad {h_pad}, n_pad "
                          f"{n_pad}")
     lib = load()["run_merge"]
-    hb_at = torch.zeros(n_pad, dtype=i32, device=dev)
-    ncls_at = torch.zeros(n_pad, dtype=i32, device=dev)
-    hb_b = torch.zeros(h_pad, dtype=i32, device=dev)
+    # the kernel writes every slot of its outputs (zeros included)
+    hb_at = torch.empty(n_pad, dtype=i32, device=dev)
+    ncls_at = torch.empty(n_pad, dtype=i32, device=dev)
+    hb_b = torch.empty(h_pad, dtype=i32, device=dev)
     # the look-back's ticket and flags, and the fault word, start at 0
     scratch = torch.zeros(int(lib.bucket_sums_scratch_bytes(nec)),
                           dtype=torch.uint8, device=dev)

@@ -1,41 +1,38 @@
 // tile_scan.cuh — the tiled scans shared by the device merge's kernels
 // (running_fill.cu, tail_good_join.cu, tail_exact_credit.cu, run_merge.cu)
-// on Hopper (sm_90a). Two schemes:
+// on Hopper (sm_90a): the block scan, coalesced loads and stores of a
+// thread's consecutive items, and the single-pass scan with decoupled
+// look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", 2016): one launch, each row read once.
 //
-// The three-launch scan (running_fill.cu, tail_exact_credit.cu), the same
-// structure as dense_neighbors.cu:
-//   1. reduce: each tile folds its rows into one aggregate;
-//   2. carry:  one block scans the tiles' aggregates in scan order into
-//              each tile's exclusive carry (carry[tiles] = the fold of
-//              every tile);
-//   3. emit:   each tile scans its rows again from its carry and writes.
-// Nothing spins on another block, but every row is read twice.
-//
-// The single-pass scan with decoupled look-back (tail_good_join.cu,
-// run_merge.cu: Merrill and Garland, "Single-pass Parallel Prefix Scan
-// with Decoupled Look-back", 2016): one launch, each row read once. A
-// block takes its tile's place in scan order from an atomic ticket (not
+// A block takes its tile's place in scan order from an atomic ticket (not
 // from blockIdx), so a tile only ever waits on tiles whose blocks took a
 // ticket earlier and so are running: no launch order can hang the card.
-// It folds its rows (held in registers), publishes its aggregate with a
-// status flag, and its first warp looks back over the tiles before it, 32
-// flags at a time: it folds their aggregates until it meets a tile that
-// has published its inclusive state, which ends the look-back. A tile
-// publishes its inclusive state only when its look-back ends, so the
-// inclusive states form a chain that caps the scan at about 32 tiles per
-// look-back round; an operator whose aggregates usually hide everything
-// before them (Op::absorbs) breaks the chain: such a tile publishes its
-// inclusive state with its aggregate, and the tile after it finds it at
-// once. A kernel that can learn a tile's prefix from a few rows beside
-// the tile (tail_good_join's halo) skips the look-back for that tile.
+// It folds its rows, publishes its aggregate with a status flag, and its
+// first warp looks back over the tiles before it, 32 at a time: it folds
+// their aggregates until it meets a tile that has published its inclusive
+// state, which ends the look-back. A tile publishes its inclusive state
+// only when its look-back ends, so the inclusive states form a chain that
+// caps the scan at about 32 tiles per look-back round; an operator whose
+// aggregates usually hide everything before them (Op::absorbs) breaks the
+// chain: such a tile publishes its inclusive state with its aggregate, and
+// the tile after it finds it at once. Two forms of the look-back:
+//  * lookback (tail_good_join.cu, run_merge.cu's run_merge): flags apart
+//    from the states, published with release stores of the flags and read
+//    after acquire loads of them (two trips to L2 a round); a kernel that
+//    can learn a tile's prefix from a few rows beside the tile
+//    (tail_good_join's halo) skips the look-back for that tile;
+//  * lookback_packed (running_fill.cu, run_merge.cu's bucket_sums): each
+//    32-bit word of a state shares a 64-bit word with its flag (one trip
+//    a round), and a window waits only on the tiles up to its nearest
+//    inclusive state.
 // Flags and ticket live in scratch the caller zeroes per call
-// (lookback_bytes); the values are published with release stores of the
-// flags and read after acquire loads of them.
+// (lookback_bytes, packed_bytes).
 //
-// Inside a tile (both schemes) a thread folds its consecutive items in
-// registers, a warp scans its 32 thread states with 5 shuffle steps, and
-// warp 0 scans the warps' totals the same way. The result does not depend
-// on the tile size or on the order in which tiles finish.
+// Inside a tile a thread folds its consecutive items in registers, a warp
+// scans its 32 thread states with 5 shuffle steps, and warp 0 scans the
+// warps' totals the same way. The result does not depend on the tile size
+// or on the order in which tiles finish.
 //
 // A scan state S is a struct of 32-bit words (it is shuffled word by
 // word); an Op gives
@@ -55,8 +52,6 @@
 namespace tile_scan {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CARRY_THREADS = 1024;
-constexpr int CARRY_ITEMS = 4;
 
 template <class S>
 __device__ __forceinline__ S shfl_idx(const S& x, int src) {
@@ -129,41 +124,6 @@ __device__ __forceinline__ S block_scan(S x, const S& carry, S* wagg,
   return r;
 }
 
-// Launch 2: one block of CARRY_THREADS turns ``tiles`` aggregates into
-// exclusive carries in scan order, CARRY_ITEMS per thread per round;
-// carry[tiles] is the fold of all of them.
-template <bool BWD, class Op, class S>
-__global__ void __launch_bounds__(CARRY_THREADS)
-    carry_kernel(const S* __restrict__ agg, S* __restrict__ carry,
-                 int tiles) {
-  __shared__ S wagg[33];
-  constexpr int CH = CARRY_THREADS * CARRY_ITEMS;
-  const int rounds = (tiles + CH - 1) / CH;
-  S run = Op::identity();
-  for (int c = 0; c < rounds; ++c) {
-    const int base = (BWD ? rounds - 1 - c : c) * CH
-                     + threadIdx.x * CARRY_ITEMS;
-    S it[CARRY_ITEMS];
-    S acc = Op::identity();
-#pragma unroll
-    for (int q = 0; q < CARRY_ITEMS; ++q) {
-      const int j = BWD ? CARRY_ITEMS - 1 - q : q;
-      it[j] = base + j < tiles ? agg[base + j] : Op::identity();
-      acc = Op::combine(acc, it[j]);
-    }
-    S tot;
-    S ex = block_scan<BWD, Op>(acc, run, wagg, &tot);
-#pragma unroll
-    for (int q = 0; q < CARRY_ITEMS; ++q) {
-      const int j = BWD ? CARRY_ITEMS - 1 - q : q;
-      if (base + j < tiles) carry[base + j] = ex;
-      ex = Op::combine(ex, it[j]);
-    }
-    run = Op::combine(run, tot);
-  }
-  if (threadIdx.x == 0) carry[tiles] = run;
-}
-
 // 16-byte loads and stores of consecutive items (the caller checks the
 // alignment)
 __device__ __forceinline__ void ld16(const int* p, int* v) {
@@ -213,6 +173,19 @@ __device__ __forceinline__ void store_items(T* __restrict__ dst, long long r0,
     for (int j = 0; j < N; ++j)
       if (r0 + j < rows) dst[r0 + j] = v[j];
   }
+}
+
+// The slot of 16-byte vector q in a shared tile where a warp stages its
+// threads' consecutive items, NV vectors a thread: XOR-swizzled so that
+// neither 8 consecutive lanes taking vectors q, q+1, ... (the warp's
+// coalesced loads and stores) nor 8 consecutive threads each taking its
+// u-th vector (vectors l * NV + u) meet a bank conflict. It permutes only
+// within aligned groups of 8 vectors, so each warp keeps to its own part.
+template <int NV>
+__device__ __forceinline__ int swz(int q) {
+  constexpr int SH = NV <= 8 ? 3 : (NV == 16 ? 4 : 5);
+  constexpr int MSK = NV >= 8 ? 7 : (NV == 4 ? 3 : (NV == 2 ? 1 : 0));
+  return q ^ ((q >> SH) & MSK);
 }
 
 __host__ __device__ inline bool aligned16(const void* p) {
@@ -350,6 +323,120 @@ __device__ __forceinline__ S lookback(const Lookback<S>& lb, int t,
       st_release(lb.flag + t, LB_INCL);
     }
     if (lane == 0) slot = ex;
+  }
+  __syncthreads();
+  return slot;
+}
+
+// ---------------------------------------------------------------------------
+// the look-back on packed states: one trip to L2 a round
+// ---------------------------------------------------------------------------
+//
+// The same look-back with each tile's published state in N = sizeof(S) / 4
+// 64-bit words, word i holding the state's 32-bit word i and the flag
+// (LB_AGG or LB_INCL) in its upper half. Words are written and read with
+// relaxed gpu-scope accesses: a word is never seen without its value, so
+// a round of the look-back is one trip to L2 (the flags-then-states
+// look-back above takes two), and a state whose words carry different
+// flags (an inclusive state half over its aggregate) is not yet whole and
+// is read again. A window waits only on the tiles up to its nearest
+// inclusive state. The scratch (zeroed per call, packed_bytes): a 16-byte
+// head (the ticket, then three words the kernel may use) and N words per
+// tile.
+
+__host__ __device__ inline long long packed_bytes(long long tiles,
+                                                  int state_bytes) {
+  return 16 + 8 * tiles * (state_bytes / 4);
+}
+
+__device__ __forceinline__ void st_word(unsigned long long* p,
+                                        unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;"
+               :: "l"(p), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_word(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+template <class S>
+__device__ __forceinline__ void publish_packed(unsigned long long* slot,
+                                               int flag, const S& x) {
+  const unsigned* a = reinterpret_cast<const unsigned*>(&x);
+#pragma unroll
+  for (int i = 0; i < int(sizeof(S) / 4); ++i)
+    st_word(slot + i, (static_cast<unsigned long long>(flag) << 32) | a[i]);
+}
+
+// the flag of a tile's state (LB_EMPTY while it is not whole) and the state
+template <class S>
+__device__ __forceinline__ int read_packed(const unsigned long long* slot,
+                                           S* x) {
+  constexpr int N = int(sizeof(S) / 4);
+  unsigned long long w[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) w[i] = ld_word(slot + i);
+  unsigned* a = reinterpret_cast<unsigned*>(x);
+  const int f = int(w[0] >> 32);
+  bool whole = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    a[i] = unsigned(w[i]);
+    whole = whole && int(w[i] >> 32) == f;
+  }
+  return whole ? f : LB_EMPTY;
+}
+
+// The exclusive prefix of tile t (scan order) given its aggregate, as
+// lookback() above (Op::absorbs, or a prefix the caller already knows,
+// publishes the inclusive state at once), on the packed states at
+// ``slots``. Called by the whole block; returns the prefix to every
+// thread.
+template <class Op, class S>
+__device__ __forceinline__ S lookback_packed(unsigned long long* slots,
+                                             int t, const S& aggregate,
+                                             bool known = false,
+                                             const S& prefix = Op::identity()) {
+  constexpr int N = int(sizeof(S) / 4);
+  __shared__ S slot;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const bool done = t == 0 || known || Op::absorbs(aggregate);
+    if (lane == 0)
+      publish_packed(slots + (long long)t * N, done ? LB_INCL : LB_AGG,
+                     known ? Op::combine(prefix, aggregate) : aggregate);
+    S ex = known ? prefix : Op::identity();
+    for (int p = t - 1; p >= 0 && !known; p -= 32) {
+      const int q = p - lane;
+      S x = Op::identity();
+      int f = q >= 0 ? read_packed(slots + (long long)q * N, &x) : LB_INCL;
+      unsigned incl, lim;
+      while (true) {
+        incl = __ballot_sync(FULL, f == LB_INCL);
+        // the lanes up to the nearest inclusive state are those folded
+        lim = incl ? (2u << (__ffs(incl) - 1)) - 1 : FULL;
+        if (!(__ballot_sync(FULL, f == LB_EMPTY) & lim)) break;
+        __nanosleep(20);
+        if (f == LB_EMPTY) f = read_packed(slots + (long long)q * N, &x);
+      }
+      if (!((lim >> lane) & 1u)) x = Op::identity();
+      // fold lanes stop .. 0 in scan order (the farthest tile first):
+      // lane 31 before lane 0, as a backward warp scan runs
+      S win;
+      warp_scan<true, Op>(x, &win);
+      ex = Op::combine(win, ex);
+      if (incl) break;
+    }
+    if (lane == 0) {
+      if (!done)
+        publish_packed(slots + (long long)t * N, LB_INCL,
+                       Op::combine(ex, aggregate));
+      slot = ex;
+    }
   }
   __syncthreads();
   return slot;

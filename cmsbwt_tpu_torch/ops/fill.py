@@ -8,9 +8,11 @@ It has two forms with one contract:
 * ``running_fill_reference`` — ``torch.cummax`` / ``torch.cummin``, flipped
   for reverse. It is what the port runs on the CPU; on the card only
   tests and chip_smoke.py call it.
-* the CUDA kernel ``kernels/csrc/running_fill.cu`` — a tiled three-launch
-  scan (reduce, carry, emit) that runs backward for reverse, with no
-  flipped copy. torch's 1-D CUDA cummax / cummin runs in one block.
+* the CUDA kernel ``kernels/csrc/running_fill.cu`` — one launch, a
+  single-pass scan with decoupled look-back over 32 KB tiles moved
+  coalesced through shared memory, each row read once and written once;
+  it runs backward for reverse, with no flipped copy. torch's 1-D CUDA
+  cummax / cummin runs in one block.
 
 ``running_fill`` picks between them by the device of its tensor. The
 device merge's fills, the dense scan's PLCP fill (``ms_dense._running_max``)

@@ -2,14 +2,17 @@
 
     python3 tools/lookback_variants.py [primary|500M]
 
-Builds variants of this tree's tail_good_join.cu and run_merge.cu (its
-two kernels, bucket_sums and run_merge), each a
-text edit of the committed sources (tile_scan.cuh included), with the
-port's nvcc flags, then runs one device merge of the jump scan's heads at
-the shape (default 500M: 5 Mbp x 100 docs at 1% SNP, seed 42) and times
-every variant on the inputs that merge gave the three kernels (CUDA events,
-5 launches, two rounds; each call reads its counts back, as the port's
-wrappers do), beside the committed kernel's outputs:
+Builds variants of this tree's tail_good_join.cu, run_merge.cu (its two
+kernels, bucket_sums and run_merge) and running_fill.cu, each a text edit
+of the committed sources (tile_scan.cuh included), with the port's nvcc
+flags, then runs one device merge of the jump scan's heads at the shape
+(default 500M: 5 Mbp x 100 docs at 1% SNP, seed 42) and times every
+variant on the inputs that merge gave the kernels (CUDA events, 5
+launches, two rounds; tail_good_join and run_merge read their counts back
+as the port's wrappers do; bucket_sums on outputs and scratch made
+outside the events; running_fill alone on each of the merge's fills and
+at 2^29 + 1 int64 rows, forward max and reverse min), beside the
+committed kernel's outputs:
 
 * ``committed`` — the sources as they are;
 * ``tile2048`` / ``tile3072`` — tail_good_join with 8 / 12 rows per
@@ -20,14 +23,36 @@ wrappers do), beside the committed kernel's outputs:
   its inclusive state with its aggregate;
 * ``no_halo`` — tail_good_join never takes a tile's prefix from the rows
   after it (every tile looks back);
-* ``no_lookback`` — the look-back returns the identity at once: a
-  timing of the loads, scans and stores alone (its outputs are wrong);
+* ``no_lookback`` — the look-back returns the identity at once (in
+  tile_scan.cuh and running_fill.cu): a timing of the loads, scans and
+  stores alone (its outputs are wrong);
 * ``threads256`` / ``threads512`` — run_merge with 256 / 512 threads
-  (2048- / 4096-lane tiles; committed: 1024 threads, 8192 lanes).
+  (2048- / 4096-lane tiles; committed: 1024 threads, 8192 lanes);
+* ``fill_tile16k`` — running_fill on 16 KB tiles (committed: 32 KB);
+* ``fill_threads128`` / ``fill_threads512`` — running_fill's 32 KB tiles
+  over 128 / 512 threads (committed: 256);
+* ``fill_blocks3`` — running_fill's launch bound at 3 blocks per SM
+  (committed: 4);
+* ``fill_absorb_all`` — every running_fill tile publishes its inclusive
+  state with its aggregate, as if each hid every row before it: the time
+  a tile would take with no look-back chain (outputs wrong where that
+  does not hold);
+* ``bs_threads512`` / ``bs_items8`` — bucket_sums with 512 threads (one
+  block an SM: 8192-lane tiles) / 8 lanes a thread (2048-lane tiles;
+  committed: 256 x 16, three blocks an SM);
+* ``bs_blocks2`` / ``bs_blocks4`` — bucket_sums at two blocks an SM
+  (registers capped at 128, a stage of 8192 ranks) / four (64);
+* ``bs_no_halo`` — bucket_sums' tiles always look back (the committed
+  kernel takes a tile's prefix from the 32 lanes before it when a
+  segment starts there);
+* ``bs_flags_then_states`` — bucket_sums on tile_scan.cuh's look-back
+  with flags and states apart (two trips to L2 a round; the committed
+  kernel packs each state word with its flag: one trip).
 
 Prints the card's name and power limit, each variant's registers and
-spills (nvcc -Xptxas=-v), then one line per variant, kernel and round: ms and whether the outputs equal the committed
-kernel's. Works in _profile_work/ (gitignored) and deletes it."""
+spills (nvcc -Xptxas=-v), then one line per variant, kernel, input and
+round: ms and whether the outputs equal the committed kernel's. Works in
+_profile_work/ (gitignored) and deletes it."""
 from __future__ import annotations
 
 import ctypes
@@ -46,9 +71,11 @@ import chip_smoke as cs  # noqa: E402  (also blocks JAX imports)
 
 CSRC = ROOT / "cmsbwt_tpu_torch" / "kernels" / "csrc"
 WORK = ROOT / "_profile_work"
-NO_LOOKBACK = ("tile_scan.cuh", "  __shared__ S slot;\n",
-               "  if (t >= 0) return Op::identity();\n"
-               "  __shared__ S slot;\n")
+NO_LOOKBACK = [("tile_scan.cuh", "  __shared__ S slot;\n",
+                "  if (t >= 0) return Op::identity();\n"
+                "  __shared__ S slot;\n")]
+FILL = "running_fill.cu"
+RM = "run_merge.cu"
 VARIANTS = {
     "committed": [],
     "tile2048": [("tail_good_join.cu", "constexpr int ITEMS = 16;",
@@ -65,17 +92,51 @@ VARIANTS = {
                    "    return false;")],
     "no_halo": [("tail_good_join.cu", "  const bool known = (pre.t_row",
                  "  const bool known = false && (pre.t_row")],
-    "no_lookback": [NO_LOOKBACK],
+    "no_lookback": NO_LOOKBACK,
     "threads256": [("run_merge.cu", "constexpr int RM_THREADS = 1024;",
                     "constexpr int RM_THREADS = 256;")],
     "threads512": [("run_merge.cu", "constexpr int RM_THREADS = 1024;",
                     "constexpr int RM_THREADS = 512;")],
+    "fill_tile16k": [(FILL, "constexpr int TILE_BYTES = 32768;",
+                      "constexpr int TILE_BYTES = 16384;")],
+    "fill_threads128": [(FILL, "constexpr int THREADS = 256;",
+                         "constexpr int THREADS = 128;")],
+    "fill_threads512": [(FILL, "constexpr int THREADS = 256;",
+                         "constexpr int THREADS = 512;")],
+    "fill_blocks3": [(FILL, "constexpr int MIN_BLOCKS = 4;",
+                      "constexpr int MIN_BLOCKS = 3;")],
+    "fill_absorb_all": [(FILL, "bool absorbs(const T&) { return false; }",
+                         "bool absorbs(const T&) { return true; }")],
+    "bs_threads512": [(RM, "constexpr int BS_THREADS = 256;",
+                       "constexpr int BS_THREADS = 512;"),
+                      (RM, "constexpr int BS_MIN_BLOCKS = 3;",
+                       "constexpr int BS_MIN_BLOCKS = 1;")],
+    "bs_items8": [(RM, "constexpr int BS_ITEMS = 16;",
+                   "constexpr int BS_ITEMS = 8;")],
+    "bs_blocks2": [(RM, "constexpr int BS_MIN_BLOCKS = 3;",
+                    "constexpr int BS_MIN_BLOCKS = 2;"),
+                   (RM, "constexpr int BS_RANKS = 4096;",
+                    "constexpr int BS_RANKS = 8192;")],
+    "bs_blocks4": [(RM, "constexpr int BS_MIN_BLOCKS = 3;",
+                    "constexpr int BS_MIN_BLOCKS = 4;")],
+    "bs_no_halo": [(RM, "      halo_known = lo > 0 && st != 0u;",
+                    "      halo_known = false;")],
+    "bs_flags_then_states": [
+        (RM, "lookback_packed<BktOp>(slots, t, tot.b, halo_known, halo)",
+         "lookback<BktOp>(lookback_at<Bkt>(slots, lane_tiles), t, tot.b,"
+         " halo_known, halo)"),
+        (RM, "  return packed_bytes(((long long)max(nec, 1) + BS_TILE - 1)"
+             " / BS_TILE,\n                      sizeof(Bkt));",
+         "  return 16 + lookback_bytes<Bkt>(((long long)max(nec, 1)"
+         " + BS_TILE - 1) / BS_TILE);")],
 }
+STEMS = ("tail_good_join", "run_merge", "running_fill")
 SHAPES = {"primary": (2_000_000, 10), "500M": (5_000_000, cs.BIG_DOCS)}
 
 
 def build(kernels) -> dict:
-    """Every variant's two libraries, built by parallel nvcc processes."""
+    """Every variant's libraries (the committed tree's three, a variant's
+    those whose sources it edits), built by parallel nvcc processes."""
     jobs = {}
     for name, edits in VARIANTS.items():
         d = WORK / name
@@ -86,7 +147,10 @@ def build(kernels) -> dict:
                 raise SystemExit(f"variant {name}: {f} no longer has "
                                  f"{old!r}")
             (d / f).write_text(text.replace(old, new))
-        for stem in ("tail_good_join", "run_merge"):
+        files = {f for f, _, _ in edits}
+        stems = [st for st in STEMS if not edits or f"{st}.cu" in files
+                 or "tile_scan.cuh" in files]
+        for stem in stems:
             jobs[name, stem] = subprocess.Popen(
                 [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
                  str(d / f"lib{stem}.so"), str(d / f"{stem}.cu")],
@@ -103,12 +167,13 @@ def build(kernels) -> dict:
               f"{regs}, spill stores {spills} B", flush=True)
         lib = ctypes.CDLL(str(WORK / name / f"lib{stem}.so"))
         f = getattr(lib, f"{stem}_scratch_bytes")
-        f.restype, f.argtypes = LL, [I]
+        f.restype, f.argtypes = LL, ([LL, I] if stem == "running_fill"
+                                     else [I])
         f = getattr(lib, f"{stem}_launch")
         f.restype = I
-        f.argtypes = ([P, P, P, P, I, P, P, P, I, P, P, P]
-                      if stem == "tail_good_join" else [P] * 3 + [I]
-                      + [P] * 4)
+        f.argtypes = {"tail_good_join": [P, P, P, P, I, P, P, P, I, P, P, P],
+                      "run_merge": [P] * 3 + [I] + [P] * 4,
+                      "running_fill": [P, P, LL, I, I, I, P, P]}[stem]
         if stem == "run_merge":
             lib.bucket_sums_scratch_bytes.restype = LL
             lib.bucket_sums_scratch_bytes.argtypes = [I]
@@ -178,34 +243,75 @@ def main() -> int:
             return out_len[:n], out_chr[:n]
 
         br, bid, m_c, nec, n_pad = cap.sums
-
-        def sums(lib):
-            outs = [torch.zeros(n_pad, **i32), torch.zeros(n_pad, **i32),
+        sum_outs = [torch.zeros(n_pad, **i32), torch.zeros(n_pad, **i32),
                     torch.zeros(br.numel(), **i32)]
-            scratch = torch.zeros(int(lib.bucket_sums_scratch_bytes(nec)),
-                                  dtype=torch.uint8, device="cuda")
+
+        def sums(lib, scratch=None):
+            timed = scratch is not None
+            if not timed:
+                scratch = torch.zeros(int(lib.bucket_sums_scratch_bytes(
+                    nec)), dtype=torch.uint8, device="cuda")
             if lib.bucket_sums_launch(ptr(br), ptr(bid), ptr(m_c), nec,
-                                      br.numel(), n_pad, *map(ptr, outs),
+                                      br.numel(), n_pad, *map(ptr, sum_outs),
                                       ptr(scratch), stream):
                 raise SystemExit("bucket_sums launch failed")
-            return outs
+            return None if timed else [o.clone() for o in sum_outs]
 
-        want = {"tail_good_join": join(libs["committed", "tail_good_join"]),
-                "run_merge": runs(libs["committed", "run_merge"]),
-                "bucket_sums": sums(libs["committed", "run_merge"])}
-        print(f"lookback_variants[{shape}]: J={J} join rows, L={L} lanes",
-              flush=True)
+        # running_fill: every fill of the merge, then 2^29 + 1 int64 rows
+        fills = [(f"fill{i}", v, op, rev)
+                 for i, (v, op, rev) in enumerate(cap.fills)]
+        big = cs.fill_input(cs.BIG_FILL, torch.int64, 9, 5)
+        fills += [("int64_big_max", big, "max", False),
+                  ("int64_big_min_reverse", big, "min", True)]
+        fill_out = {}
+
+        def fill(lib, case, scratch=None):
+            _, v, op, rev = case
+            m, elem = v.numel(), v.element_size()
+            timed = scratch is not None
+            if not timed:
+                scratch = torch.zeros(int(lib.running_fill_scratch_bytes(
+                    m, elem)), dtype=torch.uint8, device="cuda")
+            out = fill_out.setdefault(id(v), torch.empty_like(v))
+            if lib.running_fill_launch(ptr(v), ptr(out), m, elem,
+                                       int(op == "min"), int(rev),
+                                       ptr(scratch), stream):
+                raise SystemExit("running_fill launch failed")
+            return None if timed else [out.clone()]
+
+        def alone(scratch_bytes, fn):
+            return cs.alone_ms(lambda sc: fn(sc), scratch_bytes)
+
+        kinds_of = {
+            "tail_good_join": lambda lib: [
+                ("tail_good_join", lambda: join(lib), None)],
+            "run_merge": lambda lib: [
+                ("run_merge", lambda: runs(lib), None),
+                ("bucket_sums", lambda: sums(lib), (
+                    int(lib.bucket_sums_scratch_bytes(nec)),
+                    lambda sc: sums(lib, sc)))],
+            "running_fill": lambda lib: [
+                (f"running_fill[{c[0]}]", lambda c=c: fill(lib, c), (
+                    int(lib.running_fill_scratch_bytes(c[1].numel(),
+                                                       c[1].element_size())),
+                    lambda sc, c=c: fill(lib, c, sc))) for c in fills]}
+        want = {}
+        for stem in STEMS:
+            for kernel, fn, _ in kinds_of[stem](libs["committed", stem]):
+                want[kernel] = fn()
+        print(f"lookback_variants[{shape}]: J={J} join rows, L={L} lanes, "
+              f"fills {[c[1].numel() for c in fills]}", flush=True)
         for rnd in range(2):
             for (name, stem), lib in libs.items():
-                kinds = ([("tail_good_join", join)]
-                         if stem == "tail_good_join"
-                         else [("run_merge", runs), ("bucket_sums", sums)])
-                for kernel, fn in kinds:
-                    got = fn(lib)
+                for kernel, fn, lone in kinds_of[stem](lib):
+                    got = fn()
                     torch.cuda.synchronize()
                     same = all(a.shape == b.shape and torch.equal(a, b)
                                for a, b in zip(got[:3], want[kernel][:3]))
-                    ms = cs.cuda_ms(lambda: fn(lib), 5)
+                    del got
+                    # the kernel alone where its scratch can be made
+                    # beforehand (outputs made once, outside the events)
+                    ms = (alone(*lone) if lone else cs.cuda_ms(fn, 5))
                     print(f"lookback_variants[{shape}] round {rnd} {name} "
                           f"{kernel}: {ms:.3f} ms; outputs equal: {same}",
                           flush=True)

@@ -134,11 +134,17 @@ the pad lanes) and as Tensor.index_add_, and the bucket_sums kernel.
 The merge-kernels mode runs one device merge of the jump scan's heads
 per shape (primary, 500M) and holds each of the merge's kernels on the
 inputs it got to its plain version (exact), timed with its bound (and
-bucket_sums beside three Tensor.index_add_); with ``--parent DIR`` (an
-older checkout, e.g. ``_export/parent`` from ``git archive``) it also
-times that checkout's tail_good_join and run_merge against this tree's
-on the same inputs, parent, this, this, parent, after checking that
-their outputs are equal.
+bucket_sums beside three Tensor.index_add_); running_fill and
+bucket_sums are also timed alone (CUDA events around the launches only)
+beside Tensor.copy_ of the same bytes, and running_fill on each of the
+merge's fills beside one 1-D torch.cummax. Then running_fill at 2^29 + 1
+int64 rows (``int64_big``) and on the dense scan's PLCP fill at primary
+and ecoli_dense (``primary_dense``, ``ecoli_dense``; SHAPE, a comma
+list, keeps some of these names). With ``--parent DIR`` (an older
+checkout, e.g. ``_export/parent`` from ``git archive``) it also times
+that checkout's tail_good_join, run_merge, bucket_sums and running_fill
+against this tree's on the same inputs, parent, this, this, parent,
+after checking that their outputs are equal.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -940,24 +946,99 @@ def parent_merge_kernels(parent: pathlib.Path):
     return mod
 
 
+def ab_turns(tag: str, kname: str, old, timers: dict) -> None:
+    """Each of ``timers`` ({label: fn(kernels module) -> ms}) for an older
+    checkout's kernels module ``old`` and this tree's, in turns: parent,
+    this, this, parent."""
+    from cmsbwt_tpu_torch import kernels
+    for label, fn in timers.items():
+        times = [(who, fn(k)) for who, k in (("parent", old),
+                                             ("this", kernels),
+                                             ("this", kernels),
+                                             ("parent", old))]
+        print(f"merge_kernels[{tag}] A/B {kname} {label}: " + ", ".join(
+            f"{w} {ms:.3f} ms" for w, ms in times), flush=True)
+
+
+def fill_case(tag: str, v, op: str, rev: bool, old, reps: int = 5) -> None:
+    """running_fill on ``v``: against its plain version (exact), timed as
+    the wrapper runs it and alone, beside Tensor.copy_ of the same bytes
+    and one 1-D torch.cummax (chip_smoke.fill_times); with ``old`` (an
+    older checkout's kernels module), its outputs must be equal, and the
+    two kernels are timed in turns, alone and as each wrapper runs it."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.ops.fill import running_fill_reference
+    r = cs.compare("running_fill", tag, "running_fill_reference",
+                   lambda: (kernels.running_fill_cuda(v, op, rev),),
+                   lambda: (running_fill_reference(v, op, rev),),
+                   f"m={v.numel()} {v.dtype} {op}"
+                   f"{' reverse' if rev else ''}", 2 * cs.nbytes(v))
+    cs.fill_times(kernels, tag, r, v, op, rev)
+    if old is None:
+        return
+    if not torch.equal(old.running_fill_cuda(v, op, rev), r["outputs"][0]):
+        raise SystemExit(f"running_fill[{tag}]: the parent's kernel and "
+                         "this tree's differ")
+    del r
+    ab_turns(tag, "running_fill", old, {
+        "alone": lambda k: cs.alone_ms(*cs.fill_launch(k, v, op, rev)),
+        "as the wrapper runs it": lambda k: cs.cuda_ms(
+            lambda: k.running_fill_cuda(v, op, rev), reps)})
+
+
+def dense_fill(x_aug, sx):
+    """The dense scan's PLCP fill on one joint string (ms_dense._fill_ell
+    over the lifted irreducible rows): its running_fill input, op and
+    direction."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    d = cs.dense_inputs(x_aug, sx)
+    rho, m = d["rho"], d["m"]
+    ai = d["ai"][:rho]
+    h = kernels.lcp_lift_cuda(d["hist"], d["packs"], ai, d["bi"][:rho],
+                              d["lv"][:rho], m, lmax=d["lmax"])
+    got, orig = [], md.running_fill
+
+    def keep(v, op="max", reverse=False):
+        got.append((v, op, reverse))
+        return orig(v, op, reverse)
+    md.running_fill = keep
+    try:
+        md._fill_ell(h, ai, d["isa"], m)
+    finally:
+        md.running_fill = orig
+    return got[0]
+
+
+# the dense scan's PLCP fill: the bench's primary and ecoli_dense shapes,
+# unblocked (name, seed, reference chars, docs, SNP rate)
+DENSE_FILL_SHAPES = (("primary_dense", 42, 2_000_000, 10, 0.01),
+                     ("ecoli_dense", 42, 5_000_000, 20, 0.01))
+
+
 def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
                        reps: int = 5) -> None:
     """The device merge's kernels on the inputs one merge of the jump
     scan's heads gives them (chip_smoke.MergeCapture), at each shape of
     MERGE_SHAPES: each against its plain version (exact) and timed
     (chip_smoke.merge_kernel_cases: CUDA events over 5 launches, the byte
-    bound, bucket_sums beside three Tensor.index_add_). With ``parent``,
-    its tail_good_join and run_merge are timed against this tree's on the
+    bound; running_fill and bucket_sums also alone, beside Tensor.copy_
+    of the same bytes and their library calls), then running_fill on
+    every fill of that merge; then running_fill at 2^29 + 1 int64 rows
+    (``int64_big``) and on the dense scan's PLCP fill at the shapes of
+    DENSE_FILL_SHAPES. With ``parent``, its tail_good_join, run_merge,
+    bucket_sums and running_fill are timed against this tree's on the
     same inputs, in turns (parent, this, this, parent; ``reps`` launches
-    each), and their outputs must be equal."""
+    each), after their outputs were found equal."""
     from cmsbwt_tpu_torch import kernels
     from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.ops import ms_jump as mj
     kernels.load()
     old = parent_merge_kernels(parent) if parent else None
+    want = lambda name: not only or name in only.split(",")
     for name, seed, ref_len, docs, snp in MERGE_SHAPES:
-        if only and name not in only.split(","):
+        if not want(name):
             continue
         lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
         x_aug, coll = load_inputs(str(lst))
@@ -975,25 +1056,44 @@ def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
         torch.cuda.empty_cache()
         out = cs.merge_kernel_cases(name, cap)
         print(f"merge_kernels[{name}] " + json.dumps(out), flush=True)
+        for i, (v, op, rev) in enumerate(cap.fills):
+            fill_case(f"{name}_fill{i}", v, op, rev, old, reps)
         if old is not None:
             runs = {"tail_good_join": (cap.join, lambda k, a: k
                                        .tail_good_join_cuda(*a)[:3]),
                     "run_merge": (cap.runs, lambda k, a: k
-                                  .run_merge_cuda(*a)[:2])}
+                                  .run_merge_cuda(*a)[:2]),
+                    "bucket_sums": (cap.sums, lambda k, a: k
+                                    .bucket_sums_cuda(*a)[:3])}
             for kname, (args, fn) in runs.items():
                 a, b = fn(old, args), fn(kernels, args)
                 if not all(torch.equal(x, y) for x, y in zip(a, b)):
                     raise SystemExit(f"{kname}[{name}]: the parent's kernel "
                                      "and this tree's differ")
                 del a, b
-                times = []
-                for who, k in (("parent", old), ("this", kernels),
-                               ("this", kernels), ("parent", old)):
-                    times.append((who, cs.cuda_ms(lambda: fn(k, args),
-                                                  reps)))
-                print(f"merge_kernels[{name}] A/B {kname}: " + ", ".join(
-                    f"{w} {ms:.3f} ms" for w, ms in times), flush=True)
+                ab_turns(name, kname, old, {
+                    "as the wrapper runs it": lambda k: cs.cuda_ms(
+                        lambda: fn(k, args), reps)})
+            ab_turns(name, "bucket_sums", old, {
+                "alone": lambda k: cs.alone_ms(
+                    *cs.bucket_sums_launch(k, *cap.sums))})
         del cap
+        torch.cuda.empty_cache()
+        shutil.rmtree(WORK / name)
+    if want("int64_big"):
+        for op, rev in (("max", False), ("min", True)):
+            v = cs.fill_input(cs.BIG_FILL, torch.int64, 9, 5)
+            fill_case(f"int64_{cs.BIG_FILL}_{op}{'_reverse' if rev else ''}",
+                      v, op, rev, old, reps)
+            del v
+            torch.cuda.empty_cache()
+    for name, seed, ref_len, docs, snp in DENSE_FILL_SHAPES:
+        if not want(name):
+            continue
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        x_aug, coll = load_inputs(str(lst))
+        fill_case(f"{name}_plcp", *dense_fill(x_aug, coll.sx), old, reps)
+        del x_aug, coll
         torch.cuda.empty_cache()
         shutil.rmtree(WORK / name)
 
@@ -1119,7 +1219,7 @@ def main() -> int:
                     help="the merge's kernels on a real merge's inputs at "
                     "primary and 500 Mchars (or at SHAPE alone), against "
                     "their plain versions and timed; with --parent, its "
-                    "tail_good_join and run_merge against this tree's")
+                    "kernels against this tree's")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
