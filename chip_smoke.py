@@ -120,7 +120,8 @@ every phase passed):
    (_bucket_sums_reference) on built lanes at its tile edges (BS_TILE)
    with short and long rank gaps, its outputs given memory that held
    0x5A bytes (garbage_outputs: a slot it leaves unwritten shows), and on
-   a falling bucket_rank, which its check must refuse; running_fill (the
+   a falling bucket_rank and a bid off by one inside a tile, where it
+   must set its plain version's fault word; running_fill (the
    merge's largest fill), tail_good_join (_tail_good_join_reference),
    tail_exact_credit (_exact_credit_reference), bucket_sums (timed beside
    three Tensor.index_add_) and run_merge (_run_merge_reference) on the
@@ -130,7 +131,7 @@ every phase passed):
    merge's ceiling, MERGE_BYTES_PER_CHAR per collection char);
    running_fill and bucket_sums there also alone (CUDA events around the
    launches only), beside Tensor.copy_ of the same bytes and one 1-D
-   torch.cummax of the fill. Every run that merges on the device
+   torch.cummax / cummin of the fill. Every run that merges on the device
    launches running_fill, tail_good_join, bucket_sums and run_merge, and
    tail_exact_credit once per merge with exact pairs (MERGE_KERNELS); the
    sharded merge and the dense scan launch running_fill; no run launches
@@ -523,14 +524,17 @@ def bucket_sums_launch(K, br, bid, m_c, nec: int, n_pad: int):
 def fill_times(K, tag: str, r: dict, v, op: str, rev: bool) -> dict:
     """Beside a running_fill result ``r`` (compare: the wrapper's time):
     the kernel alone, Tensor.copy_ of the same bytes (m rows in, m rows
-    out) and one 1-D torch.cummax of ``v`` (the library call)."""
+    out) and the library call, one 1-D torch.cummax (op "max") or
+    torch.cummin ("min") of ``v``; the library scans forward only, so a
+    reverse fill is timed against the forward call of its op."""
+    cum = torch.cummax if op == "max" else torch.cummin
     r["alone_ms"] = alone_ms(*fill_launch(K, v, op, rev))
     r["copy_ms"] = copy_ms(2 * nbytes(v))
-    r["library_ms"] = cuda_ms(lambda: torch.cummax(v, 0), 2)
+    r["library_ms"] = cuda_ms(lambda: cum(v, 0), 2)
     log(f"kernel running_fill[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
         f"wrapper runs it {r['ms']:.3f} ms, copy_ of the same bytes "
-        f"{r['copy_ms']:.3f} ms, 1-D torch.cummax {r['library_ms']:.3f} ms,"
-        f" bound {r['bound_ms']:.4f} ms")
+        f"{r['copy_ms']:.3f} ms, 1-D torch.{cum.__name__} "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
     return r
 
 
@@ -841,15 +845,12 @@ def fill_cases() -> list:
                     f"m={BIG_FILL} int64 {op}{' reverse' if rev else ''}",
                     2 * nbytes(v))
         fill_times(kernels, name, r, v, op, rev)
-        cum = torch.cummax if op == "max" else torch.cummin
-        r["library_ms"] = cuda_ms(lambda: cum(v, 0), 2)
         if not torch.equal(row_blocked_fill(v, op, rev), r["outputs"][0]):
             fail(f"running_fill[{name}]: the row-blocked form differs")
         r["row_blocked_ms"] = cuda_ms(lambda: row_blocked_fill(v, op, rev),
                                       2)
-        log(f"kernel running_fill[{name}]: library_ms (1-D torch."
-            f"{cum.__name__}) {r['library_ms']:.3f}, row-blocked form "
-            f"{r['row_blocked_ms']:.3f}, kernel {r['ms']:.3f}")
+        log(f"kernel running_fill[{name}]: row-blocked form "
+            f"{r['row_blocked_ms']:.3f} ms, kernel {r['ms']:.3f}")
         del r["outputs"], v
         out.append(r)
         torch.cuda.empty_cache()
@@ -903,13 +904,10 @@ class MergeCapture:
 
 
 def bucket_sums_bytes(bucket_rank, m_c, nec: int, n_pad: int) -> int:
-    """Bytes bucket_sums must move: bucket_rank and m_c of the nec valid
-    lanes read once, bid of each bucket's last lane, and its three
-    outputs (hb_at, ncls_at over n_pad, hb_b over h_pad) written once."""
-    k = max(nec, 0)
-    br = bucket_rank[:k]
-    buckets = int((br[1:] != br[:-1]).sum()) + 1 if k else 0
-    return 8 * k + 4 * buckets + 4 * (2 * n_pad + bucket_rank.numel())
+    """Bytes bucket_sums must move: bucket_rank, bid (each lane's checked)
+    and m_c of the nec valid lanes read once, and its three outputs
+    (hb_at, ncls_at over n_pad, hb_b over h_pad) written once."""
+    return 12 * max(nec, 0) + 4 * (2 * n_pad + bucket_rank.numel())
 
 
 def bucket_sums_library(bucket_rank, bid, m_c, nec: int, n_pad: int):
@@ -967,8 +965,9 @@ def bucket_sums_cases() -> int:
     that held 0x5A bytes (garbage_outputs): one bucket of every class,
     each class its own bucket, buckets straddling tiles, nec 0 and 1, a
     valid class of rank 0, pad lanes only, rank gaps longer than a tile;
-    then a valid lane whose bucket_rank falls, which bucket_sums_check
-    must refuse. Returns the cases run."""
+    then a valid lane whose bucket_rank falls and a bid off by one inside
+    a tile, where the kernel must set the plain version's fault word and
+    bucket_sums_check refuse it. Returns the cases run."""
     from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.kernels import bucket_sums_cuda
     T = BS_TILE
@@ -1001,23 +1000,33 @@ def bucket_sums_cases() -> int:
                     fail(f"bucket_sums[{name}, {pads} pad lanes, n_pad "
                          f"{n_pad}] differs from its plain version")
                 cases += 1
-    # a falling rank: the plain version and the kernel both flag it, and
-    # the check raises
+    # a falling rank (bits 0 and 2: it splits its bucket) and a bid off
+    # by one at a lane inside a tile (bit 2): the plain version and the
+    # kernel set the same fault word, and the check raises
     br, bid, mc, nec = bucket_sums_lanes([T, T + 3, 9], 4 * T + 11,
                                          2 * T + 20, False, 99)
-    br[T + 1] = br[0] - 1
-    for fn in (bucket_sums_cuda, dm._bucket_sums_reference):
-        try:
-            dm.bucket_sums_check(fn(br, bid, mc, nec, 4 * T + 11)[3])
-        except RuntimeError as e:
-            if "below its predecessor" not in str(e):
-                raise
-        else:
-            fail(f"bucket_sums: {fn.__name__} let a falling bucket_rank "
-                 "through")
+    bad_br, bad_bid = br.clone(), bid.clone()
+    bad_br[T + 1] = br[0] - 1
+    bad_bid[T + T // 2] += 1
+    for what, a, bits, msg in (
+            ("a falling bucket_rank", (bad_br, bid), 5, "below its"),
+            ("a bid off by one inside a tile", (br, bad_bid), 4, "bid is")):
+        for fn in (bucket_sums_cuda, dm._bucket_sums_reference):
+            fault = fn(*a, mc, nec, 4 * T + 11)[3]
+            if int(fault[0]) != bits:
+                fail(f"bucket_sums: {fn.__name__} gave fault "
+                     f"{int(fault[0])} for {what}, not {bits}")
+            try:
+                dm.bucket_sums_check(fault)
+            except RuntimeError as e:
+                if msg not in str(e):
+                    raise
+            else:
+                fail(f"bucket_sums: {fn.__name__} let {what} through")
     log(f"kernel bucket_sums: {cases} built cases exact (tolerance {TOL}); "
-        "a falling bucket_rank raised in the kernel's and the plain "
-        "version's check")
+        "a falling bucket_rank and a bid off by one inside a tile gave the "
+        "kernel and the plain version the same fault word, which the check "
+        "refused")
     return cases
 
 

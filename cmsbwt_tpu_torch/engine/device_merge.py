@@ -774,16 +774,22 @@ def _bucket_sums_reference(bucket_rank, bid, m_c, nec: int, n_pad: int):
     size m_c and a count of 1 added at its bucket_rank (every pad lane at
     index 0), and m_c at its bucket ``bid`` (valid lanes only); ``fault``
     sets bit 0 where a valid lane's bucket_rank is below its
-    predecessor's and bit 1 where one lies outside [0, n_pad), as the
-    kernel does (whose segmented sums need that order). Plain torch, on
-    any device."""
+    predecessor's, bit 1 where one lies outside [0, n_pad) and bit 2
+    where a valid lane's bid is not the count of segment starts (lanes
+    whose bucket_rank differs from their predecessor's) up to it less
+    one, as the kernel does (whose segmented sums need that order, and
+    which writes each bucket's sum at its index among the segments).
+    Plain torch, on any device."""
     REFERENCE_CALLS["_bucket_sums_reference"] += 1
     dev = bucket_rank.device
     h_pad = int(bucket_rank.shape[0])
     k = max(nec, 0)
     br = bucket_rank[:k]
+    starts = _cat(_full(min(k, 1), True, torch.bool, br), br[1:] != br[:-1])
     fault = (int(bool((br[1:] < br[:-1]).any()))
-             | 2 * int(bool(((br < 0) | (br >= n_pad)).any())))
+             | 2 * int(bool(((br < 0) | (br >= n_pad)).any()))
+             | 4 * int(bool((bid[:k] != _cumsum32(starts.to(I32)) - 1)
+                            .any())))
     evalid = _ar(h_pad, bucket_rank) < nec
     br0 = _w32(evalid, bucket_rank, 0)
     every = torch.ones_like(evalid)
@@ -811,8 +817,8 @@ def bucket_sums_check(fault) -> None:
             "bucket_rank lies outside [0, n_pad)")
     if f:
         raise RuntimeError(
-            "runs_emit_dev: bucket_sums found a class lane whose bid is not "
-            "its bucket's index (the kernel checks it at its tiles' edges)")
+            "runs_emit_dev: bucket_sums found a valid class lane whose bid "
+            "is not its bucket's index")
 
 
 def run_merge(k_s, len_s, chr_s):

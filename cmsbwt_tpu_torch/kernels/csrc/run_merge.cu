@@ -25,9 +25,11 @@
 // starts), and each sum is a segmented sum. A valid lane whose
 // bucket_rank falls below its predecessor's breaks that order: the
 // kernel sets bit 0 of the fault word (bit 1 for a rank outside [0,
-// n_pad), whose stores it skips; bit 2 for a bid at a tile's edge that
-// does not count the buckets), keeps every store inside its outputs, and
-// the caller raises.
+// n_pad), whose stores it skips; bit 2 for a valid lane whose bid is not
+// the count of segment starts up to it less one), keeps every store
+// inside its outputs, and the caller raises. Bit 2 is the price of
+// writing every slot once: hb_b's slot of a bucket is its index among the
+// segments, so a bid that does not count them cannot be honoured.
 //
 // run_merge — the end of runs_emit_dev (:694-716): the group flags from
 // each lane's neighbours, the int64 cumsum, the packed (row << 32 | exc)
@@ -51,20 +53,22 @@
 // segment started): a tile where a segment starts publishes its inclusive
 // state at once (it absorbs), and a tile whose 32 lanes before it hold a
 // segment start takes its prefix from them (the sums since that start)
-// and does not look back; the look-back is lookback_packed. Each warp loads its part of bucket_rank and
-// m_c with coalesced 16-byte vectors (128 B a thread in flight) and hands
-// its threads their consecutive lanes through a swizzled shared tile, as
-// running_fill.cu does. The outputs are staged: a tile owns the ranks
-// between its first lane's predecessor's and its last lane's (exclusive),
-// and the buckets between theirs; every bucket of those ranks starts and
-// ends in the tile, and every other rank there holds none. The tile zeroes
-// up to BS_RANKS of those ranks in shared memory (the rest, past a long
-// rank gap, in device memory), its segments' last lanes put their sums
-// there (and their bucket sums, at their index in the tile's starts), and
-// the block stores both coalesced. The two buckets a tile shares with its
-// neighbours are stored by their last lanes directly, and every block
-// zeroes a share of the ranks past the last lane's and of the buckets past
-// the last one. bid is read at the tiles' edges only.
+// and does not look back. Each warp loads its part of bucket_rank, bid
+// and m_c with coalesced 16-byte vectors (64 B a thread in flight per
+// array) and hands its threads their consecutive lanes through a swizzled
+// shared tile, as running_fill.cu does. The outputs are staged: a tile
+// owns the ranks between its first lane's predecessor's and its last
+// lane's (exclusive), and the buckets between theirs; every bucket of
+// those ranks starts and ends in the tile, and every other rank there
+// holds none. The tile zeroes up to BS_RANKS of those ranks in shared
+// memory (the rest, past a long rank gap, in device memory), its
+// segments' last lanes put their sums there (and their bucket sums, at
+// their index in the tile's starts), and the block stores both
+// coalesced. The two buckets a tile shares with its neighbours are stored
+// by their last lanes directly, and every block zeroes a share of the
+// ranks past the last lane's and of the buckets past the last one. Each
+// valid lane's bid is checked against its
+// predecessor's: bid(r) = bid(r - 1) + start(r), from bid(-1) = -1.
 //
 // run_merge: 1024 threads of 8 lanes (8192-lane tiles); its state is (len
 // since the group's start, whether a group started, groups ended so far):
@@ -73,13 +77,13 @@
 // the neighbouring lanes by shuffle, across warps and tiles by 4-byte
 // loads.
 //
-// What bounds them on this card: bytes. bucket_sums must read 8 B per
-// lane (bucket_rank, m_c) and write its three outputs (8 B per reference
-// row and 4 B per class); it reads each valid lane once. run_merge reads
-// 12 B per lane and writes 5 B per group; it reads each lane once. Its
-// tiles wait on their look-back (the group count adds up over every
-// tile), and that wait, not the bytes, sets its time: larger tiles wait
-// less per lane (tools/lookback_variants.py).
+// What bounds them on this card: bytes. bucket_sums must read 12 B per
+// valid lane (bucket_rank, bid, m_c) and write its three outputs (8 B per
+// reference row and 4 B per class); it reads each valid lane once.
+// run_merge reads 12 B per lane and writes 5 B per group; it reads each
+// lane once. Its tiles wait on their look-back (the group count adds up
+// over every tile), and that wait, not the bytes, sets its time: larger
+// tiles wait less per lane (tools/lookback_variants.py).
 //
 // Plain C interface (bound with ctypes): each *_launch returns
 // cudaGetLastError() after its launch; it launches on the given stream,
@@ -187,6 +191,40 @@ __device__ __forceinline__ void bs_transpose(int4* buf, int q0,
   __syncwarp();   // buf is reused by the next array
 }
 
+// 4 (fault bit 2) unless each of the thread's valid lanes has the bid of
+// the lane before it plus its start bit (``starts``; bid(-1) = -1): the
+// vectors of bid a warp loaded, read back by thread as bs_transpose does,
+// one vector at a time
+__device__ __forceinline__ int bid_check(int4* buf, int q0, const int4* w,
+                                         unsigned starts, int r0, int nv,
+                                         const int* __restrict__ bid_s) {
+#pragma unroll
+  for (int i = 0; i < BS_NV; ++i) buf[swz<BS_NV>(q0 + i * 32)] = w[i];
+  __syncwarp();
+  int first = 0, prev = 0, bad = 0;
+#pragma unroll
+  for (int u = 0; u < BS_NV; ++u) {
+    const int4 x = buf[swz<BS_NV>(threadIdx.x * BS_NV + u)];
+    const int e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * u + k;
+      if (j == 0)
+        first = e[0];
+      else if (r0 + j < nv && e[k] != prev + int((starts >> j) & 1u))
+        bad = 4;
+      prev = e[k];
+    }
+  }
+  __syncwarp();   // buf is reused by the next array
+  // the thread's first lane against the lane before it
+  int before = __shfl_up_sync(FULL, prev, 1);
+  if ((threadIdx.x & 31) == 0)
+    before = r0 == 0 ? -1 : (r0 - 1 < nv ? __ldg(bid_s + r0 - 1) : 0);
+  if (r0 < nv && first != before + int(starts & 1u)) bad = 4;
+  return bad;
+}
+
 // a[lo, hi) = 0 by the block's threads, 16-byte stores where aligned
 __device__ __forceinline__ void zero_span(int* __restrict__ a, long long lo,
                                           long long hi) {
@@ -262,14 +300,6 @@ __global__ void __launch_bounds__(BS_THREADS, BS_MIN_BLOCKS)
   // lanes are int32 indices: nec <= h_pad < 2^31
   const int lo = t * BS_TILE;
   const int q0 = warp * 32 * BS_NV + lane;
-  int br[BS_ITEMS], mc[BS_ITEMS];
-  if (lanes) {
-    int4 w[BS_NV];
-    bs_load(br_s, lo, q0, nv, vec, w);
-    bs_transpose(buf, q0, w, br);
-    bs_load(mc_s, lo, q0, nv, vec, w);
-    bs_transpose(buf, q0, w, mc);
-  }
   // every block zeroes its share of the tails: the ranks past the last
   // valid lane's and the buckets past the last one (bid[nv - 1] + 1
   // buckets)
@@ -278,14 +308,18 @@ __global__ void __launch_bounds__(BS_THREADS, BS_MIN_BLOCKS)
              nv > 0 ? min(max(__ldg(bid_s + nv - 1), 0), h_pad - 1) + 1 : 0,
              n_pad, h_pad, pad);
   if (!lanes) return;
+  int br[BS_ITEMS], mc[BS_ITEMS];
+  int4 w[BS_NV];
+  bs_load(br_s, lo, q0, nv, vec, w);
+  bs_transpose(buf, q0, w, br);
   const int hi = min(lo + BS_TILE, nv);
   const int r0 = lo + threadIdx.x * BS_ITEMS;
   // the tile's ranks [A, B) and its first bucket J0 + 1 (clamped: a
   // stray rank or bid faults, and no store leaves the outputs)
   const int A = min(max(lo == 0 ? 0 : __ldg(br_s + lo - 1) + 1, 0), n_pad);
   const int B = min(max(__ldg(br_s + hi - 1), A), n_pad);
-  const int j0_raw = lo == 0 ? -1 : __ldg(bid_s + lo - 1);
-  const int J0 = min(max(j0_raw, -1), h_pad - 1);
+  const int J0 = min(max(lo == 0 ? -1 : __ldg(bid_s + lo - 1), -1),
+                     h_pad - 1);
   // the lane before the thread's first and after its last; then the
   // lanes that start a segment and those that end one, as bit masks
   int prv = __shfl_up_sync(FULL, br[BS_ITEMS - 1], 1);
@@ -294,20 +328,28 @@ __global__ void __launch_bounds__(BS_THREADS, BS_MIN_BLOCKS)
   if (lane == 31 && r0 + BS_ITEMS < nv) nxt = __ldg(br_s + r0 + BS_ITEMS);
   int fault = 0;
   unsigned starts = 0u, ends = 0u;
-  BktN acc = BktNOp::identity();
 #pragma unroll
   for (int j = 0; j < BS_ITEMS; ++j) {
     const int r = r0 + j;
     const int p = j > 0 ? br[j - 1] : prv;
     const int nx = j + 1 < BS_ITEMS ? br[j + 1] : nxt;
-    const bool start = r == 0 || p != br[j];
     if (r < nv) {
       if (r > 0 && br[j] < p) fault |= 1;
-      starts |= unsigned(start) << j;
+      starts |= unsigned(r == 0 || p != br[j]) << j;
       ends |= unsigned(r + 1 == nv || nx != br[j]) << j;
-      acc = BktNOp::combine(acc, BktN{Bkt{unsigned(mc[j]), 1u, int(start)},
-                                      int(start)});
     }
+  }
+  bs_load(bid_s, lo, q0, nv, vec, w);
+  fault |= bid_check(buf, q0, w, starts, r0, nv, bid_s);
+  bs_load(mc_s, lo, q0, nv, vec, w);
+  bs_transpose(buf, q0, w, mc);
+  BktN acc = BktNOp::identity();
+#pragma unroll
+  for (int j = 0; j < BS_ITEMS; ++j) {
+    const int start = (starts >> j) & 1u;
+    if (r0 + j < nv)
+      acc = BktNOp::combine(acc, BktN{Bkt{unsigned(mc[j]), 1u, start},
+                                      start});
   }
   // the halo: the 32 lanes before the tile give its prefix — the sums
   // since the last segment start among them — unless none starts there
@@ -332,11 +374,8 @@ __global__ void __launch_bounds__(BS_THREADS, BS_MIN_BLOCKS)
   const BktN ex = block_scan<false, BktNOp>(acc, BktNOp::identity(), wagg,
                                             &tot);
   const Bkt st0 = BktOp::combine(
-      lookback_packed<BktOp>(slots, t, tot.b, halo_known, halo), ex.b);
+      lookback<BktOp>(slots, t, tot.b, halo_known, halo), ex.b);
   const int S = tot.n;
-  if (threadIdx.x == 0
-      && (j0_raw != J0 || __ldg(bid_s + hi - 1) != j0_raw + S))
-    fault |= 4;   // bid is not the bucket's index
   // ranks [A, W) are staged; past them (a tile whose ranks span more
   // than BS_RANKS: long rank gaps) the sums are stored directly and each
   // segment's first lane zeroes the gap before its rank, a long gap by
@@ -479,10 +518,11 @@ __device__ __forceinline__ Grp element(const Lanes& w, int j, long long r0,
 __global__ void __launch_bounds__(RM_THREADS)
     rm_scan(const int* __restrict__ k_s, const int* __restrict__ len_s,
             const int* __restrict__ chr_s, int L, int tiles, bool vec,
-            Lookback<Grp> lb, int* __restrict__ out_len,
+            unsigned* __restrict__ ticket,
+            unsigned long long* __restrict__ slots, int* __restrict__ out_len,
             unsigned char* __restrict__ out_chr) {
   __shared__ Grp wagg[33];
-  const int t = take_ticket(lb.ticket);
+  const int t = take_ticket(ticket);
   const long long r0 = (long long)t * RM_TILE
                        + (long long)threadIdx.x * ITEMS;
   Lanes w;
@@ -495,9 +535,9 @@ __global__ void __launch_bounds__(RM_THREADS)
   Grp tot;
   const Grp ex = block_scan<false, GrpOp>(acc, GrpOp::identity(), wagg,
                                           &tot);
-  const Grp carry = lookback<GrpOp>(lb, t, tot);
-  if (t == tiles - 1 && threadIdx.x == 0)
-    lb.head[0] = GrpOp::combine(carry, tot).cnt;   // n_runs
+  const Grp carry = lookback<GrpOp>(slots, t, tot);
+  if (t == tiles - 1 && threadIdx.x == 0)   // n_runs
+    reinterpret_cast<int*>(ticket)[1] = GrpOp::combine(carry, tot).cnt;
   Grp st = GrpOp::combine(carry, ex);
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
@@ -515,14 +555,14 @@ extern "C" {
 
 // bytes of scratch (zeroed by the caller) for nec valid lanes
 long long bucket_sums_scratch_bytes(int nec) {
-  return packed_bytes(((long long)max(nec, 1) + BS_TILE - 1) / BS_TILE,
-                      sizeof(Bkt));
+  return lookback_bytes(((long long)max(nec, 1) + BS_TILE - 1) / BS_TILE,
+                        sizeof(Bkt));
 }
 
 // byte offset in the scratch of the fault word (int32: bit 0, a valid
 // lane's bucket_rank below its predecessor's; bit 1, one outside
-// [0, n_pad); bit 2, a tile's first or last lane whose bid is not its
-// bucket's index)
+// [0, n_pad); bit 2, a valid lane whose bid is not the count of segment
+// starts up to it less one)
 long long bucket_sums_fault_offset() { return 8; }
 
 // br_s, bid_s, mc_s: int32[h_pad] (the first nec lanes valid, their
@@ -543,19 +583,11 @@ int bucket_sums_launch(const int* br_s, const int* bid_s, const int* mc_s,
   // the blocks past the lane tiles only zero their share of the tails
   const int blocks = max(lane_tiles,
                          (max(h_pad, n_pad) + BS_TILE - 1) / BS_TILE);
-  const bool vec = aligned16(br_s) && aligned16(mc_s);
-  // the stage's 48 KB of dynamic shared memory, allowed once per device
-  static bool smem_set[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const bool vec = aligned16(br_s) && aligned16(bid_s) && aligned16(mc_s);
+  // the stage's 48 KB of dynamic shared memory
+  const cudaError_t e = cudaFuncSetAttribute(
+      bs_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, BS_SMEM);
   if (e != cudaSuccess) return int(e);
-  if (dev < 0 || dev >= 64 || !smem_set[dev]) {
-    e = cudaFuncSetAttribute(bs_scan,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             BS_SMEM);
-    if (e != cudaSuccess) return int(e);
-    if (dev >= 0 && dev < 64) smem_set[dev] = true;
-  }
   bs_scan<<<blocks, BS_THREADS, BS_SMEM, s>>>(
       br_s, bid_s, mc_s, nec, lane_tiles, vec, h_pad, n_pad,
       static_cast<unsigned*>(scratch),
@@ -567,7 +599,8 @@ int bucket_sums_launch(const int* br_s, const int* bid_s, const int* mc_s,
 
 // bytes of scratch (zeroed by the caller) for L lanes
 long long run_merge_scratch_bytes(int L) {
-  return lookback_bytes<Grp>(((long long)L + RM_TILE - 1) / RM_TILE);
+  return lookback_bytes(((long long)L + RM_TILE - 1) / RM_TILE,
+                        sizeof(Grp));
 }
 
 // byte offset in the scratch of the groups' count (int32)
@@ -582,9 +615,11 @@ int run_merge_launch(const int* k_s, const int* len_s, const int* chr_s,
   if (L < 1 || L == INT_MAX) return int(cudaErrorInvalidValue);
   const int tiles = (L + RM_TILE - 1) / RM_TILE;
   const bool vec = aligned16(k_s) && aligned16(len_s) && aligned16(chr_s);
-  rm_scan<<<tiles, RM_THREADS, 0, s>>>(k_s, len_s, chr_s, L, tiles, vec,
-                                    lookback_at<Grp>(scratch, tiles),
-                                    out_len, out_chr);
+  rm_scan<<<tiles, RM_THREADS, 0, s>>>(
+      k_s, len_s, chr_s, L, tiles, vec, static_cast<unsigned*>(scratch),
+      reinterpret_cast<unsigned long long*>(static_cast<char*>(scratch)
+                                            + 16),
+      out_len, out_chr);
   return int(cudaGetLastError());
 }
 

@@ -36,7 +36,7 @@
 //    rows outside [0, m), as in a view like v[1:], go through element
 //    loads; stores are vectors where the output has the input's shift, and
 //    element stores otherwise.
-//  * The look-back is tile_scan.cuh's lookback_packed: the first warp
+//  * The look-back is tile_scan.cuh's lookback: the first warp
 //    reads the 32 tiles before its own per round until it meets a
 //    published inclusive state, and waits only on the tiles up to it; a
 //    tile's state shares 64-bit words with its flag (int32: one word,
@@ -158,7 +158,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     acc = Op::combine(acc, v[BWD ? ITEMS - 1 - q : q]);
   T tot;
   const T ex = block_scan<BWD, Op>(acc, Op::identity(), wagg, &tot);
-  T run = Op::combine(lookback_packed<Op>(slots, t, tot), ex);
+  T run = Op::combine(lookback<Op>(slots, t, tot), ex);
 #pragma unroll
   for (int q = 0; q < ITEMS; ++q) {
     const int j = BWD ? ITEMS - 1 - q : q;
@@ -233,7 +233,7 @@ extern "C" {
 long long running_fill_scratch_bytes(long long m, int elem) {
   const long long tiles = elem == 4 ? tiles_of<int>(m, 3)
                                     : tiles_of<long long>(m, 1);
-  return packed_bytes(tiles, elem);
+  return lookback_bytes(tiles, elem);
 }
 
 // in, out: m rows of elem bytes (int32 for 4, int64 for 8), 1 <= m,

@@ -51,8 +51,9 @@
 //
 // What bounds it on this card: bytes. The function reads 20 B per row and
 // writes 8 (f_cls, ekey) plus the counter; this design reads each row
-// once (single pass: 28 B per row moved), plus 64 halo rows, one state and
-// one flag per tile and 12 B per warp of next rows. Its time beyond the
+// once (single pass: 28 B per row moved), plus 64 halo rows, one state
+// (its words packed with their flags) per tile and 12 B per warp of next
+// rows. Its time beyond the
 // bound is the tiles' fixed waits (ticket, loads, publishing), measured
 // against variants by tools/lookback_variants.py.
 //
@@ -151,7 +152,8 @@ __device__ __forceinline__ Fill element(const Rows& w, int j, long long r0,
 __global__ void __launch_bounds__(THREADS, 2)
     tg_scan(const int* __restrict__ k1s, const long long* __restrict__ k2fs,
             const int* __restrict__ is, const int* __restrict__ pay_s, int J,
-            int tiles, bool vec, Lookback<Fill> lb, int* __restrict__ f_cls,
+            int tiles, bool vec, unsigned* __restrict__ ticket,
+            unsigned long long* __restrict__ slots, int* __restrict__ f_cls,
             int* __restrict__ ekey, int* __restrict__ counter,
             int counter_len, unsigned long long* __restrict__ stats) {
   __shared__ Fill wf[33];
@@ -160,7 +162,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   __shared__ int halo_t[HALO / 32][4], halo_e[HALO / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // backward: scan order's first tile is the last one
-  const int t = take_ticket(lb.ticket);
+  const int t = take_ticket(ticket);
   const long long hi = (long long)(tiles - t) * TILE;  // the row after it
   const long long r0 = hi - TILE + (long long)threadIdx.x * ITEMS;
   // the halo: the first HALO rows after the tile, loaded with the tile
@@ -232,7 +234,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const bool covers = hi + HALO >= J;
   const bool known = (pre.t_row != NONE || covers)
                      && (pre.e_row != NONE || covers);
-  const Fill tile_carry = lookback<FillOp>(lb, t, ftot, known, pre);
+  const Fill tile_carry = lookback<FillOp>(slots, t, ftot, known, pre);
   Fill st = FillOp::combine(tile_carry, ex);
   int fc[ITEMS], ek[ITEMS];
   unsigned good[ITEMS];
@@ -307,9 +309,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 extern "C" {
 
 // bytes of scratch for J rows (zeroed by the caller): the look-back's
-// ticket, flags and per-tile states
+// ticket and per-tile states
 long long tail_good_join_scratch_bytes(int J) {
-  return lookback_bytes<Fill>(((long long)J + TILE - 1) / TILE);
+  return lookback_bytes(((long long)J + TILE - 1) / TILE, sizeof(Fill));
 }
 
 // k1s, is, pay_s: int32[J]; k2fs: int64[J]; f_cls, ekey: int32[J] out;
@@ -327,7 +329,9 @@ int tail_good_join_launch(const int* k1s, const long long* k2fs,
                    && aligned16(pay_s) && aligned16(f_cls)
                    && aligned16(ekey);
   tg_scan<<<tiles, THREADS, 0, s>>>(k1s, k2fs, is, pay_s, J, tiles, vec,
-                                    lookback_at<Fill>(scratch, tiles),
+                                    static_cast<unsigned*>(scratch),
+                                    reinterpret_cast<unsigned long long*>(
+                                        static_cast<char*>(scratch) + 16),
                                     f_cls, ekey, counter, counter_len,
                                     stats);
   return int(cudaGetLastError());

@@ -16,18 +16,13 @@
 // caps the scan at about 32 tiles per look-back round; an operator whose
 // aggregates usually hide everything before them (Op::absorbs) breaks the
 // chain: such a tile publishes its inclusive state with its aggregate, and
-// the tile after it finds it at once. Two forms of the look-back:
-//  * lookback (tail_good_join.cu, run_merge.cu's run_merge): flags apart
-//    from the states, published with release stores of the flags and read
-//    after acquire loads of them (two trips to L2 a round); a kernel that
-//    can learn a tile's prefix from a few rows beside the tile
-//    (tail_good_join's halo) skips the look-back for that tile;
-//  * lookback_packed (running_fill.cu, run_merge.cu's bucket_sums): each
-//    32-bit word of a state shares a 64-bit word with its flag (one trip
-//    a round), and a window waits only on the tiles up to its nearest
-//    inclusive state.
-// Flags and ticket live in scratch the caller zeroes per call
-// (lookback_bytes, packed_bytes).
+// the tile after it finds it at once; a kernel that can learn a tile's
+// prefix from a few rows beside the tile (tail_good_join's and
+// bucket_sums' halos) skips the look-back for that tile. Each 32-bit word
+// of a published state shares a 64-bit word with its flag, so a round of
+// the look-back is one trip to L2, and a window waits only on the tiles up
+// to its nearest inclusive state. The ticket and the states live in
+// scratch the caller zeroes per call (lookback_bytes).
 //
 // Inside a tile a thread folds its consecutive items in registers, a warp
 // scans its 32 thread states with 5 shuffle steps, and warp 0 scans the
@@ -198,72 +193,6 @@ __host__ __device__ inline bool aligned16(const void* p) {
 
 enum : int { LB_EMPTY = 0, LB_AGG = 1, LB_INCL = 2 };
 
-// The look-back's scratch: a 16-byte head (the ticket, then three words
-// the kernel may use: a count, a fault flag), one flag per tile, and per
-// tile its aggregate and its inclusive state. All of it zeroed per call.
-template <class S>
-struct Lookback {
-  unsigned* ticket;
-  int* head;   // head[0..2], after the ticket
-  int* flag;
-  S* agg;
-  S* incl;
-};
-
-__host__ __device__ inline long long lb_round16(long long b) {
-  return (b + 15) / 16 * 16;
-}
-
-template <class S>
-__host__ __device__ inline long long lookback_bytes(long long tiles) {
-  return 16 + lb_round16(4 * tiles) + lb_round16(2 * tiles * sizeof(S));
-}
-
-template <class S>
-__host__ __device__ inline Lookback<S> lookback_at(void* scratch,
-                                                    long long tiles) {
-  char* p = static_cast<char*>(scratch);
-  Lookback<S> lb;
-  lb.ticket = reinterpret_cast<unsigned*>(p);
-  lb.head = reinterpret_cast<int*>(p) + 1;
-  lb.flag = reinterpret_cast<int*>(p + 16);
-  lb.agg = reinterpret_cast<S*>(p + 16 + lb_round16(4 * tiles));
-  lb.incl = lb.agg + tiles;
-  return lb;
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// a published state, read from L2 (never a stale L1 line)
-template <class S>
-__device__ __forceinline__ S ld_state(const S* p) {
-  static_assert(sizeof(S) % 4 == 0, "scan states are 32-bit words");
-  S x;
-  const int* a = reinterpret_cast<const int*>(p);
-  int* b = reinterpret_cast<int*>(&x);
-#pragma unroll
-  for (int i = 0; i < int(sizeof(S) / 4); ++i) b[i] = __ldcg(a + i);
-  return x;
-}
-
-template <class S>
-__device__ __forceinline__ void st_state(S* p, const S& x) {
-  const int* a = reinterpret_cast<const int*>(&x);
-  int* b = reinterpret_cast<int*>(p);
-#pragma unroll
-  for (int i = 0; i < int(sizeof(S) / 4); ++i) __stcg(b + i, a[i]);
-}
-
 // This block's tile in scan order, from the ticket; every thread gets it.
 __device__ __forceinline__ int take_ticket(unsigned* ticket) {
   __shared__ int t;
@@ -272,80 +201,17 @@ __device__ __forceinline__ int take_ticket(unsigned* ticket) {
   return t;
 }
 
-// The exclusive prefix of tile t (scan order) given its aggregate: the
-// fold of every tile before it. Publishes the tile's aggregate, then its
-// inclusive state — at once, with no look-back on its critical path, when
-// Op::absorbs(aggregate) says the aggregate hides every state before it
-// (combine(x, aggregate) == aggregate for all x), or when the caller
-// already knows the prefix by other means (``known``, block-uniform; the
-// prefix is then ``prefix``).
-// Called by the whole block; the first warp looks back, lane k reading
-// tile p - k, and the window moves back 32 tiles while no tile in it holds
-// an inclusive state (tile 0 always will). Returns the prefix to every
-// thread.
-template <class Op, class S>
-__device__ __forceinline__ S lookback(const Lookback<S>& lb, int t,
-                                      const S& aggregate, bool known = false,
-                                      const S& prefix = Op::identity()) {
-  __shared__ S slot;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const bool done = t == 0 || known || Op::absorbs(aggregate);
-    if (lane == 0) {
-      st_state((done ? lb.incl : lb.agg) + t,
-               known ? Op::combine(prefix, aggregate) : aggregate);
-      st_release(lb.flag + t, done ? LB_INCL : LB_AGG);
-    }
-    S ex = Op::identity();
-    for (int p = t - 1; t > 0 && !known; p -= 32) {
-      const int q = p - lane;
-      int f = q >= 0 ? ld_acquire(lb.flag + q) : LB_INCL;
-      while (__any_sync(FULL, f == LB_EMPTY)) {
-        __nanosleep(20);
-        if (f == LB_EMPTY) f = ld_acquire(lb.flag + q);
-      }
-      S x = q < 0 ? Op::identity()
-                  : ld_state(f == LB_INCL ? lb.incl + q : lb.agg + q);
-      const unsigned incl = __ballot_sync(FULL, f == LB_INCL);
-      // the nearest inclusive state ends the fold; farther tiles drop
-      const int stop = incl ? __ffs(incl) - 1 : 31;
-      if (lane > stop) x = Op::identity();
-      // fold lanes stop .. 0 in scan order (the farthest tile first):
-      // lane 31 before lane 0, as a backward warp scan runs
-      S win;
-      warp_scan<true, Op>(x, &win);
-      ex = Op::combine(win, ex);
-      if (incl) break;
-    }
-    if (known) ex = prefix;
-    if (lane == 0 && !done) {
-      st_state(lb.incl + t, Op::combine(ex, aggregate));
-      st_release(lb.flag + t, LB_INCL);
-    }
-    if (lane == 0) slot = ex;
-  }
-  __syncthreads();
-  return slot;
-}
+// Each tile's published state is N = sizeof(S) / 4 64-bit words, word i
+// holding the state's 32-bit word i and the flag (LB_AGG or LB_INCL) in
+// its upper half. Words are written and read with relaxed gpu-scope
+// accesses: a word is never seen without its value, and a state whose
+// words carry different flags (an inclusive state half over its
+// aggregate) is not yet whole and is read again. The scratch (zeroed per
+// call, lookback_bytes): a 16-byte head (the ticket, then three words the
+// kernel may use: a count, a fault word) and N words per tile.
 
-// ---------------------------------------------------------------------------
-// the look-back on packed states: one trip to L2 a round
-// ---------------------------------------------------------------------------
-//
-// The same look-back with each tile's published state in N = sizeof(S) / 4
-// 64-bit words, word i holding the state's 32-bit word i and the flag
-// (LB_AGG or LB_INCL) in its upper half. Words are written and read with
-// relaxed gpu-scope accesses: a word is never seen without its value, so
-// a round of the look-back is one trip to L2 (the flags-then-states
-// look-back above takes two), and a state whose words carry different
-// flags (an inclusive state half over its aggregate) is not yet whole and
-// is read again. A window waits only on the tiles up to its nearest
-// inclusive state. The scratch (zeroed per call, packed_bytes): a 16-byte
-// head (the ticket, then three words the kernel may use) and N words per
-// tile.
-
-__host__ __device__ inline long long packed_bytes(long long tiles,
-                                                  int state_bytes) {
+__host__ __device__ inline long long lookback_bytes(long long tiles,
+                                                    int state_bytes) {
   return 16 + 8 * tiles * (state_bytes / 4);
 }
 
@@ -391,16 +257,21 @@ __device__ __forceinline__ int read_packed(const unsigned long long* slot,
   return whole ? f : LB_EMPTY;
 }
 
-// The exclusive prefix of tile t (scan order) given its aggregate, as
-// lookback() above (Op::absorbs, or a prefix the caller already knows,
-// publishes the inclusive state at once), on the packed states at
-// ``slots``. Called by the whole block; returns the prefix to every
+// The exclusive prefix of tile t (scan order) given its aggregate: the
+// fold of every tile before it, from the states at ``slots``. Publishes
+// the tile's aggregate, then its inclusive state — at once, with no
+// look-back on its critical path, when Op::absorbs(aggregate) says the
+// aggregate hides every state before it (combine(x, aggregate) ==
+// aggregate for all x), or when the caller already knows the prefix by
+// other means (``known``, block-uniform; the prefix is then ``prefix``).
+// Called by the whole block; the first warp looks back, lane k reading
+// tile p - k, and the window moves back 32 tiles while no tile in it holds
+// an inclusive state (tile 0 always will). Returns the prefix to every
 // thread.
 template <class Op, class S>
-__device__ __forceinline__ S lookback_packed(unsigned long long* slots,
-                                             int t, const S& aggregate,
-                                             bool known = false,
-                                             const S& prefix = Op::identity()) {
+__device__ __forceinline__ S lookback(unsigned long long* slots, int t,
+                                      const S& aggregate, bool known = false,
+                                      const S& prefix = Op::identity()) {
   constexpr int N = int(sizeof(S) / 4);
   __shared__ S slot;
   if (threadIdx.x < 32) {

@@ -666,14 +666,15 @@ def test_bucket_sums_built_cases(name):
 
 def test_bucket_sums_fault():
     """A valid lane whose bucket_rank falls below its predecessor's sets
-    bit 0 of the plain version's fault word, and the check raises; the
-    sums themselves are still the scatters'."""
+    bit 0 of the plain version's fault word (and bit 2: the stray lane
+    splits its bucket, so the bids no longer count the segments), and the
+    check raises; the sums themselves are still the scatters'."""
     br, bid, m_c, nec, n_pad = _bucket_lanes([4, 6, 3], 5, 40, seed=2)
     br = br.copy()
     br[5] = br[0] - 1
     got = tm.bucket_sums(*(torch.from_numpy(a) for a in (br, bid, m_c)),
                          nec, n_pad)
-    assert got[3].tolist() == [1]
+    assert got[3].tolist() == [1 | 4]
     for k, o, g in zip(("hb_at", "ncls_at", "hb_b"),
                        _numpy_bucket_sums(br, bid, m_c, nec, n_pad), got):
         np.testing.assert_array_equal(o, g.numpy(), err_msg=k)

@@ -54,21 +54,18 @@ EMPTY, AGG, INCL = 0, 1, 2
 
 def _lookback(aggs: list, combine, identity, seed: int,
               resident: int = 300, window: int = WINDOW,
-              absorbs=lambda a: False, known=None,
-              wait_all: bool = True) -> list:
+              absorbs=lambda a: False, known=None) -> list:
     """Each tile's exclusive prefix in scan order (tile t after tiles 0 ..
     t-1), reached as the kernels reach it: tiles start in ticket order,
     at most ``resident`` at once (the blocks the card holds); a started
     tile publishes its aggregate (flag AGG), then looks back ``window``
-    flags at a time — waiting while any of them is EMPTY, folding aggregates up
-    to the nearest published inclusive state — then publishes its
-    inclusive state (flag INCL) and leaves. Tile 0, and a tile whose
+    flags at a time — waiting while any flag up to the nearest published
+    inclusive state is EMPTY, folding the aggregates up to it — then
+    publishes its inclusive state (flag INCL) and leaves. Tile 0, and a tile whose
     aggregate ``absorbs`` (hides every state before it), publishes its
     aggregate as its inclusive state at once; a tile whose prefix is
     ``known`` (a dict: tile -> prefix) publishes the prefix folded with
-    its aggregate at once and does not look back. Without ``wait_all`` a
-    window waits only on the empty flags up to its nearest inclusive
-    state (running_fill's look-back), not on all of them.
+    its aggregate at once and does not look back.
     The started tiles' steps interleave in an order drawn from ``seed``."""
     T = len(aggs)
     rng = np.random.default_rng(seed)
@@ -99,7 +96,7 @@ def _lookback(aggs: list, combine, identity, seed: int,
             seen = list(range(p, max(p - window, -1), -1))
             stop = next((i for i, q in enumerate(seen)
                          if flag[q] == INCL), None)
-            needed = seen if wait_all or stop is None else seen[:stop + 1]
+            needed = seen if stop is None else seen[:stop + 1]
             if any(flag[q] == EMPTY for q in needed):
                 run = None                  # spin: another tile goes first
                 break
@@ -309,9 +306,8 @@ def _bucket_emulation(br, bid, m_c, nec: int, n_pad: int, tile: int,
         for r in range(lo, hi):
             acc = combine(acc, element(r))
         agg.append(acc)
-    # a tile where a segment starts hides every lane before it; a window
-    # waits only up to its nearest inclusive state (lookback_packed); a
-    # tile whose 32-lane halo before it holds a segment start takes its
+    # a tile where a segment starts hides every lane before it; a tile
+    # whose 32-lane halo before it holds a segment start takes its
     # prefix from the halo (the sums since that start) and does not look
     # back
     known = {}
@@ -324,13 +320,12 @@ def _bucket_emulation(br, bid, m_c, nec: int, n_pad: int, tile: int,
                 pre = combine(pre, element(r))
             known[t] = pre
     carry = _lookback(agg, combine, ident, seed, absorbs=lambda a: a[2],
-                      known=known, wait_all=False)
+                      known=known)
     fault = 0
     for t, (lo, hi) in enumerate(bounds):
         A = min(max(0 if lo == 0 else int(br[lo - 1]) + 1, 0), n_pad)
         B = min(max(int(br[hi - 1]), A), n_pad)
-        j0_raw = -1 if lo == 0 else int(bid[lo - 1])
-        J0 = min(max(j0_raw, -1), h_pad - 1)
+        J0 = min(max(-1 if lo == 0 else int(bid[lo - 1]), -1), h_pad - 1)
         stage_hb = np.zeros(B - A, np.int64)
         stage_nc = np.zeros(B - A, np.int64)
         if A == 0 and B > 0:
@@ -345,6 +340,9 @@ def _bucket_emulation(br, bid, m_c, nec: int, n_pad: int, tile: int,
             n += el[2]
             if r > 0 and b < br[r - 1]:
                 fault |= 1
+            # bid counts the segment starts
+            if int(bid[r]) != (int(bid[r - 1]) if r else -1) + el[2]:
+                fault |= 4
             if r + 1 < nv and br[r + 1] == b:
                 continue
             cnt = st[1] + (pad if b == 0 else 0)
@@ -359,8 +357,6 @@ def _bucket_emulation(br, bid, m_c, nec: int, n_pad: int, tile: int,
                 out.put("ncls_at", b, b + 1, cnt)
                 k = min(max(J0 + n, 0), h_pad - 1)
                 out.put("hb_b", k, k + 1, st[0])
-        if j0_raw != J0 or int(bid[hi - 1]) != j0_raw + S:
-            fault |= 4
         if A < B:
             out.put("hb_at", A, B, stage_hb)
             out.put("ncls_at", A, B, stage_nc)
@@ -402,7 +398,7 @@ def _fill_emulation(v: np.ndarray, op: str, reverse: bool, shift: int,
     if reverse:
         blocks = blocks[::-1, ::-1]
     aggs = [int(b.max() if op == "max" else b.min()) for b in blocks]
-    prefix = _lookback(aggs, comb, ident, seed, wait_all=False)
+    prefix = _lookback(aggs, comb, ident, seed)
     out = np.empty_like(blocks)
     for t, b in enumerate(blocks):
         out[t] = acc(np.concatenate([np.array([prefix[t]], v.dtype), b]))[1:]
@@ -510,30 +506,33 @@ def test_bucket_sums_tiles_equal_plain(name, tile):
 
 @pytest.mark.parametrize("tile", [64, BS_TILE])
 def test_bucket_sums_tiles_fault(tile):
-    """A falling rank (bit 0, as the plain version flags it) and a rank
-    past n_pad or below 0 (bit 1; the plain version cannot scatter
-    there): the emulated kernel writes nothing outside its outputs
-    (_Outputs.put fails) and sets the fault bit."""
+    """A falling rank (bit 0) and a rank past n_pad or below 0 (bit 1):
+    the emulated kernel writes nothing outside its outputs (_Outputs.put
+    fails) and sets the fault bits; a falling rank splits its bucket, so
+    the bids past it no longer count the segments: bits 0 and 2, as the
+    plain version sets them. A bid that is not its bucket's index (bit 2) —
+    everywhere, at one lane inside a tile, or at a tile's last lane —
+    is flagged by both, and the check refuses it."""
     br, bid, m_c, nec, n_pad = _bucket_lanes([40, 70, 30, 90], 5, 400,
                                              seed=4)
+    plain = lambda b, d: int(tm._bucket_sums_reference(
+        *(torch.from_numpy(a) for a in (b, d, m_c)), nec, n_pad)[3][0])
     for at, rank, bit in ((60, int(br[0]) - 1, 1), (nec - 1, n_pad + 3, 2),
                           (0, -2, 2)):
         bad = br.copy()
         bad[at] = rank
         _, _, fault = _bucket_emulation(bad, bid, m_c, nec, n_pad, tile, 0)
-        # a stray rank splits its bucket: the bids past it no longer count
-        # the buckets (bit 2, where a tile's last lane sees it)
         assert fault & 3 == bit
-        if bit == 1:
-            want = tm._bucket_sums_reference(
-                *(torch.from_numpy(a) for a in (bad, bid, m_c)), nec, n_pad)
-            assert int(want[3][0]) == bit
-    # bids that are not the buckets' indices: bit 2, which the check
-    # refuses
-    _, _, fault = _bucket_emulation(br, bid + 1, m_c, nec, n_pad, tile, 0)
-    assert fault == 4
-    with pytest.raises(RuntimeError, match="bid is not"):
-        tm.bucket_sums_check(torch.tensor([fault], dtype=torch.int32))
+        if bit == 1:   # the plain version cannot scatter past n_pad
+            assert fault == plain(bad, bid)
+    for at in (None, 100, min(tile, nec) - 1):
+        bad = bid + 1 if at is None else bid.copy()
+        if at is not None:
+            bad[at] += 1
+        _, _, fault = _bucket_emulation(br, bad, m_c, nec, n_pad, tile, 0)
+        assert fault == 4 == plain(br, bad), at
+        with pytest.raises(RuntimeError, match="bid is not"):
+            tm.bucket_sums_check(torch.tensor([fault], dtype=torch.int32))
 
 
 def _last_reset(x, y):

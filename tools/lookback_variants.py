@@ -45,9 +45,6 @@ committed kernel's outputs:
 * ``bs_no_halo`` — bucket_sums' tiles always look back (the committed
   kernel takes a tile's prefix from the 32 lanes before it when a
   segment starts there);
-* ``bs_flags_then_states`` — bucket_sums on tile_scan.cuh's look-back
-  with flags and states apart (two trips to L2 a round; the committed
-  kernel packs each state word with its flag: one trip).
 
 Prints the card's name and power limit, each variant's registers and
 spills (nvcc -Xptxas=-v), then one line per variant, kernel, input and
@@ -121,14 +118,6 @@ VARIANTS = {
                     "constexpr int BS_MIN_BLOCKS = 4;")],
     "bs_no_halo": [(RM, "      halo_known = lo > 0 && st != 0u;",
                     "      halo_known = false;")],
-    "bs_flags_then_states": [
-        (RM, "lookback_packed<BktOp>(slots, t, tot.b, halo_known, halo)",
-         "lookback<BktOp>(lookback_at<Bkt>(slots, lane_tiles), t, tot.b,"
-         " halo_known, halo)"),
-        (RM, "  return packed_bytes(((long long)max(nec, 1) + BS_TILE - 1)"
-             " / BS_TILE,\n                      sizeof(Bkt));",
-         "  return 16 + lookback_bytes<Bkt>(((long long)max(nec, 1)"
-         " + BS_TILE - 1) / BS_TILE);")],
 }
 STEMS = ("tail_good_join", "run_merge", "running_fill")
 SHAPES = {"primary": (2_000_000, 10), "500M": (5_000_000, cs.BIG_DOCS)}
