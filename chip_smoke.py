@@ -204,20 +204,47 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 BIG_DOCS = 100              # bench ecoli_rle at BENCH_FULL=1 (bench.py:176)
 # the kernels each --backend's scan launches (the dense scan's PLCP fill
 # is a running_fill); native and host launch none
-ROUTE_KERNELS = {"jump": ("ms_jump_scan",), "device": ("ms_jump_scan",),
+# (the jump scan's index build and candidate compaction sort: radix_sort)
+ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass"),
+                 "device": ("ms_jump_scan", "radix_hist", "radix_pass"),
                  "dense": ("lcp_lift", "dense_neighbors", "running_fill"),
                  "native": (), "host": ()}
 # the kernels each merge engine launches ("none": a scan alone); the
 # device merge launches tail_exact_credit once per merge with exact pairs
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
-                            "tail_exact_credit", "bucket_sums", "run_merge"),
+                            "tail_exact_credit", "bucket_sums", "run_merge",
+                            "radix_hist", "radix_pass", "compact"),
                  "sharded": ("running_fill",), "host": (), "none": ()}
+# kernels a route or a merge engine may launch: the native route builds
+# its index on the card when the index cache misses, and the host merge
+# sorts a long head string on the card (engine/ranking.py; both
+# index/device.suffix_array_device)
+MAY_LAUNCH = {"native": ("radix_hist", "radix_pass"),
+              "host": ("radix_hist", "radix_pass")}
 # running_fill's tiles (running_fill.cu: 32 KB) and the sizes at their edges
 FILL_TILE = {torch.int32: 8192, torch.int64: 4096}
 FILL_SIZES = {dt: (1, 3, 64, T - 1, T, T + 1, 3 * T + 5)
               for dt, T in FILL_TILE.items()}
 BIG_FILL = (1 << 29) + 1
 BS_TILE = 4096              # bucket_sums' tile (run_merge.cu: BS_TILE)
+SORT_TILE = 3072            # radix_sort.cu's TILE
+COMPACT_TILE = 4096         # compact.cu's TILE
+SORT_SIZES = (1, 3, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1, COMPACT_TILE,
+              COMPACT_TILE + 1, 3 * COMPACT_TILE + 5, (1 << 22) + 3)
+SORT_WIDTHS = ((1, torch.int32), (8, torch.int32), (23, torch.int32),
+               (31, torch.int32), (48, torch.int64), (63, torch.int64))
+SORT_KINDS = ("random", "ties", "equal", "descending", "pads", "top",
+              "mixed")
+# several keys, most significant first: (bits, dtype, kind)
+SORT_MULTI = {
+    "join": ((23, torch.int32, "mixed"), (48, torch.int64, "ties")),
+    "group": ((23, torch.int32, "ties"), (53, torch.int64, "ties")),
+    "three": ((8, torch.int32, "ties"), (1, torch.int32, "mixed"),
+              (31, torch.int32, "ties")),
+    "four": ((2, torch.int32, "random"), (63, torch.int64, "ties"),
+             (9, torch.int32, "descending"), (23, torch.int64, "mixed")),
+    "pads_only": ((23, torch.int32, "pads"), (48, torch.int64, "pads")),
+}
 FILL_BIG = (1 << 62) - 1    # the merge's packed-fill sentinel
 
 
@@ -860,18 +887,20 @@ def fill_cases() -> list:
 class MergeCapture:
     """Keeps the inputs of the device merge's kernels from the merges run
     while in use, by wrapping engine/device_merge's running_fill,
-    tail_good_join, exact_credit, bucket_sums and run_merge: every
-    running_fill input with its op and direction (``fills``, in call
-    order; ``fill`` the largest), and the last inputs of the other
-    four."""
+    tail_good_join, exact_credit, bucket_sums, run_merge, stable_argsort
+    and compact: every running_fill input with its op and direction
+    (``fills``, in call order; ``fill`` the largest), the last inputs of
+    the next four, and the largest sort's (the join's keys, widths and
+    values flag) and compaction's (flag, count) inputs."""
 
     def __enter__(self):
         from cmsbwt_tpu_torch.engine import device_merge as dm
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
-        self.exact = self.sums = None
+        self.exact = self.sums = self.sort = self.compact = None
         self.fills = []
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
-                     dm.exact_credit, dm.bucket_sums)
+                     dm.exact_credit, dm.bucket_sums, dm.stable_argsort,
+                     dm.compact)
 
         def fill(v, op="max", reverse=False):
             self.fills.append((v, op, reverse))
@@ -894,13 +923,28 @@ class MergeCapture:
         def sums(*a):
             self.sums = a
             return self.orig[4](*a)
+
+        def argsort(keys, bits, values=False):
+            keys = tuple(keys)
+            if self.sort is None or \
+                    keys[0].numel() > self.sort[0][0].numel():
+                self.sort = (keys, tuple(bits), values)
+            return self.orig[5](keys, bits, values)
+
+        def compact(flag, count):
+            if self.compact is None or \
+                    flag.numel() > self.compact[0].numel():
+                self.compact = (flag, count)
+            return self.orig[6](flag, count)
         (dm.running_fill, dm.tail_good_join, dm.run_merge, dm.exact_credit,
-         dm.bucket_sums) = fill, join, runs, exact, sums
+         dm.bucket_sums, dm.stable_argsort, dm.compact) = (
+             fill, join, runs, exact, sums, argsort, compact)
         return self
 
     def __exit__(self, *exc):
         (self.dm.running_fill, self.dm.tail_good_join, self.dm.run_merge,
-         self.dm.exact_credit, self.dm.bucket_sums) = self.orig
+         self.dm.exact_credit, self.dm.bucket_sums, self.dm.stable_argsort,
+         self.dm.compact) = self.orig
 
 
 def bucket_sums_bytes(bucket_rank, m_c, nec: int, n_pad: int) -> int:
@@ -1030,6 +1074,251 @@ def bucket_sums_cases() -> int:
     return cases
 
 
+def sort_keys(kind: str, n: int, bits: int, dtype, seed: int,
+              offset: bool = False) -> torch.Tensor:
+    """n keys of ``bits`` width on the card (values in [0, min(2^bits -
+    1, pad)) or the dtype's pad) of one pattern; with ``offset`` a view
+    that starts one row into its storage (no 16-byte alignment)."""
+    from cmsbwt_tpu_torch.ops.sort import PADS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pad = PADS[dtype]
+    top = min((1 << bits) - 1, pad)
+    m = n + int(offset)
+
+    def draw(k):
+        return torch.randint(0, top, (k,), generator=g, device="cuda",
+                             dtype=torch.int64)
+    if kind == "random":
+        k = draw(m)
+    elif kind == "ties":
+        k = draw(5)[torch.randint(0, 5, (m,), generator=g, device="cuda")]
+    elif kind == "equal":
+        k = draw(1).expand(m).clone()
+    elif kind == "descending":
+        k = torch.sort(draw(m), descending=True).values
+    elif kind == "pads":
+        k = torch.full((m,), pad, dtype=torch.int64, device="cuda")
+    else:
+        coin = torch.rand(m, generator=g, device="cuda")
+        k = (torch.where(coin < 0.5, top - 1, pad) if kind == "top"
+             else torch.where(coin < 0.2, pad, draw(m)))
+    k = k.to(dtype)
+    return k[1:] if offset else k
+
+
+def sort_case(name: str, keys, bits, garbage=True) -> None:
+    """radix_sort against its plain version (exact) on these keys: the
+    permutation and the first key's sorted values, the outputs given
+    memory that held 0x5A bytes first (garbage_outputs)."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.ops import sort as S
+    n = keys[0].numel()
+    want = S._stable_argsort_reference(keys, bits, True)
+    if garbage:
+        garbage_outputs(n, n, n * keys[0].element_size() // 4)
+    got = K.radix_sort_cuda(keys, bits, S.fault_word("cuda:0"), True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(want, got)):
+        fail(f"radix_sort[{name}]: differs from its plain version")
+    S.check_faults("cuda:0")
+
+
+def sort_cases() -> int:
+    """radix_sort and compact against their plain versions (exact) on the
+    card: one key of every width and pattern at the tiles' edges (odd
+    cases as views one row into their storage), several keys (the
+    merge's shapes, pads only; the composite and the per-key plans),
+    compactions at
+    every share of set flags, aligned and not; then a key over its width
+    and a wrong count of set flags, where the kernels must set the plain
+    versions' fault words and check_faults refuse them. Returns the
+    cases run."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.ops import sort as S
+    cases = 0
+    for n in SORT_SIZES:
+        for bits, dt in SORT_WIDTHS:
+            for kind in SORT_KINDS:
+                keys = (sort_keys(kind, n, bits, dt, cases, cases % 2 == 1),)
+                sort_case(f"{kind}, {bits} bits {dt}, n={n}", keys, (bits,),
+                          garbage=n < 1 << 20)
+                cases += 1
+    for name, spec in SORT_MULTI.items():
+        for n in (3 * SORT_TILE + 5, (1 << 22) + 3):
+            for values in (True, False):
+                keys = tuple(sort_keys(kind, n, b, dt, cases + i, i == 1)
+                             for i, (b, dt, kind) in enumerate(spec))
+                bits = tuple(b for b, _, _ in spec)
+                if values:
+                    sort_case(f"{name}, n={n}", keys, bits)
+                else:
+                    want = S._stable_argsort_reference(keys, bits)
+                    got = K.radix_sort_cuda(keys, bits,
+                                            S.fault_word("cuda:0"))
+                    if not torch.equal(want, got):
+                        fail(f"radix_sort[{name}, n={n}, no values]: "
+                             "differs from its plain version")
+                    S.check_faults("cuda:0")
+                cases += 1
+    for n in SORT_SIZES:
+        for share in (0.0, 0.03, 0.5, 1.0):
+            for offset in (False, True):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(cases)
+                flag = torch.rand(n + offset, generator=g,
+                                  device="cuda") < share
+                flag = flag[1:] if offset else flag
+                count = int(flag.sum())
+                want = S._compact_reference(flag, count)
+                garbage_outputs(n)
+                got = K.compact_cuda(flag, count, S.fault_word("cuda:0"))
+                torch.cuda.synchronize()
+                if not torch.equal(want, got):
+                    fail(f"compact[n={n}, share {share}, offset {offset}]: "
+                         "differs from its plain version")
+                S.check_faults("cuda:0")
+                cases += 1
+    # a key over its width (bit 1: the second key) and a wrong count: the
+    # kernel and the plain version set the same fault word, and the
+    # check raises
+    n = 3 * SORT_TILE + 5
+    k = sort_keys("mixed", n, 23, torch.int32, 7)
+    k[SORT_TILE + 17] = (1 << 23) - 1
+    keys = (sort_keys("ties", n, 48, torch.int64, 8), k)
+    flag = torch.rand(n, device="cuda") < 0.3
+    count = int(flag.sum()) + 1
+    for what, bits, msg, fns in (
+            ("a key over its width", 2, "outside its stated width",
+             (lambda: K.radix_sort_cuda(keys, (48, 23),
+                                        S.fault_word("cuda:0")),
+              lambda: S._stable_argsort_reference(keys, (48, 23)))),
+            ("a wrong count of set flags", S.COUNT_FAULT, "count of set",
+             (lambda: K.compact_cuda(flag, count, S.fault_word("cuda:0")),
+              lambda: S._compact_reference(flag, count)))):
+        for fn, form in zip(fns, ("kernel", "plain version")):
+            S.fault_word("cuda:0").zero_()
+            fn()
+            if int(S.fault_word("cuda:0")[0]) != bits:
+                fail(f"the {form} gave fault "
+                     f"{int(S.fault_word('cuda:0')[0])} for {what}, not "
+                     f"{bits}")
+            try:
+                S.check_faults("cuda:0")
+            except RuntimeError as e:
+                if msg not in str(e):
+                    raise
+            else:
+                fail(f"check_faults let {what} through ({form})")
+    log(f"kernel radix_sort / compact: {cases} cases exact (tolerance "
+        f"{TOL}); a key over its width and a wrong count gave the kernels "
+        "and the plain versions the same fault words, which the check "
+        "refused")
+    return cases
+
+
+def torch_lexsort(keys):
+    """The library's stable argsort by several keys: torch.sort passes,
+    the last key first."""
+    order = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def sort_bytes(keys, bits, values: bool, rb: int) -> tuple:
+    """(floor, passes): the bytes a stable argsort must move — each key
+    read once, the int32 permutation (and the first key's values)
+    written once — and the bytes radix_sort's launches move
+    (kernels.radix_plan): radix_hist's read of every key, and each
+    pass's read of its input (the keys, or the words before it) and row
+    ids, and its writes: row ids, words, a gathered next key (read and
+    written) and values."""
+    from cmsbwt_tpu_torch import kernels as K
+    n = keys[0].numel()
+    vals = nbytes(keys[0]) if values else 0
+    floor = nbytes(*keys) + 4 * n + vals
+    moved = nbytes(*keys)
+    for at, ps in enumerate(K.radix_plan(bits, rb, values)):
+        moved += (nbytes(*(keys[q] for q in ps.keys)) if ps.keys
+                  else (8 if ps.in_wide else 4) * n) + (4 * n if at else 0)
+        moved += 4 * n + ((8 if ps.stage_wide else 4) * n if ps.write
+                          else 0)
+        if ps.next is not None:
+            moved += nbytes(keys[ps.next]) \
+                + (8 if bits[ps.next] > 32 else 4) * n
+        if ps.vals:
+            moved += vals
+    return floor, moved
+
+
+def sort_times(tag: str, keys, bits, values: bool) -> dict:
+    """radix_sort against its plain version on a merge's sort, then timed:
+    as the wrapper runs it, alone (scratch made beforehand), beside
+    torch.sort passes (the library call; the plain version's sorts) and
+    copy_ of the floor's bytes."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.ops import sort as S
+    fault = S.fault_word("cuda:0")
+    n = keys[0].numel()
+    lib = K.load()["radix_sort"]
+    floor, moved = sort_bytes(keys, bits, values,
+                              int(lib.radix_sort_radix_bits()))
+    r = compare(
+        "radix_sort", tag, "_stable_argsort_reference",
+        lambda: tuple(K.radix_sort_cuda(keys, bits, fault, True)),
+        lambda: tuple(S._stable_argsort_reference(keys, bits, True)),
+        f"n={n} rows, keys {[str(k.dtype) for k in keys]} of {bits} bits",
+        floor)
+    S.check_faults("cuda:0")
+    r["alone_ms"] = alone_ms(
+        lambda scratch: K.radix_sort_cuda(keys, bits, fault, values,
+                                          scratch=scratch),
+        int(lib.radix_sort_scratch_bytes(n)))
+    r["library_ms"] = cuda_ms(lambda: torch_lexsort(keys), 2)
+    r["copy_ms"] = copy_ms(floor)
+    r["passes_bound_ms"] = bound_ms(moved)
+    S.check_faults("cuda:0")
+    log(f"kernel radix_sort[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, torch.sort passes "
+        f"{r['library_ms']:.3f} ms, copy_ of the floor's bytes "
+        f"{r['copy_ms']:.3f} ms; bounds: floor {r['bound_ms']:.4f} ms, "
+        f"passes {r['passes_bound_ms']:.4f} ms")
+    return r
+
+
+def compact_times(tag: str, flag, count: int) -> dict:
+    """compact against its plain version on a merge's compaction, then
+    timed: as the wrapper runs it, alone, beside one stable torch.sort
+    of the inverted flag (the library call) and copy_ of its bytes."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.ops import sort as S
+    fault = S.fault_word("cuda:0")
+    n = flag.numel()
+    r = compare("compact", tag, "_compact_reference",
+                lambda: (K.compact_cuda(flag, count, fault),),
+                lambda: (S._compact_reference(flag, count),),
+                f"n={n} rows, {count} set", 5 * n)
+    S.check_faults("cuda:0")
+    lib = K.load()["compact"]
+    r["alone_ms"] = alone_ms(
+        lambda scratch: K.compact_cuda(flag, count, fault, scratch),
+        int(lib.compact_scratch_bytes(n)))
+    inv = ~flag
+    r["library_ms"] = cuda_ms(
+        lambda: torch.sort(inv, stable=True).indices, 2)
+    if not torch.equal(torch.sort(inv, stable=True).indices.to(torch.int32),
+                       r["outputs"][0]):
+        fail(f"compact[{tag}]: torch.sort of the inverted flag differs")
+    r["copy_ms"] = copy_ms(5 * n)
+    log(f"kernel compact[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, torch.sort of the inverted "
+        f"flag {r['library_ms']:.3f} ms, copy_ of the same bytes "
+        f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    S.check_faults("cuda:0")
+    return r
+
+
 def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
     """The merge's five kernels against their plain versions (exact) on
     the inputs one device merge gave them (MergeCapture), then timed."""
@@ -1101,6 +1390,8 @@ def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
         lambda: dm._run_merge_reference(k_s, len_s, chr_s)[:2],
         f"L={k_s.numel()} lanes",
         lambda want: nbytes(k_s, len_s, chr_s) + nbytes(*want))
+    out["radix_sort"] = sort_times(tag, *cap.sort)
+    out["compact"] = compact_times(tag, *cap.compact)
     for r in out.values():
         del r["outputs"]
     return out
@@ -1363,6 +1654,20 @@ def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
     log(f"mesh: phase 10 took {time.perf_counter() - t10:.1f} s")
 
 
+def sort_row(row, name, source, replaces, merge_cases, counted, keys):
+    """The kernels line's row of a sort kernel: its 500 Mchar and primary
+    merge cases, with its alone and copy_ times and the extra ``keys`` of
+    the 500 Mchar case."""
+    big = merge_cases["500M"][name]
+    return row(name, source, replaces,
+               [big, merge_cases["primary"][name]], big["library_ms"],
+               counted, alone_ms=big["alone_ms"], copy_ms=big["copy_ms"],
+               **{k: big[k] for k in keys},
+               primary={k: merge_cases["primary"][name][k] for k in
+                        ("ms", "alone_ms", "plain_ms", "library_ms",
+                         "copy_ms", "bound_ms") + keys})
+
+
 def main() -> int:
     started = time.perf_counter()
     # phase 1: device
@@ -1398,11 +1703,12 @@ def run_phases(card: str, kind: str, started: float) -> int:
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
     from cmsbwt_tpu_torch.ops import ms_jump as mj
+    from cmsbwt_tpu_torch.ops import sort as srt
     from cmsbwt_tpu_torch.utils.buckets import bucket_size
     # the plain versions' call counts
     PLAIN_CALLS = (js.REFERENCE_CALLS, md.REFERENCE_CALLS,
                    mj.REFERENCE_CALLS, fill.REFERENCE_CALLS,
-                   dmg.REFERENCE_CALLS)
+                   dmg.REFERENCE_CALLS, srt.REFERENCE_CALLS)
 
     # phase 2: build
     kernels.load()
@@ -1479,6 +1785,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
             (ROUTE_KERNELS[backend] if scanned else ())
             + MERGE_KERNELS[engine])
             if k != "tail_exact_credit" or exact_merges[0])
+        may = mine + tuple(k for e in (backend, *engine.split("/"))
+                           for k in MAY_LAUNCH.get(e, ()))
         counts = dict(kernels.LAUNCHES)
         plain = {k: v for calls in PLAIN_CALLS for k, v in calls.items()}
         log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
@@ -1489,7 +1797,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
         if any(plain.values()):
             fail(f"{tag}: a plain version ran on the card's main path")
         if any(counts[k] < 1 for k in mine) or any(
-                c for k, c in counts.items() if k not in mine):
+                c for k, c in counts.items() if k not in may):
             fail(f"{tag}: kernel launches {counts}, expected "
                  f"{list(mine) or 'none'}")
         if tries is not None and not (counts["lcp_lift"]
@@ -1826,19 +2134,24 @@ def run_phases(card: str, kind: str, started: float) -> int:
     t11 = time.perf_counter()
     fills = fill_cases()
     bucket_sums_cases()
+    sort_cases()
     for name in ("running_fill", "tail_good_join", "tail_exact_credit",
-                 "bucket_sums", "run_merge"):
+                 "bucket_sums", "run_merge", "radix_sort", "compact"):
         for tag, res in merge_cases.items():
             r = res[name]
             log(f"merge kernel {name}[{tag}]: {r['ms']:.3f} ms, plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
     log(f"merge kernels: phase 11 took {time.perf_counter() - t11:.1f} s")
 
-    def row(name, source, replaces, res, library_ms=None, **extra):
-        # every run that launches this kernel, and the runs that launch
+    def row(name, source, replaces, res, library_ms=None, counted=None,
+            **extra):
+        # every run that launches this kernel (``counted``: the launch
+        # counts it sums, by default its own), and the runs that launch
         # none (their 0 shown)
-        runs = [(tag, k, c[name], t, e) for _, tag, k, c, t, e, mine
-                in paths if name in mine or not mine]
+        counted = counted or (name,)
+        runs = [(tag, k, sum(c[x] for x in counted), t, e)
+                for _, tag, k, c, t, e, mine in paths
+                if any(x in mine for x in counted) or not mine]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(c for _, _, c, _, _ in runs),
@@ -1886,7 +2199,13 @@ def run_phases(card: str, kind: str, started: float) -> int:
         row("run_merge", csrc + "run_merge.cu",
             "cmsbwt_tpu/engine/device_merge.py:694",
             [merge_cases["500M"]["run_merge"],
-             merge_cases["primary"]["run_merge"]])]}))
+             merge_cases["primary"]["run_merge"]]),
+        sort_row(row, "radix_sort", csrc + "radix_sort.cu",
+                 "cmsbwt_tpu/engine/device_merge.py:424", merge_cases,
+                 ("radix_hist", "radix_pass"), ("passes_bound_ms",)),
+        sort_row(row, "compact", csrc + "compact.cu",
+                 "cmsbwt_tpu/engine/device_merge.py:488", merge_cases,
+                 ("compact",), ())]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,9 +12,13 @@ Reference semantics mirrored per stage (ref = the C++ CMS-BWT tool):
 
 Translation rules from the JAX stages:
 
-* a multi-key ``lax.sort`` (stable) becomes stable ``torch.sort`` passes,
-  least-significant key first (``_lexsort``), or one sort of a packed
-  int64 key where the JAX code already packs;
+* a stable ``lax.sort`` becomes ``ops/sort.stable_argsort`` by the same
+  keys (or the packed int64 key where the JAX code packs), each key's
+  width stated from a bound the stage knows (``key_bits``), and a sort
+  that brings flagged rows to the front becomes ``ops/sort.compact``
+  given the count of set flags; a sort of a permutation (its inverse)
+  becomes one scatter. Each stage reads the sorts' fault word
+  (``check_faults``) at its next synchronisation;
 * ``.at[].set/add/max(..., mode="drop")`` becomes a masked
   ``index_put_`` / ``scatter_reduce_``: out-of-range and masked lanes are
   filtered first (torch raises where JAX drops), and each scatter names
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.fill import running_fill, running_fill_reference
+from ..ops.sort import check_faults, compact, key_bits, stable_argsort
 from ..utils.buckets import bucket_size
 from ..utils.timing import stage_timer
 
@@ -70,8 +75,9 @@ def sn_bound() -> int:
 # max_memory_allocated outside the dense scan's blocks, over sn), measured
 # on an NVIDIA H100 80GB HBM3, 700 W: 88.3 at the 500 Mchar shape (44.2 GB;
 # h = 34.9 M heads, P = 446 M tail pairs); 96 leaves ~8% to spare. With
-# the merge's kernels it measured 76.6-76.8 there (38.4 GB); the ceiling
-# stays at 96 until a routing change moves it. The merge is not blocked,
+# the merge's kernels it measured 76.6-76.8 there (38.4 GB), and with its
+# sorts on ops/sort 57.5-57.6 (28.8 GB); the ceiling stays at 96 until a
+# routing change moves it. The merge is not blocked,
 # so this is the card's merge ceiling (~0.88 Gchars on 84 GB free;
 # PERF.md): above it merge_backend='auto' takes the host merge.
 MERGE_BYTES_PER_CHAR = 96
@@ -138,15 +144,6 @@ def _cummax(v: torch.Tensor) -> torch.Tensor:
 def _suffix_min(v: torch.Tensor) -> torch.Tensor:
     """Nearest at-or-after fill: running min from the right."""
     return running_fill(v, "min", reverse=True)
-
-
-def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
-    """Stable argsort by several keys, most significant first (ties keep
-    input order, like a stable ``lax.sort`` with num_keys=len(keys))."""
-    order = torch.sort(keys[-1], stable=True).indices
-    for k in reversed(keys[:-1]):
-        order = order[torch.sort(k[order], stable=True).indices]
-    return order
 
 
 def _set(dst, idx, vals, mask):
@@ -224,18 +221,23 @@ def group_dev(pos, ln, smaller, to_next, isa_next, h: int, n: int,
     valid = idx < h
     pk_li = _w64(valid, (ln.to(I64) << 30) | isa_next.to(I64), I64_BIG)
     key1 = _w32(valid, pos, INT_MAX)
-    order = _lexsort(key1, pk_li)
-    p_s, li_s = key1[order], pk_li[order]
-    order = order.to(I32)
+    # by (pos, ln, isa_next), the packed key's fields apart (70 bits, so
+    # the sort composes them): a head's match lies in the reference (ln
+    # <= n) and isa_next < n
+    order, p_s = stable_argsort(
+        (key1, _w32(valid, ln, INT_MAX), _w32(valid, isa_next, INT_MAX)),
+        (key_bits(n), key_bits(n + 1), key_bits(n)), values=True)
+    li_s = pk_li[order]
     new_grp = _cat(_full(1, True, torch.bool, pos),
                    (p_s[1:] != p_s[:-1]) | (li_s[1:] != li_s[:-1]))
     valid_s = idx < h  # sorted: valid entries first
     firsts = new_grp & valid_s
     n_classes = int(firsts.sum())
+    check_faults(pos.device)
     gid = _cumsum32(firsts.to(I32)) - 1  # class id, sorted order
     # compact class firsts; payloads packed (pos|head, len|isa)
-    ckey = _w32(firsts, idx, INT_MAX)
-    fi, perm = torch.sort(ckey, stable=True)
+    perm = compact(firsts, n_classes)
+    fi = _w32(idx < n_classes, perm, INT_MAX)
     pay1_s = ((p_s.to(I64) << 31) | order.to(I64))[perm]
     pay2_s = li_s[perm]
     cls_pos = (pay1_s >> 31).to(I32)
@@ -256,8 +258,12 @@ def group_dev(pos, ln, smaller, to_next, isa_next, h: int, n: int,
     cpos_key = _w32(cvalid, cls_pos, INT_MAX)
     tpay1 = (idx.to(I64) << 31) | cls_until.to(I64)
     tpay2 = (cls_size.to(I64) << 1) | cls_smaller.to(I64)
-    perm = _lexsort(cpos_key, pk_ki)
-    tpos, tki = cpos_key[perm], pk_ki[perm]
+    # by (pos, K, isa), the packed key's fields apart: key_k = len or
+    # 2n - len lies in [0, 2n]
+    perm, tpos = stable_argsort(
+        (cpos_key, key_k, _w32(cvalid, cls_isa, INT_MAX)),
+        (key_bits(n), key_bits(2 * n + 1), key_bits(n)), values=True)
+    tki = pk_ki[perm]
     tpay1_s, tpay2_s = tpay1[perm], tpay2[perm]
     torder = (tpay1_s >> 31).to(I32)
     tuntil = (tpay1_s & LOW31).to(I32)
@@ -267,11 +273,13 @@ def group_dev(pos, ln, smaller, to_next, isa_next, h: int, n: int,
     tisa = (tki & LOW30).to(I32)
     tkk = _w32(cvalid, tkk_raw, INT_MAX)
     tlen = _w32(tsml != 0, tkk_raw, 2 * n - tkk_raw)
-    # rank of each (grouped-order) class in text order
-    text_rank = torch.sort(torder, stable=True).indices.to(I32)
+    # rank of each (grouped-order) class in text order: torder is a
+    # permutation, so its inverse is one scatter
+    text_rank = torch.empty(h_pad, dtype=I32, device=pos.device)
+    text_rank[torder.long()] = idx
     # members regrouped by text-ordered class (stable keeps idx order)
     mkey = _w32(valid_s, text_rank[torch.clamp(gid, 0, h_pad - 1)], INT_MAX)
-    member_head = order[torch.sort(mkey, stable=True).indices]
+    member_head = order[stable_argsort((mkey,), (key_bits(h_pad),))]
     member_off = _cumsum32(tsize) - tsize  # exclusive prefix
     return dict(n_classes=n_classes, pos=tpos, length=tlen, isa_next=tisa,
                 smaller=tsml != 0, until_next=tuntil, size=tsize,
@@ -295,7 +303,9 @@ def class_ranks_dev(cls: dict, ref_isa, h: int, d: int, n: int,
                    INT_MAX)
     pk = _w64(cvalid, cls["key_k"].to(I64) * (n + 1)
               + cls["isa_next"].to(I64), I64_BIG)
-    sa_ord = _lexsort(isa_pos, pk).to(I32)
+    # key_k <= 2n and isa_next < n
+    sa_ord = stable_argsort((isa_pos, pk),
+                            (key_bits(n), key_bits((2 * n + 1) * (n + 1))))
     # rank_value per text-order class id (sa_ord is a permutation: set)
     rank_value = torch.zeros(h_pad, dtype=I32, device=ref_isa.device)
     rank_value[sa_ord.long()] = _w32(cvalid, cidx + d, 0)
@@ -329,10 +339,9 @@ def head_string_sa_dev(rank_to_head, h: int, h_pad: int):
     L = h_pad + 1
     idx = _ar(L, rank_to_head)
     s = _w32(idx <= h, rank_to_head, (1 << 30) + idx)
-    sa, _, _, _ = suffix_array_device(s, L)
-    # compact the real suffixes (sa <= h), preserving order
-    key = _w32(sa <= h, idx, INT_MAX)
-    return sa[torch.sort(key, stable=True).indices]
+    sa, _, _, _ = suffix_array_device(s, L, bound=(1 << 30) + L)
+    # compact the real suffixes (sa <= h: h + 1 of them), preserving order
+    return sa[compact(sa <= h, h + 1)]
 
 
 def rank_heads_dev(cls: dict, head_to_rank, char, succ, h: int,
@@ -349,7 +358,9 @@ def rank_heads_dev(cls: dict, head_to_rank, char, succ, h: int,
     member_rank = succ_rank[torch.clamp(cls["member_head"], 0, h_pad - 1)]
     pk = _w64(valid, cls["cls_of_slot"].to(I64) * (h_pad + 2)
               + member_rank.to(I64), I64_BIG)
-    member_rank_sorted = member_rank[torch.sort(pk, stable=True).indices]
+    # cls_of_slot and member_rank lie in [0, h_pad)
+    member_rank_sorted = member_rank[
+        stable_argsort((pk,), (key_bits((h_pad + 2) ** 2),))]
     return final_rank, bwt_heads, succ_rank, member_rank_sorted
 
 
@@ -367,8 +378,8 @@ def tail_pairs_count_dev(cls: dict, h_pad: int) -> dict:
         & cvalid
     n_buckets = int(new_b.sum())
     bid = _cumsum32(new_b.to(I32)) - 1  # bucket of class (text order)
-    perm = torch.sort(_w32(new_b, cidx, INT_MAX), stable=True).indices
-    bucket_pos, cls_lo = pos[perm], perm.to(I32)
+    perm = compact(new_b, n_buckets)
+    bucket_pos, cls_lo = pos[perm], perm
     bvalid = cidx < n_buckets
     cls_hi = _w32(bvalid, _w32(cidx + 1 < n_buckets,
                                _cat(cls_lo[1:], cls_lo[-1:]),
@@ -381,6 +392,7 @@ def tail_pairs_count_dev(cls: dict, h_pad: int) -> dict:
                                 INT_MAX))
     cnt = _w32(cvalid, torch.clamp(hi - lo, min=0), 0)
     total = int(cnt.to(I64).sum())
+    check_faults(pos.device)
     return dict(bucket_pos=bucket_pos, n_buckets=n_buckets, cls_lo=cls_lo,
                 cls_hi=cls_hi, bucket_of_class=bid, pair_lo=lo,
                 pair_cnt=cnt, total=total)
@@ -441,19 +453,28 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     srcidx = _cat(cidx, pidx)
     paycat = _cat(slot_base[:h_pad], q_size)
     del pidx, pvalid, q_size
-    perm = _lexsort(key1, key2f)
-    k1s, i_s, pay_s = key1[perm], srcidx[perm], paycat[perm]
-    del key1, srcidx, paycat
+    # bucket and class positions lie below n; key2f below 4(n + 1)^2
+    perm, k1s = stable_argsort((key1, key2f),
+                               (key_bits(n), key_bits(4 * (n + 1) ** 2)),
+                               values=True)
+    del key1
+    i_s, pay_s = srcidx[perm], paycat[perm]
+    del srcidx, paycat
     k2fs = key2f[perm]
     del key2f, perm
     counter, ekey, f_cls, n_exact, exact_members = tail_good_join(
         k1s, k2fs, i_s, pay_s, h_pad)
+    check_faults(dev)   # after the join's read of its counts
     del k1s, k2fs, pay_s
-    # compact exact pairs as (pair idx, found class)
-    eperm = torch.sort(ekey, stable=True).indices
+    # exact pairs as (pair idx, found class), by pair idx: the sort of
+    # ekey (the exact rows' i_s, INT_MAX elsewhere) is the exact rows
+    # compacted to the front and sorted by i_s among themselves
+    eperm = compact(ekey < INT_MAX, n_exact)[:p_pad]
+    del ekey
+    head = eperm[:n_exact]
+    eperm[:n_exact] = head[stable_argsort((i_s[head],), (key_bits(p_pad),))]
     e_pidx, e_fnd = i_s[eperm], f_cls[eperm]
-    return (counter, n_exact, exact_members, e_pidx[:p_pad], e_fnd[:p_pad],
-            src_cls)
+    return (counter, n_exact, exact_members, e_pidx, e_fnd, src_cls)
 
 
 def tail_good_join(k1s, k2fs, i_s, pay_s, h_pad: int):
@@ -550,6 +571,7 @@ def tail_exact_dev(counter_in, cls: dict, pairs: dict, slot_base,
     off = _cumsum32(msz) - msz
     midx = _ar(em_pad, counter_in)
     tot = int(msz.to(I64).sum())
+    check_faults(dev)
     mvalid = midx < tot
     starts = torch.zeros(em_pad, dtype=I32, device=dev)
     _max(starts, off, eidx + 1, evalid & (msz > 0) & _in_range(off, em_pad))
@@ -571,7 +593,9 @@ def tail_exact_dev(counter_in, cls: dict, pairs: dict, slot_base,
     flag = _cat(torch.ones(h_pad, dtype=I32, device=dev),
                 torch.zeros(em_pad, dtype=I32, device=dev))
     srcidx = _cat(_ar(h_pad, counter_in), midx)
-    perm = _lexsort(keys, flag)
+    # tkey and qkey lie below (h_pad + 2) * W; the flag is 0 or 1
+    perm = stable_argsort((keys, flag),
+                          (key_bits(4 * (h_pad + 2) ** 2), key_bits(2)))
     f_s, i_s = flag[perm], srcidx[perm]
     tgt = _suffix_min(_w32(f_s == 1, i_s, h_pad))
     return exact_credit(counter_in, f_s, i_s, tgt, dst, tot, cls_of_slot,
@@ -745,11 +769,16 @@ def runs_emit_dev(cls: dict, sa_ord, slot_base, counter, tails_cnt,
     lens = _cat(a_len, b_len, c_len, d_len, e_len)
     chars = _cat(a_chr, b_chr, c_chr, d_chr, e_chr)
     # run offsets are distinct by construction; zero-length and invalid
-    # lanes sort to the tail and drop out
-    k_s, perm = torch.sort(_w32(lens > 0, off, INT_MAX), stable=True)
+    # lanes sort to the tail and drop out. A valid lane's offset lies
+    # below the run slots, d - 1 + sum(runs_per_rank) <= n + 4 h_pad, so
+    # below the lane count
+    perm, k_s = stable_argsort((_w32(lens > 0, off, INT_MAX),),
+                               (key_bits(off.shape[0]),), values=True)
     len_s, chr_s = lens[perm], chars[perm]
     out = run_merge(k_s, len_s, chr_s)
-    bucket_sums_check(fault)   # after run_merge's read of the run count
+    # after run_merge's read of the run count
+    bucket_sums_check(fault)
+    check_faults(dev)
     return out
 
 

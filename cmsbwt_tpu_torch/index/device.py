@@ -2,14 +2,17 @@
 cmsbwt_tpu/index/device.py, function by function.
 
 * suffix array: Manber–Myers prefix doubling; each round is one stable
-  ``torch.sort`` of the packed int64 key ``(rank << 32) | (next + 1)``.
+  ``ops/sort.stable_argsort`` by the two keys (rank, next + 1), each of
+  the bits of n (the JAX version sorts them packed into one int64 word).
   The JAX version skips converged rounds with ``lax.cond``; here a host
-  loop breaks early and fills the remaining history rows.
+  loop breaks early and fills the remaining history rows, and reads the
+  sorts' fault word where it reads the round's rank maximum. An inverse
+  permutation is one scatter.
 * rank history: a [LEVELS, n] int32 buffer; LCP is computed by binary
   lifting over it.
 * PSV/NSV: a power-of-two sparse table of LCP window minima.
 
-All tensors are int32 (n < 2^31), except the packed sort keys.
+All tensors are int32 (n < 2^31).
 """
 from __future__ import annotations
 
@@ -18,19 +21,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.sort import check_faults, key_bits, stable_argsort
+
 INT_MAX = 2**31 - 1
 I32 = torch.int32
 
 
-def _dense_rank(vals: torch.Tensor) -> torch.Tensor:
-    """Dense rank (ties share rank) of an integer tensor, int32."""
-    n = vals.shape[0]
-    sv, order = torch.sort(vals, stable=True)
-    changed = torch.ones(n, dtype=I32, device=vals.device)
-    changed[1:] = (sv[1:] != sv[:-1]).to(I32)
-    rank = torch.empty(n, dtype=I32, device=vals.device)
+def _dense_rank(keys, bounds):
+    """Dense rank (ties share rank) of the rows by one or two int32 keys
+    (most significant first, each below its bound), int32; returns (rank,
+    the stable order of the rows)."""
+    n = keys[0].shape[0]
+    order, s0 = stable_argsort(keys, [key_bits(b) for b in bounds],
+                               values=True)
+    diff = s0[1:] != s0[:-1]
+    for k in keys[1:]:
+        ks = k[order]
+        diff |= ks[1:] != ks[:-1]
+    changed = torch.ones(n, dtype=I32, device=s0.device)
+    changed[1:] = diff.to(I32)
+    rank = torch.empty(n, dtype=I32, device=s0.device)
     rank[order] = (torch.cumsum(changed, 0) - 1).to(I32)  # permutation
-    return rank
+    return rank, order
 
 
 def n_levels(n: int) -> int:
@@ -49,40 +61,41 @@ def _shifted(rank: torch.Tensor, shift: int) -> torch.Tensor:
     return out
 
 
-def _pack(rank: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
-    return (rank.to(torch.int64) << 32) | (nxt.to(torch.int64) + 1)
+def _doubled_rank(rank: torch.Tensor, shift: int):
+    """The dense rank of (rank, the rank ``shift`` on, + 1: 0 past the
+    end), both below n + 1, and the rows' order by it."""
+    n = rank.shape[0]
+    return _dense_rank((rank, _shifted(rank, shift) + 1), (n, n + 1))
 
 
-def suffix_array_device(x: torch.Tensor, n: int):
+def suffix_array_device(x: torch.Tensor, n: int, bound: int = 256):
     """Return (sa int32[n], isa int32[n], history int32[LEVELS, n],
-    k_star) for the integer string ``x`` of length n."""
+    k_star) for the integer string ``x`` of length n, whose values lie in
+    [0, ``bound``) (bytes by default)."""
     dev = x.device
     levels = n_levels(n)
-    rank0 = _dense_rank(x.to(I32))
+    rank0, _ = _dense_rank((x.to(I32),), (bound,))
     history = torch.zeros((levels, n), dtype=I32, device=dev)
     history[0] = rank0
-    rank = _dense_rank(_pack(rank0, _shifted(rank0, 1)))
+    rank, _ = _doubled_rank(rank0, 1)
     history[1] = rank
     done = int(rank.max()) == n - 1
+    check_faults(dev)
     k_star = 1 if done else levels
     sa = None
     for k in range(1, levels - 1):
         if done:
             history[k + 1:] = history[k]
             break
-        k_s, ord_s = torch.sort(_pack(rank, _shifted(rank, 1 << k)),
-                                stable=True)
-        changed = torch.ones(n, dtype=I32, device=dev)
-        changed[1:] = (k_s[1:] != k_s[:-1]).to(I32)
-        new_rank = torch.empty(n, dtype=I32, device=dev)
-        new_rank[ord_s] = (torch.cumsum(changed, 0) - 1).to(I32)
-        history[k + 1] = new_rank
-        rank, sa = new_rank, ord_s.to(I32)
-        if int(new_rank.max()) == n - 1:
+        rank, sa = _doubled_rank(rank, 1 << k)
+        history[k + 1] = rank
+        if int(rank.max()) == n - 1:
             done = True
             k_star = k + 1
-    if sa is None:  # converged at level 1: invert the rank explicitly
-        sa = torch.sort(rank, stable=True).indices.to(I32)
+        check_faults(dev)
+    if sa is None:  # converged at level 1: the rank is a permutation
+        sa = torch.empty(n, dtype=I32, device=dev)
+        sa[rank.long()] = torch.arange(n, dtype=I32, device=dev)
     return sa, rank, history, k_star
 
 

@@ -23,20 +23,22 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
            "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
-           "tail_exact_credit.cu")
+           "tail_exact_credit.cu", "radix_sort.cu", "compact.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIFT_THREADS = 256
 
 LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
             "running_fill": 0, "tail_good_join": 0, "bucket_sums": 0,
-            "run_merge": 0, "tail_exact_credit": 0}
+            "run_merge": 0, "tail_exact_credit": 0, "radix_hist": 0,
+            "radix_pass": 0, "compact": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -66,6 +68,27 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
                            "toolkit that builds the port's kernels")
     return found
+
+
+def bind_radix_sort(lib) -> None:
+    """Set the ctypes signatures of a radix_sort.cu library (this tree's,
+    or a variant tools/radix_variants.py builds)."""
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for k in ("radix_sort_max_passes", "radix_sort_radix_bits"):
+        getattr(lib, k).restype = I
+        getattr(lib, k).argtypes = []
+    lib.radix_pass_blocks_per_sm.restype = I
+    lib.radix_pass_blocks_per_sm.argtypes = [I, I]
+    lib.radix_sort_scratch_bytes.restype = LL
+    lib.radix_sort_scratch_bytes.argtypes = [LL]
+    lib.radix_hist_launch.restype = I
+    keys = [I, ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(LL),
+            ctypes.POINTER(I), ctypes.POINTER(I)]
+    lib.radix_hist_launch.argtypes = keys + [I, I, LL, P, P, P]
+    lib.radix_pass_launch.restype = I
+    lib.radix_pass_launch.argtypes = keys + [
+        P, I, P, I, I, I, P, P, I, LL, I, P, I, LL, I, I, P, I, P, I, LL, P,
+        P]
 
 
 def _bind(libs: dict) -> None:
@@ -112,6 +135,12 @@ def _bind(libs: dict) -> None:
     f = libs["tail_exact_credit"].tail_exact_credit_launch
     f.restype = I
     f.argtypes = [P, P, P, I, P, I, P, P, P, P, I, P, I, P]
+    bind_radix_sort(libs["radix_sort"])
+    lib = libs["compact"]
+    lib.compact_scratch_bytes.restype = LL
+    lib.compact_scratch_bytes.argtypes = [LL]
+    lib.compact_launch.restype = I
+    lib.compact_launch.argtypes = [P, LL, LL, P, P, P, P]
 
 
 def load() -> dict:
@@ -483,3 +512,209 @@ def tail_exact_credit_cuda(counter_in, f_s, i_s, tgt, dst, tot: int,
             ctypes.c_void_p(stream))
     _launch("tail_exact_credit", err)
     return counter
+
+
+def radix_offsets(bits) -> tuple:
+    """Each key's lowest bit in the composite key (the last key's at 0)."""
+    return tuple(sum(bits[q + 1:]) for q in range(len(bits)))
+
+
+class RadixPass(NamedTuple):
+    """One radix_pass launch of a sort (radix_plan). ``keys`` (key indices)
+    and ``offs`` (their lowest bits in the composite): the pass reads
+    those keys in place, composed (mode 1); empty: it reads the words the
+    pass before wrote, u64 if ``in_wide``. The digit is at bit ``dshift``
+    of its input; the staged word is the input >> ``drop`` (u64 if
+    ``stage_wide``), written as the next pass's words if ``write``, as the
+    first key's values if ``vals``; ``next``: the key whose words it
+    writes, gathered through its rows. ``hist_src`` (-1: the composite,
+    else a key) and ``hist_shift``: the same digit read from the keys
+    themselves, where radix_hist counts the first pass's (each later
+    pass's counts come from the pass before it, from the words it
+    writes)."""
+    keys: tuple
+    offs: tuple
+    in_wide: bool
+    dshift: int
+    drop: int
+    stage_wide: bool
+    write: bool
+    vals: bool
+    next: int | None
+    hist_src: int
+    hist_shift: int
+
+
+def radix_plan(bits, radix_bits: int, values: bool = False) -> list:
+    """The passes of a stable sort by keys of these widths (most
+    significant first), in the order they run (RadixPass). When the keys'
+    total width B less the first digit fits 64 bits: the composite plan,
+    ceil(B / radix_bits) passes over the composite key C (the first key in
+    its top bits), the first reading the keys in place, each writing C's
+    words with the bits no later pass needs dropped (the first key's kept
+    whole with ``values``). Otherwise the per-key plan: each key's digits
+    in turn, the last key's first, its last pass writing the next key's
+    words gathered through the rows."""
+    rb = radix_bits
+    bits = tuple(int(b) for b in bits)
+    B = sum(bits)
+    offs = radix_offsets(bits)
+    keep = bits[0] if values else 0
+    D = -(-B // rb)
+    if D == 1 or B - min(rb, B - keep) <= 64:
+        plan, dropped = [], 0
+        for p in range(D):
+            last = p + 1 == D
+            if not last:
+                out = min((p + 1) * rb, B - keep)
+            else:
+                out = B - bits[0] if values else dropped
+            plan.append(RadixPass(
+                keys=tuple(range(len(bits))) if p == 0 else (),
+                offs=offs if p == 0 else (), in_wide=B - dropped > 32,
+                dshift=p * rb - dropped, drop=out - dropped,
+                stage_wide=B - out > 32 and (not last or values),
+                write=not last, vals=last and values, next=None,
+                hist_src=-1, hist_shift=p * rb))
+            dropped = out
+        return plan
+    plan = []
+    order = [(q, p) for q in reversed(range(len(bits)))
+             for p in range(-(-bits[q] // rb))]
+    for at, (q, p) in enumerate(order):
+        final = at + 1 == len(order)
+        last = final or order[at + 1][0] != q
+        plan.append(RadixPass(
+            keys=(q,) if at == 0 else (), offs=(0,) if at == 0 else (),
+            in_wide=bits[q] > 32, dshift=p * rb, drop=0,
+            stage_wide=bits[q] > 32 and (not last or (final and values)),
+            write=not last, vals=final and values,
+            next=None if final or not last else order[at + 1][0],
+            hist_src=q, hist_shift=p * rb))
+    return plan
+
+
+def radix_sort_cuda(keys, bits, fault, values: bool = False, scratch=None):
+    """Launch ``radix_hist`` and one ``radix_pass`` a digit on the CUDA
+    keys (1-D int32 or int64, equal lengths, most significant first, each
+    ``bits`` wide; ops/sort's contract): returns the stable permutation
+    (int32[n]) and, with ``values``, the first key's sorted values. A key
+    outside its width ORs its bit into ``fault`` (int32[1]); the wrapper
+    does not synchronise. ``scratch``: radix_sort_scratch_bytes(n) zeroed
+    bytes made by the caller (else made here). Same contract as
+    ops/sort._stable_argsort_reference."""
+    from ..ops.sort import PADS
+    keys, bits = tuple(keys), tuple(int(b) for b in bits)
+    if not keys or len(keys) != len(bits):
+        raise ValueError("radix_sort: one width for each key, at least "
+                         "one key")
+    dev = keys[0].device
+    n = int(keys[0].shape[0])
+    for q, (k, b) in enumerate(zip(keys, bits)):
+        if k.dtype not in PADS:
+            raise ValueError(f"radix_sort: key {q} is {k.dtype}, not int32 "
+                             "or int64")
+        _check(f"key {q}", k, k.dtype, (n,), dev)
+        top = 31 if k.dtype == torch.int32 else 63
+        if not 1 <= b <= top:
+            raise ValueError(f"radix_sort: key {q} ({k.dtype}) is {b} bits "
+                             f"wide (1 .. {top})")
+    _check("fault", fault, torch.int32, (1,), dev)
+    if n >= 2**31 - 1:
+        raise ValueError(f"radix_sort: {n} rows (fewer than 2^31 - 1)")
+    i32 = torch.int32
+    if n == 0:
+        perm = torch.empty(0, dtype=i32, device=dev)
+        return (perm, torch.empty_like(keys[0])) if values else perm
+    lib = load()["radix_sort"]
+    rb = int(lib.radix_sort_radix_bits())
+    plan = radix_plan(bits, rb, values)
+    if len(plan) > int(lib.radix_sort_max_passes()):
+        raise ValueError(f"radix_sort: {len(plan)} passes of {rb}-bit "
+                         "digits (at most "
+                         f"{int(lib.radix_sort_max_passes())})")
+    orig64 = [int(k.dtype == torch.int64) for k in keys]
+    pads = [PADS[k.dtype] for k in keys]
+    # the passes' tickets, digit counts and the tiles' words start at 0
+    size = int(lib.radix_sort_scratch_bytes(n))
+    if scratch is None:
+        scratch = torch.zeros(size, dtype=torch.uint8, device=dev)
+    _check("scratch", scratch, torch.uint8, (size,), dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def arrays(qs, offs):
+        k = len(qs)
+        return (k, (ctypes.c_void_p * k)(*(keys[q].data_ptr() for q in qs)),
+                (ctypes.c_int * k)(*(orig64[q] for q in qs)),
+                (ctypes.c_longlong * k)(*(pads[q] for q in qs)),
+                (ctypes.c_int * k)(*(bits[q] for q in qs)),
+                (ctypes.c_int * k)(*offs))
+    # radix_hist counts the first pass's digits; each pass counts the
+    # next one's as it writes its words
+    comp = plan[0].hist_src < 0
+    with torch.cuda.device(dev):
+        err = lib.radix_hist_launch(
+            *arrays(range(len(keys)), radix_offsets(bits) if comp
+                    else (0,) * len(keys)), plan[0].hist_src,
+            plan[0].hist_shift, n, _ptr(scratch), _ptr(fault), stream)
+    _launch("radix_hist", err)
+    rows = words = vals = None
+    for at, ps in enumerate(plan):
+        # outputs from torch.empty: every row is written
+        out_words = torch.empty(n, dtype=torch.int64 if ps.stage_wide
+                                else i32, device=dev) if ps.write else None
+        nq = ps.next
+        next_out = None if nq is None else torch.empty(
+            n, dtype=torch.int64 if bits[nq] > 32 else i32, device=dev)
+        if ps.vals:
+            vals = torch.empty(n, dtype=keys[0].dtype, device=dev)
+        out_rows = torch.empty(n, dtype=i32, device=dev)
+        nxt = (None, 0, 0, 1, 0, None) if nq is None else (
+            _ptr(keys[nq]), orig64[nq], pads[nq], bits[nq],
+            int(bits[nq] > 32), _ptr(next_out))
+        with torch.cuda.device(dev):
+            err = lib.radix_pass_launch(
+                *arrays(ps.keys, ps.offs),
+                None if words is None else _ptr(words), int(ps.in_wide),
+                None if rows is None else _ptr(rows), ps.dshift, ps.drop,
+                int(ps.stage_wide),
+                None if out_words is None else _ptr(out_words),
+                None if vals is None else _ptr(vals), orig64[0], pads[0],
+                bits[0], *nxt,
+                plan[at + 1].dshift if at + 1 < len(plan) else -1,
+                _ptr(out_rows), at, n, _ptr(scratch), stream)
+        _launch("radix_pass", err)
+        rows = out_rows
+        words = out_words if ps.write else next_out
+    return (rows, vals) if values else rows
+
+
+def compact_cuda(flag, count: int, fault, scratch=None):
+    """Launch ``compact`` on a CUDA bool tensor ``flag`` with ``count`` set
+    flags: returns int32[n], the set rows in order, then the others in
+    order. A count that is not the flags' ORs ops/sort.COUNT_FAULT into
+    ``fault`` (int32[1]); the wrapper does not synchronise. ``scratch``:
+    compact_scratch_bytes(n) zeroed bytes made by the caller (else made
+    here). Same contract as ops/sort._compact_reference."""
+    dev = flag.device
+    n = int(flag.shape[0])
+    _check("flag", flag, torch.bool, (n,), dev)
+    _check("fault", fault, torch.int32, (1,), dev)
+    if not 0 <= count <= n < 2**31 - 1:
+        raise ValueError(f"compact: {count} set of {n} rows")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = load()["compact"]
+    # the look-back's ticket and states start at 0
+    size = int(lib.compact_scratch_bytes(n))
+    if scratch is None:
+        scratch = torch.zeros(size, dtype=torch.uint8, device=dev)
+    _check("scratch", scratch, torch.uint8, (size,), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.compact_launch(_ptr(flag), n, count, _ptr(out),
+                                 _ptr(scratch), _ptr(fault),
+                                 ctypes.c_void_p(stream))
+    _launch("compact", err)
+    return out

@@ -38,6 +38,7 @@ from ..index.device import (DeviceIndex, build_device_index,
                             sparse_table_levels)
 from ..utils.buckets import bucket_size
 from .ms_dense import DeviceHeadsResult
+from .sort import check_faults, key_bits, stable_argsort
 
 INT_MAX = 2**31 - 1
 I32 = torch.int32
@@ -490,11 +491,12 @@ def _compact_candidates(out_t, out_pos, out_len, out_sml, nrec, sx_padded,
     slot = torch.arange(cap, dtype=I32, device=dev)[None, :]
     valid = slot < nrec[:, None]
     key = torch.where(valid, out_t, INT_MAX).reshape(-1)
-    t_f, order = torch.sort(key, stable=True)
+    order, t_f = stable_argsort((key,), (key_bits(sn),), values=True)
     pos_f = out_pos.reshape(-1)[order]
     len_f = out_len.reshape(-1)[order]
     sml_f = out_sml.reshape(-1)[order]
     total = int(valid.sum())
+    check_faults(dev)
     t_f, pos_f, len_f, sml_f = (a[:total] for a in (t_f, pos_f, len_f,
                                                     sml_f))
     is_head = torch.ones(total, dtype=torch.bool, device=dev)

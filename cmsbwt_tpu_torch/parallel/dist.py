@@ -34,7 +34,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine.device_merge import _lexsort
 from ..ops.fill import running_fill
 from .distributed import Ranks
 
@@ -44,6 +43,17 @@ SAMPLES = 256     # splitter candidates per rank in dsort
 # all_gather into one flat tensor (renamed all_gather_single in torch 2.12)
 _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+
+
+def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
+    """Stable argsort by several keys, most significant first (ties keep
+    input order, like a stable ``lax.sort`` with num_keys=len(keys)), as
+    stable ``torch.sort`` passes: the mesh's keys are int64 of no stated
+    width."""
+    order = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
 
 
 def _dmin(dt):

@@ -92,11 +92,12 @@ def _init(url: str, world: int, rank: int, device_type: str,
 def maybe_initialize(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
-                     device="cpu") -> bool:
+                     device="cuda") -> bool:
     """Join the launcher's group if one is configured (arguments, the
     CMSBWT_* variables, or torchrun's); True when a group is (already) up.
     ``device`` picks the backend: NCCL on ``cuda`` (this process's card is
-    ``cuda:LOCAL_RANK``), gloo on ``cpu``."""
+    ``cuda:LOCAL_RANK``; the default, as for compute_bwt, CMSBWT and the
+    CLI), gloo on ``cpu``."""
     if dist.is_initialized():
         return True
     coordinator = coordinator or os.environ.get("CMSBWT_COORDINATOR")

@@ -198,6 +198,22 @@ def test_launcher_variables(monkeypatch):
         distributed.maybe_initialize(device="cpu")
 
 
+def test_launcher_defaults_to_cuda(monkeypatch):
+    """Asked for no device, a launcher's process joins on cuda (NCCL), as
+    compute_bwt, CMSBWT and the CLI default to (init stubbed here)."""
+    for k in ("CMSBWT_COORDINATOR", "CMSBWT_NUM_PROCESSES",
+              "CMSBWT_PROCESS_ID", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    seen = []
+    monkeypatch.setattr(distributed, "_init", lambda *a: seen.append(a))
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "29512")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    assert distributed.maybe_initialize()
+    assert seen == [("tcp://localhost:29512", 2, 1, "cuda", None)]
+
+
 def test_rank_counts(monkeypatch):
     """R on cpu is n_devices (default 1); on cuda the visible cards."""
     assert distributed.n_ranks("cpu") == 1
