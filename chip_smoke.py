@@ -227,14 +227,15 @@ FILL_SIZES = {dt: (1, 3, 64, T - 1, T, T + 1, 3 * T + 5)
               for dt, T in FILL_TILE.items()}
 BIG_FILL = (1 << 29) + 1
 BS_TILE = 4096              # bucket_sums' tile (run_merge.cu: BS_TILE)
-SORT_TILE = 3072            # radix_sort.cu's TILE
+SORT_TILE = 6144            # radix_sort.cu's TILE
 COMPACT_TILE = 4096         # compact.cu's TILE
-SORT_SIZES = (1, 3, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1, COMPACT_TILE,
+SORT_SIZES = (1, 2, 3, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1, COMPACT_TILE,
               COMPACT_TILE + 1, 3 * COMPACT_TILE + 5, (1 << 22) + 3)
 SORT_WIDTHS = ((1, torch.int32), (8, torch.int32), (23, torch.int32),
                (31, torch.int32), (48, torch.int64), (63, torch.int64))
 SORT_KINDS = ("random", "ties", "equal", "descending", "pads", "top",
               "mixed")
+SORT_SKEWED = ("pad_runs", "one_digit", "lane_tails")   # skewed_keys
 # several keys, most significant first: (bits, dtype, kind)
 SORT_MULTI = {
     "join": ((23, torch.int32, "mixed"), (48, torch.int64, "ties")),
@@ -317,6 +318,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def library_ms(fn, reps: int) -> float:
+    """cuda_ms of a library call after one call to warm it (its
+    allocator's blocks, its workspace), as a caller that sorts again
+    finds it."""
+    fn()
+    return cuda_ms(fn, reps)
 
 
 def _wrap(b: bytes, width: int = 60) -> bytes:
@@ -884,23 +893,60 @@ def fill_cases() -> list:
     return out
 
 
+class SortCapture:
+    """Keeps the keys of the ops/sort.stable_argsort calls made while in
+    use by the device merge (engine/device_merge.py), the reference
+    index's doubling (index/device.py) and the jump scan's candidate
+    compaction (ops/ms_jump.py): one case per call site, named by the
+    caller's file (under the package) and line, from the first call
+    there, its keys cloned (a caller may reuse them). ``sites`` maps each
+    site to (keys, widths, values flag), in call order."""
+
+    MODULES = ("engine.device_merge", "index.device", "ops.ms_jump")
+
+    def __enter__(self):
+        import importlib
+        self.mods = [importlib.import_module(f"cmsbwt_tpu_torch.{m}")
+                     for m in self.MODULES]
+        self.orig = [m.stable_argsort for m in self.mods]
+        self.sites = {}
+        for mod, fn in zip(self.mods, self.orig):
+            mod.stable_argsort = self._wrap(fn)
+        return self
+
+    def _wrap(self, fn):
+        def argsort(keys, bits, values=False):
+            keys = tuple(keys)
+            frame = sys._getframe(1)
+            path = pathlib.Path(frame.f_code.co_filename)
+            site = f"{'/'.join(path.parts[-2:])}:{frame.f_lineno}"
+            if site not in self.sites:
+                self.sites[site] = (tuple(k.clone() for k in keys),
+                                    tuple(int(b) for b in bits), values)
+            return fn(keys, bits, values)
+        return argsort
+
+    def __exit__(self, *exc):
+        for mod, fn in zip(self.mods, self.orig):
+            mod.stable_argsort = fn
+
+
 class MergeCapture:
     """Keeps the inputs of the device merge's kernels from the merges run
     while in use, by wrapping engine/device_merge's running_fill,
-    tail_good_join, exact_credit, bucket_sums, run_merge, stable_argsort
-    and compact: every running_fill input with its op and direction
-    (``fills``, in call order; ``fill`` the largest), the last inputs of
-    the next four, and the largest sort's (the join's keys, widths and
-    values flag) and compaction's (flag, count) inputs."""
+    tail_good_join, exact_credit, bucket_sums, run_merge and compact:
+    every running_fill input with its op and direction (``fills``, in
+    call order; ``fill`` the largest), the last inputs of the next four,
+    the largest compaction's (flag, count), and every sort's keys by call
+    site (``sorts``, a SortCapture)."""
 
     def __enter__(self):
         from cmsbwt_tpu_torch.engine import device_merge as dm
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
-        self.exact = self.sums = self.sort = self.compact = None
+        self.exact = self.sums = self.compact = None
         self.fills = []
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
-                     dm.exact_credit, dm.bucket_sums, dm.stable_argsort,
-                     dm.compact)
+                     dm.exact_credit, dm.bucket_sums, dm.compact)
 
         def fill(v, op="max", reverse=False):
             self.fills.append((v, op, reverse))
@@ -924,27 +970,22 @@ class MergeCapture:
             self.sums = a
             return self.orig[4](*a)
 
-        def argsort(keys, bits, values=False):
-            keys = tuple(keys)
-            if self.sort is None or \
-                    keys[0].numel() > self.sort[0][0].numel():
-                self.sort = (keys, tuple(bits), values)
-            return self.orig[5](keys, bits, values)
-
         def compact(flag, count):
             if self.compact is None or \
                     flag.numel() > self.compact[0].numel():
                 self.compact = (flag, count)
-            return self.orig[6](flag, count)
+            return self.orig[5](flag, count)
         (dm.running_fill, dm.tail_good_join, dm.run_merge, dm.exact_credit,
-         dm.bucket_sums, dm.stable_argsort, dm.compact) = (
-             fill, join, runs, exact, sums, argsort, compact)
+         dm.bucket_sums, dm.compact) = (fill, join, runs, exact, sums,
+                                        compact)
+        self.sorts = SortCapture().__enter__()
         return self
 
     def __exit__(self, *exc):
+        self.sorts.__exit__(*exc)
         (self.dm.running_fill, self.dm.tail_good_join, self.dm.run_merge,
-         self.dm.exact_credit, self.dm.bucket_sums, self.dm.stable_argsort,
-         self.dm.compact) = self.orig
+         self.dm.exact_credit, self.dm.bucket_sums, self.dm.compact) = \
+            self.orig
 
 
 def bucket_sums_bytes(bucket_rank, m_c, nec: int, n_pad: int) -> int:
@@ -1107,6 +1148,48 @@ def sort_keys(kind: str, n: int, bits: int, dtype, seed: int,
     return k[1:] if offset else k
 
 
+def skewed_keys(kind: str, n: int, bits: int, dtype,
+                seed: int) -> torch.Tensor:
+    """n keys of ``bits`` width on the card in one of the port's skewed
+    layouts (SORT_SKEWED): random keys with tiles 1 and 2 of radix_sort
+    (SORT_TILE rows) and the last fifth all pads ("pad_runs"); one low
+    byte in every row under random high bits ("one_digit"); the jump
+    scan's candidates, [lanes, cap] slots with each lane's records rising
+    through its own span and the slots past its count pads
+    ("lane_tails", 4096 lanes when n allows, nrec up to a quarter of
+    cap)."""
+    from cmsbwt_tpu_torch.ops.sort import PADS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pad = PADS[dtype]
+    top = min((1 << bits) - 1, pad)
+    i64 = torch.int64
+    if kind == "pad_runs":
+        k = torch.randint(0, top, (n,), generator=g, device="cuda",
+                          dtype=i64)
+        k[SORT_TILE:3 * SORT_TILE] = pad
+        k[n - n // 5:] = pad
+    elif kind == "one_digit":
+        low = int(torch.randint(0, min(top, 256), (1,), generator=g,
+                                device="cuda"))
+        k = torch.randint(0, max(top >> 8, 1), (n,), generator=g,
+                          device="cuda", dtype=i64) << 8 | low
+        k = torch.where(k < top, k, low)
+    else:
+        lanes = 4096 if n >= 4096 * 64 else 8
+        cap = -(-n // lanes)
+        span = max(top // lanes, 1)
+        nrec = torch.randint(0, cap // 4 + 1, (lanes, 1), generator=g,
+                             device="cuda")
+        step = torch.randint(0, max(span // cap, 1) + 1, (lanes, cap),
+                             generator=g, device="cuda")
+        t = (torch.arange(lanes, device="cuda")[:, None] * span
+             + torch.cumsum(step, 1) // 2).clamp_(max=top - 1)
+        slot = torch.arange(cap, device="cuda")[None, :]
+        k = torch.where(slot < nrec, t, pad).reshape(-1)[:n]
+    return k.to(dtype)
+
+
 def sort_case(name: str, keys, bits, garbage=True) -> None:
     """radix_sort against its plain version (exact) on these keys: the
     permutation and the first key's sorted values, the outputs given
@@ -1128,7 +1211,9 @@ def sort_cases() -> int:
     """radix_sort and compact against their plain versions (exact) on the
     card: one key of every width and pattern at the tiles' edges (odd
     cases as views one row into their storage), several keys (the
-    merge's shapes, pads only; the composite and the per-key plans),
+    merge's shapes, pads only; the composite and the per-key plans), the
+    port's skewed layouts (whole tiles of pads, one digit in every row,
+    the jump scan's lane tails; n of 2, just over a tile and more),
     compactions at
     every share of set flags, aligned and not; then a key over its width
     and a wrong count of set flags, where the kernels must set the plain
@@ -1136,6 +1221,9 @@ def sort_cases() -> int:
     cases run."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.ops import sort as S
+    tile = int(K.load()["radix_sort"].radix_sort_tile())
+    if tile != SORT_TILE:
+        fail(f"radix_sort.cu's tile is {tile} rows, SORT_TILE {SORT_TILE}")
     cases = 0
     for n in SORT_SIZES:
         for bits, dt in SORT_WIDTHS:
@@ -1161,6 +1249,20 @@ def sort_cases() -> int:
                              "differs from its plain version")
                     S.check_faults("cuda:0")
                 cases += 1
+    # the port's skewed layouts, alone and as the join's first key
+    for kind in SORT_SKEWED:
+        for n in (2, SORT_TILE + 1, 5 * SORT_TILE + 77, (1 << 22) + 3):
+            for bits, dt in ((23, torch.int32), (29, torch.int32),
+                             (47, torch.int64)):
+                sort_case(f"{kind}, {bits} bits {dt}, n={n}",
+                          (skewed_keys(kind, n, bits, dt, cases),), (bits,),
+                          garbage=n < 1 << 20)
+                cases += 1
+            keys = (skewed_keys(kind, n, 23, torch.int32, cases),
+                    sort_keys("ties", n, 47, torch.int64, cases + 1))
+            sort_case(f"{kind} under the join's key2f, n={n}", keys,
+                      (23, 47), garbage=n < 1 << 20)
+            cases += 1
     for n in SORT_SIZES:
         for share in (0.0, 0.03, 0.5, 1.0):
             for offset in (False, True):
@@ -1253,21 +1355,24 @@ def sort_bytes(keys, bits, values: bool, rb: int) -> tuple:
 
 
 def sort_times(tag: str, keys, bits, values: bool) -> dict:
-    """radix_sort against its plain version on a merge's sort, then timed:
-    as the wrapper runs it, alone (scratch made beforehand), beside
-    torch.sort passes (the library call; the plain version's sorts) and
-    copy_ of the floor's bytes."""
+    """radix_sort against its plain version on a call site's sort, with
+    the site's own ``values`` flag (the permutation, and the first key's
+    sorted values when it is set), then timed as the site runs it: as the
+    wrapper runs it, alone (scratch made beforehand), beside torch.sort
+    passes (the library call; the plain version's sorts) and copy_ of the
+    floor's bytes."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.ops import sort as S
     fault = S.fault_word("cuda:0")
     n = keys[0].numel()
     lib = K.load()["radix_sort"]
+    outputs = lambda r: tuple(r) if values else (r,)
     floor, moved = sort_bytes(keys, bits, values,
                               int(lib.radix_sort_radix_bits()))
     r = compare(
         "radix_sort", tag, "_stable_argsort_reference",
-        lambda: tuple(K.radix_sort_cuda(keys, bits, fault, True)),
-        lambda: tuple(S._stable_argsort_reference(keys, bits, True)),
+        lambda: outputs(K.radix_sort_cuda(keys, bits, fault, values)),
+        lambda: outputs(S._stable_argsort_reference(keys, bits, values)),
         f"n={n} rows, keys {[str(k.dtype) for k in keys]} of {bits} bits",
         floor)
     S.check_faults("cuda:0")
@@ -1275,9 +1380,11 @@ def sort_times(tag: str, keys, bits, values: bool) -> dict:
         lambda scratch: K.radix_sort_cuda(keys, bits, fault, values,
                                           scratch=scratch),
         int(lib.radix_sort_scratch_bytes(n)))
-    r["library_ms"] = cuda_ms(lambda: torch_lexsort(keys), 2)
+    r["library_ms"] = library_ms(lambda: torch_lexsort(keys), 2)
     r["copy_ms"] = copy_ms(floor)
     r["passes_bound_ms"] = bound_ms(moved)
+    r.update(rows=n, bits=list(bits), values=values, passes=len(
+        K.radix_plan(bits, int(lib.radix_sort_radix_bits()), values)))
     S.check_faults("cuda:0")
     log(f"kernel radix_sort[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
         f"wrapper runs it {r['ms']:.3f} ms, torch.sort passes "
@@ -1319,9 +1426,14 @@ def compact_times(tag: str, flag, count: int) -> dict:
     return r
 
 
-def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
-    """The merge's five kernels against their plain versions (exact) on
-    the inputs one device merge gave them (MergeCapture), then timed."""
+def merge_kernel_cases(tag: str, cap: MergeCapture,
+                       scan_sorts: SortCapture | None = None) -> dict:
+    """The merge's kernels against their plain versions (exact) on the
+    inputs one device merge gave them (MergeCapture), then timed:
+    radix_sort on every sort of the merge and of ``scan_sorts`` (the jump
+    scan's: one index-doubling round, the candidates) by call site
+    (``radix_sort_sites``; ``radix_sort`` is the merge's largest, the
+    join's)."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.ops.fill import running_fill_reference
@@ -1390,10 +1502,19 @@ def merge_kernel_cases(tag: str, cap: MergeCapture) -> dict:
         lambda: dm._run_merge_reference(k_s, len_s, chr_s)[:2],
         f"L={k_s.numel()} lanes",
         lambda want: nbytes(k_s, len_s, chr_s) + nbytes(*want))
-    out["radix_sort"] = sort_times(tag, *cap.sort)
+    # the scan's own: its index's doubling shares a site with the merge's
+    # head-string sort (index/device.suffix_array_device)
+    sites = {f"{site} (jump scan)": args
+             for site, args in (scan_sorts.sites if scan_sorts else {}).items()}
+    sites.update(cap.sorts.sites)
+    out["radix_sort_sites"] = {site: sort_times(f"{tag} {site}", *args)
+                               for site, args in sites.items()}
+    out["radix_sort"] = max(
+        (out["radix_sort_sites"][site] for site in cap.sorts.sites),
+        key=lambda r: r["rows"])
     out["compact"] = compact_times(tag, *cap.compact)
-    for r in out.values():
-        del r["outputs"]
+    for r in [*out.values(), *out["radix_sort_sites"].values()]:
+        r.pop("outputs", None)
     return out
 
 
@@ -1657,15 +1778,26 @@ def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
 def sort_row(row, name, source, replaces, merge_cases, counted, keys):
     """The kernels line's row of a sort kernel: its 500 Mchar and primary
     merge cases, with its alone and copy_ times and the extra ``keys`` of
-    the 500 Mchar case."""
+    the 500 Mchar case; radix_sort's also lists every call site's case at
+    both shapes (``sites``)."""
     big = merge_cases["500M"][name]
-    return row(name, source, replaces,
-               [big, merge_cases["primary"][name]], big["library_ms"],
-               counted, alone_ms=big["alone_ms"], copy_ms=big["copy_ms"],
+    res = [big, merge_cases["primary"][name]]
+    extra = {}
+    if name + "_sites" in merge_cases["500M"]:
+        extra["sites"] = {
+            tag: {site: {k: r[k] for k in (
+                "rows", "bits", "passes", "ms", "alone_ms", "plain_ms",
+                "library_ms", "bound_ms", "passes_bound_ms", "err")}
+                for site, r in cases[name + "_sites"].items()}
+            for tag, cases in merge_cases.items()}
+        res += [r for cases in merge_cases.values()
+                for r in cases[name + "_sites"].values()]
+    return row(name, source, replaces, res, big["library_ms"], counted,
+               alone_ms=big["alone_ms"], copy_ms=big["copy_ms"],
                **{k: big[k] for k in keys},
                primary={k: merge_cases["primary"][name][k] for k in
                         ("ms", "alone_ms", "plain_ms", "library_ms",
-                         "copy_ms", "bound_ms") + keys})
+                         "copy_ms", "bound_ms") + keys}, **extra)
 
 
 def main() -> int:
@@ -1926,13 +2058,16 @@ def run_phases(card: str, kind: str, started: float) -> int:
         f"equal ({len(dev[0])} runs, {len(host[0])} before normalising); "
         f"host ms {times['host']}, device ms {times['device']}")
     # phase 11's primary case: the merge kernels on the inputs this
-    # merge gives them
+    # merge gives them, and the jump scan's sorts (its index built anew)
+    with SortCapture() as scan_sorts:
+        mj.ms_jump_heads(x_aug, coll.sx, "cuda")
     with MergeCapture() as cap:
         again = merge_heads_device_resident(jres, coll.d, False)
     if not all(np.array_equal(a, b) for a, b in zip(again, dev)):
         fail("the device merge's runs differ between two runs")
-    merge_cases = {"primary": merge_kernel_cases("primary", cap)}
-    del jres, host, dev, want_runs, again, cap
+    merge_cases = {"primary": merge_kernel_cases("primary", cap,
+                                                 scan_sorts)}
+    del jres, host, dev, want_runs, again, cap, scan_sorts
 
     # phase 6: the dense slice through the CLI, kernel launches counted
     run_cli("dense", "dense")
@@ -2074,7 +2209,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
              "collection char")
     dres = kept.pop("res")
     t0 = time.perf_counter()
-    jres = mj.ms_jump_heads(xb, cb.sx, "cuda")
+    with SortCapture() as scan_sorts:
+        jres = mj.ms_jump_heads(xb, cb.sx, "cuda")
     log(f"big: jump heads h={jres.h} ({time.perf_counter() - t0:.2f} s); "
         f"blocked dense heads h={dres.h} irreducible={dres.irreducible}")
     if not same_heads(dres, jres):
@@ -2090,8 +2226,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
         torch.cuda.synchronize()
         log(f"big: the device merge of the same heads again "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    merge_cases["500M"] = merge_kernel_cases("500M", cap)
-    del cap
+    merge_cases["500M"] = merge_kernel_cases("500M", cap, scan_sorts)
+    del cap, scan_sorts
     torch.cuda.empty_cache()
     # the host merge on the same heads, against the device merge's output
     from cmsbwt_tpu_torch.io import native

@@ -16,6 +16,7 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -74,21 +75,19 @@ def bind_radix_sort(lib) -> None:
     """Set the ctypes signatures of a radix_sort.cu library (this tree's,
     or a variant tools/radix_variants.py builds)."""
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for k in ("radix_sort_max_passes", "radix_sort_radix_bits"):
+    for k in ("radix_sort_max_passes", "radix_sort_radix_bits",
+              "radix_sort_tile"):
         getattr(lib, k).restype = I
         getattr(lib, k).argtypes = []
     lib.radix_pass_blocks_per_sm.restype = I
-    lib.radix_pass_blocks_per_sm.argtypes = [I, I]
+    lib.radix_pass_blocks_per_sm.argtypes = [I, I, I, I]
     lib.radix_sort_scratch_bytes.restype = LL
     lib.radix_sort_scratch_bytes.argtypes = [LL]
-    lib.radix_hist_launch.restype = I
-    keys = [I, ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(LL),
-            ctypes.POINTER(I), ctypes.POINTER(I)]
-    lib.radix_hist_launch.argtypes = keys + [I, I, LL, P, P, P]
-    lib.radix_pass_launch.restype = I
-    lib.radix_pass_launch.argtypes = keys + [
-        P, I, P, I, I, I, P, P, I, LL, I, P, I, LL, I, I, P, I, P, I, LL, P,
-        P]
+    lib.radix_sort_run.restype = I
+    IP = ctypes.POINTER(I)
+    lib.radix_sort_run.argtypes = [
+        I, ctypes.POINTER(P), IP, ctypes.POINTER(LL), IP, IP, I, IP, IP, IP,
+        I, I, I, P, P, P, P, P, P, LL, P, P, P]
 
 
 def _bind(libs: dict) -> None:
@@ -594,8 +593,103 @@ def radix_plan(bits, radix_bits: int, values: bool = False) -> list:
     return plan
 
 
+@functools.lru_cache(maxsize=256)
+def _radix_records(bits: tuple, rb: int, values: bool) -> tuple:
+    """The plan of a sort (radix_plan) and its pass records as
+    radix_sort_run reads them: ten ints a pass (in_wide, dshift, drop,
+    stage_wide, write, vals, next key or -1, the next pass's dshift or
+    -1, hist_src, hist_shift)."""
+    plan = radix_plan(bits, rb, values)
+    recs = []
+    for at, ps in enumerate(plan):
+        recs += [int(ps.in_wide), ps.dshift, ps.drop, int(ps.stage_wide),
+                 int(ps.write), int(ps.vals),
+                 -1 if ps.next is None else ps.next,
+                 plan[at + 1].dshift if at + 1 < len(plan) else -1,
+                 ps.hist_src, ps.hist_shift]
+    return plan, tuple(recs)
+
+
+class _RadixRun:
+    """One sort's plan, buffers and C arguments on a radix_sort.cu library
+    (radix_sort_cuda's, or a build tools/radix_variants.py times):
+    ``run(a, b)`` launches steps [a, b) in one C call (step 0 radix_hist,
+    step p + 1 pass p); ``result()`` the outputs once every step ran."""
+
+    def __init__(self, lib, keys, bits, fault, values, scratch):
+        from ..ops.sort import PADS
+        dev, n = keys[0].device, int(keys[0].shape[0])
+        plan, recs = _radix_records(bits, int(lib.radix_sort_radix_bits()),
+                                    values)
+        D = len(plan)
+        if D > int(lib.radix_sort_max_passes()):
+            raise ValueError(f"radix_sort: {D} passes (at most "
+                             f"{int(lib.radix_sort_max_passes())})")
+        # the passes' tickets, digit counts and the tiles' words start at 0
+        size = int(lib.radix_sort_scratch_bytes(n))
+        if scratch is None:
+            scratch = torch.zeros(size, dtype=torch.uint8, device=dev)
+        _check("scratch", scratch, torch.uint8, (size,), dev)
+        # ping-pong buffers, from torch.empty (every row is written): pass
+        # p writes its words (or the next key's) to words[p % 2], its row
+        # ids to rows[p % 2]; the last pass writes no words, and its rows
+        # go to the row buffer the passes before freed
+        width = [0, 0]
+        for p, ps in enumerate(plan):
+            w = (8 if ps.stage_wide else 4) if ps.write else (
+                0 if ps.next is None else 8 if bits[ps.next] > 32 else 4)
+            width[p % 2] = max(width[p % 2], w)
+        self.words = [torch.empty(n * w, dtype=torch.uint8, device=dev)
+                      if w else None for w in width]
+        rows = [torch.empty(n, dtype=torch.int32, device=dev)
+                if any(p % 2 == k for p in range(D - 1)) else None
+                for k in (0, 1)]
+        self.last = (D - 1) % 2
+        self.perm = rows[self.last] if rows[self.last] is not None else \
+            torch.empty(n, dtype=torch.int32, device=dev)
+        orig64 = [int(k.dtype == torch.int64) for k in keys]
+        ints = lambda xs: (ctypes.c_int * max(len(xs), 1))(*xs)
+        first = plan[0]
+        self.args = [len(keys), (ctypes.c_void_p * len(keys))(
+            *(k.data_ptr() for k in keys)), ints(orig64),
+            (ctypes.c_longlong * len(keys))(*(PADS[k.dtype] for k in keys)),
+            ints(bits), ints(radix_offsets(bits) if first.hist_src < 0
+                             else (0,) * len(keys)),
+            len(first.keys), ints(first.keys), ints(first.offs), ints(recs),
+            D]
+        self.lib, self.keys, self.fault, self.values = lib, keys, fault, \
+            values
+        self.rows, self.scratch, self.vals, self.n = rows, scratch, None, n
+        self.steps = D + 1
+        self.stream = ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def run(self, a: int, b: int) -> None:
+        if self.values and b == self.steps:
+            # the last pass's values, allocated once the word buffer it
+            # does not read is freed
+            self.words[self.last] = None
+            self.vals = torch.empty(self.n, dtype=self.keys[0].dtype,
+                                    device=self.keys[0].device)
+        ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
+        with torch.cuda.device(self.keys[0].device):
+            err = self.lib.radix_sort_run(
+                *self.args, a, b, ptr(self.words[0]), ptr(self.words[1]),
+                ptr(self.rows[0]), ptr(self.rows[1]), ptr(self.perm),
+                ptr(self.vals), self.n, ptr(self.scratch), ptr(self.fault),
+                self.stream)
+        if err != 0:
+            raise RuntimeError(f"radix_sort launch failed: CUDA error {err}")
+        LAUNCHES["radix_hist"] += int(a == 0)
+        LAUNCHES["radix_pass"] += b - max(a, 1)
+
+    def result(self):
+        return (self.perm, self.vals) if self.values else self.perm
+
+
 def radix_sort_cuda(keys, bits, fault, values: bool = False, scratch=None):
-    """Launch ``radix_hist`` and one ``radix_pass`` a digit on the CUDA
+    """Launch ``radix_hist`` and one ``radix_pass`` a digit (one C call,
+    radix_sort_run; with ``values`` the last pass in a second) on the CUDA
     keys (1-D int32 or int64, equal lengths, most significant first, each
     ``bits`` wide; ops/sort's contract): returns the stable permutation
     (int32[n]) and, with ``values``, the first key's sorted values. A key
@@ -622,71 +716,17 @@ def radix_sort_cuda(keys, bits, fault, values: bool = False, scratch=None):
     _check("fault", fault, torch.int32, (1,), dev)
     if n >= 2**31 - 1:
         raise ValueError(f"radix_sort: {n} rows (fewer than 2^31 - 1)")
-    i32 = torch.int32
     if n == 0:
-        perm = torch.empty(0, dtype=i32, device=dev)
+        perm = torch.empty(0, dtype=torch.int32, device=dev)
         return (perm, torch.empty_like(keys[0])) if values else perm
-    lib = load()["radix_sort"]
-    rb = int(lib.radix_sort_radix_bits())
-    plan = radix_plan(bits, rb, values)
-    if len(plan) > int(lib.radix_sort_max_passes()):
-        raise ValueError(f"radix_sort: {len(plan)} passes of {rb}-bit "
-                         "digits (at most "
-                         f"{int(lib.radix_sort_max_passes())})")
-    orig64 = [int(k.dtype == torch.int64) for k in keys]
-    pads = [PADS[k.dtype] for k in keys]
-    # the passes' tickets, digit counts and the tiles' words start at 0
-    size = int(lib.radix_sort_scratch_bytes(n))
-    if scratch is None:
-        scratch = torch.zeros(size, dtype=torch.uint8, device=dev)
-    _check("scratch", scratch, torch.uint8, (size,), dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-    def arrays(qs, offs):
-        k = len(qs)
-        return (k, (ctypes.c_void_p * k)(*(keys[q].data_ptr() for q in qs)),
-                (ctypes.c_int * k)(*(orig64[q] for q in qs)),
-                (ctypes.c_longlong * k)(*(pads[q] for q in qs)),
-                (ctypes.c_int * k)(*(bits[q] for q in qs)),
-                (ctypes.c_int * k)(*offs))
-    # radix_hist counts the first pass's digits; each pass counts the
-    # next one's as it writes its words
-    comp = plan[0].hist_src < 0
-    with torch.cuda.device(dev):
-        err = lib.radix_hist_launch(
-            *arrays(range(len(keys)), radix_offsets(bits) if comp
-                    else (0,) * len(keys)), plan[0].hist_src,
-            plan[0].hist_shift, n, _ptr(scratch), _ptr(fault), stream)
-    _launch("radix_hist", err)
-    rows = words = vals = None
-    for at, ps in enumerate(plan):
-        # outputs from torch.empty: every row is written
-        out_words = torch.empty(n, dtype=torch.int64 if ps.stage_wide
-                                else i32, device=dev) if ps.write else None
-        nq = ps.next
-        next_out = None if nq is None else torch.empty(
-            n, dtype=torch.int64 if bits[nq] > 32 else i32, device=dev)
-        if ps.vals:
-            vals = torch.empty(n, dtype=keys[0].dtype, device=dev)
-        out_rows = torch.empty(n, dtype=i32, device=dev)
-        nxt = (None, 0, 0, 1, 0, None) if nq is None else (
-            _ptr(keys[nq]), orig64[nq], pads[nq], bits[nq],
-            int(bits[nq] > 32), _ptr(next_out))
-        with torch.cuda.device(dev):
-            err = lib.radix_pass_launch(
-                *arrays(ps.keys, ps.offs),
-                None if words is None else _ptr(words), int(ps.in_wide),
-                None if rows is None else _ptr(rows), ps.dshift, ps.drop,
-                int(ps.stage_wide),
-                None if out_words is None else _ptr(out_words),
-                None if vals is None else _ptr(vals), orig64[0], pads[0],
-                bits[0], *nxt,
-                plan[at + 1].dshift if at + 1 < len(plan) else -1,
-                _ptr(out_rows), at, n, _ptr(scratch), stream)
-        _launch("radix_pass", err)
-        rows = out_rows
-        words = out_words if ps.write else next_out
-    return (rows, vals) if values else rows
+    sort = _RadixRun(load()["radix_sort"], keys, bits, fault, values,
+                     scratch)
+    D = sort.steps - 1
+    # one C call a sort; with values, the last pass apart (the sort then
+    # holds no more than the former one-call-a-pass wrapper held)
+    for a, b in [(0, D), (D, D + 1)] if values and D > 1 else [(0, D + 1)]:
+        sort.run(a, b)
+    return sort.result()
 
 
 def compact_cuda(flag, count: int, fault, scratch=None):

@@ -22,55 +22,73 @@
 //
 // What bounds it on this card: bytes. The floor is one read of every key
 // and one write of the permutation; the passes move more: each pass of
-// d-bit digits reads its words and row ids and writes them scattered.
+// 8-bit digits reads its words and row ids and writes them scattered
+// (kernels/__init__.radix_plan lays the passes out: the composite plan
+// drops the bits no later pass needs, so no pass gathers).
+//
+// Where a pass's time went before this design (tools/radix_variants.py
+// --sites, every call site's real keys; the design it replaced,
+// tools/radix_sort_late_counts.cu): the join's sort at 500 Mchars (493 M
+// rows) took 75 ms, a u64 pass 7.7-7.9 ms against 3.5 ms of bytes, a u32
+// pass 6.8-7.2 against 2.4; runs_emit's lanes (149 M rows) 2.1-2.3 ms a
+// pass against 0.7. Replacing every pad by a uniform word moved no pass
+// by more than 0.1 ms: the pads' skew was not the cost, a tile's chain
+// was. A tile published its digit counts only after ranking all its rows
+// and two block scans, so the tiles after it waited on that whole chain
+// in their look-backs; each row held its word in registers (80 registers,
+// 3 blocks of 3072 rows an SM); and each tile paid fixed costs per digit
+// (its look-back, 2 x 256 published words, 256 global adds of the next
+// pass's counts) for only 3072 rows.
 //
 // Design: Onesweep (Adinets and Merrill, "Onesweep: A Faster Least
-// Significant Digit Radix Sort for GPUs", 2022): one histogram launch,
-// then one launch per digit, each a single pass with a decoupled
-// look-back per digit. kernels/__init__.radix_plan lays the passes out.
-//  * The composite plan, when the keys' total width less the first digit
-//    fits 64 bits (every call site of the port): the keys are one
-//    composite key C (most significant key in the top bits). The first
-//    pass reads the keys themselves, in place, and every pass writes the
-//    words of C with the bits it no longer needs dropped (a pass's words
-//    are u32 once they fit), so no pass gathers; the most significant
-//    key's bits stay whole when its sorted values are wanted.
-//  * The per-key plan otherwise: key by key, the least significant first;
-//    the last pass of a key writes the next key's words, gathered through
-//    the rows it writes (the gather sits in the write-out, after the
-//    look-back, where no tile waits on it).
-//  * radix_hist reads every key once (coalesced), checks it against its
-//    width and counts the first pass's digits (a warp's lanes of one
-//    digit, found with __match_any_sync, add their count to the warp's
-//    counter); each pass counts the next pass's digits as it writes its
-//    words (a shared atomic a row).
-//  * radix_pass: a block takes its 3072-row tile from a ticket (scan
-//    order, never blockIdx), loads its rows warp-striped (warp w owns 384
-//    consecutive rows; in round i lane l holds row i * 32 + l, coalesced)
-//    and ranks them stably: round by round each warp groups its lanes by
-//    digit (a ballot per digit bit), so a row's rank among its warp's
-//    equal digits is the rows before it in row order. Per digit the
-//    warps' counts then give each warp its base and the tile its count,
-//    which the tile publishes at once (flag AGG) in a 64-bit word beside
-//    its flag, as tile_scan.cuh's look-back words are; the flag also
-//    carries the pass, so one zeroed scratch serves every pass of a sort.
-//    The block stages its words, digits and row ids in shared memory in
-//    digit order, then each thread looks back for one digit over the
-//    tiles before it (8 tiles' words at once) until it meets a published
-//    inclusive count, publishes its own, and the block writes its rows
-//    out from shared memory, each digit's run to consecutive addresses.
-//  * A pass waits on memory more than it moves it (tools/radix_variants.py
-//    times the variants), so: registers set how many blocks an SM holds
-//    (3, by the launch bound), and a thread holds its words, their
-//    digits (packed) and ranks only; the row ids are copied into shared
-//    memory (cp.async) as the keys load, and arrive while they are
-//    ranked.
+// Significant Digit Radix Sort for GPUs", 2022) with CUB's early counts
+// (BlockRadixRankMatchEarlyCounts): one histogram launch (radix_hist: the
+// first pass's counts and every key's width check), then one launch a
+// digit, each a single pass with a decoupled look-back per digit, all
+// launched by one C call (radix_sort_run) from a plan of pass records.
+// A radix_pass tile of 6144 rows (512 threads x 12 rows, 2 blocks an SM,
+// for a pass that stages u64 words; 256 x 24, 3 an SM, for u32 words —
+// the fixed costs per digit spread over twice the rows):
+//  * takes its place from a ticket (scan order, never blockIdx), and its
+//    arrays (the keys in place on the first pass, else the words and row
+//    ids the pass before wrote) come into shared memory by 1-D TMA bulk
+//    copies completing on an mbarrier (each array's tile lands at its
+//    global address's offset mod 16; the few rows before and after the
+//    16-byte aligned body are copied by threads), so no register holds a
+//    row (48-64 registers);
+//  * counts its digits at once (early counts: warp w's rows, round i lane
+//    l: row w * 32 * ITEMS + i * 32 + l, add to the warp's own counters,
+//    a shared atomic a row) and publishes its per-digit counts (flag AGG,
+//    in a 64-bit word beside the flag and the pass, one zeroed scratch for
+//    every pass), so the tiles after it wait on load + count, not on its
+//    ranking;
+//  * one-digit tiles (a digit holds every row: runs of pads, the high
+//    digits of narrow keys) skip the ranking: a row's rank is its place;
+//  * else it ranks its rows stably, round by round (a ballot per digit
+//    bit groups a warp's lanes by digit), each warp starting each digit at
+//    its place in the tile (the digits' starts plus the warps' counts
+//    before it), and stages only the source row of each rank (2 bytes);
+//  * each thread then looks back for its digit over the tiles before
+//    (LB_BATCH tiles' words at once) until an inclusive count, publishes
+//    its own, and the block writes its rows out in rank order, each
+//    digit's run to consecutive addresses, reading words and row ids from
+//    the arrays in shared memory, and counts the next pass's digits as it
+//    writes them (a shared atomic a row).
+// Measured against text-edited variants (tools/radix_variants.py): early
+// counts and the one-digit path pay; the votes and __match_any_sync groups
+// that would aggregate the counts cost more than the atomics they save
+// (Hopper's shared atomics take a round's equal digits at once), and so
+// does a radix_hist that counts every pass's digits; the bulk copies
+// measure 4-7% a pass faster than per-thread cp.async.
 //
-// Plain C interface (bound with ctypes): each *_launch returns
-// cudaGetLastError() after its launch; it launches on the given stream,
-// allocates nothing (the caller passes radix_sort_scratch_bytes(n) bytes
-// of scratch, zeroed: the passes' tickets, the digit histograms and the
-// tiles' per-digit words) and does not synchronise.
+// Plain C interface (bound with ctypes): radix_sort_run launches the steps
+// it is asked for on the given stream and returns the first
+// cudaGetLastError() that is not 0; it allocates nothing (the caller
+// passes the ping-pong buffers and radix_sort_scratch_bytes(n) bytes of
+// zeroed scratch: the passes' tickets, the digit histograms and the tiles'
+// per-digit words) and does not synchronise.
+
+#include <type_traits>
 
 #include "tile_scan.cuh"
 
@@ -78,39 +96,68 @@ namespace {
 
 using namespace tile_scan;
 
-// radix_pass's block: THREADS threads of ITEMS rows, MIN_BLOCKS an SM
-// (tools/radix_variants.py builds other shapes with -D)
+// radix_pass's blocks: a pass staging u64 words runs THREADS threads of
+// ITEMS rows, MIN_BLOCKS an SM; one staging u32 words THREADS32 of ITEMS32,
+// MIN_BLOCKS32 an SM; both tiles the same rows (tools/radix_variants.py
+// builds other shapes with -D)
 #ifndef RS_THREADS
-#define RS_THREADS 256
+#define RS_THREADS 512
 #endif
 #ifndef RS_ITEMS
 #define RS_ITEMS 12
 #endif
 #ifndef RS_MIN_BLOCKS
-#define RS_MIN_BLOCKS 3
+#define RS_MIN_BLOCKS 2
+#endif
+#ifndef RS_THREADS32
+#define RS_THREADS32 256
+#endif
+#ifndef RS_ITEMS32
+#define RS_ITEMS32 24
+#endif
+#ifndef RS_MIN_BLOCKS32
+#define RS_MIN_BLOCKS32 3
 #endif
 // tiles' words a digit's look-back reads at once
 #ifndef RS_LB_BATCH
-#define RS_LB_BATCH 8
+#define RS_LB_BATCH 4
 #endif
-// the digit's width: 8 bits (11 measured slower: tools/radix_variants.py)
+// the digit's width: 8 bits (11 measured 3x slower)
 #ifndef RS_RADIX_BITS
 #define RS_RADIX_BITS 8
 #endif
-constexpr int THREADS = RS_THREADS;
-constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = RS_ITEMS;
-constexpr int TILE = THREADS * ITEMS;       // 3072 rows
-constexpr int MIN_BLOCKS = RS_MIN_BLOCKS;
+constexpr int TILE = RS_THREADS * RS_ITEMS;    // 6144 rows
+static_assert(RS_THREADS32 * RS_ITEMS32 == TILE,
+              "both block shapes take tiles of TILE rows");
 constexpr int LB_BATCH = RS_LB_BATCH;
 constexpr int RADIX_BITS = RS_RADIX_BITS;
+constexpr int UNROLL = 4;             // the item loops' unroll factor
 constexpr int MAX_KEYS = 4;
 constexpr int MAX_PASSES = 32;
+constexpr int PLAN_INTS = 10;               // ints of a pass record
 constexpr int HIST_THREADS = 256;
-constexpr int HIST_ROWS = 2;                // radix_hist: rows a lane loads
-constexpr int HIST_BLOCKS_PER_SM = 4;
+#ifndef RS_HIST_ROWS
+#define RS_HIST_ROWS 2
+#endif
+#ifndef RS_HIST_BLOCKS
+#define RS_HIST_BLOCKS 8
+#endif
+constexpr int HIST_ROWS = RS_HIST_ROWS;     // radix_hist: rows a lane loads
+constexpr int HIST_BLOCKS_PER_SM = RS_HIST_BLOCKS;
+static_assert(TILE % 4 == 0 && TILE <= 65536,
+              "a tile's rows are u16 and its arrays whole 16-byte lines");
 
 typedef unsigned __int128 u128;
+
+// the block of a pass that stages words of type W
+template <class W>
+struct Shape {
+  static constexpr bool WIDE = sizeof(W) == 8;
+  static constexpr int THREADS = WIDE ? RS_THREADS : RS_THREADS32;
+  static constexpr int ITEMS = WIDE ? RS_ITEMS : RS_ITEMS32;
+  static constexpr int MIN_BLOCKS = WIDE ? RS_MIN_BLOCKS : RS_MIN_BLOCKS32;
+  static constexpr int WARPS = THREADS / 32;
+};
 
 // keys as read in place: each mapped to its word (pad -> all ones) and
 // placed at its bit offset in the composite
@@ -127,7 +174,7 @@ struct Hist {
   Keys k;
   unsigned long long limit[MAX_KEYS];   // other keys lie below it
   int src;                              // -1: the composite, else a key
-  int shift;                            // the digit's bit in it (+ RB <= 64)
+  int shift;                            // the first pass's digit's bit in it
 };
 
 // the key a pass writes the words of, gathered through the rows as they
@@ -141,10 +188,25 @@ struct Next {
   void* out;
 };
 
+// a tile's arrays in shared memory (byte offsets in the dynamic shared
+// memory): each input array's tile, its row ids', the staged source rows,
+// the warps' digit counters, the digits' starts, places and next counts,
+// and the mbarrier
+struct Layout {
+  int in[MAX_KEYS];         // MODE 1: each key; MODE 0: in[0], the words
+  int esz[MAX_KEYS];        // bytes of a row of each
+  int nin;
+  int rows;                 // the row ids (MODE 0)
+  int idx;
+  int whist;
+  int misc;
+  int bar;
+  int bytes;
+};
+
 struct Pass {
-  Keys k;                   // mode 1 (k.nkeys > 0): the keys composed
-  const void* words_in;     // mode 0: the words the pass before wrote
-  int in_wide;
+  Keys k;                   // MODE 1: the keys composed
+  const void* words_in;     // MODE 0: the words the pass before wrote
   const unsigned* rows_in;  // null: the identity
   int dshift;               // the digit's bit in the input
   int drop;                 // the staged word: the input >> drop
@@ -160,6 +222,7 @@ struct Pass {
   int pass;
   long long n;
   unsigned char* scratch;
+  Layout lay;
 };
 
 __host__ __device__ constexpr long long hist_offset() {
@@ -180,16 +243,6 @@ __device__ __forceinline__ unsigned long long map_key(long long raw,
                                                       long long pad,
                                                       unsigned long long ones) {
   return raw == pad ? ones : static_cast<unsigned long long>(raw);
-}
-
-__device__ __forceinline__ u128 compose(const Keys& k, long long r) {
-  u128 c = 0;
-#pragma unroll
-  for (int q = 0; q < MAX_KEYS; ++q)
-    if (q < k.nkeys)
-      c |= u128(map_key(load_key(k.ptr[q], k.orig64[q], r), k.pad[q],
-                        k.ones[q])) << k.off[q];
-  return c;
 }
 
 template <int RB>
@@ -216,17 +269,27 @@ __device__ __forceinline__ unsigned peers_of(int d, bool valid) {
   return peers;
 }
 
+// Adds the warp's valid lanes to their digits' counters (all lanes call):
+// one shared atomic a lane (Hopper's shared atomics take a round's equal
+// digits at once; votes and __match_any_sync groups measured slower,
+// tools/radix_variants.py)
+template <int RB>
+__device__ __forceinline__ void count_add(unsigned* ctr, int d, bool valid) {
+  if (valid) atomicAdd(ctr + d, 1u);
+}
+
 // ---------------------------------------------------------------------------
-// radix_hist: every pass's digit counts, and the keys' width check
+// radix_hist: the first pass's digit counts, and the keys' width check
 // ---------------------------------------------------------------------------
 
 template <int RB>
-__global__ void __launch_bounds__(HIST_THREADS, 4)
+__global__ void __launch_bounds__(HIST_THREADS, HIST_BLOCKS_PER_SM)
 radix_hist_kernel(Hist h, long long n, unsigned* __restrict__ hist,
                   int* __restrict__ fault) {
   constexpr int BINS = 1 << RB;
   constexpr int HWARPS = HIST_THREADS / 32;
-  extern __shared__ unsigned s_hist[];   // [warps][BINS]
+  // [warps][BINS]: each warp's counters
+  extern __shared__ unsigned s_hist[];
   for (int i = threadIdx.x; i < HWARPS * BINS; i += HIST_THREADS)
     s_hist[i] = 0;
   __syncthreads();
@@ -234,10 +297,8 @@ radix_hist_kernel(Hist h, long long n, unsigned* __restrict__ hist,
   unsigned* wh = s_hist + (threadIdx.x >> 5) * BINS;
   int bad = 0;
   // the block's rows are one run; a warp takes 32 x HIST_ROWS consecutive
-  // rows a step, all their loads in flight at once (coalesced); the
-  // lanes of one digit add their count to the warp's own counter (one
-  // lane a digit: no atomics). The digit lies in C's (or the key's) low
-  // 64 bits.
+  // rows a step, all their loads in flight at once (coalesced), and adds
+  // the first pass's digit to its counters (count_add)
   constexpr long long SPAN = (long long)HIST_THREADS * HIST_ROWS;
   const long long chunk = (n + gridDim.x * SPAN - 1) / (gridDim.x * SPAN) *
                           SPAN;
@@ -257,7 +318,10 @@ radix_hist_kernel(Hist h, long long n, unsigned* __restrict__ hist,
 #pragma unroll
     for (int j = 0; j < HIST_ROWS; ++j) {
       const bool valid = base + j * 32 + lane < end;
-      unsigned long long v = 0;
+      // the composite, and key src's word (no array: it would live in
+      // local memory)
+      u128 c = 0;
+      unsigned long long sel = 0;
 #pragma unroll
       for (int q = 0; q < MAX_KEYS; ++q) {
         if (q < h.k.nkeys && valid) {
@@ -268,17 +332,14 @@ radix_hist_kernel(Hist h, long long n, unsigned* __restrict__ hist,
                  << q;
           const unsigned long long w =
               map_key(raw[j][q], h.k.pad[q], h.k.ones[q]);
-          if (h.src == q)
-            v = w;
-          else if (h.src < 0 && h.k.off[q] < 64)
-            v |= w << h.k.off[q];
+          c |= u128(w) << h.k.off[q];
+          if (q == h.src) sel = w;
         }
       }
-      const int d = digit64<RB>(v, h.shift);
-      // (one match here beats the passes' ballots: tools/radix_variants.py)
-      const unsigned peers = __match_any_sync(FULL, valid ? d : BINS + lane);
-      if (valid && !(peers & ((1u << lane) - 1u))) wh[d] += __popc(peers);
-      __syncwarp();
+      const unsigned long long v =
+          h.src < 0 ? static_cast<unsigned long long>(c >> h.shift)
+                    : sel >> h.shift;
+      count_add<RB>(wh, int(v & (BINS - 1)), valid);
     }
   }
   __syncthreads();
@@ -296,10 +357,15 @@ radix_hist_kernel(Hist h, long long n, unsigned* __restrict__ hist,
 // radix_pass: one digit, one launch
 // ---------------------------------------------------------------------------
 
-struct Sum {
-  static __device__ __forceinline__ unsigned identity() { return 0u; }
-  static __device__ __forceinline__ unsigned combine(unsigned x, unsigned y) {
-    return x + y;
+// the tile's count and the pass's global count of a digit, scanned at once
+struct Sum2 {
+  unsigned tile, global;
+};
+struct Sum2Op {
+  static __device__ __forceinline__ Sum2 identity() { return Sum2{0u, 0u}; }
+  static __device__ __forceinline__ Sum2 combine(const Sum2& x,
+                                                 const Sum2& y) {
+    return Sum2{x.tile + y.tile, x.global + y.global};
   }
 };
 
@@ -310,57 +376,101 @@ __device__ __forceinline__ unsigned long long digit_word(int pass, int status,
          count;
 }
 
-// the staged tile: a word, a digit and a row id a row
-template <int RB, class W>
-__host__ __device__ constexpr int region_bytes() {
-  return WARPS * (1 << RB) * 4 > TILE * (int(sizeof(W)) + 4 + 2)
-             ? WARPS * (1 << RB) * 4
-             : TILE * (int(sizeof(W)) + 4 + 2);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int RB, class W>
-__host__ __device__ constexpr int pass_smem() {
-  // the digits' starts, places and next-pass counts, and the tile's row
-  // ids in row order, copied in as the keys load
-  return region_bytes<RB, W>() + 3 * (1 << RB) * 4 + TILE * 4;
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
-// a 4-byte copy from global to shared memory that does not wait
-__device__ __forceinline__ void copy_async4(unsigned* dst,
-                                            const unsigned* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                           unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
                : "memory");
 }
 
+__device__ __forceinline__ void bar_wait(unsigned long long* bar) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+}
+
+// a 1-D TMA copy of ``bytes`` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on the mbarrier
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One array's tile: ``cnt`` rows of ``esz`` bytes from ``src`` into shared
+// memory at ``region`` + (src mod 16), so that its 16-byte aligned body
+// moves by one bulk copy (thread 0) and the rows before and after it by
+// the threads. Returns where row 0 landed.
+template <int THREADS>
+__device__ __forceinline__ const unsigned char* load_array(
+    const unsigned char* src, int esz, int cnt, unsigned char* region,
+    unsigned long long* bar, unsigned* tx) {
+  const int mis = int(reinterpret_cast<uintptr_t>(src) & 15);
+  unsigned char* dst = region + mis;
+  const int head = min(((16 - mis) & 15) / esz, cnt);
+  const int body = (cnt - head) * esz & ~15;
+  const int tail = head + body / esz;
+  if (threadIdx.x == 0 && body) {
+    bulk_copy(dst + head * esz, src + head * esz, unsigned(body), bar);
+    *tx += unsigned(body);
+  }
+  for (int k = threadIdx.x; k < head + cnt - tail; k += THREADS) {
+    const int r = k < head ? k : tail + k - head;
+    if (esz == 8)
+      *reinterpret_cast<unsigned long long*>(dst + r * 8) =
+          __ldg(reinterpret_cast<const unsigned long long*>(src) + r);
+    else
+      *reinterpret_cast<unsigned*>(dst + r * 4) =
+          __ldg(reinterpret_cast<const unsigned*>(src) + r);
+  }
+  return dst;
+}
+
 // W: the staged word (what words_out and vals_out get); MODE 1: the keys
-// read in place and composed, MODE 0: the words of the pass before
+// read in place and composed, MODE 0: the words of the pass before (u64
+// when its rows are 8 bytes)
 template <int RB, class W, int MODE>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(Shape<W>::THREADS, Shape<W>::MIN_BLOCKS)
 radix_pass_kernel(Pass a) {
+  constexpr int THREADS = Shape<W>::THREADS;
+  constexpr int ITEMS = Shape<W>::ITEMS;
+  constexpr int WARPS = Shape<W>::WARPS;
   constexpr int BINS = 1 << RB;
   // digits a thread owns (threads past BINS own none)
   constexpr int DPT = BINS >= THREADS ? BINS / THREADS : 1;
-  static_assert(BINS % THREADS == 0 || THREADS % BINS == 0,
+  static_assert(BINS < THREADS || BINS % THREADS == 0,
                 "threads own whole digits");
-  // digits packed a register
-  constexpr int DPR = RB <= 8 ? 4 : 2;
-  constexpr int DBITS = 32 / DPR;
-  constexpr int NDG = (ITEMS + DPR - 1) / DPR;
   extern __shared__ __align__(16) unsigned char smem[];
-  // the warps' digit counters, then (aliased) the staged tile
-  unsigned* whist = reinterpret_cast<unsigned*>(smem);
-  W* swords = reinterpret_cast<W*>(smem);
-  unsigned* srows = reinterpret_cast<unsigned*>(smem + TILE * sizeof(W));
-  unsigned short* sdig = reinterpret_cast<unsigned short*>(
-      smem + TILE * (sizeof(W) + 4));
-  unsigned* dstart = reinterpret_cast<unsigned*>(smem +
-                                                 region_bytes<RB, W>());
+  __shared__ Sum2 wagg[33];
+  __shared__ int s_one;
+  unsigned* whist = reinterpret_cast<unsigned*>(smem + a.lay.whist);
+  unsigned* dstart = reinterpret_cast<unsigned*>(smem + a.lay.misc);
   unsigned* gofs = dstart + BINS;
   unsigned* nhist = gofs + BINS;    // the next pass's digit counts
-  unsigned* inrows = nhist + BINS;  // the row ids in row order
-  __shared__ unsigned wagg[33];
+  unsigned short* sidx = reinterpret_cast<unsigned short*>(smem + a.lay.idx);
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(smem + a.lay.bar);
 
   unsigned* tickets = reinterpret_cast<unsigned*>(a.scratch);
   const unsigned* ghist = reinterpret_cast<const unsigned*>(
@@ -368,81 +478,88 @@ radix_pass_kernel(Pass a) {
   unsigned long long* states = reinterpret_cast<unsigned long long*>(
       a.scratch + states_offset(BINS));
 
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool owner = threadIdx.x * DPT < BINS;
+  if (threadIdx.x == 0) {
+    s_one = -1;
+    bar_init(bar);
+  }
   const int t = take_ticket(tickets + a.pass);
   const long long row0 = (long long)t * TILE;
   const int cnt = int(min((long long)TILE, a.n - row0));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool owner = threadIdx.x * DPT < BINS;
 
+  // the tile's arrays start for shared memory at once; the counters are
+  // zeroed while they travel
+  const unsigned char* in[MAX_KEYS];
+  int esz[MAX_KEYS];
+  unsigned tx = 0;
+  const int nin = MODE == 1 ? a.k.nkeys : 1;
+#pragma unroll
+  for (int q = 0; q < MAX_KEYS; ++q) {
+    esz[q] = a.lay.esz[q];
+    in[q] = nullptr;
+    if (q < nin) {
+      const void* base = MODE == 1 ? a.k.ptr[q] : a.words_in;
+      in[q] = load_array<THREADS>(static_cast<const unsigned char*>(base) +
+                             row0 * esz[q],
+                         esz[q], cnt, smem + a.lay.in[q], bar, &tx);
+    }
+  }
+  const unsigned* rows = nullptr;
+  if (a.rows_in)
+    rows = reinterpret_cast<const unsigned*>(load_array<THREADS>(
+        reinterpret_cast<const unsigned char*>(a.rows_in + row0), 4, cnt,
+        smem + a.lay.rows, bar, &tx));
+  if (threadIdx.x == 0) bar_expect(bar, tx);
   for (int i = threadIdx.x; i < WARPS * BINS; i += THREADS) whist[i] = 0;
   for (int i = threadIdx.x; i < BINS; i += THREADS) nhist[i] = 0;
+  bar_wait(bar);
+  __syncthreads();
 
-  // the row ids start on their way to shared memory now, and arrive
-  // while the keys are ranked
-  if (a.rows_in) {
+  // row r's input word (MODE 1: the keys composed) and its digit
+  using In = std::conditional_t<MODE == 1, u128, unsigned long long>;
+  auto word_at = [&](int r) -> In {
+    if constexpr (MODE == 1) {
+      u128 c = 0;
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int s = warp * 32 * ITEMS + i * 32 + lane;
-      if (s < cnt) copy_async4(inrows + s, a.rows_in + row0 + s);
+      for (int q = 0; q < MAX_KEYS; ++q)
+        if (q < a.k.nkeys) {
+          const long long raw =
+              a.k.orig64[q]
+                  ? reinterpret_cast<const long long*>(in[q])[r]
+                  : (long long)reinterpret_cast<const int*>(in[q])[r];
+          c |= u128(map_key(raw, a.k.pad[q], a.k.ones[q])) << a.k.off[q];
+        }
+      return c;
+    } else {
+      return esz[0] == 8
+                 ? reinterpret_cast<const unsigned long long*>(in[0])[r]
+                 : (unsigned long long)reinterpret_cast<const unsigned*>(
+                       in[0])[r];
     }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  }
-
-  // load: warp-striped rows, round i lane l -> row seg + i * 32 + l; a
-  // row's digit and its staged word (the row ids travel apart, to shared
-  // memory: fewer registers)
-  W k[ITEMS];
-  unsigned dg[NDG];
-#pragma unroll
-  for (int i = 0; i < NDG; ++i) dg[i] = 0;
-  const int seg = warp * 32 * ITEMS;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int s = seg + i * 32 + lane;
-    k[i] = 0;
-    if (s < cnt) {
-      int d;
-      if (MODE == 1) {
-        const u128 v = compose(a.k, row0 + s);
-        d = digit128<RB>(v, a.dshift);
-        k[i] = W(static_cast<unsigned long long>(v >> a.drop));
-      } else {
-        const unsigned long long v =
-            a.in_wide
-                ? __ldg(static_cast<const unsigned long long*>(a.words_in) +
-                        row0 + s)
-                : __ldg(static_cast<const unsigned*>(a.words_in) + row0 + s);
-        d = digit64<RB>(v, a.dshift);
-        k[i] = W(v >> a.drop);
-      }
-      dg[i / DPR] |= unsigned(d) << (i % DPR * DBITS);
-    }
-  }
-  __syncthreads();    // the counters are zero
-
-  auto digit = [&](int i) {
-    return int((dg[i / DPR] >> (i % DPR * DBITS)) & ((1u << DBITS) - 1));
+  };
+  auto digit_of = [&](const In& v) {
+    if constexpr (MODE == 1)
+      return digit128<RB>(v, a.dshift);
+    else
+      return digit64<RB>(v, a.dshift);
   };
 
-  // stable ranks within the warp, round by round
-  unsigned off[ITEMS];
-  const unsigned lt = (1u << lane) - 1u;
+  // early counts: warp-striped rows, round i lane l -> row seg + i * 32 + l
+  const int seg = warp * 32 * ITEMS;
   unsigned* wh = whist + warp * BINS;
-#pragma unroll
+#pragma unroll UNROLL
   for (int i = 0; i < ITEMS; ++i) {
-    const bool valid = seg + i * 32 + lane < cnt;
-    const int d = digit(i);
-    const unsigned peers = peers_of<RB>(d, valid);
-    const unsigned base = valid ? wh[d] : 0u;
-    __syncwarp();
-    if (valid && !(peers & lt)) wh[d] = base + __popc(peers);
-    off[i] = base + __popc(peers & lt);
-    __syncwarp();
+    const int r = seg + i * 32 + lane;
+    const bool valid = r < cnt;
+    count_add<RB>(wh, valid ? digit_of(word_at(r)) : 0, valid);
   }
   __syncthreads();
 
-  // per digit: each warp's base, the tile's count, published at once
-  unsigned cnts[DPT], ex_local[DPT], tsum = 0;
+  // per digit: each warp's count before it, the tile's count (published
+  // now: early counts), one-digit tiles found
+  unsigned cnts[DPT];
+  Sum2 mine{0u, 0u}, loc[DPT];
 #pragma unroll
   for (int j = 0; j < DPT; ++j) {
     const int d = threadIdx.x * DPT + j;
@@ -456,54 +573,48 @@ radix_pass_kernel(Pass a) {
       }
       st_word(states + (long long)t * BINS + d,
               digit_word(a.pass, t == 0 ? LB_INCL : LB_AGG, run));
+      if (run == unsigned(cnt)) s_one = d;
     }
     cnts[j] = run;
-    ex_local[j] = tsum;
-    tsum += run;
+    loc[j] = mine;
+    mine.tile += run;
+    if (owner) mine.global += ghist[d];
   }
-  unsigned total;
-  const unsigned ex = block_scan<false, Sum>(tsum, 0u, wagg, &total);
-  // the pass's global digit starts, from the histogram
-  unsigned gc_local[DPT], gsum = 0;
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) {
-    gc_local[j] = gsum;
-    if (owner) gsum += ghist[threadIdx.x * DPT + j];
-  }
-  const unsigned gex = block_scan<false, Sum>(gsum, 0u, wagg, &total);
+  Sum2 total;
+  const Sum2 ex = block_scan<false, Sum2Op>(mine, Sum2Op::identity(), wagg,
+                                            &total);
   if (owner) {
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int d = threadIdx.x * DPT + j;
-      dstart[d] = ex + ex_local[j];
-      gofs[d] = gex + gc_local[j];
+      const unsigned ds = ex.tile + loc[j].tile;
+      dstart[d] = ds;
+      gofs[d] = ex.global + loc[j].global;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) whist[w * BINS + d] += ds;
     }
   }
   __syncthreads();
+  const int one = s_one;
 
-  // each row's place in the tile, digit by digit
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    if (seg + i * 32 + lane < cnt) {
-      const int d = digit(i);
-      off[i] += dstart[d] + wh[d];
+  // stable ranks, round by round: a warp's lanes grouped by digit, each
+  // warp's counter for a digit its next row's place in the tile; the
+  // staged slot keeps the row (one-digit tiles: a row's rank is its place)
+  if (one < 0) {
+    const unsigned lt = (1u << lane) - 1u;
+#pragma unroll UNROLL
+    for (int i = 0; i < ITEMS; ++i) {
+      const int r = seg + i * 32 + lane;
+      const bool valid = r < cnt;
+      const int d = valid ? digit_of(word_at(r)) : 0;
+      const unsigned peers = peers_of<RB>(d, valid);
+      const unsigned base = valid ? wh[d] : 0u;
+      __syncwarp();
+      if (valid && !(peers & lt)) wh[d] = base + __popc(peers);
+      if (valid)
+        sidx[base + __popc(peers & lt)] = static_cast<unsigned short>(r);
+      __syncwarp();
     }
-  }
-  __syncthreads();    // the counters are read: stage over them
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    if (seg + i * 32 + lane < cnt) {
-      swords[off[i]] = k[i];
-      sdig[off[i]] = static_cast<unsigned short>(digit(i));
-    }
-  }
-  // the row ids, staged beside their words (a thread moves the ones it
-  // copied in)
-  if (a.rows_in) asm volatile("cp.async.wait_all;" ::: "memory");
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int s = seg + i * 32 + lane;
-    if (s < cnt) srows[off[i]] = a.rows_in ? inrows[s] : unsigned(row0 + s);
   }
 
   // look back, one digit a thread: fold the counts of the tiles before
@@ -540,51 +651,52 @@ radix_pass_kernel(Pass a) {
         st_word(states + (long long)t * BINS + d,
                 digit_word(a.pass, LB_INCL, prefix + cnts[j]));
       }
-      // row s of the staged tile (digit d) goes to gofs[d] + s
+      // rank s of digit d goes to gofs[d] + s
       gofs[d] += prefix - dstart[d];
     }
   }
   __syncthreads();
 
-  // write out from the staged tile: each digit's run is consecutive. The
-  // next key's gathers are issued first, all of a thread's at once
-  long long nk[ITEMS];
-  if (a.next.key) {
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int s = threadIdx.x + i * THREADS;
-      nk[i] = s < cnt ? load_key(a.next.key, a.next.orig64, srows[s]) : 0;
-    }
-  }
+  // write out in rank order: each digit's run is consecutive; the next
+  // pass's digits counted as they are written
   W* wout = static_cast<W*>(a.words_out);
-#pragma unroll
+#pragma unroll UNROLL
   for (int i = 0; i < ITEMS; ++i) {
     const int s = threadIdx.x + i * THREADS;
-    if (s >= cnt) break;
-    const W word = swords[s];
-    const unsigned pos = gofs[sdig[s]] + unsigned(s);
-    a.rows_out[pos] = srows[s];
-    unsigned long long nw = static_cast<unsigned long long>(word);
-    if (wout) wout[pos] = word;
-    if (a.next.key) {
-      nw = map_key(nk[i], a.next.pad, a.next.ones);
-      if (a.next.wide)
-        static_cast<unsigned long long*>(a.next.out)[pos] = nw;
-      else
-        static_cast<unsigned*>(a.next.out)[pos] = unsigned(nw);
+    const bool valid = s < cnt;
+    unsigned long long nw = 0;
+    if (valid) {
+      const int src = one >= 0 ? s : int(sidx[s]);
+      const In v = word_at(src);
+      const W word = W(static_cast<unsigned long long>(v >> a.drop));
+      const unsigned pos = gofs[digit_of(v)] + unsigned(s);
+      const unsigned row = rows ? rows[src] : unsigned(row0 + src);
+      a.rows_out[pos] = row;
+      nw = static_cast<unsigned long long>(word);
+      if (wout) wout[pos] = word;
+      if (a.next.key) {
+        nw = map_key(load_key(a.next.key, a.next.orig64, row), a.next.pad,
+                     a.next.ones);
+        if (a.next.wide)
+          static_cast<unsigned long long*>(a.next.out)[pos] = nw;
+        else
+          static_cast<unsigned*>(a.next.out)[pos] = unsigned(nw);
+      }
+      if (a.vals_out) {
+        const long long val =
+            static_cast<unsigned long long>(word) == a.vals_ones
+                ? a.vals_pad
+                : static_cast<long long>(word);
+        if (a.vals64)
+          static_cast<long long*>(a.vals_out)[pos] = val;
+        else
+          static_cast<int*>(a.vals_out)[pos] = int(val);
+      }
     }
-    // the next pass's digit, counted here (radix_hist counts the first
-    // pass's only)
-    if (a.count_shift >= 0)
-      atomicAdd(nhist + digit64<RB>(nw, a.count_shift), 1u);
-    if (a.vals_out) {
-      const long long v = static_cast<unsigned long long>(word) == a.vals_ones
-                              ? a.vals_pad
-                              : static_cast<long long>(word);
-      if (a.vals64)
-        static_cast<long long*>(a.vals_out)[pos] = v;
-      else
-        static_cast<int*>(a.vals_out)[pos] = int(v);
+    // the next pass's digit (radix_hist counts the first pass's only)
+    if (a.count_shift >= 0) {
+      const int nd = digit64<RB>(nw, a.count_shift);
+      count_add<RB>(nhist, nd, valid);
     }
   }
   if (a.count_shift >= 0) {
@@ -618,57 +730,87 @@ int hist_launch(const Hist& h, long long n, void* scratch, void* fault,
   return int(cudaGetLastError());
 }
 
+// the shared memory of a pass whose input arrays have these row sizes
+// (with the row ids when ``rows``)
+Layout make_layout(int nin, const int* esz, bool rows, int rb, int warps) {
+  Layout L{};
+  int at = 0;
+  auto take = [&](int bytes) {
+    const int o = at;
+    at += (bytes + 15) / 16 * 16;
+    return o;
+  };
+  L.nin = nin;
+  for (int q = 0; q < nin; ++q) {
+    L.esz[q] = esz[q];
+    L.in[q] = take(TILE * esz[q] + 16);
+  }
+  L.rows = rows ? take(TILE * 4 + 16) : 0;
+  L.idx = take(TILE * 2);
+  L.whist = take(warps * (1 << rb) * 4);
+  L.misc = take(3 * (1 << rb) * 4);
+  L.bar = take(8);
+  L.bytes = at;
+  return L;
+}
+
 // the pass kernel's shared memory: its bytes allowed, and the SM's
 // carveout at its largest so that MIN_BLOCKS blocks fit
 template <int RB, class W, int MODE>
-void pass_attributes() {
+void pass_attributes(int smem) {
   auto fn = radix_pass_kernel<RB, W, MODE>;
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       pass_smem<RB, W>());
+                       smem);
   cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                        int(cudaSharedmemCarveoutMaxShared));
 }
 
 template <int RB, class W, int MODE>
-int pass_launch(const Pass& a, cudaStream_t s) {
-  constexpr int smem = pass_smem<RB, W>();
-  auto fn = radix_pass_kernel<RB, W, MODE>;
-  pass_attributes<RB, W, MODE>();
+int pass_launch(Pass a, const int* esz, cudaStream_t s) {
+  a.lay = make_layout(MODE == 1 ? a.k.nkeys : 1, esz, MODE == 0, RB,
+                      Shape<W>::WARPS);
+  pass_attributes<RB, W, MODE>(a.lay.bytes);
   const long long tiles = (a.n + TILE - 1) / TILE;
-  fn<<<int(tiles), THREADS, smem, s>>>(a);
+  radix_pass_kernel<RB, W, MODE>
+      <<<int(tiles), Shape<W>::THREADS, a.lay.bytes, s>>>(a);
   return int(cudaGetLastError());
 }
 
 template <int RB, class W, int MODE>
-void occupancy(int* blocks) {
-  pass_attributes<RB, W, MODE>();
+void occupancy(int smem, int* blocks) {
+  pass_attributes<RB, W, MODE>(smem);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, radix_pass_kernel<RB, W, MODE>, THREADS, pass_smem<RB, W>());
+      blocks, radix_pass_kernel<RB, W, MODE>, Shape<W>::THREADS, smem);
 }
 
 template <int RB>
-int pass_dispatch(const Pass& a, int stage_wide, cudaStream_t s) {
+int pass_dispatch(const Pass& a, const int* esz, int stage_wide,
+                  cudaStream_t s) {
   if (a.k.nkeys > 0)
-    return stage_wide ? pass_launch<RB, unsigned long long, 1>(a, s)
-                      : pass_launch<RB, unsigned, 1>(a, s);
-  return stage_wide ? pass_launch<RB, unsigned long long, 0>(a, s)
-                    : pass_launch<RB, unsigned, 0>(a, s);
+    return stage_wide ? pass_launch<RB, unsigned long long, 1>(a, esz, s)
+                      : pass_launch<RB, unsigned, 1>(a, esz, s);
+  return stage_wide ? pass_launch<RB, unsigned long long, 0>(a, esz, s)
+                    : pass_launch<RB, unsigned, 0>(a, esz, s);
 }
 
-// the keys' descriptors; false if one is out of range
-bool fill_keys(Keys* k, int nkeys, void* const* keys, const int* orig64,
-               const long long* pads, const int* bits, const int* offs) {
+// the keys' descriptors (key qs[i] at bit offs[i]); false if one is out
+// of range
+bool fill_keys(Keys* k, int nkeys, const int* qs, void* const* keys,
+               const int* orig64, const long long* pads, const int* bits,
+               const int* offs) {
   if (nkeys < 0 || nkeys > MAX_KEYS) return false;
   k->nkeys = nkeys;
-  for (int q = 0; q < nkeys; ++q) {
-    if (bits[q] < 1 || bits[q] > (orig64[q] ? 63 : 31) || offs[q] < 0 ||
-        offs[q] + bits[q] > 128)
+  for (int i = 0; i < nkeys; ++i) {
+    const int q = qs ? qs[i] : i;
+    if (q < 0 || q >= MAX_KEYS || bits[q] < 1 ||
+        bits[q] > (orig64[q] ? 63 : 31) || offs[i] < 0 ||
+        offs[i] + bits[q] > 128)
       return false;
-    k->ptr[q] = keys[q];
-    k->pad[q] = pads[q];
-    k->ones[q] = (1ull << bits[q]) - 1ull;
-    k->orig64[q] = orig64[q];
-    k->off[q] = offs[q];
+    k->ptr[i] = keys[q];
+    k->pad[i] = pads[q];
+    k->ones[i] = (1ull << bits[q]) - 1ull;
+    k->orig64[i] = orig64[q];
+    k->off[i] = offs[i];
   }
   return true;
 }
@@ -677,25 +819,32 @@ bool fill_keys(Keys* k, int nkeys, void* const* keys, const int* orig64,
 
 extern "C" {
 
-// rows of a tile, and the passes one sort may make
+// rows of a tile
 int radix_sort_tile() { return TILE; }
 
 // the digit's width in bits
 int radix_sort_radix_bits() { return RADIX_BITS; }
 
-// blocks of the pass kernel an SM holds (u64 staged words if wide, the
-// keys read in place if composed)
-int radix_pass_blocks_per_sm(int wide, int composed) {
+// the passes one sort may make
+int radix_sort_max_passes() { return MAX_PASSES; }
+
+// blocks of the pass kernel an SM holds: input rows of in_bytes (the
+// keys' bytes summed when composed), with row ids if rows, u64 staged
+// words if wide
+int radix_pass_blocks_per_sm(int in_bytes, int rows, int wide,
+                             int composed) {
   int blocks = -1;
+  const int warps = wide ? Shape<unsigned long long>::WARPS
+                         : Shape<unsigned>::WARPS;
+  const Layout L = make_layout(1, &in_bytes, rows != 0, RADIX_BITS, warps);
   if (wide)
-    composed ? occupancy<RADIX_BITS, unsigned long long, 1>(&blocks)
-             : occupancy<RADIX_BITS, unsigned long long, 0>(&blocks);
+    composed ? occupancy<RADIX_BITS, unsigned long long, 1>(L.bytes, &blocks)
+             : occupancy<RADIX_BITS, unsigned long long, 0>(L.bytes, &blocks);
   else
-    composed ? occupancy<RADIX_BITS, unsigned, 1>(&blocks)
-             : occupancy<RADIX_BITS, unsigned, 0>(&blocks);
+    composed ? occupancy<RADIX_BITS, unsigned, 1>(L.bytes, &blocks)
+             : occupancy<RADIX_BITS, unsigned, 0>(L.bytes, &blocks);
   return blocks;
 }
-int radix_sort_max_passes() { return MAX_PASSES; }
 
 // bytes of scratch (zeroed by the caller) for a sort of n rows: the
 // passes' tickets, their digit counts and one 8-byte word per tile and
@@ -706,89 +855,113 @@ long long radix_sort_scratch_bytes(long long n) {
   return states_offset(bins) + 8ll * tiles * bins;
 }
 
-// keys: nkeys (1..4) pointers to n rows each, most significant first;
-// orig64: int64 (else int32); pads, bits: each key's pad and width; offs:
-// each key's lowest bit in the composite. Counts the first pass's digits,
-// at bit ``shift`` of the composite (src == -1) or of key src's word
-// (shift + radix_sort_radix_bits() <= 64), into the scratch (each later
-// pass's are counted by the pass before it), and ORs bit q into *fault
-// for a key q outside [0, min(2^bits - 1, pad)) that is not its pad.
-int radix_hist_launch(int nkeys, void* const* keys, const int* orig64,
-                      const long long* pads, const int* bits,
-                      const int* offs, int src, int shift, long long n,
-                      void* scratch, void* fault, void* stream) {
-  Hist h{};
-  if (nkeys < 1 || n < 1 || n >= (1ll << 31) - 1 ||
-      !fill_keys(&h.k, nkeys, keys, orig64, pads, bits, offs) ||
-      src < -1 || src >= nkeys || shift < 0 || shift + RADIX_BITS > 64)
-    return int(cudaErrorInvalidValue);
-  for (int q = 0; q < nkeys; ++q)
-    h.limit[q] = h.k.ones[q] < static_cast<unsigned long long>(pads[q])
-                     ? h.k.ones[q]
-                     : static_cast<unsigned long long>(pads[q]);
-  h.src = src;
-  h.shift = shift;
+// A sort of n rows by nkeys (1..4) keys: pointers to n rows each, most
+// significant first; orig64: int64 (else int32); pads, bits: each key's
+// pad and width; hist_offs: each key's lowest bit in the composite. Runs
+// steps [first, last) of the npass records (PLAN_INTS ints each, a pass
+// of kernels.radix_plan: in_wide, dshift, drop, stage_wide, write, vals,
+// next, count_shift, hist_src, hist_shift): step 0, radix_hist (the
+// first pass's digits, at bit hist_shift of the composite when hist_src
+// is -1, else of key hist_src's word; and bit q ORed into *fault for a
+// key q outside [0, min(2^bits - 1, pad)) that is not its pad), then step
+// p + 1, pass p.
+// Pass 0 reads the nin keys in_keys in place (at bits in_offs of the
+// composite); pass p > 0 the words (u64 if in_wide) and row ids pass p - 1
+// wrote. Pass p's digit is at bit dshift of its input; it stages the
+// input >> drop (u64 if stage_wide) and writes it to words[p % 2] if
+// write, or the words of key next (>= 0) gathered through its rows, to
+// words[p % 2]; and, if vals, as the first key's values (all ones -> its
+// pad) to vals. Its row ids go to rows[p % 2], the last pass's to
+// out_rows. Unless count_shift is -1, it counts the
+// digits at that bit of the words it writes (pass p + 1's).
+int radix_sort_run(int nkeys, void* const* keys, const int* orig64,
+                   const long long* pads, const int* bits,
+                   const int* hist_offs, int nin, const int* in_keys,
+                   const int* in_offs,
+                   const int* recs, int npass, int first, int last,
+                   void* words0, void* words1, void* rows0, void* rows1,
+                   void* out_rows, void* vals, long long n, void* scratch,
+                   void* fault, void* stream) {
+  constexpr int BAD = int(cudaErrorInvalidValue);
+  if (nkeys < 1 || nkeys > MAX_KEYS || n < 1 || n >= (1ll << 31) - 1 ||
+      npass < 1 || npass > MAX_PASSES || first < 0 || last > npass + 1 ||
+      first > last || !scratch || !out_rows)
+    return BAD;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hist_launch<RADIX_BITS>(h, n, scratch, fault, s);
-}
-
-// One pass, number ``pass`` of the sort (its ticket, its counts). Input:
-// the nkeys keys themselves (nkeys > 0, described as for radix_hist),
-// composed, or else words_in (u64 if in_wide, else u32), the words the
-// pass before wrote; rows_in the row order so far (null: the identity).
-// The digit is at bit dshift of the input, and the staged word is the
-// input >> drop (u64 if stage_wide, else u32), written to words_out and,
-// as the values of a key (int64 if vals64, else int32; all ones -> its
-// pad), to vals_out, where not null. rows_out gets the row ids; where
-// next_key is not null, next_out gets that key's words (next_bits wide,
-// u64 if next_wide), gathered through the rows. Unless count_shift is -1,
-// the digits at that bit of the words written (the next pass's) are
-// added into pass + 1's counts.
-int radix_pass_launch(int nkeys, void* const* keys, const int* orig64,
-                      const long long* pads, const int* bits,
-                      const int* offs, const void* words_in, int in_wide,
-                      const void* rows_in, int dshift, int drop,
-                      int stage_wide, void* words_out, void* vals_out,
-                      int vals64, long long vals_pad, int vals_bits,
-                      const void* next_key, int next_orig64,
-                      long long next_pad, int next_bits, int next_wide,
-                      void* next_out, int count_shift, void* rows_out,
-                      int pass, long long n, void* scratch, void* stream) {
-  Pass a{};
-  if (n < 1 || n >= (1ll << 31) - 1 || pass < 0 || pass >= MAX_PASSES ||
-      dshift < 0 || dshift >= 128 || drop < 0 ||
-      drop >= 128 || !rows_out ||
-      !fill_keys(&a.k, nkeys, keys, orig64, pads, bits, offs) ||
-      (nkeys == 0 && (!words_in || dshift >= 64 || drop >= 64)) ||
-      (vals_out && (vals_bits < 1 || vals_bits > 63)) ||
-      (next_key && (!next_out || next_bits < 1 || next_bits > 63 ||
-                    (!next_wide && next_bits > 32))) ||
-      count_shift < -1 || count_shift >= 64 ||
-      (count_shift >= 0 && pass + 1 >= MAX_PASSES))
-    return int(cudaErrorInvalidValue);
-  a.count_shift = count_shift;
-  a.words_in = words_in;
-  a.in_wide = in_wide;
-  a.rows_in = static_cast<const unsigned*>(rows_in);
-  a.dshift = dshift;
-  a.drop = drop;
-  a.words_out = words_out;
-  a.vals_out = vals_out;
-  a.vals64 = vals64;
-  a.vals_pad = vals_pad;
-  a.vals_ones = vals_out ? (1ull << vals_bits) - 1ull : 0ull;
-  a.next.key = next_key;
-  a.next.orig64 = next_orig64;
-  a.next.pad = next_pad;
-  a.next.ones = next_key ? (1ull << next_bits) - 1ull : 0ull;
-  a.next.wide = next_wide;
-  a.next.out = next_out;
-  a.rows_out = static_cast<unsigned*>(rows_out);
-  a.pass = pass;
-  a.n = n;
-  a.scratch = static_cast<unsigned char*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pass_dispatch<RADIX_BITS>(a, stage_wide, s);
+  void* words[2] = {words0, words1};
+  void* rowbuf[2] = {rows0, rows1};
+  for (int step = first; step < last; ++step) {
+    int err = 0;
+    if (step == 0) {
+      Hist h{};
+      if (!fill_keys(&h.k, nkeys, nullptr, keys, orig64, pads, bits,
+                     hist_offs) || !fault)
+        return BAD;
+      h.src = recs[8];
+      h.shift = recs[9];
+      if (h.src < -1 || h.src >= nkeys || h.shift < 0 ||
+          h.shift + RADIX_BITS > (h.src < 0 ? 128 : 64))
+        return BAD;
+      for (int q = 0; q < nkeys; ++q)
+        h.limit[q] = h.k.ones[q] < static_cast<unsigned long long>(pads[q])
+                         ? h.k.ones[q]
+                         : static_cast<unsigned long long>(pads[q]);
+      err = hist_launch<RADIX_BITS>(h, n, scratch, fault, s);
+    } else {
+      const int p = step - 1;
+      const int* r = recs + p * PLAN_INTS;
+      const int in_wide = r[0], dshift = r[1], drop = r[2];
+      const int stage_wide = r[3], write = r[4], want_vals = r[5];
+      const int next = r[6], count_shift = r[7];
+      const bool final = p + 1 == npass;
+      Pass a{};
+      int esz[MAX_KEYS] = {in_wide ? 8 : 4};   // the input's rows' bytes
+      if (p == 0) {
+        if (nin < 1 || !fill_keys(&a.k, nin, in_keys, keys, orig64, pads,
+                                  bits, in_offs) ||
+            dshift < 0 || dshift >= 128 || drop < 0 || drop >= 128)
+          return BAD;
+        for (int q = 0; q < nin; ++q) esz[q] = orig64[in_keys[q]] ? 8 : 4;
+      } else {
+        a.words_in = words[(p - 1) & 1];
+        a.rows_in = static_cast<const unsigned*>(rowbuf[(p - 1) & 1]);
+        if (!a.words_in || !a.rows_in || dshift < 0 || dshift >= 64 ||
+            drop < 0 || drop >= 64)
+          return BAD;
+      }
+      a.dshift = dshift;
+      a.drop = drop;
+      a.words_out = write ? words[p & 1] : nullptr;
+      if ((write && !a.words_out) || (want_vals && (!vals || !final)) ||
+          next < -1 || next >= nkeys || count_shift < -1 ||
+          count_shift >= 64 || (count_shift >= 0 && final))
+        return BAD;
+      if (want_vals) {
+        a.vals_out = vals;
+        a.vals64 = orig64[0];
+        a.vals_pad = pads[0];
+        a.vals_ones = (1ull << bits[0]) - 1ull;
+      }
+      if (next >= 0) {
+        a.next.key = keys[next];
+        a.next.orig64 = orig64[next];
+        a.next.pad = pads[next];
+        a.next.ones = (1ull << bits[next]) - 1ull;
+        a.next.wide = bits[next] > 32;
+        a.next.out = words[p & 1];
+        if (!a.next.out) return BAD;
+      }
+      a.count_shift = count_shift;
+      a.rows_out = static_cast<unsigned*>(final ? out_rows : rowbuf[p & 1]);
+      if (!a.rows_out) return BAD;
+      a.pass = p;
+      a.n = n;
+      a.scratch = static_cast<unsigned char*>(scratch);
+      err = pass_dispatch<RADIX_BITS>(a, esz, stage_wide, s);
+    }
+    if (err) return err;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,21 +1,24 @@
 """The port's stable sorts (cmsbwt_tpu_torch/ops/sort.py) on the CPU, held
 to the JAX package's ``jax.lax.sort``: ``stable_argsort`` by one to four
 keys of stated widths (ties, all-equal keys, descending keys, pads only,
-widths 1, 8, 23, 31, 48 and 63 bits, lengths that are not a multiple of
-the kernels' 3072- and 4096-row tiles) against ``lax.sort(..., num_keys=k)``, and
-``compact`` against ``lax.sort`` of ``where(flag, idx, INT_MAX)``; the
-fault word on a key over its width and on a wrong count of set flags.
+widths 1, 8, 23, 31, 48 and 63 bits, lengths around 3072- and 4096-row
+edges) against ``lax.sort(..., num_keys=k)``, and ``compact`` against
+``lax.sort`` of ``where(flag, idx, INT_MAX)``; the fault word on a key
+over its width and on a wrong count of set flags.
 
 Then a numpy emulation of what kernels/csrc/radix_sort.cu and compact.cu
 compute per tile, held to the plain versions at several tile sizes, the
-kernels' among them: radix_pass's tiles rank their rows round by round
-inside each warp (lanes grouped by digit, as the kernel's ballots group
-them), give each warp its base per digit, and take each digit's prefix
-from a look-back over the tiles before them (one tile a step), the tiles
-running their steps in a seeded random order; compact's tiles scan their
-set counts with a look-back of 32 tiles a step and stage set rows before
-unset ones. Change the emulation with the kernels' design. Tolerance:
-exact (integer permutations)."""
+kernels' among them: radix_pass's tiles count their digits per warp
+(early counts), keep their rows in place when one digit holds the whole
+tile, else rank each round's lanes among the equal digits of the warp
+(as the kernel's ballots group them) from the warp's start per digit,
+take each digit's prefix from a look-back over the tiles before them (4
+tiles a read, as the kernel's LB_BATCH), the tiles running their steps in a seeded random order,
+and count the next pass's digits as they write (held equal to that
+pass's digits); compact's tiles scan their set counts with a look-back of
+32 tiles a step and stage set rows before unset ones. Change the
+emulation with the kernels' design (tests/test_torch_sort_tiles.py runs
+it at every width). Tolerance: exact (integer permutations)."""
 from __future__ import annotations
 
 import jax
@@ -31,9 +34,12 @@ from cmsbwt_tpu_torch.ops import sort
 INT_MAX = 2**31 - 1
 I64_BIG = 1 << 62
 PAD = {np.int32: INT_MAX, np.int64: I64_BIG}
-KERNEL_TILE = (8, 12)       # radix_sort.cu: 8 warps x 12 rows a lane
+# radix_sort.cu's blocks, (warps, rows a lane): a pass staging u64 words,
+# and one staging u32 words; both tiles of 6144 rows
+KERNEL_TILE = ((16, 12), (8, 24))
 TILES = [(1, 1), (2, 3), KERNEL_TILE]
 COMPACT_TILES = [(64, 1), (256, 16)]   # compact.cu: 256 threads x 16 rows
+KERNEL_LB_BATCH = 4    # radix_sort.cu: tiles' words a look-back reads at once
 
 
 @pytest.fixture(autouse=True)
@@ -230,86 +236,145 @@ def _words(k: np.ndarray, bits: int) -> np.ndarray:
     return w
 
 
+# tiles the emulation took through the one-digit path
+ONE_DIGIT_TILES = [0]
+
+
+def _count_round(ctr: np.ndarray, d: np.ndarray, valid: np.ndarray) -> None:
+    """radix_sort.cu's count_add for one warp round: one add a valid
+    lane."""
+    np.add.at(ctr, d[valid], 1)
+
+
 def _pass_emulation(digits: np.ndarray, warps: int, items: int,
-                    bins: int, seed: int) -> np.ndarray:
-    """Where one radix_pass puts each row: tiles of warps * 32 * items
-    rows; inside a tile warp w holds rows w * 32 * items + i * 32 + l
-    (round i, lane l) and ranks each round's lanes among the equal digits
-    of its rounds so far; the warps' counts per digit give each warp its
-    base, the tile's counts its digit starts, and the look-back (one tile
-    a step, tiles in a seeded random order) each digit's rows in the
-    tiles before. Returns the destination of every row."""
+                    bins: int, seed: int, next_digits=None,
+                    one_digit: bool = True) -> tuple:
+    """Where one radix_pass puts each row, and the next pass's counts it
+    takes: tiles of warps * 32 * items rows; warp w's rows are w * 32 *
+    items + i * 32 + l (round i, lane l). Early counts: each round adds to
+    the warp's counters (_count_round), which give the tile's counts and
+    each warp's start per digit (the digit's start in the tile plus the
+    warps' counts before it). A tile where one digit holds every row keeps
+    its rows in place; any other ranks each round's lanes among the equal
+    digits of its warp's rounds so far from those starts and stages the
+    source row of each rank. The look-back (KERNEL_LB_BATCH tiles a read,
+    tiles in a seeded random order) gives each digit's rows in the tiles
+    before; staged slot s of digit d goes to the pass's digit start + that
+    prefix + s - the digit's start in the tile. The write-out's rounds (warp w,
+    round i: slots i * 32 * warps + w * 32 + l) count the next pass's
+    digit of each row they write (``next_digits``, by input row).
+    Returns (the destination of every row, the next counts)."""
     n = len(digits)
-    tile = warps * 32 * items
-    counts, places = [], []
+    threads = warps * 32
+    tile = threads * items
+    lane = np.arange(32)
+    counts, tiles = [], []
     for t0 in range(0, n, tile):
         d = digits[t0:t0 + tile]
         cnt = len(d)
         wh = np.zeros((warps, bins), np.int64)
-        off = np.empty(cnt, np.int64)
         for w in range(warps):
             for i in range(items):
-                s = w * 32 * items + i * 32 + np.arange(32)
-                s = s[s < cnt]
-                dd = d[s]
-                same = dd[None, :] == dd[:, None]
-                off[s] = wh[w, dd] + np.tril(same, -1).sum(1)
-                np.add.at(wh[w], dd, 1)
-        wbase = np.cumsum(wh, 0) - wh
+                r = w * 32 * items + i * 32 + lane
+                _count_round(wh[w], d[np.minimum(r, cnt - 1)], r < cnt)
         tc = wh.sum(0)
         dstart = np.cumsum(tc) - tc
-        rank = dstart[d] + wbase[np.arange(cnt) // (32 * items), d] + off
-        assert np.array_equal(np.sort(rank), np.arange(cnt))
-        # the staged tile holds digit d's rows at [dstart[d], ...)
+        wofs = dstart + np.cumsum(wh, 0) - wh
+        if one_digit and (tc == cnt).any():
+            ONE_DIGIT_TILES[0] += 1
+            sidx = np.arange(cnt)
+        else:
+            sidx = np.full(cnt, -1, np.int64)
+            for w in range(warps):
+                for i in range(items):
+                    r = w * 32 * items + i * 32 + lane
+                    r = r[r < cnt]
+                    dd = d[r]
+                    same = dd[None, :] == dd[:, None]
+                    pos = wofs[w, dd] + np.tril(same, -1).sum(1)
+                    np.add.at(wofs[w], dd, 1)
+                    sidx[pos] = r
+            assert (sidx >= 0).all()
         counts.append(tc)
-        places.append((rank, dstart))
+        tiles.append((t0, cnt, dstart, sidx))
     prefix = _lookback(counts, lambda x, y: x + y, np.zeros(bins, np.int64),
-                       seed, window=1)
+                       seed, window=KERNEL_LB_BATCH)
     hist = np.bincount(digits, minlength=bins)
     gex = np.cumsum(hist) - hist
     dest = np.empty(n, np.int64)
-    for t, (rank, dstart) in enumerate(places):
-        d = digits[t * tile:t * tile + len(rank)]
-        dest[t * tile:t * tile + len(rank)] = (gex[d] + prefix[t][d]
-                                              + rank - dstart[d])
-    return dest
+    nhist = np.zeros(bins, np.int64)
+    for t, (t0, cnt, dstart, sidx) in enumerate(tiles):
+        gofs = gex + prefix[t] - dstart
+        dest[t0 + sidx] = gofs[digits[t0 + sidx]] + np.arange(cnt)
+        if next_digits is None:
+            continue
+        for i in range(items):
+            for w in range(warps):
+                sl = i * threads + w * 32 + lane
+                _count_round(nhist,
+                             next_digits[t0 + sidx[np.minimum(sl, cnt - 1)]],
+                             sl < cnt)
+    assert np.array_equal(np.sort(dest), np.arange(n))
+    return dest, nhist
 
 
-def _sort_emulation(keys, bits, rb: int, warps: int, items: int,
-                    seed: int, values: bool = True) -> tuple:
-    """The permutation and first key's values radix_sort.cu's passes give,
-    as kernels.radix_plan lays them out: the first pass reading the keys
-    in place (composed when the plan is composite), each pass taking its
-    digit at dshift of its input and staging the input >> drop (cut to 32
-    or 64 bits, as the kernel's word type cuts it), its rows placed by
-    _pass_emulation with the digit counts radix_hist takes from the keys
-    themselves, and writing the staged words, or the next key's words
-    gathered through its rows, or the first key's values (all ones -> the
-    pad)."""
+def _shape(tile, ps) -> tuple:
+    """The (warps, items) of pass ``ps``: ``tile`` itself, or of the
+    kernel's pair the u64-staging shape or the u32-staging one."""
+    if isinstance(tile[0], tuple):
+        return tile[0] if ps.stage_wide else tile[1]
+    return tile
+
+
+def _tile_rows(tile) -> int:
+    warps, items = tile[0] if isinstance(tile[0], tuple) else tile
+    return warps * 32 * items
+
+
+def _sort_emulation(keys, bits, rb: int, tile, seed: int,
+                    values: bool = True, one_digit: bool = True) -> tuple:
+    """The permutation and first key's values radix_sort.cu's passes give, as
+    kernels.radix_plan lays them out: the first pass reading the keys in
+    place (composed when the plan is composite), each pass taking its
+    digit at dshift of its input and staging the input >> drop (cut to
+    32 or 64 bits, as the kernel's word type cuts it), its rows placed
+    by _pass_emulation (in ``tile``'s block shape: (warps, items), or
+    KERNEL_TILE's by the staged word's width) with the digit counts
+    radix_hist takes from the keys themselves (the first pass) or the
+    pass before counted as it wrote (each later pass: held equal to the
+    digits' counts), and writing the staged words, or the next key's
+    words gathered through its rows, or the first key's values (all ones
+    -> the pad)."""
     n = len(keys[0])
     plan = kernels.radix_plan(bits, rb, values)
     words = [_words(k, b).astype(object) for k, b in zip(keys, bits)]
     comp = sum(w << off for w, off in zip(words, kernels.radix_offsets(bits)))
     mask = (1 << rb) - 1
-    rows = cur = vals = None
+    rows = cur = vals = counted = None
     for at, ps in enumerate(plan):
         rows_in = np.arange(n) if rows is None else rows
         v = sum(words[q] << off for q, off in zip(ps.keys, ps.offs)) \
             if ps.keys else cur
         digits = ((v >> ps.dshift) & mask).astype(np.int64)
-        hsrc = comp if ps.hist_src < 0 else words[ps.hist_src]
-        hist = ((hsrc >> ps.hist_shift) & mask).astype(np.int64)
-        assert np.array_equal(np.bincount(hist, minlength=mask + 1),
-                              np.bincount(digits, minlength=mask + 1))
+        want = np.bincount(digits, minlength=mask + 1)
+        if at == 0:
+            hsrc = comp if ps.hist_src < 0 else words[ps.hist_src]
+            hist = ((hsrc >> ps.hist_shift) & mask).astype(np.int64)
+            counted = np.bincount(hist, minlength=mask + 1)
+        assert np.array_equal(counted, want)
         staged = (v >> ps.drop) & ((1 << (64 if ps.stage_wide else 32)) - 1)
-        dest = _pass_emulation(digits, warps, items, 1 << rb, seed + at)
+        written = staged if ps.write else (
+            words[ps.next][rows_in] if ps.next is not None else None)
+        nxt = None
+        if at + 1 < len(plan):
+            nxt = ((written >> plan[at + 1].dshift) & mask).astype(np.int64)
+        dest, counted = _pass_emulation(digits, *_shape(tile, ps), 1 << rb,
+                                        seed + at, nxt, one_digit)
         rows = np.empty(n, np.int64)
         rows[dest] = rows_in
-        if ps.write:
+        if written is not None:
             cur = np.empty(n, object)
-            cur[dest] = staged
-        elif ps.next is not None:
-            cur = words[ps.next][rows]
+            cur[dest] = written
         if ps.vals:
             vals = np.empty(n, np.int64)
             pad = PAD[keys[0].dtype.type]
@@ -323,7 +388,7 @@ def _sort_emulation(keys, bits, rb: int, warps: int, items: int,
 @pytest.mark.parametrize("case", ["join", "group", "three", "four",
                                   "pads_only"])
 def test_radix_tiles_equal_plain(case, tile, rb):
-    n = 2 * 32 * 8 * 12 + 77 if tile == KERNEL_TILE else 1500
+    n = 2 * _tile_rows(tile) + 77 if tile == KERNEL_TILE else 1500
     spec = MULTI[case]
     keys = [_keys(kind, n, b, dt, seed=i + 3 * n)
             for i, (b, dt, kind) in enumerate(spec)]
@@ -331,20 +396,20 @@ def test_radix_tiles_equal_plain(case, tile, rb):
     want, wvals = sort._stable_argsort_reference([_t(k) for k in keys],
                                                  bits, True)
     for seed in (0, 1):
-        got, vals = _sort_emulation(keys, bits, rb, *tile, seed)
+        got, vals = _sort_emulation(keys, bits, rb, tile, seed)
         np.testing.assert_array_equal(got, want.numpy())
         np.testing.assert_array_equal(vals, wvals.numpy())
-    got, _ = _sort_emulation(keys, bits, rb, *tile, 2, values=False)
+    got, _ = _sort_emulation(keys, bits, rb, tile, 2, values=False)
     np.testing.assert_array_equal(got, want.numpy())
 
 
 @pytest.mark.parametrize("tile", TILES)
 @pytest.mark.parametrize("kind", ["ties", "descending", "equal", "top"])
 def test_radix_one_key_tiles_equal_plain(kind, tile):
-    n = 32 * 8 * 12 + 3071 if tile == KERNEL_TILE else 1333
+    n = _tile_rows(tile) + 3071 if tile == KERNEL_TILE else 1333
     k = _keys(kind, n, 31, np.int32, seed=5)
     want = sort._stable_argsort_reference((_t(k),), (31,))
-    got, vals = _sort_emulation([k], [31], 8, *tile, 3)
+    got, vals = _sort_emulation([k], [31], 8, tile, 3)
     np.testing.assert_array_equal(got, want.numpy())
     np.testing.assert_array_equal(vals, k[want.numpy()])
 
