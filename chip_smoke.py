@@ -28,7 +28,13 @@ every phase passed):
    synthetic rows at the edges of its tiles, warps and carry rounds
    (m = 1, 31, 32, 33, a tile +- 1, three tiles +- 1, runs of tiles with
    no reference slot, every or no slot a reference slot, three carry
-   chunks). Tolerance: exact equality.
+   chunks). On the primary joint string the joint suffix sort's kernels
+   are held to their plain versions on the scan's own calls, as each is
+   made (JointTimers): radix_sort at every stable_argsort site of
+   ops/joint_sa.py and ops/ms_dense.py (sort_times: beside torch.sort
+   passes on the same keys), sa_round on every round's rank step, full and
+   compacted (_round_ranks_reference), running_fill on the first flag
+   fill. Tolerance: exact equality.
 5. jump slice — the port's CLI (jump scan + device merge, --device cuda)
    on the bench's primary workload (2 Mbp reference x 10 docs at 1% SNP,
    about 20 Mchars), plain and -r. Outputs must be byte-equal to the C++
@@ -44,7 +50,8 @@ every phase passed):
 6. dense slice — the same CLI with --backend dense --merge-backend device
    on the same workload, plain and -r: bytes equal to the reference
    tool's, the dense scan's heads equal to the native scan's, and the
-   lcp_lift and dense_neighbors kernels (not their plain versions) must
+   dense route's kernels (ROUTE_KERNELS: lcp_lift, dense_neighbors,
+   radix_sort, running_fill, sa_round; not their plain versions) must
    have carried it. Prints the .log phases and the dense stage split.
    Then the routes that end in the host merge, plain and -r, bytes equal
    to the reference tool's: --backend device (the jump scan's heads
@@ -79,8 +86,11 @@ every phase passed):
    per-block stage marks (CMSBWT_PROFILE=1, stderr), phases, peak device
    bytes per block and the wall time. Then both dense kernels against
    their plain versions (exact) on that run's first block (m ~ 252 M,
-   narrow seed), and the host merge on that run's heads: its .rl_bwt
-   bytes equal to the device merge's (the CLI's), its stages printed.
+   narrow seed), with the joint sort's kernels held to their plain
+   versions and timed on that block's own calls (radix_sort at every
+   site, sa_round on the first full round, running_fill on the first flag
+   fill), and the host merge on that run's heads: its .rl_bwt bytes equal
+   to the device merge's (the CLI's), its stages printed.
 9. auto, model, parallel — at the primary workload: the CLI with no
    --backend (auto), plain and -r, bytes equal to the reference tool's,
    the backend its .log names printed, and that route's kernels
@@ -163,10 +173,15 @@ torch.cummax for running_fill and three Tensor.index_add_ for
 bucket_sums; no single PyTorch call computes any of the other six
 functions, so theirs is null. running_fill's and bucket_sums' rows also
 give alone_ms (the launches alone) and copy_ms (Tensor.copy_ of the same
-bytes).
+bytes); running_fill's ``flag_fill`` the joint sort's first flag fill at
+both shapes. radix_sort's ``sites`` hold the dense scan's sorts too
+(marked "(dense)"). sa_round's row gives the first full round of the 500
+Mchar run's first block, then every round at primary (``rounds``); no
+PyTorch call computes its function, so its library_ms is null.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import filecmp
 import importlib.abc
@@ -202,12 +217,14 @@ NATIVE_SCAN = ROOT / "native" / "cmsbwt_scan.cpp"
 TOL = 0  # exact: integer and byte outputs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 BIG_DOCS = 100              # bench ecoli_rle at BENCH_FULL=1 (bench.py:176)
-# the kernels each --backend's scan launches (the dense scan's PLCP fill
-# is a running_fill); native and host launch none
-# (the jump scan's index build and candidate compaction sort: radix_sort)
+# the kernels each --backend's scan launches (the jump scan's index build
+# and candidate compaction sort: radix_sort; the dense scan's joint sort:
+# radix_sort, its flag fills and PLCP fill: running_fill, its rank steps:
+# sa_round); native and host launch none
 ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass"),
                  "device": ("ms_jump_scan", "radix_hist", "radix_pass"),
-                 "dense": ("lcp_lift", "dense_neighbors", "running_fill"),
+                 "dense": ("lcp_lift", "dense_neighbors", "running_fill",
+                           "radix_hist", "radix_pass", "sa_round"),
                  "native": (), "host": ()}
 # the kernels each merge engine launches ("none": a scan alone); the
 # device merge launches tail_exact_credit once per merge with exact pairs
@@ -471,11 +488,19 @@ def pow2_pad(rho: int, m: int) -> int:
     return min(1 << max(4, (max(rho, 1) - 1).bit_length()), m)
 
 
-def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
+def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5,
+            plain_reps=2):
     """A kernel's outputs against its plain version's on the card (exact),
     then both timed; returns a result dict. ``moved`` is the bytes of the
-    bound, or a function of the plain version's outputs giving them."""
+    bound, or a function of the plain version's outputs giving them.
+    ``plain_reps`` 0 times the plain version's one call that gave the
+    outputs (for a plain version that takes seconds)."""
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
     want = plain_fn()
+    end.record()
     got = cuda_fn()
     torch.cuda.synchronize()
     if any(a.dtype != b.dtype or a.shape != b.shape
@@ -484,7 +509,8 @@ def compare(kernel, name, plain, cuda_fn, plain_fn, what, moved, reps=5):
     err = max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                if a.numel() else 0) for a, b in zip(want, got))
     ms = cuda_ms(cuda_fn, reps)
-    plain_ms = cuda_ms(plain_fn, 2)
+    plain_ms = cuda_ms(plain_fn, plain_reps) if plain_reps else \
+        start.elapsed_time(end)
     bound = bound_ms(moved(want) if callable(moved) else moved)
     log(f"kernel {kernel}[{name}]: {what} max_abs_err={err} "
         f"(tolerance {TOL}) cuda_ms={ms:.3f} plain_ms={plain_ms:.3f} "
@@ -557,16 +583,18 @@ def bucket_sums_launch(K, br, bid, m_c, nec: int, n_pad: int):
     return launch, int(lib.bucket_sums_scratch_bytes(nec))
 
 
-def fill_times(K, tag: str, r: dict, v, op: str, rev: bool) -> dict:
+def fill_times(K, tag: str, r: dict, v, op: str, rev: bool,
+               lib_reps: int = 2) -> dict:
     """Beside a running_fill result ``r`` (compare: the wrapper's time):
     the kernel alone, Tensor.copy_ of the same bytes (m rows in, m rows
     out) and the library call, one 1-D torch.cummax (op "max") or
-    torch.cummin ("min") of ``v``; the library scans forward only, so a
-    reverse fill is timed against the forward call of its op."""
+    torch.cummin ("min") of ``v`` (``lib_reps`` calls); the library scans
+    forward only, so a reverse fill is timed against the forward call of
+    its op."""
     cum = torch.cummax if op == "max" else torch.cummin
     r["alone_ms"] = alone_ms(*fill_launch(K, v, op, rev))
     r["copy_ms"] = copy_ms(2 * nbytes(v))
-    r["library_ms"] = cuda_ms(lambda: cum(v, 0), 2)
+    r["library_ms"] = cuda_ms(lambda: cum(v, 0), lib_reps)
     log(f"kernel running_fill[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
         f"wrapper runs it {r['ms']:.3f} ms, copy_ of the same bytes "
         f"{r['copy_ms']:.3f} ms, 1-D torch.{cum.__name__} "
@@ -893,6 +921,12 @@ def fill_cases() -> list:
     return out
 
 
+def call_site(frame) -> str:
+    """A call site by its file (under the package) and line."""
+    path = pathlib.Path(frame.f_code.co_filename)
+    return f"{'/'.join(path.parts[-2:])}:{frame.f_lineno}"
+
+
 class SortCapture:
     """Keeps the keys of the ops/sort.stable_argsort calls made while in
     use by the device merge (engine/device_merge.py), the reference
@@ -917,9 +951,7 @@ class SortCapture:
     def _wrap(self, fn):
         def argsort(keys, bits, values=False):
             keys = tuple(keys)
-            frame = sys._getframe(1)
-            path = pathlib.Path(frame.f_code.co_filename)
-            site = f"{'/'.join(path.parts[-2:])}:{frame.f_lineno}"
+            site = call_site(sys._getframe(1))
             if site not in self.sites:
                 self.sites[site] = (tuple(k.clone() for k in keys),
                                     tuple(int(b) for b in bits), values)
@@ -986,6 +1018,115 @@ class MergeCapture:
         (self.dm.running_fill, self.dm.tail_good_join, self.dm.run_merge,
          self.dm.exact_credit, self.dm.bucket_sums, self.dm.compact) = \
             self.orig
+
+
+def sa_round_bytes(perm, keys, lv, comp) -> int:
+    """Bytes sa_round must move: perm, the keys and lv read once and the
+    three text-order rows and lv written once; a compacted round also
+    reads ti, rank and resolved and writes its carried slice."""
+    R, m = perm.numel(), lv.numel()
+    moved = nbytes(perm, *keys) + 2 * nbytes(lv) + 9 * m
+    if comp is not None:
+        moved += nbytes(*comp) + 9 * R
+    return moved
+
+
+def sa_round_case(tag: str, perm, keys, lv, k: int, comp) -> dict:
+    """sa_round against _round_ranks_reference (exact) on one round's
+    inputs, both timed."""
+    from cmsbwt_tpu_torch import kernels as K_
+    from cmsbwt_tpu_torch.ops import joint_sa as js
+
+    def flat(res):
+        mid, full, resolved, lv_out, u, carry = res
+        return (mid, full, resolved, lv_out, u) + tuple(carry or ())
+    kind = "full" if comp is None else "comp"
+    r = compare("sa_round", f"{tag} {kind} k={k}", "_round_ranks_reference",
+                lambda: flat(K_.sa_round_cuda(perm, keys, lv, k, comp)),
+                lambda: flat(js._round_ranks_reference(perm, keys, lv, k,
+                                                        comp)),
+                f"{kind} round k={k}: R={perm.numel()} rows, m={lv.numel()}",
+                sa_round_bytes(perm, keys, lv, comp),
+                plain_reps=0 if perm.numel() > 1 << 26 else 2)
+    r.pop("outputs")
+    r.update(kind=kind, k=k, rows=perm.numel(), m=lv.numel())
+    return r
+
+
+class JointTimers:
+    """While in use, holds the joint suffix sort's kernels to their plain
+    versions and times them on the live inputs of the dense scan's own
+    calls, as each call is made (nothing is cloned: a 500 Mchar block's
+    inputs take gigabytes): radix_sort at every stable_argsort call site
+    of ops/joint_sa.py and ops/ms_dense.py, the first call at each
+    (sort_times; ``sorts`` by site), sa_round on every round's rank step
+    (``rounds``; with ``every`` False only the first full round's), and
+    running_fill on the first flag fill (``fill``)."""
+
+    def __init__(self, tag: str, every: bool = True):
+        self.tag, self.every = tag, every
+        self.sorts, self.rounds, self.fill = {}, [], None
+        self.seconds = 0.0      # spent holding and timing, not scanning
+
+    def __enter__(self):
+        from cmsbwt_tpu_torch import kernels as K_
+        from cmsbwt_tpu_torch.ops import joint_sa as js
+        from cmsbwt_tpu_torch.ops import ms_dense as md
+        from cmsbwt_tpu_torch.ops.fill import running_fill_reference
+        self.js, self.md = js, md
+        self.orig = (js.stable_argsort, md.stable_argsort, js.round_ranks,
+                     js.running_fill)
+
+        def argsort_in(fn):
+            def argsort(keys, bits, values=False):
+                keys = tuple(keys)
+                site = call_site(sys._getframe(1))
+                if site not in self.sorts:
+                    t0 = time.perf_counter()
+                    # a 500 Mchar block's sorts take up to ~0.1 s each
+                    r = sort_times(f"{self.tag} {site} (dense)", keys,
+                                   tuple(int(b) for b in bits), values,
+                                   3 if keys[0].numel() > 1 << 26 else 5)
+                    r.pop("outputs", None)
+                    self.sorts[site] = r
+                    self.seconds += time.perf_counter() - t0
+                return fn(keys, bits, values)
+            return argsort
+
+        def rounds(perm, keys, lv, k, comp=None):
+            if self.every or (comp is None and not self.rounds):
+                t0 = time.perf_counter()
+                self.rounds.append(sa_round_case(
+                    f"{self.tag} round {len(self.rounds)}", perm, keys, lv,
+                    k, comp))
+                self.seconds += time.perf_counter() - t0
+            return self.orig[2](perm, keys, lv, k, comp)
+
+        def fill(v, op="max", reverse=False):
+            if self.fill is None:
+                t0 = time.perf_counter()
+                name = f"{self.tag}_flag_fill"
+                # torch's 1-D scan takes ~0.7 s on a 500 Mchar block
+                big = v.numel() > 1 << 26
+                self.fill = fill_times(K_, name, compare(
+                    "running_fill", name, "running_fill_reference",
+                    lambda: (K_.running_fill_cuda(v, op, reverse),),
+                    lambda: (running_fill_reference(v, op, reverse),),
+                    f"the joint sort's first flag fill: m={v.numel()} "
+                    f"{v.dtype} {op}{' reverse' if reverse else ''}",
+                    2 * nbytes(v), plain_reps=0 if big else 2), v, op,
+                    reverse, 1 if big else 2)
+                self.fill.pop("outputs")
+                self.seconds += time.perf_counter() - t0
+            return self.orig[3](v, op, reverse)
+        js.stable_argsort = argsort_in(self.orig[0])
+        md.stable_argsort = argsort_in(self.orig[1])
+        js.round_ranks, js.running_fill = rounds, fill
+        return self
+
+    def __exit__(self, *exc):
+        (self.js.stable_argsort, self.md.stable_argsort, self.js.round_ranks,
+         self.js.running_fill) = self.orig
 
 
 def bucket_sums_bytes(bucket_rank, m_c, nec: int, n_pad: int) -> int:
@@ -1354,13 +1495,14 @@ def sort_bytes(keys, bits, values: bool, rb: int) -> tuple:
     return floor, moved
 
 
-def sort_times(tag: str, keys, bits, values: bool) -> dict:
+def sort_times(tag: str, keys, bits, values: bool, reps: int = 5) -> dict:
     """radix_sort against its plain version on a call site's sort, with
     the site's own ``values`` flag (the permutation, and the first key's
     sorted values when it is set), then timed as the site runs it: as the
     wrapper runs it, alone (scratch made beforehand), beside torch.sort
     passes (the library call; the plain version's sorts) and copy_ of the
-    floor's bytes."""
+    floor's bytes; ``reps`` launches each (fewer for the torch.sort
+    passes)."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.ops import sort as S
     fault = S.fault_word("cuda:0")
@@ -1374,13 +1516,14 @@ def sort_times(tag: str, keys, bits, values: bool) -> dict:
         lambda: outputs(K.radix_sort_cuda(keys, bits, fault, values)),
         lambda: outputs(S._stable_argsort_reference(keys, bits, values)),
         f"n={n} rows, keys {[str(k.dtype) for k in keys]} of {bits} bits",
-        floor)
+        floor, reps, 2 if reps >= 5 else 1)
     S.check_faults("cuda:0")
     r["alone_ms"] = alone_ms(
         lambda scratch: K.radix_sort_cuda(keys, bits, fault, values,
                                           scratch=scratch),
-        int(lib.radix_sort_scratch_bytes(n)))
-    r["library_ms"] = library_ms(lambda: torch_lexsort(keys), 2)
+        int(lib.radix_sort_scratch_bytes(n)), reps)
+    r["library_ms"] = library_ms(lambda: torch_lexsort(keys),
+                                 2 if reps >= 5 else 1)
     r["copy_ms"] = copy_ms(floor)
     r["passes_bound_ms"] = bound_ms(moved)
     r.update(rows=n, bits=list(bits), values=values, passes=len(
@@ -1868,15 +2011,20 @@ def run_phases(card: str, kind: str, started: float) -> int:
     prim = kernel_case("primary_2Mbp_x10", lst, sweep=(32768, 131072))
 
     # phase 4: the dense kernels against their plain versions
-    dense = {}
+    dense, joint = {}, {}
     for name, klst in (
             ("primary_2Mbp_x10", lst),
             ("200Kbp_x8_Nrun", write_workload(WORK / "knrun", 5, 200_000, 8,
                                               0.01, n_run=64)),
             ("separator_dense", sep_lst)):
         xk, ck = load_inputs(str(klst))
-        for k, r in dense_kernel_case(name, xk, ck.sx).items():
-            dense.setdefault(k, []).append(r)
+        # the joint sort's kernels on the primary scan's own calls
+        with JointTimers("primary") if name.startswith("primary") \
+                else contextlib.nullcontext() as jt:
+            for k, r in dense_kernel_case(name, xk, ck.sx).items():
+                dense.setdefault(k, []).append(r)
+        if jt is not None:
+            joint["primary"] = jt
         del xk, ck
         torch.cuda.empty_cache()
     log(f"lcp_lift at primary: rho rows, lmax from the stats "
@@ -2246,8 +2394,10 @@ def run_phases(card: str, kind: str, started: float) -> int:
         fail("the 500 Mchar host merge's .rl_bwt differs from the device "
              "merge's")
     host_out.unlink()
-    for k, r in block_kernel_case("500M", xb, cb.sx, bl.tries[0]).items():
-        dense[k].append(r)
+    with JointTimers("500M", every=False) as joint["500M"]:
+        for k, r in block_kernel_case("500M", xb, cb.sx,
+                                      bl.tries[0]).items():
+            dense[k].append(r)
     torch.cuda.empty_cache()
     hist = rle_histogram(WORK / "port_dense_500M_rle.rl_bwt")
     want_hist = np.bincount(cb.sx, minlength=256)
@@ -2300,6 +2450,15 @@ def run_phases(card: str, kind: str, started: float) -> int:
                 "bound_ms": res[0]["bound_ms"], "bound_by": "bytes",
                 "library_ms": library_ms, **extra}
 
+    # the joint sort's sorts beside the merge's and the jump scan's
+    for tag, jt in joint.items():
+        merge_cases[tag]["radix_sort_sites"].update(
+            {f"{site} (dense)": r for site, r in jt.sorts.items()})
+        log(f"joint sort[{tag}]: held and timed in {jt.seconds:.1f} s; "
+            f"sort sites {sorted(jt.sorts)}; rounds "
+            + json.dumps([(r["kind"], r["k"], r["rows"], round(r["ms"], 3))
+                          for r in jt.rounds]))
+    rounds = joint["500M"].rounds + joint["primary"].rounds
     log(f"smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f} s")
     csrc = "cmsbwt_tpu_torch/kernels/csrc/"
@@ -2314,9 +2473,13 @@ def run_phases(card: str, kind: str, started: float) -> int:
             dense["dense_neighbors"] + nb_cases),
         row("running_fill", csrc + "running_fill.cu",
             "cmsbwt_tpu/engine/device_merge.py:57",
-            fills + [c["running_fill"] for c in merge_cases.values()],
+            fills + [c["running_fill"] for c in merge_cases.values()]
+            + [jt.fill for jt in joint.values()],
             fills[0]["library_ms"], alone_ms=fills[0]["alone_ms"],
-            copy_ms=fills[0]["copy_ms"]),
+            copy_ms=fills[0]["copy_ms"],
+            flag_fill={tag: {k: jt.fill[k] for k in (
+                "ms", "alone_ms", "plain_ms", "library_ms", "bound_ms")}
+                for tag, jt in joint.items()}),
         row("tail_good_join", csrc + "tail_good_join.cu",
             "cmsbwt_tpu/engine/device_merge.py:426",
             [merge_cases["500M"]["tail_good_join"],
@@ -2341,7 +2504,15 @@ def run_phases(card: str, kind: str, started: float) -> int:
                  ("radix_hist", "radix_pass"), ("passes_bound_ms",)),
         sort_row(row, "compact", csrc + "compact.cu",
                  "cmsbwt_tpu/engine/device_merge.py:488", merge_cases,
-                 ("compact",), ())]}))
+                 ("compact",), ()),
+        row("sa_round", csrc + "sa_round.cu",
+            "cmsbwt_tpu/ops/joint_sa.py:244", rounds,
+            primary={k: joint["primary"].rounds[0][k]
+                     for k in ("ms", "plain_ms", "bound_ms")},
+            rounds={tag: [{k: r[k] for k in (
+                "kind", "k", "rows", "m", "ms", "plain_ms", "bound_ms",
+                "err")} for r in jt.rounds] for tag, jt in joint.items()})
+    ]}))
     log(f"device: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

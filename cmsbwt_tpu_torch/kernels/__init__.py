@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port: build, load and launch.
 
 Each kernel lives in ``csrc/`` as CUDA C++ for Hopper (sm_90a) with a plain
-C entry point; the device merge's share ``csrc/tile_scan.cuh``.
+C entry point; the scans share ``csrc/tile_scan.cuh``.
 ``load()`` compiles each source with its own ``nvcc`` process, all at
 once, into a shared library per source at first use (into ``build/``
 beside this file, or ``$CMSBWT_TORCH_BUILD_DIR``; each file name carries a
@@ -31,7 +31,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
            "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
-           "tail_exact_credit.cu", "radix_sort.cu", "compact.cu")
+           "tail_exact_credit.cu", "radix_sort.cu", "compact.cu",
+           "sa_round.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIFT_THREADS = 256
@@ -39,7 +40,7 @@ LIFT_THREADS = 256
 LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
             "running_fill": 0, "tail_good_join": 0, "bucket_sums": 0,
             "run_merge": 0, "tail_exact_credit": 0, "radix_hist": 0,
-            "radix_pass": 0, "compact": 0}
+            "radix_pass": 0, "compact": 0, "sa_round": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -140,6 +141,13 @@ def _bind(libs: dict) -> None:
     lib.compact_scratch_bytes.argtypes = [LL]
     lib.compact_launch.restype = I
     lib.compact_launch.argtypes = [P, LL, LL, P, P, P, P]
+    lib = libs["sa_round"]
+    lib.sa_round_scratch_bytes.restype = LL
+    lib.sa_round_scratch_bytes.argtypes = [LL]
+    lib.sa_round_count_offset.restype = LL
+    lib.sa_round_count_offset.argtypes = []
+    lib.sa_round_launch.restype = I
+    lib.sa_round_launch.argtypes = [I] + [P] * 16 + [I, I, I, P, P]
 
 
 def load() -> dict:
@@ -758,3 +766,64 @@ def compact_cuda(flag, count: int, fault, scratch=None):
                                  ctypes.c_void_p(stream))
     _launch("compact", err)
     return out
+
+
+def sa_round_cuda(perm, keys, lv, k: int, comp=None):
+    """Launch ``sa_round`` on CUDA tensors: one round's rank step after
+    its sort (perm int32[R], the stable order of the rows by ``keys``,
+    four int32[R]; lv int32[m] split levels; ``comp`` None for a full
+    round of R = m rows, else (ti int32[R], rank int32[m], resolved
+    bool[m]) for a compacted one).
+    Returns (mid_rank, full_rank, resolved, lv, u, carry) with u the
+    unresolved count (int32[1], on the device; the wrapper does not
+    synchronise). Same contract as ops/joint_sa._round_ranks_reference."""
+    dev = perm.device
+    R, m = int(perm.shape[0]), int(lv.shape[0])
+    i32, b8 = torch.int32, torch.bool
+    _check("perm", perm, i32, (R,), dev)
+    if len(keys) != 4:
+        raise ValueError(f"sa_round: {len(keys)} keys (four)")
+    for q, key in enumerate(keys):
+        _check(f"key {q}", key, i32, (R,), dev)
+    _check("lv", lv, i32, (m,), dev)
+    if not 1 <= R <= m < 2**31 - 1 or (comp is None and not R == m < 2**30):
+        raise ValueError(f"sa_round: {R} rows of m = {m} (a full round "
+                         "sorts all m < 2^30)")
+    lib = load()["sa_round"]
+    # the keys side by side (sa_round_pack writes every row)
+    K = torch.empty((R, 4), dtype=i32, device=dev)
+    if comp is None:
+        ti = ti_s = rank_u = keep = None
+        mid_rank, full_rank, lv_out = (torch.empty(m, dtype=i32, device=dev)
+                                       for _ in range(3))
+        resolved = torch.empty(m, dtype=b8, device=dev)
+        words = torch.empty(m, dtype=torch.int64, device=dev)
+    else:
+        ti, rank, res_in = comp
+        _check("ti", ti, i32, (R,), dev)
+        _check("rank", rank, i32, (m,), dev)
+        _check("resolved", res_in, b8, (m,), dev)
+        # the kernel writes only the live rows of these
+        mid_rank, full_rank = rank.clone(), rank.clone()
+        resolved, lv_out = res_in.clone(), lv.clone()
+        ti_s, rank_u = (torch.empty(R, dtype=i32, device=dev)
+                        for _ in range(2))
+        keep = torch.empty(R, dtype=b8, device=dev)
+        words = None
+    # the look-back's ticket and states and the count start at 0
+    scratch = torch.zeros(int(lib.sa_round_scratch_bytes(R)),
+                          dtype=torch.uint8, device=dev)
+    ptr = lambda t: None if t is None else _ptr(t)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.sa_round_launch(
+            int(comp is not None), _ptr(perm), *map(_ptr, keys), _ptr(K),
+            ptr(ti), _ptr(lv), _ptr(lv_out), _ptr(mid_rank),
+            _ptr(full_rank), _ptr(resolved), ptr(words), ptr(ti_s),
+            ptr(rank_u), ptr(keep), R, m, int(k),
+            _ptr(scratch), ctypes.c_void_p(stream))
+    _launch("sa_round", err)
+    at = int(lib.sa_round_count_offset())
+    u = scratch[at:at + 4].view(i32)
+    carry = None if comp is None else (ti_s, rank_u, keep)
+    return mid_rank, full_rank, resolved, lv_out, u, carry

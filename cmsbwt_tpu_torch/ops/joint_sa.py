@@ -6,20 +6,33 @@ compacted late rounds, split levels that bound each adjacent lcp).
 
 Where the JAX code needs a form torch lacks:
 
-* ``lax.sort`` over several keys becomes stable ``torch.sort`` passes,
-  least significant key first (``_sort_rows``); ties keep index order, as
-  the stable ``lax.sort`` does.
-* Sorts that only apply a permutation (the inversion sorts) become a
-  scatter with unique indices.
+* ``lax.sort`` over several keys becomes ``ops/sort.stable_argsort`` (the
+  radix_sort kernel on a card), every key int32 or int64 with its width
+  stated from m, so no call reads a device max; ties keep index order, as
+  the stable ``lax.sort`` does. A round sorts four int32 rank keys, not
+  two packed int64 words: the ranks take key_bits(m + 1) bits each. A
+  64-bit seed pack is two keys, its unsigned high and low words; the wide
+  seed's five keys are two chained stable sorts, the less significant
+  keys first (``_wide_seed``). Row ids stay int32 throughout.
+* A round's rank step after its sort (the change flags of the sorted
+  rows, the running max of each group's start row, the singletons, the
+  scatters back to text order and the unresolved count) is
+  ``round_ranks``: the CUDA kernel ``sa_round`` (kernels/csrc/sa_round.cu)
+  on a card, its plain version ``_round_ranks_reference`` on the CPU.
 * ``cummax(where(flag, idx, -1))`` (the last flagged index at or before
   each position) and the reverse ``cummin`` of the seeds (the first
-  flagged index at or after) come from ``torch.cumsum`` of the flag and a
-  gather (``_flag_fill``): torch's 1-D ``cummax`` runs in one block on a
-  CUDA card, ``cumsum`` does not.
+  flagged index at or after) are ``ops/fill.running_fill`` of int32
+  indices (the running_fill kernel on a card): ``_last_flag`` and
+  ``_first_flag``.
+* The seed's inversion sort, which only applies a permutation, is a
+  scatter with unique indices (``_invert``).
 * The ``lax.scan`` over rounds with its ``lax.switch`` is a Python loop
-  that reads the unresolved count once per round.
-* uint64 packs are int64 bit patterns (``<<`` wraps, ``>>`` is
-  arithmetic; every unpack masks, so the sign never leaks).
+  that reads the unresolved count once per round; the sorts' fault word
+  (``ops/sort.check_faults``) is read there too.
+* uint64 packs are int64 bit patterns, each built from its window's
+  bytes by one masked ``unfold`` (``_windows``, ``_pack_be``) where the
+  JAX code shifts and ors 8 or 32 times; ``>>`` is arithmetic, so every
+  unpack masks and the sign never leaks.
 
 ``lift_pairs`` is the plain twin of the CUDA kernel ``lcp_lift``
 (kernels/csrc/lcp_lift.cu); ``lcp_lift`` picks between them by the device
@@ -30,16 +43,25 @@ from __future__ import annotations
 import torch
 
 from ..index.device import n_levels
+from .fill import running_fill
+from .sort import check_faults, key_bits, stable_argsort
 
 SEED_LEVEL = 3        # byte seed resolves windows of 2^3 = 8 bytes
 WIDE_SEED_LEVEL = 5   # 4-bit coarse-code seed resolves 2^5 = 32 symbols
 INT32_MAX = 2**31 - 1
 I32, I64 = torch.int32, torch.int64
-BIG = 1 << 62
 SIGN = -(1 << 63)     # int64 bit pattern of uint64 1 << 63
+# A seed pack's 32-bit words are keys of 32 bits: their all-ones pattern
+# (the pad's) never occurs, since a window's bytes after its first special
+# (2 or 255) are masked to 0 and real bytes lie below 128, and the wide
+# seed's nibble codes are at most 8.
+WORD_BITS = 32
+SP_BITS = 31                     # sp: any non-negative int32
+WIDE_V_BITS = key_bits(1 << 34)  # (byte << 26) | sp: below 2^34
 
-# calls of the plain lift (the CUDA wrapper keeps its own launch count)
-REFERENCE_CALLS = {"lift_pairs": 0}
+# calls of the plain versions (the CUDA wrappers keep their own launch
+# counts)
+REFERENCE_CALLS = {"lift_pairs": 0, "_round_ranks_reference": 0}
 
 
 def seed_level_of(packs) -> int:
@@ -48,31 +70,42 @@ def seed_level_of(packs) -> int:
     return SEED_LEVEL if packs.shape[0] == 1 else WIDE_SEED_LEVEL
 
 
-def _flag_fill(flag: torch.Tensor):
-    """(last, first): per position i, the last flagged index <= i (-1 if
-    none) and the first flagged index >= i (len if none), int64. Exact:
-    the k-th flag's index is scattered to slot k of a table read at the
-    inclusive (resp. exclusive) flag count."""
+def _last_flag(flag: torch.Tensor) -> torch.Tensor:
+    """Per position i, the last flagged index <= i, -1 if none (int32):
+    the running max of where(flag, idx, -1)."""
+    idx = torch.arange(flag.shape[0], dtype=I32, device=flag.device)
+    return running_fill(torch.where(flag, idx, -1), "max")
+
+
+def _first_flag(flag: torch.Tensor) -> torch.Tensor:
+    """Per position i, the first flagged index >= i, len if none (int32):
+    the reverse running min of where(flag, idx, len)."""
     m = flag.shape[0]
-    c = torch.cumsum(flag, 0)
-    table = torch.full((m + 3,), m, dtype=I64, device=flag.device)
-    table[0] = -1
-    # every flagged i has its own count c[i] >= 1; the rest go to the
-    # dump slot m + 2, which is never read
-    table.scatter_(0, torch.where(flag, c, m + 2),
-                   torch.arange(m, dtype=I64, device=flag.device))
-    return table[c], table[c - flag.to(I64) + 1]
+    idx = torch.arange(m, dtype=I32, device=flag.device)
+    return running_fill(torch.where(flag, idx, m), "min", reverse=True)
 
 
-def _sort_rows(*keys: torch.Tensor):
-    """Stable sort of rows by several keys, most significant first (a
-    stable ``lax.sort`` with num_keys=len(keys)); returns (order int64,
-    the other keys in sorted order, the first key sorted)."""
-    s, order = torch.sort(keys[-1], stable=True)
-    for k in reversed(keys[:-1]):
-        s, o = torch.sort(k[order], stable=True)
-        order = order[o]
-    return order, [k[order] for k in keys[1:]], s
+def _words(p: torch.Tensor):
+    """The unsigned high and low 32-bit words of int64 bit patterns, as
+    int64 keys: sorted high word first, they order p as uint64 (as the
+    JAX sort of the flipped ``p ^ SIGN`` does)."""
+    return (p >> 32) & 0xFFFFFFFF, p & 0xFFFFFFFF
+
+
+def _windows(bb: torch.Tensor, d: torch.Tensor, w: int) -> torch.Tensor:
+    """uint8[m, w]: the ``w`` bytes of ``bb`` from each position i < m =
+    len(d), those past position i + d[i] (the window's first stop) set to
+    0 (``bb`` holds w bytes of padding past m)."""
+    m = d.shape[0]
+    k = torch.arange(w, dtype=d.dtype, device=d.device)
+    return torch.where(k <= d[:, None], bb.unfold(0, w, 1)[:m], 0)
+
+
+def _pack_be(rows: torch.Tensor) -> torch.Tensor:
+    """int64[m]: the 8 bytes of each row of uint8[m, 8], the first the
+    most significant (the JAX seeds' shift-and-or packs), read as one
+    little-endian word of the reversed row."""
+    return rows.flip(1).contiguous().view(I64)[:, 0]
 
 
 def _changes(*sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -103,16 +136,17 @@ def _invert(order: torch.Tensor, *vals: torch.Tensor):
     return outs
 
 
-def _shifted(r: torch.Tensor, shift: int) -> torch.Tensor:
-    """r[i + shift], -1 past the end."""
+def _next_key(r: torch.Tensor, shift: int) -> torch.Tensor:
+    """r[i + shift] + 1, 0 past the end: a round's sort key of the rank
+    ``shift`` positions on (the JAX ``shifted(rank, shift) + 1``)."""
     m = r.shape[0]
-    out = torch.full((m,), -1, dtype=I32, device=r.device)
+    out = torch.zeros(m, dtype=I32, device=r.device)
     if shift < m:
-        out[:m - shift] = r[shift:]
+        torch.add(r[shift:], 1, out=out[:m - shift])
     return out
 
 
-def _wide_seed(b: torch.Tensor, sp: torch.Tensor, idx64: torch.Tensor):
+def _wide_seed(b: torch.Tensor, sp: torch.Tensor, idx: torch.Tensor):
     """4-bit coarse-code seed (joint_sa.py:108-161): returns (packs,
     order, change flags)."""
     m = b.shape[0]
@@ -124,79 +158,152 @@ def _wide_seed(b: torch.Tensor, sp: torch.Tensor, idx64: torch.Tensor):
         2 * ((bi32 > 65).to(I32) + (bi32 > 67) + (bi32 > 71) + (bi32 > 84))
     ).to(torch.uint8)
     # first stop at or after each position; payload (byte, sp)
-    _, nxt = _flag_fill(~is_acgt)
+    nxt = _first_flag(~is_acgt)
     has = nxt < m
     at = torch.clamp(nxt, max=m - 1)
-    d = torch.where(has, nxt - idx64, 32)
+    d = torch.where(has, nxt - idx, 32)
     payload = (b.to(I64)[at] << 26) | sp.to(I64)[at]
     v = torch.where(d < 32, payload, 0)
     cc = torch.cat([code, torch.zeros(32, dtype=torch.uint8,
                                       device=b.device)])
-    p1 = torch.zeros(m, dtype=I64, device=b.device)
-    p2 = torch.zeros(m, dtype=I64, device=b.device)
-    for k in range(32):
-        ck = torch.where(k <= d, cc[k:k + m].to(I64), 0)
-        if k < 16:
-            p1 = (p1 << 4) | ck
-        else:
-            p2 = (p2 << 4) | ck
-    key1 = p1 ^ SIGN
-    key2 = p2 ^ SIGN
-    packs = torch.stack([key1, key2])
-    order, (k2s, v_s), k1s = _sort_rows(key1, key2, v)
-    return packs, order, _changes(k1s, k2s, v_s)
+    # the 32 codes of each window, masked after its first stop, two to a
+    # byte, first code in the high nibble of the first byte
+    c = _windows(cc, d, 32)
+    nib = (c[:, 0::2] << 4) | c[:, 1::2]
+    del c
+    p1, p2 = _pack_be(nib[:, :8]), _pack_be(nib[:, 8:])
+    del nib
+    packs = torch.stack([p1 ^ SIGN, p2 ^ SIGN])
+    # five keys, more than one sort takes: the last three first, then the
+    # first two, each sort stable
+    o = stable_argsort((*_words(p2), v), (WORD_BITS, WORD_BITS, WIDE_V_BITS))
+    order = o[stable_argsort(_words(p1[o]), (WORD_BITS, WORD_BITS))]
+    return packs, order, _changes(p1[order], p2[order], v[order])
 
 
-def _narrow_seed(b: torch.Tensor, sp: torch.Tensor, idx64: torch.Tensor):
+def _narrow_seed(b: torch.Tensor, sp: torch.Tensor, idx: torch.Tensor):
     """Byte-8 seed (joint_sa.py:162-197): returns (packs, order, change
-    flags). ``packs`` holds the unflipped pack8; the sort key flips it."""
+    flags). ``packs`` holds the unflipped pack8, which the sort orders as
+    uint64."""
     m = b.shape[0]
-    _, nxt = _flag_fill(sp > 0)
+    nxt = _first_flag(sp > 0)
     has = nxt < m
-    d = torch.where(has, nxt - idx64, 8)
+    d = torch.where(has, nxt - idx, 8)
     v = torch.where(d < 8, sp[torch.clamp(nxt, max=m - 1)], 0).to(I32)
     bb = torch.cat([b, torch.zeros(8, dtype=torch.uint8, device=b.device)])
-    p8 = torch.zeros(m, dtype=I64, device=b.device)
-    for k in range(8):
-        p8 = (p8 << 8) | torch.where(k <= d, bb[k:k + m].to(I64), 0)
-    order, (v_s,), k_s = _sort_rows(p8 ^ SIGN, v)
-    return p8[None, :], order, _changes(k_s, v_s)
+    p8 = _pack_be(_windows(bb, d, 8))
+    order = stable_argsort((*_words(p8), v), (WORD_BITS, WORD_BITS, SP_BITS))
+    return p8[None, :], order, _changes(p8[order], v[order])
+
+
+def round_ranks(perm, keys, lv, k: int, comp=None):
+    """A round's rank step after its sort (JAX joint_sa.py:244-266 for a
+    full round, :307-341 for a compacted one), on the device of its
+    tensors: the CUDA kernel ``sa_round`` for CUDA tensors,
+    ``_round_ranks_reference`` for CPU tensors.
+
+    ``perm`` (int32[R]) is the stable order of the R rows by ``keys``,
+    four int32[R] rows: the group (the rank; a compacted round's dead rows
+    hold INT32_MAX) and the ranks + 1 at the three shifts. ``lv`` is the
+    split levels (int32[m], SA order); ``k`` the round's level. A full
+    round (``comp`` None) has R = m rows, row i text position i. A
+    compacted round passes ``comp`` = (ti int32[R], the text position of
+    each row; rank int32[m]; resolved bool[m]).
+
+    Returns (mid_rank, full_rank, resolved, lv, u, carry): the two new
+    rank rows and the resolved flags in text order (a compacted round
+    changes only its live rows of rank and resolved), the split levels
+    with this round's new boundaries, u the unresolved count (int32[1],
+    on the device: the caller reads it), and for a compacted round the
+    carried slice (ti in sorted order, each row's new rank, the rows still
+    live), else None."""
+    dev = perm.device.type
+    if dev == "cuda":
+        from ..kernels import sa_round_cuda
+        return sa_round_cuda(perm, keys, lv, k, comp)
+    if dev == "cpu":
+        return _round_ranks_reference(perm, keys, lv, k, comp)
+    raise ValueError(f"round_ranks: unsupported device {dev!r}")
+
+
+def _round_ranks_reference(perm, keys, lv, k: int, comp=None):
+    """round_ranks in plain torch, on any device (the torch sequence the
+    port ran before the sa_round kernel)."""
+    REFERENCE_CALLS["_round_ranks_reference"] += 1
+    s = [key[perm] for key in keys]          # the keys in sorted order
+    is_g = _changes(s[0])
+    is_mid = is_g | _changes(s[1])
+    is_full = is_mid | _changes(s[2], s[3])
+    sing = is_full & _next_is(is_full)
+    R = perm.shape[0]
+
+    def last(flag):
+        # the last flagged row at or before each row: the k-th flag's row
+        # in slot k of a table read at the running flag count (a cumsum,
+        # which torch runs in parallel on a card; its 1-D cummax does not)
+        c = torch.cumsum(flag, 0)
+        table = torch.full((R + 2,), -1, dtype=I32, device=flag.device)
+        table.scatter_(0, torch.where(flag, c, R + 1),
+                       torch.arange(R, dtype=I32, device=flag.device))
+        return table[c]
+
+    if comp is None:
+        lv = torch.where(is_mid & (lv == 0), k + 1, lv)
+        lv = torch.where(is_full & (lv == 0), k + 2, lv)
+        mid_rank, full_rank, resolved = _invert(perm, last(is_mid),
+                                                last(is_full), sing)
+        u = (~sing).sum().to(I32).reshape(1)
+        return mid_rank, full_rank, resolved, lv, u, None
+    ti, rank, resolved = comp
+    # a group's rows start at its rank: new rank = group rank + the row's
+    # offset in the group (dead rows form one group that is never read)
+    live = s[0] != INT32_MAX
+    g_row = last(is_g)
+    mid_u = s[0] + (last(is_mid) - g_row)
+    full_u = s[0] + (last(is_full) - g_row)
+    # new boundaries: subgroup starts that are not group starts; those
+    # positions were never boundaries before, so a plain set
+    lv = lv.clone()
+    lv[mid_u[live & is_mid & ~is_g].long()] = k + 1
+    lv[full_u[live & is_full & ~is_mid].long()] = k + 2
+    ti_s = ti[perm]
+    at = ti_s[live].long()           # unique text positions: plain sets
+    mid_rank = rank.clone()
+    mid_rank[at] = mid_u[live]
+    full_rank = rank.clone()
+    full_rank[at] = full_u[live]
+    resolved = resolved.clone()
+    resolved[at] = sing[live]
+    keep = live & ~sing
+    u = keep.sum().to(I32).reshape(1)
+    return mid_rank, full_rank, resolved, lv, u, (ti_s, full_u, keep)
 
 
 def _full_round(rank, lv, k: int, m: int):
     """One uncompacted quadrupling round (joint_sa.py:232-268): returns
     (mid_rank, full_rank, sa, lv, resolved, u)."""
     w = 1 << k
-    r1, r2, r3 = (_shifted(rank, s * w) for s in (1, 2, 3))
-    kk1 = (rank.to(I64) << 32) | (r1.to(I64) + 1)
-    kk2 = ((r2.to(I64) + 1) << 32) | (r3.to(I64) + 1)
-    del r1, r2, r3
-    o_s, (kk2_s,), kk1_s = _sort_rows(kk1, kk2)
-    del kk1, kk2
-    ch_mid = _changes(kk1_s)
-    ch_full = ch_mid | _changes(kk2_s)
-    del kk1_s, kk2_s
-    lv = torch.where(ch_mid & (lv == 0), k + 1, lv).to(I32)
-    lv = torch.where(ch_full & (lv == 0), k + 2, lv).to(I32)
-    mid_sorted = _flag_fill(ch_mid)[0].to(I32)
-    full_sorted = _flag_fill(ch_full)[0].to(I32)
-    sing = ch_full & _next_is(ch_full)
-    mid_rank, full_rank, res = _invert(o_s, mid_sorted, full_sorted, sing)
-    u = m - int(sing.sum())
-    return mid_rank, full_rank, o_s.to(I32), lv, res, u
+    keys = (rank, *(_next_key(rank, s * w) for s in (1, 2, 3)))
+    o_s = stable_argsort(keys, (key_bits(m + 1),) * 4)
+    mid_rank, full_rank, res, lv, u, _ = round_ranks(o_s, keys, lv, k)
+    del keys
+    u = int(u)
+    check_faults(rank.device)
+    return mid_rank, full_rank, o_s, lv, res, u
 
 
 def _comp_round(rank, lv, resolved, k: int, m: int, U: int, carry):
     """One compacted round (joint_sa.py:270-341) over the U-row slice of
     unresolved elements: extracted once (``carry`` None), then carried.
     Returns (mid_rank, full_rank, lv, resolved, u, carry)."""
-    dev = rank.device
     w = 1 << k
     if carry is None:
         ckey = torch.where(resolved, INT32_MAX, rank)
-        ck_s, ti_all = torch.sort(ckey, stable=True)
-        ti, grp = ti_all[:U].to(I32), ck_s[:U]
+        ti_all, ck_s = stable_argsort((ckey,), (key_bits(m),), values=True)
+        # copies, so that the m-row sort outputs are freed here
+        ti, grp = ti_all[:U].clone(), ck_s[:U].clone()
         live = grp < INT32_MAX
+        del ckey, ti_all, ck_s
     else:
         ti, grp, live = carry
     tic = torch.clamp(ti, 0, m - 1).to(I64)
@@ -204,41 +311,18 @@ def _comp_round(rank, lv, resolved, k: int, m: int, U: int, carry):
     def sh(off):
         at = tic + off
         vv = rank[torch.clamp(at, 0, m - 1)]
-        return torch.where(live & (at < m), vv, -1).to(I64)
+        return torch.where(live & (at < m), vv + 1, 0).to(I32)
 
-    r1, r2, r3 = sh(w), sh(2 * w), sh(3 * w)
-    urow = torch.arange(U, dtype=I32, device=dev)
-    kk1 = torch.where(live, (grp.to(I64) << 32) | (r1 + 1), BIG)
-    kk2 = ((r2 + 1) << 32) | (r3 + 1)
-    rowsrc, (kk2_s,), kk1_s = _sort_rows(kk1, kk2)
-    g_hi = (kk1_s >> 32).to(I32)
-    is_g = _changes(g_hi)
-    is_mid = is_g | _changes(kk1_s)
-    is_full = is_mid | _changes(kk2_s)
-    live_s = kk1_s < BIG
-    g_row = _flag_fill(is_g)[0].to(I32)
-    mid_rank_u = g_hi + (_flag_fill(is_mid)[0].to(I32) - g_row)
-    full_rank_u = g_hi + (_flag_fill(is_full)[0].to(I32) - g_row)
-    # new boundaries: subgroup starts that are not group starts; those
-    # positions were never boundaries before, so a plain set (the JAX
-    # scatter drops masked rows into a dump index; here they are filtered)
-    lv = lv.clone()
-    sel = live_s & is_mid & ~is_g
-    lv[mid_rank_u[sel].long()] = k + 1
-    sel = live_s & is_full & ~is_mid
-    lv[full_rank_u[sel].long()] = k + 2
-    sing = is_full & _next_is(is_full)
-    ti_s = ti[torch.clamp(rowsrc, 0, U - 1)]
-    at = ti_s[live_s].long()       # unique text positions: plain set
-    mid_rank = rank.clone()
-    mid_rank[at] = mid_rank_u[live_s]
-    full_rank = rank.clone()
-    full_rank[at] = full_rank_u[live_s]
-    resolved = resolved.clone()
-    resolved[at] = sing[live_s]
-    keep = live_s & ~sing
-    u = int(keep.sum())
-    return mid_rank, full_rank, lv, resolved, u, (ti_s, full_rank_u, keep)
+    # dead rows: group INT32_MAX (the pad) and three 0 keys, so they tie
+    # and keep index order, as JAX's BIG pack does
+    keys = (torch.where(live, grp, INT32_MAX), sh(w), sh(2 * w), sh(3 * w))
+    rowsrc = stable_argsort(keys, (key_bits(m),) + (key_bits(m + 1),) * 3)
+    mid_rank, full_rank, resolved, lv, u, carry = round_ranks(
+        rowsrc, keys, lv, k, (ti, rank, resolved))
+    del keys
+    u = int(u)
+    check_faults(rank.device)
+    return mid_rank, full_rank, lv, resolved, u, carry
 
 
 def joint_suffix_array(b: torch.Tensor, sp: torch.Tensor, m: int,
@@ -257,20 +341,23 @@ def joint_suffix_array(b: torch.Tensor, sp: torch.Tensor, m: int,
                          "needs m < 2^26")
     dev = b.device
     levels = n_levels(m)
-    idx64 = torch.arange(m, dtype=I64, device=dev)
     U = min(m, max(64, m // 16))
 
-    packs, ord_s, ch_b = (_wide_seed if wide else _narrow_seed)(b, sp, idx64)
+    idx = torch.arange(m, dtype=I32, device=dev)
+    packs, ord_s, ch_b = (_wide_seed if wide else _narrow_seed)(b, sp, idx)
+    del idx
     split_lv = torch.where(ch_b, sl, 0).to(I32)
-    seed_rank_s = _flag_fill(ch_b)[0].to(I32)
     sing_s = ch_b & _next_is(ch_b)
-    rank, resolved = _invert(ord_s, seed_rank_s, sing_s)
-    del seed_rank_s
+    rank, resolved = _invert(ord_s, _last_flag(ch_b), sing_s)
+    del ord_s, ch_b
     u0 = m - int(sing_s.sum())
+    del sing_s
+    check_faults(dev)
 
     ks = list(range(sl, levels - 1, 2))
     n_hist = max((ks[-1] - sl + 2) + 1 if ks else 1, 1)
-    hist = torch.zeros((n_hist, m), dtype=I32, device=dev)
+    # every row is written below: row 0 here, two rows each level
+    hist = torch.empty((n_hist, m), dtype=I32, device=dev)
     hist[0] = rank
     sa = torch.zeros(m, dtype=I32, device=dev)
     u, comp_ran, carry = u0, False, None
@@ -291,7 +378,7 @@ def joint_suffix_array(b: torch.Tensor, sp: torch.Tensor, m: int,
     # the last full round's order is stale wherever a compacted round
     # refined further (and the seed-resolved case never produced one)
     if comp_ran or u0 == 0:
-        sa = torch.sort(rank, stable=True).indices.to(I32)
+        sa = stable_argsort((rank,), (key_bits(m),))
     return sa, rank, hist, packs, split_lv.max(), split_lv
 
 

@@ -36,6 +36,7 @@ from ..utils.buckets import bucket_size
 from ..utils.timing import stage_timer
 from .fill import running_fill
 from .joint_sa import joint_suffix_array, lcp_lift
+from .sort import check_faults, key_bits, stable_argsort
 
 INT_MIN = -(2**31)
 INT_MAX = 2**31 - 1
@@ -48,8 +49,11 @@ LOW30 = (1 << 30) - 1
 # 700 W: 216 at the primary shape (wide seed), 224.2 at the ecoli_dense
 # shape (m = 111 M, narrow seed), 233.2-235.5 per block of m = 272 M at
 # the 500 Mchar shape (a deeper rank history); 240 holds the largest with
-# ~2% to spare. Above the budget the pipeline runs the blocked scan, with
-# blocks sized by dense_block_chars (PERF.md).
+# ~2% to spare. With the joint sort on the port's kernels (int32 row ids,
+# no int64 sort pairs) those blocks peak at 189.0-191.2 on the same card;
+# the constant is kept, since it sets the blocks the guard chooses. Above
+# the budget the pipeline runs the blocked scan, with blocks sized by
+# dense_block_chars (PERF.md).
 DENSE_BYTES_PER_CHAR = 240
 
 # calls of the plain neighbor scans (the CUDA wrapper keeps its own count)
@@ -158,7 +162,8 @@ def _irreducible_slots(b, sp, sa, isa, split_lv, n: int, sn: int, m: int,
     lvc = torch.clamp(split_lv, 0, LV_BINS - 2)
     # one stable int32 key: level bin descending, non-irreducible last
     key = torch.where(irr, LV_BINS - lvc, LV_BINS + 1)
-    key_s, order = torch.sort(key, stable=True)
+    order, key_s = stable_argsort((key,), (key_bits(LV_BINS + 2),),
+                                  values=True)
     ai = sa[order]
     bi = _shift_in(sa, m)[order]
     lvp = torch.where(key_s <= LV_BINS, LV_BINS - key_s, 0).to(I32)
@@ -413,6 +418,7 @@ def _dense_stages(x_u8, sx_u8, n: int, sn: int, sep_base: int, wide: bool,
         b, sp, sa, isa, split_lv, n, sn, m, n_pad)
     del sp, split_lv
     rho, lmax = _lift_rows(stats)
+    check_faults(b.device)    # the sorts since the last round's read
     mark("irreducible(rho=%d)" % rho)
     # one lift over the rho irreducible rows replaces the JAX package's
     # per-level _lift_orchestrated (the CUDA lcp_lift kernel on a card)
