@@ -32,8 +32,9 @@ every phase passed):
    are held to their plain versions on the scan's own calls, as each is
    made (JointTimers): radix_sort at every stable_argsort site of
    ops/joint_sa.py and ops/ms_dense.py (sort_times: beside torch.sort
-   passes on the same keys), sa_round on every round's rank step, full and
-   compacted (_round_ranks_reference), running_fill on the first flag
+   passes on the same keys), sa_round on the seed's rank step (its seed
+   mode, _seed_ranks_reference; the wide seed) and on every round's, full
+   and compacted (_round_ranks_reference), running_fill on the first flag
    fill. Tolerance: exact equality.
 5. jump slice — the port's CLI (jump scan + device merge, --device cuda)
    on the bench's primary workload (2 Mbp reference x 10 docs at 1% SNP,
@@ -88,8 +89,8 @@ every phase passed):
    their plain versions (exact) on that run's first block (m ~ 252 M,
    narrow seed), with the joint sort's kernels held to their plain
    versions and timed on that block's own calls (radix_sort at every
-   site, sa_round on the first full round, running_fill on the first flag
-   fill), and the host merge on that run's heads: its .rl_bwt bytes equal
+   site, sa_round on the narrow seed's rank step and on the first full
+   round, running_fill on the first flag fill), and the host merge on that run's heads: its .rl_bwt bytes equal
    to the device merge's (the CLI's), its stages printed.
 9. auto, model, parallel — at the primary workload: the CLI with no
    --backend (auto), plain and -r, bytes equal to the reference tool's,
@@ -176,8 +177,9 @@ give alone_ms (the launches alone) and copy_ms (Tensor.copy_ of the same
 bytes); running_fill's ``flag_fill`` the joint sort's first flag fill at
 both shapes. radix_sort's ``sites`` hold the dense scan's sorts too
 (marked "(dense)"). sa_round's row gives the first full round of the 500
-Mchar run's first block, then every round at primary (``rounds``); no
-PyTorch call computes its function, so its library_ms is null.
+Mchar run's first block, then every round at primary (``rounds``), and
+the seed mode at both (``seed``); no PyTorch call computes its function,
+so its library_ms is null.
 """
 from __future__ import annotations
 
@@ -1040,6 +1042,8 @@ def sa_round_case(tag: str, perm, keys, lv, k: int, comp) -> dict:
     def flat(res):
         mid, full, resolved, lv_out, u, carry = res
         return (mid, full, resolved, lv_out, u) + tuple(carry or ())
+    # a tuple: the wrapper empties a list of keys once it has packed it
+    keys = tuple(keys)
     kind = "full" if comp is None else "comp"
     r = compare("sa_round", f"{tag} {kind} k={k}", "_round_ranks_reference",
                 lambda: flat(K_.sa_round_cuda(perm, keys, lv, k, comp)),
@@ -1053,19 +1057,45 @@ def sa_round_case(tag: str, perm, keys, lv, k: int, comp) -> dict:
     return r
 
 
+def seed_bytes(order, rows) -> int:
+    """Bytes sa_round's seed mode must move: the order and the seed's key
+    rows read once, the split levels, the rank and the flags written
+    once."""
+    return nbytes(order, *rows) + 9 * order.numel()
+
+
+def seed_case(tag: str, order, rows, sl: int) -> dict:
+    """sa_round's seed mode against _seed_ranks_reference (exact) on the
+    seed's inputs, both timed."""
+    from cmsbwt_tpu_torch import kernels as K_
+    from cmsbwt_tpu_torch.ops import joint_sa as js
+    rows = tuple(rows)   # the wrapper empties a list once it has packed it
+    seed = "narrow" if len(rows) == 2 else "wide"
+    r = compare("sa_round", f"{tag} seed ({seed})", "_seed_ranks_reference",
+                lambda: K_.sa_round_seed_cuda(order, rows, sl),
+                lambda: js._seed_ranks_reference(order, rows, sl),
+                f"the {seed} seed's rank step: m={order.numel()}",
+                seed_bytes(order, rows),
+                plain_reps=0 if order.numel() > 1 << 26 else 2)
+    r.pop("outputs")
+    r.update(kind="seed", seed=seed, rows=order.numel(), m=order.numel())
+    return r
+
+
 class JointTimers:
     """While in use, holds the joint suffix sort's kernels to their plain
     versions and times them on the live inputs of the dense scan's own
     calls, as each call is made (nothing is cloned: a 500 Mchar block's
     inputs take gigabytes): radix_sort at every stable_argsort call site
     of ops/joint_sa.py and ops/ms_dense.py, the first call at each
-    (sort_times; ``sorts`` by site), sa_round on every round's rank step
-    (``rounds``; with ``every`` False only the first full round's), and
-    running_fill on the first flag fill (``fill``)."""
+    (sort_times; ``sorts`` by site), sa_round on the seed's rank step
+    (``seed``) and on every round's (``rounds``; with ``every`` False only
+    the first full round's), and running_fill on the first flag fill
+    (``fill``)."""
 
     def __init__(self, tag: str, every: bool = True):
         self.tag, self.every = tag, every
-        self.sorts, self.rounds, self.fill = {}, [], None
+        self.sorts, self.rounds, self.fill, self.seed = {}, [], None, None
         self.seconds = 0.0      # spent holding and timing, not scanning
 
     def __enter__(self):
@@ -1075,7 +1105,7 @@ class JointTimers:
         from cmsbwt_tpu_torch.ops.fill import running_fill_reference
         self.js, self.md = js, md
         self.orig = (js.stable_argsort, md.stable_argsort, js.round_ranks,
-                     js.running_fill)
+                     js.running_fill, js.seed_ranks)
 
         def argsort_in(fn):
             def argsort(keys, bits, values=False):
@@ -1102,6 +1132,13 @@ class JointTimers:
                 self.seconds += time.perf_counter() - t0
             return self.orig[2](perm, keys, lv, k, comp)
 
+        def seeds(order, rows, sl):
+            if self.seed is None:
+                t0 = time.perf_counter()
+                self.seed = seed_case(self.tag, order, rows, sl)
+                self.seconds += time.perf_counter() - t0
+            return self.orig[4](order, rows, sl)
+
         def fill(v, op="max", reverse=False):
             if self.fill is None:
                 t0 = time.perf_counter()
@@ -1121,12 +1158,12 @@ class JointTimers:
             return self.orig[3](v, op, reverse)
         js.stable_argsort = argsort_in(self.orig[0])
         md.stable_argsort = argsort_in(self.orig[1])
-        js.round_ranks, js.running_fill = rounds, fill
+        js.round_ranks, js.running_fill, js.seed_ranks = rounds, fill, seeds
         return self
 
     def __exit__(self, *exc):
         (self.js.stable_argsort, self.md.stable_argsort, self.js.round_ranks,
-         self.js.running_fill) = self.orig
+         self.js.running_fill, self.js.seed_ranks) = self.orig
 
 
 def bucket_sums_bytes(bucket_rank, m_c, nec: int, n_pad: int) -> int:
@@ -2455,7 +2492,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
         merge_cases[tag]["radix_sort_sites"].update(
             {f"{site} (dense)": r for site, r in jt.sorts.items()})
         log(f"joint sort[{tag}]: held and timed in {jt.seconds:.1f} s; "
-            f"sort sites {sorted(jt.sorts)}; rounds "
+            f"sort sites {sorted(jt.sorts)}; seed "
+            f"{jt.seed['seed']} {jt.seed['ms']:.3f} ms; rounds "
             + json.dumps([(r["kind"], r["k"], r["rows"], round(r["ms"], 3))
                           for r in jt.rounds]))
     rounds = joint["500M"].rounds + joint["primary"].rounds
@@ -2506,9 +2544,13 @@ def run_phases(card: str, kind: str, started: float) -> int:
                  "cmsbwt_tpu/engine/device_merge.py:488", merge_cases,
                  ("compact",), ()),
         row("sa_round", csrc + "sa_round.cu",
-            "cmsbwt_tpu/ops/joint_sa.py:244", rounds,
+            "cmsbwt_tpu/ops/joint_sa.py:244", rounds
+            + [jt.seed for jt in joint.values()],
             primary={k: joint["primary"].rounds[0][k]
                      for k in ("ms", "plain_ms", "bound_ms")},
+            seed={tag: {k: jt.seed[k] for k in (
+                "seed", "rows", "ms", "plain_ms", "bound_ms", "err")}
+                for tag, jt in joint.items()},
             rounds={tag: [{k: r[k] for k in (
                 "kind", "k", "rows", "m", "ms", "plain_ms", "bound_ms",
                 "err")} for r in jt.rounds] for tag, jt in joint.items()})

@@ -143,11 +143,13 @@ def _bind(libs: dict) -> None:
     lib.compact_launch.argtypes = [P, LL, LL, P, P, P, P]
     lib = libs["sa_round"]
     lib.sa_round_scratch_bytes.restype = LL
-    lib.sa_round_scratch_bytes.argtypes = [LL]
+    lib.sa_round_scratch_bytes.argtypes = [LL, I, I]
     lib.sa_round_count_offset.restype = LL
     lib.sa_round_count_offset.argtypes = []
+    lib.sa_round_pack_launch.restype = I
+    lib.sa_round_pack_launch.argtypes = [I] + [P] * 5 + [I, P]
     lib.sa_round_launch.restype = I
-    lib.sa_round_launch.argtypes = [I] + [P] * 16 + [I, I, I, P, P]
+    lib.sa_round_launch.argtypes = [I] + [P] * 14 + [I, I, I, I, P, P]
 
 
 def load() -> dict:
@@ -768,12 +770,97 @@ def compact_cuda(flag, count: int, fault, scratch=None):
     return out
 
 
+SA_BIN_SHIFT = 20   # a bin of sa_round's binned scatter: 2^20 positions
+SA_MAX_BINS = 1024  # sa_round.cu's MAX_BINS
+SA_FINE_SHIFT = 12  # its fine bins: 2^12 positions, at most 1024 a bin
+
+
+class BinPlan(NamedTuple):
+    """sa_round's bins over m text positions: ``bins`` of 2^``shift``
+    positions each, the last ``last`` wide."""
+    shift: int
+    bins: int
+    last: int
+
+
+def sa_round_bins(m: int, shift: int = SA_BIN_SHIFT) -> BinPlan:
+    """The bins of a full round's or the seed's scatter over m < 2^30
+    positions: 2^shift positions each (2^20: a 2048-row tile's rows fall
+    in runs of ~8 a bin at m = 252 M, and a bin holds 256 fine bins),
+    widened until at most SA_MAX_BINS cover m; each bin holds at most
+    1024 fine bins of 2^SA_FINE_SHIFT positions."""
+    top = SA_FINE_SHIFT + 10
+    if not 1 <= m < 1 << 30:
+        raise ValueError(f"sa_round: m = {m} (1 .. 2^30 - 1)")
+    if not SA_FINE_SHIFT <= shift <= top:
+        raise ValueError(f"sa_round: bins of 2^{shift} "
+                         f"(2^{SA_FINE_SHIFT} .. 2^{top})")
+    while ((m - 1) >> shift) + 1 > SA_MAX_BINS:
+        shift += 1
+    bins = ((m - 1) >> shift) + 1
+    return BinPlan(shift, bins, m - ((bins - 1) << shift))
+
+
+# sa_round_pack_launch's layouts: (dtypes of the rows, words a row)
+_PACK_LAYOUTS = {0: ((torch.int32,) * 4, 4),
+                 1: ((torch.int64, torch.int32), 4),
+                 2: ((torch.int64,) * 3, 8)}
+
+
+def _sa_round_pack(lib, layout: int, rows, R: int, dev):
+    """Launch ``sa_round_pack`` (its own C call): the rows side by side,
+    int32[R + 8, words] (the last 8 rows room for the kernel)."""
+    dtypes, kw = _PACK_LAYOUTS[layout]
+    if len(rows) != len(dtypes):
+        raise ValueError(f"sa_round: {len(rows)} key rows ({len(dtypes)})")
+    for q, (row, dt) in enumerate(zip(rows, dtypes)):
+        _check(f"key {q}", row, dt, (R,), dev)
+    # 8 rows more: a full round's or the seed's second staging, laid over
+    # K once it is read, takes 12 * ((m + 3) & ~3) bytes
+    K = torch.empty((R + 8, kw), dtype=torch.int32, device=dev)
+    ptrs = [_ptr(r) for r in rows] + [None] * (4 - len(rows))
+    with torch.cuda.device(dev):
+        err = lib.sa_round_pack_launch(
+            layout, *ptrs, _ptr(K), R,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sa_round_pack launch failed: CUDA error {err}")
+    return K
+
+
+def _sa_round_run(lib, mode: int, perm, K, m: int, k: int, *, ti=None,
+                  lv_in=None, lv_out, mid=None, full, resolved, staging=(),
+                  carry=(None, None, None)):
+    """One ``sa_round_launch`` C call: the kernel, and for a full round or
+    the seed the two placing kernels; returns the unresolved count
+    (int32[1], on the device)."""
+    dev, R = perm.device, int(perm.shape[0])
+    plan = sa_round_bins(m, SA_BIN_SHIFT)
+    # the look-back's ticket and states, the count and the bins' cursors
+    # start at 0
+    scratch = torch.zeros(int(lib.sa_round_scratch_bytes(R, m, plan.shift)),
+                          dtype=torch.uint8, device=dev)
+    ptr = lambda t: None if t is None else _ptr(t)
+    st = list(staging) + [None] * (3 - len(staging))
+    with torch.cuda.device(dev):
+        err = lib.sa_round_launch(
+            mode, _ptr(perm), _ptr(K), ptr(ti), ptr(lv_in), _ptr(lv_out),
+            ptr(mid), _ptr(full), _ptr(resolved), *map(ptr, st),
+            *map(ptr, carry), R, m, int(k), plan.shift, _ptr(scratch),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch("sa_round", err)
+    at = int(lib.sa_round_count_offset())
+    return scratch[at:at + 4].view(torch.int32)
+
+
 def sa_round_cuda(perm, keys, lv, k: int, comp=None):
     """Launch ``sa_round`` on CUDA tensors: one round's rank step after
     its sort (perm int32[R], the stable order of the rows by ``keys``,
     four int32[R]; lv int32[m] split levels; ``comp`` None for a full
     round of R = m rows, else (ti int32[R], rank int32[m], resolved
-    bool[m]) for a compacted one).
+    bool[m]) for a compacted one). ``keys`` given as a list is emptied
+    once packed, so that rows the caller holds only there are freed
+    before the staging is made.
     Returns (mid_rank, full_rank, resolved, lv, u, carry) with u the
     unresolved count (int32[1], on the device; the wrapper does not
     synchronise). Same contract as ops/joint_sa._round_ranks_reference."""
@@ -781,49 +868,67 @@ def sa_round_cuda(perm, keys, lv, k: int, comp=None):
     R, m = int(perm.shape[0]), int(lv.shape[0])
     i32, b8 = torch.int32, torch.bool
     _check("perm", perm, i32, (R,), dev)
-    if len(keys) != 4:
-        raise ValueError(f"sa_round: {len(keys)} keys (four)")
-    for q, key in enumerate(keys):
-        _check(f"key {q}", key, i32, (R,), dev)
     _check("lv", lv, i32, (m,), dev)
     if not 1 <= R <= m < 2**31 - 1 or (comp is None and not R == m < 2**30):
         raise ValueError(f"sa_round: {R} rows of m = {m} (a full round "
                          "sorts all m < 2^30)")
-    lib = load()["sa_round"]
-    # the keys side by side (sa_round_pack writes every row)
-    K = torch.empty((R, 4), dtype=i32, device=dev)
-    if comp is None:
-        ti = ti_s = rank_u = keep = None
-        mid_rank, full_rank, lv_out = (torch.empty(m, dtype=i32, device=dev)
-                                       for _ in range(3))
-        resolved = torch.empty(m, dtype=b8, device=dev)
-        words = torch.empty(m, dtype=torch.int64, device=dev)
-    else:
+    if comp is not None:
         ti, rank, res_in = comp
         _check("ti", ti, i32, (R,), dev)
         _check("rank", rank, i32, (m,), dev)
         _check("resolved", res_in, b8, (m,), dev)
-        # the kernel writes only the live rows of these
-        mid_rank, full_rank = rank.clone(), rank.clone()
-        resolved, lv_out = res_in.clone(), lv.clone()
-        ti_s, rank_u = (torch.empty(R, dtype=i32, device=dev)
-                        for _ in range(2))
-        keep = torch.empty(R, dtype=b8, device=dev)
-        words = None
-    # the look-back's ticket and states and the count start at 0
-    scratch = torch.zeros(int(lib.sa_round_scratch_bytes(R)),
-                          dtype=torch.uint8, device=dev)
-    ptr = lambda t: None if t is None else _ptr(t)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.sa_round_launch(
-            int(comp is not None), _ptr(perm), *map(_ptr, keys), _ptr(K),
-            ptr(ti), _ptr(lv), _ptr(lv_out), _ptr(mid_rank),
-            _ptr(full_rank), _ptr(resolved), ptr(words), ptr(ti_s),
-            ptr(rank_u), ptr(keep), R, m, int(k),
-            _ptr(scratch), ctypes.c_void_p(stream))
-    _launch("sa_round", err)
-    at = int(lib.sa_round_count_offset())
-    u = scratch[at:at + 4].view(i32)
-    carry = None if comp is None else (ti_s, rank_u, keep)
+    lib = load()["sa_round"]
+    K = _sa_round_pack(lib, 0, keys, R, dev)
+    if isinstance(keys, list):
+        keys.clear()
+    if comp is None:
+        mid_rank, full_rank, lv_out = (torch.empty(m, dtype=i32, device=dev)
+                                       for _ in range(3))
+        resolved = torch.empty(m, dtype=b8, device=dev)
+        staging = [torch.empty(m, dtype=i32, device=dev) for _ in range(3)]
+        u = _sa_round_run(lib, 0, perm, K, m, k, lv_in=lv, lv_out=lv_out,
+                          mid=mid_rank, full=full_rank, resolved=resolved,
+                          staging=staging)
+        return mid_rank, full_rank, resolved, lv_out, u, None
+    # the kernel writes only the live rows of these
+    mid_rank, full_rank = rank.clone(), rank.clone()
+    resolved, lv_out = res_in.clone(), lv.clone()
+    carry = (torch.empty(R, dtype=i32, device=dev),
+             torch.empty(R, dtype=i32, device=dev),
+             torch.empty(R, dtype=b8, device=dev))
+    u = _sa_round_run(lib, 1, perm, K, m, k, ti=ti, lv_out=lv_out,
+                      mid=mid_rank, full=full_rank, resolved=resolved,
+                      carry=carry)
     return mid_rank, full_rank, resolved, lv_out, u, carry
+
+
+def sa_round_seed_cuda(order, rows, sl: int):
+    """Launch ``sa_round``'s seed mode on CUDA tensors: the seed's rank
+    step after its sort (order int32[m], the stable order of the positions
+    by ``rows``: the narrow seed's pack int64[m] and payload int32[m], or
+    the wide seed's two packs and payload, int64[m] each; ``sl`` the seed
+    level). ``rows`` given as a list is emptied once packed.
+    Returns (split_lv, rank, resolved, u0): split_lv int32[m] in SA order
+    (sl at a group start, else 0), rank int32[m] (the group's first row)
+    and resolved bool[m] (a singleton) in text order, u0 the unresolved
+    count (int32[1], on the device; the wrapper does not synchronise).
+    Same contract as ops/joint_sa._seed_ranks_reference."""
+    dev = order.device
+    m = int(order.shape[0])
+    i32 = torch.int32
+    _check("order", order, i32, (m,), dev)
+    if not 1 <= m < 2**30:
+        raise ValueError(f"sa_round: the seed of m = {m} (1 .. 2^30 - 1)")
+    layout = 1 if len(rows) == 2 else 2
+    lib = load()["sa_round"]
+    K = _sa_round_pack(lib, layout, rows, m, dev)
+    if isinstance(rows, list):
+        rows.clear()
+    split_lv, rank = (torch.empty(m, dtype=i32, device=dev)
+                      for _ in range(2))
+    resolved = torch.empty(m, dtype=torch.bool, device=dev)
+    staging = [torch.empty(m, dtype=i32, device=dev) for _ in range(2)]
+    u0 = _sa_round_run(lib, 2 if layout == 1 else 3, order, K, m, sl,
+                       lv_out=split_lv, full=rank, resolved=resolved,
+                       staging=(staging[0], None, staging[1]))
+    return split_lv, rank, resolved, u0

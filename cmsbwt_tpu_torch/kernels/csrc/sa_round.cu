@@ -1,57 +1,84 @@
-// sa_round — the rank step of one round of the joint suffix sort's prefix
-// doubling, after that round's sort, for Hopper (sm_90a).
+// sa_round — the rank step of the joint suffix sort's seed and of each
+// round of its prefix doubling, after that step's sort, for Hopper
+// (sm_90a).
 //
-// Replaces no Pallas kernel: it is the counterpart of the XLA program that
-// cmsbwt_tpu/ops/joint_sa.py runs after each round's lax.sort, a full
-// round's (:244-266) and a compacted round's (:307-341), which the port
-// ran as a dozen torch passes (change flags, running maxima, inversions).
-// Equal to cmsbwt_tpu_torch/ops/joint_sa._round_ranks_reference element for
-// element.
+// Replaces no Pallas kernel: it is the counterpart of the XLA programs that
+// cmsbwt_tpu/ops/joint_sa.py runs after the seed's lax.sort (:198-208)
+// and after each round's, a full round's (:244-266) and a compacted
+// round's (:307-341), which the port ran as a dozen torch passes (change
+// flags, running maxima, inversions). Equal to
+// cmsbwt_tpu_torch/ops/joint_sa._seed_ranks_reference and
+// _round_ranks_reference element for element.
 //
-// Over R rows sorted by four int32 keys (perm[r]: the source row of sorted
-// row r; key 0 the group, the rank or INT_MAX for a compacted round's dead
-// rows; keys 1-3 the ranks + 1 at three shifts), per sorted row r:
+// Over R rows sorted by their key words (perm[r]: the source row of sorted
+// row r; a round's four int32 keys: key 0 the group, the rank or INT_MAX
+// for a compacted round's dead rows, keys 1-3 the ranks + 1 at three
+// shifts; the seed's 3 or 6 words of its packs and payload), per sorted
+// row r:
 //   g(r)     key 0 differs from row r-1's, or r == 0: a group starts;
 //   mid(r)   keys 0-1 differ: a mid-level group starts;
-//   full(r)  any key differs: a full-level group starts;
+//   full(r)  any key differs: a full-level group starts (the seed has one
+//            level: g = mid = full, any word differs);
 //   G, M, F  the last g, mid and full start row at or before r;
 //   sing(r)  full(r) and full(r+1), true past the end: a singleton.
 // A full round (R = m, perm[r] the text position t):
 //   mid_rank[t] = M, full_rank[t] = F, resolved[t] = sing(r),
 //   lv_out[r] = lv_in[r], or where that is 0: k+1 at a mid start, k+2 at
 //   a full start.
+// The seed (R = m, t = perm[r], k the seed level):
+//   full_rank[t] = F (the rank), resolved[t] = sing(r), lv_out[r] = k at
+//   a start, else 0.
 // A compacted round (R = U; t = ti[perm[r]]; live: key 0 != INT_MAX):
 //   rank_u = key 0 + (F - G) (and key 0 + (M - G) for the mid level); at
 //   live rows mid_rank[t], full_rank[t] and resolved[t] are set, and
 //   lv_out[key 0 + (M - G)] = k+1 at a mid start that is no group start,
 //   lv_out[rank_u] = k+2 at a full start that is no mid start; the carried
 //   slice: ti_s[r] = t, rank_u[r], keep[r] = live and not sing(r).
-// Both count the rows that stay unresolved (live and not sing) into one
+// Each counts the rows that stay unresolved (live and not sing) into one
 // word, which the caller reads once a round.
 //
 // What bounds it on this card: bytes. A full round reads perm, lv and the
 // keys of each row and writes lv, the two rank rows and the flags: 37 B a
 // row, 2.8 ms at m = 252 M. But the keys are read through perm and the
-// ranks written through it, on random rows, and a random access moves a
-// 32-byte sector for its 4 bytes unless L2 holds the sector: what the
-// card takes is the count of those random sectors.
+// results land through it, on random rows. A random read moves a 32-byte
+// sector for its 16 bytes; a random 8-byte write, which the L2 (50 MB)
+// cannot merge with its neighbours before it evicts the sector, costs a
+// sector read and a sector write in DRAM: at m = 252 M the scatter of one
+// word a row took 17.3 of the former kernel's 26.2 ms, the gather 7.8.
 //
-// Design: three launches, all from one C call: sa_round_pack, then
+// Design: two C calls. sa_round_pack_launch lays a step's key rows side
+// by side (K: one gathered 16- or 32-byte row, one sector, where four
+// gathers would move four; its own call so that the caller can free the
+// key rows before the staging below is made). sa_round_launch then runs
 // sa_round_kernel, a single-pass scan with decoupled look-back
 // (tile_scan.cuh's lookback) of (G, M, F) under max over tiles of 2048
-// rows, 256 threads of 8 consecutive rows, then, for a full round,
-// sa_round_unpack.
-//  * Random sectors, two a row in a full round: sa_round_pack lays the
-//    four key rows side by side, in order (K, 16 bytes a row: one gathered
-//    sector, not four; a torch.stack of the rows, which writes at a
-//    16-byte stride, took ~25 ms a full round at m = 252 M on the H100),
-//    and the three
-//    text-order results travel as one 64-bit word (M << 31 | F << 1 |
-//    sing: ranks < 2^30, the JAX package's packed inversion payload),
-//    scattered once; sa_round_unpack then splits the words into the
-//    three rows, in order: two random sectors a row where four gathers
-//    and three scatters would move seven. A compacted round writes its
-//    live rows straight into copies of rank and resolved.
+// rows, 256 threads of 8 consecutive rows, and for a full round and the
+// seed sa_round_fine and sa_round_settle.
+//  * No random partial-sector write: the text order is cut into bins of
+//    2^shift positions (kernels.sa_round_bins: 2^20) and those into fine
+//    bins of 4096. A tile counts its rows per bin (shared atomics), scans
+//    the counts, takes each bin's run of rows from the bin's cursor (one
+//    global atomic a bin a tile), lays its rows out in shared memory by
+//    bin and writes each run, coalesced, to the bin's part of a bin-major
+//    staging (three int32 rows: the position in the bin << 1 | sing, M,
+//    F; the seed writes no M). Since perm is a permutation, bin b holds
+//    exactly its width of rows, from b << shift on, so the cursors need
+//    no scan; the order of the runs in a bin is the order the tiles took
+//    them, which no output depends on (each position is written once).
+//    sa_round_fine sorts each bin's staging by fine bin the same way, in
+//    chunks of 4096 rows, into a second staging laid over K (dead by
+//    then); sa_round_settle lays each fine bin's rows out in shared
+//    memory at their positions and writes the 4096 positions' results in
+//    order. Placing each row's results at random inside an L2-resident
+//    bin instead took 14.8 ms a 252 M-row round on the H100 (three
+//    scattered rows), 9.3 as one scattered word split in order, against
+//    6.0 for the two levels. Bins of 2^20 balance the kernel's runs
+//    (longer in wider bins) against the fine pass's (shorter): 22.25 ms a
+//    round, 23.30 at 2^19, 22.69-24.76 at 2^21-2^22. Staging loads and
+//    the key gathers are streaming loads (evict first), so the L2 keeps
+//    the writes.
+//  * A compacted round (R <= m/16) writes its live rows straight into
+//    copies of rank and resolved.
 //  * A block takes its tile from a ticket. Each thread loads its 8 perm
 //    entries with 16-byte loads and gathers its rows' keys, all issued
 //    before any is used.
@@ -66,16 +93,20 @@
 //    of one group.
 //  * The unresolved count: a warp sum, a shared sum and one global atomic
 //    a tile.
-//  * A scatter position outside [0, m) is not written (the algorithm makes
-//    none; the plain version raises on one).
+//  * A destination outside [0, m) is not written, nor a row past its
+//    bin's width (neither occurs for a permutation; the plain version
+//    raises on the first).
 //
-// Plain C interface (bound with ctypes): sa_round_launch launches the
-// kernels on the given stream and returns the first cudaGetLastError()
-// that is not 0; it allocates nothing (the caller passes
-// sa_round_scratch_bytes(R) bytes of zeroed scratch: the ticket, the count
-// and the tiles' states; R x 16 bytes for K; a full round's m words; a
-// compacted round's mid_rank, full_rank, resolved and lv_out as copies of
-// rank, rank, resolved and lv) and does not synchronise.
+// Plain C interface (bound with ctypes): each launch function launches on
+// the given stream and returns the first cudaGetLastError() that is not
+// 0; nothing allocates or synchronises. The caller passes
+// sa_round_scratch_bytes(R, m, shift) bytes of zeroed scratch (the
+// ticket, the count, the tiles' states, the bins' and the fine bins'
+// cursors), K (rows of 16 bytes, or 32 for the wide seed; R + 8 of them,
+// since a full round's or the seed's second staging, 12 * ((m + 3) & ~3)
+// bytes, is laid over it) and, for those two, the staging (three or two
+// int32[m]); for a compacted round mid_rank, full_rank, resolved and
+// lv_out as copies of rank, rank, resolved and lv.
 
 #include "tile_scan.cuh"
 
@@ -89,6 +120,16 @@ constexpr int TILE = THREADS * ITEMS;
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_BLOCKS = 3;   // blocks an SM holds: caps the registers
 constexpr int DEAD = INT_MAX;   // key 0 of a compacted round's dead rows
+constexpr int MAX_BINS = 1024;  // bins a tile counts in shared memory
+constexpr int BIN_ITEMS = MAX_BINS / THREADS;
+constexpr int CURSOR_STRIDE = 32;  // int32s between two bins' cursors
+
+enum Mode : int {
+  FULL_ROUND = 0,
+  COMP_ROUND = 1,
+  SEED_NARROW = 2,
+  SEED_WIDE = 3
+};
 
 // the last group, mid and full start row at or before a row (-1: none)
 struct Starts {
@@ -110,56 +151,107 @@ struct StartsOp {
   }
 };
 
+struct SumOp {
+  static __device__ __forceinline__ int identity() { return 0; }
+  static __device__ __forceinline__ int combine(int x, int y) {
+    return x + y;
+  }
+};
+
+// a row's key words: 4, or 8 for the wide seed
+template <int KW>
 struct Keys {
-  int k0, k1, k2, k3;
+  int w[KW];
 };
 
 struct Args {
   const int* perm;
-  const int4* K;        // the four keys of each source row
+  const int4* K;        // the key words of each source row
   const int* ti;        // compacted: the text position of each source row
   const int* lv_in;     // full: split levels, SA order
   int* lv_out;
-  int* mid_rank;        // compacted: text order
-  int* full_rank;
+  int* mid_rank;        // text order
+  int* full_rank;       // the seed's rank
   unsigned char* resolved;
-  long long* words;     // full: M << 31 | F << 1 | sing, text order
+  unsigned* st_pos;     // full, seed: the staging, bin-major
+  int* st_mid;
+  int* st_full;
   int* ti_s;            // compacted: the carried slice, sorted order
   int* rank_u;
   unsigned char* keep;
-  int R, m, k;
+  int R, m, k, shift, bins;
   bool vec;             // perm, lv and the slice are 16-byte aligned
   unsigned* ticket;
   int* count;
   unsigned long long* slots;
+  int* cursors;         // each bin's rows taken so far
 };
 
-__device__ __forceinline__ Keys gather(const Args& a, int src) {
-  const int4 w = __ldg(a.K + src);
-  return Keys{w.x, w.y, w.z, w.w};
+template <int KW>
+__device__ __forceinline__ Keys<KW> gather(const Args& a, int src) {
+  Keys<KW> x;
+#pragma unroll
+  for (int h = 0; h < KW / 4; ++h) {
+    const int4 w = __ldcs(a.K + (long long)src * (KW / 4) + h);
+    x.w[4 * h] = w.x;
+    x.w[4 * h + 1] = w.y;
+    x.w[4 * h + 2] = w.z;
+    x.w[4 * h + 3] = w.w;
+  }
+  return x;
 }
 
-__device__ __forceinline__ bool differ(const Keys& x, const Keys& y) {
-  return x.k0 != y.k0 || x.k1 != y.k1 || x.k2 != y.k2 || x.k3 != y.k3;
+template <int KW>
+__device__ __forceinline__ Keys<KW> zero_keys() {
+  Keys<KW> x;
+#pragma unroll
+  for (int q = 0; q < KW; ++q) x.w[q] = 0;
+  return x;
 }
 
-__device__ __forceinline__ Keys shfl_up_keys(const Keys& x) {
-  return Keys{__shfl_up_sync(FULL, x.k0, 1), __shfl_up_sync(FULL, x.k1, 1),
-              __shfl_up_sync(FULL, x.k2, 1), __shfl_up_sync(FULL, x.k3, 1)};
+template <int KW>
+__device__ __forceinline__ bool differ(const Keys<KW>& x, const Keys<KW>& y) {
+  bool d = false;
+#pragma unroll
+  for (int q = 0; q < KW; ++q) d = d || x.w[q] != y.w[q];
+  return d;
+}
+
+template <int KW>
+__device__ __forceinline__ Keys<KW> shfl_up_keys(const Keys<KW>& x) {
+  Keys<KW> y;
+#pragma unroll
+  for (int q = 0; q < KW; ++q) y.w[q] = __shfl_up_sync(FULL, x.w[q], 1);
+  return y;
 }
 
 __device__ __forceinline__ int top_row(long long r0, unsigned bits) {
   return bits ? int(r0) + 31 - __clz(bits) : -1;
 }
 
-template <bool COMP>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     sa_round_kernel(const Args a) {
+  constexpr int KW = MODE == SEED_WIDE ? 8 : 4;
+  constexpr bool COMPACT = MODE == COMP_ROUND;
+  constexpr bool SEEDS = MODE == SEED_NARROW || MODE == SEED_WIDE;
+  constexpr bool BINNED = !COMPACT;
+  constexpr int BT = BINNED ? TILE : 1;   // shared staging rows
   __shared__ Starts wagg[33];
-  __shared__ Keys wlast[WARPS];   // each warp's last row's keys
+  __shared__ int sagg[33];
+  __shared__ Keys<KW> wlast[WARPS];   // each warp's last row's keys
   __shared__ int wfirst[WARPS];   // each warp's first row's full flag
   __shared__ int tile_count;
+  // the binned scatter: each bin's count in the tile, then its run's
+  // offset in the tile (off) and its cursor in the bin (at); the tile's
+  // rows by bin and each one's staging row (-1: not written)
+  __shared__ int off[BINNED ? MAX_BINS : 1], at[BINNED ? MAX_BINS : 1];
+  __shared__ unsigned s_pos[BT];
+  __shared__ int s_mid[MODE == FULL_ROUND ? TILE : 1], s_full[BT];
+  __shared__ int s_dst[BT];
   if (threadIdx.x == 0) tile_count = 0;
+  if (BINNED)
+    for (int b = threadIdx.x; b < a.bins; b += THREADS) off[b] = 0;
   const int t = take_ticket(a.ticket);   // synchronises the block
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long r0 = (long long)t * TILE + (long long)threadIdx.x * ITEMS;
@@ -167,16 +259,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const int n = int(max(0ll, min((long long)ITEMS, a.R - r0)));
   int src[ITEMS];
   load_items<ITEMS>(a.perm, r0, a.R, a.vec, 0, src);
-  Keys key[ITEMS];
+  Keys<KW> key[ITEMS];
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j)
-    key[j] = j < n ? gather(a, src[j]) : Keys{0, 0, 0, 0};
+    key[j] = j < n ? gather<KW>(a, src[j]) : zero_keys<KW>();
 
   // the row before this thread's first row
-  Keys prev = shfl_up_keys(key[ITEMS - 1]);
+  Keys<KW> prev = shfl_up_keys(key[ITEMS - 1]);
   if (lane == 31) wlast[warp] = key[ITEMS - 1];
-  Keys before{0, 0, 0, 0};
-  if (threadIdx.x == 0 && r0 > 0) before = gather(a, __ldg(a.perm + r0 - 1));
+  Keys<KW> before = zero_keys<KW>();
+  if (threadIdx.x == 0 && r0 > 0)
+    before = gather<KW>(a, __ldg(a.perm + r0 - 1));
   __syncthreads();
   if (lane == 0) prev = warp ? wlast[warp - 1] : before;
 
@@ -184,12 +277,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   unsigned fg = 0, fm = 0, ff = 0;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    const Keys& c = key[j];
-    const Keys& p = j ? key[j - 1] : prev;
+    const Keys<KW>& c = key[j];
+    const Keys<KW>& p = j ? key[j - 1] : prev;
     const bool top = j == 0 && r0 == 0;
-    const bool dg = top || c.k0 != p.k0;
-    const bool dm = dg || c.k1 != p.k1;
-    const bool df = dm || c.k2 != p.k2 || c.k3 != p.k3;
+    bool dg, dm, df;
+    if (SEEDS) {
+      dg = dm = df = top || differ(c, p);
+    } else {
+      dg = top || c.w[0] != p.w[0];
+      dm = dg || c.w[1] != p.w[1];
+      df = dm || c.w[2] != p.w[2] || c.w[3] != p.w[3];
+    }
     if (j < n) {
       fg |= unsigned(dg) << j;
       fm |= unsigned(dm) << j;
@@ -203,7 +301,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   if (lane == 0) wfirst[warp] = int(ff & 1u);
   int after = 1;
   if (threadIdx.x == THREADS - 1 && r0 + ITEMS < a.R)
-    after = differ(gather(a, __ldg(a.perm + r0 + ITEMS)), key[ITEMS - 1]);
+    after = differ(gather<KW>(a, __ldg(a.perm + r0 + ITEMS)),
+                   key[ITEMS - 1]);
 
   const Starts agg{top_row(r0, fg), top_row(r0, fm), top_row(r0, ff)};
   Starts tot;
@@ -212,8 +311,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   Starts run = StartsOp::combine(lookback<StartsOp>(a.slots, t, tot), ex);
   if (lane == 31) next_full = warp + 1 < WARPS ? wfirst[warp + 1] : after;
 
-  int lvv[ITEMS], tis[ITEMS], rku[ITEMS];
-  if (!COMP) load_items<ITEMS>(a.lv_in, r0, a.R, a.vec, 0, lvv);
+  int lvv[ITEMS], tis[ITEMS], rku[ITEMS], mv[ITEMS], fv[ITEMS];
+  unsigned sing_bits = 0;
+  if (MODE == FULL_ROUND)
+    load_items<ITEMS>(a.lv_in, r0, a.R, a.vec, 0, lvv);
   int unresolved = 0;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
@@ -227,42 +328,98 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                     (j + 1 < ITEMS ? (ff >> (j + 1) & 1u) != 0
                                    : next_full != 0);
     const bool sing = df && nf;
-    if (COMP) {
-      const int g0 = key[j].k0;
+    if (COMPACT) {
+      const int g0 = key[j].w[0];
       const bool live = g0 != DEAD;
       // int32 arithmetic wraps, as torch's does
       const int mid = int(unsigned(g0) + unsigned(run.mid - run.g));
       const int full = int(unsigned(g0) + unsigned(run.full - run.g));
-      const int at = __ldg(a.ti + src[j]);
+      const int to = __ldg(a.ti + src[j]);
       if (live) {
-        if (unsigned(at) < unsigned(a.m)) {
-          a.mid_rank[at] = mid;
-          a.full_rank[at] = full;
-          a.resolved[at] = sing;
+        if (unsigned(to) < unsigned(a.m)) {
+          a.mid_rank[to] = mid;
+          a.full_rank[to] = full;
+          a.resolved[to] = sing;
         }
         if (dm && !dg && unsigned(mid) < unsigned(a.m))
           a.lv_out[mid] = a.k + 1;
         if (df && !dm && unsigned(full) < unsigned(a.m))
           a.lv_out[full] = a.k + 2;
       }
-      tis[j] = at;
+      tis[j] = to;
       rku[j] = full;
       a.keep[r] = live && !sing;
       unresolved += live && !sing;
     } else {
-      const int at = src[j];
-      if (unsigned(at) < unsigned(a.m))
-        a.words[at] = (static_cast<long long>(run.mid) << 31) |
-                      (static_cast<long long>(run.full) << 1) | sing;
-      if (lvv[j] == 0) lvv[j] = dm ? a.k + 1 : (df ? a.k + 2 : 0);
+      mv[j] = run.mid;
+      fv[j] = run.full;
+      sing_bits |= unsigned(sing) << j;
+      if (SEEDS)
+        lvv[j] = df ? a.k : 0;
+      else if (lvv[j] == 0)
+        lvv[j] = dm ? a.k + 1 : (df ? a.k + 2 : 0);
       unresolved += !sing;
     }
   }
-  if (COMP) {
+  if (COMPACT) {
     store_items<ITEMS>(a.ti_s, r0, a.R, a.vec, tis);
     store_items<ITEMS>(a.rank_u, r0, a.R, a.vec, rku);
   } else {
     store_items<ITEMS>(a.lv_out, r0, a.R, a.vec, lvv);
+  }
+
+  if (BINNED) {
+    // each row's place in its bin's run of the tile
+    int slot[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      slot[j] = j < n && unsigned(src[j]) < unsigned(a.m)
+                    ? atomicAdd(&off[src[j] >> a.shift], 1)
+                    : -1;
+    __syncthreads();
+    // the runs' offsets in the tile, and their cursors in the bins
+    int cnt[BIN_ITEMS], sum = 0;
+#pragma unroll
+    for (int q = 0; q < BIN_ITEMS; ++q) {
+      const int b = threadIdx.x * BIN_ITEMS + q;
+      cnt[q] = b < a.bins ? off[b] : 0;
+      sum += cnt[q];
+    }
+    int rows;
+    int o = block_scan<false, SumOp>(sum, 0, sagg, &rows);
+#pragma unroll
+    for (int q = 0; q < BIN_ITEMS; ++q) {
+      const int b = threadIdx.x * BIN_ITEMS + q;
+      if (cnt[q]) {
+        off[b] = o;
+        at[b] = atomicAdd(a.cursors + (long long)b * CURSOR_STRIDE, cnt[q]);
+      }
+      o += cnt[q];
+    }
+    __syncthreads();
+    // the tile's rows into shared memory by bin, each with its staging row
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if (slot[j] < 0) continue;
+      const int b = src[j] >> a.shift;
+      const int base = b << a.shift;
+      const int width = min(1 << a.shift, a.m - base);
+      const int p = off[b] + slot[j];
+      const int g = at[b] + slot[j];
+      s_pos[p] = unsigned(src[j] - base) << 1 | (sing_bits >> j & 1u);
+      if (MODE == FULL_ROUND) s_mid[p] = mv[j];
+      s_full[p] = fv[j];
+      s_dst[p] = g < width ? base + g : -1;
+    }
+    __syncthreads();
+    // each bin's run, coalesced, into its staging rows
+    for (int p = threadIdx.x; p < rows; p += THREADS) {
+      const int d = s_dst[p];
+      if (d < 0) continue;
+      a.st_pos[d] = s_pos[p];
+      if (MODE == FULL_ROUND) a.st_mid[d] = s_mid[p];
+      a.st_full[d] = s_full[p];
+    }
   }
 
   unresolved = __reduce_add_sync(FULL, unresolved);
@@ -271,117 +428,309 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   if (threadIdx.x == 0 && tile_count) atomicAdd(a.count, tile_count);
 }
 
-// a full round's words, in text order, into its three rows: 4 rows a
-// thread, 16-byte loads and stores where they are whole and aligned
-constexpr int UNPACK_THREADS = 256;
+// Second level: each bin's staging, in chunks of 4096 rows (2^shift is a
+// multiple), sorted by fine bin of 4096 positions into a second staging
+// laid over K (dead by then), as the kernel sorted the rows by bin: a
+// shared count a fine bin, a scan, one global atomic a fine bin a chunk
+// for the run's place, the runs (16 rows long at 256 fine bins) written
+// coalesced. A row whose fine bin is full or past the bin is dropped.
+constexpr int FINE_SHIFT = 12;
+constexpr int FINE = 1 << FINE_SHIFT;        // positions a fine bin
+constexpr int MAX_FINE = 1024;               // fine bins a bin (shift <= 22)
+constexpr int CHUNK_THREADS = 512;
+constexpr int CHUNK_ITEMS = 8;
+constexpr int CHUNK = CHUNK_THREADS * CHUNK_ITEMS;
+constexpr int FINE_ITEMS = MAX_FINE / CHUNK_THREADS;
 
-__global__ void __launch_bounds__(UNPACK_THREADS)
-    sa_round_unpack(const long long* __restrict__ words, int* __restrict__ mid,
-                    int* __restrict__ full, unsigned char* __restrict__ res,
-                    int m, bool vec) {
-  const long long r0 = 4 * ((long long)blockIdx.x * UNPACK_THREADS +
-                            threadIdx.x);
-  if (r0 >= m) return;
-  long long w[4];
-  int mv[4], fv[4];
-  unsigned char rv[4];
-  const bool whole = vec && r0 + 4 <= m;
-  if (whole) {
-    ld16(words + r0, w);
-    ld16(words + r0 + 2, w + 2);
-  }
+struct Stage {        // one staging: bin-major rows, three int32 words
+  unsigned* pos;      // the position in the bin << 1 | sing
+  int* mid;
+  int* full;
+};
+
+template <bool MID>
+__global__ void __launch_bounds__(CHUNK_THREADS)
+    sa_round_fine(const Stage s1, const int* __restrict__ cursors,
+                  int* __restrict__ fine_cursors, const Stage s2, int m,
+                  int shift) {
+  extern __shared__ int smem[];
+  int* off = smem;                       // MAX_FINE, then the rows by fine bin
+  int* at = off + MAX_FINE;
+  unsigned* c_pos = reinterpret_cast<unsigned*>(at + MAX_FINE);
+  int* c_dst = reinterpret_cast<int*>(c_pos + CHUNK);
+  int* c_full = c_dst + CHUNK;
+  int* c_mid = c_full + CHUNK;           // MID only
+  __shared__ int sagg[33];
+  const int c0 = blockIdx.x * CHUNK;
+  const int b = c0 >> shift;
+  const int base = b << shift;
+  const int width = min(1 << shift, m - base);
+  const int n = min(__ldg(cursors + (long long)b * CURSOR_STRIDE), width);
+  const int nf = ((width - 1) >> FINE_SHIFT) + 1;
+  for (int f = threadIdx.x; f < nf; f += CHUNK_THREADS) off[f] = 0;
+  __syncthreads();
+  const int r0 = c0 + threadIdx.x * CHUNK_ITEMS;
+  unsigned pos[CHUNK_ITEMS];
+  int mv[CHUNK_ITEMS], fv[CHUNK_ITEMS], slot[CHUNK_ITEMS];
+  if (r0 - base + CHUNK_ITEMS <= n) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (!whole) w[j] = r0 + j < m ? __ldg(words + r0 + j) : 0;
-    mv[j] = int(w[j] >> 31);
-    fv[j] = int((w[j] >> 1) & ((1ll << 30) - 1));
-    rv[j] = (unsigned char)(w[j] & 1);
-  }
-  if (whole) {
-    st16(mid + r0, mv);
-    st16(full + r0, fv);
-    *reinterpret_cast<uchar4*>(res + r0) = make_uchar4(rv[0], rv[1], rv[2],
-                                                       rv[3]);
+    for (int h = 0; h < CHUNK_ITEMS; h += 4) {
+      const uint4 p = __ldcs(reinterpret_cast<const uint4*>(s1.pos + r0 + h));
+      pos[h] = p.x; pos[h + 1] = p.y; pos[h + 2] = p.z; pos[h + 3] = p.w;
+      const int4 f = __ldcs(reinterpret_cast<const int4*>(s1.full + r0 + h));
+      fv[h] = f.x; fv[h + 1] = f.y; fv[h + 2] = f.z; fv[h + 3] = f.w;
+      if (MID) {
+        const int4 q = __ldcs(reinterpret_cast<const int4*>(s1.mid + r0 + h));
+        mv[h] = q.x; mv[h + 1] = q.y; mv[h + 2] = q.z; mv[h + 3] = q.w;
+      }
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (r0 + j < m) {
-        mid[r0 + j] = mv[j];
-        full[r0 + j] = fv[j];
-        res[r0 + j] = rv[j];
-      }
+    for (int j = 0; j < CHUNK_ITEMS; ++j) {
+      const bool ok = r0 - base + j < n;
+      pos[j] = ok ? __ldcs(s1.pos + r0 + j) : ~0u;
+      fv[j] = ok ? __ldcs(s1.full + r0 + j) : 0;
+      mv[j] = MID && ok ? __ldcs(s1.mid + r0 + j) : 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CHUNK_ITEMS; ++j) {
+    const int f = pos[j] == ~0u ? -1 : int(pos[j] >> (1 + FINE_SHIFT));
+    slot[j] = f >= 0 && f < nf ? atomicAdd(&off[f], 1) : -1;
+  }
+  __syncthreads();
+  int cnt[FINE_ITEMS], sum = 0;
+#pragma unroll
+  for (int q = 0; q < FINE_ITEMS; ++q) {
+    const int f = threadIdx.x * FINE_ITEMS + q;
+    cnt[q] = f < nf ? off[f] : 0;
+    sum += cnt[q];
+  }
+  int rows;
+  int o = block_scan<false, SumOp>(sum, 0, sagg, &rows);
+  // the fine bins of all bins, numbered along the text
+  int* fc = fine_cursors + (base >> FINE_SHIFT);
+#pragma unroll
+  for (int q = 0; q < FINE_ITEMS; ++q) {
+    const int f = threadIdx.x * FINE_ITEMS + q;
+    if (cnt[q]) {
+      off[f] = o;
+      at[f] = atomicAdd(fc + f, cnt[q]);
+    }
+    o += cnt[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < CHUNK_ITEMS; ++j) {
+    if (slot[j] < 0) continue;
+    const int f = int(pos[j] >> (1 + FINE_SHIFT));
+    const int p = off[f] + slot[j];
+    const int g = at[f] + slot[j];
+    const int fbase = base + (f << FINE_SHIFT);
+    c_pos[p] = pos[j];
+    c_full[p] = fv[j];
+    if (MID) c_mid[p] = mv[j];
+    c_dst[p] = g < min(FINE, m - fbase) ? fbase + g : -1;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < rows; p += CHUNK_THREADS) {
+    const int d = c_dst[p];
+    if (d < 0) continue;
+    s2.pos[d] = c_pos[p];
+    s2.full[d] = c_full[p];
+    if (MID) s2.mid[d] = c_mid[p];
   }
 }
 
-// the four key rows side by side, 4 rows a thread: 16-byte loads of each
-// row and 16-byte stores of K where they are whole and aligned
+// Each fine bin of 4096 positions from the second staging into shared
+// memory at its rows' positions, then written out in order: the ranks and
+// flags land in whole sectors. A position no row reached is not written.
+constexpr int SETTLE_THREADS = 512;
+constexpr int SETTLE_ITEMS = FINE / SETTLE_THREADS;   // 8
+constexpr unsigned char NONE = 0xff;
+
+template <bool MID>
+__global__ void __launch_bounds__(SETTLE_THREADS)
+    sa_round_settle(const Stage s2, const int* __restrict__ fine_cursors,
+                    int* __restrict__ mid, int* __restrict__ full,
+                    unsigned char* __restrict__ res, int m, bool vec) {
+  __shared__ int f_full[FINE], f_mid[MID ? FINE : 1];
+  __shared__ __align__(8) unsigned char f_res[FINE];   // read 8 at a time
+  const int base = blockIdx.x * FINE;
+  const int width = min(FINE, m - base);
+  const int n = min(__ldg(fine_cursors + blockIdx.x), width);
+  for (int i = threadIdx.x; i < FINE; i += SETTLE_THREADS) f_res[i] = NONE;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += SETTLE_THREADS) {
+    const unsigned w = __ldcs(s2.pos + base + i);
+    const int p = int(w >> 1) & (FINE - 1);
+    f_full[p] = __ldcs(s2.full + base + i);
+    if (MID) f_mid[p] = __ldcs(s2.mid + base + i);
+    f_res[p] = (unsigned char)(w & 1u);
+  }
+  __syncthreads();
+  const int i0 = threadIdx.x * SETTLE_ITEMS;
+  if (i0 >= width) return;
+  const uint2 rr = *reinterpret_cast<const uint2*>(f_res + i0);
+  // every position reached (a flag byte is 0 or 1, NONE otherwise)
+  const bool whole = vec && i0 + SETTLE_ITEMS <= width &&
+                     ((rr.x | rr.y) & 0xfefefefeu) == 0;
+  if (whole) {
+#pragma unroll
+    for (int h = 0; h < SETTLE_ITEMS; h += 4) {
+      st16(full + base + i0 + h, f_full + i0 + h);
+      if (MID) st16(mid + base + i0 + h, f_mid + i0 + h);
+    }
+    *reinterpret_cast<uint2*>(res + base + i0) = rr;
+  } else {
+    for (int j = 0; j < SETTLE_ITEMS && i0 + j < width; ++j) {
+      if (f_res[i0 + j] == NONE) continue;
+      full[base + i0 + j] = f_full[i0 + j];
+      if (MID) mid[base + i0 + j] = f_mid[i0 + j];
+      res[base + i0 + j] = f_res[i0 + j];
+    }
+  }
+}
+
+// a step's key rows side by side, 4 rows a thread: NR rows, row q int64
+// (its high word, then its low word) where bit q of WIDE is set, else
+// int32; the words past them 0, KW words a row
 constexpr int PACK_THREADS = 256;
 
+template <int NR, unsigned WIDE, int KW>
 __global__ void __launch_bounds__(PACK_THREADS)
-    sa_round_pack(const int* __restrict__ k0, const int* __restrict__ k1,
-                  const int* __restrict__ k2, const int* __restrict__ k3,
-                  int4* __restrict__ K, int R, bool vec) {
+    sa_round_pack(const void* r0p, const void* r1p, const void* r2p,
+                  const void* r3p, int4* __restrict__ K, int R, bool vec) {
   const long long r0 = 4 * ((long long)blockIdx.x * PACK_THREADS +
                             threadIdx.x);
   if (r0 >= R) return;
-  const int* rows[4] = {k0, k1, k2, k3};
-  int v[4][4];
+  const void* rows[4] = {r0p, r1p, r2p, r3p};
+  int v[4][KW];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < KW; ++q) v[j][q] = 0;
   const bool whole = vec && r0 + 4 <= R;
+  int w = 0;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (whole) {
-      ld16(rows[q] + r0, v[q]);
+  for (int q = 0; q < NR; ++q) {
+    if (WIDE >> q & 1u) {
+      const long long* x = static_cast<const long long*>(rows[q]);
+      long long y[4];
+      if (whole) {
+        ld16(x + r0, y);
+        ld16(x + r0 + 2, y + 2);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[j] = r0 + j < R ? __ldg(x + r0 + j) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j][w] = int(y[j] >> 32);
+        v[j][w + 1] = int(y[j]);
+      }
+      w += 2;
     } else {
+      const int* x = static_cast<const int*>(rows[q]);
+      int y[4];
+      if (whole) {
+        ld16(x + r0, y);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[q][j] = r0 + j < R ? __ldg(rows[q] + r0 + j) : 0;
+        for (int j = 0; j < 4; ++j) y[j] = r0 + j < R ? __ldg(x + r0 + j) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j][w] = y[j];
+      w += 1;
     }
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    if (r0 + j < R) K[r0 + j] = make_int4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    if (r0 + j < R)
+#pragma unroll
+      for (int h = 0; h < KW / 4; ++h)
+        K[(r0 + j) * (KW / 4) + h] = make_int4(v[j][4 * h], v[j][4 * h + 1],
+                                               v[j][4 * h + 2],
+                                               v[j][4 * h + 3]);
 }
 
 long long tiles_of(long long R) { return (R + TILE - 1) / TILE; }
+
+// the bins' cursors follow the tiles' states, 128-byte aligned
+long long cursors_at(long long R) {
+  return (lookback_bytes(tiles_of(R), int(sizeof(Starts))) + 127) / 128 *
+         128;
+}
+
+int bins_of(int m, int shift) { return ((m - 1) >> shift) + 1; }
 
 }  // namespace
 
 extern "C" {
 
-// bytes of scratch (zeroed by the caller) for R rows: the ticket, the
-// count, and three state words a tile
-long long sa_round_scratch_bytes(long long R) {
-  return lookback_bytes(tiles_of(R), int(sizeof(Starts)));
+// bytes of scratch (zeroed by the caller) for R rows of m positions in
+// bins of 2^shift: the ticket, the count, three state words a tile, and
+// one cursor a bin
+long long sa_round_scratch_bytes(long long R, int m, int shift) {
+  return cursors_at(R) + 4ll * CURSOR_STRIDE * bins_of(m, shift) +
+         4ll * ((m + FINE - 1) / FINE);
 }
 
 // the byte offset of the unresolved count (int32) in the scratch
 long long sa_round_count_offset() { return 4; }
 
-// comp: 0 for a full round (R == m < 2^30; ti, ti_s, rank_u, keep unused;
-// words: m int64 of scratch), 1 for a compacted round (lv_in, words
-// unused); perm, k0-k3, ti, ti_s, rank_u: R int32; K: R x 16 bytes of
-// scratch, 16-byte aligned; keep: R bytes; lv_in, lv_out, mid_rank,
-// full_rank: m int32; resolved: m bytes; 1 <= R <= m < 2^31 - 1; k: the
-// round's level
-int sa_round_launch(int comp, const void* perm, const void* k0,
-                    const void* k1, const void* k2, const void* k3, void* K,
-                    const void* ti, const void* lv_in, void* lv_out,
-                    void* mid_rank, void* full_rank, void* resolved,
-                    void* words, void* ti_s, void* rank_u, void* keep, int R,
-                    int m, int k, void* scratch, void* stream) {
-  if (R < 1 || m < R || (!comp && (R != m || m >= (1 << 30))) ||
-      !aligned16(K))
+// layout 0: four int32 rows (a round's keys; KW 4); 1: an int64 row and
+// an int32 row (the narrow seed's pack and payload; KW 4); 2: three int64
+// rows (the wide seed's two packs and payload; KW 8). K: at least R
+// rows of 4 x KW bytes, 16-byte aligned; unused rows may be null
+int sa_round_pack_launch(int layout, const void* r0, const void* r1,
+                         const void* r2, const void* r3, void* K, int R,
+                         void* stream) {
+  if (R < 1 || layout < 0 || layout > 2 || !aligned16(K))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long quads = (R + 3ll) / 4;
-  sa_round_pack<<<int((quads + PACK_THREADS - 1) / PACK_THREADS),
-                  PACK_THREADS, 0, s>>>(
-      static_cast<const int*>(k0), static_cast<const int*>(k1),
-      static_cast<const int*>(k2), static_cast<const int*>(k3),
-      static_cast<int4*>(K), R,
-      aligned16(k0) && aligned16(k1) && aligned16(k2) && aligned16(k3));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+  const int blocks = int((quads + PACK_THREADS - 1) / PACK_THREADS);
+  const bool vec = aligned16(r0) && aligned16(r1) &&
+                   (layout == 1 || aligned16(r2)) &&
+                   (layout != 0 || aligned16(r3));
+  int4* k4 = static_cast<int4*>(K);
+  if (layout == 0)
+    sa_round_pack<4, 0u, 4><<<blocks, PACK_THREADS, 0, s>>>(r0, r1, r2, r3,
+                                                            k4, R, vec);
+  else if (layout == 1)
+    sa_round_pack<2, 1u, 4><<<blocks, PACK_THREADS, 0, s>>>(r0, r1, r2, r3,
+                                                            k4, R, vec);
+  else
+    sa_round_pack<3, 7u, 8><<<blocks, PACK_THREADS, 0, s>>>(r0, r1, r2, r3,
+                                                            k4, R, vec);
+  return int(cudaGetLastError());
+}
+
+// mode 0: a full round (R == m < 2^30; ti, ti_s, rank_u, keep unused);
+// 1: a compacted round (lv_in and the staging unused; mid_rank,
+// full_rank, resolved, lv_out the caller's copies); 2, 3: the narrow and
+// the wide seed (R == m < 2^30; k the seed level; lv_in, mid_rank and
+// st_mid unused; full_rank the rank). perm, ti, ti_s, rank_u: R int32;
+// K: R + 8 rows of packed key words; keep: R bytes; lv_in, lv_out,
+// mid_rank, full_rank and each staging row: m int32; resolved: m bytes;
+// 1 <= R <= m < 2^31 - 1; the bins: 2^shift positions each (12 <= shift
+// <= 22), at most 1024 of them (kernels.sa_round_bins)
+int sa_round_launch(int mode, const void* perm, const void* K,
+                    const void* ti, const void* lv_in, void* lv_out,
+                    void* mid_rank, void* full_rank, void* resolved,
+                    void* st_pos, void* st_mid, void* st_full, void* ti_s,
+                    void* rank_u, void* keep, int R, int m, int k, int shift,
+                    void* scratch, void* stream) {
+  const bool binned = mode != COMP_ROUND;
+  if (mode < 0 || mode > 3 || R < 1 || m < R ||
+      (binned && (R != m || m >= (1 << 30))) || shift < FINE_SHIFT ||
+      shift > FINE_SHIFT + 10 ||
+      bins_of(m, shift) > MAX_BINS || !aligned16(K) ||
+      (binned && (!aligned16(st_pos) || !aligned16(st_full) ||
+                  (mode == FULL_ROUND && !aligned16(st_mid)))))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args a;
   a.perm = static_cast<const int*>(perm);
   a.K = static_cast<const int4*>(K);
@@ -391,36 +740,72 @@ int sa_round_launch(int comp, const void* perm, const void* k0,
   a.mid_rank = static_cast<int*>(mid_rank);
   a.full_rank = static_cast<int*>(full_rank);
   a.resolved = static_cast<unsigned char*>(resolved);
-  a.words = static_cast<long long*>(words);
+  a.st_pos = static_cast<unsigned*>(st_pos);
+  a.st_mid = static_cast<int*>(st_mid);
+  a.st_full = static_cast<int*>(st_full);
   a.ti_s = static_cast<int*>(ti_s);
   a.rank_u = static_cast<int*>(rank_u);
   a.keep = static_cast<unsigned char*>(keep);
   a.R = R;
   a.m = m;
   a.k = k;
-  a.vec = aligned16(perm) && (comp ? aligned16(ti_s) && aligned16(rank_u)
-                                   : aligned16(lv_in) && aligned16(lv_out));
-  a.ticket = static_cast<unsigned*>(scratch);
-  a.count = reinterpret_cast<int*>(static_cast<char*>(scratch) + 4);
-  a.slots = reinterpret_cast<unsigned long long*>(
-      static_cast<char*>(scratch) + 16);
+  a.shift = shift;
+  a.bins = bins_of(m, shift);
+  a.vec = aligned16(perm) && aligned16(lv_out) &&
+          (mode == COMP_ROUND ? aligned16(ti_s) && aligned16(rank_u)
+                               : mode != FULL_ROUND || aligned16(lv_in));
+  char* sc = static_cast<char*>(scratch);
+  a.ticket = reinterpret_cast<unsigned*>(sc);
+  a.count = reinterpret_cast<int*>(sc + 4);
+  a.slots = reinterpret_cast<unsigned long long*>(sc + 16);
+  a.cursors = reinterpret_cast<int*>(sc + cursors_at(R));
   const int tiles = int(tiles_of(R));
-  if (comp) {
-    sa_round_kernel<true><<<tiles, THREADS, 0, s>>>(a);
-    return int(cudaGetLastError());
+  if (mode == FULL_ROUND)
+    sa_round_kernel<FULL_ROUND><<<tiles, THREADS, 0, s>>>(a);
+  else if (mode == COMP_ROUND)
+    sa_round_kernel<COMP_ROUND><<<tiles, THREADS, 0, s>>>(a);
+  else if (mode == SEED_NARROW)
+    sa_round_kernel<SEED_NARROW><<<tiles, THREADS, 0, s>>>(a);
+  else
+    sa_round_kernel<SEED_WIDE><<<tiles, THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !binned) return int(err);
+  // K is dead once the kernel has run: the second staging goes there
+  const long long m4 = (m + 3ll) & ~3ll;
+  int* k32 = static_cast<int*>(const_cast<void*>(K));
+  const Stage s1{a.st_pos, a.st_mid, a.st_full};
+  const Stage s2{reinterpret_cast<unsigned*>(k32), k32 + 2 * m4, k32 + m4};
+  int* fine_cursors = a.cursors + (long long)CURSOR_STRIDE * a.bins;
+  const int chunks = (m + CHUNK - 1) / CHUNK;
+  const int fine_bins = (m + FINE - 1) / FINE;
+  const bool vec = aligned16(full_rank) &&
+                   (mode != FULL_ROUND || aligned16(mid_rank)) &&
+                   (reinterpret_cast<uintptr_t>(resolved) & 7) == 0;
+  if (mode == FULL_ROUND) {
+    const int smem = (2 * MAX_FINE + 4 * CHUNK) * 4;
+    err = cudaFuncSetAttribute(sa_round_fine<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return int(err);
+    sa_round_fine<true><<<chunks, CHUNK_THREADS, smem, s>>>(
+        s1, a.cursors, fine_cursors, s2, m, shift);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    sa_round_settle<true><<<fine_bins, SETTLE_THREADS, 0, s>>>(
+        s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec);
+  } else {
+    const int smem = (2 * MAX_FINE + 3 * CHUNK) * 4;
+    err = cudaFuncSetAttribute(sa_round_fine<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return int(err);
+    sa_round_fine<false><<<chunks, CHUNK_THREADS, smem, s>>>(
+        s1, a.cursors, fine_cursors, s2, m, shift);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    sa_round_settle<false><<<fine_bins, SETTLE_THREADS, 0, s>>>(
+        s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec);
   }
-  sa_round_kernel<false><<<tiles, THREADS, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const bool vec = aligned16(words) && aligned16(mid_rank) &&
-                   aligned16(full_rank) &&
-                   (reinterpret_cast<uintptr_t>(resolved) & 3) == 0;
-  const long long mquads = (m + 3ll) / 4;
-  sa_round_unpack<<<int((mquads + UNPACK_THREADS - 1) / UNPACK_THREADS),
-                    UNPACK_THREADS, 0, s>>>(
-      static_cast<const long long*>(words), static_cast<int*>(mid_rank),
-      static_cast<int*>(full_rank), static_cast<unsigned char*>(resolved), m,
-      vec);
   return int(cudaGetLastError());
 }
 

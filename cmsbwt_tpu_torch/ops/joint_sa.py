@@ -14,18 +14,17 @@ Where the JAX code needs a form torch lacks:
   64-bit seed pack is two keys, its unsigned high and low words; the wide
   seed's five keys are two chained stable sorts, the less significant
   keys first (``_wide_seed``). Row ids stay int32 throughout.
-* A round's rank step after its sort (the change flags of the sorted
-  rows, the running max of each group's start row, the singletons, the
-  scatters back to text order and the unresolved count) is
-  ``round_ranks``: the CUDA kernel ``sa_round`` (kernels/csrc/sa_round.cu)
-  on a card, its plain version ``_round_ranks_reference`` on the CPU.
-* ``cummax(where(flag, idx, -1))`` (the last flagged index at or before
-  each position) and the reverse ``cummin`` of the seeds (the first
-  flagged index at or after) are ``ops/fill.running_fill`` of int32
-  indices (the running_fill kernel on a card): ``_last_flag`` and
-  ``_first_flag``.
-* The seed's inversion sort, which only applies a permutation, is a
-  scatter with unique indices (``_invert``).
+* The rank step after the seed's sort and after each round's (the
+  change flags of the sorted rows, the running max of each group's start
+  row, the singletons, the split levels, the scatters back to text order
+  — the seed's inversion sort, which only applies a permutation — and
+  the unresolved count) is ``seed_ranks`` and ``round_ranks``: the CUDA
+  kernel ``sa_round`` (kernels/csrc/sa_round.cu) on a card, its plain
+  versions ``_seed_ranks_reference`` and ``_round_ranks_reference`` on the
+  CPU.
+* The reverse ``cummin`` of the seeds (the first flagged index at or
+  after each position) is ``ops/fill.running_fill`` of int32 indices (the
+  running_fill kernel on a card): ``_first_flag``.
 * The ``lax.scan`` over rounds with its ``lax.switch`` is a Python loop
   that reads the unresolved count once per round; the sorts' fault word
   (``ops/sort.check_faults``) is read there too.
@@ -61,7 +60,8 @@ WIDE_V_BITS = key_bits(1 << 34)  # (byte << 26) | sp: below 2^34
 
 # calls of the plain versions (the CUDA wrappers keep their own launch
 # counts)
-REFERENCE_CALLS = {"lift_pairs": 0, "_round_ranks_reference": 0}
+REFERENCE_CALLS = {"lift_pairs": 0, "_round_ranks_reference": 0,
+                   "_seed_ranks_reference": 0}
 
 
 def seed_level_of(packs) -> int:
@@ -70,11 +70,17 @@ def seed_level_of(packs) -> int:
     return SEED_LEVEL if packs.shape[0] == 1 else WIDE_SEED_LEVEL
 
 
-def _last_flag(flag: torch.Tensor) -> torch.Tensor:
+def _last_row(flag: torch.Tensor) -> torch.Tensor:
     """Per position i, the last flagged index <= i, -1 if none (int32):
-    the running max of where(flag, idx, -1)."""
-    idx = torch.arange(flag.shape[0], dtype=I32, device=flag.device)
-    return running_fill(torch.where(flag, idx, -1), "max")
+    the running max of where(flag, idx, -1), as the flagged rows' table
+    read at the running flag count (a cumsum, which torch runs in
+    parallel on a card; its 1-D cummax does not)."""
+    n = flag.shape[0]
+    c = torch.cumsum(flag, 0)
+    table = torch.full((n + 2,), -1, dtype=I32, device=flag.device)
+    table.scatter_(0, torch.where(flag, c, n + 1),
+                   torch.arange(n, dtype=I32, device=flag.device))
+    return table[c]
 
 
 def _first_flag(flag: torch.Tensor) -> torch.Tensor:
@@ -148,7 +154,8 @@ def _next_key(r: torch.Tensor, shift: int) -> torch.Tensor:
 
 def _wide_seed(b: torch.Tensor, sp: torch.Tensor, idx: torch.Tensor):
     """4-bit coarse-code seed (joint_sa.py:108-161): returns (packs,
-    order, change flags)."""
+    order, the rows it sorted by: [pack 1, pack 2, payload], text
+    order)."""
     m = b.shape[0]
     bi32 = b.to(I32)
     is_acgt = (b == 65) | (b == 67) | (b == 71) | (b == 84)
@@ -178,13 +185,15 @@ def _wide_seed(b: torch.Tensor, sp: torch.Tensor, idx: torch.Tensor):
     # first two, each sort stable
     o = stable_argsort((*_words(p2), v), (WORD_BITS, WORD_BITS, WIDE_V_BITS))
     order = o[stable_argsort(_words(p1[o]), (WORD_BITS, WORD_BITS))]
-    return packs, order, _changes(p1[order], p2[order], v[order])
+    del o, p1, p2
+    # the flipped packs tie where the packs do
+    return packs, order, [packs[0], packs[1], v]
 
 
 def _narrow_seed(b: torch.Tensor, sp: torch.Tensor, idx: torch.Tensor):
-    """Byte-8 seed (joint_sa.py:162-197): returns (packs, order, change
-    flags). ``packs`` holds the unflipped pack8, which the sort orders as
-    uint64."""
+    """Byte-8 seed (joint_sa.py:162-197): returns (packs, order, the rows
+    it sorted by: [pack8, payload], text order). ``packs`` holds the
+    unflipped pack8, which the sort orders as uint64."""
     m = b.shape[0]
     nxt = _first_flag(sp > 0)
     has = nxt < m
@@ -193,7 +202,45 @@ def _narrow_seed(b: torch.Tensor, sp: torch.Tensor, idx: torch.Tensor):
     bb = torch.cat([b, torch.zeros(8, dtype=torch.uint8, device=b.device)])
     p8 = _pack_be(_windows(bb, d, 8))
     order = stable_argsort((*_words(p8), v), (WORD_BITS, WORD_BITS, SP_BITS))
-    return p8[None, :], order, _changes(p8[order], v[order])
+    return p8[None, :], order, [p8, v]
+
+
+def seed_ranks(order, rows, sl: int):
+    """The seed's rank step after its sort (JAX joint_sa.py:198-208), on
+    the device of its tensors: the CUDA kernel ``sa_round``'s seed mode
+    for CUDA tensors, ``_seed_ranks_reference`` for CPU tensors.
+
+    ``order`` (int32[m]) is the stable order of the m positions by
+    ``rows``, the key rows the seed sorted by, in text order (the narrow
+    seed's pack8 int64 and payload int32; the wide seed's two packs and
+    payload, int64); a group of the seed is a run of sorted positions
+    whose rows all tie. ``sl`` is the seed level. A list ``rows`` is
+    emptied once the kernel has packed it.
+
+    Returns (split_lv, rank, resolved, u0): split_lv (int32[m], SA order)
+    sl at a group's first row, else 0; rank (int32[m], text order) the
+    sorted row where the position's group starts; resolved (bool[m], text
+    order) the group is the position alone; u0 the unresolved count
+    (int32[1], on the device: the caller reads it)."""
+    dev = order.device.type
+    if dev == "cuda":
+        from ..kernels import sa_round_seed_cuda
+        return sa_round_seed_cuda(order, rows, sl)
+    if dev == "cpu":
+        return _seed_ranks_reference(order, rows, sl)
+    raise ValueError(f"seed_ranks: unsupported device {dev!r}")
+
+
+def _seed_ranks_reference(order, rows, sl: int):
+    """seed_ranks in plain torch, on any device (the torch sequence the
+    port ran before the kernel's seed mode)."""
+    REFERENCE_CALLS["_seed_ranks_reference"] += 1
+    is_s = _changes(*(r[order] for r in rows))
+    split_lv = torch.where(is_s, sl, 0).to(I32)
+    sing = is_s & _next_is(is_s)
+    rank, resolved = _invert(order, _last_row(is_s), sing)
+    u0 = (~sing).sum().to(I32).reshape(1)
+    return split_lv, rank, resolved, u0
 
 
 def round_ranks(perm, keys, lv, k: int, comp=None):
@@ -204,7 +251,9 @@ def round_ranks(perm, keys, lv, k: int, comp=None):
 
     ``perm`` (int32[R]) is the stable order of the R rows by ``keys``,
     four int32[R] rows: the group (the rank; a compacted round's dead rows
-    hold INT32_MAX) and the ranks + 1 at the three shifts. ``lv`` is the
+    hold INT32_MAX) and the ranks + 1 at the three shifts (a list is
+    emptied once the kernel has packed it, so that rows held only there
+    are freed before its staging is made). ``lv`` is the
     split levels (int32[m], SA order); ``k`` the round's level. A full
     round (``comp`` None) has R = m rows, row i text position i. A
     compacted round passes ``comp`` = (ti int32[R], the text position of
@@ -235,32 +284,20 @@ def _round_ranks_reference(perm, keys, lv, k: int, comp=None):
     is_mid = is_g | _changes(s[1])
     is_full = is_mid | _changes(s[2], s[3])
     sing = is_full & _next_is(is_full)
-    R = perm.shape[0]
-
-    def last(flag):
-        # the last flagged row at or before each row: the k-th flag's row
-        # in slot k of a table read at the running flag count (a cumsum,
-        # which torch runs in parallel on a card; its 1-D cummax does not)
-        c = torch.cumsum(flag, 0)
-        table = torch.full((R + 2,), -1, dtype=I32, device=flag.device)
-        table.scatter_(0, torch.where(flag, c, R + 1),
-                       torch.arange(R, dtype=I32, device=flag.device))
-        return table[c]
-
     if comp is None:
         lv = torch.where(is_mid & (lv == 0), k + 1, lv)
         lv = torch.where(is_full & (lv == 0), k + 2, lv)
-        mid_rank, full_rank, resolved = _invert(perm, last(is_mid),
-                                                last(is_full), sing)
+        mid_rank, full_rank, resolved = _invert(perm, _last_row(is_mid),
+                                                _last_row(is_full), sing)
         u = (~sing).sum().to(I32).reshape(1)
         return mid_rank, full_rank, resolved, lv, u, None
     ti, rank, resolved = comp
     # a group's rows start at its rank: new rank = group rank + the row's
     # offset in the group (dead rows form one group that is never read)
     live = s[0] != INT32_MAX
-    g_row = last(is_g)
-    mid_u = s[0] + (last(is_mid) - g_row)
-    full_u = s[0] + (last(is_full) - g_row)
+    g_row = _last_row(is_g)
+    mid_u = s[0] + (_last_row(is_mid) - g_row)
+    full_u = s[0] + (_last_row(is_full) - g_row)
     # new boundaries: subgroup starts that are not group starts; those
     # positions were never boundaries before, so a plain set
     lv = lv.clone()
@@ -283,8 +320,9 @@ def _full_round(rank, lv, k: int, m: int):
     """One uncompacted quadrupling round (joint_sa.py:232-268): returns
     (mid_rank, full_rank, sa, lv, resolved, u)."""
     w = 1 << k
-    keys = (rank, *(_next_key(rank, s * w) for s in (1, 2, 3)))
+    keys = [rank, *(_next_key(rank, s * w) for s in (1, 2, 3))]
     o_s = stable_argsort(keys, (key_bits(m + 1),) * 4)
+    # the shifted rows are handed over: freed once packed
     mid_rank, full_rank, res, lv, u, _ = round_ranks(o_s, keys, lv, k)
     del keys
     u = int(u)
@@ -315,7 +353,7 @@ def _comp_round(rank, lv, resolved, k: int, m: int, U: int, carry):
 
     # dead rows: group INT32_MAX (the pad) and three 0 keys, so they tie
     # and keep index order, as JAX's BIG pack does
-    keys = (torch.where(live, grp, INT32_MAX), sh(w), sh(2 * w), sh(3 * w))
+    keys = [torch.where(live, grp, INT32_MAX), sh(w), sh(2 * w), sh(3 * w)]
     rowsrc = stable_argsort(keys, (key_bits(m),) + (key_bits(m + 1),) * 3)
     mid_rank, full_rank, resolved, lv, u, carry = round_ranks(
         rowsrc, keys, lv, k, (ti, rank, resolved))
@@ -344,14 +382,11 @@ def joint_suffix_array(b: torch.Tensor, sp: torch.Tensor, m: int,
     U = min(m, max(64, m // 16))
 
     idx = torch.arange(m, dtype=I32, device=dev)
-    packs, ord_s, ch_b = (_wide_seed if wide else _narrow_seed)(b, sp, idx)
+    packs, ord_s, rows = (_wide_seed if wide else _narrow_seed)(b, sp, idx)
     del idx
-    split_lv = torch.where(ch_b, sl, 0).to(I32)
-    sing_s = ch_b & _next_is(ch_b)
-    rank, resolved = _invert(ord_s, _last_flag(ch_b), sing_s)
-    del ord_s, ch_b
-    u0 = m - int(sing_s.sum())
-    del sing_s
+    split_lv, rank, resolved, u0 = seed_ranks(ord_s, rows, sl)
+    del ord_s, rows
+    u0 = int(u0)
     check_faults(dev)
 
     ks = list(range(sl, levels - 1, 2))

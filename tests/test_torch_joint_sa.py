@@ -169,15 +169,16 @@ def test_lift_pairs_matches_jax(name, wide):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_flag_fill_is_last_and_first_flag(seed):
-    """_last_flag and _first_flag (ops/fill.running_fill of int32 flagged
-    indices) equal the running max/min of flagged indices."""
+    """_last_row (the plain rank steps' cumsum table) and _first_flag
+    (ops/fill.running_fill of int32 flagged indices) equal the running
+    max/min of flagged indices."""
     rng = np.random.default_rng(seed)
     flag = rng.random(3000) < (0.001, 0.05, 0.5)[seed]
     idx = np.arange(len(flag))
     last = np.maximum.accumulate(np.where(flag, idx, -1))
     first = np.minimum.accumulate(
         np.where(flag, idx, len(flag))[::-1])[::-1]
-    got_last = TJ._last_flag(torch.from_numpy(flag))
+    got_last = TJ._last_row(torch.from_numpy(flag))
     got_first = TJ._first_flag(torch.from_numpy(flag))
     assert got_last.dtype == got_first.dtype == torch.int32
     np.testing.assert_array_equal(got_last.numpy(), last)

@@ -22,6 +22,7 @@ from cmsbwt_tpu.ops import joint_sa as JJ
 from cmsbwt_tpu_torch import kernels
 from cmsbwt_tpu_torch.ops import joint_sa as TJ
 from cmsbwt_tpu_torch.ops import sort as S
+from cmsbwt_tpu_torch.ops.fill import running_fill
 from torch_cases import JOINT_NAMES, assert_same
 
 torch.set_num_threads(1)
@@ -319,3 +320,252 @@ def test_round_ranks_dispatch():
     assert TJ.REFERENCE_CALLS["_round_ranks_reference"] == calls + 1
     with pytest.raises(ValueError, match="cuda"):
         kernels.sa_round_cuda(perm, keys, lv, k, comp)
+
+
+# -- the seed's rank step ----------------------------------------------------
+
+def _old_seed_step(order, rows, sl):
+    """The seed's rank step as the port ran it inline before sa_round's
+    seed mode: the sorted rows' change flags, the running max of the
+    group starts (ops/fill.running_fill), the two inversions."""
+    ch_b = TJ._changes(*(r[order] for r in rows))
+    split_lv = torch.where(ch_b, sl, 0).to(torch.int32)
+    sing_s = ch_b & TJ._next_is(ch_b)
+    idx = torch.arange(ch_b.shape[0], dtype=torch.int32)
+    last = running_fill(torch.where(ch_b, idx, -1), "max")
+    rank, resolved = TJ._invert(order, last, sing_s)
+    return split_lv, rank, resolved, ch_b.shape[0] - int(sing_s.sum())
+
+
+def _seed_model(order, rows, sl):
+    """The seed's rank step in numpy: a group starts where any row's word
+    differs from the sorted position before."""
+    order = order.numpy()
+    s = np.stack([r.numpy()[order] for r in rows])
+    m = len(order)
+    start = np.ones(m, bool)
+    start[1:] = (s[:, 1:] != s[:, :-1]).any(0)
+    last = np.maximum.accumulate(np.where(start, np.arange(m), -1))
+    sing = start & np.append(start[1:], True)
+    rank = np.empty(m, np.int32)
+    rank[order] = last
+    resolved = np.empty(m, bool)
+    resolved[order] = sing
+    return (np.where(start, sl, 0).astype(np.int32), rank, resolved,
+            m - int(sing.sum()))
+
+
+def _check_seed(got, want, name):
+    for k, a, b in zip(("split_lv", "rank", "resolved"), want, got):
+        assert_same(a, b, f"{name}/{k}")
+    assert got[3].dtype == torch.int32 and got[3].shape == (1,)
+    assert int(got[3]) == want[3], name
+
+
+SEED_SYNTH = SYNTH + [(4099, "repeats")]   # groups across two tile edges
+
+
+@functools.cache
+def _seed_call(m, kind, wide):
+    """The seed_ranks call of one joint_suffix_array run (inputs
+    cloned)."""
+    calls, orig = [], TJ.seed_ranks
+
+    def spy(order, rows, sl):
+        calls.append((order.clone(), tuple(r.clone() for r in rows), sl))
+        return orig(order, rows, sl)
+    b, sp = synthetic_joint(m, kind, m)
+    TJ.seed_ranks = spy
+    try:
+        TJ.joint_suffix_array(torch.from_numpy(b), torch.from_numpy(sp), m,
+                              wide)
+    finally:
+        TJ.seed_ranks = orig
+    assert len(calls) == 1
+    return calls[0]
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("m,kind", SEED_SYNTH,
+                         ids=[f"{k}{m}" for m, k in SEED_SYNTH])
+def test_seed_ranks_reference_matches_inline_and_jax(m, kind, wide):
+    """_seed_ranks_reference on the seed's own inputs equals the inline
+    torch sequence it replaced and the JAX package's seed: its rank is
+    hist[0], its split levels the final ones equal to the seed level
+    (rounds set only higher levels), a position resolved where its rank
+    is its own, u0 the rest."""
+    order, rows, sl = _seed_call(m, kind, wide)
+    assert len(rows) == (3 if wide else 2)
+    got = TJ._seed_ranks_reference(order, rows, sl)
+    _check_seed(got, _old_seed_step(order, rows, sl), f"{kind}{m}/inline")
+    _, _, hist, _, _, lv = _jax_synth(m, kind, wide)
+    rank = hist[0]
+    resolved = np.bincount(rank, minlength=m)[rank] == 1
+    want = (np.where(lv == sl, sl, 0).astype(np.int32), rank, resolved,
+            m - int(resolved.sum()))
+    _check_seed(got, want, f"{kind}{m}/jax")
+
+
+def _seed_rows(m: int, kind: str, wide: bool, seed: int):
+    """The seed's rows (int64 packs, some with the top bit set, and the
+    payload) and their stable order as uint64 words: every row equal,
+    every row distinct, or groups of random lengths (a few values)."""
+    rng = np.random.default_rng(seed)
+    n = 3 if wide else 2
+    if kind == "equal":
+        vals = np.zeros((n, m), np.int64)
+    elif kind == "distinct":
+        vals = np.zeros((n, m), np.int64)
+        vals[0] = rng.permutation(m) - (1 << 62)
+    else:
+        vals = rng.integers(0, 2, size=(n, m)) * (-(1 << 63) + 5)
+    rows = [torch.from_numpy(v) for v in vals]
+    if not wide:
+        rows[1] = torch.from_numpy(vals[1].astype(np.int32))
+    order = np.lexsort([v.view(np.uint64) for v in vals[::-1]])
+    return torch.from_numpy(order.astype(np.int32)), rows
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("kind", ["equal", "distinct", "groups"])
+@pytest.mark.parametrize("m", [1, 2, 2047, 2048, 2049, 4097])
+def test_seed_ranks_reference_on_rows(m, kind, wide):
+    """_seed_ranks_reference on rows made here equals a numpy model and
+    the inline sequence it replaced: m = 1, all rows equal, all distinct,
+    groups straddling the kernel's 2048-row tiles."""
+    order, rows = _seed_rows(m, kind, wide, m)
+    sl = TJ.WIDE_SEED_LEVEL if wide else TJ.SEED_LEVEL
+    got = TJ._seed_ranks_reference(order, rows, sl)
+    _check_seed(got, _seed_model(order, rows, sl), "model")
+    _check_seed(got, _old_seed_step(order, rows, sl), "inline")
+
+
+def test_seed_ranks_dispatch():
+    """On CPU tensors seed_ranks runs the plain version; the CUDA wrapper
+    refuses CPU tensors (it launches its kernel or raises)."""
+    order, rows = _seed_rows(100, "groups", False, 0)
+    calls = TJ.REFERENCE_CALLS["_seed_ranks_reference"]
+    TJ.seed_ranks(order, rows, TJ.SEED_LEVEL)
+    assert TJ.REFERENCE_CALLS["_seed_ranks_reference"] == calls + 1
+    with pytest.raises(ValueError, match="cuda"):
+        kernels.sa_round_seed_cuda(order, rows, TJ.SEED_LEVEL)
+
+
+# -- the binned scatter's bins -----------------------------------------------
+
+@pytest.mark.parametrize("m,shift,want", [
+    (1, 20, (20, 1, 1)),                     # below one bin
+    (5, 20, (20, 1, 5)),
+    ((1 << 20) - 1, 20, (20, 1, (1 << 20) - 1)),
+    (1 << 20, 20, (20, 1, 1 << 20)),         # one whole bin
+    ((1 << 20) + 1, 20, (20, 2, 1)),         # a last bin of one
+    (252_162_679, 20, (20, 241, 252_162_679 - (240 << 20))),
+    ((1 << 30) - 1, 20, (20, 1024, (1 << 20) - 1)),
+    (1 << 23, 12, (13, 1024, 1 << 13)),      # widened to 1024 bins
+    ((1 << 24) + 3, 12, (15, 513, 3)),
+])
+def test_sa_round_bins(m, shift, want):
+    plan = kernels.sa_round_bins(m, shift)
+    assert tuple(plan) == want
+    w = [1 << plan.shift] * (plan.bins - 1) + [plan.last]
+    assert len(w) == plan.bins <= kernels.SA_MAX_BINS and sum(w) == m
+    assert all(x == 1 << plan.shift for x in w[:-1])
+    assert 1 <= w[-1] <= 1 << plan.shift
+    # a bin holds whole fine bins, at most 1024 of them
+    assert kernels.SA_FINE_SHIFT <= plan.shift <= kernels.SA_FINE_SHIFT + 10
+    # the narrowest bins that fit: one step narrower needs more bins
+    if plan.shift > shift:
+        assert ((m - 1) >> (plan.shift - 1)) + 1 > kernels.SA_MAX_BINS
+
+
+@pytest.mark.parametrize("m,shift,match", [
+    (0, 20, "m ="), (1 << 30, 20, "m ="), (100, 11, "bins of"),
+    (100, 23, "bins of")])
+def test_sa_round_bins_refuse(m, shift, match):
+    with pytest.raises(ValueError, match=match):
+        kernels.sa_round_bins(m, shift)
+
+
+def _runs_by_bin(rows, key, nbins, cursor, width, rng):
+    """One tile's (or chunk's) rows sorted by bin as the kernels sort
+    them: each bin's run in a random order (shared atomics), placed at its
+    bin's cursor, the rows past the bin's width dropped. Yields (row,
+    place in the bin)."""
+    for b in np.unique(key):
+        run = rng.permutation(rows[key == b])
+        g = cursor[b] + np.arange(len(run))
+        cursor[b] += len(run)
+        ok = g < width(b)
+        yield from zip(run[ok], g[ok])
+
+
+def _binned_scatter(perm, vals, m, shift, fine_shift, tile, chunk, rng):
+    """sa_round_kernel's binned scatter, sa_round_fine and
+    sa_round_settle in numpy: the tiles in a random order, each bin's
+    rows staged at the bin's cursor; each bin's staging in chunks taken in
+    a random order, each fine bin's rows at its cursor; then each fine
+    bin's rows written to their positions. A destination outside [0, m)
+    and a (fine) bin's overflow are dropped; a position no row reaches
+    keeps -1."""
+    bins = ((m - 1) >> shift) + 1
+    cursor = np.zeros(bins, np.int64)
+    st1 = np.full((2, m), -1, np.int64)        # (position in the bin, value)
+    bw = lambda b: min(1 << shift, m - (b << shift))
+    R = len(perm)
+    for t in rng.permutation(-(-R // tile)):
+        rows = np.arange(t * tile, min(R, (t + 1) * tile))
+        rows = rows[(perm[rows] >= 0) & (perm[rows] < m)]
+        for r, g in _runs_by_bin(rows, perm[rows] >> shift, bins, cursor,
+                                 bw, rng):
+            base = (perm[r] >> shift) << shift
+            st1[:, base + g] = perm[r] - base, vals[r]
+    fbins = ((m - 1) >> fine_shift) + 1
+    fcursor = np.zeros(fbins, np.int64)
+    st2 = np.full((2, m), -1, np.int64)
+    fw = lambda f: min(1 << fine_shift, m - (f << fine_shift))
+    for c in rng.permutation(-(-m // chunk)):
+        b = (c * chunk) >> shift
+        base = b << shift
+        n = min(cursor[b], bw(b))
+        rows = np.arange(c * chunk, min(base + n, (c + 1) * chunk))
+        f = (base + st1[0, rows]) >> fine_shift
+        for r, g in _runs_by_bin(rows, f, fbins, fcursor, fw, rng):
+            fb = ((base + st1[0, r]) >> fine_shift) << fine_shift
+            st2[:, fb + g] = st1[:, r]
+    out = np.full(m, -1, vals.dtype)
+    for f in range(fbins):
+        fb = f << fine_shift
+        n = min(fcursor[f], fw(f))
+        pos = st2[0, fb:fb + n] & ((1 << fine_shift) - 1)
+        out[fb + pos] = st2[1, fb:fb + n]
+    return out
+
+
+@pytest.mark.parametrize("m,shift,fine", [(1, 4, 2), (17, 4, 2),
+                                          (2048, 6, 3), (2049, 6, 4),
+                                          (5000, 8, 4), (6001, 10, 6)])
+def test_binned_scatter_is_the_scatter(m, shift, fine):
+    """The two-level binned scatter writes every position of a permutation
+    once, whatever order the tiles, chunks and runs take: the plain
+    scatter's output; a destination outside [0, m) and a bin's overflow
+    are dropped, leaving only their positions unwritten."""
+    rng = np.random.default_rng(m)
+    perm = rng.permutation(m)
+    vals = rng.integers(0, 1 << 40, size=m)
+    want = np.empty(m, np.int64)
+    want[perm] = vals
+    scatter = lambda p: _binned_scatter(p, vals, m, shift, fine, 64, 16,
+                                        rng)
+    np.testing.assert_array_equal(scatter(perm), want)
+    if m > 1:
+        bad = perm.copy()
+        bad[0], bad[-1] = m + 3, bad[1]      # out of range; a duplicate
+        got = scatter(bad)
+        # each position its own value or unwritten; the duplicate's
+        # either row's; the two positions no row targets now unwritten,
+        # and at most one more a level: a row an overflow dropped
+        ok = (got == want) | (got == -1)
+        ok[bad[1]] = got[bad[1]] in (vals[1], vals[-1])
+        assert ok.all()
+        assert got[perm[0]] == got[perm[-1]] == -1
+        assert (got == -1).sum() <= 4

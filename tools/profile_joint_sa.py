@@ -3,6 +3,7 @@ CUDA card, by round and by operator.
 
     python3 tools/profile_joint_sa.py [--shapes primary,ecoli_dense,500M]
     python3 tools/profile_joint_sa.py --parent DIR [--shapes ...] [--cli]
+    python3 tools/profile_joint_sa.py --split [--shapes primary,500M]
 
 For each shape the joint string the dense scan sorts is built on the card
 as the main path builds it: ``primary`` (2 Mbp x 10 docs at 1% SNP, seed
@@ -29,6 +30,21 @@ guard chooses, narrow seed, as phase 8 of chip_smoke.py and
    ``concat_blocks`` (the cache emptied after the last block), and
    each ``torch.cuda.empty_cache`` call's ms and the segments it freed.
 
+With ``--split`` each shape's first full round's rank step is taken
+apart instead, on its live inputs (the sort stops there; where sa_round
+runs the seed's rank step, that too, with and without its store), each
+piece
+warmed once and timed over 5 launches between CUDA events: sa_round with
+its wrapper, and each of its kernels by torch.profiler; the same with the
+text-order store of its results removed (NO_SCATTER, a text edit of
+sa_round.cu built beside it); a probe that gathers the 16-byte key row
+of each sorted row through perm and one that scatters an 8-byte word
+through perm (SPLIT_SRC); torch's ``K[perm]`` and ``w.index_copy_(0,
+perm, v)`` on the same bytes; and ``Tensor.copy_`` of the bound's bytes
+(chip_smoke.sa_round_bytes); where the checkout bins its scatter, the
+wrapper again with bins of 2^19, 2^21 and 2^22 positions (BIN_SHIFTS).
+One ``split {json}`` line per shape.
+
 Each measurement runs in a child process that imports the package from
 one checkout. With ``--parent DIR`` (an older checkout's root, e.g. from
 ``git archive``) the children run parent, this, this, parent, so the two
@@ -41,6 +57,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import pathlib
@@ -58,9 +75,41 @@ SHAPES = {"primary": (42, 2_000_000, 10, 0.01, False),
 # a name a checkout lacks is skipped, so one list serves both trees
 STEPS = (("_sort_rows", "sort"), ("stable_argsort", "sort"),
          ("_flag_fill", "fill"), ("running_fill", "fill"),
-         ("round_ranks", "rank_step"), ("_changes", "rank_step"),
+         ("round_ranks", "rank_step"), ("seed_ranks", "rank_step"),
+         ("_changes", "rank_step"),
          ("_next_is", "rank_step"), ("_invert", "rank_step"),
          ("_shifted", "shifted"), ("_next_key", "shifted"))
+
+
+def joint_string(lst: str, blocked: bool, dev: str = "cuda"):
+    """The joint string the dense scan sorts for the input list ``lst``
+    (unblocked, or the first block the memory guard chooses), built on the
+    card as the main path builds it: (b, sp, m, wide, n, window, n_pad,
+    block_chars)."""
+    import torch
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    from cmsbwt_tpu_torch.utils.buckets import bucket_size
+    x_aug, coll = load_inputs(lst)
+    n, sx = len(x_aug), coll.sx
+    if blocked:
+        bc = md.dense_block_chars(n, coll.sn, md.dense_budget(dev))
+        ctx = md._default_ctx(bc, None)
+        end = min(min(bc, coll.sn) + ctx, coll.sn)
+        window = sx[:end]
+        n_pad, s_pad = bucket_size(n), md.block_pad(bc, ctx, window)
+    else:
+        bc, window = None, sx
+        n_pad, s_pad, _ = md.joint_geometry(n, sx)
+    m = n_pad + s_pad
+    x_u8 = md.upload_bytes(x_aug, n_pad, dev)
+    sx_u8 = md.upload_bytes(window, s_pad, dev)
+    wide = md.wide_seed_ok(x_u8[:n], sx_u8[:len(window)], m)
+    b, sp = md._build_joint_core(x_u8, sx_u8, n, len(window), 0, n_pad,
+                                 s_pad)
+    del x_u8, sx_u8, x_aug, coll
+    torch.cuda.synchronize()
+    return b, sp, m, wide, n, window, n_pad, bc
 
 
 def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
@@ -70,47 +119,37 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
     sys.path.insert(0, str(root))
     import torch
     from cmsbwt_tpu_torch import kernels
-    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
-    from cmsbwt_tpu_torch.utils.buckets import bucket_size
     if dev == "cuda":
         kernels.load()
     for name, lst, blocked in shapes:
-        x_aug, coll = load_inputs(lst)
-        n, sx = len(x_aug), coll.sx
-        if blocked:
-            bc = md.dense_block_chars(n, coll.sn, md.dense_budget(dev))
-            ctx = md._default_ctx(bc, None)
-            end = min(min(bc, coll.sn) + ctx, coll.sn)
-            window = sx[:end]
-            n_pad, s_pad = bucket_size(n), md.block_pad(bc, ctx, window)
-        else:
-            bc, window = None, sx
-            n_pad, s_pad, _ = md.joint_geometry(n, sx)
-        m = n_pad + s_pad
-        x_u8 = md.upload_bytes(x_aug, n_pad, dev)
-        sx_u8 = md.upload_bytes(window, s_pad, dev)
-        wide = md.wide_seed_ok(x_u8[:n], sx_u8[:len(window)], m)
-        b, sp = md._build_joint_core(x_u8, sx_u8, n, len(window), 0, n_pad,
-                                     s_pad)
-        del x_u8, sx_u8, x_aug, coll
-        torch.cuda.synchronize()
+        b, sp, m, wide, n, window, n_pad, bc = joint_string(lst, blocked,
+                                                            dev)
         out = {"tag": tag, "shape": name, "m": m, "block_chars": bc,
                "seed": "wide" if wide else "narrow"}
 
         # 1. the rounds
         rounds, seeds = [], {}
         saved = {k: getattr(js, k) for k in ("_full_round", "_comp_round",
-                                             "_narrow_seed", "_wide_seed")}
+                                             "_narrow_seed", "_wide_seed",
+                                             "seed_ranks") if hasattr(js, k)}
 
         def seed_spy(fn):
             def run(*a, **kw):
                 res = fn(*a, **kw)
                 ch = res[2]
-                nxt = torch.ones_like(ch)
-                nxt[:-1] = ch[1:]
-                seeds["u0"] = m - int((ch & nxt).sum())
+                if isinstance(ch, torch.Tensor):   # the change flags
+                    nxt = torch.ones_like(ch)
+                    nxt[:-1] = ch[1:]
+                    seeds["u0"] = m - int((ch & nxt).sum())
+                return res
+            return run
+
+        def seed_ranks_spy(fn):
+            def run(*a, **kw):
+                res = fn(*a, **kw)
+                seeds["u0"] = int(res[3])
                 return res
             return run
 
@@ -123,6 +162,8 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
             return run
         js._narrow_seed = seed_spy(saved["_narrow_seed"])
         js._wide_seed = seed_spy(saved["_wide_seed"])
+        if "seed_ranks" in saved:
+            js.seed_ranks = seed_ranks_spy(saved["seed_ranks"])
         js._full_round = round_spy(saved["_full_round"], "full", 5)
         js._comp_round = round_spy(saved["_comp_round"], "comp", 4)
         try:
@@ -156,11 +197,15 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
                    peak_above_inputs_per_joint_char=round((peak - base) / m,
                                                           1))
 
-        # 3. by category, each outermost step synchronised
-        spent, depth = {}, [0]
+        # 3. by category, each outermost step synchronised; and the seed
+        # step: from the end of the seed's last sort to the first round
+        spent, depth, marks = {}, [0], {}
 
         def timed(fn, cat):
             def run(*a, **kw):
+                if cat == "shifted" and "round" not in marks:
+                    torch.cuda.synchronize()
+                    marks["round"] = time.perf_counter()
                 if depth[0]:
                     return fn(*a, **kw)
                 depth[0] += 1
@@ -170,8 +215,10 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
                     return fn(*a, **kw)
                 finally:
                     torch.cuda.synchronize()
-                    spent[cat] = spent.get(cat, 0.0) + \
-                        (time.perf_counter() - t0) * 1e3
+                    t1 = time.perf_counter()
+                    spent[cat] = spent.get(cat, 0.0) + (t1 - t0) * 1e3
+                    if cat == "sort" and "round" not in marks:
+                        marks["sorted"] = t1
                     depth[0] -= 1
             return run
         orig = {k: getattr(js, k) for k, _ in STEPS if hasattr(js, k)}
@@ -192,7 +239,10 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
                 setattr(js, k, fn)
         spent = {k: round(v, 3) for k, v in spent.items()}
         spent["rest"] = round(total - sum(spent.values()), 3)
-        out.update(by_category_ms=spent, by_category_total_ms=round(total, 3))
+        out.update(by_category_ms=spent, by_category_total_ms=round(total, 3),
+                   seed_step_ms=round((marks["round"] - marks["sorted"])
+                                      * 1e3, 3) if "round" in marks
+                   else None)
 
         # 4. by operator
         from torch.autograd import DeviceType
@@ -212,7 +262,15 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
         kern = sorted(((e.key[:60], e.self_device_time_total / 1e3, e.count)
                        for e in ka if e.device_type == DeviceType.CUDA),
                       key=lambda r: -r[1])
+        sa = {}
+        for e in ka:
+            if e.device_type == DeviceType.CUDA and "sa_round" in e.key:
+                name = e.key[e.key.index("sa_round"):][:48]
+                t, c = sa.get(name, (0.0, 0))
+                sa[name] = (round(t + e.self_device_time_total / 1e3, 4),
+                            c + e.count)
         out.update(profiled_device_ms=round(dev_ms, 3),
+                   sa_round_kernels_ms_count=sa,
                    top_ops=[[k, round(t, 3), c] for k, t, c in ops[:16]],
                    top_kernels=[[k, round(t, 3), c] for k, t, c in
                                 kern[:12]])
@@ -236,6 +294,271 @@ def child(root: pathlib.Path, shapes: list, reps: int, tag: str,
         torch.cuda.empty_cache()
     if cli_list:
         cli_500m(root, cli_list, tag)
+
+
+# --split: the first full round's rank step taken apart
+SPLIT_SRC = r"""
+#include <cuda_runtime.h>
+// one 16-byte key row gathered through perm per row, folded so that no
+// load is dead; one 8-byte word scattered through perm per row
+namespace {
+constexpr int T = 256, N = 8;
+__device__ void rows(const int* perm, long long r0, int R, int* src) {
+  if (r0 + N <= R) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(perm + r0));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(perm + r0 + 4));
+    src[0] = a.x; src[1] = a.y; src[2] = a.z; src[3] = a.w;
+    src[4] = b.x; src[5] = b.y; src[6] = b.z; src[7] = b.w;
+  } else {
+    for (int j = 0; j < N; ++j) src[j] = r0 + j < R ? perm[r0 + j] : -1;
+  }
+}
+__global__ void gather_k(const int* perm, const int4* K, int R, int* out) {
+  const long long r0 = N * ((long long)blockIdx.x * T + threadIdx.x);
+  if (r0 >= R) return;
+  int src[N], x = 0;
+  rows(perm, r0, R, src);
+  int4 w[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    w[j] = src[j] >= 0 ? __ldg(K + src[j]) : make_int4(0, 0, 0, 0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) x ^= w[j].x ^ w[j].y ^ w[j].z ^ w[j].w;
+  if (x == 0x7fffffff) out[0] = x;
+}
+__global__ void scatter_w(const int* perm, long long* w, int R, int m) {
+  const long long r0 = N * ((long long)blockIdx.x * T + threadIdx.x);
+  if (r0 >= R) return;
+  int src[N];
+  rows(perm, r0, R, src);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (unsigned(src[j]) < unsigned(m)) w[src[j]] = (r0 + j) << 1 | 1;
+}
+}  // namespace
+extern "C" int split_gather(const void* perm, const void* K, int R,
+                            void* out, void* stream) {
+  gather_k<<<int((R + N * T - 1) / (N * T)), T, 0, (cudaStream_t)stream>>>(
+      (const int*)perm, (const int4*)K, R, (int*)out);
+  return int(cudaGetLastError());
+}
+extern "C" int split_scatter(const void* perm, void* w, int R, int m,
+                             void* stream) {
+  scatter_w<<<int((R + N * T - 1) / (N * T)), T, 0, (cudaStream_t)stream>>>(
+      (const int*)perm, (long long*)w, R, m);
+  return int(cudaGetLastError());
+}
+"""
+# the rank step with its text-order store removed: text edits of
+# sa_round.cu (the first alternative whose every text occurs exactly
+# once): PR 14's scatter of one word a row; the binned scatter's staging
+# store and its two placing kernels
+NO_SCATTER = (
+    (("""      if (unsigned(at) < unsigned(a.m))
+        a.words[at] = (static_cast<long long>(run.mid) << 31) |
+                      (static_cast<long long>(run.full) << 1) | sing;
+""", ""),),
+    (("""      if (d < 0) continue;
+      a.st_pos[d] = s_pos[p];""", """      if (d < 0 || d >= 0) continue;
+      a.st_pos[d] = s_pos[p];"""),
+     ("""  const int c0 = blockIdx.x * CHUNK;
+""", """  const int c0 = blockIdx.x * CHUNK;
+  if (c0 >= 0) return;
+"""),
+     ("""  const int base = blockIdx.x * FINE;
+""", """  const int base = blockIdx.x * FINE;
+  if (base >= 0) return;
+""")),
+)
+
+
+# the bin widths --split also times sa_round's binned scatter at
+BIN_SHIFTS = (19, 21, 22)
+
+
+class _Stop(Exception):
+    pass
+
+
+def build_split(K, root: pathlib.Path) -> dict:
+    """The probes (SPLIT_SRC) and sa_round.cu without its text-order store,
+    built by two parallel nvcc processes with the port's flags."""
+    d = WORK / "split"
+    d.mkdir(parents=True, exist_ok=True)
+    text = (root / "cmsbwt_tpu_torch/kernels/csrc/sa_round.cu").read_text()
+    for edits in NO_SCATTER:
+        if all(text.count(old) == 1 for old, _ in edits):
+            for old, new in edits:
+                text = text.replace(old, new)
+            break
+    else:
+        raise SystemExit("--split: no NO_SCATTER edit fits sa_round.cu")
+    (d / "sa_round_no_scatter.cu").write_text(text)
+    (d / "probes.cu").write_text(SPLIT_SRC)
+    csrc = root / "cmsbwt_tpu_torch/kernels/csrc"
+    jobs = {name: subprocess.Popen(
+        [K._nvcc(), *K.NVCC_FLAGS, f"-I{csrc}", "-o",
+         str(d / f"lib{name}.so"), str(d / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("sa_round_no_scatter", "probes")}
+    libs = {}
+    for name, proc in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{out}")
+        libs[name] = ctypes.CDLL(str(d / f"lib{name}.so"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    libs["probes"].split_gather.argtypes = [P, P, I, P, P]
+    libs["probes"].split_scatter.argtypes = [P, P, I, I, P]
+    # the variant takes the committed library's signatures
+    committed = K.load()["sa_round"]
+    for fname, f in vars(committed).items():
+        if isinstance(f, ctypes._CFuncPtr):
+            g = getattr(libs["sa_round_no_scatter"], fname)
+            g.restype, g.argtypes = f.restype, f.argtypes
+    return libs
+
+
+def kernel_ms(fn) -> dict:
+    """Device ms of each kernel of one call of ``fn`` (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: round(e.self_device_time_total / 1e3, 4)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def split_round(K, libs, perm, keys, lv, k) -> dict:
+    """The first full round's rank step taken apart on its live inputs:
+    each piece warmed once, then 5 launches between CUDA events."""
+    import torch
+    import chip_smoke as cs
+    R, m = perm.numel(), lv.numel()
+    # a tuple: the wrapper empties a list of keys once it has packed it
+    keys = keys if isinstance(keys, torch.Tensor) else tuple(keys)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        return round(cs.cuda_ms(fn, 5), 4)
+    wrapper = lambda: K.sa_round_cuda(perm, keys, lv, k)
+    out = {"rows": R, "m": m, "k": k, "wrapper_ms": ms(wrapper),
+           "wrapper_kernels_ms": kernel_ms(wrapper)}
+    saved = K.load()["sa_round"]
+    K.load()["sa_round"] = libs["sa_round_no_scatter"]
+    try:
+        out["no_scatter_wrapper_ms"] = ms(wrapper)
+        out["no_scatter_kernels_ms"] = kernel_ms(wrapper)
+    finally:
+        K.load()["sa_round"] = saved
+    kk = keys if isinstance(keys, torch.Tensor) else torch.stack(keys, 1)
+    kk = kk.contiguous()
+    probe, sink = libs["probes"], torch.zeros(1, dtype=torch.int32,
+                                              device=perm.device)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    # the wrapper at other bin widths (kernels.SA_BIN_SHIFT), where the
+    # checkout has them
+    shift0 = getattr(K, "SA_BIN_SHIFT", None)
+    for sh in BIN_SHIFTS if shift0 is not None else ():
+        K.SA_BIN_SHIFT = sh
+        try:
+            out[f"bins_2^{sh}"] = {"wrapper_ms": ms(wrapper),
+                                   "kernels_ms": kernel_ms(wrapper)}
+        finally:
+            K.SA_BIN_SHIFT = shift0
+    out["gather_ms"] = ms(lambda: probe.split_gather(p(perm), p(kk), R,
+                                                     p(sink), stream))
+    w = torch.empty(m, dtype=torch.int64, device=perm.device)
+    out["scatter_ms"] = ms(lambda: probe.split_scatter(p(perm), p(w), R, m,
+                                                       stream))
+    p64 = perm.long()
+    out["torch_gather_ms"] = ms(lambda: kk[p64])
+    v = torch.arange(R, dtype=torch.int64, device=perm.device)
+    out["torch_index_copy_ms"] = ms(lambda: w.index_copy_(0, p64, v))
+    del p64, v, w
+    moved = cs.sa_round_bytes(perm, list(kk.unbind(1)), lv, None)
+    out["bound_ms"] = round(cs.bound_ms(moved), 4)
+    out["bound_bytes_per_row"] = moved / R
+    out["copy_bound_bytes_ms"] = round(cs.copy_ms(moved), 4)
+    return out
+
+
+def split_seed(K, libs, order, rows, sl) -> dict:
+    """The seed's rank step on sa_round's seed mode (a checkout that has
+    it), with the wrapper and by kernel, and without its store."""
+    import torch
+    import chip_smoke as cs
+    rows = tuple(rows)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        return round(cs.cuda_ms(fn, 5), 4)
+    wrapper = lambda: K.sa_round_seed_cuda(order, rows, sl)
+    out = {"seed_wrapper_ms": ms(wrapper),
+           "seed_kernels_ms": kernel_ms(wrapper),
+           "seed_bound_ms": round(cs.bound_ms(cs.seed_bytes(order, rows)),
+                                  4)}
+    saved = K.load()["sa_round"]
+    K.load()["sa_round"] = libs["sa_round_no_scatter"]
+    try:
+        out["seed_no_scatter_wrapper_ms"] = ms(wrapper)
+    finally:
+        K.load()["sa_round"] = saved
+    shift0 = K.SA_BIN_SHIFT
+    for sh in BIN_SHIFTS:
+        K.SA_BIN_SHIFT = sh
+        try:
+            out[f"seed_bins_2^{sh}"] = {"wrapper_ms": ms(wrapper),
+                                        "kernels_ms": kernel_ms(wrapper)}
+        finally:
+            K.SA_BIN_SHIFT = shift0
+    return out
+
+
+def split_child(root: pathlib.Path, shapes: list, tag: str) -> None:
+    """--split on the checkout at ``root``: one ``split {json}`` line per
+    shape, from its seed's rank step where sa_round runs it and its first
+    full round (the sort stops there)."""
+    sys.path.insert(0, str(root))
+    import torch
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.ops import joint_sa as js
+    libs = build_split(kernels, root)
+    for name, lst, blocked in shapes:
+        b, sp, m, wide, *_ = joint_string(lst, blocked)
+        got, orig = {}, js.round_ranks
+
+        def spy(perm, keys, lv, k, comp=None):
+            if comp is not None:
+                return orig(perm, keys, lv, k, comp)
+            got.update(split_round(kernels, libs, perm, keys, lv, k))
+            raise _Stop
+        js.round_ranks = spy
+        seed_orig = getattr(js, "seed_ranks", None)
+        if seed_orig is not None:
+            def seed_spy(order, rows, sl):
+                got.update(split_seed(kernels, libs, order, rows, sl))
+                return seed_orig(order, rows, sl)
+            js.seed_ranks = seed_spy
+        try:
+            js.joint_suffix_array(b, sp, m, wide)
+        except _Stop:
+            pass
+        finally:
+            js.round_ranks = orig
+            if seed_orig is not None:
+                js.seed_ranks = seed_orig
+        print("split " + json.dumps({"tag": tag, "shape": name, "m": m,
+                                     "seed": "wide" if wide else "narrow",
+                                     **got}), flush=True)
+        del b, sp
+        torch.cuda.empty_cache()
 
 
 def cli_500m(root: pathlib.Path, lst: str, tag: str) -> None:
@@ -294,12 +617,19 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cli", action="store_true",
                     help="also run the dense CLI once on the 500M shape")
+    ap.add_argument("--split", action="store_true",
+                    help="take the first full round's rank step apart "
+                    "instead")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         spec = json.loads(args.child)
-        child(pathlib.Path(spec["root"]), spec["shapes"], args.reps,
-              spec["tag"], cli_list=spec.get("cli"))
+        if spec.get("split"):
+            split_child(pathlib.Path(spec["root"]), spec["shapes"],
+                        spec["tag"])
+        else:
+            child(pathlib.Path(spec["root"]), spec["shapes"], args.reps,
+                  spec["tag"], cli_list=spec.get("cli"))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -332,7 +662,8 @@ def main() -> int:
         summary = {}
         for tag, root in turns:
             spec = json.dumps({"root": str(root), "shapes": shapes,
-                               "tag": tag, "cli": cli_list})
+                               "tag": tag, "cli": cli_list,
+                               "split": args.split})
             t0 = time.perf_counter()
             r = subprocess.run([sys.executable, __file__, "--child", spec,
                                 "--reps", str(args.reps)],
@@ -354,6 +685,12 @@ def main() -> int:
                                                 "concat_blocks_ms",
                                                 "empty_cache_ms_segments")}
                              | {"ms_scan": d["phases_ms"].get("ms_scan")})
+                if line.startswith("split {"):
+                    d = json.loads(line[len("split "):])
+                    summary.setdefault("split", {}).setdefault(
+                        d["shape"], {}).setdefault(tag, []).append(
+                        {k: v for k, v in d.items()
+                         if k.endswith("_ms") and not isinstance(v, dict)})
                 if line.startswith("joint_sa {"):
                     d = json.loads(line[len("joint_sa "):])
                     s = summary.setdefault(d["shape"], {}).setdefault(
