@@ -135,16 +135,22 @@ every phase passed):
    must set its plain version's fault word; running_fill (the
    merge's largest fill), tail_good_join (_tail_good_join_reference),
    tail_exact_credit (_exact_credit_reference), bucket_sums (timed beside
-   three Tensor.index_add_) and run_merge (_run_merge_reference) on the
+   three Tensor.index_add_), run_merge (_run_merge_reference),
+   pair_expand (_pair_expand_reference: tail_good's join rows) and
+   dense_rank (index/device._dense_rank_reference: a doubling round's
+   rank step of the head string's suffix sort) on the
    inputs a real device merge gave them (MergeCapture), of the jump
    scan's heads at primary (in phase 5) and of the 500 Mchar run's heads
    (in phase 8, which also holds the peak outside the blocks to the
    merge's ceiling, MERGE_BYTES_PER_CHAR per collection char);
    running_fill and bucket_sums there also alone (CUDA events around the
    launches only), beside Tensor.copy_ of the same bytes and one 1-D
-   torch.cummax / cummin of the fill. Every run that merges on the device
-   launches running_fill, tail_good_join, bucket_sums and run_merge, and
+   torch.cummax / cummin of the fill; pair_expand and dense_rank also
+   alone and beside Tensor.copy_ of their bound's bytes. Every run that
+   merges on the device launches running_fill, tail_good_join,
+   bucket_sums, run_merge, pair_expand and dense_rank, and
    tail_exact_credit once per merge with exact pairs (MERGE_KERNELS); the
+   jump scan's index build launches dense_rank too; the
    sharded merge and the dense scan launch running_fill; no run launches
    a plain version.
 
@@ -168,11 +174,12 @@ and bound_ms: the bytes the function must
 move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
 SXM's memory rate. The merge kernels' rows give running_fill at 2^29 + 1
-int64 rows (forward max), and tail_good_join, tail_exact_credit and
-run_merge on the 500 Mchar merge's inputs. library_ms is one 1-D
-torch.cummax for running_fill and three Tensor.index_add_ for
-bucket_sums; no single PyTorch call computes any of the other six
-functions, so theirs is null. running_fill's and bucket_sums' rows also
+int64 rows (forward max), and tail_good_join, tail_exact_credit,
+run_merge, pair_expand and dense_rank on the 500 Mchar merge's inputs
+(the last two also at primary, and alone_ms and copy_ms). library_ms is
+one 1-D torch.cummax for running_fill and three Tensor.index_add_ for
+bucket_sums; no single PyTorch call computes any of the other functions,
+so theirs is null. running_fill's and bucket_sums' rows also
 give alone_ms (the launches alone) and copy_ms (Tensor.copy_ of the same
 bytes); running_fill's ``flag_fill`` the joint sort's first flag fill at
 both shapes. radix_sort's ``sites`` hold the dense scan's sorts too
@@ -219,27 +226,32 @@ NATIVE_SCAN = ROOT / "native" / "cmsbwt_scan.cpp"
 TOL = 0  # exact: integer and byte outputs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 BIG_DOCS = 100              # bench ecoli_rle at BENCH_FULL=1 (bench.py:176)
-# the kernels each --backend's scan launches (the jump scan's index build
-# and candidate compaction sort: radix_sort; the dense scan's joint sort:
-# radix_sort, its flag fills and PLCP fill: running_fill, its rank steps:
-# sa_round); native and host launch none
-ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass"),
-                 "device": ("ms_jump_scan", "radix_hist", "radix_pass"),
+# the kernels each --backend's scan launches (the jump scan's index build:
+# radix_sort and its rank steps' dense_rank, and its candidate compaction
+# sort: radix_sort; the dense scan's joint sort: radix_sort, its flag
+# fills and PLCP fill: running_fill, its rank steps: sa_round); native and
+# host launch none
+ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass",
+                          "dense_rank"),
+                 "device": ("ms_jump_scan", "radix_hist", "radix_pass",
+                            "dense_rank"),
                  "dense": ("lcp_lift", "dense_neighbors", "running_fill",
                            "radix_hist", "radix_pass", "sa_round"),
                  "native": (), "host": ()}
 # the kernels each merge engine launches ("none": a scan alone); the
-# device merge launches tail_exact_credit once per merge with exact pairs
+# device merge launches tail_exact_credit once per merge with exact pairs,
+# dense_rank in its head string's suffix sort and pair_expand in tail_good
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
                             "tail_exact_credit", "bucket_sums", "run_merge",
-                            "radix_hist", "radix_pass", "compact"),
+                            "radix_hist", "radix_pass", "compact",
+                            "dense_rank", "pair_expand"),
                  "sharded": ("running_fill",), "host": (), "none": ()}
 # kernels a route or a merge engine may launch: the native route builds
 # its index on the card when the index cache misses, and the host merge
 # sorts a long head string on the card (engine/ranking.py; both
 # index/device.suffix_array_device)
-MAY_LAUNCH = {"native": ("radix_hist", "radix_pass"),
-              "host": ("radix_hist", "radix_pass")}
+MAY_LAUNCH = {"native": ("radix_hist", "radix_pass", "dense_rank"),
+              "host": ("radix_hist", "radix_pass", "dense_rank")}
 # running_fill's tiles (running_fill.cu: 32 KB) and the sizes at their edges
 FILL_TILE = {torch.int32: 8192, torch.int64: 4096}
 FILL_SIZES = {dt: (1, 3, 64, T - 1, T, T + 1, 3 * T + 5)
@@ -583,6 +595,45 @@ def bucket_sums_launch(K, br, bid, m_c, nec: int, n_pad: int):
                                   _stream()):
             fail("bucket_sums launch failed")
     return launch, int(lib.bucket_sums_scratch_bytes(nec))
+
+
+def dense_rank_launch(K, order, s0, key1, fault):
+    """dense_rank's C entry point (sa_round.cu) on one round's rows with
+    its rank and stagings made beforehand; returns (launch(scratch),
+    scratch bytes)."""
+    lib = K.load()["sa_round"]
+    n = order.numel()
+    shift = K.sa_round_bins(n).shift
+    m4 = (n + 3) & ~3
+    rank = torch.empty(n, dtype=torch.int32, device="cuda")
+    st, st2 = (torch.empty(2 * m4, dtype=torch.int32, device="cuda")
+               for _ in range(2))
+
+    def launch(scratch):
+        if lib.dense_rank_launch(_p(order), _p(s0), _p(key1), _p(rank),
+                                 _p(st), _p(st2), n, shift, _p(scratch),
+                                 _p(fault), _stream()):
+            fail("dense_rank launch failed")
+    return launch, int(lib.sa_round_scratch_bytes(n, n, shift))
+
+
+def pair_expand_launch(K, args: tuple):
+    """pair_expand's C entry point on kernels.pair_expand_cuda's
+    arguments with its outputs made beforehand; returns (launch(scratch),
+    scratch bytes: none are read)."""
+    lib = K.load()["pair_expand"]
+    *arrays, nc, total, n, p_pad = args
+    h_pad = arrays[0].numel()
+    J = h_pad + p_pad
+    outs = [torch.empty(J, dtype=dt, device="cuda") for dt in (
+        torch.int32, torch.int64, torch.int32, torch.int32)]
+    outs.append(torch.empty(p_pad, dtype=torch.int32, device="cuda"))
+
+    def launch(scratch):
+        if lib.pair_expand_launch(*map(_p, arrays), h_pad, nc, total, p_pad,
+                                  n, *map(_p, outs), _stream()):
+            fail("pair_expand launch failed")
+    return launch, 16
 
 
 def fill_times(K, tag: str, r: dict, v, op: str, rev: bool,
@@ -968,16 +1019,40 @@ class SortCapture:
 class MergeCapture:
     """Keeps the inputs of the device merge's kernels from the merges run
     while in use, by wrapping engine/device_merge's running_fill,
-    tail_good_join, exact_credit, bucket_sums, run_merge and compact:
-    every running_fill input with its op and direction (``fills``, in
-    call order; ``fill`` the largest), the last inputs of the next four,
-    the largest compaction's (flag, count), and every sort's keys by call
+    tail_good_join, exact_credit, bucket_sums, run_merge, compact and
+    pair_expand and index/device's dense_rank: every running_fill input
+    with its op and direction (``fills``, in call order; ``fill`` the
+    largest), the last inputs of the next four and of pair_expand
+    (``expand``: the classes' and pairs' arrays it reads), the largest
+    compaction's (flag, count), the first two-key rank step of the head
+    string's suffix sort (``rank``: order, sorted key 0 and key 1, cloned:
+    the next round reuses key 1's buffer), and every sort's keys by call
     site (``sorts``, a SortCapture)."""
+
+    EXPAND_CLS = ("n_classes", "pos", "length", "key_k", "isa_next", "size",
+                  "smaller")
+    EXPAND_PAIRS = ("pair_cnt", "pair_lo", "bucket_pos", "total")
 
     def __enter__(self):
         from cmsbwt_tpu_torch.engine import device_merge as dm
+        from cmsbwt_tpu_torch.index import device as idx
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
         self.exact = self.sums = self.compact = None
+        self.expand = self.rank = None
+        self.idx, self.orig_rank = idx, idx.dense_rank
+        self.orig_expand = dm.pair_expand
+
+        def expand(cls, pairs, slot_base, n, h_pad, p_pad):
+            self.expand = ({k: cls[k] for k in self.EXPAND_CLS},
+                           {k: pairs[k] for k in self.EXPAND_PAIRS},
+                           slot_base, n, h_pad, p_pad)
+            return self.orig_expand(cls, pairs, slot_base, n, h_pad, p_pad)
+
+        def rank(order, s0, key1=None, out=None):
+            if self.rank is None and key1 is not None:
+                self.rank = (order.clone(), s0.clone(), key1.clone())
+            return self.orig_rank(order, s0, key1, out)
+        dm.pair_expand, idx.dense_rank = expand, rank
         self.fills = []
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
                      dm.exact_credit, dm.bucket_sums, dm.compact)
@@ -1020,6 +1095,8 @@ class MergeCapture:
         (self.dm.running_fill, self.dm.tail_good_join, self.dm.run_merge,
          self.dm.exact_credit, self.dm.bucket_sums, self.dm.compact) = \
             self.orig
+        self.dm.pair_expand = self.orig_expand
+        self.idx.dense_rank = self.orig_rank
 
 
 def sa_round_bytes(perm, keys, lv, comp) -> int:
@@ -1606,6 +1683,66 @@ def compact_times(tag: str, flag, count: int) -> dict:
     return r
 
 
+def dense_rank_case(tag: str, order, s0, key1) -> dict:
+    """dense_rank (sa_round.cu) against _dense_rank_reference (exact) on
+    one rank step of the head string's suffix sort, timed with its
+    wrapper, alone and beside Tensor.copy_ of the bound's bytes: order,
+    both keys read once, the rank written once (16 B a row)."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.index import device as idx
+    from cmsbwt_tpu_torch.ops.sort import fault_word
+    fault = fault_word(order.device)
+    moved = 4 * nbytes(order)
+    r = compare("dense_rank", tag, "_dense_rank_reference",
+                lambda: K.dense_rank_cuda(order, s0, key1, fault),
+                lambda: idx._dense_rank_reference(order, s0, key1),
+                f"the head string's rank step: n={order.numel()} rows",
+                moved)
+    r.pop("outputs")
+    r["alone_ms"] = alone_ms(*dense_rank_launch(K, order, s0, key1, fault))
+    r["copy_ms"] = copy_ms(moved)
+    r["rows"] = order.numel()
+    log(f"kernel dense_rank[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
+        f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    return r
+
+
+def pair_expand_case(tag: str, cls: dict, pairs: dict, slot_base, n: int,
+                     h_pad: int, p_pad: int) -> dict:
+    """pair_expand against _pair_expand_reference (exact) on the pairs of
+    one merge's tail_good, timed with its wrapper (the inclusive sum of
+    the pair counts included), alone and beside Tensor.copy_ of the
+    bound's bytes: the ten class arrays read once, the join's rows and
+    src_cls written once."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    J = h_pad + p_pad
+    moved = 37 * h_pad + 20 * J + 4 * p_pad
+    big = p_pad > 1 << 26
+    r = compare("pair_expand", tag, "_pair_expand_reference",
+                lambda: dm.pair_expand(cls, pairs, slot_base, n, h_pad,
+                                       p_pad),
+                lambda: dm._pair_expand_reference(cls, pairs, slot_base, n,
+                                                  h_pad, p_pad),
+                f"P={pairs['total']} pairs, p_pad={p_pad}, h_pad={h_pad}, "
+                f"J={J} join rows", moved, plain_reps=0 if big else 2)
+    r.pop("outputs")
+    torch.cuda.empty_cache()
+    args = (cls["pos"], cls["length"], cls["key_k"], cls["isa_next"],
+            cls["size"], cls["smaller"], pairs["pair_lo"],
+            torch.cumsum(pairs["pair_cnt"], 0).to(torch.int32),
+            slot_base[:h_pad], pairs["bucket_pos"], int(cls["n_classes"]),
+            int(pairs["total"]), n, p_pad)
+    r["alone_ms"] = alone_ms(*pair_expand_launch(K, args))
+    r["copy_ms"] = copy_ms(moved)
+    r["rows"] = J
+    log(f"kernel pair_expand[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
+        f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    return r
+
+
 def merge_kernel_cases(tag: str, cap: MergeCapture,
                        scan_sorts: SortCapture | None = None) -> dict:
     """The merge's kernels against their plain versions (exact) on the
@@ -1675,6 +1812,8 @@ def merge_kernel_cases(tag: str, cap: MergeCapture,
         f"wrapper runs it {r['ms']:.3f} ms, copy_ of the same bytes "
         f"{r['copy_ms']:.3f} ms, three Tensor.index_add_ "
         f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    out["dense_rank"] = dense_rank_case(tag, *cap.rank)
+    out["pair_expand"] = pair_expand_case(tag, *cap.expand)
     k_s, len_s, chr_s = cap.runs
     out["run_merge"] = compare(
         "run_merge", tag, "_run_merge_reference",
@@ -1980,6 +2119,16 @@ def sort_row(row, name, source, replaces, merge_cases, counted, keys):
                          "copy_ms", "bound_ms") + keys}, **extra)
 
 
+def merge_row(row, name, source, replaces, merge_cases):
+    """The kernels line's row of a merge kernel held on the 500 Mchar and
+    the primary merge's inputs, with its alone and copy_ times at both."""
+    big, prim = merge_cases["500M"][name], merge_cases["primary"][name]
+    keys = ("rows", "ms", "alone_ms", "plain_ms", "copy_ms", "bound_ms")
+    return row(name, source, replaces, [big, prim], None,
+               alone_ms=big["alone_ms"], copy_ms=big["copy_ms"],
+               rows=big["rows"], primary={k: prim[k] for k in keys})
+
+
 def main() -> int:
     started = time.perf_counter()
     # phase 1: device
@@ -2011,6 +2160,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
     from cmsbwt_tpu_torch import cli, kernels
     from cmsbwt_tpu_torch.engine import device_merge as dmg
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.index import device as idx
     from cmsbwt_tpu_torch.ops import fill
     from cmsbwt_tpu_torch.ops import joint_sa as js
     from cmsbwt_tpu_torch.ops import ms_dense as md
@@ -2020,7 +2170,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
     # the plain versions' call counts
     PLAIN_CALLS = (js.REFERENCE_CALLS, md.REFERENCE_CALLS,
                    mj.REFERENCE_CALLS, fill.REFERENCE_CALLS,
-                   dmg.REFERENCE_CALLS, srt.REFERENCE_CALLS)
+                   dmg.REFERENCE_CALLS, srt.REFERENCE_CALLS,
+                   idx.REFERENCE_CALLS)
 
     # phase 2: build
     kernels.load()
@@ -2459,7 +2610,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
     bucket_sums_cases()
     sort_cases()
     for name in ("running_fill", "tail_good_join", "tail_exact_credit",
-                 "bucket_sums", "run_merge", "radix_sort", "compact"):
+                 "bucket_sums", "run_merge", "radix_sort", "compact",
+                 "dense_rank", "pair_expand"):
         for tag, res in merge_cases.items():
             r = res[name]
             log(f"merge kernel {name}[{tag}]: {r['ms']:.3f} ms, plain "
@@ -2543,6 +2695,10 @@ def run_phases(card: str, kind: str, started: float) -> int:
         sort_row(row, "compact", csrc + "compact.cu",
                  "cmsbwt_tpu/engine/device_merge.py:488", merge_cases,
                  ("compact",), ()),
+        merge_row(row, "dense_rank", csrc + "sa_round.cu",
+                  "cmsbwt_tpu/index/device.py:24", merge_cases),
+        merge_row(row, "pair_expand", csrc + "pair_expand.cu",
+                  "cmsbwt_tpu/engine/device_merge.py:359", merge_cases),
         row("sa_round", csrc + "sa_round.cu",
             "cmsbwt_tpu/ops/joint_sa.py:244", rounds
             + [jt.seed for jt in joint.values()],

@@ -26,17 +26,20 @@ Translation rules from the JAX stages:
 * every stage returns the dtypes the JAX stage returns (int32 unless the
   JAX code computes under x64); ``torch.cumsum`` of int32 is cast back;
 * ``lax.cummax`` / ``cummin`` and ``_rev_fill_min`` go through
-  ``ops/fill.running_fill``; ``tail_good_dev``'s pass after its join sort
-  is ``tail_good_join``, ``tail_exact_dev``'s after its join's fill is
-  ``exact_credit``, ``runs_emit_dev``'s three accumulating scatters are
-  ``bucket_sums`` (segmented sums: its lanes come in bucket order) and
-  its end is ``run_merge``. Each picks by the device of its tensors: a
-  CUDA kernel (``kernels/csrc/running_fill.cu``, ``tail_good_join.cu``,
-  ``tail_exact_credit.cu``, ``run_merge.cu``) for CUDA tensors, the
-  plain torch version (``running_fill_reference``,
-  ``_tail_good_join_reference``, ``_exact_credit_reference``,
-  ``_bucket_sums_reference``, ``_run_merge_reference``) for CPU
-  tensors.
+  ``ops/fill.running_fill``; ``tail_good_dev``'s rows before its join
+  sort are ``pair_expand``, its pass after the sort ``tail_good_join``,
+  ``tail_exact_dev``'s after its join's fill ``exact_credit``,
+  ``runs_emit_dev``'s three accumulating scatters ``bucket_sums``
+  (segmented sums: its lanes come in bucket order) and its end
+  ``run_merge``. Each picks by the device of its tensors: a CUDA kernel
+  (``kernels/csrc/running_fill.cu``, ``pair_expand.cu``,
+  ``tail_good_join.cu``, ``tail_exact_credit.cu``, ``run_merge.cu``) for
+  CUDA tensors, the plain torch version (``running_fill_reference``,
+  ``_pair_expand_reference``, ``_tail_good_join_reference``,
+  ``_exact_credit_reference``, ``_bucket_sums_reference``,
+  ``_run_merge_reference``) for CPU tensors. The head string's suffix
+  sort (index/device.suffix_array_device, no history) ranks its rounds
+  by ``index/device.dense_rank``.
 
 All indices are int32 (n, sn < 2^31 — the reference's own caps).
 """
@@ -60,7 +63,8 @@ I32, I64 = torch.int32, torch.int64
 
 # calls of the plain versions (the CUDA wrappers keep their own launch
 # counts)
-REFERENCE_CALLS = {"_tail_good_join_reference": 0,
+REFERENCE_CALLS = {"_pair_expand_reference": 0,
+                   "_tail_good_join_reference": 0,
                    "_exact_credit_reference": 0, "_bucket_sums_reference": 0,
                    "_run_merge_reference": 0}
 
@@ -339,7 +343,8 @@ def head_string_sa_dev(rank_to_head, h: int, h_pad: int):
     L = h_pad + 1
     idx = _ar(L, rank_to_head)
     s = _w32(idx <= h, rank_to_head, (1 << 30) + idx)
-    sa, _, _, _ = suffix_array_device(s, L, bound=(1 << 30) + L)
+    sa, _, _, _ = suffix_array_device(s, L, bound=(1 << 30) + L,
+                                      history=False)
     # compact the real suffixes (sa <= h: h + 1 of them), preserving order
     return sa[compact(sa <= h, h + 1)]
 
@@ -405,14 +410,37 @@ def _join_lower_bound(sorted_vals, n_valid: int, queries):
     return torch.clamp(j, max=n_valid)
 
 
-def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
-                  h_pad: int, p_pad: int):
-    """Expand (class, bucket) pairs, lower_bound each query key in its
-    bucket via one global sorted join, and credit the good path. Returns
-    (counter partial, n_exact, exact_members, exact pairs, src class)."""
-    if p_pad + 1 > 1 << 30:
-        raise ValueError("pair pack exceeds the 63-bit budget")
-    dev = slot_base.device
+def pair_expand(cls: dict, pairs: dict, slot_base, n: int, h_pad: int,
+                p_pad: int):
+    """tail_good's join rows before its sort, on the device of its
+    tensors: the CUDA kernel (``kernels/csrc/pair_expand.cu``, given the
+    inclusive sum of the classes' pair counts) for CUDA tensors,
+    ``_pair_expand_reference`` for CPU tensors. Returns (key1 int32[J],
+    key2f int64[J], srcidx int32[J], pay int32[J], src_cls int32[p_pad]),
+    J = h_pad + p_pad: the class rows, then the pair rows."""
+    dev = slot_base.device.type
+    if dev == "cuda":
+        from ..kernels import pair_expand_cuda
+        return pair_expand_cuda(
+            cls["pos"], cls["length"], cls["key_k"], cls["isa_next"],
+            cls["size"], cls["smaller"], pairs["pair_lo"],
+            _cumsum32(pairs["pair_cnt"]), slot_base[:h_pad],
+            pairs["bucket_pos"], int(cls["n_classes"]), int(pairs["total"]),
+            n, p_pad)
+    if dev == "cpu":
+        return _pair_expand_reference(cls, pairs, slot_base, n, h_pad, p_pad)
+    raise ValueError(f"pair_expand: unsupported device {dev!r}")
+
+
+def _pair_expand_reference(cls: dict, pairs: dict, slot_base, n: int,
+                           h_pad: int, p_pad: int):
+    """Expand the (class, bucket) pairs into the join's rows: targets =
+    classes (pos, K*(n+1)+isa), queries = pairs (bucket, the query's
+    K*(n+1)+isa); the tie flag (queries before equal targets) is key2's
+    low bit; payloads slot_base (targets) and the class size (queries);
+    each pair's class (pad pairs take the last class with pairs). Plain
+    torch, on any device."""
+    REFERENCE_CALLS["_pair_expand_reference"] += 1
     cidx = _ar(h_pad, slot_base)
     cvalid = cidx < cls["n_classes"]
     cnt = pairs["pair_cnt"]
@@ -421,10 +449,10 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     total = int(pairs["total"])
     pvalid = pidx < total
     # each pair's class: the one whose pair range [off, off + cnt) holds
-    # it, found by a binary search over the range ends; pad pairs take the
-    # last class with pairs. (The JAX stage forward-fills packed class
-    # attributes over 5 x p_pad int64 rows; at P ~ 4.5e8 pairs those rows
-    # and their running max alone would take ~70 GB.)
+    # it, found by a binary search over the range ends. (The JAX stage
+    # forward-fills packed class attributes over 5 x p_pad int64 rows; at
+    # P ~ 4.5e8 pairs those rows and their running max alone would take
+    # ~70 GB.)
     c_p = torch.searchsorted(off + cnt, pidx, right=True)
     last = int(torch.nonzero(cnt > 0)[-1]) if total else 0
     c_p = torch.where(pvalid, c_p, last)
@@ -441,8 +469,6 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     q_size = cls["size"][c_p].to(I32)
     src_cls = c_p.to(I32)
     del c_p
-    # global join: targets = classes (pos, K*(n+1)+isa), queries = pairs;
-    # the tie flag (queries before equal targets) is key2's low bit
     t_k2 = _w64(cvalid, cls["key_k"].to(I64) * (n + 1)
                 + cls["isa_next"].to(I64), I64_BIG)
     key1 = _cat(_w32(cvalid, cls["pos"], INT_MAX), _w32(pvalid, b, INT_MAX))
@@ -450,9 +476,21 @@ def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
     key2f = _cat(_w64(cvalid, (t_k2 << 1) | 1, I64_BIG),
                  _w64(pvalid, q_k2 << 1, I64_BIG))
     del t_k2, q_k2
-    srcidx = _cat(cidx, pidx)
-    paycat = _cat(slot_base[:h_pad], q_size)
-    del pidx, pvalid, q_size
+    return (key1, key2f, _cat(cidx, pidx), _cat(slot_base[:h_pad], q_size),
+            src_cls)
+
+
+def tail_good_dev(cls: dict, pairs: dict, slot_base, h: int, n: int,
+                  h_pad: int, p_pad: int):
+    """Expand (class, bucket) pairs, lower_bound each query key in its
+    bucket via one global sorted join, and credit the good path. Returns
+    (counter partial, n_exact, exact_members, exact pairs, src class)."""
+    if p_pad + 1 > 1 << 30:
+        raise ValueError("pair pack exceeds the 63-bit budget")
+    dev = slot_base.device
+    # global join: targets = classes, queries = pairs (pair_expand)
+    key1, key2f, srcidx, paycat, src_cls = pair_expand(
+        cls, pairs, slot_base, n, h_pad, p_pad)
     # bucket and class positions lie below n; key2f below 4(n + 1)^2
     perm, k1s = stable_argsort((key1, key2f),
                                (key_bits(n), key_bits(4 * (n + 1) ** 2)),

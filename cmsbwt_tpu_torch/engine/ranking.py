@@ -98,7 +98,7 @@ def _head_string_suffix_sort(rank_to_head: np.ndarray,
         from ..index.device import suffix_array_device
         s = torch.from_numpy(rank_to_head.astype(np.int32)).to(device)
         sa, _, _, _ = suffix_array_device(
-            s, L, bound=int(rank_to_head.max()) + 1)
+            s, L, bound=int(rank_to_head.max()) + 1, history=False)
         return sa.cpu().numpy()
     head_to_rank, _, _ = suffix_array_doubling(rank_to_head)
     return head_to_rank

@@ -3,16 +3,23 @@ cmsbwt_tpu/index/device.py, function by function.
 
 * suffix array: Manber–Myers prefix doubling; each round is one stable
   ``ops/sort.stable_argsort`` by the two keys (rank, next + 1), each of
-  the bits of n (the JAX version sorts them packed into one int64 word).
+  the bits of n (the JAX version sorts them packed into one int64 word),
+  then the round's rank step, ``dense_rank``: the dense rank of each row
+  in text order and the round's largest rank, by the CUDA kernel
+  ``kernels/csrc/sa_round.cu``'s dense_rank for CUDA tensors, by
+  ``_dense_rank_reference`` (the torch sequence of gather, compare,
+  cumsum and scatter) for CPU tensors. The JAX version inverts each
+  round's order by a second sort; here the rank lands through the order.
   The JAX version skips converged rounds with ``lax.cond``; here a host
-  loop breaks early and fills the remaining history rows, and reads the
-  sorts' fault word where it reads the round's rank maximum. An inverse
-  permutation is one scatter.
-* rank history: a [LEVELS, n] int32 buffer; LCP is computed by binary
-  lifting over it.
+  loop reads the largest rank and the sorts' fault word in one copy a
+  round, breaks early and fills the remaining history rows. The shifted
+  key goes into one buffer that every round reuses.
+* rank history: a [LEVELS, n] int32 buffer, kept where asked for
+  (``history``; the head string's sort in engine/device_merge.py and
+  engine/ranking.py needs none); LCP is computed by binary lifting over it.
 * PSV/NSV: a power-of-two sparse table of LCP window minima.
 
-All tensors are int32 (n < 2^31).
+All tensors are int32 (n < 2^31; the rank step's kernel takes n < 2^30).
 """
 from __future__ import annotations
 
@@ -21,28 +28,70 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.sort import check_faults, key_bits, stable_argsort
+from ..ops.sort import fault_word, key_bits, raise_faults, stable_argsort
 
 INT_MAX = 2**31 - 1
 I32 = torch.int32
 
+# calls of the plain version (the CUDA wrapper keeps its own launch count)
+REFERENCE_CALLS = {"_dense_rank_reference": 0}
 
-def _dense_rank(keys, bounds):
-    """Dense rank (ties share rank) of the rows by one or two int32 keys
-    (most significant first, each below its bound), int32; returns (rank,
-    the stable order of the rows)."""
-    n = keys[0].shape[0]
-    order, s0 = stable_argsort(keys, [key_bits(b) for b in bounds],
-                               values=True)
+
+def dense_rank(order, s0, key1=None, out=None):
+    """The rank step after a round's sort, on the device of its tensors:
+    the CUDA kernel for CUDA tensors, ``_dense_rank_reference`` for CPU
+    tensors. Returns (rank int32[n] in text order, into ``out`` where
+    given; top int32[2]: the largest rank and the sorts' fault word as it
+    stood after the sort, on the device)."""
+    dev = order.device
+    if dev.type == "cuda":
+        from ..kernels import dense_rank_cuda
+        return dense_rank_cuda(order, s0, key1, fault_word(dev), out)
+    if dev.type == "cpu":
+        return _dense_rank_reference(order, s0, key1, out)
+    raise ValueError(f"dense_rank: unsupported device {dev.type!r}")
+
+
+def _dense_rank_reference(order, s0, key1=None, out=None):
+    """Over the n rows in ``order`` (the stable order by (key 0, key 1);
+    ``s0`` key 0 in that order, ``key1`` key 1 in text order or None):
+    each row's dense rank (ties share a rank: JAX's cumsum(changed) - 1)
+    at its text position, and top = (the largest rank, the fault word).
+    Plain torch, on any device."""
+    REFERENCE_CALLS["_dense_rank_reference"] += 1
+    n = order.shape[0]
     diff = s0[1:] != s0[:-1]
-    for k in keys[1:]:
-        ks = k[order]
+    if key1 is not None:
+        ks = key1[order]
         diff |= ks[1:] != ks[:-1]
     changed = torch.ones(n, dtype=I32, device=s0.device)
     changed[1:] = diff.to(I32)
-    rank = torch.empty(n, dtype=I32, device=s0.device)
-    rank[order] = (torch.cumsum(changed, 0) - 1).to(I32)  # permutation
-    return rank, order
+    ranks = (torch.cumsum(changed, 0) - 1).to(I32)
+    rank = torch.empty(n, dtype=I32, device=s0.device) if out is None \
+        else out
+    rank[order] = ranks  # a permutation
+    top = torch.cat([ranks[-1:], fault_word(s0.device)])
+    return rank, top
+
+
+def _dense_rank(keys, bounds, out=None):
+    """Dense rank (ties share rank) of the rows by one or two int32 keys
+    (most significant first, each below its bound), int32; returns (rank,
+    the stable order of the rows, top: the largest rank and the sorts'
+    fault word, on the device)."""
+    order, s0 = stable_argsort(keys, [key_bits(b) for b in bounds],
+                               values=True)
+    rank, top = dense_rank(order, s0, keys[1] if len(keys) > 1 else None,
+                           out)
+    return rank, order, top
+
+
+def _largest(top: torch.Tensor) -> int:
+    """The round's largest rank, from one copy of ``top`` that also
+    brings the sorts' fault word (raised on, as check_faults does)."""
+    largest, fault = top.tolist()
+    raise_faults(top.device, fault)
+    return largest
 
 
 def n_levels(n: int) -> int:
@@ -53,50 +102,47 @@ def n_levels(n: int) -> int:
     return lv + 1  # include level 0
 
 
-def _shifted(rank: torch.Tensor, shift: int) -> torch.Tensor:
+def _next_key(rank: torch.Tensor, shift: int, out: torch.Tensor
+              ) -> torch.Tensor:
+    """The rank ``shift`` on, + 1 (0 past the end), into ``out``."""
     n = rank.shape[0]
-    out = torch.full((n,), -1, dtype=I32, device=rank.device)
     if shift < n:
-        out[:n - shift] = rank[shift:]
+        torch.add(rank[shift:], 1, out=out[:n - shift])
+    out[max(n - shift, 0):] = 0
     return out
 
 
-def _doubled_rank(rank: torch.Tensor, shift: int):
-    """The dense rank of (rank, the rank ``shift`` on, + 1: 0 past the
-    end), both below n + 1, and the rows' order by it."""
-    n = rank.shape[0]
-    return _dense_rank((rank, _shifted(rank, shift) + 1), (n, n + 1))
-
-
-def suffix_array_device(x: torch.Tensor, n: int, bound: int = 256):
-    """Return (sa int32[n], isa int32[n], history int32[LEVELS, n],
-    k_star) for the integer string ``x`` of length n, whose values lie in
-    [0, ``bound``) (bytes by default)."""
+def suffix_array_device(x: torch.Tensor, n: int, bound: int = 256,
+                        history: bool = True):
+    """Return (sa int32[n], isa int32[n], history int32[LEVELS, n] or None
+    when ``history`` is False, k_star) for the integer string ``x`` of
+    length n, whose values lie in [0, ``bound``) (bytes by default)."""
     dev = x.device
     levels = n_levels(n)
-    rank0, _ = _dense_rank((x.to(I32),), (bound,))
-    history = torch.zeros((levels, n), dtype=I32, device=dev)
-    history[0] = rank0
-    rank, _ = _doubled_rank(rank0, 1)
-    history[1] = rank
-    done = int(rank.max()) == n - 1
-    check_faults(dev)
+    hist = torch.empty((levels, n), dtype=I32, device=dev) if history \
+        else None
+    rank0, _, _ = _dense_rank((x.to(I32),), (bound,),
+                              hist[0] if history else None)
+    nxt = torch.empty(n, dtype=I32, device=dev)
+    # each round's rank goes straight into its history row
+    rank, sa, top = _dense_rank((rank0, _next_key(rank0, 1, nxt)),
+                                (n, n + 1), hist[1] if history else None)
+    del rank0
+    done = _largest(top) == n - 1
     k_star = 1 if done else levels
-    sa = None
     for k in range(1, levels - 1):
         if done:
-            history[k + 1:] = history[k]
+            if history:
+                hist[k + 1:] = hist[k]
             break
-        rank, sa = _doubled_rank(rank, 1 << k)
-        history[k + 1] = rank
-        if int(rank.max()) == n - 1:
+        rank, sa, top = _dense_rank((rank, _next_key(rank, 1 << k, nxt)),
+                                    (n, n + 1),
+                                    hist[k + 1] if history else None)
+        if _largest(top) == n - 1:
             done = True
             k_star = k + 1
-        check_faults(dev)
-    if sa is None:  # converged at level 1: the rank is a permutation
-        sa = torch.empty(n, dtype=I32, device=dev)
-        sa[rank.long()] = torch.arange(n, dtype=I32, device=dev)
-    return sa, rank, history, k_star
+    # converged at level 1, the rank is a permutation and its order the SA
+    return sa, rank, hist, k_star
 
 
 def lcp_device(sa: torch.Tensor, history: torch.Tensor, n: int

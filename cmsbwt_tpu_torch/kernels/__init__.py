@@ -32,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
            "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
            "tail_exact_credit.cu", "radix_sort.cu", "compact.cu",
-           "sa_round.cu")
+           "sa_round.cu", "pair_expand.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIFT_THREADS = 256
@@ -40,7 +40,8 @@ LIFT_THREADS = 256
 LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
             "running_fill": 0, "tail_good_join": 0, "bucket_sums": 0,
             "run_merge": 0, "tail_exact_credit": 0, "radix_hist": 0,
-            "radix_pass": 0, "compact": 0, "sa_round": 0}
+            "radix_pass": 0, "compact": 0, "sa_round": 0, "dense_rank": 0,
+            "pair_expand": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -150,6 +151,11 @@ def _bind(libs: dict) -> None:
     lib.sa_round_pack_launch.argtypes = [I] + [P] * 5 + [I, P]
     lib.sa_round_launch.restype = I
     lib.sa_round_launch.argtypes = [I] + [P] * 14 + [I, I, I, I, P, P]
+    lib.dense_rank_launch.restype = I
+    lib.dense_rank_launch.argtypes = [P] * 6 + [I, I, P, P, P]
+    lib = libs["pair_expand"]
+    lib.pair_expand_launch.restype = I
+    lib.pair_expand_launch.argtypes = [P] * 10 + [I, I, I, I, LL] + [P] * 6
 
 
 def load() -> dict:
@@ -932,3 +938,86 @@ def sa_round_seed_cuda(order, rows, sl: int):
                        lv_out=split_lv, full=rank, resolved=resolved,
                        staging=(staging[0], None, staging[1]))
     return split_lv, rank, resolved, u0
+
+
+def dense_rank_cuda(order, s0, key1, fault, out=None):
+    """Launch ``dense_rank`` (sa_round.cu) on CUDA tensors: the rank step
+    of a doubling round after its sort (order int32[n], the stable order
+    of the rows by (key 0, key 1); s0 int32[n], key 0 in that order; key1
+    int32[n] in text order, or None for one key; ``fault`` the sorts'
+    fault word). Returns (rank, top): rank int32[n] in text order (into
+    ``out``, a contiguous int32[n], where given) and top int32[2] on the
+    device, the largest rank and the fault word as the kernel read it
+    after the sort (the wrapper does not synchronise). Same contract as
+    index/device._dense_rank_reference."""
+    dev = order.device
+    n = int(order.shape[0])
+    i32 = torch.int32
+    _check("order", order, i32, (n,), dev)
+    _check("s0", s0, i32, (n,), dev)
+    if key1 is not None:
+        _check("key1", key1, i32, (n,), dev)
+    _check("fault", fault, i32, (1,), dev)
+    if not 1 <= n < 2**30:
+        raise ValueError(f"dense_rank: n = {n} (1 .. 2^30 - 1)")
+    rank = torch.empty(n, dtype=i32, device=dev) if out is None else out
+    _check("out", rank, i32, (n,), dev)
+    lib = load()["sa_round"]
+    plan = sa_round_bins(n, SA_BIN_SHIFT)
+    # the ticket, the top words and the look-back's states start at 0
+    scratch = torch.zeros(int(lib.sa_round_scratch_bytes(n, n, plan.shift)),
+                          dtype=torch.uint8, device=dev)
+    m4 = (n + 3) & ~3
+    st = torch.empty(2 * m4, dtype=i32, device=dev)
+    st2 = torch.empty(2 * m4, dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dense_rank_launch(
+            _ptr(order), _ptr(s0), None if key1 is None else _ptr(key1),
+            _ptr(rank), _ptr(st), _ptr(st2), n, plan.shift, _ptr(scratch),
+            _ptr(fault),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch("dense_rank", err)
+    at = int(lib.sa_round_count_offset())
+    return rank, scratch[at:at + 8].view(i32)
+
+
+def pair_expand_cuda(pos, length, key_k, isa_next, size, smaller, pair_lo,
+                     ends, slot_base, bucket_pos, n_classes: int, total: int,
+                     n: int, p_pad: int):
+    """Launch ``pair_expand`` on CUDA tensors: tail_good's join rows from
+    its classes (pos, length, key_k, isa_next, size int32[h_pad], smaller
+    bool[h_pad], the first ``n_classes`` valid) and their pairs (pair_lo
+    int32[h_pad]; ends int32[h_pad], the inclusive sum of the classes'
+    pair counts, ``total`` pairs in all; bucket_pos int32[h_pad]), and the
+    classes' slots slot_base int32[h_pad]. Returns (key1 int32[J], key2f
+    int64[J], srcidx int32[J], pay int32[J], src_cls int32[p_pad]) with J
+    = h_pad + p_pad. Same contract as
+    engine/device_merge._pair_expand_reference."""
+    dev = pos.device
+    h_pad = int(pos.shape[0])
+    i32 = torch.int32
+    for name, t in (("pos", pos), ("length", length), ("key_k", key_k),
+                    ("isa_next", isa_next), ("size", size),
+                    ("pair_lo", pair_lo), ("ends", ends),
+                    ("slot_base", slot_base), ("bucket_pos", bucket_pos)):
+        _check(name, t, i32, (h_pad,), dev)
+    _check("smaller", smaller, torch.bool, (h_pad,), dev)
+    if not (0 <= n_classes <= h_pad and 0 <= total < p_pad <= 2**30
+            and 1 <= n < 2**30):
+        raise ValueError(f"pair_expand: {n_classes} classes of {h_pad}, "
+                         f"{total} pairs of {p_pad}, n = {n}")
+    J = h_pad + p_pad
+    key1, srcidx, pay = (torch.empty(J, dtype=i32, device=dev)
+                         for _ in range(3))
+    key2f = torch.empty(J, dtype=torch.int64, device=dev)
+    src_cls = torch.empty(p_pad, dtype=i32, device=dev)
+    lib = load()["pair_expand"]
+    with torch.cuda.device(dev):
+        err = lib.pair_expand_launch(
+            *map(_ptr, (pos, length, key_k, isa_next, size, smaller, pair_lo,
+                        ends, slot_base, bucket_pos)),
+            h_pad, int(n_classes), int(total), p_pad, int(n),
+            *map(_ptr, (key1, key2f, srcidx, pay, src_cls)),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch("pair_expand", err)
+    return key1, key2f, srcidx, pay, src_cls

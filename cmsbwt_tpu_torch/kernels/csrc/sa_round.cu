@@ -37,6 +37,19 @@
 // Each counts the rows that stay unresolved (live and not sing) into one
 // word, which the caller reads once a round.
 //
+// dense_rank_launch runs the same binned store for the rank step of
+// cmsbwt_tpu_torch/index/device.suffix_array_device's doubling rounds
+// (the counterpart of cmsbwt_tpu/index/device.py:24-35 _dense_rank and
+// its caller's rounds :47-120; the port ran it as a gather, two compares,
+// an int64 cumsum and a scatter, then read the rank's max and the sorts'
+// fault word in two syncs). Over the n rows in the order of the round's
+// sort: a row starts a rank where key 0 (sorted) or key 1 (gathered
+// through the order) differs from the row before; rank(r) = the starts up
+// to r, less 1 (the JAX package's dense cumsum(changed) - 1), stored at
+// its text position order[r]; the last row's rank and the fault word go
+// into one 8-byte word pair the host reads once a round. Equal to
+// index/device._dense_rank_reference element for element.
+//
 // What bounds it on this card: bytes. A full round reads perm, lv and the
 // keys of each row and writes lv, the two rank rows and the flags: 37 B a
 // row, 2.8 ms at m = 252 M. But the keys are read through perm and the
@@ -156,6 +169,7 @@ struct SumOp {
   static __device__ __forceinline__ int combine(int x, int y) {
     return x + y;
   }
+  static __device__ __forceinline__ bool absorbs(int) { return false; }
 };
 
 // a row's key words: 4, or 8 for the wide seed
@@ -428,6 +442,136 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   if (threadIdx.x == 0 && tile_count) atomicAdd(a.count, tile_count);
 }
 
+// The doubling rounds' rank step of index/device.suffix_array_device: over
+// the n rows in the order of a stable sort by (key 0, key 1), the dense
+// rank of each row (the number of rows before it whose keys differ from
+// their predecessor's) written at its text position order[r] through the
+// binned scatter above, and the largest rank with the sorts' fault word
+// into top[0..1]. key 0 comes sorted (s0[r]); key 1 (absent for the seed's
+// one key) is read through the order. One thread: 8 consecutive rows;
+// the count of rank changes is a sum scanned over tiles with the
+// look-back (SumOp absorbs nothing: a window folds up to the nearest
+// inclusive state).
+struct RankArgs {
+  const int* order;
+  const int* s0;        // key 0 in sorted order
+  const int* key1;      // key 1 in text order, or null
+  int n, shift, bins;
+  bool vec;             // order and s0 16-byte aligned
+  unsigned* ticket;
+  int* top;             // the largest rank, then the fault word's copy
+  const int* fault;
+  unsigned long long* slots;
+  int* cursors;
+  unsigned* st_pos;     // the staging, bin-major: position in bin << 1
+  int* st_rank;
+};
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    dense_rank_kernel(const RankArgs a) {
+  __shared__ int sagg[33];
+  __shared__ int wlast0[WARPS], wlast1[WARPS];
+  __shared__ int off[MAX_BINS], at[MAX_BINS];
+  __shared__ unsigned s_pos[TILE];
+  __shared__ int s_rank[TILE], s_dst[TILE];
+  for (int b = threadIdx.x; b < a.bins; b += THREADS) off[b] = 0;
+  const int t = take_ticket(a.ticket);   // synchronises the block
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r0 = (long long)t * TILE + (long long)threadIdx.x * ITEMS;
+  const int n = int(max(0ll, min((long long)ITEMS, a.n - r0)));
+  int src[ITEMS], k0[ITEMS], k1[ITEMS];
+  load_items<ITEMS>(a.order, r0, a.n, a.vec, 0, src);
+  load_items<ITEMS>(a.s0, r0, a.n, a.vec, 0, k0);
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j)
+    k1[j] = a.key1 && j < n ? __ldcs(a.key1 + src[j]) : 0;
+
+  // the row before this thread's first row
+  int p0 = __shfl_up_sync(FULL, k0[ITEMS - 1], 1);
+  int p1 = __shfl_up_sync(FULL, k1[ITEMS - 1], 1);
+  if (lane == 31) {
+    wlast0[warp] = k0[ITEMS - 1];
+    wlast1[warp] = k1[ITEMS - 1];
+  }
+  int b0 = 0, b1 = 0;
+  if (threadIdx.x == 0 && r0 > 0) {
+    b0 = __ldg(a.s0 + r0 - 1);
+    b1 = a.key1 ? __ldg(a.key1 + __ldg(a.order + r0 - 1)) : 0;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    p0 = warp ? wlast0[warp - 1] : b0;
+    p1 = warp ? wlast1[warp - 1] : b1;
+  }
+  unsigned ch = 0;   // bit j: row r0 + j starts a new rank
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int q0 = j ? k0[j - 1] : p0, q1 = j ? k1[j - 1] : p1;
+    const bool d = (j == 0 && r0 == 0) || k0[j] != q0 || k1[j] != q1;
+    if (j < n) ch |= unsigned(d) << j;
+  }
+  int tot;
+  const int ex = block_scan<false, SumOp>(__popc(ch), 0, sagg, &tot);
+  int run = lookback<SumOp>(a.slots, t, tot) + ex;
+  int rk[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    run += ch >> j & 1u;
+    rk[j] = run - 1;
+    if (j < n && r0 + j == a.n - 1) {
+      a.top[0] = rk[j];
+      a.top[1] = *a.fault;
+    }
+  }
+
+  // the binned scatter of (position, rank), as sa_round_kernel's
+  int slot[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j)
+    slot[j] = j < n && unsigned(src[j]) < unsigned(a.n)
+                  ? atomicAdd(&off[src[j] >> a.shift], 1)
+                  : -1;
+  __syncthreads();
+  int cnt[BIN_ITEMS], sum = 0;
+#pragma unroll
+  for (int q = 0; q < BIN_ITEMS; ++q) {
+    const int b = threadIdx.x * BIN_ITEMS + q;
+    cnt[q] = b < a.bins ? off[b] : 0;
+    sum += cnt[q];
+  }
+  int rows;
+  int o = block_scan<false, SumOp>(sum, 0, sagg, &rows);
+#pragma unroll
+  for (int q = 0; q < BIN_ITEMS; ++q) {
+    const int b = threadIdx.x * BIN_ITEMS + q;
+    if (cnt[q]) {
+      off[b] = o;
+      at[b] = atomicAdd(a.cursors + (long long)b * CURSOR_STRIDE, cnt[q]);
+    }
+    o += cnt[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (slot[j] < 0) continue;
+    const int b = src[j] >> a.shift;
+    const int base = b << a.shift;
+    const int width = min(1 << a.shift, a.n - base);
+    const int p = off[b] + slot[j];
+    const int g = at[b] + slot[j];
+    s_pos[p] = unsigned(src[j] - base) << 1;
+    s_rank[p] = rk[j];
+    s_dst[p] = g < width ? base + g : -1;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < rows; p += THREADS) {
+    const int d = s_dst[p];
+    if (d < 0) continue;
+    a.st_pos[d] = s_pos[p];
+    a.st_rank[d] = s_rank[p];
+  }
+}
+
 // Second level: each bin's staging, in chunks of 4096 rows (2^shift is a
 // multiple), sorted by fine bin of 4096 positions into a second staging
 // laid over K (dead by then), as the kernel sorted the rows by bin: a
@@ -544,12 +688,13 @@ __global__ void __launch_bounds__(CHUNK_THREADS)
 
 // Each fine bin of 4096 positions from the second staging into shared
 // memory at its rows' positions, then written out in order: the ranks and
-// flags land in whole sectors. A position no row reached is not written.
+// flags (RES; the dense rank writes none) land in whole sectors. A
+// position no row reached is not written.
 constexpr int SETTLE_THREADS = 512;
 constexpr int SETTLE_ITEMS = FINE / SETTLE_THREADS;   // 8
 constexpr unsigned char NONE = 0xff;
 
-template <bool MID>
+template <bool MID, bool RES>
 __global__ void __launch_bounds__(SETTLE_THREADS)
     sa_round_settle(const Stage s2, const int* __restrict__ fine_cursors,
                     int* __restrict__ mid, int* __restrict__ full,
@@ -581,13 +726,13 @@ __global__ void __launch_bounds__(SETTLE_THREADS)
       st16(full + base + i0 + h, f_full + i0 + h);
       if (MID) st16(mid + base + i0 + h, f_mid + i0 + h);
     }
-    *reinterpret_cast<uint2*>(res + base + i0) = rr;
+    if (RES) *reinterpret_cast<uint2*>(res + base + i0) = rr;
   } else {
     for (int j = 0; j < SETTLE_ITEMS && i0 + j < width; ++j) {
       if (f_res[i0 + j] == NONE) continue;
       full[base + i0 + j] = f_full[i0 + j];
       if (MID) mid[base + i0 + j] = f_mid[i0 + j];
-      res[base + i0 + j] = f_res[i0 + j];
+      if (RES) res[base + i0 + j] = f_res[i0 + j];
     }
   }
 }
@@ -791,7 +936,7 @@ int sa_round_launch(int mode, const void* perm, const void* K,
         s1, a.cursors, fine_cursors, s2, m, shift);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
-    sa_round_settle<true><<<fine_bins, SETTLE_THREADS, 0, s>>>(
+    sa_round_settle<true, true><<<fine_bins, SETTLE_THREADS, 0, s>>>(
         s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec);
   } else {
     const int smem = (2 * MAX_FINE + 3 * CHUNK) * 4;
@@ -803,9 +948,67 @@ int sa_round_launch(int mode, const void* perm, const void* K,
         s1, a.cursors, fine_cursors, s2, m, shift);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
-    sa_round_settle<false><<<fine_bins, SETTLE_THREADS, 0, s>>>(
+    sa_round_settle<false, true><<<fine_bins, SETTLE_THREADS, 0, s>>>(
         s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec);
   }
+  return int(cudaGetLastError());
+}
+
+// The doubling rounds' rank step (dense_rank_kernel, then sa_round_fine
+// and sa_round_settle without flags): order, s0, key1 (or null) and rank:
+// n int32 (rank written at every position); st: 2 * ((n + 3) & ~3) int32,
+// the first staging (positions, then ranks), st2 the same for the second;
+// 1 <= n < 2^30, bins of 2^shift positions as for sa_round_launch; the
+// scratch as sa_round_scratch_bytes(n, n, shift), zeroed; fault the sorts'
+// fault word. Writes the largest rank and the fault word's copy at
+// scratch + 4 and + 8 (sa_round_count_offset).
+int dense_rank_launch(const void* order, const void* s0, const void* key1,
+                      void* rank, void* st, void* st2, int n, int shift,
+                      void* scratch, const void* fault, void* stream) {
+  if (n < 1 || n >= (1 << 30) || shift < FINE_SHIFT ||
+      shift > FINE_SHIFT + 10 || bins_of(n, shift) > MAX_BINS ||
+      !aligned16(st) || !aligned16(st2))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long m4 = (n + 3ll) & ~3ll;
+  RankArgs a;
+  a.order = static_cast<const int*>(order);
+  a.s0 = static_cast<const int*>(s0);
+  a.key1 = static_cast<const int*>(key1);
+  a.n = n;
+  a.shift = shift;
+  a.bins = bins_of(n, shift);
+  a.vec = aligned16(order) && aligned16(s0);
+  char* sc = static_cast<char*>(scratch);
+  a.ticket = reinterpret_cast<unsigned*>(sc);
+  a.top = reinterpret_cast<int*>(sc + 4);
+  a.fault = static_cast<const int*>(fault);
+  a.slots = reinterpret_cast<unsigned long long*>(sc + 16);
+  a.cursors = reinterpret_cast<int*>(sc + cursors_at(n));
+  int* s1 = static_cast<int*>(st);
+  a.st_pos = reinterpret_cast<unsigned*>(s1);
+  a.st_rank = s1 + m4;
+  dense_rank_kernel<<<int(tiles_of(n)), THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  int* s2p = static_cast<int*>(st2);
+  const Stage first{a.st_pos, nullptr, a.st_rank};
+  const Stage second{reinterpret_cast<unsigned*>(s2p), nullptr, s2p + m4};
+  int* fine_cursors = a.cursors + (long long)CURSOR_STRIDE * a.bins;
+  const int smem = (2 * MAX_FINE + 3 * CHUNK) * 4;
+  err = cudaFuncSetAttribute(sa_round_fine<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return int(err);
+  sa_round_fine<false><<<int((n + CHUNK - 1) / CHUNK), CHUNK_THREADS, smem,
+                         s>>>(first, a.cursors, fine_cursors, second, n,
+                              shift);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  sa_round_settle<false, false><<<int((n + FINE - 1) / FINE),
+                                  SETTLE_THREADS, 0, s>>>(
+      second, fine_cursors, nullptr, static_cast<int*>(rank), nullptr, n,
+      aligned16(rank));
   return int(cudaGetLastError());
 }
 

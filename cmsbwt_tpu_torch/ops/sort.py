@@ -67,12 +67,17 @@ def check_faults(device) -> None:
     the last check was given a key outside its width, or a compaction the
     wrong count."""
     word = _faults.get(torch.device(device))
-    if word is None:
-        return
-    f = int(word[0])
+    if word is not None:
+        raise_faults(device, int(word[0]))
+
+
+def raise_faults(device, f: int) -> None:
+    """Clear the fault word of ``device`` and raise if ``f``, the word as
+    read (by check_faults, or in one copy with other words), holds a
+    fault."""
     if not f:
         return
-    word.zero_()
+    _faults[torch.device(device)].zero_()
     keys = [k for k in range(MAX_KEYS) if f >> k & 1]
     if keys:
         raise RuntimeError(

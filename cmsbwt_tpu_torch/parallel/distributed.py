@@ -27,10 +27,12 @@ get None and receive what they need from rank 0 by collectives; rank 0
 gets the result, the others None. The group has a timeout
 (``CMSBWT_DIST_TIMEOUT`` seconds, default 600), so a lost rank ends the
 run with an error instead of a hang; an exception on any rank is raised
-again in rank 0, and nothing catches it.
+again in rank 0, and nothing catches it. A launcher's group is left at
+the process's exit, before the interpreter finalizes (``_leave_at_exit``).
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import pathlib
@@ -120,7 +122,19 @@ def maybe_initialize(coordinator: str | None = None,
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     _init(url, num_processes, process_id, torch.device(device).type,
           _env_int("LOCAL_RANK"))
+    atexit.register(_leave_at_exit)
     return True
+
+
+def _leave_at_exit() -> None:
+    """Destroy the launcher's group while the interpreter still runs.
+    Left to finalization, the group's backend threads may reach for the
+    GIL after finalization has begun; Python then ends such a thread with
+    pthread_exit, whose unwinding through the backend's C++ frames aborts
+    the process ("terminate called without an active exception") after
+    its work is done."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index() -> int:

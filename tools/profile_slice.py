@@ -10,7 +10,7 @@
     python3 tools/profile_slice.py --routes [SHAPE]  # jump/dense/native
     python3 tools/profile_slice.py --routes 500M --backends jump
     python3 tools/profile_slice.py --mesh      # mesh routes, every card
-    python3 tools/profile_slice.py --merge-stages [SHAPE]  # merge by op
+    python3 tools/profile_slice.py --merge-stages [SHAPE] [--parent DIR]
     python3 tools/profile_slice.py --merge-kernels [SHAPE] [--parent DIR]
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
@@ -119,17 +119,26 @@ then a ``mesh summary {json}`` line.
 
 The merge-stages mode prints the card's name and power limit, then at
 the primary shape and at the 500 Mchar shape (5 Mbp x 100 docs at 1%
-SNP, seed 42; ``--merge-stages primary`` or ``500M`` for one): the jump
-scan's heads (h, h_pad), one device merge with CMSBWT_PROFILE=1 (stage
-marks on stderr, P read off the tail_pairs_count mark) and its peak
-device bytes (torch.cuda.max_memory_allocated, reset before the merge)
-per collection char, then a second merge with each of tail_good,
-tail_exact and runs_emit under its own torch.profiler: wall and device ms
-and the top operators by device time, and the join's rows jn_pad =
-h_pad + p_pad; then runs_emit's three bucket sums on that merge's lanes
+SNP, seed 42; ``--merge-stages primary`` or ``500M`` for one) runs one
+child process a turn that imports the package from one checkout
+(merge_child): this tree, or with ``--parent DIR`` (an older checkout's
+root) parent, this, this, parent. Each child takes the jump scan's heads
+(h, h_pad), merges once to warm up, then three merges with
+head_string_sa and tail_good timed (device-synced; ``merge_run`` lines
+with merge_device ms and the peak device bytes per collection char),
+one merge with head_string_sa taken apart by round (each sort and rank
+step, the rest, rounds, k_star, the host's reads of device values) and
+tail_good in five parts (expansion, join sort, post-sort gathers,
+tail_good_join, rest), one with each stage's peak device bytes
+(``merge_split``), and the jump -r CLI three times (``cli_run``); this
+tree alone also prints the stage marks (CMSBWT_PROFILE=1, stderr),
+head_string_sa, tail_good, tail_exact and runs_emit each under its own
+torch.profiler (wall and device ms, the top operators by device time),
+and runs_emit's three bucket sums on that merge's lanes
 (bucket_sums_case): h_pad, nec and the lanes sent to index 0, each sum
 alone as the plain version's accumulating index_put_ (with and without
-the pad lanes) and as Tensor.index_add_, and the bucket_sums kernel.
+the pad lanes) and as Tensor.index_add_, and the bucket_sums kernel. The
+tool ends with a ``merge_stages summary {json}`` line.
 
 The merge-kernels mode runs one device merge of the jump scan's heads
 per shape (primary, 500M) and holds each of the merge's kernels on the
@@ -862,76 +871,316 @@ def bucket_sums_case(name: str, args: tuple) -> None:
               f"{ms:.3f} ms", flush=True)
 
 
-def merge_stages_main(only: str | None) -> None:
+# merge_device's stages, in call order (engine/device_merge.py)
+MERGE_STAGES = ("fixup_dev", "tail_counts_dev", "group_dev",
+                "class_ranks_dev", "head_string_sa_dev", "rank_heads_dev",
+                "tail_pairs_count_dev", "tail_good_dev", "tail_exact_dev",
+                "runs_emit_dev")
+MERGE_RUNS = 3      # timed merges a turn, after one to warm up
+CLI_RUNS = 3        # jump -r CLI runs a turn
+
+
+def merge_stages_main(only: str | None, parent: pathlib.Path | None) -> None:
     """The device merge of the jump scan's heads at each shape of
-    MERGE_SHAPES: stage marks and peak device bytes per char, then each of
-    tail_good, tail_exact and runs_emit profiled on its own."""
-    from cmsbwt_tpu_torch import kernels
-    from cmsbwt_tpu_torch.engine import device_merge as dm
-    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
-    from cmsbwt_tpu_torch.ops import ms_jump as mj
-    kernels.load()
+    MERGE_SHAPES, measured in a child process per turn that imports the
+    package from one checkout (merge_child): this tree alone, or with
+    ``parent`` (an older checkout's root) parent, this, this, parent.
+    Ends with a ``merge_stages summary {json}`` line: per shape and tree
+    every timed run's merge_device, head_string_sa and tail_good ms, peak
+    bytes per collection char, and the jump -r CLI's seconds and
+    merge_device phase."""
+    shapes = []
     for name, seed, ref_len, docs, snp in MERGE_SHAPES:
         if only and name not in only.split(","):
             continue
-        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
-        x_aug, coll = load_inputs(str(lst))
-        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
-        print(f"merge[{name}]: n={len(x_aug)} sn={coll.sn} h={res.h} "
-              f"h_pad={int(res.head_t.shape[0])}", flush=True)
-        del x_aug
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        os.environ["CMSBWT_PROFILE"] = "1"
         t0 = time.perf_counter()
-        try:
-            dm.merge_heads_device_resident(res, coll.d, False,
-                                           want_counter=False)
-        finally:
-            del os.environ["CMSBWT_PROFILE"]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        sys.stderr.flush()
-        peak = torch.cuda.max_memory_allocated()
-        print(f"merge[{name}]: wall_ms={wall * 1e3:.1f} peak_bytes={peak} "
-              f"({peak / coll.sn:.1f} B per collection char; held before "
-              f"the merge {base})", flush=True)
-        torch.cuda.empty_cache()
-        emitted = []
-        orig = {k: getattr(dm, k) for k in ("tail_good_dev",
-                                            "tail_exact_dev",
-                                            "runs_emit_dev")}
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        print(f"wrote {name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        shapes.append((name, str(lst)))
+    turns = [("this", ROOT)] if parent is None else [
+        ("parent", parent.resolve()), ("this", ROOT), ("this", ROOT),
+        ("parent", parent.resolve())]
+    summary = {}
+    for tag, root in turns:
+        spec = json.dumps({"root": str(root), "shapes": shapes, "tag": tag,
+                           "full": parent is None})
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, __file__, "--merge-child", spec],
+                           capture_output=True, text=True, timeout=1500)
+        sys.stdout.write(r.stdout)
+        sys.stderr.write(r.stderr[-6000:])
+        if r.returncode:
+            raise SystemExit(f"merge_stages: the {tag} child failed "
+                             f"({r.returncode})")
+        print(f"turn {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+        for line in r.stdout.splitlines():
+            for key in ("merge_run", "cli_run"):
+                if line.startswith(key + " {"):
+                    d = json.loads(line[len(key) + 1:])
+                    summary.setdefault(d.pop("shape"), {}).setdefault(
+                        d.pop("tag"), {}).setdefault(key, []).append(d)
+    print("merge_stages summary " + json.dumps(summary), flush=True)
 
-        def spy(k):
-            def run(*a, **kw):
-                if k == "tail_good_dev":
-                    h_pad, p_pad = a[5], a[6]
-                    print(f"merge[{name}]: tail_good h_pad={h_pad} "
-                          f"p_pad={p_pad} jn_pad={h_pad + p_pad} "
-                          f"P={a[1]['total']}", flush=True)
-                if k == "runs_emit_dev":
-                    emitted.append(a)
-                print(f"merge[{name}]: {k} under torch.profiler",
-                      flush=True)
-                out = {}
-                profiled(lambda: out.setdefault("r", orig[k](*a, **kw)))
-                return out["r"]
-            return run
-        for k in orig:
-            setattr(dm, k, spy(k))
-        try:
-            dm.merge_heads_device_resident(res, coll.d, False,
-                                           want_counter=False)
-        finally:
-            for k, f in orig.items():
-                setattr(dm, k, f)
-        bucket_sums_case(name, emitted[0])
-        emitted.clear()
-        del res, coll
+
+def _synced(fn, sink: list):
+    """``fn`` with the device synchronised at its entry and exit, its wall
+    ms appended to ``sink``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+class _Patched:
+    """Set attributes of modules for the length of a with block."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(m, k, getattr(m, k)) for m, k, _ in self.triples]
+        for m, k, v in self.triples:
+            setattr(m, k, v)
+        return self
+
+    def __exit__(self, *exc):
+        for m, k, v in self.saved:
+            setattr(m, k, v)
+
+
+def _host_reads(counts: dict) -> _Patched:
+    """Count the reads of a CUDA tensor's values by the host (each a
+    synchronisation) into counts["n"]."""
+    def counted(f):
+        def read(self, *a, **kw):
+            if self.is_cuda:
+                counts["n"] += 1
+            return f(self, *a, **kw)
+        return read
+    return _Patched(*[(torch.Tensor, k, counted(getattr(torch.Tensor, k)))
+                      for k in ("__int__", "__bool__", "__float__", "item",
+                                "tolist", "cpu")])
+
+
+def head_string_split(dm, idx, merge) -> dict:
+    """One merge with head_string_sa taken apart: each doubling round's
+    sort and rank step (``idx._dense_rank`` less its sort; device-synced
+    around each), the rounds, k_star, the host's reads of device values
+    and the rest (the shifted keys, the history, the compaction)."""
+    sorts, steps, rounds, whole, sa_out = [], [], [], [], []
+    reads = {"n": 0}
+    sad, rank0, hs = (idx.suffix_array_device, idx._dense_rank,
+                      dm.head_string_sa_dev)
+
+    def sa_dev(*a, **kw):
+        out = sad(*a, **kw)
+        sa_out.append((a[1], out[3], out[2] is not None))
+        return out
+
+    def rank_step(*a, **kw):
+        n0, t = len(sorts), []
+        out = _synced(rank0, t)(*a, **kw)
+        rounds.append(sum(sorts[n0:]))
+        steps.append(t[0] - rounds[-1])
+        return out
+
+    def counted(*a, **kw):
+        with _host_reads(reads):
+            return hs(*a, **kw)
+    with _Patched((idx, "stable_argsort", _synced(idx.stable_argsort,
+                                                  sorts)),
+                  (idx, "_dense_rank", rank_step),
+                  (idx, "suffix_array_device", sa_dev),
+                  (dm, "head_string_sa_dev", _synced(counted, whole))):
+        merge()
+    L, k_star, hist = sa_out[0]
+    levels = idx.n_levels(L)
+    return {"L": L, "levels": levels, "k_star": int(k_star),
+            "rounds": len(rounds), "history": hist,
+            "history_bytes": 4 * levels * L if hist else 0,
+            "wall_ms": whole[0], "sorts_ms": sum(rounds),
+            "rank_steps_ms": sum(steps),
+            "rest_ms": whole[0] - sum(rounds) - sum(steps),
+            "host_reads": reads["n"],
+            "per_round": [{"sort_ms": a, "rank_step_ms": b}
+                          for a, b in zip(rounds, steps)]}
+
+
+def tail_good_split(dm, merge) -> dict:
+    """One merge with tail_good taken apart (device-synced marks): the
+    expansion of the pairs (entry to the join sort), the join sort, the
+    post-sort gathers (the sort's end to tail_good_join), tail_good_join,
+    and the rest (the exact pairs' compaction and sort)."""
+    marks = {}
+    tg, sort0, join0 = dm.tail_good_dev, dm.stable_argsort, dm.tail_good_join
+
+    def mark(k):
+        torch.cuda.synchronize()
+        marks.setdefault(k, time.perf_counter())
+
+    def sort(keys, bits, values=False):
+        first = "sort0" not in marks and "entry" in marks
+        if first:
+            mark("sort0")
+        out = sort0(keys, bits, values)
+        if first:
+            mark("sort1")
+        return out
+
+    def join(*a):
+        mark("join0")
+        out = join0(*a)
+        mark("join1")
+        return out
+
+    def good(*a, **kw):
+        mark("entry")
+        out = tg(*a, **kw)
+        mark("exit")
+        return out
+    with _Patched((dm, "tail_good_dev", good), (dm, "stable_argsort", sort),
+                  (dm, "tail_good_join", join)):
+        merge()
+    ms = lambda a, b: (marks[b] - marks[a]) * 1e3
+    return {"expansion_ms": ms("entry", "sort0"),
+            "sort_ms": ms("sort0", "sort1"),
+            "gathers_ms": ms("sort1", "join0"),
+            "join_ms": ms("join0", "join1"), "rest_ms": ms("join1", "exit"),
+            "wall_ms": ms("entry", "exit")}
+
+
+def stage_peaks(dm, merge) -> dict:
+    """One merge with the peak device bytes of each stage
+    (torch.cuda.max_memory_allocated, reset at the stage's entry)."""
+    peaks = {}
+
+    def spied(k, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            peaks[k] = max(peaks.get(k, 0), torch.cuda.max_memory_allocated())
+            return out
+        return run
+    with _Patched(*[(dm, k, spied(k, getattr(dm, k))) for k in MERGE_STAGES
+                    if hasattr(dm, k)]):
+        merge()
+    return peaks
+
+
+def merge_child(spec: dict) -> None:
+    """One turn of merge_stages_main: the package imported from
+    spec["root"]; per shape the jump scan's heads, one merge to warm up,
+    MERGE_RUNS merges with head_string_sa and tail_good timed (``merge_run
+    {json}`` lines), one merge each for head_string_split,
+    tail_good_split and stage_peaks, with spec["full"] the stage marks
+    (CMSBWT_PROFILE=1, stderr), head_string_sa, tail_good, tail_exact and
+    runs_emit under torch.profiler and bucket_sums_case; then the jump -r
+    CLI (``cli_run {json}`` lines)."""
+    sys.path.insert(0, spec["root"])
+    from cmsbwt_tpu_torch import cli, kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.index import device as idx
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    tag = spec["tag"]
+    print(f"child {tag}: package {pathlib.Path(dm.__file__).parents[1]}",
+          flush=True)
+    kernels.load()
+    for name, lst in spec["shapes"]:
+        x_aug, coll = load_inputs(lst)
+        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+        sn, d = coll.sn, coll.d
+        print(f"merge[{name},{tag}]: n={len(x_aug)} sn={sn} h={res.h} "
+              f"h_pad={int(res.head_t.shape[0])}", flush=True)
+        del x_aug, coll
+        torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        shutil.rmtree(WORK / name)
+
+        def merge():
+            return dm.merge_heads_device_resident(res, d, False,
+                                                  want_counter=False)
+        merge()
+        for i in range(MERGE_RUNS):
+            hs, tg = [], []
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with _Patched((dm, "head_string_sa_dev",
+                           _synced(dm.head_string_sa_dev, hs)),
+                          (dm, "tail_good_dev",
+                           _synced(dm.tail_good_dev, tg))):
+                t0 = time.perf_counter()
+                merge()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            print("merge_run " + json.dumps({
+                "shape": name, "tag": tag, "run": i, "merge_device_ms": wall,
+                "head_string_sa_ms": hs[0], "tail_good_ms": tg[0],
+                "peak_bytes": peak, "peak_per_char": peak / sn,
+                "held_before": base}), flush=True)
+        split = {"shape": name, "tag": tag,
+                 "head_string_sa": head_string_split(dm, idx, merge),
+                 "tail_good": tail_good_split(dm, merge)}
+        torch.cuda.empty_cache()
+        peaks = stage_peaks(dm, merge)
+        top = max(peaks, key=peaks.get)
+        split["stage_peaks"] = peaks
+        split["peak_stage"] = top
+        split["peak_per_char"] = peaks[top] / sn
+        print("merge_split " + json.dumps(split), flush=True)
+        if spec["full"]:
+            os.environ["CMSBWT_PROFILE"] = "1"
+            try:
+                merge()
+            finally:
+                del os.environ["CMSBWT_PROFILE"]
+            sys.stderr.flush()
+            emitted = []
+            orig = {k: getattr(dm, k) for k in (
+                "head_string_sa_dev", "tail_good_dev", "tail_exact_dev",
+                "runs_emit_dev")}
+
+            def spy(k):
+                def run(*a, **kw):
+                    if k == "runs_emit_dev":
+                        emitted.append(a)
+                    print(f"merge[{name}]: {k} under torch.profiler",
+                          flush=True)
+                    out = {}
+                    profiled(lambda: out.setdefault("r", orig[k](*a, **kw)),
+                             30)
+                    return out["r"]
+                return run
+            with _Patched(*[(dm, k, spy(k)) for k in orig]):
+                merge()
+            bucket_sums_case(name, emitted[0])
+            emitted.clear()
+        del res
+        torch.cuda.empty_cache()
+        for i in range(CLI_RUNS):
+            out = WORK / f"cli_{name}_{tag}_{i}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cli.main([lst, "-o", str(out), "--device", "cuda",
+                         "--backend", "jump", "-r", "--no-rle-quirk"]):
+                raise SystemExit("cli failed")
+            wall = time.perf_counter() - t0
+            ph = cs.phases_from_log(out.with_suffix(".log"))
+            print("cli_run " + json.dumps({
+                "shape": name, "tag": tag, "run": i, "wall_s": wall,
+                "merge_device_ms": ph.get("merge_device"),
+                "phases_ms": ph}), flush=True)
+            for f in WORK.glob(out.name + ".*"):
+                f.unlink()
 
 
 def parent_merge_kernels(parent: pathlib.Path):
@@ -1211,8 +1460,9 @@ def main() -> int:
     ap.add_argument("--merge-stages", nargs="?", const="", default=None,
                     metavar="SHAPE",
                     help="the device merge at primary and 500 Mchars (or "
-                    "at SHAPE alone): stage marks, peak bytes, and "
-                    "tail_good, tail_exact and runs_emit under "
+                    "at SHAPE alone): head_string_sa and tail_good timed "
+                    "and taken apart, each stage's peak bytes, the jump "
+                    "-r CLI; alone also stage marks and stages under "
                     "torch.profiler")
     ap.add_argument("--merge-kernels", nargs="?", const="", default=None,
                     metavar="SHAPE",
@@ -1225,8 +1475,13 @@ def main() -> int:
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="an older checkout's root: with --dense, also "
                     "time its dense kernels against this tree's at both "
-                    "shapes; alone, its jump CLI against this tree's")
+                    "shapes; with --merge-stages, its merges in turns with "
+                    "this tree's; alone, its jump CLI against this tree's")
+    ap.add_argument("--merge-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.merge_child:
+        merge_child(json.loads(args.merge_child))
+        return 0
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
@@ -1239,7 +1494,7 @@ def main() -> int:
         if args.mesh:
             mesh_main()
         elif args.merge_stages is not None:
-            merge_stages_main(args.merge_stages or None)
+            merge_stages_main(args.merge_stages or None, args.parent)
         elif args.merge_kernels is not None:
             merge_kernels_main(args.merge_kernels or None, args.parent)
         elif args.routes is not None:
