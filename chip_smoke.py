@@ -136,20 +136,32 @@ every phase passed):
    merge's largest fill), tail_good_join (_tail_good_join_reference),
    tail_exact_credit (_exact_credit_reference), bucket_sums (timed beside
    three Tensor.index_add_), run_merge (_run_merge_reference),
-   pair_expand (_pair_expand_reference: tail_good's join rows) and
-   dense_rank (index/device._dense_rank_reference: a doubling round's
-   rank step of the head string's suffix sort) on the
+   pair_expand (_pair_expand_reference: tail_good's join rows),
+   dense_rank (index/device._dense_rank_reference: the head string's
+   first round's full rank step, every output: the group-start ranks,
+   the slice of unresolved rows and its key 1; and the reference index's
+   round 0 in the dense mode, captured from the jump scan's index build
+   (IndexRankCapture): the dense ranks and the next key) and
+   dense_rank_comp (_comp_rank_reference: the head string's first
+   compacted step: the ranks and places written, the next slice and its
+   key 1) on the
    inputs a real device merge gave them (MergeCapture), of the jump
    scan's heads at primary (in phase 5) and of the 500 Mchar run's heads
    (in phase 8, which also holds the peak outside the blocks to the
    merge's ceiling, MERGE_BYTES_PER_CHAR per collection char);
    running_fill and bucket_sums there also alone (CUDA events around the
    launches only), beside Tensor.copy_ of the same bytes and one 1-D
-   torch.cummax / cummin of the fill; pair_expand and dense_rank also
-   alone and beside Tensor.copy_ of their bound's bytes. Every run that
-   merges on the device launches running_fill, tail_good_join,
-   bucket_sums, run_merge, pair_expand and dense_rank, and
-   tail_exact_credit once per merge with exact pairs (MERGE_KERNELS); the
+   torch.cummax / cummin of the fill; pair_expand, dense_rank and
+   dense_rank_comp also alone and beside Tensor.copy_ of their bound's
+   bytes. rank_cases holds dense_rank in both modes and dense_rank_comp
+   to their plain versions at the tiles' edges (RANK_SIZES, RANK_KINDS)
+   and the suffix sort on the card to the CPU's with and without its
+   history, each compacted step held to its plain version. Every run
+   that merges on the device launches
+   running_fill, tail_good_join, bucket_sums, run_merge, pair_expand and
+   dense_rank, tail_exact_credit once per merge with exact pairs and
+   dense_rank_comp once per compacted head-string step (MERGE_KERNELS;
+   a host merge may launch both rank kernels); the
    jump scan's index build launches dense_rank too; the
    sharded merge and the dense scan launch running_fill; no run launches
    a plain version.
@@ -175,8 +187,9 @@ move at these inputs (each input read once, each output written once; for
 gathers, the entries this run's data touches) over 3.35 TB/s, the H100
 SXM's memory rate. The merge kernels' rows give running_fill at 2^29 + 1
 int64 rows (forward max), and tail_good_join, tail_exact_credit,
-run_merge, pair_expand and dense_rank on the 500 Mchar merge's inputs
-(the last two also at primary, and alone_ms and copy_ms). library_ms is
+run_merge, pair_expand, dense_rank and dense_rank_comp on the 500
+Mchar merge's inputs (the last three also at primary, and alone_ms and
+copy_ms). library_ms is
 one 1-D torch.cummax for running_fill and three Tensor.index_add_ for
 bucket_sums; no single PyTorch call computes any of the other functions,
 so theirs is null. running_fill's and bucket_sums' rows also
@@ -240,18 +253,21 @@ ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass",
                  "native": (), "host": ()}
 # the kernels each merge engine launches ("none": a scan alone); the
 # device merge launches tail_exact_credit once per merge with exact pairs,
-# dense_rank in its head string's suffix sort and pair_expand in tail_good
+# dense_rank in its head string's suffix sort's first round (and
+# dense_rank_comp once a round after it, when it reaches one) and
+# pair_expand in tail_good
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
                             "tail_exact_credit", "bucket_sums", "run_merge",
                             "radix_hist", "radix_pass", "compact",
-                            "dense_rank", "pair_expand"),
+                            "dense_rank", "dense_rank_comp", "pair_expand"),
                  "sharded": ("running_fill",), "host": (), "none": ()}
 # kernels a route or a merge engine may launch: the native route builds
 # its index on the card when the index cache misses, and the host merge
 # sorts a long head string on the card (engine/ranking.py; both
 # index/device.suffix_array_device)
 MAY_LAUNCH = {"native": ("radix_hist", "radix_pass", "dense_rank"),
-              "host": ("radix_hist", "radix_pass", "dense_rank")}
+              "host": ("radix_hist", "radix_pass", "dense_rank",
+                       "dense_rank_comp")}
 # running_fill's tiles (running_fill.cu: 32 KB) and the sizes at their edges
 FILL_TILE = {torch.int32: 8192, torch.int64: 4096}
 FILL_SIZES = {dt: (1, 3, 64, T - 1, T, T + 1, 3 * T + 5)
@@ -597,24 +613,56 @@ def bucket_sums_launch(K, br, bid, m_c, nec: int, n_pad: int):
     return launch, int(lib.bucket_sums_scratch_bytes(nec))
 
 
-def dense_rank_launch(K, order, s0, key1, fault):
-    """dense_rank's C entry point (sa_round.cu) on one round's rows with
-    its rank and stagings made beforehand; returns (launch(scratch),
+def dense_rank_launch(K, args, kw):
+    """dense_rank's C entry point (sa_round.cu) on one step's arguments
+    (index/device.dense_rank's, as MergeCapture keeps them) with its
+    outputs and stagings made beforehand; returns (launch(scratch),
     scratch bytes)."""
+    from cmsbwt_tpu_torch.ops.sort import fault_word
     lib = K.load()["sa_round"]
+    order, s0, key1 = args[:3]
     n = order.numel()
     shift = K.sa_round_bins(n).shift
     m4 = (n + 3) & ~3
     rank = torch.empty(n, dtype=torch.int32, device="cuda")
     st, st2 = (torch.empty(2 * m4, dtype=torch.int32, device="cuda")
                for _ in range(2))
+    sl = kw.get("slice_")
+    ti, k0, k1 = sl if sl is not None else (None, None, None)
+    ptr = lambda t: None if t is None else _p(t)
+    nxt = None if kw.get("nxt") is None else torch.empty_like(kw["nxt"])
 
     def launch(scratch):
-        if lib.dense_rank_launch(_p(order), _p(s0), _p(key1), _p(rank),
-                                 _p(st), _p(st2), n, shift, _p(scratch),
-                                 _p(fault), _stream()):
+        if lib.dense_rank_launch(
+                int(sl is not None), _p(order), _p(s0), ptr(key1), _p(rank),
+                ptr(nxt), int(kw.get("shift", 0)), ptr(ti), ptr(k0), ptr(k1),
+                0 if sl is None else ti.numel(),
+                _p(st), _p(st2), n, shift, _p(scratch),
+                _p(fault_word(order.device)), _stream()):
             fail("dense_rank launch failed")
     return launch, int(lib.sa_round_scratch_bytes(n, n, shift))
+
+
+def dense_rank_comp_launch(K, args, reps: int):
+    """dense_rank_comp's C entry point on one compacted step's arguments
+    (as CompCapture keeps them) with its outputs made beforehand and a copy
+    of key 1 for each of ``reps`` + 1 launches (the step overwrites key 1
+    with the next round's); returns (launch(scratch), scratch bytes)."""
+    from cmsbwt_tpu_torch.ops.sort import fault_word
+    lib = K.load()["sa_round"]
+    perm, s0, k1, ti, rank, sa, (ti_n, k0_n), shift = args
+    rank, sa, ti_n, k0_n = (t.clone() for t in (rank, sa, ti_n, k0_n))
+    u, m = perm.numel(), rank.numel()
+    k1s = iter([k1.clone() for _ in range(reps + 1)])
+
+    def launch(scratch):
+        if lib.dense_rank_comp_launch(
+                _p(perm), _p(s0), _p(next(k1s)), _p(ti), _p(rank), _p(sa),
+                _p(ti_n), _p(k0_n), ti_n.numel(), int(shift), u, m,
+                _p(scratch), _p(fault_word(perm.device)), _stream()):
+            fail("dense_rank_comp launch failed")
+    return launch, int(lib.sa_round_scratch_bytes(
+        u, m, K.sa_round_bins(m).shift))
 
 
 def pair_expand_launch(K, args: tuple):
@@ -1020,14 +1068,16 @@ class MergeCapture:
     """Keeps the inputs of the device merge's kernels from the merges run
     while in use, by wrapping engine/device_merge's running_fill,
     tail_good_join, exact_credit, bucket_sums, run_merge, compact and
-    pair_expand and index/device's dense_rank: every running_fill input
-    with its op and direction (``fills``, in call order; ``fill`` the
-    largest), the last inputs of the next four and of pair_expand
-    (``expand``: the classes' and pairs' arrays it reads), the largest
-    compaction's (flag, count), the first two-key rank step of the head
-    string's suffix sort (``rank``: order, sorted key 0 and key 1, cloned:
-    the next round reuses key 1's buffer), and every sort's keys by call
-    site (``sorts``, a SortCapture)."""
+    pair_expand and index/device's dense_rank and comp_rank: every
+    running_fill input with its op and direction (``fills``, in call
+    order; ``fill`` the largest), the last inputs of the next four and of
+    pair_expand (``expand``: the classes' and pairs' arrays it reads), the
+    largest compaction's (flag, count), the head string's suffix sort's
+    first full rank step (``rank``: the dispatch's arguments and keywords
+    but its scratch, cloned: later rounds reuse the buffers), its first
+    compacted step (``comp``, as
+    CompCapture keeps it), and every sort's keys by call site (``sorts``,
+    a SortCapture)."""
 
     EXPAND_CLS = ("n_classes", "pos", "length", "key_k", "isa_next", "size",
                   "smaller")
@@ -1038,8 +1088,9 @@ class MergeCapture:
         from cmsbwt_tpu_torch.index import device as idx
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
         self.exact = self.sums = self.compact = None
-        self.expand = self.rank = None
+        self.expand = self.rank = self.comp = None
         self.idx, self.orig_rank = idx, idx.dense_rank
+        self.orig_comp = idx.comp_rank
         self.orig_expand = dm.pair_expand
 
         def expand(cls, pairs, slot_base, n, h_pad, p_pad):
@@ -1048,11 +1099,18 @@ class MergeCapture:
                            slot_base, n, h_pad, p_pad)
             return self.orig_expand(cls, pairs, slot_base, n, h_pad, p_pad)
 
-        def rank(order, s0, key1=None, out=None):
-            if self.rank is None and key1 is not None:
-                self.rank = (order.clone(), s0.clone(), key1.clone())
-            return self.orig_rank(order, s0, key1, out)
-        dm.pair_expand, idx.dense_rank = expand, rank
+        def rank(order, s0, key1=None, out=None, **kw):
+            if self.rank is None and kw.get("slice_") is not None:
+                self.rank = rank_step_clone(order, s0, key1, out, kw)
+            return self.orig_rank(order, s0, key1, out, **kw)
+
+        def comp(perm, s0, k1, ti, rank, sa, nxt_slice, shift, work=None):
+            if self.comp is None:
+                self.comp = tuple(clone(v) for v in (
+                    perm, s0, k1, ti, rank, sa, nxt_slice, shift))
+            return self.orig_comp(perm, s0, k1, ti, rank, sa, nxt_slice,
+                                  shift, work)
+        dm.pair_expand, idx.dense_rank, idx.comp_rank = expand, rank, comp
         self.fills = []
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
                      dm.exact_credit, dm.bucket_sums, dm.compact)
@@ -1097,6 +1155,43 @@ class MergeCapture:
             self.orig
         self.dm.pair_expand = self.orig_expand
         self.idx.dense_rank = self.orig_rank
+        self.idx.comp_rank = self.orig_comp
+
+
+def clone(v):
+    """A tensor, or a tuple's tensors, cloned; anything else as it is."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    return tuple(map(clone, v)) if isinstance(v, tuple) else v
+
+
+def rank_step_clone(order, s0, key1, out, kw):
+    """One full rank step's arguments and keywords but its scratch,
+    cloned (later rounds reuse the buffers)."""
+    return ([clone(v) for v in (order, s0, key1, out)],
+            {k: clone(v) for k, v in kw.items() if k != "work"})
+
+
+class IndexRankCapture:
+    """Keeps the reference index's first two-key full rank step
+    (index/device.dense_rank with the rank history: dense ranks and the
+    next key; round 0, shift 2) while in use (``step``, as
+    rank_step_clone keeps it)."""
+
+    def __enter__(self):
+        from cmsbwt_tpu_torch.index import device as idx
+        self.idx, self.orig, self.step = idx, idx.dense_rank, None
+
+        def rank(order, s0, key1=None, out=None, **kw):
+            if self.step is None and key1 is not None and \
+                    kw.get("slice_") is None:
+                self.step = rank_step_clone(order, s0, key1, out, kw)
+            return self.orig(order, s0, key1, out, **kw)
+        idx.dense_rank = rank
+        return self
+
+    def __exit__(self, *exc):
+        self.idx.dense_rank = self.orig
 
 
 def sa_round_bytes(perm, keys, lv, comp) -> int:
@@ -1683,27 +1778,93 @@ def compact_times(tag: str, flag, count: int) -> dict:
     return r
 
 
-def dense_rank_case(tag: str, order, s0, key1) -> dict:
-    """dense_rank (sa_round.cu) against _dense_rank_reference (exact) on
-    one rank step of the head string's suffix sort, timed with its
-    wrapper, alone and beside Tensor.copy_ of the bound's bytes: order,
-    both keys read once, the rank written once (16 B a row)."""
+def rank_step_bytes(args, kw, top) -> int:
+    """Bytes a full rank step must move: order and key 0 read, key 1 where
+    a row's key 0 ties a neighbour's (the rows it reads), the rank
+    written; the next key (dense), or the slice's rows and their key 1
+    (their rank read once: 16 B a slice row)."""
+    order, s0, key1 = args[:3]
+    n = order.numel()
+    tie = torch.zeros(n, dtype=torch.bool, device=s0.device)
+    tie[1:] |= s0[1:] == s0[:-1]
+    tie[:-1] |= s0[:-1] == s0[1:]
+    moved = 12 * n + (4 * int(tie.sum()) if key1 is not None else 0)
+    sl = kw.get("slice_")
+    if sl is not None:
+        moved += 16 * min(int(top[0]), sl[0].numel())
+    elif kw.get("nxt") is not None:
+        moved += 4 * n
+    return moved
+
+
+def dense_rank_case(tag: str, args, kw, what: str) -> dict:
+    """dense_rank (sa_round.cu) against _dense_rank_reference (exact, every
+    output: rank_step_run) on one full rank step (``args``, ``kw`` as
+    rank_step_clone keeps them; ``what`` names it); timed with its
+    wrapper (its RankWork made per call), alone and beside Tensor.copy_
+    of the bound's bytes (rank_step_bytes)."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.index import device as idx
-    from cmsbwt_tpu_torch.ops.sort import fault_word
-    fault = fault_word(order.device)
-    moved = 4 * nbytes(order)
+    kern, plain, _, _ = _kernel_and_plain(K, idx)
+    n, top = args[0].numel(), rank_step_run(plain, args, kw)[1]
+    moved = rank_step_bytes(args, kw, top)
     r = compare("dense_rank", tag, "_dense_rank_reference",
-                lambda: K.dense_rank_cuda(order, s0, key1, fault),
-                lambda: idx._dense_rank_reference(order, s0, key1),
-                f"the head string's rank step: n={order.numel()} rows",
-                moved)
+                lambda: rank_step_run(kern, args, kw),
+                lambda: rank_step_run(plain, args, kw),
+                f"{what}: n={n} rows, "
+                f"{'two keys' if args[2] is not None else 'one key'}, "
+                + (f"{int(top[0])} left unresolved"
+                   if kw.get("slice_") is not None
+                   else f"largest rank {int(top[0])}"), moved)
     r.pop("outputs")
-    r["alone_ms"] = alone_ms(*dense_rank_launch(K, order, s0, key1, fault))
+    r["alone_ms"] = alone_ms(*dense_rank_launch(K, args, kw))
     r["copy_ms"] = copy_ms(moved)
-    r["rows"] = order.numel()
+    r["rows"] = n
+    r["top"] = int(top[0])
     log(f"kernel dense_rank[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
         f"wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
+        f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+    return r
+
+
+def comp_step_bytes(args, want) -> int:
+    """Bytes a compacted step must move: the u rows' order, key 0, key 1
+    and text positions read (16 B a row); the rank written where it
+    changes and the suffix array where a row is resolved this round (4 B
+    each, counted from the plain version's outputs ``want``:
+    comp_step_run's); the next slice's rows written, with their key 1
+    (their rank read once: 16 B a row)."""
+    perm, ti, rank0, shift = args[0], args[3], args[4], args[-1]
+    top, rank = want[0], want[1]
+    u, c = perm.numel(), int(top[0])
+    t = ti.long()
+    changed = int((rank[t] != rank0[t]).sum())
+    return 16 * u + 4 * changed + 4 * (u - c) + 8 * c + (8 * c if shift
+                                                          else 0)
+
+
+def dense_rank_comp_case(tag: str, args) -> dict:
+    """dense_rank_comp against _comp_rank_reference (exact, every output:
+    comp_step_run) on the head string's first compacted step, then timed
+    with its wrapper, alone and beside Tensor.copy_ of the bound's bytes
+    (comp_step_bytes)."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.index import device as idx
+    _, _, kern, plain = _kernel_and_plain(K, idx)
+    u, m = args[0].numel(), args[4].numel()
+    want = comp_step_run(plain, args)
+    top, moved = want[0], comp_step_bytes(args, want)
+    r = compare("dense_rank_comp", tag, "_comp_rank_reference",
+                lambda: comp_step_run(kern, args),
+                lambda: comp_step_run(plain, args),
+                f"the head string's first compacted step: u={u} of m={m} "
+                f"rows, {int(top[0])} left unresolved", moved)
+    r.pop("outputs")
+    r["alone_ms"] = alone_ms(*dense_rank_comp_launch(K, args, 5))
+    r["copy_ms"] = copy_ms(moved)
+    r["rows"], r["m"], r["unresolved"] = u, m, int(top[0])
+    log(f"kernel dense_rank_comp[{tag}]: alone {r['alone_ms']:.3f} ms, as "
+        f"the wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
         f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
     return r
 
@@ -1744,13 +1905,15 @@ def pair_expand_case(tag: str, cls: dict, pairs: dict, slot_base, n: int,
 
 
 def merge_kernel_cases(tag: str, cap: MergeCapture,
-                       scan_sorts: SortCapture | None = None) -> dict:
+                       scan_sorts: SortCapture,
+                       index_rank: IndexRankCapture) -> dict:
     """The merge's kernels against their plain versions (exact) on the
-    inputs one device merge gave them (MergeCapture), then timed:
-    radix_sort on every sort of the merge and of ``scan_sorts`` (the jump
-    scan's: one index-doubling round, the candidates) by call site
-    (``radix_sort_sites``; ``radix_sort`` is the merge's largest, the
-    join's)."""
+    inputs one device merge gave them (MergeCapture), and dense_rank's
+    dense mode on the jump scan's index build's round 0 (``index_rank``),
+    then timed: radix_sort on every sort of the merge and of
+    ``scan_sorts`` (the jump scan's: one index-doubling round, the
+    candidates) by call site (``radix_sort_sites``; ``radix_sort`` is the
+    merge's largest, the join's)."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.ops.fill import running_fill_reference
@@ -1812,7 +1975,20 @@ def merge_kernel_cases(tag: str, cap: MergeCapture,
         f"wrapper runs it {r['ms']:.3f} ms, copy_ of the same bytes "
         f"{r['copy_ms']:.3f} ms, three Tensor.index_add_ "
         f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
-    out["dense_rank"] = dense_rank_case(tag, *cap.rank)
+    # the head string's main path runs one full step (its first round,
+    # on the pairs, group-start ranks), then compacted rounds; the
+    # reference index runs dense steps in every round
+    out["dense_rank"] = dense_rank_case(
+        f"{tag} first round", *cap.rank,
+        "the head string's first round (group-start ranks, the slice)")
+    if index_rank.step is None:
+        fail(f"the {tag} jump scan's index build ran no two-key rank step")
+    out["dense_rank_index"] = dense_rank_case(
+        f"{tag} index round 0", *index_rank.step,
+        "the reference index's round 0 (dense ranks, the next key)")
+    if cap.comp is None:
+        fail(f"the {tag} merge's head string ran no compacted round")
+    out["dense_rank_comp"] = dense_rank_comp_case(tag, cap.comp)
     out["pair_expand"] = pair_expand_case(tag, *cap.expand)
     k_s, len_s, chr_s = cap.runs
     out["run_merge"] = compare(
@@ -1824,7 +2000,7 @@ def merge_kernel_cases(tag: str, cap: MergeCapture,
     # the scan's own: its index's doubling shares a site with the merge's
     # head-string sort (index/device.suffix_array_device)
     sites = {f"{site} (jump scan)": args
-             for site, args in (scan_sorts.sites if scan_sorts else {}).items()}
+             for site, args in scan_sorts.sites.items()}
     sites.update(cap.sorts.sites)
     out["radix_sort_sites"] = {site: sort_times(f"{tag} {site}", *args)
                                for site, args in sites.items()}
@@ -2094,6 +2270,219 @@ def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
     log(f"mesh: phase 10 took {time.perf_counter() - t10:.1f} s")
 
 
+# dense_rank's tiles (sa_round.cu: 2048 rows) and the sizes at their edges
+RANK_TILE = 2048
+RANK_SIZES = (1, 2, 3, RANK_TILE - 1, RANK_TILE, RANK_TILE + 1,
+              3 * RANK_TILE + 5, 100_003, (1 << 20) + 3)
+RANK_KINDS = ("random", "few", "equal", "distinct")
+
+
+def rank_keys(n: int, kind: str, seed: int):
+    """Two int32 key rows on the card, below (n, n + 1): random, few
+    values, all equal or all distinct (key 0)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        a, b = rng.integers(0, n, n), rng.integers(0, n + 1, n)
+    elif kind == "few":
+        a, b = rng.integers(0, min(3, n), n), rng.integers(0, 2, n)
+    elif kind == "equal":
+        a, b = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    else:
+        a, b = rng.permutation(n), rng.integers(0, n + 1, n)
+    return (torch.from_numpy(a.astype(np.int32)).cuda(),
+            torch.from_numpy(b.astype(np.int32)).cuda())
+
+
+def _same(what: str, want, got) -> None:
+    if want.dtype != got.dtype or want.shape != got.shape or \
+            not torch.equal(want.cpu(), got.cpu()):
+        fail(f"{what}: differs from the CPU's")
+
+
+def rank_step_run(fn, args, kw) -> tuple:
+    """One full rank step ``fn(order, s0, key1, out, **kw)`` (the CUDA
+    wrapper or index/device._dense_rank_reference) on copies of the
+    step's in-place outputs (``args`` = order, s0, key1, out; ``kw`` the
+    dispatch's keywords but its scratch): every output it defines, the
+    rank, top, the next key, or the slice's rows and their key 1."""
+    order, s0, key1, out = args
+    k = dict(kw)
+    if k.get("nxt") is not None:
+        k["nxt"] = k["nxt"].clone()
+    if k.get("slice_") is not None:
+        k["slice_"] = tuple(t.clone() for t in k["slice_"])
+    rank, top = fn(order, s0, key1, None if out is None else out.clone(),
+                   **k)
+    sl = k.get("slice_")
+    got = [rank, top]
+    if sl is not None:
+        c = min(int(top[0]), sl[0].numel())
+        got += [t[:c] for t in sl]
+    elif k.get("nxt") is not None:
+        got.append(k["nxt"])
+    return tuple(got)
+
+
+def comp_step_run(fn, args) -> tuple:
+    """One compacted step ``fn(perm, s0, k1, ti, rank, sa, nxt_slice,
+    shift)`` (the CUDA wrapper or index/device._comp_rank_reference) on
+    copies of its in-place outputs (``args`` as CompCapture keeps them):
+    top, the rank, the suffix array, the next slice and its key 1."""
+    perm, s0, k1, ti, rank, sa, nxt_slice, shift = args
+    k1, rank, sa = k1.clone(), rank.clone(), sa.clone()
+    ti_n, k0_n = (t.clone() for t in nxt_slice)
+    top = fn(perm, s0, k1, ti, rank, sa, (ti_n, k0_n), shift)
+    c = int(top[0])
+    return (top, rank, sa, ti_n[:c], k0_n[:c]) + ((k1[:c],) if shift
+                                                   else ())
+
+
+def _kernel_and_plain(K, idx):
+    """The rank steps' CUDA wrappers (on the sorts' fault word) and plain
+    versions, as rank_step_run and comp_step_run call them."""
+    from cmsbwt_tpu_torch.ops.sort import fault_word
+    fault = fault_word("cuda:0")
+    return (lambda o, s, k1, out, **kw: K.dense_rank_cuda(o, s, k1, fault,
+                                                          out, **kw),
+            idx._dense_rank_reference,
+            lambda *a: K.dense_rank_comp_cuda(*a, fault),
+            idx._comp_rank_reference)
+
+
+def rank_step_case(name: str, order, s0, key1, shift: int, start=None):
+    """dense_rank_cuda against _dense_rank_reference on one sorted step,
+    exact (rank_step_run; every output written over -7s): dense ranks
+    with the next key at ``shift``, or with ``start`` = cap group-start
+    ranks, the slice (cap rows) and its key 1 at ``shift``."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.index import device as idx
+    kern, plain, _, _ = _kernel_and_plain(K, idx)
+    n = order.numel()
+    fill = lambda k: torch.full((k,), -7, dtype=torch.int32, device="cuda")
+    kw = dict(nxt=fill(n), shift=shift) if start is None else \
+        dict(slice_=tuple(fill(start) for _ in range(3)), shift=shift)
+    args = (order, s0, key1, fill(n))
+    for q, (w, g) in enumerate(zip(rank_step_run(plain, args, kw),
+                                   rank_step_run(kern, args, kw))):
+        if w.shape != g.shape or not torch.equal(w, g):
+            fail(f"dense_rank[{name}]: output {q} differs from its plain "
+                 "version")
+
+
+class CompCapture:
+    """Keeps a clone of every compacted step's inputs (index/device's
+    comp_rank) while in use."""
+
+    def __enter__(self):
+        from cmsbwt_tpu_torch.index import device as idx
+        self.idx, self.orig, self.calls = idx, idx.comp_rank, []
+
+        def comp(perm, s0, k1, ti, rank, sa, nxt_slice, shift, work=None):
+            c = lambda t: t.clone()
+            self.calls.append((c(perm), c(s0), c(k1), c(ti), c(rank), c(sa),
+                               tuple(map(c, nxt_slice)), shift))
+            return self.orig(perm, s0, k1, ti, rank, sa, nxt_slice, shift,
+                             work)
+        idx.comp_rank = comp
+        return self
+
+    def __exit__(self, *exc):
+        self.idx.comp_rank = self.orig
+
+
+def comp_step_case(name: str, args) -> None:
+    """dense_rank_comp_cuda against _comp_rank_reference on one compacted
+    step's inputs (``args`` as CompCapture keeps them), exact: every
+    output of comp_step_run."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.index import device as idx
+    _, _, kern, plain = _kernel_and_plain(K, idx)
+    for q, (w, g) in enumerate(zip(comp_step_run(plain, args),
+                                   comp_step_run(kern, args))):
+        if w.shape != g.shape or not torch.equal(w, g):
+            fail(f"dense_rank_comp[{name}]: output {q} differs from its "
+                 "plain version")
+
+
+def rank_strings() -> dict:
+    """Strings for the suffix sort's checks: (values int32, bound)."""
+    rng = np.random.default_rng(17)
+    out = {"acgt_1000": (rng.integers(0, 4, 1000), 256),
+           "acgt_300k": (rng.integers(0, 4, 300_000), 256),
+           "periodic_5000": (np.tile([0, 1, 2, 1], 1250), 256),
+           "equal_4099": (np.zeros(4099, np.int64), 256),
+           "n1": (rng.integers(0, 4, 1), 256)}
+    # a head string: ranks with repeats, a terminator 0, pads above 2^30
+    h, L = 200_000, 262_145
+    r = np.empty(L, np.int64)
+    r[:h] = np.repeat(rng.integers(1, 5000, h // 20), 20)
+    r[h] = 0
+    r[h + 1:] = (1 << 30) + np.arange(h + 1, L)
+    out["head_string"] = (r, (1 << 30) + L)
+    return {k: (v.astype(np.int32), b) for k, (v, b) in out.items()}
+
+
+def rank_cases() -> int:
+    """dense_rank (both modes) and dense_rank_comp against their plain
+    versions on the card (exact): every kind of key at the tiles' edges,
+    one key and two, the next key at shifts inside and past n, the
+    group-start mode's slice whole and cut, its key 1 at shifts inside
+    and past n; then index/device.suffix_array_device on the card against
+    the CPU on rank_strings() with the history and without it, each
+    compacted step on the card against its plain version. Returns the
+    cases run."""
+    from cmsbwt_tpu_torch.index import device as idx
+    from cmsbwt_tpu_torch.ops import sort as S
+    cases = 0
+    for n in RANK_SIZES:
+        for kind in RANK_KINDS:
+            a, b = rank_keys(n, kind, n + cases)
+            order, s0 = S.stable_argsort((a, b), (S.key_bits(n),
+                                                  S.key_bits(n + 1)),
+                                         values=True)
+            o1, s1 = S.stable_argsort((a,), (S.key_bits(n),), values=True)
+            for key1, (o, s) in ((None, (o1, s1)), (b, (order, s0))):
+                tag = f"{kind}, n={n}, {'two keys' if key1 is not None else 'one key'}"
+                for shift in (1, 3, n + 5):
+                    rank_step_case(f"{tag}, dense, shift {shift}", o, s, key1,
+                                   shift)
+                    cases += 1
+                for cap in (n, max(1, n // 3)):
+                    for shift in (2, n + 5):
+                        rank_step_case(f"{tag}, start, cap {cap}, shift "
+                                       f"{shift}", o, s, key1, shift, cap)
+                        cases += 1
+    S.check_faults("cuda:0")
+    for name, (x, bound) in rank_strings().items():
+        n = len(x)
+        xc = torch.from_numpy(x)
+        want = {h: idx.suffix_array_device(xc, n, bound, history=h)
+                for h in (True, False)}
+        xg = xc.cuda()
+        got = idx.suffix_array_device(xg, n, bound, history=True)
+        for q, what in enumerate(("sa", "isa", "history")):
+            _same(f"suffix_array_device[{name}, history] {what}",
+                  want[True][q], got[q])
+        if got[3] != want[True][3]:
+            fail(f"suffix_array_device[{name}, history]: k_star differs")
+        with CompCapture() as cap:
+            got = idx.suffix_array_device(xg, n, bound, history=False)
+        for q, what in enumerate(("sa", "isa")):
+            _same(f"suffix_array_device[{name}] {what}", want[True][q],
+                  got[q])
+        if got[2] is not None or got[3] != want[True][3]:
+            fail(f"suffix_array_device[{name}]: a history or another "
+                 "k_star")
+        for i, args in enumerate(cap.calls):
+            comp_step_case(f"{name}, step {i}", args)
+            cases += 1
+        cases += 1
+    S.check_faults("cuda:0")
+    log(f"rank_cases: {cases} cases of dense_rank, dense_rank_comp and "
+        "the suffix sort equal their plain versions")
+    return cases
+
+
 def sort_row(row, name, source, replaces, merge_cases, counted, keys):
     """The kernels line's row of a sort kernel: its 500 Mchar and primary
     merge cases, with its alone and copy_ times and the extra ``keys`` of
@@ -2119,14 +2508,21 @@ def sort_row(row, name, source, replaces, merge_cases, counted, keys):
                          "copy_ms", "bound_ms") + keys}, **extra)
 
 
-def merge_row(row, name, source, replaces, merge_cases):
+def merge_row(row, name, source, replaces, merge_cases, also=()):
     """The kernels line's row of a merge kernel held on the 500 Mchar and
-    the primary merge's inputs, with its alone and copy_ times at both."""
+    the primary merge's inputs, with its alone and copy_ times at both;
+    each of ``also`` (other cases of the same kernel) listed under its
+    name at both shapes."""
     big, prim = merge_cases["500M"][name], merge_cases["primary"][name]
     keys = ("rows", "ms", "alone_ms", "plain_ms", "copy_ms", "bound_ms")
-    return row(name, source, replaces, [big, prim], None,
+    extra = {a: {tag: {k: c[a][k] for k in keys}
+                 for tag, c in merge_cases.items()} for a in also}
+    return row(name, source, replaces,
+               [big, prim] + [c[a] for c in merge_cases.values()
+                              for a in also], None,
                alone_ms=big["alone_ms"], copy_ms=big["copy_ms"],
-               rows=big["rows"], primary={k: prim[k] for k in keys})
+               rows=big["rows"], primary={k: prim[k] for k in keys},
+               **extra)
 
 
 def main() -> int:
@@ -2236,10 +2632,19 @@ def run_phases(card: str, kind: str, started: float) -> int:
         exact_merges[0] += 1
         return tail_exact(*a, **kw)
     dmg.tail_exact_dev = counted_tail_exact
+    # the head strings' compacted steps (index/device.comp_rank), each of
+    # which launches dense_rank_comp once
+    comp_steps = [0]
+    comp_rank = idx.comp_rank
+
+    def counted_comp(*a, **kw):
+        comp_steps[0] += 1
+        return comp_rank(*a, **kw)
+    idx.comp_rank = counted_comp
 
     def reset_counts():
         kernels.reset_launch_counts()
-        exact_merges[0] = 0
+        exact_merges[0] = comp_steps[0] = 0
         for calls in PLAIN_CALLS:
             for k in calls:
                 calls[k] = 0
@@ -2252,7 +2657,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
         mine = tuple(k for k in dict.fromkeys(
             (ROUTE_KERNELS[backend] if scanned else ())
             + MERGE_KERNELS[engine])
-            if k != "tail_exact_credit" or exact_merges[0])
+            if (k != "tail_exact_credit" or exact_merges[0])
+            and (k != "dense_rank_comp" or comp_steps[0]))
         may = mine + tuple(k for e in (backend, *engine.split("/"))
                            for k in MAY_LAUNCH.get(e, ()))
         counts = dict(kernels.LAUNCHES)
@@ -2261,7 +2667,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
             + (f"; block tries {tries}" if tries is not None else "")
             + f"; merge {engine}"
             + (f" ({exact_merges[0]} with exact pairs)"
-               if engine == "device" else ""))
+               if engine == "device" else "")
+            + f"; {comp_steps[0]} compacted head-string steps")
         if any(plain.values()):
             fail(f"{tag}: a plain version ran on the card's main path")
         if any(counts[k] < 1 for k in mine) or any(
@@ -2275,6 +2682,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
         if counts["tail_exact_credit"] != exact_merges[0]:
             fail(f"{tag}: tail_exact_credit did not carry every merge with "
                  f"exact pairs ({exact_merges[0]})")
+        if counts["dense_rank_comp"] != comp_steps[0]:
+            fail(f"{tag}: dense_rank_comp did not carry every compacted "
+                 f"head-string step ({comp_steps[0]})")
         paths.append((backend, tag, runs, counts, tries, engine, mine))
         return counts
 
@@ -2395,15 +2805,15 @@ def run_phases(card: str, kind: str, started: float) -> int:
         f"host ms {times['host']}, device ms {times['device']}")
     # phase 11's primary case: the merge kernels on the inputs this
     # merge gives them, and the jump scan's sorts (its index built anew)
-    with SortCapture() as scan_sorts:
+    with SortCapture() as scan_sorts, IndexRankCapture() as index_rank:
         mj.ms_jump_heads(x_aug, coll.sx, "cuda")
     with MergeCapture() as cap:
         again = merge_heads_device_resident(jres, coll.d, False)
     if not all(np.array_equal(a, b) for a, b in zip(again, dev)):
         fail("the device merge's runs differ between two runs")
     merge_cases = {"primary": merge_kernel_cases("primary", cap,
-                                                 scan_sorts)}
-    del jres, host, dev, want_runs, again, cap, scan_sorts
+                                                 scan_sorts, index_rank)}
+    del jres, host, dev, want_runs, again, cap, scan_sorts, index_rank
 
     # phase 6: the dense slice through the CLI, kernel launches counted
     run_cli("dense", "dense")
@@ -2545,7 +2955,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
              "collection char")
     dres = kept.pop("res")
     t0 = time.perf_counter()
-    with SortCapture() as scan_sorts:
+    with SortCapture() as scan_sorts, IndexRankCapture() as index_rank:
         jres = mj.ms_jump_heads(xb, cb.sx, "cuda")
     log(f"big: jump heads h={jres.h} ({time.perf_counter() - t0:.2f} s); "
         f"blocked dense heads h={dres.h} irreducible={dres.irreducible}")
@@ -2562,8 +2972,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
         torch.cuda.synchronize()
         log(f"big: the device merge of the same heads again "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    merge_cases["500M"] = merge_kernel_cases("500M", cap, scan_sorts)
-    del cap, scan_sorts
+    merge_cases["500M"] = merge_kernel_cases("500M", cap, scan_sorts,
+                                             index_rank)
+    del cap, scan_sorts, index_rank
     torch.cuda.empty_cache()
     # the host merge on the same heads, against the device merge's output
     from cmsbwt_tpu_torch.io import native
@@ -2609,9 +3020,10 @@ def run_phases(card: str, kind: str, started: float) -> int:
     fills = fill_cases()
     bucket_sums_cases()
     sort_cases()
+    rank_cases()
     for name in ("running_fill", "tail_good_join", "tail_exact_credit",
                  "bucket_sums", "run_merge", "radix_sort", "compact",
-                 "dense_rank", "pair_expand"):
+                 "dense_rank", "dense_rank_comp", "pair_expand"):
         for tag, res in merge_cases.items():
             r = res[name]
             log(f"merge kernel {name}[{tag}]: {r['ms']:.3f} ms, plain "
@@ -2696,7 +3108,10 @@ def run_phases(card: str, kind: str, started: float) -> int:
                  "cmsbwt_tpu/engine/device_merge.py:488", merge_cases,
                  ("compact",), ()),
         merge_row(row, "dense_rank", csrc + "sa_round.cu",
-                  "cmsbwt_tpu/index/device.py:24", merge_cases),
+                  "cmsbwt_tpu/index/device.py:24", merge_cases,
+                  ("dense_rank_index",)),
+        merge_row(row, "dense_rank_comp", csrc + "sa_round.cu",
+                  "cmsbwt_tpu/index/device.py:80", merge_cases),
         merge_row(row, "pair_expand", csrc + "pair_expand.cu",
                   "cmsbwt_tpu/engine/device_merge.py:359", merge_cases),
         row("sa_round", csrc + "sa_round.cu",

@@ -4,19 +4,27 @@ cmsbwt_tpu/index/device.py, function by function.
 * suffix array: Manber–Myers prefix doubling; each round is one stable
   ``ops/sort.stable_argsort`` by the two keys (rank, next + 1), each of
   the bits of n (the JAX version sorts them packed into one int64 word),
-  then the round's rank step, ``dense_rank``: the dense rank of each row
-  in text order and the round's largest rank, by the CUDA kernel
+  then the round's rank step, ``dense_rank``, by the CUDA kernel
   ``kernels/csrc/sa_round.cu``'s dense_rank for CUDA tensors, by
-  ``_dense_rank_reference`` (the torch sequence of gather, compare,
-  cumsum and scatter) for CPU tensors. The JAX version inverts each
-  round's order by a second sort; here the rank lands through the order.
-  The JAX version skips converged rounds with ``lax.cond``; here a host
-  loop reads the largest rank and the sorts' fault word in one copy a
-  round, breaks early and fills the remaining history rows. The shifted
-  key goes into one buffer that every round reuses.
+  ``_dense_rank_reference`` for CPU tensors; the step also writes the
+  next round's shifted key. The JAX version inverts each round's order
+  by a second sort; here the rank lands through the order. The JAX
+  version skips converged rounds with ``lax.cond``; here a host loop
+  reads one word pair a round (the largest rank or the unresolved count,
+  and the sorts' fault word), breaks early and fills the remaining
+  history rows.
+* with the rank history (the reference index) every round ranks all n
+  rows densely, as JAX's history rows are. Without it (the head string's
+  sort in engine/device_merge.py and engine/ranking.py) a row's rank is
+  the sorted index at which its group starts, which stays fixed once the
+  row is resolved, and every round after the first sorts and ranks only
+  the rows still in groups of two or more (``comp_rank``:
+  ``dense_rank_comp`` on CUDA, ``_comp_rank_reference`` on the CPU),
+  writing each row's rank and its place in the suffix array in place. At
+  convergence every group is a singleton, so the rank, the order and
+  k_star are JAX's.
 * rank history: a [LEVELS, n] int32 buffer, kept where asked for
-  (``history``; the head string's sort in engine/device_merge.py and
-  engine/ranking.py needs none); LCP is computed by binary lifting over it.
+  (``history``); LCP is computed by binary lifting over it.
 * PSV/NSV: a power-of-two sparse table of LCP window minima.
 
 All tensors are int32 (n < 2^31; the rank step's kernel takes n < 2^30).
@@ -33,65 +41,187 @@ from ..ops.sort import fault_word, key_bits, raise_faults, stable_argsort
 INT_MAX = 2**31 - 1
 I32 = torch.int32
 
-# calls of the plain version (the CUDA wrapper keeps its own launch count)
-REFERENCE_CALLS = {"_dense_rank_reference": 0}
+# calls of the plain versions (the CUDA wrappers keep their own launch
+# counts)
+REFERENCE_CALLS = {"_dense_rank_reference": 0, "_comp_rank_reference": 0}
 
 
-def dense_rank(order, s0, key1=None, out=None):
-    """The rank step after a round's sort, on the device of its tensors:
-    the CUDA kernel for CUDA tensors, ``_dense_rank_reference`` for CPU
-    tensors. Returns (rank int32[n] in text order, into ``out`` where
-    given; top int32[2]: the largest rank and the sorts' fault word as it
-    stood after the sort, on the device)."""
+def _rank_work(n: int, steps: int, dev):
+    """One suffix sort's scratch and stagings for its rank steps on CUDA
+    (kernels.RankWork); None on the CPU."""
+    if torch.device(dev).type != "cuda":
+        return None
+    from ..kernels import RankWork
+    return RankWork(n, steps, dev)
+
+
+def dense_rank(order, s0, key1=None, out=None, *, nxt=None, shift: int = 0,
+               slice_=None, work=None):
+    """The full rank step after a round's sort, on the device of its
+    tensors: the CUDA kernel for CUDA tensors, ``_dense_rank_reference``
+    for CPU tensors (``work``: the CUDA kernel's RankWork). Returns (rank
+    int32[n] in text order, into ``out`` where given; top int32[2]: the
+    largest rank, or with ``slice_`` the unresolved count, and the sorts'
+    fault word as it stood after the sort, on the device)."""
     dev = order.device
     if dev.type == "cuda":
         from ..kernels import dense_rank_cuda
-        return dense_rank_cuda(order, s0, key1, fault_word(dev), out)
+        return dense_rank_cuda(order, s0, key1, fault_word(dev), out,
+                               nxt=nxt, shift=shift, slice_=slice_,
+                               work=work)
     if dev.type == "cpu":
-        return _dense_rank_reference(order, s0, key1, out)
+        return _dense_rank_reference(order, s0, key1, out, nxt=nxt,
+                                     shift=shift, slice_=slice_)
     raise ValueError(f"dense_rank: unsupported device {dev.type!r}")
 
 
-def _dense_rank_reference(order, s0, key1=None, out=None):
-    """Over the n rows in ``order`` (the stable order by (key 0, key 1);
-    ``s0`` key 0 in that order, ``key1`` key 1 in text order or None):
-    each row's dense rank (ties share a rank: JAX's cumsum(changed) - 1)
-    at its text position, and top = (the largest rank, the fault word).
-    Plain torch, on any device."""
-    REFERENCE_CALLS["_dense_rank_reference"] += 1
+def _starts(order, s0, key1):
+    """Over the rows in ``order``: whether each starts a rank (key 0 or
+    key 1 differs from the row before's, or it is the first row)."""
     n = order.shape[0]
     diff = s0[1:] != s0[:-1]
     if key1 is not None:
         ks = key1[order]
         diff |= ks[1:] != ks[:-1]
-    changed = torch.ones(n, dtype=I32, device=s0.device)
-    changed[1:] = diff.to(I32)
-    ranks = (torch.cumsum(changed, 0) - 1).to(I32)
+    changed = torch.ones(n, dtype=torch.bool, device=s0.device)
+    changed[1:] = diff
+    return changed
+
+
+def _last_row(flag):
+    """The last row at or before each row where ``flag`` is set (-1:
+    none)."""
+    at = torch.arange(flag.shape[0], dtype=I32, device=flag.device)
+    return torch.cummax(torch.where(flag, at, -1), 0).values.to(I32)
+
+
+def _unresolved(starts):
+    """Rows not a rank start followed by a rank start (the row after the
+    last is one): those in groups of two or more."""
+    nxt = torch.ones_like(starts)
+    nxt[:-1] = starts[1:]
+    return ~(starts & nxt)
+
+
+def _shifted(rank, at, shift: int):
+    """rank[at + shift] + 1, 0 past the end (int32)."""
+    n = rank.shape[0]
+    j = at.long() + shift
+    return torch.where(j < n, rank[torch.clamp(j, max=n - 1)] + 1,
+                       0).to(I32)
+
+
+def _dense_rank_reference(order, s0, key1=None, out=None, *, nxt=None,
+                          shift: int = 0, slice_=None):
+    """Over the n rows in ``order`` (the stable order by (key 0, key 1);
+    ``s0`` key 0 in that order, ``key1`` key 1 in text order or None):
+    each row's rank at its text position: the dense rank (ties share a
+    rank: JAX's cumsum(changed) - 1), with ``nxt`` = rank[t + shift] + 1
+    (0 past the end); or with ``slice_`` = (ti, k0, k1) the group-start
+    rank (the last rank start row at or before it), the unresolved rows'
+    text positions, ranks and key 1 at ``shift`` (sorted order, the first
+    cap = len(ti) of them) into ti, k0 and k1. top = (the largest rank or
+    the unresolved count, the fault word). Plain torch, on any device."""
+    REFERENCE_CALLS["_dense_rank_reference"] += 1
+    n = order.shape[0]
+    starts = _starts(order, s0, key1)
     rank = torch.empty(n, dtype=I32, device=s0.device) if out is None \
         else out
-    rank[order] = ranks  # a permutation
-    top = torch.cat([ranks[-1:], fault_word(s0.device)])
+    if slice_ is None:
+        ranks = (torch.cumsum(starts.to(I32), 0) - 1).to(I32)
+        word = ranks[-1:]
+    else:
+        ranks = _last_row(starts)
+        un = _unresolved(starts)
+        u = int(un.sum())
+        ti, k0, k1 = slice_
+        rows = torch.nonzero(un).flatten()[:ti.shape[0]]
+        ti[:len(rows)] = order[rows]
+        k0[:len(rows)] = ranks[rows]
+        word = torch.tensor([u], dtype=I32, device=s0.device)
+    rank[order.long()] = ranks  # a permutation
+    if slice_ is not None:
+        c = len(rows)
+        k1[:c] = _shifted(rank, ti[:c], shift)
+    elif nxt is not None:
+        nxt.copy_(_shifted(rank, torch.arange(n, device=s0.device), shift))
+    top = torch.cat([word, fault_word(s0.device)])
     return rank, top
 
 
-def _dense_rank(keys, bounds, out=None):
-    """Dense rank (ties share rank) of the rows by one or two int32 keys
-    (most significant first, each below its bound), int32; returns (rank,
-    the stable order of the rows, top: the largest rank and the sorts'
-    fault word, on the device)."""
+def comp_rank(perm, s0, k1, ti, rank, sa, nxt_slice, shift: int,
+              work=None):
+    """A compacted round's rank step after its sort, on the device of its
+    tensors: ``dense_rank_comp`` for CUDA tensors, ``_comp_rank_reference``
+    for CPU tensors. Returns top int32[2] (the unresolved count, the
+    sorts' fault word), on the device."""
+    dev = perm.device
+    if dev.type == "cuda":
+        from ..kernels import dense_rank_comp_cuda
+        return dense_rank_comp_cuda(perm, s0, k1, ti, rank, sa, nxt_slice,
+                                    shift, fault_word(dev), work)
+    if dev.type == "cpu":
+        return _comp_rank_reference(perm, s0, k1, ti, rank, sa, nxt_slice,
+                                    shift)
+    raise ValueError(f"comp_rank: unsupported device {dev.type!r}")
+
+
+def _comp_rank_reference(perm, s0, k1, ti, rank, sa, nxt_slice,
+                         shift: int):
+    """Over the u rows of the slice in ``perm`` (their stable order by
+    (key 0, key 1); ``s0`` key 0 in that order; ``k1``, ``ti`` the slice's
+    key 1 and text positions by slice row), with G and F the last group
+    (key 0) and rank (key 0 or key 1) start rows at or before r: rank[t]
+    = key 0 + (F - G), sa[key 0 + (r - G)] = t for the rows now resolved
+    (a later round places the others), the unresolved rows' text
+    positions and ranks (sorted order) into ``nxt_slice`` = (ti_n, k0_n),
+    and with ``shift`` > 0 their key 1 at that shift into k1 (after the
+    ranks land). Returns top = (the unresolved count, the fault word).
+    Plain torch, on any device."""
+    REFERENCE_CALLS["_comp_rank_reference"] += 1
+    u = perm.shape[0]
+    p = perm.long()
+    tis, k1s = ti[p], k1[p]
+    g_start = torch.ones(u, dtype=torch.bool, device=s0.device)
+    g_start[1:] = s0[1:] != s0[:-1]
+    starts = g_start.clone()
+    starts[1:] |= k1s[1:] != k1s[:-1]
+    G, F = _last_row(g_start), _last_row(starts)
+    at = torch.arange(u, dtype=I32, device=s0.device)
+    new = (s0 + (F - G)).to(I32)
+    rank[tis.long()] = new
+    un = _unresolved(starts)
+    sa[(s0 + (at - G))[~un].long()] = tis[~un]
+    c = int(un.sum())
+    ti_n, k0_n = nxt_slice
+    ti_n[:c] = tis[un]
+    k0_n[:c] = new[un]
+    if shift > 0 and c:
+        k1[:c] = _shifted(rank, ti_n[:c], shift)
+    return torch.cat([torch.tensor([c], dtype=I32, device=s0.device),
+                      fault_word(s0.device)])
+
+
+def _dense_rank(keys, bounds, out=None, **step):
+    """Rank (dense, or as ``step`` asks: see dense_rank) of the rows by one
+    or two int32 keys (most significant first, each below its bound),
+    int32; returns (rank, the stable order of the rows, top: the largest
+    rank or the unresolved count and the sorts' fault word, on the
+    device)."""
     order, s0 = stable_argsort(keys, [key_bits(b) for b in bounds],
                                values=True)
     rank, top = dense_rank(order, s0, keys[1] if len(keys) > 1 else None,
-                           out)
+                           out, **step)
     return rank, order, top
 
 
-def _largest(top: torch.Tensor) -> int:
-    """The round's largest rank, from one copy of ``top`` that also
-    brings the sorts' fault word (raised on, as check_faults does)."""
-    largest, fault = top.tolist()
+def _read_top(top: torch.Tensor) -> int:
+    """The round's first word (the largest rank, or the unresolved
+    count), from one copy of ``top`` that also brings the sorts' fault
+    word (raised on, as check_faults does)."""
+    word, fault = top.tolist()
     raise_faults(top.device, fault)
-    return largest
+    return word
 
 
 def n_levels(n: int) -> int:
@@ -102,47 +232,67 @@ def n_levels(n: int) -> int:
     return lv + 1  # include level 0
 
 
-def _next_key(rank: torch.Tensor, shift: int, out: torch.Tensor
-              ) -> torch.Tensor:
-    """The rank ``shift`` on, + 1 (0 past the end), into ``out``."""
-    n = rank.shape[0]
-    if shift < n:
-        torch.add(rank[shift:], 1, out=out[:n - shift])
-    out[max(n - shift, 0):] = 0
-    return out
-
-
 def suffix_array_device(x: torch.Tensor, n: int, bound: int = 256,
                         history: bool = True):
     """Return (sa int32[n], isa int32[n], history int32[LEVELS, n] or None
     when ``history`` is False, k_star) for the integer string ``x`` of
     length n, whose values lie in [0, ``bound``) (bytes by default)."""
+    if not history:
+        return _suffix_array_starts(x, n, bound)
     dev = x.device
     levels = n_levels(n)
-    hist = torch.empty((levels, n), dtype=I32, device=dev) if history \
-        else None
-    rank0, _, _ = _dense_rank((x.to(I32),), (bound,),
-                              hist[0] if history else None)
+    work = _rank_work(n, levels, dev)
+    hist = torch.empty((levels, n), dtype=I32, device=dev)
+    # each step writes the next round's key 1 into nxt
     nxt = torch.empty(n, dtype=I32, device=dev)
-    # each round's rank goes straight into its history row
-    rank, sa, top = _dense_rank((rank0, _next_key(rank0, 1, nxt)),
-                                (n, n + 1), hist[1] if history else None)
-    del rank0
-    done = _largest(top) == n - 1
-    k_star = 1 if done else levels
-    for k in range(1, levels - 1):
-        if done:
-            if history:
-                hist[k + 1:] = hist[k]
-            break
-        rank, sa, top = _dense_rank((rank, _next_key(rank, 1 << k, nxt)),
-                                    (n, n + 1),
-                                    hist[k + 1] if history else None)
-        if _largest(top) == n - 1:
-            done = True
+    rank, _, _ = _dense_rank((x.to(I32),), (bound,), hist[0], nxt=nxt,
+                             shift=1, work=work)
+    k_star = levels
+    for k in range(levels - 1):     # round k: shift 2^k, level k + 1
+        rank, sa, top = _dense_rank((rank, nxt), (n, n + 1), hist[k + 1],
+                                    nxt=nxt, shift=2 << k, work=work)
+        if _read_top(top) == n - 1:
             k_star = k + 1
-    # converged at level 1, the rank is a permutation and its order the SA
+            hist[k + 2:] = hist[k + 1]
+            break
+    # converged, the rank is a permutation and its order the SA
     return sa, rank, hist, k_star
+
+
+def _suffix_array_starts(x: torch.Tensor, n: int, bound: int):
+    """suffix_array_device without the history: the first round sorts the
+    pairs (x[t], x[t + 1] + 1) (0 past the end) as JAX's seed packs them,
+    with no one-key step before it; group-start ranks, and every later
+    round over the unresolved rows only (a slice of their text positions,
+    ranks and key 1, carried from round to round)."""
+    dev = x.device
+    levels = n_levels(n)
+    work = _rank_work(n, levels - 1, dev)
+    ti, k0, k1 = (torch.empty(n, dtype=I32, device=dev) for _ in range(3))
+    rank = torch.empty(n, dtype=I32, device=dev)
+    nxt = torch.zeros(n, dtype=I32, device=dev)
+    xi = x.to(I32)
+    torch.add(xi[1:], 1, out=nxt[:n - 1])
+    # round 0 (shift 1): level 1's ranks, JAX's rank1
+    _, sa, top = _dense_rank((xi, nxt), (bound, bound + 1), rank, shift=2,
+                             slice_=(ti, k0, k1), work=work)
+    del xi, nxt
+    u = _read_top(top)
+    k_star = 1 if u == 0 else levels
+    # each round's slice holds at most the round before's rows
+    ti_n = torch.empty(max(u, 1), dtype=I32, device=dev)
+    for k in range(1, levels - 1 if u else 1):   # round k: shift 2^k
+        perm, s0 = stable_argsort((k0[:u], k1[:u]),
+                                  (key_bits(n), key_bits(n + 1)),
+                                  values=True)
+        top = comp_rank(perm, s0, k1[:u], ti[:u], rank, sa,
+                        (ti_n, k0[:ti_n.shape[0]]), 2 << k, work)
+        ti, ti_n = ti_n, ti
+        u = _read_top(top)
+        if u == 0:
+            k_star = k + 1
+            break
+    return sa, rank, None, k_star
 
 
 def lcp_device(sa: torch.Tensor, history: torch.Tensor, n: int

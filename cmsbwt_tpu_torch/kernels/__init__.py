@@ -41,7 +41,7 @@ LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
             "running_fill": 0, "tail_good_join": 0, "bucket_sums": 0,
             "run_merge": 0, "tail_exact_credit": 0, "radix_hist": 0,
             "radix_pass": 0, "compact": 0, "sa_round": 0, "dense_rank": 0,
-            "pair_expand": 0}
+            "dense_rank_comp": 0, "pair_expand": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -152,7 +152,10 @@ def _bind(libs: dict) -> None:
     lib.sa_round_launch.restype = I
     lib.sa_round_launch.argtypes = [I] + [P] * 14 + [I, I, I, I, P, P]
     lib.dense_rank_launch.restype = I
-    lib.dense_rank_launch.argtypes = [P] * 6 + [I, I, P, P, P]
+    lib.dense_rank_launch.argtypes = [I] + [P] * 5 + [LL] + [P] * 3 + [
+        I, P, P, I, I, P, P, P]
+    lib.dense_rank_comp_launch.restype = I
+    lib.dense_rank_comp_launch.argtypes = [P] * 8 + [I, LL, I, I, P, P, P]
     lib = libs["pair_expand"]
     lib.pair_expand_launch.restype = I
     lib.pair_expand_launch.argtypes = [P] * 10 + [I, I, I, I, LL] + [P] * 6
@@ -940,16 +943,58 @@ def sa_round_seed_cuda(order, rows, sl: int):
     return split_lv, rank, resolved, u0
 
 
-def dense_rank_cuda(order, s0, key1, fault, out=None):
-    """Launch ``dense_rank`` (sa_round.cu) on CUDA tensors: the rank step
-    of a doubling round after its sort (order int32[n], the stable order
-    of the rows by (key 0, key 1); s0 int32[n], key 0 in that order; key1
-    int32[n] in text order, or None for one key; ``fault`` the sorts'
-    fault word). Returns (rank, top): rank int32[n] in text order (into
-    ``out``, a contiguous int32[n], where given) and top int32[2] on the
-    device, the largest rank and the fault word as the kernel read it
-    after the sort (the wrapper does not synchronise). Same contract as
-    index/device._dense_rank_reference."""
+class RankWork:
+    """The zeroed scratch of one suffix sort's rank steps (dense_rank_cuda,
+    dense_rank_comp_cuda), one part a step, and a full step's two
+    stagings, made once for the sort (each made per step otherwise)."""
+
+    def __init__(self, n: int, steps: int, dev):
+        lib = load()["sa_round"]
+        self.shift = sa_round_bins(n, SA_BIN_SHIFT).shift
+        # every step's ticket, words and look-back states start at 0
+        self.stride = -(-int(lib.sa_round_scratch_bytes(n, n, self.shift))
+                        // 128) * 128
+        self.scratch = torch.zeros(steps * self.stride, dtype=torch.uint8,
+                                   device=dev)
+        self.n, self.steps, self.used = n, steps, 0
+        self.st = self.st2 = None
+
+    def take(self) -> torch.Tensor:
+        """The next step's part of the scratch."""
+        if self.used == self.steps:
+            raise RuntimeError(f"RankWork: all {self.steps} steps taken")
+        self.used += 1
+        return self.scratch[(self.used - 1) * self.stride:
+                            self.used * self.stride]
+
+    def stagings(self):
+        if self.st is None:
+            m4 = (self.n + 3) & ~3
+            self.st, self.st2 = (torch.empty(2 * m4, dtype=torch.int32,
+                                             device=self.scratch.device)
+                                 for _ in range(2))
+        return self.st, self.st2
+
+
+def dense_rank_cuda(order, s0, key1, fault, out=None, *, nxt=None,
+                    shift: int = 0, slice_=None, work=None):
+    """Launch ``dense_rank`` (sa_round.cu) on CUDA tensors: the full rank
+    step of a doubling round after its sort (order int32[n], the stable
+    order of the rows by (key 0, key 1); s0 int32[n], key 0 in that
+    order; key1 int32[n] in text order, or None for one key; ``fault``
+    the sorts' fault word). Dense ranks by default, with ``nxt``
+    (int32[n]) the next round's key 1 at ``shift``, rank[t + shift] + 1
+    (0 past the end); with ``slice_`` = (ti, k0, k1), int32[cap] each,
+    cap >= 1, group-start ranks (the sorted index of the row's group's
+    first row), the unresolved rows' text positions and ranks in ti and
+    k0 (sorted order, the first cap of them) and their key 1 at ``shift``
+    in k1 (no ``nxt``). Returns (rank, top): rank
+    int32[n] in text order (into ``out``, a contiguous int32[n], where
+    given; needed with ``slice_``) and top int32[2] on the device, the
+    largest rank (dense) or the unresolved count, and the fault word as
+    the kernel read it after the sort (the wrapper does not synchronise).
+    ``work``: a RankWork of n rows for the scratch and stagings (else
+    made here). Same contract as index/device._dense_rank_reference."""
     dev = order.device
     n = int(order.shape[0])
     i32 = torch.int32
@@ -960,25 +1005,91 @@ def dense_rank_cuda(order, s0, key1, fault, out=None):
     _check("fault", fault, i32, (1,), dev)
     if not 1 <= n < 2**30:
         raise ValueError(f"dense_rank: n = {n} (1 .. 2^30 - 1)")
+    if slice_ is not None and (out is None or nxt is not None):
+        raise ValueError("dense_rank: group-start ranks are written in "
+                         "place (out), with the slice's key 1 (no nxt)")
     rank = torch.empty(n, dtype=i32, device=dev) if out is None else out
     _check("out", rank, i32, (n,), dev)
+    if nxt is not None:
+        _check("nxt", nxt, i32, (n,), dev)
+    cap, ti, k0, k1 = 0, None, None, None
+    if slice_ is not None:
+        ti, k0, k1 = slice_
+        cap = int(ti.shape[0])
+        for name, t in (("ti", ti), ("k0", k0), ("k1", k1)):
+            _check(name, t, i32, (cap,), dev)
+        if cap < 1:
+            raise ValueError("dense_rank: an empty slice")
+    if not 0 <= shift < 2**31:
+        raise ValueError(f"dense_rank: shift {shift}")
+    work = RankWork(n, 1, dev) if work is None else work
+    if work.n != n:
+        raise ValueError(f"dense_rank: a RankWork of {work.n} rows for {n}")
+    scratch = work.take()
+    st, st2 = work.stagings()
+    ptr = lambda t: None if t is None else _ptr(t)
     lib = load()["sa_round"]
-    plan = sa_round_bins(n, SA_BIN_SHIFT)
-    # the ticket, the top words and the look-back's states start at 0
-    scratch = torch.zeros(int(lib.sa_round_scratch_bytes(n, n, plan.shift)),
-                          dtype=torch.uint8, device=dev)
-    m4 = (n + 3) & ~3
-    st = torch.empty(2 * m4, dtype=i32, device=dev)
-    st2 = torch.empty(2 * m4, dtype=i32, device=dev)
     with torch.cuda.device(dev):
         err = lib.dense_rank_launch(
-            _ptr(order), _ptr(s0), None if key1 is None else _ptr(key1),
-            _ptr(rank), _ptr(st), _ptr(st2), n, plan.shift, _ptr(scratch),
-            _ptr(fault),
+            int(slice_ is not None), _ptr(order), _ptr(s0), ptr(key1),
+            _ptr(rank), ptr(nxt), int(shift), ptr(ti), ptr(k0), ptr(k1),
+            cap, _ptr(st), _ptr(st2), n, work.shift,
+            _ptr(scratch), _ptr(fault),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch("dense_rank", err)
     at = int(lib.sa_round_count_offset())
     return rank, scratch[at:at + 8].view(i32)
+
+
+def dense_rank_comp_cuda(perm, s0, k1, ti, rank, sa, nxt_slice, shift: int,
+                         fault, work=None):
+    """Launch ``dense_rank_comp`` (sa_round.cu) on CUDA tensors: a
+    compacted round's rank step over the u rows of the slice of unresolved
+    rows (perm int32[u], their stable order by (key 0, key 1); s0
+    int32[u], key 0 in that order; k1 and ti int32[u], the slice's key 1
+    and text positions by slice row). Writes rank[t] = key 0 + (F - G)
+    and sa[key 0 + (r - G)] = t for the slice's rows (rank and sa
+    int32[m], in place), the unresolved rows' text positions and ranks
+    into ``nxt_slice`` = (ti_n, k0_n), int32[cap] each (ti_n not ti), and,
+    with ``shift`` > 0, their key 1 at that shift into k1. Returns top
+    int32[2] on the device: the unresolved count and the fault word as the
+    kernel read it (the wrapper does not synchronise). ``work``: a
+    RankWork of m rows (else made here). Same contract as
+    index/device._comp_rank_reference."""
+    dev = perm.device
+    u, m = int(perm.shape[0]), int(rank.shape[0])
+    i32 = torch.int32
+    for name, t in (("perm", perm), ("s0", s0), ("k1", k1), ("ti", ti)):
+        _check(name, t, i32, (u,), dev)
+    _check("rank", rank, i32, (m,), dev)
+    _check("sa", sa, i32, (m,), dev)
+    _check("fault", fault, i32, (1,), dev)
+    ti_n, k0_n = nxt_slice
+    cap = int(ti_n.shape[0])
+    _check("ti_n", ti_n, i32, (cap,), dev)
+    _check("k0_n", k0_n, i32, (cap,), dev)
+    if not 1 <= u <= m < 2**30 or cap < u:
+        raise ValueError(f"dense_rank_comp: {u} rows of m = {m} (1 .. "
+                         f"2^30 - 1), a next slice of {cap}")
+    if ti_n.data_ptr() == ti.data_ptr():
+        raise ValueError("dense_rank_comp: the next slice overwrites ti")
+    if not 0 <= shift < 2**31:
+        raise ValueError(f"dense_rank_comp: shift {shift}")
+    work = RankWork(m, 1, dev) if work is None else work
+    if work.n != m:
+        raise ValueError(f"dense_rank_comp: a RankWork of {work.n} rows "
+                         f"for {m}")
+    scratch = work.take()
+    lib = load()["sa_round"]
+    with torch.cuda.device(dev):
+        err = lib.dense_rank_comp_launch(
+            _ptr(perm), _ptr(s0), _ptr(k1), _ptr(ti), _ptr(rank), _ptr(sa),
+            _ptr(ti_n), _ptr(k0_n), cap, int(shift), u, m, _ptr(scratch),
+            _ptr(fault),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch("dense_rank_comp", err)
+    at = int(lib.sa_round_count_offset())
+    return scratch[at:at + 8].view(i32)
 
 
 def pair_expand_cuda(pos, length, key_k, isa_next, size, smaller, pair_lo,

@@ -40,15 +40,27 @@
 // dense_rank_launch runs the same binned store for the rank step of
 // cmsbwt_tpu_torch/index/device.suffix_array_device's doubling rounds
 // (the counterpart of cmsbwt_tpu/index/device.py:24-35 _dense_rank and
-// its caller's rounds :47-120; the port ran it as a gather, two compares,
-// an int64 cumsum and a scatter, then read the rank's max and the sorts'
-// fault word in two syncs). Over the n rows in the order of the round's
-// sort: a row starts a rank where key 0 (sorted) or key 1 (gathered
-// through the order) differs from the row before; rank(r) = the starts up
-// to r, less 1 (the JAX package's dense cumsum(changed) - 1), stored at
-// its text position order[r]; the last row's rank and the fault word go
-// into one 8-byte word pair the host reads once a round. Equal to
-// index/device._dense_rank_reference element for element.
+// its caller's rounds :47-120). Over the n rows in the order of the
+// round's sort: a row starts a rank where key 0 (sorted) or key 1 differs
+// from the row before. Key 1 is read through the order only where a row's
+// key 0 equals a neighbour's: every other row starts a rank, and so does
+// the row after it, whatever key 1 holds (on the H100, at 500 Mchars,
+// the gather of every row took ~0.87 of the step's 1.33 ms). With the
+// rank history (RANK_DENSE) the rank is the JAX package's dense
+// cumsum(changed) - 1; without it (RANK_START, the head string) it is
+// the sorted index at which the row's group starts, and the step also
+// writes the slice of unresolved rows (groups of two or more) in sorted
+// order. The rank lands at its text position through the binned store;
+// with the history sa_round_settle writes the next round's shifted key
+// beside it, without it slice_keys_kernel writes the slice's (every later
+// round is a compacted one).
+// dense_rank_comp_launch runs such a round's step over the slice alone
+// (dense_rank_comp_kernel: the rank, the newly resolved rows' places in
+// the suffix array, the next slice; then slice_keys_kernel). The largest
+// rank or the unresolved count and the fault word go into one 8-byte
+// word pair the host reads once a round. Equal to
+// index/device._dense_rank_reference and _comp_rank_reference element
+// for element.
 //
 // What bounds it on this card: bytes. A full round reads perm, lv and the
 // keys of each row and writes lv, the two rank rows and the flags: 37 B a
@@ -442,24 +454,37 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   if (threadIdx.x == 0 && tile_count) atomicAdd(a.count, tile_count);
 }
 
-// The doubling rounds' rank step of index/device.suffix_array_device: over
-// the n rows in the order of a stable sort by (key 0, key 1), the dense
-// rank of each row (the number of rows before it whose keys differ from
-// their predecessor's) written at its text position order[r] through the
-// binned scatter above, and the largest rank with the sorts' fault word
-// into top[0..1]. key 0 comes sorted (s0[r]); key 1 (absent for the seed's
-// one key) is read through the order. One thread: 8 consecutive rows;
-// the count of rank changes is a sum scanned over tiles with the
-// look-back (SumOp absorbs nothing: a window folds up to the nearest
-// inclusive state).
+// The doubling rounds' rank steps of index/device.suffix_array_device.
+// A full step runs over the n rows in the order of a stable sort by (key
+// 0, key 1): a row starts a rank where key 0 (sorted, s0[r]) or key 1
+// (read through the order; absent for the one-key seed) differs from the
+// row before. In RANK_DENSE mode (the rank history's rows) its rank is the
+// count of starts up to it, less 1; in RANK_START mode (the head string's
+// sort, no history) it is F, the last start row at or before it (the
+// sorted index at which its group starts), and the rows in groups of two
+// or more (unresolved: not a start followed by a start) go, in sorted
+// order, to the next round's slice (their text positions and ranks). The
+// rank lands at its text position through the binned store below; the
+// last row's rank (DENSE) or the unresolved count (START) and the fault
+// word go into one 8-byte word pair the host reads once a round. One
+// thread: 8 consecutive rows; the scan over tiles is the look-back of a
+// sum (DENSE), or of (F under max, the unresolved count) (START).
 struct RankArgs {
-  const int* order;
+  const int* order;     // the sorted rows' sources: text positions (full),
+                        // slice rows (compacted)
   const int* s0;        // key 0 in sorted order
-  const int* key1;      // key 1 in text order, or null
-  int n, shift, bins;
+  const int* key1;      // key 1 by source, or null (the one-key seed)
+  const int* ti;        // compacted: the slice's text positions
+  int* rank;            // compacted: the rank, written at the slice's rows
+  int* sa;              // compacted: each row written at its place
+  int* ti_n;            // START, compacted: the unresolved rows' text
+  int* k0_n;            //   positions and ranks, sorted order, cap rows
+  int cap;
+  int n, m;             // rows; text positions (a full step: n == m)
+  int shift, bins;
   bool vec;             // order and s0 16-byte aligned
   unsigned* ticket;
-  int* top;             // the largest rank, then the fault word's copy
+  int* top;             // the largest rank or the count, the fault's copy
   const int* fault;
   unsigned long long* slots;
   int* cursors;
@@ -467,60 +492,186 @@ struct RankArgs {
   int* st_rank;
 };
 
+enum RankMode : int { RANK_DENSE = 0, RANK_START = 1 };
+
+// START's scan state: the last start row, the unresolved rows
+struct StartCount {
+  int f, cnt;
+};
+
+struct StartCountOp {
+  static __device__ __forceinline__ StartCount identity() {
+    return StartCount{-1, 0};
+  }
+  static __device__ __forceinline__ StartCount combine(const StartCount& x,
+                                                       const StartCount& y) {
+    return StartCount{max(x.f, y.f), x.cnt + y.cnt};
+  }
+  static __device__ __forceinline__ bool absorbs(const StartCount&) {
+    return false;
+  }
+};
+
+// a compacted step's: the last group and rank start rows, the unresolved
+// rows
+struct CompState {
+  int g, f, cnt;
+};
+
+struct CompOp {
+  static __device__ __forceinline__ CompState identity() {
+    return CompState{-1, -1, 0};
+  }
+  static __device__ __forceinline__ CompState combine(const CompState& x,
+                                                      const CompState& y) {
+    return CompState{max(x.g, y.g), max(x.f, y.f), x.cnt + y.cnt};
+  }
+  static __device__ __forceinline__ bool absorbs(const CompState&) {
+    return false;
+  }
+};
+
+// The rows before and after a thread's rows, as sa_round_kernel finds
+// them (a shuffle inside a warp, shared memory across warps, and the
+// rows beside the tile read by its first and last thread): key 0 of the
+// row before its first row (*p0), the start bits ``ch`` of its rows and,
+// where ``NEXT``, whether the row after its last row starts a rank. With
+// ``TIES`` it reads key 1 (``k1``) itself, only for rows whose key 0
+// equals a neighbour's: a row whose key 0 differs from both its
+// neighbours' starts a rank, and so does the row after it, whatever their
+// key 1 (0 there). ``key1`` null: key 1 is 0. Two or three block
+// barriers.
+template <bool NEXT, bool TIES>
+__device__ __forceinline__ void neighbours(const RankArgs& a, const int* src,
+                                           const int* k0, int* k1,
+                                           long long r0, int* wl0, int* wl1,
+                                           int* wf0, int* wf, int* p0,
+                                           unsigned* ch, int* next) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = int(max(0ll, min((long long)ITEMS, a.n - r0)));
+  const bool last = threadIdx.x == THREADS - 1 && r0 + ITEMS < a.n;
+  int q0 = __shfl_up_sync(FULL, k0[ITEMS - 1], 1);
+  int x0 = __shfl_down_sync(FULL, k0[0], 1);
+  if (lane == 31) wl0[warp] = k0[ITEMS - 1];
+  if (TIES && lane == 0) wf0[warp] = k0[0];
+  int b0 = 0, a0 = 0;
+  if (threadIdx.x == 0 && r0 > 0) b0 = __ldg(a.s0 + r0 - 1);
+  if (last) a0 = __ldg(a.s0 + r0 + ITEMS);
+  __syncthreads();
+  if (lane == 0) q0 = warp ? wl0[warp - 1] : b0;
+  if (TIES && lane == 31) x0 = warp + 1 < WARPS ? wf0[warp + 1] : a0;
+  if (TIES) {
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long r = r0 + j;
+      const bool tie =
+          a.key1 && j < n &&
+          ((r > 0 && k0[j] == (j ? k0[j - 1] : q0)) ||
+           (r + 1 < a.n && k0[j] == (j + 1 < ITEMS ? k0[j + 1] : x0)));
+      k1[j] = tie ? __ldcs(a.key1 + src[j]) : 0;
+    }
+  }
+  int q1 = __shfl_up_sync(FULL, k1[ITEMS - 1], 1);
+  if (lane == 31) wl1[warp] = k1[ITEMS - 1];
+  int b1 = 0;
+  if (threadIdx.x == 0 && r0 > 0 && a.key1 && b0 == k0[0])
+    b1 = __ldg(a.key1 + __ldg(a.order + r0 - 1));
+  __syncthreads();
+  if (lane == 0) q1 = warp ? wl1[warp - 1] : b1;
+  *p0 = q0;
+  unsigned c = 0;   // bit j: row r0 + j starts a rank
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int v0 = j ? k0[j - 1] : q0, v1 = j ? k1[j - 1] : q1;
+    const bool d = (j == 0 && r0 == 0) || k0[j] != v0 || k1[j] != v1;
+    if (j < n) c |= unsigned(d) << j;
+  }
+  *ch = c;
+  if (!NEXT) return;
+  *next = __shfl_down_sync(FULL, int(c & 1u), 1);
+  if (lane == 0) wf[warp] = int(c & 1u);
+  int after = 1;
+  if (last)
+    after = a0 != k0[ITEMS - 1] ||
+            (a.key1 && __ldg(a.key1 + __ldg(a.order + r0 + ITEMS)) !=
+                           k1[ITEMS - 1]);
+  __syncthreads();
+  if (lane == 31) *next = warp + 1 < WARPS ? wf[warp + 1] : after;
+}
+
+// bit j: row r0 + j is unresolved (not a start followed by a start; the
+// row after the last is a start)
+__device__ __forceinline__ unsigned unresolved_bits(unsigned ch, int next,
+                                                    long long r0, int rows) {
+  const int n = int(max(0ll, min((long long)ITEMS, rows - r0)));
+  unsigned u = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const bool nf = r0 + j + 1 >= rows ||
+                    (j + 1 < ITEMS ? (ch >> (j + 1) & 1u) != 0 : next != 0);
+    if (j < n && !((ch >> j & 1u) && nf)) u |= 1u << j;
+  }
+  return u;
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     dense_rank_kernel(const RankArgs a) {
+  constexpr bool START = MODE == RANK_START;
   __shared__ int sagg[33];
-  __shared__ int wlast0[WARPS], wlast1[WARPS];
+  __shared__ StartCount cagg[START ? 33 : 1];
+  __shared__ int wl0[WARPS], wl1[WARPS], wf0[WARPS], wf[WARPS];
   __shared__ int off[MAX_BINS], at[MAX_BINS];
   __shared__ unsigned s_pos[TILE];
   __shared__ int s_rank[TILE], s_dst[TILE];
   for (int b = threadIdx.x; b < a.bins; b += THREADS) off[b] = 0;
   const int t = take_ticket(a.ticket);   // synchronises the block
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long r0 = (long long)t * TILE + (long long)threadIdx.x * ITEMS;
   const int n = int(max(0ll, min((long long)ITEMS, a.n - r0)));
   int src[ITEMS], k0[ITEMS], k1[ITEMS];
   load_items<ITEMS>(a.order, r0, a.n, a.vec, 0, src);
   load_items<ITEMS>(a.s0, r0, a.n, a.vec, 0, k0);
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j)
-    k1[j] = a.key1 && j < n ? __ldcs(a.key1 + src[j]) : 0;
-
-  // the row before this thread's first row
-  int p0 = __shfl_up_sync(FULL, k0[ITEMS - 1], 1);
-  int p1 = __shfl_up_sync(FULL, k1[ITEMS - 1], 1);
-  if (lane == 31) {
-    wlast0[warp] = k0[ITEMS - 1];
-    wlast1[warp] = k1[ITEMS - 1];
-  }
-  int b0 = 0, b1 = 0;
-  if (threadIdx.x == 0 && r0 > 0) {
-    b0 = __ldg(a.s0 + r0 - 1);
-    b1 = a.key1 ? __ldg(a.key1 + __ldg(a.order + r0 - 1)) : 0;
-  }
-  __syncthreads();
-  if (lane == 0) {
-    p0 = warp ? wlast0[warp - 1] : b0;
-    p1 = warp ? wlast1[warp - 1] : b1;
-  }
-  unsigned ch = 0;   // bit j: row r0 + j starts a new rank
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const int q0 = j ? k0[j - 1] : p0, q1 = j ? k1[j - 1] : p1;
-    const bool d = (j == 0 && r0 == 0) || k0[j] != q0 || k1[j] != q1;
-    if (j < n) ch |= unsigned(d) << j;
-  }
-  int tot;
-  const int ex = block_scan<false, SumOp>(__popc(ch), 0, sagg, &tot);
-  int run = lookback<SumOp>(a.slots, t, tot) + ex;
+  int p0, next = 1;
+  unsigned ch;
+  neighbours<START, true>(a, src, k0, k1, r0, wl0, wl1, wf0, wf, &p0, &ch,
+                          &next);
   int rk[ITEMS];
+  if (START) {
+    const unsigned un = unresolved_bits(ch, next, r0, a.n);
+    StartCount tot;
+    const StartCount ex = block_scan<false, StartCountOp>(
+        StartCount{top_row(r0, ch), __popc(un)}, StartCountOp::identity(),
+        cagg, &tot);
+    StartCount run = StartCountOp::combine(
+        lookback<StartCountOp>(a.slots, t, tot), ex);
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    run += ch >> j & 1u;
-    rk[j] = run - 1;
-    if (j < n && r0 + j == a.n - 1) {
-      a.top[0] = rk[j];
-      a.top[1] = *a.fault;
+    for (int j = 0; j < ITEMS; ++j) {
+      if (ch >> j & 1u) run.f = int(r0) + j;
+      rk[j] = run.f;
+      if (un >> j & 1u) {
+        if (run.cnt < a.cap) {
+          a.ti_n[run.cnt] = src[j];
+          a.k0_n[run.cnt] = rk[j];
+        }
+        ++run.cnt;
+      }
+      if (j < n && r0 + j == a.n - 1) {
+        a.top[0] = run.cnt;
+        a.top[1] = *a.fault;
+      }
+    }
+  } else {
+    int tot;
+    const int ex = block_scan<false, SumOp>(__popc(ch), 0, sagg, &tot);
+    int run = lookback<SumOp>(a.slots, t, tot) + ex;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      run += ch >> j & 1u;
+      rk[j] = run - 1;
+      if (j < n && r0 + j == a.n - 1) {
+        a.top[0] = rk[j];
+        a.top[1] = *a.fault;
+      }
     }
   }
 
@@ -569,6 +720,93 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     if (d < 0) continue;
     a.st_pos[d] = s_pos[p];
     a.st_rank[d] = s_rank[p];
+  }
+}
+
+// A compacted round's rank step (RANK_START's ranks): over the u rows of
+// the slice of unresolved rows in the order of a stable sort by (key 0,
+// key 1) (order[r]: the slice row; key 0 the group's start, sorted; key 1
+// and the text position read through the order from the slice, which the
+// L2 holds while it is small), with G and F the last group and rank start
+// rows at or before r: rank[t] = key 0 + (F - G) (written where F != G:
+// key 0 is the rank the row had), sa[key 0 + (r - G)] = t for the rows
+// now resolved (the row's place in the whole order: a group's rows are
+// contiguous in both; an unresolved row is placed in a later round), and
+// the unresolved rows to the next slice. Rows are written in place: the
+// round's keys were read before it.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    dense_rank_comp_kernel(const RankArgs a) {
+  __shared__ CompState cagg[33];
+  __shared__ int wl0[WARPS], wl1[WARPS], wf[WARPS];
+  const int t = take_ticket(a.ticket);   // synchronises the block
+  const long long r0 = (long long)t * TILE + (long long)threadIdx.x * ITEMS;
+  const int n = int(max(0ll, min((long long)ITEMS, a.n - r0)));
+  int src[ITEMS], k0[ITEMS], k1[ITEMS], tt[ITEMS];
+  load_items<ITEMS>(a.order, r0, a.n, a.vec, 0, src);
+  load_items<ITEMS>(a.s0, r0, a.n, a.vec, 0, k0);
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    k1[j] = j < n ? __ldg(a.key1 + src[j]) : 0;
+    tt[j] = j < n ? __ldg(a.ti + src[j]) : 0;
+  }
+  int p0, next;
+  unsigned ch;
+  neighbours<true, false>(a, src, k0, k1, r0, wl0, wl1, nullptr, wf, &p0,
+                          &ch, &next);
+  unsigned gs = 0;   // bit j: row r0 + j starts a group (key 0 differs)
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j)
+    if (j < n && ((j == 0 && r0 == 0) || k0[j] != (j ? k0[j - 1] : p0)))
+      gs |= 1u << j;
+  const unsigned un = unresolved_bits(ch, next, r0, a.n);
+  CompState tot;
+  const CompState ex = block_scan<false, CompOp>(
+      CompState{top_row(r0, gs), top_row(r0, ch), __popc(un)},
+      CompOp::identity(), cagg, &tot);
+  CompState run = CompOp::combine(lookback<CompOp>(a.slots, t, tot), ex);
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (j >= n) break;
+    const int r = int(r0) + j;
+    if (gs >> j & 1u) run.g = r;
+    if (ch >> j & 1u) run.f = r;
+    // int32 arithmetic wraps, as torch's does
+    const int rank = int(unsigned(k0[j]) + unsigned(run.f - run.g));
+    const int place = int(unsigned(k0[j]) + unsigned(r - run.g));
+    // a row's rank changes only past its group's first rank run, and its
+    // place is final only once it is resolved (a later round places the
+    // others)
+    if (run.f != run.g && unsigned(tt[j]) < unsigned(a.m))
+      a.rank[tt[j]] = rank;
+    if (!(un >> j & 1u) && unsigned(place) < unsigned(a.m))
+      a.sa[place] = tt[j];
+    if (un >> j & 1u) {
+      if (run.cnt < a.cap) {
+        a.ti_n[run.cnt] = tt[j];
+        a.k0_n[run.cnt] = rank;
+      }
+      ++run.cnt;
+    }
+    if (r == a.n - 1) {
+      a.top[0] = run.cnt;
+      a.top[1] = *a.fault;
+    }
+  }
+}
+
+// The next compacted round's key 1 for the slice (ti, *count rows, at
+// most cap): rank[t + h] + 1, 0 past the end.
+constexpr int KEYS_THREADS = 256;
+
+__global__ void __launch_bounds__(KEYS_THREADS)
+    slice_keys_kernel(const int* __restrict__ ti, const int* rank,
+                      int* __restrict__ k1, const int* count, int cap,
+                      int m, long long h) {
+  const long long rows = min(*count, cap);
+  for (long long i = blockIdx.x * (long long)KEYS_THREADS + threadIdx.x;
+       i < rows; i += (long long)gridDim.x * KEYS_THREADS) {
+    const long long at = (long long)__ldg(ti + i) + h;
+    k1[i] = at < m ? rank[at] + 1 : 0;
   }
 }
 
@@ -689,16 +927,25 @@ __global__ void __launch_bounds__(CHUNK_THREADS)
 // Each fine bin of 4096 positions from the second staging into shared
 // memory at its rows' positions, then written out in order: the ranks and
 // flags (RES; the dense rank writes none) land in whole sectors. A
-// position no row reached is not written.
+// position no row reached is not written. The rank history's rank steps
+// also write the next round's shifted key (``nxt``: nxt[t] = full[t + h]
+// + 1, 0 past the end; each position written once, by the fine bin that
+// holds t + h, or past the end by t's).
 constexpr int SETTLE_THREADS = 512;
 constexpr int SETTLE_ITEMS = FINE / SETTLE_THREADS;   // 8
 constexpr unsigned char NONE = 0xff;
+
+struct Next {
+  int* nxt;             // null: no shifted key
+  long long h;
+};
 
 template <bool MID, bool RES>
 __global__ void __launch_bounds__(SETTLE_THREADS)
     sa_round_settle(const Stage s2, const int* __restrict__ fine_cursors,
                     int* __restrict__ mid, int* __restrict__ full,
-                    unsigned char* __restrict__ res, int m, bool vec) {
+                    unsigned char* __restrict__ res, int m, bool vec,
+                    const Next nx) {
   __shared__ int f_full[FINE], f_mid[MID ? FINE : 1];
   __shared__ __align__(8) unsigned char f_res[FINE];   // read 8 at a time
   const int base = blockIdx.x * FINE;
@@ -714,6 +961,13 @@ __global__ void __launch_bounds__(SETTLE_THREADS)
     f_res[p] = (unsigned char)(w & 1u);
   }
   __syncthreads();
+  if (nx.nxt) {
+    for (int i = threadIdx.x; i < width; i += SETTLE_THREADS) {
+      const long long at = (long long)base + i;
+      if (f_res[i] != NONE && at >= nx.h) nx.nxt[at - nx.h] = f_full[i] + 1;
+      if (at + nx.h >= m) nx.nxt[at] = 0;
+    }
+  }
   const int i0 = threadIdx.x * SETTLE_ITEMS;
   if (i0 >= width) return;
   const uint2 rr = *reinterpret_cast<const uint2*>(f_res + i0);
@@ -937,7 +1191,8 @@ int sa_round_launch(int mode, const void* perm, const void* K,
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
     sa_round_settle<true, true><<<fine_bins, SETTLE_THREADS, 0, s>>>(
-        s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec);
+        s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec,
+        Next{nullptr, 0});
   } else {
     const int smem = (2 * MAX_FINE + 3 * CHUNK) * 4;
     err = cudaFuncSetAttribute(sa_round_fine<false>,
@@ -949,33 +1204,46 @@ int sa_round_launch(int mode, const void* perm, const void* K,
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
     sa_round_settle<false, true><<<fine_bins, SETTLE_THREADS, 0, s>>>(
-        s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec);
+        s2, fine_cursors, a.mid_rank, a.full_rank, a.resolved, m, vec,
+        Next{nullptr, 0});
   }
   return int(cudaGetLastError());
 }
 
-// The doubling rounds' rank step (dense_rank_kernel, then sa_round_fine
-// and sa_round_settle without flags): order, s0, key1 (or null) and rank:
-// n int32 (rank written at every position); st: 2 * ((n + 3) & ~3) int32,
-// the first staging (positions, then ranks), st2 the same for the second;
-// 1 <= n < 2^30, bins of 2^shift positions as for sa_round_launch; the
-// scratch as sa_round_scratch_bytes(n, n, shift), zeroed; fault the sorts'
-// fault word. Writes the largest rank and the fault word's copy at
-// scratch + 4 and + 8 (sa_round_count_offset).
-int dense_rank_launch(const void* order, const void* s0, const void* key1,
-                      void* rank, void* st, void* st2, int n, int shift,
-                      void* scratch, const void* fault, void* stream) {
-  if (n < 1 || n >= (1 << 30) || shift < FINE_SHIFT ||
-      shift > FINE_SHIFT + 10 || bins_of(n, shift) > MAX_BINS ||
-      !aligned16(st) || !aligned16(st2))
+// The doubling rounds' full rank step: dense_rank_kernel in ``mode``
+// (RANK_DENSE, RANK_START), then sa_round_fine and sa_round_settle without
+// flags. order, s0, key1 (text order, or null) and rank: n int32 (rank
+// written at every position); DENSE: nxt (or null), n int32, the next
+// round's key 1 at shift h; START: ti_n, k0_n, k1_n, the next slice, cap
+// int32 each (1 <= cap; its key 1 at shift h), no nxt; st: 2 * ((n + 3) &
+// ~3) int32, the first staging (positions,
+// then ranks), st2 the same for the second; 1 <= n < 2^30, bins of 2^shift
+// positions as for sa_round_launch; the scratch as
+// sa_round_scratch_bytes(n, n, shift), zeroed; fault the sorts' fault
+// word. Writes the largest rank (DENSE) or the unresolved count (START)
+// and the fault word's copy at scratch + 4 and + 8
+// (sa_round_count_offset).
+int dense_rank_launch(int mode, const void* order, const void* s0,
+                      const void* key1, void* rank, void* nxt, long long h,
+                      void* ti_n, void* k0_n, void* k1_n, int cap,
+                      void* st, void* st2, int n, int shift, void* scratch,
+                      const void* fault, void* stream) {
+  const bool start = mode == RANK_START;
+  if (mode < RANK_DENSE || mode > RANK_START || n < 1 || n >= (1 << 30) ||
+      shift < FINE_SHIFT || shift > FINE_SHIFT + 10 ||
+      bins_of(n, shift) > MAX_BINS || !aligned16(st) || !aligned16(st2) ||
+      h < 0 || (start && (cap < 1 || !ti_n || !k0_n || !k1_n || nxt)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long m4 = (n + 3ll) & ~3ll;
-  RankArgs a;
+  RankArgs a{};
   a.order = static_cast<const int*>(order);
   a.s0 = static_cast<const int*>(s0);
   a.key1 = static_cast<const int*>(key1);
-  a.n = n;
+  a.ti_n = static_cast<int*>(ti_n);
+  a.k0_n = static_cast<int*>(k0_n);
+  a.cap = start ? cap : 0;
+  a.n = a.m = n;
   a.shift = shift;
   a.bins = bins_of(n, shift);
   a.vec = aligned16(order) && aligned16(s0);
@@ -988,7 +1256,10 @@ int dense_rank_launch(const void* order, const void* s0, const void* key1,
   int* s1 = static_cast<int*>(st);
   a.st_pos = reinterpret_cast<unsigned*>(s1);
   a.st_rank = s1 + m4;
-  dense_rank_kernel<<<int(tiles_of(n)), THREADS, 0, s>>>(a);
+  if (start)
+    dense_rank_kernel<RANK_START><<<int(tiles_of(n)), THREADS, 0, s>>>(a);
+  else
+    dense_rank_kernel<RANK_DENSE><<<int(tiles_of(n)), THREADS, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   int* s2p = static_cast<int*>(st2);
@@ -1008,7 +1279,58 @@ int dense_rank_launch(const void* order, const void* s0, const void* key1,
   sa_round_settle<false, false><<<int((n + FINE - 1) / FINE),
                                   SETTLE_THREADS, 0, s>>>(
       second, fine_cursors, nullptr, static_cast<int*>(rank), nullptr, n,
-      aligned16(rank));
+      aligned16(rank), Next{static_cast<int*>(nxt), h});
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !start) return int(err);
+  const int blocks = int(min((cap + KEYS_THREADS - 1ll) / KEYS_THREADS,
+                             4096ll));
+  slice_keys_kernel<<<blocks, KEYS_THREADS, 0, s>>>(
+      a.ti_n, static_cast<const int*>(rank), static_cast<int*>(k1_n), a.top,
+      cap, n, h);
+  return int(cudaGetLastError());
+}
+
+// A compacted round's rank step: dense_rank_comp_kernel over the u sorted
+// rows of the slice (perm, s0: u int32; k1, ti: the slice's key 1 and
+// text positions, u int32, by slice row), rank and sa: m int32 (written at
+// the slice's positions and places), the next slice into ti_n and k0_n
+// (cap int32 each; ti_n not ti), then its key 1 at shift h into k1 (h 0:
+// not). 1 <= u <= m < 2^30; the scratch as sa_round_scratch_bytes(u, m,
+// shift) for any valid shift, zeroed. Writes the unresolved count and the
+// fault word's copy at scratch + 4 and + 8.
+int dense_rank_comp_launch(const void* perm, const void* s0, void* k1,
+                           const void* ti, void* rank, void* sa, void* ti_n,
+                           void* k0_n, int cap, long long h, int u, int m,
+                           void* scratch, const void* fault, void* stream) {
+  if (u < 1 || m < u || m >= (1 << 30) || cap < 0 || h < 0 || ti_n == ti ||
+      (cap > 0 && (!ti_n || !k0_n)))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  RankArgs a{};
+  a.order = static_cast<const int*>(perm);
+  a.s0 = static_cast<const int*>(s0);
+  a.key1 = static_cast<const int*>(k1);
+  a.ti = static_cast<const int*>(ti);
+  a.rank = static_cast<int*>(rank);
+  a.sa = static_cast<int*>(sa);
+  a.ti_n = static_cast<int*>(ti_n);
+  a.k0_n = static_cast<int*>(k0_n);
+  a.cap = cap;
+  a.n = u;
+  a.m = m;
+  a.vec = aligned16(perm) && aligned16(s0);
+  char* sc = static_cast<char*>(scratch);
+  a.ticket = reinterpret_cast<unsigned*>(sc);
+  a.top = reinterpret_cast<int*>(sc + 4);
+  a.fault = static_cast<const int*>(fault);
+  a.slots = reinterpret_cast<unsigned long long*>(sc + 16);
+  dense_rank_comp_kernel<<<int(tiles_of(u)), THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || h == 0 || cap == 0) return int(err);
+  const int blocks = int(min((cap + KEYS_THREADS - 1ll) / KEYS_THREADS,
+                             4096ll));
+  slice_keys_kernel<<<blocks, KEYS_THREADS, 0, s>>>(
+      a.ti_n, a.rank, static_cast<int*>(k1), a.top, cap, m, h);
   return int(cudaGetLastError());
 }
 

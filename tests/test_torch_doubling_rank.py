@@ -111,10 +111,10 @@ def test_fault_word_read_with_the_largest_rank():
     rank, order, top = tdev._dense_rank((to_torch(a), bad), (300, 301))
     assert int(top[1]) == 2
     with pytest.raises(RuntimeError, match="key \\[1\\]"):
-        tdev._largest(top)
+        tdev._read_top(top)
     assert int(S.fault_word("cpu")[0]) == 0
     _, _, top = tdev._dense_rank((to_torch(a), to_torch(b)), (300, 301))
-    assert tdev._largest(top) == int(top[0])
+    assert tdev._read_top(top) == int(top[0])
 
 
 def _texts():

@@ -967,48 +967,324 @@ def _host_reads(counts: dict) -> _Patched:
                                 "tolist", "cpu")])
 
 
+def _unresolved(rank) -> int:
+    """Rows of ``rank`` whose value another row shares (groups of two or
+    more)."""
+    counts = torch.bincount(rank.long())
+    return int(counts[counts > 1].sum())
+
+
 def head_string_split(dm, idx, merge) -> dict:
-    """One merge with head_string_sa taken apart: each doubling round's
-    sort and rank step (``idx._dense_rank`` less its sort; device-synced
-    around each), the rounds, k_star, the host's reads of device values
-    and the rest (the shifted keys, the history, the compaction)."""
-    sorts, steps, rounds, whole, sa_out = [], [], [], [], []
+    """One merge with head_string_sa taken apart by round: each sort
+    (rows sorted, device-synced ms) and each rank step (the sort's end to
+    the next sort or to the round's one host read, ``_read_top`` or an
+    older checkout's ``_largest``), the rows left unresolved after each
+    round (the read's count, or for an older checkout counted from the
+    round's ranks after the merge), the rounds, k_star, the host's reads
+    of device values and the rest (the compaction of the real suffixes,
+    the shifted keys, the glue)."""
+    marks, whole, sa_out, ranks = [], [], [], []
     reads = {"n": 0}
-    sad, rank0, hs = (idx.suffix_array_device, idx._dense_rank,
-                      dm.head_string_sa_dev)
+    sad, hs, sort0 = (idx.suffix_array_device, dm.head_string_sa_dev,
+                      idx.stable_argsort)
+    read_name = "_read_top" if hasattr(idx, "_read_top") else "_largest"
+    read0 = getattr(idx, read_name)
+    rank0 = idx.dense_rank
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def sort(keys, bits, values=False):
+        t0 = now()
+        out = sort0(keys, bits, values)
+        marks.append(("sort", t0, now(), int(keys[0].shape[0])))
+        return out
+
+    def read(top):
+        got = read0(top)
+        marks.append(("read", now(), got))
+        return got
+
+    def rank(*a, **kw):
+        out = rank0(*a, **kw)
+        if read_name == "_largest":    # the older form reads no count
+            ranks.append(out[0])
+        return out
 
     def sa_dev(*a, **kw):
         out = sad(*a, **kw)
         sa_out.append((a[1], out[3], out[2] is not None))
         return out
 
-    def rank_step(*a, **kw):
-        n0, t = len(sorts), []
-        out = _synced(rank0, t)(*a, **kw)
-        rounds.append(sum(sorts[n0:]))
-        steps.append(t[0] - rounds[-1])
-        return out
-
     def counted(*a, **kw):
         with _host_reads(reads):
             return hs(*a, **kw)
-    with _Patched((idx, "stable_argsort", _synced(idx.stable_argsort,
-                                                  sorts)),
-                  (idx, "_dense_rank", rank_step),
+    with _Patched((idx, "stable_argsort", sort), (idx, read_name, read),
+                  (idx, "dense_rank", rank),
                   (idx, "suffix_array_device", sa_dev),
                   (dm, "head_string_sa_dev", _synced(counted, whole))):
         merge()
     L, k_star, hist = sa_out[0]
+    # the suffix sort's own marks: the last sort is the real suffixes'
+    # compaction's, if any, after the last read
+    rounds = []
+    for i, m in enumerate(marks):
+        if m[0] != "sort":
+            continue
+        nxt = marks[i + 1] if i + 1 < len(marks) else None
+        if nxt is None:
+            break
+        step_end = nxt[1]
+        rounds.append({"rows_sorted": m[3], "sort_ms": (m[2] - m[1]) * 1e3,
+                       "rank_step_ms": (step_end - m[2]) * 1e3,
+                       "read": nxt[2] if nxt[0] == "read" else None})
+    if read_name == "_largest":
+        for r, rk in zip(rounds, ranks):
+            r["unresolved"] = _unresolved(rk)
+    else:
+        for r in rounds:
+            r["unresolved"] = r["read"]
+    sorts = sum(r["sort_ms"] for r in rounds)
+    steps = sum(r["rank_step_ms"] for r in rounds)
     levels = idx.n_levels(L)
     return {"L": L, "levels": levels, "k_star": int(k_star),
             "rounds": len(rounds), "history": hist,
             "history_bytes": 4 * levels * L if hist else 0,
-            "wall_ms": whole[0], "sorts_ms": sum(rounds),
-            "rank_steps_ms": sum(steps),
-            "rest_ms": whole[0] - sum(rounds) - sum(steps),
-            "host_reads": reads["n"],
-            "per_round": [{"sort_ms": a, "rank_step_ms": b}
-                          for a, b in zip(rounds, steps)]}
+            "wall_ms": whole[0], "sorts_ms": sorts, "rank_steps_ms": steps,
+            "rest_ms": whole[0] - sorts - steps,
+            "rows_sorted": sum(r["rows_sorted"] for r in rounds),
+            "host_reads": reads["n"], "per_round": rounds}
+
+
+# text edits of sa_round.cu (each text must occur once) that take a part
+# of the rank steps out, for timing only (their outputs are wrong):
+# key 1 read in sorted-row order instead of through the order (the full
+# step's cost less its key-1 gather); the compacted step's rank stores,
+# its suffix-array stores, its slice stores, its key-1 and text-position
+# reads through the order (read in order), its look-back (each tile its
+# own prefix); the full group-start step's slice stores and look-back
+RANK_VARIANTS = {
+    "key1_in_order": (("__ldcs(a.key1 + src[j])", "__ldcs(a.key1 + r0 + j)"),),
+    "comp_no_rank": (("      a.rank[tt[j]] = rank;", "      ;"),),
+    "comp_no_sa": (("      a.sa[place] = tt[j];", "      ;"),),
+    "comp_no_slice": (("        a.ti_n[run.cnt] = tt[j];\n"
+                       "        a.k0_n[run.cnt] = rank;", "        ;"),),
+    "comp_in_order": (("    k1[j] = j < n ? __ldg(a.key1 + src[j]) : 0;\n"
+                       "    tt[j] = j < n ? __ldg(a.ti + src[j]) : 0;",
+                       "    k1[j] = j < n ? __ldg(a.key1 + r0 + j) : 0;\n"
+                       "    tt[j] = j < n ? __ldg(a.ti + r0 + j) : 0;"),),
+    "comp_no_lookback": (("CompOp::combine(lookback<CompOp>(a.slots, t, tot), "
+                          "ex)", "ex"),),
+    "start_no_slice": (("          a.ti_n[run.cnt] = src[j];\n"
+                        "          a.k0_n[run.cnt] = rk[j];", "          ;"),),
+}
+
+
+def _kernel_device_ms(fn) -> dict:
+    """Device ms of each kernel of one call of ``fn`` (torch.profiler),
+    after one call to warm it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: round(e.self_device_time_total / 1e3, 4)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+_VARIANT_LIBS: dict = {}
+
+
+def rank_variant_libs(K, root: pathlib.Path) -> dict:
+    """Each RANK_VARIANTS edit of the checkout's sa_round.cu that fits,
+    built at once by parallel nvcc processes with the port's flags and
+    bound with the committed library's signatures: {name: library}."""
+    import ctypes
+    if _VARIANT_LIBS:
+        return _VARIANT_LIBS
+    text = (root / "cmsbwt_tpu_torch/kernels/csrc/sa_round.cu").read_text()
+    d = WORK / "rank_variants"
+    d.mkdir(parents=True, exist_ok=True)
+    csrc = root / "cmsbwt_tpu_torch/kernels/csrc"
+    jobs = {}
+    for name, edits in RANK_VARIANTS.items():
+        if not all(text.count(old) == 1 for old, _ in edits):
+            print(f"rank variant {name}: its edit does not fit", flush=True)
+            continue
+        src = text
+        for old, new in edits:
+            src = src.replace(old, new)
+        (d / f"{name}.cu").write_text(src)
+        jobs[name] = subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, f"-I{csrc}", "-o",
+             str(d / f"lib{name}.so"), str(d / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    committed = K.load()["sa_round"]
+    for name, proc in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on rank variant {name}:\n{out}")
+        lib = ctypes.CDLL(str(d / f"lib{name}.so"))
+        for fname, f in vars(committed).items():
+            if isinstance(f, ctypes._CFuncPtr):
+                g = getattr(lib, fname)
+                g.restype, g.argtypes = f.restype, f.argtypes
+        _VARIANT_LIBS[name] = lib
+    return _VARIANT_LIBS
+
+
+def _with_lib(K, lib, call) -> dict:
+    """``call`` timed (5 calls between CUDA events) and by kernel with
+    sa_round's library swapped for ``lib``."""
+    saved = K.load()["sa_round"]
+    K.load()["sa_round"] = lib
+    try:
+        call()
+        return {"ms": cs.cuda_ms(call, 5), "kernels_ms": _kernel_device_ms(call)}
+    finally:
+        K.load()["sa_round"] = saved
+
+
+def _rank_launch(K, args, kw):
+    """dense_rank's C entry point on one step with its outputs made
+    beforehand (chip_smoke.dense_rank_launch; for an older checkout,
+    whose C call took only the order, the keys, the rank and the
+    stagings, that call): (launch(scratch), scratch bytes)."""
+    if hasattr(K, "RankWork"):
+        return cs.dense_rank_launch(K, args, kw)
+    from cmsbwt_tpu_torch.ops.sort import fault_word
+    lib = K.load()["sa_round"]
+    order, s0, key1 = args[:3]
+    n = order.numel()
+    shift = K.sa_round_bins(n).shift
+    m4 = (n + 3) & ~3
+    rank = torch.empty(n, dtype=torch.int32, device="cuda")
+    st, st2 = (torch.empty(2 * m4, dtype=torch.int32, device="cuda")
+               for _ in range(2))
+    p = lambda t: None if t is None else cs._p(t)
+
+    def launch(scratch):
+        if lib.dense_rank_launch(p(order), p(s0), p(key1), p(rank), p(st),
+                                 p(st2), n, shift, p(scratch),
+                                 p(fault_word(order.device)), cs._stream()):
+            raise SystemExit("dense_rank launch failed")
+    return launch, int(lib.sa_round_scratch_bytes(n, n, shift))
+
+
+def dense_rank_split(K, idx, args, kw, root: pathlib.Path,
+                     variants: bool = True) -> dict:
+    """One full rank step of the head string (``idx.dense_rank``'s
+    arguments from a merge, cloned) taken apart: as the dispatch runs it
+    (5 calls between CUDA events), each of its kernels' device ms
+    (torch.profiler), and the same with key 1 read in sorted-row order
+    (RANK_VARIANTS: the rest of the step; its difference the gather) and
+    without its slice's stores."""
+    call = lambda: idx.dense_rank(*args, **kw)
+    out = {"rows": int(args[0].numel()), "ms": cs.cuda_ms(call, 5),
+           "kernels_ms": _kernel_device_ms(call)}
+    for name, lib in (rank_variant_libs(K, root).items() if variants
+                      else ()):
+        if name in ("key1_in_order", "start_no_slice"):
+            out[name] = _with_lib(K, lib, call)
+    out["alone_ms"] = cs.alone_ms(*_rank_launch(K, args, kw))
+    out["copy_16B_ms"] = cs.copy_ms(16 * out["rows"])
+    print("dense_rank_split " + json.dumps(out), flush=True)
+    return out
+
+
+def _clone(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    return tuple(map(_clone, v)) if isinstance(v, tuple) else v
+
+
+def capture_rank_step(idx, merge):
+    """The first two-key full rank step of one merge's head string, the
+    step the main path runs (this tree: the first round, on the pairs,
+    with its slice and the slice's key 1; a checkout with a one-key seed:
+    round 0, after it): ``idx.dense_rank``'s positional and keyword
+    arguments, tensors cloned (later rounds reuse their buffers; each
+    call then makes its own scratch)."""
+    got, rank0 = [], idx.dense_rank
+
+    def rank(*a, **kw):
+        if not got and len(a) > 2 and a[2] is not None:
+            got.append(([_clone(v) for v in a],
+                        {k: _clone(v) for k, v in kw.items()
+                         if k != "work"}))
+        return rank0(*a, **kw)
+    with _Patched((idx, "dense_rank", rank)):
+        merge()
+    return got[0]
+
+
+def comp_split(K, idx, merge, root: pathlib.Path) -> None:
+    """The head string's first full step and its compacted steps (every
+    round after the first), each as the dispatch runs it (5 calls between
+    CUDA events, on copies of its inputs) and by kernel (torch.profiler),
+    the first compacted one also with each compacted-step edit of
+    RANK_VARIANTS: ``first_split`` and ``comp_split`` lines."""
+    if not hasattr(idx, "comp_rank"):
+        return
+    got, first, comp0 = [], [], idx.comp_rank
+    rank0 = idx.dense_rank
+
+    def comp(*a, **kw):
+        got.append([_clone(v) for v in a[:8]])   # its scratch left out
+        return comp0(*a, **kw)
+
+    def rank(*a, **kw):
+        if not first:
+            first.append(([_clone(v) for v in a],
+                         {k: _clone(v) for k, v in kw.items()
+                          if k != "work"}))
+        return rank0(*a, **kw)
+    with _Patched((idx, "comp_rank", comp), (idx, "dense_rank", rank)):
+        merge()
+    a, kw = first[0]
+    call = lambda: idx.dense_rank(*a, **kw)
+    out = {"rows": int(a[0].numel()), "ms": cs.cuda_ms(call, 5),
+           "kernels_ms": _kernel_device_ms(call)}
+    lib = rank_variant_libs(K, root).get("start_no_slice")
+    if lib is not None:
+        out["start_no_slice"] = _with_lib(K, lib, call)
+    print("first_split " + json.dumps(out), flush=True)
+    for i, a in enumerate(got):
+        perm, s0, k1, ti, rank, sa, ns, shift = a
+        call = lambda: idx.comp_rank(perm, s0, k1.clone(), ti, rank.clone(),
+                                     sa.clone(), _clone(ns), shift)
+        out = {"step": i, "rows": int(perm.numel()),
+               "m": int(rank.numel()), "ms": cs.cuda_ms(call, 5),
+               "kernels_ms": _kernel_device_ms(call),
+               "copy_24B_ms": cs.copy_ms(24 * int(perm.numel()))}
+        if i == 0:
+            for name, lib in rank_variant_libs(K, root).items():
+                if name.startswith("comp_"):
+                    out[name] = _with_lib(K, lib, call)
+        print("comp_split " + json.dumps(out), flush=True)
+
+
+def final_sa_sort(idx, merge) -> None:
+    """One sort of the head string's final rank, the alternative to
+    placing each compacted round's rows in the suffix array
+    (``final_sa_sort`` line)."""
+    got, sad = [], idx.suffix_array_device
+
+    def keep(*a, **kw):
+        out = sad(*a, **kw)
+        got.append((out[1].clone(), a[1]))
+        return out
+    with _Patched((idx, "suffix_array_device", keep)):
+        merge()
+    isa, L = got[0]
+    sort = lambda: idx.stable_argsort((isa,), (idx.key_bits(L),))
+    sort()
+    print("final_sa_sort " + json.dumps({"L": L, "ms": cs.cuda_ms(sort, 5)}),
+          flush=True)
 
 
 def tail_good_split(dm, merge) -> dict:
@@ -1137,7 +1413,13 @@ def merge_child(spec: dict) -> None:
         split["peak_stage"] = top
         split["peak_per_char"] = peaks[top] / sn
         print("merge_split " + json.dumps(split), flush=True)
+        a, kw = capture_rank_step(idx, merge)
+        dense_rank_split(kernels, idx, a, kw, pathlib.Path(spec["root"]),
+                         spec["full"])
+        del a, kw
         if spec["full"]:
+            final_sa_sort(idx, merge)
+            comp_split(kernels, idx, merge, pathlib.Path(spec["root"]))
             os.environ["CMSBWT_PROFILE"] = "1"
             try:
                 merge()
