@@ -143,8 +143,9 @@ every phase passed):
    round 0 in the dense mode, captured from the jump scan's index build
    (IndexRankCapture): the dense ranks and the next key) and
    dense_rank_comp (_comp_rank_reference: the head string's first
-   compacted step: the ranks and places written, the next slice and its
-   key 1) on the
+   compacted round, sorted per group in shared memory: the ranks and
+   places written, the next slice and its key 1; _comp_tail_reference:
+   its tail, every round left in one block) on the
    inputs a real device merge gave them (MergeCapture), of the jump
    scan's heads at primary (in phase 5) and of the 500 Mchar run's heads
    (in phase 8, which also holds the peak outside the blocks to the
@@ -154,13 +155,18 @@ every phase passed):
    torch.cummax / cummin of the fill; pair_expand, dense_rank and
    dense_rank_comp also alone and beside Tensor.copy_ of their bound's
    bytes. rank_cases holds dense_rank in both modes and dense_rank_comp
-   to their plain versions at the tiles' edges (RANK_SIZES, RANK_KINDS)
-   and the suffix sort on the card to the CPU's with and without its
-   history, each compacted step held to its plain version. Every run
+   to their plain versions at the tiles' and the cap's edges
+   (rank_sizes(), RANK_KINDS), dense_rank_comp on made slices at its
+   counting limit, through its bitonic sort, its large-group path and its
+   tail (comp_slices) and the suffix sort on
+   the card to the CPU's with and without its history, each compacted
+   call held to its plain version (strings at the cap among them). Every
+   run
    that merges on the device launches
    running_fill, tail_good_join, bucket_sums, run_merge, pair_expand and
    dense_rank, tail_exact_credit once per merge with exact pairs and
-   dense_rank_comp once per compacted head-string step (MERGE_KERNELS;
+   dense_rank_comp once per compacted head-string call, a round or the
+   tail (MERGE_KERNELS;
    a host merge may launch both rank kernels); the
    jump scan's index build launches dense_rank too; the
    sharded merge and the dense scan launch running_fill; no run launches
@@ -254,7 +260,8 @@ ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass",
 # the kernels each merge engine launches ("none": a scan alone); the
 # device merge launches tail_exact_credit once per merge with exact pairs,
 # dense_rank in its head string's suffix sort's first round (and
-# dense_rank_comp once a round after it, when it reaches one) and
+# dense_rank_comp once a compacted round or tail after it, when it
+# reaches one) and
 # pair_expand in tail_good
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
                             "tail_exact_credit", "bucket_sums", "run_merge",
@@ -644,25 +651,39 @@ def dense_rank_launch(K, args, kw):
 
 
 def dense_rank_comp_launch(K, args, reps: int):
-    """dense_rank_comp's C entry point on one compacted step's arguments
-    (as CompCapture keeps them) with its outputs made beforehand and a copy
-    of key 1 for each of ``reps`` + 1 launches (the step overwrites key 1
-    with the next round's); returns (launch(scratch), scratch bytes)."""
+    """dense_rank_comp's C entry point (sa_round.cu:
+    dense_rank_comp_launch, or dense_rank_comp_tail_launch for a tail) on
+    one compacted call's arguments (as CompCapture keeps them; no large
+    groups) with its outputs made beforehand and a copy of key 1 and of
+    the rank for each of ``reps`` + 1 launches (a round overwrites key 1
+    with the next round's, and the tail's rounds read the ranks they
+    write); returns (launch(scratch), scratch bytes)."""
     from cmsbwt_tpu_torch.ops.sort import fault_word
     lib = K.load()["sa_round"]
-    perm, s0, k1, ti, rank, sa, (ti_n, k0_n), shift = args
-    rank, sa, ti_n, k0_n = (t.clone() for t in (rank, sa, ti_n, k0_n))
-    u, m = perm.numel(), rank.numel()
+    (ti, k0, k1), u, large, rank, sa, (ti_n, k0_n), shift, rounds = args
+    if large:
+        fail("dense_rank_comp_launch: a step with large groups is timed "
+             "with its wrapper only")
+    sa, ti_n, k0_n = (t.clone() for t in (sa, ti_n, k0_n))
+    m = rank.numel()
     k1s = iter([k1.clone() for _ in range(reps + 1)])
+    ranks = iter([rank.clone() for _ in range(reps + 1)])
+    fault = fault_word(rank.device)
 
     def launch(scratch):
-        if lib.dense_rank_comp_launch(
-                _p(perm), _p(s0), _p(next(k1s)), _p(ti), _p(rank), _p(sa),
-                _p(ti_n), _p(k0_n), ti_n.numel(), int(shift), u, m,
-                _p(scratch), _p(fault_word(perm.device)), _stream()):
+        if rounds:
+            err = lib.dense_rank_comp_tail_launch(
+                _p(ti), _p(k0), _p(next(ranks)), _p(sa), m, _p(ti_n),
+                _p(k0_n), ti_n.numel(), u, int(shift), int(rounds),
+                _p(scratch), _p(fault), _stream())
+        else:
+            err = lib.dense_rank_comp_launch(
+                _p(ti), _p(k0), _p(next(k1s)), _p(next(ranks)), _p(sa), m,
+                _p(ti_n), _p(k0_n), ti_n.numel(), u, 0, *[None] * 7,
+                int(shift), _p(scratch), _p(fault), _stream())
+        if err:
             fail("dense_rank_comp launch failed")
-    return launch, int(lib.sa_round_scratch_bytes(
-        u, m, K.sa_round_bins(m).shift))
+    return launch, int(lib.dense_rank_comp_scratch_bytes(m))
 
 
 def pair_expand_launch(K, args: tuple):
@@ -1075,9 +1096,9 @@ class MergeCapture:
     largest compaction's (flag, count), the head string's suffix sort's
     first full rank step (``rank``: the dispatch's arguments and keywords
     but its scratch, cloned: later rounds reuse the buffers), its first
-    compacted step (``comp``, as
-    CompCapture keeps it), and every sort's keys by call site (``sorts``,
-    a SortCapture)."""
+    compacted round and its first tail call (``comp``, ``tail``, as
+    CompCapture keeps them), and every sort's keys by call site
+    (``sorts``, a SortCapture)."""
 
     EXPAND_CLS = ("n_classes", "pos", "length", "key_k", "isa_next", "size",
                   "smaller")
@@ -1088,9 +1109,9 @@ class MergeCapture:
         from cmsbwt_tpu_torch.index import device as idx
         self.dm, self.fill, self.join, self.runs = dm, None, None, None
         self.exact = self.sums = self.compact = None
-        self.expand = self.rank = self.comp = None
+        self.expand = self.rank = self.comp = self.tail = None
         self.idx, self.orig_rank = idx, idx.dense_rank
-        self.orig_comp = idx.comp_rank
+        self.orig_comp = (idx.comp_rank, idx.comp_tail)
         self.orig_expand = dm.pair_expand
 
         def expand(cls, pairs, slot_base, n, h_pad, p_pad):
@@ -1104,13 +1125,21 @@ class MergeCapture:
                 self.rank = rank_step_clone(order, s0, key1, out, kw)
             return self.orig_rank(order, s0, key1, out, **kw)
 
-        def comp(perm, s0, k1, ti, rank, sa, nxt_slice, shift, work=None):
+        def comp(slice_, u, large, rank, sa, nxt_slice, shift, work=None):
             if self.comp is None:
-                self.comp = tuple(clone(v) for v in (
-                    perm, s0, k1, ti, rank, sa, nxt_slice, shift))
-            return self.orig_comp(perm, s0, k1, ti, rank, sa, nxt_slice,
-                                  shift, work)
-        dm.pair_expand, idx.dense_rank, idx.comp_rank = expand, rank, comp
+                self.comp = comp_clone(slice_, u, large, rank, sa,
+                                       nxt_slice, shift, 0)
+            return self.orig_comp[0](slice_, u, large, rank, sa, nxt_slice,
+                                     shift, work)
+
+        def tail(slice_, u, rank, sa, nxt_slice, shift, rounds, work=None):
+            if self.tail is None:
+                self.tail = comp_clone(slice_, u, 0, rank, sa, nxt_slice,
+                                       shift, rounds)
+            return self.orig_comp[1](slice_, u, rank, sa, nxt_slice, shift,
+                                     rounds, work)
+        dm.pair_expand, idx.dense_rank = expand, rank
+        idx.comp_rank, idx.comp_tail = comp, tail
         self.fills = []
         self.orig = (dm.running_fill, dm.tail_good_join, dm.run_merge,
                      dm.exact_credit, dm.bucket_sums, dm.compact)
@@ -1155,7 +1184,7 @@ class MergeCapture:
             self.orig
         self.dm.pair_expand = self.orig_expand
         self.idx.dense_rank = self.orig_rank
-        self.idx.comp_rank = self.orig_comp
+        self.idx.comp_rank, self.idx.comp_tail = self.orig_comp
 
 
 def clone(v):
@@ -1163,6 +1192,15 @@ def clone(v):
     if isinstance(v, torch.Tensor):
         return v.clone()
     return tuple(map(clone, v)) if isinstance(v, tuple) else v
+
+
+def comp_clone(slice_, u, large, rank, sa, nxt_slice, shift, rounds):
+    """One compacted call's arguments (index/device.comp_rank's, or
+    comp_tail's with its ``rounds``; its scratch left out), the slice's
+    first u rows and the rest cloned (later rounds reuse the buffers):
+    (slice, u, large, rank, sa, next slice, shift, rounds)."""
+    return (tuple(v[:u].clone() for v in slice_), u, large, rank.clone(),
+            sa.clone(), clone(tuple(nxt_slice)), shift, rounds)
 
 
 def rank_step_clone(order, s0, key1, out, kw):
@@ -1828,41 +1866,69 @@ def dense_rank_case(tag: str, args, kw, what: str) -> dict:
 
 
 def comp_step_bytes(args, want) -> int:
-    """Bytes a compacted step must move: the u rows' order, key 0, key 1
-    and text positions read (16 B a row); the rank written where it
-    changes and the suffix array where a row is resolved this round (4 B
-    each, counted from the plain version's outputs ``want``:
-    comp_step_run's); the next slice's rows written, with their key 1
-    (their rank read once: 16 B a row)."""
-    perm, ti, rank0, shift = args[0], args[3], args[4], args[-1]
+    """Bytes a compacted round must move: the slice's text positions and
+    key 0 read (8 B a row) and its key 1 (the entry gathered for each row:
+    4 B); the rank written where it changes and the suffix array where a
+    row is resolved this round (4 B each, counted from the plain version's
+    outputs ``want``: comp_step_run's); the next slice's rows written (8 B
+    a row), and with a shift their key 1 (their rank read once, key 1
+    written: 8 B a row)."""
+    (ti, _, _), u, _, rank0, _, _, shift, _ = args
     top, rank = want[0], want[1]
-    u, c = perm.numel(), int(top[0])
+    c = int(top[0])
     t = ti.long()
     changed = int((rank[t] != rank0[t]).sum())
-    return 16 * u + 4 * changed + 4 * (u - c) + 8 * c + (8 * c if shift
-                                                          else 0)
+    return 12 * u + 4 * changed + 4 * (u - c) + 8 * c + (8 * c if shift
+                                                         else 0)
 
 
-def dense_rank_comp_case(tag: str, args) -> dict:
-    """dense_rank_comp against _comp_rank_reference (exact, every output:
-    comp_step_run) on the head string's first compacted step, then timed
-    with its wrapper, alone and beside Tensor.copy_ of the bound's bytes
-    (comp_step_bytes)."""
+def comp_wrapper_ms(K, args, reps: int = 5) -> float:
+    """Mean device time of dense_rank_comp_cuda as the suffix sort calls
+    it, on one compacted call's arguments (as CompCapture keeps them):
+    ``reps`` calls back to back between two CUDA events, each on its own
+    copies of the call's in-place outputs (key 1, the rank, the suffix
+    array, the next slice) and its own RankWork, all made beforehand."""
+    from cmsbwt_tpu_torch.ops.sort import fault_word
+    (ti, k0, k1), u, large, rank, sa, nxt, shift, rounds = args
+    fault = fault_word(rank.device)
+    sets = [((ti, k0, k1.clone()), rank.clone(), sa.clone(),
+             tuple(t.clone() for t in nxt),
+             K.RankWork(rank.numel(), 0, rank.device, 1))
+            for _ in range(reps + 1)]
+
+    def call(one):
+        sl, rk, sa_, nx, work = one
+        K.dense_rank_comp_cuda(sl, u, large, rk, sa_, nx, shift, fault,
+                               work, tail=rounds)
+    call(sets.pop())   # warm
+    it = iter(sets)
+    return cuda_ms(lambda: call(next(it)), reps)
+
+
+def dense_rank_comp_case(tag: str, args, what: str) -> dict:
+    """dense_rank_comp against its plain version (exact, every output:
+    comp_step_run) on one compacted call of a merge's head string, then
+    timed with its wrapper (comp_wrapper_ms: its outputs' copies and
+    RankWork made beforehand), alone and beside Tensor.copy_ of the
+    bound's bytes (a round's: comp_step_bytes)."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.index import device as idx
     _, _, kern, plain = _kernel_and_plain(K, idx)
-    u, m = args[0].numel(), args[4].numel()
+    u, m, rounds = args[1], args[3].numel(), args[7]
     want = comp_step_run(plain, args)
     top, moved = want[0], comp_step_bytes(args, want)
-    r = compare("dense_rank_comp", tag, "_comp_rank_reference",
+    r = compare("dense_rank_comp", tag,
+                "_comp_tail_reference" if rounds else "_comp_rank_reference",
                 lambda: comp_step_run(kern, args),
                 lambda: comp_step_run(plain, args),
-                f"the head string's first compacted step: u={u} of m={m} "
-                f"rows, {int(top[0])} left unresolved", moved)
+                f"{what}: u={u} of m={m} rows, {int(top[0])} left "
+                f"unresolved after {int(top[3])} rounds", moved)
     r.pop("outputs")
+    r["ms"] = comp_wrapper_ms(K, args)
     r["alone_ms"] = alone_ms(*dense_rank_comp_launch(K, args, 5))
     r["copy_ms"] = copy_ms(moved)
     r["rows"], r["m"], r["unresolved"] = u, m, int(top[0])
+    r["rounds"] = int(top[3])
     log(f"kernel dense_rank_comp[{tag}]: alone {r['alone_ms']:.3f} ms, as "
         f"the wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
         f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
@@ -1986,9 +2052,13 @@ def merge_kernel_cases(tag: str, cap: MergeCapture,
     out["dense_rank_index"] = dense_rank_case(
         f"{tag} index round 0", *index_rank.step,
         "the reference index's round 0 (dense ranks, the next key)")
-    if cap.comp is None:
-        fail(f"the {tag} merge's head string ran no compacted round")
-    out["dense_rank_comp"] = dense_rank_comp_case(tag, cap.comp)
+    if cap.comp is None or cap.tail is None:
+        fail(f"the {tag} merge's head string ran no compacted round or no "
+             "tail")
+    out["dense_rank_comp"] = dense_rank_comp_case(
+        tag, cap.comp, "the head string's first compacted round")
+    out["dense_rank_comp_tail"] = dense_rank_comp_case(
+        f"{tag} tail", cap.tail, "the head string's tail (one block)")
     out["pair_expand"] = pair_expand_case(tag, *cap.expand)
     k_s, len_s, chr_s = cap.runs
     out["run_merge"] = compare(
@@ -2270,10 +2340,18 @@ def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
     log(f"mesh: phase 10 took {time.perf_counter() - t10:.1f} s")
 
 
-# dense_rank's tiles (sa_round.cu: 2048 rows) and the sizes at their edges
+# dense_rank's tiles (sa_round.cu: 2048 rows) and the sizes at their edges,
+# and around the compacted rounds' cap (kernels.COMP_CAP: the slice's rows
+# in groups above it, which the group-start mode counts)
 RANK_TILE = 2048
-RANK_SIZES = (1, 2, 3, RANK_TILE - 1, RANK_TILE, RANK_TILE + 1,
-              3 * RANK_TILE + 5, 100_003, (1 << 20) + 3)
+
+
+def rank_sizes() -> tuple:
+    from cmsbwt_tpu_torch.kernels import COMP_CAP as C
+    return (1, 2, 3, RANK_TILE - 1, RANK_TILE, RANK_TILE + 1,
+            3 * RANK_TILE + 5, C - 1, C, C + 1, C + 2, 100_003,
+            (1 << 20) + 3)
+
 RANK_KINDS = ("random", "few", "equal", "distinct")
 
 
@@ -2324,17 +2402,19 @@ def rank_step_run(fn, args, kw) -> tuple:
 
 
 def comp_step_run(fn, args) -> tuple:
-    """One compacted step ``fn(perm, s0, k1, ti, rank, sa, nxt_slice,
-    shift)`` (the CUDA wrapper or index/device._comp_rank_reference) on
-    copies of its in-place outputs (``args`` as CompCapture keeps them):
-    top, the rank, the suffix array, the next slice and its key 1."""
-    perm, s0, k1, ti, rank, sa, nxt_slice, shift = args
-    k1, rank, sa = k1.clone(), rank.clone(), sa.clone()
+    """One compacted call ``fn(slice, u, large, rank, sa, nxt_slice,
+    shift, rounds)`` (the CUDA wrapper, or index/device's plain versions)
+    on copies of its in-place outputs (``args`` as comp_clone keeps them):
+    top, the rank, the suffix array, the next slice and, for a round with
+    a shift, its key 1."""
+    slice_, u, large, rank, sa, nxt_slice, shift, rounds = args
+    slice_ = tuple(v.clone() for v in slice_)
+    rank, sa = rank.clone(), sa.clone()
     ti_n, k0_n = (t.clone() for t in nxt_slice)
-    top = fn(perm, s0, k1, ti, rank, sa, (ti_n, k0_n), shift)
+    top = fn(slice_, u, large, rank, sa, (ti_n, k0_n), shift, rounds)
     c = int(top[0])
-    return (top, rank, sa, ti_n[:c], k0_n[:c]) + ((k1[:c],) if shift
-                                                   else ())
+    return (top, rank, sa, ti_n[:c], k0_n[:c]) + (
+        (slice_[2][:c],) if shift and not rounds else ())
 
 
 def _kernel_and_plain(K, idx):
@@ -2342,11 +2422,20 @@ def _kernel_and_plain(K, idx):
     versions, as rank_step_run and comp_step_run call them."""
     from cmsbwt_tpu_torch.ops.sort import fault_word
     fault = fault_word("cuda:0")
+
+    def comp_plain(slice_, u, large, rank, sa, nxt, shift, rounds):
+        if rounds:
+            return idx._comp_tail_reference(slice_, u, rank, sa, nxt, shift,
+                                            rounds)
+        return idx._comp_rank_reference(slice_, u, large, rank, sa, nxt,
+                                         shift)
     return (lambda o, s, k1, out, **kw: K.dense_rank_cuda(o, s, k1, fault,
                                                           out, **kw),
             idx._dense_rank_reference,
-            lambda *a: K.dense_rank_comp_cuda(*a, fault),
-            idx._comp_rank_reference)
+            lambda slice_, u, large, rank, sa, nxt, shift, rounds:
+            K.dense_rank_comp_cuda(slice_, u, large, rank, sa, nxt, shift,
+                                   fault, tail=rounds),
+            comp_plain)
 
 
 def rank_step_case(name: str, order, s0, key1, shift: int, start=None):
@@ -2370,29 +2459,35 @@ def rank_step_case(name: str, order, s0, key1, shift: int, start=None):
 
 
 class CompCapture:
-    """Keeps a clone of every compacted step's inputs (index/device's
-    comp_rank) while in use."""
+    """Keeps a clone of every compacted call's inputs (index/device's
+    comp_rank and comp_tail, as comp_clone keeps them) while in use."""
 
     def __enter__(self):
         from cmsbwt_tpu_torch.index import device as idx
-        self.idx, self.orig, self.calls = idx, idx.comp_rank, []
+        self.idx, self.calls = idx, []
+        self.orig = (idx.comp_rank, idx.comp_tail)
 
-        def comp(perm, s0, k1, ti, rank, sa, nxt_slice, shift, work=None):
-            c = lambda t: t.clone()
-            self.calls.append((c(perm), c(s0), c(k1), c(ti), c(rank), c(sa),
-                               tuple(map(c, nxt_slice)), shift))
-            return self.orig(perm, s0, k1, ti, rank, sa, nxt_slice, shift,
-                             work)
-        idx.comp_rank = comp
+        def comp(slice_, u, large, rank, sa, nxt_slice, shift, work=None):
+            self.calls.append(comp_clone(slice_, u, large, rank, sa,
+                                         nxt_slice, shift, 0))
+            return self.orig[0](slice_, u, large, rank, sa, nxt_slice,
+                                shift, work)
+
+        def tail(slice_, u, rank, sa, nxt_slice, shift, rounds, work=None):
+            self.calls.append(comp_clone(slice_, u, 0, rank, sa, nxt_slice,
+                                         shift, rounds))
+            return self.orig[1](slice_, u, rank, sa, nxt_slice, shift,
+                                rounds, work)
+        idx.comp_rank, idx.comp_tail = comp, tail
         return self
 
     def __exit__(self, *exc):
-        self.idx.comp_rank = self.orig
+        self.idx.comp_rank, self.idx.comp_tail = self.orig
 
 
 def comp_step_case(name: str, args) -> None:
-    """dense_rank_comp_cuda against _comp_rank_reference on one compacted
-    step's inputs (``args`` as CompCapture keeps them), exact: every
+    """dense_rank_comp_cuda against its plain version on one compacted
+    call's inputs (``args`` as comp_clone keeps them), exact: every
     output of comp_step_run."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.index import device as idx
@@ -2400,8 +2495,72 @@ def comp_step_case(name: str, args) -> None:
     for q, (w, g) in enumerate(zip(comp_step_run(plain, args),
                                    comp_step_run(kern, args))):
         if w.shape != g.shape or not torch.equal(w, g):
+            bad = [] if w.shape != g.shape else \
+                torch.nonzero(w != g).flatten()[:5].tolist()
             fail(f"dense_rank_comp[{name}]: output {q} differs from its "
-                 "plain version")
+                 f"plain version (shapes {tuple(w.shape)}, "
+                 f"{tuple(g.shape)}; at {bad}: "
+                 f"{[int(w[i]) for i in bad]} != {[int(g[i]) for i in bad]})")
+
+
+def comp_slices():
+    """The slices at the edges of the compacted rounds' shared-memory sort
+    (sa_round.cu: groups of at most kernels.COMP_CAP rows, tiles of
+    dense_rank_comp_tile() rows, a block sorting by counting while no
+    group of it has more than dense_rank_comp_small() rows, else by its
+    bitonic network): {name: group sizes}; a group above the cap takes the
+    large path."""
+    from cmsbwt_tpu_torch import kernels as K
+    C = K.COMP_CAP
+    lib = K.load()["sa_round"]
+    T, S = int(lib.dense_rank_comp_tile()), int(lib.dense_rank_comp_small())
+    rng = np.random.default_rng(29)
+    small = lambda k: list(rng.integers(1, 6, k))
+    return {
+        "small_groups": small(3 * T // 3) + [2],
+        "at_the_count_limit": small(T // 2) + [S, 3, S, 1] + small(T),
+        "past_the_count_limit": small(T // 2) + [S + 1, 2] + small(T)
+        + [S, S + 1],
+        "tile_edges": [T - 1, 2, T - 2, 3, 1, T + 1, 2],
+        "at_the_cap": [3, C, 2, C - 1, 5, C, 1],
+        "above_the_cap": [2, C + 1, 4, 2 * C + 7, 3],
+        "large_from_a_tile_end": [T - 1, C + 1, 2, 3 * T, 1],
+        "one_large_group": [3 * C + 5],
+        "one_row": [1],
+        "tail_one_group": [C],
+        "tail_many": small(C // 4),
+        "tail_two": [2],
+    }
+
+
+def comp_slice_case(name: str, sizes, kind: str, seed: int, rounds: int,
+                    shift: int) -> None:
+    """dense_rank_comp against its plain version on a slice made of
+    groups of ``sizes`` rows (key 0 each group's start rank, with gaps;
+    key 1 of ``kind``: few values, distinct or equal; distinct text
+    positions; a random rank but at the slice's positions, where it is
+    key 0), as one round, or with ``rounds`` as the tail (u <=
+    COMP_CAP)."""
+    from cmsbwt_tpu_torch.kernels import COMP_CAP
+    rng = np.random.default_rng(seed)
+    sizes = np.asarray(sizes, np.int64)
+    u = int(sizes.sum())
+    starts = np.cumsum(np.concatenate([[0], sizes[:-1]])) + np.cumsum(
+        rng.integers(0, 3, len(sizes)))
+    m = int(starts[-1] + sizes[-1] + 8)
+    k0 = np.repeat(starts, sizes)
+    k1 = {"few": rng.integers(0, 3, u), "distinct": rng.permutation(u) + 1,
+          "equal": np.ones(u, np.int64)}[kind]
+    ti = rng.permutation(m)[:u]
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    large = int(sizes[sizes > COMP_CAP].sum())
+    fill = lambda k: torch.full((k,), -7, dtype=torch.int32, device="cuda")
+    rank = rng.integers(0, m, m)
+    rank[ti] = k0           # a slice row's rank is its key 0
+    args = ((dev(ti), dev(k0), dev(k1)), u, 0 if rounds else large,
+            dev(rank), fill(m), (fill(u), fill(u)), shift, rounds)
+    comp_step_case(f"{name}, {kind}" + (f", tail {rounds}" if rounds
+                                        else ""), args)
 
 
 def rank_strings() -> dict:
@@ -2411,6 +2570,13 @@ def rank_strings() -> dict:
            "acgt_300k": (rng.integers(0, 4, 300_000), 256),
            "periodic_5000": (np.tile([0, 1, 2, 1], 1250), 256),
            "equal_4099": (np.zeros(4099, np.int64), 256),
+           # a slice of one group of the cap (the tail) and of the cap + 1
+           # rows (the large path); one group of all 40 000 rows; groups of
+           # ~10 000 rows a round
+           "equal_4097": (np.zeros(4097, np.int64), 256),
+           "equal_4098": (np.zeros(4098, np.int64), 256),
+           "equal_40000": (np.zeros(40_000, np.int64), 256),
+           "period3_30000": (np.tile([2, 0, 1], 10_000), 256),
            "n1": (rng.integers(0, 4, 1), 256)}
     # a head string: ranks with repeats, a terminator 0, pads above 2^30
     h, L = 200_000, 262_145
@@ -2419,6 +2585,10 @@ def rank_strings() -> dict:
     r[h] = 0
     r[h + 1:] = (1 << 30) + np.arange(h + 1, L)
     out["head_string"] = (r, (1 << 30) + L)
+    # a collection of one document repeated: the head string of its
+    # ranks, every group as large as the copies
+    doc = rng.integers(1, 900, 7)
+    out["repeated_doc"] = (np.concatenate([np.tile(doc, 5000), [0]]), 901)
     return {k: (v.astype(np.int32), b) for k, (v, b) in out.items()}
 
 
@@ -2427,14 +2597,18 @@ def rank_cases() -> int:
     versions on the card (exact): every kind of key at the tiles' edges,
     one key and two, the next key at shifts inside and past n, the
     group-start mode's slice whole and cut, its key 1 at shifts inside
-    and past n; then index/device.suffix_array_device on the card against
+    and past n; dense_rank_comp on made slices (comp_slices: groups at
+    the tiles' edges, at the cap and above it, one large group, the tail
+    at the cap and over several rounds), as a round with its next key and
+    as the tail; then index/device.suffix_array_device on the card against
     the CPU on rank_strings() with the history and without it, each
-    compacted step on the card against its plain version. Returns the
-    cases run."""
+    compacted call on the card against its plain version (the large path
+    and the tail among them). Returns the cases run."""
+    from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.index import device as idx
     from cmsbwt_tpu_torch.ops import sort as S
     cases = 0
-    for n in RANK_SIZES:
+    for n in rank_sizes():
         for kind in RANK_KINDS:
             a, b = rank_keys(n, kind, n + cases)
             order, s0 = S.stable_argsort((a, b), (S.key_bits(n),
@@ -2453,6 +2627,17 @@ def rank_cases() -> int:
                                        f"{shift}", o, s, key1, shift, cap)
                         cases += 1
     S.check_faults("cuda:0")
+    big0 = K.LAUNCHES["radix_hist"]
+    for name, sizes in comp_slices().items():
+        tail = sum(sizes) <= idx.COMP_CAP
+        for kind in ("few", "distinct", "equal"):
+            for rounds, shift in ((0, 4), (0, 0)) + (
+                    ((1, 2), (5, 8)) if tail else ()):
+                comp_slice_case(name, sizes, kind, cases, rounds, shift)
+                cases += 1
+    if K.LAUNCHES["radix_hist"] == big0:
+        fail("rank_cases: no made slice took the large-group path")
+    S.check_faults("cuda:0")
     for name, (x, bound) in rank_strings().items():
         n = len(x)
         xc = torch.from_numpy(x)
@@ -2465,8 +2650,15 @@ def rank_cases() -> int:
                   want[True][q], got[q])
         if got[3] != want[True][3]:
             fail(f"suffix_array_device[{name}, history]: k_star differs")
+        sorts = K.LAUNCHES["radix_hist"]
         with CompCapture() as cap:
             got = idx.suffix_array_device(xg, n, bound, history=False)
+        # the first round's sort and one a compacted round with large
+        # groups (their rows only): no round sorts its slice
+        sorts = K.LAUNCHES["radix_hist"] - sorts
+        if sorts != 1 + sum(1 for c in cap.calls if c[2]):
+            fail(f"suffix_array_device[{name}]: {sorts} sorts for "
+                 f"{len(cap.calls)} compacted calls")
         for q, what in enumerate(("sa", "isa")):
             _same(f"suffix_array_device[{name}] {what}", want[True][q],
                   got[q])
@@ -2474,7 +2666,7 @@ def rank_cases() -> int:
             fail(f"suffix_array_device[{name}]: a history or another "
                  "k_star")
         for i, args in enumerate(cap.calls):
-            comp_step_case(f"{name}, step {i}", args)
+            comp_step_case(f"{name}, call {i}", args)
             cases += 1
         cases += 1
     S.check_faults("cuda:0")
@@ -2632,15 +2824,18 @@ def run_phases(card: str, kind: str, started: float) -> int:
         exact_merges[0] += 1
         return tail_exact(*a, **kw)
     dmg.tail_exact_dev = counted_tail_exact
-    # the head strings' compacted steps (index/device.comp_rank), each of
-    # which launches dense_rank_comp once
+    # the head strings' compacted calls (index/device.comp_rank, one a
+    # round, and comp_tail, one for the rounds left), each of which
+    # launches dense_rank_comp once
     comp_steps = [0]
-    comp_rank = idx.comp_rank
 
-    def counted_comp(*a, **kw):
-        comp_steps[0] += 1
-        return comp_rank(*a, **kw)
-    idx.comp_rank = counted_comp
+    def counted(fn):
+        def call(*a, **kw):
+            comp_steps[0] += 1
+            return fn(*a, **kw)
+        return call
+    idx.comp_rank, idx.comp_tail = counted(idx.comp_rank), \
+        counted(idx.comp_tail)
 
     def reset_counts():
         kernels.reset_launch_counts()
@@ -3111,7 +3306,8 @@ def run_phases(card: str, kind: str, started: float) -> int:
                   "cmsbwt_tpu/index/device.py:24", merge_cases,
                   ("dense_rank_index",)),
         merge_row(row, "dense_rank_comp", csrc + "sa_round.cu",
-                  "cmsbwt_tpu/index/device.py:80", merge_cases),
+                  "cmsbwt_tpu/index/device.py:80", merge_cases,
+                  ("dense_rank_comp_tail",)),
         merge_row(row, "pair_expand", csrc + "pair_expand.cu",
                   "cmsbwt_tpu/engine/device_merge.py:359", merge_cases),
         row("sa_round", csrc + "sa_round.cu",

@@ -17,10 +17,15 @@ cmsbwt_tpu/index/device.py, function by function.
   rows densely, as JAX's history rows are. Without it (the head string's
   sort in engine/device_merge.py and engine/ranking.py) a row's rank is
   the sorted index at which its group starts, which stays fixed once the
-  row is resolved, and every round after the first sorts and ranks only
-  the rows still in groups of two or more (``comp_rank``:
-  ``dense_rank_comp`` on CUDA, ``_comp_rank_reference`` on the CPU),
-  writing each row's rank and its place in the suffix array in place. At
+  row is resolved, and every round after the first ranks only the rows
+  still in groups of two or more: a slice of their text positions and
+  ranks in sorted order, so each group's rows are contiguous and only
+  need sorting by key 1 among themselves (``comp_rank``: on CUDA
+  ``dense_rank_comp``, which sorts each group of at most ``COMP_CAP``
+  rows in shared memory and larger groups on ``radix_sort``; on the CPU
+  ``_comp_rank_reference``), writing each row's rank and its place in the
+  suffix array in place. Once the slice has at most ``COMP_CAP`` rows one
+  call runs every round left (``comp_tail``: one block on CUDA). At
   convergence every group is a singleton, so the rank, the order and
   k_star are JAX's.
 * rank history: a [LEVELS, n] int32 buffer, kept where asked for
@@ -36,7 +41,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.sort import fault_word, key_bits, raise_faults, stable_argsort
+from ..kernels import COMP_CAP
+from ..ops.sort import (COUNT_FAULT, fault_word, key_bits, raise_faults,
+                        stable_argsort)
 
 INT_MAX = 2**31 - 1
 I32 = torch.int32
@@ -46,13 +53,13 @@ I32 = torch.int32
 REFERENCE_CALLS = {"_dense_rank_reference": 0, "_comp_rank_reference": 0}
 
 
-def _rank_work(n: int, steps: int, dev):
+def _rank_work(n: int, steps: int, dev, comp_steps: int = 0):
     """One suffix sort's scratch and stagings for its rank steps on CUDA
     (kernels.RankWork); None on the CPU."""
     if torch.device(dev).type != "cuda":
         return None
     from ..kernels import RankWork
-    return RankWork(n, steps, dev)
+    return RankWork(n, steps, dev, comp_steps)
 
 
 def dense_rank(order, s0, key1=None, out=None, *, nxt=None, shift: int = 0,
@@ -61,8 +68,9 @@ def dense_rank(order, s0, key1=None, out=None, *, nxt=None, shift: int = 0,
     tensors: the CUDA kernel for CUDA tensors, ``_dense_rank_reference``
     for CPU tensors (``work``: the CUDA kernel's RankWork). Returns (rank
     int32[n] in text order, into ``out`` where given; top int32[2]: the
-    largest rank, or with ``slice_`` the unresolved count, and the sorts'
-    fault word as it stood after the sort, on the device)."""
+    largest rank and the sorts' fault word as it stood after the sort, on
+    the device; with ``slice_`` int32[3]: the unresolved count, the fault
+    word, and the slice's rows in groups larger than COMP_CAP)."""
     dev = order.device
     if dev.type == "cuda":
         from ..kernels import dense_rank_cuda
@@ -120,8 +128,10 @@ def _dense_rank_reference(order, s0, key1=None, out=None, *, nxt=None,
     (0 past the end); or with ``slice_`` = (ti, k0, k1) the group-start
     rank (the last rank start row at or before it), the unresolved rows'
     text positions, ranks and key 1 at ``shift`` (sorted order, the first
-    cap = len(ti) of them) into ti, k0 and k1. top = (the largest rank or
-    the unresolved count, the fault word). Plain torch, on any device."""
+    cap = len(ti) of them) into ti, k0 and k1. top = (the largest rank,
+    the fault word), or with ``slice_`` (the unresolved count, the fault
+    word, the slice's rows in groups larger than COMP_CAP). Plain torch,
+    on any device."""
     REFERENCE_CALLS["_dense_rank_reference"] += 1
     n = order.shape[0]
     starts = _starts(order, s0, key1)
@@ -146,48 +156,86 @@ def _dense_rank_reference(order, s0, key1=None, out=None, *, nxt=None,
     elif nxt is not None:
         nxt.copy_(_shifted(rank, torch.arange(n, device=s0.device), shift))
     top = torch.cat([word, fault_word(s0.device)])
+    if slice_ is not None:
+        big = _big_rows(starts)
+        top = torch.cat([top, torch.tensor([big], dtype=I32,
+                                           device=s0.device)])
     return rank, top
 
 
-def comp_rank(perm, s0, k1, ti, rank, sa, nxt_slice, shift: int,
-              work=None):
-    """A compacted round's rank step after its sort, on the device of its
-    tensors: ``dense_rank_comp`` for CUDA tensors, ``_comp_rank_reference``
-    for CPU tensors. Returns top int32[2] (the unresolved count, the
-    sorts' fault word), on the device."""
-    dev = perm.device
+def _big_rows(starts) -> int:
+    """The rows in runs (from a rank start up to the next) of more than
+    COMP_CAP rows: the next slice's rows in groups too large to sort in
+    shared memory."""
+    run = torch.cumsum(starts.to(torch.int64), 0)
+    size = torch.bincount(run - 1)
+    return int(size[size > COMP_CAP].sum())
+
+
+def comp_rank(slice_, u: int, large: int, rank, sa, nxt_slice,
+              shift: int, work=None):
+    """A compacted round's rank step over the slice of unresolved rows,
+    on the device of its tensors: ``dense_rank_comp`` for CUDA tensors,
+    ``_comp_rank_reference`` for CPU tensors. Returns top int32[4] (the
+    next slice's rows, the sorts' fault word, its rows in groups larger
+    than COMP_CAP, the rounds run: 1), on the device."""
+    dev = rank.device
     if dev.type == "cuda":
         from ..kernels import dense_rank_comp_cuda
-        return dense_rank_comp_cuda(perm, s0, k1, ti, rank, sa, nxt_slice,
+        return dense_rank_comp_cuda(slice_, u, large, rank, sa, nxt_slice,
                                     shift, fault_word(dev), work)
     if dev.type == "cpu":
-        return _comp_rank_reference(perm, s0, k1, ti, rank, sa, nxt_slice,
+        return _comp_rank_reference(slice_, u, large, rank, sa, nxt_slice,
                                     shift)
     raise ValueError(f"comp_rank: unsupported device {dev.type!r}")
 
 
-def _comp_rank_reference(perm, s0, k1, ti, rank, sa, nxt_slice,
+def comp_tail(slice_, u: int, rank, sa, nxt_slice, shift: int, rounds: int,
+              work=None):
+    """Every compacted round left, from a slice of u <= COMP_CAP rows
+    whose key 1 is at ``shift``, until no row is unresolved or ``rounds``
+    have run: one block of ``dense_rank_comp`` for CUDA tensors,
+    ``_comp_tail_reference`` for CPU tensors. Returns top as comp_rank's,
+    with the rounds run."""
+    dev = rank.device
+    if dev.type == "cuda":
+        from ..kernels import dense_rank_comp_cuda
+        return dense_rank_comp_cuda(slice_, u, 0, rank, sa, nxt_slice,
+                                    shift, fault_word(dev), work,
+                                    tail=rounds)
+    if dev.type == "cpu":
+        return _comp_tail_reference(slice_, u, rank, sa, nxt_slice, shift,
+                                    rounds)
+    raise ValueError(f"comp_tail: unsupported device {dev.type!r}")
+
+
+def _comp_rank_reference(slice_, u: int, large: int, rank, sa, nxt_slice,
                          shift: int):
-    """Over the u rows of the slice in ``perm`` (their stable order by
-    (key 0, key 1); ``s0`` key 0 in that order; ``k1``, ``ti`` the slice's
-    key 1 and text positions by slice row), with G and F the last group
-    (key 0) and rank (key 0 or key 1) start rows at or before r: rank[t]
-    = key 0 + (F - G), sa[key 0 + (r - G)] = t for the rows now resolved
-    (a later round places the others), the unresolved rows' text
-    positions and ranks (sorted order) into ``nxt_slice`` = (ti_n, k0_n),
-    and with ``shift`` > 0 their key 1 at that shift into k1 (after the
-    ranks land). Returns top = (the unresolved count, the fault word).
-    Plain torch, on any device."""
+    """Over the first u rows of the slice ``slice_`` = (ti, k0, k1): text
+    positions, key 0 (the rank the row had: its group's start, in sorted
+    order) and key 1, sorted stably by (key 0, key 1) here; with G and F
+    the last group (key 0) and rank (key 0 or key 1) start rows at or
+    before a sorted row r: rank[t] = key 0 + (F - G), sa[key 0 + (r - G)]
+    = t for the rows now resolved (a later round places the others), the
+    unresolved rows' text positions and ranks (sorted order) into
+    ``nxt_slice`` = (ti_n, k0_n), and with ``shift`` > 0 their key 1 at
+    that shift into k1 (after the ranks land). ``large``: the slice's
+    rows in groups larger than COMP_CAP, as the round before counted them
+    (COUNT_FAULT in the fault word if not). Returns top = (the unresolved
+    count, the fault word, the next slice's rows in groups larger than
+    COMP_CAP, 1). Plain torch, on any device."""
     REFERENCE_CALLS["_comp_rank_reference"] += 1
-    u = perm.shape[0]
-    p = perm.long()
-    tis, k1s = ti[p], k1[p]
-    g_start = torch.ones(u, dtype=torch.bool, device=s0.device)
+    ti, k0, k1 = (v[:u] for v in slice_)
+    dev = rank.device
+    p = torch.sort(k1, stable=True).indices
+    p = p[torch.sort(k0[p], stable=True).indices]
+    s0, tis, k1s = k0[p], ti[p], k1[p]
+    g_start = torch.ones(u, dtype=torch.bool, device=dev)
     g_start[1:] = s0[1:] != s0[:-1]
     starts = g_start.clone()
     starts[1:] |= k1s[1:] != k1s[:-1]
     G, F = _last_row(g_start), _last_row(starts)
-    at = torch.arange(u, dtype=I32, device=s0.device)
+    at = torch.arange(u, dtype=I32, device=dev)
     new = (s0 + (F - G)).to(I32)
     rank[tis.long()] = new
     un = _unresolved(starts)
@@ -197,9 +245,40 @@ def _comp_rank_reference(perm, s0, k1, ti, rank, sa, nxt_slice,
     ti_n[:c] = tis[un]
     k0_n[:c] = new[un]
     if shift > 0 and c:
-        k1[:c] = _shifted(rank, ti_n[:c], shift)
-    return torch.cat([torch.tensor([c], dtype=I32, device=s0.device),
-                      fault_word(s0.device)])
+        slice_[2][:c] = _shifted(rank, ti_n[:c], shift)
+    size = torch.bincount(torch.cumsum(g_start.to(torch.int64), 0) - 1)
+    fault = fault_word(dev).clone()
+    if int(size[size > COMP_CAP].sum()) != large:
+        fault |= COUNT_FAULT
+    return torch.cat([torch.tensor([c], dtype=I32, device=dev), fault,
+                      torch.tensor([_big_rows(starts), 1], dtype=I32,
+                                   device=dev)])
+
+
+def _comp_tail_reference(slice_, u: int, rank, sa, nxt_slice, shift: int,
+                         rounds: int):
+    """comp_tail's plain version: _comp_rank_reference round by round on
+    copies of the slice, each round's key 1 gathered from the rank at
+    ``shift``, 2 ``shift``, ...; a slice left when the rounds run out into
+    ``nxt_slice``. Returns (the rows left, the fault word, 0, the rounds
+    run)."""
+    cur = tuple(v[:u].clone() for v in slice_)
+    h, run = shift, 0
+    fault = fault_word(rank.device)
+    while u and run < rounds:
+        cur[2][:u] = _shifted(rank, cur[0][:u], h)
+        nxt = tuple(torch.empty(u, dtype=I32, device=rank.device)
+                    for _ in range(2))
+        top = _comp_rank_reference(cur, u, 0, rank, sa, nxt, 0)
+        fault = top[1:2]
+        u = int(top[0])
+        cur = (nxt[0], nxt[1], cur[2])
+        h, run = 2 * h, run + 1
+    nxt_slice[0][:u] = cur[0][:u]
+    nxt_slice[1][:u] = cur[1][:u]
+    return torch.cat([torch.tensor([u], dtype=I32, device=rank.device),
+                      fault, torch.tensor([0, run], dtype=I32,
+                                          device=rank.device)])
 
 
 def _dense_rank(keys, bounds, out=None, **step):
@@ -216,12 +295,21 @@ def _dense_rank(keys, bounds, out=None, **step):
 
 
 def _read_top(top: torch.Tensor) -> int:
-    """The round's first word (the largest rank, or the unresolved
-    count), from one copy of ``top`` that also brings the sorts' fault
-    word (raised on, as check_faults does)."""
+    """A dense round's first word (the largest rank), from one copy of
+    ``top`` that also brings the sorts' fault word (raised on, as
+    check_faults does)."""
     word, fault = top.tolist()
     raise_faults(top.device, fault)
     return word
+
+
+def _read_round(top: torch.Tensor) -> tuple:
+    """A head-string round's words from one copy of ``top`` (raising on
+    the sorts' fault word): (the unresolved count, its rows in groups
+    larger than COMP_CAP, the rounds the call ran: 1 unless the tail's)."""
+    words = top.tolist()
+    raise_faults(top.device, words[1])
+    return words[0], words[2], words[3] if len(words) > 3 else 1
 
 
 def n_levels(n: int) -> int:
@@ -264,10 +352,12 @@ def _suffix_array_starts(x: torch.Tensor, n: int, bound: int):
     pairs (x[t], x[t + 1] + 1) (0 past the end) as JAX's seed packs them,
     with no one-key step before it; group-start ranks, and every later
     round over the unresolved rows only (a slice of their text positions,
-    ranks and key 1, carried from round to round)."""
+    ranks and key 1, carried from round to round, with no sort), the
+    rounds from a slice of COMP_CAP rows or fewer in one call. One host
+    read a call."""
     dev = x.device
     levels = n_levels(n)
-    work = _rank_work(n, levels - 1, dev)
+    work = _rank_work(n, 1, dev, levels - 2)
     ti, k0, k1 = (torch.empty(n, dtype=I32, device=dev) for _ in range(3))
     rank = torch.empty(n, dtype=I32, device=dev)
     nxt = torch.zeros(n, dtype=I32, device=dev)
@@ -277,22 +367,22 @@ def _suffix_array_starts(x: torch.Tensor, n: int, bound: int):
     _, sa, top = _dense_rank((xi, nxt), (bound, bound + 1), rank, shift=2,
                              slice_=(ti, k0, k1), work=work)
     del xi, nxt
-    u = _read_top(top)
-    k_star = 1 if u == 0 else levels
+    u, large, _ = _read_round(top)
     # each round's slice holds at most the round before's rows
-    ti_n = torch.empty(max(u, 1), dtype=I32, device=dev)
-    for k in range(1, levels - 1 if u else 1):   # round k: shift 2^k
-        perm, s0 = stable_argsort((k0[:u], k1[:u]),
-                                  (key_bits(n), key_bits(n + 1)),
-                                  values=True)
-        top = comp_rank(perm, s0, k1[:u], ti[:u], rank, sa,
-                        (ti_n, k0[:ti_n.shape[0]]), 2 << k, work)
-        ti, ti_n = ti_n, ti
-        u = _read_top(top)
-        if u == 0:
-            k_star = k + 1
-            break
-    return sa, rank, None, k_star
+    ti_n, k0_n = (torch.empty(max(u, 1), dtype=I32, device=dev)
+                  for _ in range(2))
+    k = 1                                      # round k: shift 2^k
+    while u and k < levels - 1:
+        if u <= COMP_CAP:
+            top = comp_tail((ti, k0, k1), u, rank, sa, (ti_n, k0_n), 1 << k,
+                            levels - 1 - k, work)
+        else:
+            top = comp_rank((ti, k0, k1), u, large, rank, sa, (ti_n, k0_n),
+                            2 << k, work)
+            ti, ti_n, k0, k0_n = ti_n, ti, k0_n, k0
+        u, large, rounds = _read_round(top)
+        k += rounds
+    return sa, rank, None, levels if u else k
 
 
 def lcp_device(sa: torch.Tensor, history: torch.Tensor, n: int

@@ -33,8 +33,13 @@ SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
            "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
            "tail_exact_credit.cu", "radix_sort.cu", "compact.cu",
            "sa_round.cu", "pair_expand.cu")
+# the largest group a compacted round of the head string's suffix sort
+# sorts in shared memory, and the largest slice its tail runs in one block
+# (sa_round.cu's C_CAP, passed to every build; index/device.COMP_CAP)
+COMP_CAP = 4096
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              f"-DCOMP_CAP={COMP_CAP}"]
 LIFT_THREADS = 256
 
 LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
@@ -154,8 +159,20 @@ def _bind(libs: dict) -> None:
     lib.dense_rank_launch.restype = I
     lib.dense_rank_launch.argtypes = [I] + [P] * 5 + [LL] + [P] * 3 + [
         I, P, P, I, I, P, P, P]
+    lib.dense_rank_comp_scratch_bytes.restype = LL
+    lib.dense_rank_comp_scratch_bytes.argtypes = [LL]
+    lib.dense_rank_comp_tile.restype = I
+    lib.dense_rank_comp_tile.argtypes = []
+    lib.dense_rank_comp_small.restype = I
+    lib.dense_rank_comp_small.argtypes = []
+    lib.dense_rank_comp_pick_launch.restype = I
+    lib.dense_rank_comp_pick_launch.argtypes = [P] * 3 + [I, I] + [P] * 6
     lib.dense_rank_comp_launch.restype = I
-    lib.dense_rank_comp_launch.argtypes = [P] * 8 + [I, LL, I, I, P, P, P]
+    lib.dense_rank_comp_launch.argtypes = [P] * 5 + [I, P, P, I, I, I] + [
+        P] * 7 + [LL, P, P, P]
+    lib.dense_rank_comp_tail_launch.restype = I
+    lib.dense_rank_comp_tail_launch.argtypes = [P] * 4 + [I, P, P, I, I, LL,
+                                                          I, P, P, P]
     lib = libs["pair_expand"]
     lib.pair_expand_launch.restype = I
     lib.pair_expand_launch.argtypes = [P] * 10 + [I, I, I, I, LL] + [P] * 6
@@ -944,28 +961,45 @@ def sa_round_seed_cuda(order, rows, sl: int):
 
 
 class RankWork:
-    """The zeroed scratch of one suffix sort's rank steps (dense_rank_cuda,
-    dense_rank_comp_cuda), one part a step, and a full step's two
-    stagings, made once for the sort (each made per step otherwise)."""
+    """The zeroed scratch of one suffix sort's rank steps, one part a step
+    (``steps`` full steps, dense_rank_cuda; ``comp_steps`` compacted
+    calls, dense_rank_comp_cuda), and a full step's two stagings, made
+    once for the sort (each made per step otherwise); ``checked``: the
+    sets of buffers the compacted calls have checked (_comp_checked)."""
 
-    def __init__(self, n: int, steps: int, dev):
+    def __init__(self, n: int, steps: int, dev, comp_steps: int = 0):
         lib = load()["sa_round"]
         self.shift = sa_round_bins(n, SA_BIN_SHIFT).shift
         # every step's ticket, words and look-back states start at 0
         self.stride = -(-int(lib.sa_round_scratch_bytes(n, n, self.shift))
                         // 128) * 128
-        self.scratch = torch.zeros(steps * self.stride, dtype=torch.uint8,
-                                   device=dev)
+        self.comp_stride = int(lib.dense_rank_comp_scratch_bytes(n))
+        self.scratch = torch.zeros(steps * self.stride
+                                   + comp_steps * self.comp_stride,
+                                   dtype=torch.uint8, device=dev)
         self.n, self.steps, self.used = n, steps, 0
+        self.comp_steps, self.comp_used = comp_steps, 0
         self.st = self.st2 = None
+        self.checked = set()
 
     def take(self) -> torch.Tensor:
-        """The next step's part of the scratch."""
+        """The next full step's part of the scratch."""
         if self.used == self.steps:
             raise RuntimeError(f"RankWork: all {self.steps} steps taken")
         self.used += 1
         return self.scratch[(self.used - 1) * self.stride:
                             self.used * self.stride]
+
+    def take_comp(self) -> tuple:
+        """The next compacted call's part of the scratch: its address and
+        the int32[4] view of the words the host reads."""
+        if self.comp_used == self.comp_steps:
+            raise RuntimeError(f"RankWork: all {self.comp_steps} compacted "
+                               "steps taken")
+        at = self.steps * self.stride + self.comp_used * self.comp_stride
+        self.comp_used += 1
+        return (self.scratch.data_ptr() + at,
+                self.scratch[at + 4:at + 20].view(torch.int32))
 
     def stagings(self):
         if self.st is None:
@@ -992,7 +1026,9 @@ def dense_rank_cuda(order, s0, key1, fault, out=None, *, nxt=None,
     int32[n] in text order (into ``out``, a contiguous int32[n], where
     given; needed with ``slice_``) and top int32[2] on the device, the
     largest rank (dense) or the unresolved count, and the fault word as
-    the kernel read it after the sort (the wrapper does not synchronise).
+    the kernel read it after the sort (the wrapper does not synchronise);
+    with ``slice_`` top int32[3], also the slice's rows in groups larger
+    than COMP_CAP.
     ``work``: a RankWork of n rows for the scratch and stagings (else
     made here). Same contract as index/device._dense_rank_reference."""
     dev = order.device
@@ -1038,58 +1074,118 @@ def dense_rank_cuda(order, s0, key1, fault, out=None, *, nxt=None,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch("dense_rank", err)
     at = int(lib.sa_round_count_offset())
-    return rank, scratch[at:at + 8].view(i32)
+    return rank, scratch[at:at + (8 if slice_ is None else 12)].view(i32)
 
 
-def dense_rank_comp_cuda(perm, s0, k1, ti, rank, sa, nxt_slice, shift: int,
-                         fault, work=None):
-    """Launch ``dense_rank_comp`` (sa_round.cu) on CUDA tensors: a
-    compacted round's rank step over the u rows of the slice of unresolved
-    rows (perm int32[u], their stable order by (key 0, key 1); s0
-    int32[u], key 0 in that order; k1 and ti int32[u], the slice's key 1
-    and text positions by slice row). Writes rank[t] = key 0 + (F - G)
-    and sa[key 0 + (r - G)] = t for the slice's rows (rank and sa
-    int32[m], in place), the unresolved rows' text positions and ranks
-    into ``nxt_slice`` = (ti_n, k0_n), int32[cap] each (ti_n not ti), and,
-    with ``shift`` > 0, their key 1 at that shift into k1. Returns top
-    int32[2] on the device: the unresolved count and the fault word as the
-    kernel read it (the wrapper does not synchronise). ``work``: a
-    RankWork of m rows (else made here). Same contract as
-    index/device._comp_rank_reference."""
-    dev = perm.device
-    u, m = int(perm.shape[0]), int(rank.shape[0])
-    i32 = torch.int32
-    for name, t in (("perm", perm), ("s0", s0), ("k1", k1), ("ti", ti)):
-        _check(name, t, i32, (u,), dev)
+def _comp_checked(work, slice_, nxt_slice, rank, sa, fault) -> None:
+    """Check a compacted call's buffers, once per suffix sort for each
+    set of buffers (the two slices swap from round to round)."""
+    key = tuple(t.data_ptr() for t in (*slice_, *nxt_slice, rank, sa,
+                                       fault))
+    if key in work.checked:
+        return
+    dev, i32 = rank.device, torch.int32
+    m = int(rank.shape[0])
+    names = ("ti", "k0", "k1", "ti_n", "k0_n")
+    for name, t in zip(names, (*slice_, *nxt_slice)):
+        _check(name, t, i32, None, dev)
+        if t.dim() != 1:
+            raise ValueError(f"dense_rank_comp: {name} is not 1-D")
     _check("rank", rank, i32, (m,), dev)
     _check("sa", sa, i32, (m,), dev)
     _check("fault", fault, i32, (1,), dev)
+    if not 1 <= m < 2**30 or work.n != m:
+        raise ValueError(f"dense_rank_comp: m = {m} (1 .. 2^30 - 1), a "
+                         f"RankWork of {work.n} rows")
+    if nxt_slice[0].shape != nxt_slice[1].shape:
+        raise ValueError("dense_rank_comp: ti_n and k0_n differ in length")
+    if nxt_slice[0].data_ptr() == slice_[0].data_ptr() or \
+            nxt_slice[1].data_ptr() == slice_[1].data_ptr():
+        raise ValueError("dense_rank_comp: the next slice overwrites the "
+                         "slice")
+    work.checked.add(key)
+
+
+def dense_rank_comp_cuda(slice_, u: int, large: int, rank, sa, nxt_slice,
+                         shift: int, fault, work=None, tail: int = 0):
+    """Launch ``dense_rank_comp`` (sa_round.cu) on CUDA tensors: a
+    compacted round's rank step over the first u rows of the slice of
+    unresolved rows, ``slice_`` = (ti, k0, k1), int32: text positions, key
+    0 (the rank each row had: its group's start, nondecreasing, so a
+    group's rows are contiguous) and key 1. Each group of at most
+    COMP_CAP rows is sorted by key 1 in shared memory
+    (comp_round_kernel); the ``large`` rows in larger groups (as the round
+    before counted them) are picked, sorted by (key 0, key 1) on
+    radix_sort and ranked by comp_large_kernel first. Writes rank[t] =
+    key 0 + (F - G) and sa[key 0 + (r - G)] = t for the slice's rows (rank
+    and sa int32[m], in place), the unresolved rows' text positions and
+    ranks in sorted order into ``nxt_slice`` = (ti_n, k0_n), int32[cap]
+    each (cap >= u; not ti or k0), and with ``shift`` > 0 their key 1 at
+    that shift into k1. With ``tail`` > 0 (u <= COMP_CAP) one block runs
+    up to ``tail`` rounds from this one instead, each gathering its key 1
+    at ``shift``, 2 ``shift``, ... itself, until none is left (a slice
+    left into ``nxt_slice``). Returns top int32[4] on the device: the
+    unresolved count, the fault word as the kernel read it, the next
+    slice's rows in groups larger than COMP_CAP, the rounds run (the
+    wrapper does not synchronise). ``work``: a RankWork of m rows with
+    compacted steps left (else made here); the buffers are checked once
+    per RankWork. Same contract as index/device._comp_rank_reference and
+    _comp_tail_reference."""
+    dev = rank.device
+    m = int(rank.shape[0])
+    if work is None:
+        _check("rank", rank, torch.int32, None, dev)
+        work = RankWork(m, 0, dev, 1)
+    _comp_checked(work, slice_, nxt_slice, rank, sa, fault)
+    ti, k0, k1 = slice_
     ti_n, k0_n = nxt_slice
     cap = int(ti_n.shape[0])
-    _check("ti_n", ti_n, i32, (cap,), dev)
-    _check("k0_n", k0_n, i32, (cap,), dev)
-    if not 1 <= u <= m < 2**30 or cap < u:
-        raise ValueError(f"dense_rank_comp: {u} rows of m = {m} (1 .. "
-                         f"2^30 - 1), a next slice of {cap}")
-    if ti_n.data_ptr() == ti.data_ptr():
-        raise ValueError("dense_rank_comp: the next slice overwrites ti")
-    if not 0 <= shift < 2**31:
+    if not 1 <= u <= min(int(t.shape[0]) for t in slice_) or u > m or \
+            (cap < u and not tail):
+        raise ValueError(f"dense_rank_comp: {u} rows of a slice of "
+                         f"{[int(t.shape[0]) for t in slice_]}, m = {m}, a "
+                         f"next slice of {cap}")
+    if not 0 <= large <= u or (tail and (large or u > COMP_CAP)):
+        raise ValueError(f"dense_rank_comp: {large} large rows of {u}"
+                         + (f", a tail of more than {COMP_CAP}" if tail
+                            else ""))
+    if not (1 if tail else 0) <= shift < 2**31:
         raise ValueError(f"dense_rank_comp: shift {shift}")
-    work = RankWork(m, 1, dev) if work is None else work
-    if work.n != m:
-        raise ValueError(f"dense_rank_comp: a RankWork of {work.n} rows "
-                         f"for {m}")
-    scratch = work.take()
+    scratch, top = work.take_comp()
+    scratch = ctypes.c_void_p(scratch)
     lib = load()["sa_round"]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        err = lib.dense_rank_comp_launch(
-            _ptr(perm), _ptr(s0), _ptr(k1), _ptr(ti), _ptr(rank), _ptr(sa),
-            _ptr(ti_n), _ptr(k0_n), cap, int(shift), u, m, _ptr(scratch),
-            _ptr(fault),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        if tail:
+            err = lib.dense_rank_comp_tail_launch(
+                _ptr(ti), _ptr(k0), _ptr(rank), _ptr(sa), m, _ptr(ti_n),
+                _ptr(k0_n), cap, u, int(shift), int(tail), scratch,
+                _ptr(fault), stream)
+        else:
+            large_rows = [None] * 7
+            if large:
+                picked = [torch.empty(large, dtype=torch.int32, device=dev)
+                          for _ in range(3)]
+                err = lib.dense_rank_comp_pick_launch(
+                    _ptr(ti), _ptr(k0), _ptr(k1), u, int(large),
+                    *map(_ptr, picked), scratch, _ptr(fault), stream)
+                if err:
+                    raise RuntimeError("dense_rank_comp's pick launch "
+                                       f"failed: CUDA error {err}")
+                perm, s0 = radix_sort_cuda(
+                    picked[:2], (m.bit_length(), (m + 1).bit_length()),
+                    fault, values=True)
+                large_rows = [perm, s0, picked[1], picked[2]] + [
+                    torch.empty(large, dtype=torch.int32, device=dev)
+                    for _ in range(3)]
+            ptr = lambda t: None if t is None else _ptr(t)
+            err = lib.dense_rank_comp_launch(
+                _ptr(ti), _ptr(k0), _ptr(k1), _ptr(rank), _ptr(sa), m,
+                _ptr(ti_n), _ptr(k0_n), cap, u, int(large),
+                *map(ptr, large_rows), int(shift), scratch, _ptr(fault),
+                stream)
     _launch("dense_rank_comp", err)
-    at = int(lib.sa_round_count_offset())
-    return scratch[at:at + 8].view(i32)
+    return top
 
 
 def pair_expand_cuda(pos, length, key_k, isa_next, size, smaller, pair_lo,

@@ -54,13 +54,36 @@
 // with the history sa_round_settle writes the next round's shifted key
 // beside it, without it slice_keys_kernel writes the slice's (every later
 // round is a compacted one).
-// dense_rank_comp_launch runs such a round's step over the slice alone
-// (dense_rank_comp_kernel: the rank, the newly resolved rows' places in
-// the suffix array, the next slice; then slice_keys_kernel). The largest
-// rank or the unresolved count and the fault word go into one 8-byte
-// word pair the host reads once a round. Equal to
-// index/device._dense_rank_reference and _comp_rank_reference element
-// for element.
+// The group-start mode also counts the slice's rows in groups larger
+// than C_CAP (below). The largest rank or the unresolved count, the fault
+// word and that count go into words the host reads in one copy a round.
+//
+// The compacted rounds (dense_rank_comp_launch; the counterpart of
+// cmsbwt_tpu/index/device.py:80-99, round_k's do_sort, which no JAX
+// function runs on the unresolved rows only) take the slice in the order
+// the round before wrote it: sorted by key 0, the group's start rank, so
+// a group's rows are contiguous and need sorting by key 1 only among
+// themselves. comp_round_kernel gives each block the groups whose first
+// row falls in its tile of C_TILE slice rows (it finds them from key 0:
+// tile_groups), reads key 1 and the text positions in slice order,
+// coalesced, sorts each group stably by key 1 in shared memory
+// (sort_groups: a count of the smaller keys, a few reads a row for the
+// head string's groups of 2-12 rows, where no group of the block has more
+// than C_SMALL rows; else a bitonic network over the block's rows, whose
+// cost does not grow with the groups' size), writes the changed ranks, the
+// resolved rows' places and, through one look-back of the tiles' counts,
+// the next slice in sorted order; slice_keys_kernel then gathers the next
+// round's key 1 once the ranks have landed. A group of more than C_CAP
+// rows (none in the bench's head strings) takes the large-group path
+// first: comp_pick_kernel picks its rows, radix_sort sorts them by (key
+// 0, key 1) (the wrapper's call) and comp_large_kernel ranks them, its
+// unresolved rows handed to the tiles the group spans, in order. A slice
+// of C_CAP rows or fewer runs every round left in one block
+// (dense_rank_comp_tail_launch, comp_tail_kernel): the slice stays in
+// shared memory, each round gathers its own key 1 after a barrier, and
+// the host reads once, after the launch. Equal to
+// index/device._dense_rank_reference, _comp_rank_reference and
+// _comp_tail_reference element for element.
 //
 // What bounds it on this card: bytes. A full round reads perm, lv and the
 // keys of each row and writes lv, the two rank rows and the flags: 37 B a
@@ -479,6 +502,9 @@ struct RankArgs {
   int* sa;              // compacted: each row written at its place
   int* ti_n;            // START, compacted: the unresolved rows' text
   int* k0_n;            //   positions and ranks, sorted order, cap rows
+  int* g_n;             // compacted: their key 0 before the step
+  int* large;           // START, compacted: += the rows the slice holds in
+                        //   groups larger than C_CAP
   int cap;
   int n, m;             // rows; text positions (a full step: n == m)
   int shift, bins;
@@ -493,6 +519,50 @@ struct RankArgs {
 };
 
 enum RankMode : int { RANK_DENSE = 0, RANK_START = 1 };
+
+// The compacted rounds' shared-memory sort: a block holds the groups
+// whose first row falls in its tile of C_TILE slice rows, each at most
+// C_CAP rows (the largest group sorted in shared memory; a larger one
+// takes the large-group path); C_ROWS rows in all. The cap is
+// index/device.COMP_CAP, which the build passes as COMP_CAP. A block
+// whose largest group has at most C_SMALL rows sorts by counting, a
+// larger one by a bitonic network over all its rows (sort_groups): on
+// the H100, on slices of 9.6 M rows, counting is the faster up to groups
+// of 128 rows and the slower from 256 (tools/profile_slice.py
+// --comp-groups), and the network beats the large-group path at every
+// size up to the cap.
+#ifndef COMP_CAP
+#error "build with -DCOMP_CAP=<index/device.COMP_CAP>"
+#endif
+constexpr int C_THREADS = 512;
+constexpr int C_TILE = 2048;
+constexpr int C_CAP = COMP_CAP;
+constexpr int C_SMALL = 128;
+constexpr int C_ROWS = C_TILE + C_CAP;
+constexpr int C_ITEMS = C_ROWS / C_THREADS;   // a thread's rows
+constexpr int T_ITEMS = C_CAP / C_THREADS;    // the tail's
+static_assert(C_TILE <= C_CAP, "a group inside a tile is never large");
+static_assert(C_ROWS % C_THREADS == 0 && C_CAP % C_THREADS == 0,
+              "whole rows a thread");
+static_assert(C_ROWS <= (1 << 13), "row indexes in 13 bits (sort_groups)");
+static_assert(3 * (C_TILE + C_ROWS) * 4 <= 227 * 1024,
+              "comp_round_kernel's shared memory");
+
+// Rows of the next slice in groups larger than C_CAP, counted at a row
+// that stays unresolved d rows after its run's first row: a run of L >
+// C_CAP rows counts L (1 at each d > C_CAP, C_CAP + 1 at d == C_CAP).
+__device__ __forceinline__ int big_rows(int d) {
+  return d > C_CAP ? 1 : (d == C_CAP ? C_CAP + 1 : 0);
+}
+
+// one atomic a warp for a count that is 0 almost everywhere
+__device__ __forceinline__ void add_count(int* word, int v) {
+  const unsigned b = __ballot_sync(FULL, v != 0);
+  if (!b) return;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(FULL, v, d);
+  if ((threadIdx.x & 31) == 0) atomicAdd(word, v);
+}
 
 // START's scan state: the last start row, the unresolved rows
 struct StartCount {
@@ -644,6 +714,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         cagg, &tot);
     StartCount run = StartCountOp::combine(
         lookback<StartCountOp>(a.slots, t, tot), ex);
+    int big = 0;
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
       if (ch >> j & 1u) run.f = int(r0) + j;
@@ -654,12 +725,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
           a.k0_n[run.cnt] = rk[j];
         }
         ++run.cnt;
+        big += big_rows(int(r0) + j - run.f);
       }
       if (j < n && r0 + j == a.n - 1) {
         a.top[0] = run.cnt;
         a.top[1] = *a.fault;
       }
     }
+    add_count(a.large, big);
   } else {
     int tot;
     const int ex = block_scan<false, SumOp>(__popc(ch), 0, sagg, &tot);
@@ -723,19 +796,21 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-// A compacted round's rank step (RANK_START's ranks): over the u rows of
-// the slice of unresolved rows in the order of a stable sort by (key 0,
-// key 1) (order[r]: the slice row; key 0 the group's start, sorted; key 1
-// and the text position read through the order from the slice, which the
-// L2 holds while it is small), with G and F the last group and rank start
-// rows at or before r: rank[t] = key 0 + (F - G) (written where F != G:
-// key 0 is the rank the row had), sa[key 0 + (r - G)] = t for the rows
-// now resolved (the row's place in the whole order: a group's rows are
-// contiguous in both; an unresolved row is placed in a later round), and
-// the unresolved rows to the next slice. Rows are written in place: the
-// round's keys were read before it.
+// The large-group path's rank step (RANK_START's ranks): over the rows
+// of the groups larger than C_CAP, picked from the slice
+// (comp_pick_kernel) and sorted stably by (key 0, key 1) on radix_sort
+// (order[r]: the picked row; key 1 and the text position read through
+// the order), with G and F the last group and rank start rows at or
+// before r: rank[t] = key 0 + (F - G) (written where F != G: key 0 is the
+// rank the row had), sa[key 0 + (r - G)] = t for the rows now resolved
+// (the row's place in the whole order: a group's rows are contiguous in
+// both; an unresolved row is placed in a later round), and the
+// unresolved rows, with their key 0 before the step, to the large
+// groups' part of the next slice (``ti_n``, ``k0_n``, ``g_n``), which
+// comp_round_kernel then places. Counts the next slice's rows in groups
+// larger than C_CAP into *large.
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    dense_rank_comp_kernel(const RankArgs a) {
+    comp_large_kernel(const RankArgs a) {
   __shared__ CompState cagg[33];
   __shared__ int wl0[WARPS], wl1[WARPS], wf[WARPS];
   const int t = take_ticket(a.ticket);   // synchronises the block
@@ -764,6 +839,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       CompState{top_row(r0, gs), top_row(r0, ch), __popc(un)},
       CompOp::identity(), cagg, &tot);
   CompState run = CompOp::combine(lookback<CompOp>(a.slots, t, tot), ex);
+  int big = 0;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     if (j >= n) break;
@@ -784,14 +860,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       if (run.cnt < a.cap) {
         a.ti_n[run.cnt] = tt[j];
         a.k0_n[run.cnt] = rank;
+        a.g_n[run.cnt] = k0[j];
       }
       ++run.cnt;
+      big += big_rows(r - run.f);
     }
     if (r == a.n - 1) {
       a.top[0] = run.cnt;
       a.top[1] = *a.fault;
     }
   }
+  add_count(a.large, big);
 }
 
 // The next compacted round's key 1 for the slice (ti, *count rows, at
@@ -806,7 +885,649 @@ __global__ void __launch_bounds__(KEYS_THREADS)
   for (long long i = blockIdx.x * (long long)KEYS_THREADS + threadIdx.x;
        i < rows; i += (long long)gridDim.x * KEYS_THREADS) {
     const long long at = (long long)__ldg(ti + i) + h;
-    k1[i] = at < m ? rank[at] + 1 : 0;
+    k1[i] = (unsigned long long)at < (unsigned long long)m ? rank[at] + 1
+                                                            : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The compacted rounds: comp_pick_kernel, comp_large_kernel (above),
+// comp_round_kernel, slice_keys_kernel; comp_tail_kernel
+// ---------------------------------------------------------------------------
+
+struct MaxOp {
+  static __device__ __forceinline__ int identity() { return -1; }
+  static __device__ __forceinline__ int combine(int x, int y) {
+    return max(x, y);
+  }
+  static __device__ __forceinline__ bool absorbs(int) { return false; }
+};
+
+// a tile's rows for the next slice, and the faults it found
+struct CountFault {
+  int cnt, fault;
+};
+
+struct CountFaultOp {
+  static __device__ __forceinline__ CountFault identity() {
+    return CountFault{0, 0};
+  }
+  static __device__ __forceinline__ CountFault combine(const CountFault& x,
+                                                       const CountFault& y) {
+    return CountFault{x.cnt + y.cnt, x.fault | y.fault};
+  }
+  static __device__ __forceinline__ bool absorbs(const CountFault&) {
+    return false;
+  }
+};
+
+// ops/sort.COUNT_FAULT: a count the caller stated was wrong
+constexpr int COUNT_FAULT = 1 << 4;
+// a place outside [0, m) (m < 2^30): not written
+constexpr unsigned NO_PLACE = (1u << 30) - 1;
+
+struct CompArgs {
+  const int* ti;        // the slice: text positions, key 0 (the group's
+  const int* k0;        //   start rank, nondecreasing: a group's rows are
+  int* k1;              //   contiguous) and key 1, u rows each
+  int* rank;            // m int32, written at the slice's positions
+  int* sa;              // m int32, written at the resolved rows' places
+  int* ti_n;            // the next slice (cap rows; not ti, k0)
+  int* k0_n;
+  int u, m, cap;
+  int large;            // the slice's rows in groups larger than C_CAP
+  const int* l_ti;      // the large groups' part of the next slice
+  const int* l_k0;      //   (comp_large_kernel's ti_n, k0_n, g_n), in
+  const int* l_g;       //   sorted order, *l_count rows
+  const int* l_count;
+  int* p_k0;            // comp_pick_kernel: the large groups' rows
+  int* p_k1;
+  int* p_ti;
+  unsigned* ticket;
+  int* top;             // the next slice's rows, the fault word's copy,
+                        // the rows in its large groups, the rounds run
+  int* fault;           // the sorts' fault word
+  unsigned long long* slots;
+  long long h;          // the tail: the first round's shift
+  int rounds;           // the tail: the most rounds it runs
+};
+
+// The first index in [lo, hi) at which the nondecreasing ``v`` exceeds
+// ``x`` (hi if none), found by the calling warp in rounds of 32 probes
+// that each cut the range 32-fold; every lane gets it.
+__device__ __forceinline__ int first_above(const int* __restrict__ v, int lo,
+                                           int hi, int x) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const long long i = lo + (long long)lane * step;
+    const bool p = i >= hi || __ldg(v + i) > x;
+    const unsigned b = __ballot_sync(FULL, p);
+    if (!b) {               // every probe at or below x
+      lo += 31 * step + 1;
+      continue;
+    }
+    const int f = __ffs(b) - 1;
+    if (f == 0) return lo;
+    hi = int(min((long long)hi, lo + (long long)f * step));
+    lo += (f - 1) * step + 1;
+  }
+  return lo;
+}
+
+// A tile of slice rows [lo, hi) and the groups that cross its edges
+// (every group inside it has fewer than C_TILE <= C_CAP rows).
+struct TileGroups {
+  int lo, hi;
+  int first_in;   // the first group start in the tile (hi: none)
+  int last_in;    // the last (-1: none)
+  int large0;     // the group holding row lo starts before it and is large
+  int a0, v0;     //   its first row and key 0
+  int large1;     // the group starting at last_in is large
+  int v1, b1;     //   its key 0; its end where it is not large
+  // comp_round_kernel: the large groups' rows of the next slice that
+  // fall to this tile (the j-th unresolved row of a large group of first
+  // row a to the tile holding row a + j): n0 from l_* row s0 (before the
+  // tile's own groups), n1 from s1 (after them)
+  int n0, s0, n1, s1;
+  int fault;
+};
+
+// Fills *g (shared) for the tile [lo, hi), whose key 0 is in s_k0 (and
+// the row before it in ``prev``): group starts by the block, the rest by
+// warp 0, whose reads beside the tile go out at once (the row C_CAP + 1
+// before the first start, the row C_CAP after the last, the 32 rows
+// after the tile: where the last group ends, for the head string's small
+// groups); it searches only where a group may be large or runs on. With
+// ``placed`` it also finds the large groups' rows in the large path's
+// part of the next slice.
+__device__ void tile_groups(const CompArgs& a, int lo, int hi,
+                            const int* s_k0, int prev, bool placed,
+                            TileGroups* g) {
+  __shared__ int s_first, s_last;
+  if (threadIdx.x == 0) {
+    s_first = hi;
+    s_last = -1;
+  }
+  __syncthreads();
+  int first = hi, last = -1;
+  for (int r = lo + threadIdx.x; r < hi; r += blockDim.x) {
+    if (r == 0 || s_k0[r - lo] != (r > lo ? s_k0[r - lo - 1] : prev)) {
+      first = min(first, r);
+      last = r;
+    }
+  }
+  if (first < hi) {
+    atomicMin(&s_first, first);
+    atomicMax(&s_last, last);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    TileGroups x;
+    x.lo = lo;
+    x.hi = hi;
+    x.first_in = s_first;
+    x.last_in = s_last;
+    x.v0 = s_k0[0];
+    x.a0 = lo;
+    x.large0 = 0;
+    x.large1 = 0;
+    x.v1 = 0;
+    x.b1 = hi;
+    x.n0 = x.s0 = x.n1 = x.s1 = 0;
+    x.fault = 0;
+    const bool cont = x.first_in != lo;   // row lo continues a group
+    const bool any = x.first_in < hi;     // a group starts in the tile
+    const long long at0 = (long long)x.first_in - C_CAP - 1;
+    const long long at1 = (long long)x.last_in + C_CAP;
+    int w = 0;
+    if (lane == 0 && cont && any && at0 >= 0) w = __ldg(a.k0 + at0);
+    if (lane == 1 && any && at1 < a.u) w = __ldg(a.k0 + at1);
+    // key 0 < 2^30: INT_MAX past the slice ends every group
+    const int after = hi + lane < a.u ? __ldg(a.k0 + hi + lane) : INT_MAX;
+    const int w0 = __shfl_sync(FULL, w, 0), w1 = __shfl_sync(FULL, w, 1);
+    if (cont) {
+      if (any) {
+        // large iff it began C_CAP + 1 rows or more before its end
+        x.large0 = at0 >= 0 && w0 == x.v0;
+        if (x.large0) x.a0 = first_above(a.k0, 0, lo, x.v0 - 1);
+      } else {                  // it covers the tile
+        x.a0 = first_above(a.k0, 0, lo, x.v0 - 1);
+        const int b0 = first_above(a.k0, hi, a.u, x.v0);
+        x.large0 = b0 - x.a0 > C_CAP;
+      }
+    }
+    if (any) {
+      x.v1 = s_k0[x.last_in - lo];
+      x.large1 = at1 < a.u && w1 == x.v1;
+      if (!x.large1) {          // it ends by last_in + C_CAP
+        const unsigned b = __ballot_sync(FULL, after > x.v1);
+        x.b1 = b ? hi + __ffs(b) - 1
+                 : first_above(a.k0, hi + 32,
+                               int(min((long long)a.u, at1 + 1)), x.v1);
+      }
+    }
+    if (placed && (x.large0 || x.large1)) {
+      if (!a.large) {
+        x.fault = COUNT_FAULT;    // a large group the caller did not count
+      } else {
+        const int nl = *a.l_count;
+        if (x.large0) {         // rows j in [lo - a0, hi - a0) of its part
+          const int s = first_above(a.l_g, 0, nl, x.v0 - 1);
+          const int c = first_above(a.l_g, s, nl, x.v0) - s;
+          const int j0 = lo - x.a0, j1 = min(c, hi - x.a0);
+          x.n0 = max(0, j1 - j0);
+          x.s0 = s + j0;
+        }
+        if (x.large1) {         // rows j in [0, hi - last_in)
+          const int s = first_above(a.l_g, 0, nl, x.v1 - 1);
+          const int c = first_above(a.l_g, s, nl, x.v1) - s;
+          x.n1 = min(c, hi - x.last_in);
+          x.s1 = s;
+        }
+      }
+    }
+    if (lane == 0) *g = x;
+  }
+  __syncthreads();
+}
+
+// The large-group path's first step: the rows of the slice's groups
+// larger than C_CAP, in slice order, into p_k0, p_k1 and p_ti (a.large
+// rows; a tile's rows placed by a look-back of their count). A count
+// other than a.large ORs COUNT_FAULT into the fault word.
+__global__ void __launch_bounds__(C_THREADS)
+    comp_pick_kernel(const CompArgs a) {
+  __shared__ int s_k0[C_TILE];
+  __shared__ int s_prev;
+  __shared__ TileGroups g;
+  const int t = take_ticket(a.ticket);
+  const int lo = t * C_TILE, hi = min(a.u, lo + C_TILE);
+  for (int r = lo + threadIdx.x; r < hi; r += C_THREADS)
+    s_k0[r - lo] = __ldg(a.k0 + r);
+  if (threadIdx.x == 0) s_prev = lo ? __ldg(a.k0 + lo - 1) : 0;
+  __syncthreads();
+  tile_groups(a, lo, hi, s_k0, s_prev, false, &g);
+  // the large rows: before the first group start, from the last one on
+  const int e0 = g.large0 ? min(hi, g.first_in) : lo;
+  const int b1 = g.large1 ? g.last_in : hi;
+  const int cnt = (e0 - lo) + (hi - b1);
+  const CountFault pre = lookback<CountFaultOp>(a.slots, t, CountFault{cnt,
+                                                                       0});
+  if (t == int(gridDim.x) - 1 && threadIdx.x == 0 && pre.cnt + cnt != a.large)
+    atomicOr(a.fault, COUNT_FAULT);
+  for (int i = threadIdx.x; i < cnt; i += C_THREADS) {
+    const int r = i < e0 - lo ? lo + i : b1 + (i - (e0 - lo));
+    const int d = pre.cnt + i;
+    if (d < a.large) {
+      a.p_k0[d] = s_k0[r - lo];
+      a.p_k1[d] = __ldg(a.k1 + r);
+      a.p_ti[d] = __ldg(a.ti + r);
+    }
+  }
+}
+
+// Each of n rows in shared memory, groups contiguous (``start`` of a
+// row: key 0 differs from the row before's, or it is row 0), sorted
+// stably by key 1 inside its group: s_k1 (key 1 by row) is rewritten in
+// sorted order, s_ts gets each sorted row's text position (``tpos`` of
+// the row it came from), s_ge each row's group start G and, at G, the
+// group's end << 16. If the block's largest group has at most C_SMALL
+// rows, a row's place is G + the rows of its group with a smaller key 1,
+// or an equal one and an earlier row: a count, a few reads a row for the
+// head string's groups of 2-12 rows, but as many as the group's rows. A
+// block with a larger group sorts all its rows at once instead, by (G,
+// key 1, row) in one 64-bit word a row, unique, so the order is the
+// stable one: a bitonic network over the next power of two (the rows past
+// n are +inf and never move), log2(N) (log2(N) + 1) / 2 passes of N / 2
+// compare-exchanges, whatever the groups' sizes. Its words lie in s_key,
+// over s_ts and s_ge (n 64-bit words; both are rewritten after it). Rows
+// are striped over the threads (neighbouring lanes on neighbouring rows:
+// one group's keys are read by broadcast); the starts are found by IT
+// consecutive rows a thread.
+template <int IT, class Start, class TPos>
+__device__ __forceinline__ void sort_groups(int n, Start start, TPos tpos,
+                                            int* s_k1, int* s_ts,
+                                            unsigned* s_ge,
+                                            unsigned long long* s_key,
+                                            int* sagg) {
+  __shared__ int s_largest;
+  const int q0 = threadIdx.x * IT;
+  unsigned st = 0;
+  int top = -1;
+#pragma unroll
+  for (int x = 0; x < IT; ++x)
+    if (q0 + x < n && start(q0 + x)) {
+      st |= 1u << x;
+      top = q0 + x;
+    }
+  if (threadIdx.x == 0) s_largest = 0;
+  int tot;
+  int G = block_scan<false, MaxOp>(top, -1, sagg, &tot);
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    if (st >> x & 1u) G = q0 + x;
+    if (q0 + x < n) s_ge[q0 + x] = unsigned(G);
+  }
+  __syncthreads();
+  int largest = 0;
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int q = q0 + x;
+    if (q >= n) break;
+    const bool end = q + 1 == n ||
+                     (x + 1 < IT ? (st >> (x + 1) & 1u) != 0 : start(q + 1));
+    if (end) {
+      const int g0 = int(s_ge[q] & 0xffffu);
+      s_ge[g0] |= unsigned(q + 1) << 16;
+      largest = max(largest, q + 1 - g0);
+    }
+  }
+  if (largest > C_SMALL) atomicMax(&s_largest, largest);
+  __syncthreads();
+  int key[IT], pos[IT];
+  if (s_largest == 0) {
+#pragma unroll
+    for (int x = 0; x < IT; ++x) {
+      const int i = threadIdx.x + x * C_THREADS;
+      pos[x] = -1;
+      key[x] = 0;
+      if (i < n) {
+        const int g0 = int(s_ge[i] & 0xffffu);
+        const int g1 = int(s_ge[g0] >> 16);
+        const int k = s_k1[i];
+        int c = 0;
+        for (int j = g0; j < g1; ++j) {
+          const int kj = s_k1[j];
+          c += kj < k || (kj == k && j < i);
+        }
+        key[x] = k;
+        pos[x] = g0 + c;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < IT; ++x) {
+      if (pos[x] < 0) continue;
+      s_k1[pos[x]] = key[x];
+      s_ts[pos[x]] = tpos(threadIdx.x + x * C_THREADS);
+    }
+    __syncthreads();
+    return;
+  }
+  // the bitonic path: each row's word, (G << 44 | key 1 << 13 | row); key
+  // 1 is a rank + 1 or 0, below 2^31
+  unsigned long long w[IT];
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int i = threadIdx.x + x * C_THREADS;
+    w[x] = i < n ? (unsigned long long)(s_ge[i] & 0xffffu) << 44 |
+                       (unsigned long long)unsigned(s_k1[i]) << 13 |
+                       unsigned(i)
+                 : 0ull;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int i = threadIdx.x + x * C_THREADS;
+    if (i < n) s_key[i] = w[x];
+  }
+  __syncthreads();
+  int lg = 0;
+  while ((1 << lg) < n) ++lg;
+  for (int lk = 1; lk <= lg; ++lk) {
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      for (int p = threadIdx.x; p < (1 << (lg - 1)); p += C_THREADS) {
+        const int i = (p >> lj << (lj + 1)) | (p & (j - 1));
+        const int l = lj == lk - 1 ? i ^ ((2 << lj) - 1) : i + j;
+        if (l < n) {
+          const unsigned long long ki = s_key[i], kl = s_key[l];
+          if (kl < ki) {
+            s_key[i] = kl;
+            s_key[l] = ki;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // the sorted words back to s_k1, s_ts and s_ge: the groups are where
+  // they were
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int q = threadIdx.x + x * C_THREADS;
+    if (q < n) w[x] = s_key[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int q = threadIdx.x + x * C_THREADS;
+    if (q >= n) break;
+    s_k1[q] = int(w[x] >> 13 & 0x7fffffffu);
+    s_ts[q] = tpos(int(w[x] & 0x1fffu));
+    s_ge[q] = unsigned(w[x] >> 44);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int q = threadIdx.x + x * C_THREADS;
+    if (q >= n) break;
+    const unsigned g0 = unsigned(w[x] >> 44);
+    if (q + 1 == n || (s_ge[q + 1] & 0xffffu) != g0)
+      atomicOr(s_ge + g0, unsigned(q + 1) << 16);
+  }
+  __syncthreads();
+}
+
+// Over n sorted rows (sort_groups' s_k1 and s_ge), a thread's IT
+// consecutive rows from q0: bit x of *fb, the row starts a rank (its key
+// 1 differs from the row before's, or it starts its group), of *ub, it is
+// unresolved (not a rank start followed by one; a group's end is one).
+template <int IT>
+__device__ __forceinline__ void rank_starts(int n, const int* s_k1,
+                                            const unsigned* s_ge,
+                                            unsigned* fb, unsigned* ub) {
+  const int q0 = threadIdx.x * IT;
+  unsigned f = 0, u = 0;
+#pragma unroll
+  for (int x = 0; x < IT; ++x) {
+    const int q = q0 + x;
+    if (q >= n) break;
+    const int g0 = int(s_ge[q] & 0xffffu);
+    const int g1 = int(s_ge[g0] >> 16);
+    const bool s = q == g0 || s_k1[q] != s_k1[q - 1];
+    const bool e = q + 1 == g1 || s_k1[q + 1] != s_k1[q];
+    f |= unsigned(s) << x;
+    u |= unsigned(!(s && e)) << x;
+  }
+  *fb = f;
+  *ub = u;
+}
+
+// A compacted round's rank step with no full-width sort. Block t (its
+// tile from the ticket) holds the groups whose first row falls in its
+// tile's rows [t * C_TILE, (t + 1) * C_TILE) of the slice (tile_groups:
+// from the first group start in the tile to the first one at or after
+// its end), every one at most C_CAP rows; a larger group is the large
+// path's. It reads key 1 and the text positions in slice order
+// (coalesced; key 1 is rank[t + h] + 1 as slice_keys_kernel left it
+// after the round before), sorts each group stably by key 1 in shared
+// memory (sort_groups), and with G and F the last group and rank start
+// rows at or before a sorted row r writes rank[t] = key 0 + (F - G) where
+// F != G, sa[key 0 + (r - G)] = t for the rows now resolved, and the
+// unresolved rows to the next slice. One look-back of the tiles' counts
+// places them in sorted order, as the large groups' rows of the next
+// slice (the large path's, already sorted: the tiles their groups span
+// copy them). The last tile writes the count and the fault word.
+//
+// What bounds it: bytes, 12 a row read (the slice) and 8 a row of the
+// next slice written, 4 a changed rank and a resolved row's place; but
+// the ranks land at random text positions (a 32-byte sector moved each
+// way for 4 bytes), the largest part of the step on the H100 at 500
+// Mchars. The block stores its ranks and places first, striped over its
+// lanes (neighbouring sorted rows: the places coalesce), so that they
+// drain while it waits on the look-back; then the next slice's rows.
+__global__ void __launch_bounds__(C_THREADS, 2)
+    comp_round_kernel(const CompArgs a) {
+  extern __shared__ int smem[];
+  int* s_k0 = smem;                 // the tile's key 0, key 1, positions
+  int* s_t1 = s_k0 + C_TILE;
+  int* s_tt = s_t1 + C_TILE;
+  int* s_k1 = s_tt + C_TILE;        // the held rows' key 1, then sorted
+  int* s_ts = s_k1 + C_ROWS;        // the sorted rows' text positions
+  unsigned* s_ge = reinterpret_cast<unsigned*>(s_ts + C_ROWS);
+  __shared__ int sagg[33];
+  __shared__ StartCount fagg[33];
+  __shared__ int s_prev;
+  __shared__ TileGroups g;
+  const int t = take_ticket(a.ticket);
+  const int lo = t * C_TILE, hi = min(a.u, lo + C_TILE);
+  // the tile's rows at once: the held rows lie in [lo, hi) but for the
+  // last group's few rows past it
+  for (int r = lo + threadIdx.x; r < hi; r += C_THREADS) {
+    s_k0[r - lo] = __ldg(a.k0 + r);
+    s_t1[r - lo] = __ldg(a.k1 + r);
+    s_tt[r - lo] = __ldg(a.ti + r);
+  }
+  if (threadIdx.x == 0) s_prev = lo ? __ldg(a.k0 + lo - 1) : 0;
+  __syncthreads();
+  tile_groups(a, lo, hi, s_k0, s_prev, true, &g);
+  // the held rows [s, e)
+  const int s = g.first_in;
+  const int n = s < hi ? (g.large1 ? g.last_in : g.b1) - s : 0;
+  const int v1 = g.v1;
+  auto key0 = [&](int i) {
+    return s + i < hi ? s_k0[s + i - lo] : v1;
+  };
+  for (int i = threadIdx.x; i < n; i += C_THREADS)
+    s_k1[i] = s + i < hi ? s_t1[s + i - lo] : __ldg(a.k1 + s + i);
+  __syncthreads();
+  sort_groups<C_ITEMS>(
+      n, [&](int i) { return i == 0 || key0(i) != key0(i - 1); },
+      [&](int i) {
+        return s + i < hi ? s_tt[s + i - lo] : __ldg(a.ti + s + i);
+      },
+      s_k1, s_ts, s_ge, reinterpret_cast<unsigned long long*>(s_ts), sagg);
+  unsigned fb, ub;
+  rank_starts<C_ITEMS>(n, s_k1, s_ge, &fb, &ub);
+  const int q0 = threadIdx.x * C_ITEMS;
+  StartCount own;
+  const StartCount ex = block_scan<false, StartCountOp>(
+      StartCount{top_row(q0, fb), __popc(ub)}, StartCountOp::identity(), fagg,
+      &own);
+  // the held groups' rows: each row's new rank (over its key 1) and what
+  // it writes (over its s_ge word, which only its own thread reads now):
+  // its place, or bit 31 and its row in the tile's part of the next
+  // slice; bit 30: its rank changed
+  int F = ex.f, c = ex.cnt;
+#pragma unroll
+  for (int x = 0; x < C_ITEMS; ++x) {
+    const int q = q0 + x;
+    if (q >= n) break;
+    const int g0 = int(s_ge[q] & 0xffffu);
+    if (fb >> x & 1u) F = q;
+    const int k = key0(q);
+    // int32 arithmetic wraps, as torch's does
+    s_k1[q] = int(unsigned(k) + unsigned(F - g0));
+    unsigned o = F != g0 ? 1u << 30 : 0u;
+    if (ub >> x & 1u) {
+      o |= 1u << 31 | unsigned(c++);
+    } else {
+      const unsigned place = unsigned(k) + unsigned(q - g0);
+      o |= place < unsigned(a.m) ? place : NO_PLACE;
+    }
+    s_ge[q] = o;
+  }
+  __syncthreads();
+  // written by neighbouring lanes for neighbouring sorted rows: the
+  // places and the next slice's rows coalesce; the ranks land at random.
+  // The ranks and places first: they need no prefix, so their stores
+  // drain while the tile waits on its look-back.
+  for (int q = threadIdx.x; q < n; q += C_THREADS) {
+    const unsigned o = s_ge[q];
+    const int tq = s_ts[q];
+    if ((o >> 30 & 1u) && unsigned(tq) < unsigned(a.m)) a.rank[tq] = s_k1[q];
+    if (!(o >> 31) && (o & NO_PLACE) != NO_PLACE) a.sa[o & NO_PLACE] = tq;
+  }
+  const CountFault agg{g.n0 + own.cnt + g.n1, g.fault};
+  const CountFault pre = lookback<CountFaultOp>(a.slots, t, agg);
+  if (t == int(gridDim.x) - 1 && threadIdx.x == 0) {
+    a.top[0] = pre.cnt + agg.cnt;
+    a.top[1] = *a.fault | pre.fault | agg.fault;
+    a.top[3] = 1;
+  }
+  const int base = pre.cnt + g.n0;
+  for (int q = threadIdx.x; q < n; q += C_THREADS) {
+    const unsigned o = s_ge[q];
+    const int d = base + int(o & 0xffffu);
+    if ((o >> 31) && d < a.cap) {
+      a.ti_n[d] = s_ts[q];
+      a.k0_n[d] = s_k1[q];
+    }
+  }
+  // the large groups' rows that fall to this tile, before and after
+  const int d0 = pre.cnt, d1 = pre.cnt + g.n0 + own.cnt;
+  for (int i = threadIdx.x; i < g.n0 + g.n1; i += C_THREADS) {
+    const int j = i < g.n0 ? g.s0 + i : g.s1 + (i - g.n0);
+    const int d = i < g.n0 ? d0 + i : d1 + (i - g.n0);
+    if (d < a.cap) {
+      a.ti_n[d] = __ldg(a.l_ti + j);
+      a.k0_n[d] = __ldg(a.l_k0 + j);
+    }
+  }
+}
+
+// Every round from a slice of u <= C_CAP rows until none is left (or
+// ``rounds`` have run), in one block: the slice stays in shared memory;
+// a round gathers its key 1, rank[t + h] + 1 (0 past m; the ranks the
+// round before wrote: plain loads after the barrier), sorts each group in
+// shared memory, writes the ranks and places as comp_round_kernel does,
+// keeps its unresolved rows in sorted order as the next round's slice and
+// waits at a barrier before that round reads the ranks. Writes the count
+// left (0 once converged), the fault word's copy and the rounds run; a
+// slice left when the rounds run out goes to ti_n, k0_n.
+__global__ void __launch_bounds__(C_THREADS, 1)
+    comp_tail_kernel(const CompArgs a) {
+  extern __shared__ int smem[];
+  int* s_ti = smem;                 // the slice: text positions, key 0
+  int* s_k0 = s_ti + C_CAP;
+  int* s_k1 = s_k0 + C_CAP;         // a round's key 1, then sorted
+  int* s_ts = s_k1 + C_CAP;         // the sorted rows' text positions
+  unsigned* s_ge = reinterpret_cast<unsigned*>(s_ts + C_CAP);
+  __shared__ int sagg[33];
+  __shared__ StartCount fagg[33];
+  int u = a.u;
+  for (int i = threadIdx.x; i < u; i += C_THREADS) {
+    s_ti[i] = __ldg(a.ti + i);
+    s_k0[i] = __ldg(a.k0 + i);
+  }
+  long long h = a.h;
+  int rounds = 0;
+  const int q0 = threadIdx.x * T_ITEMS;
+  while (u > 0 && rounds < a.rounds) {
+    for (int i = threadIdx.x; i < u; i += C_THREADS) {
+      const long long at = (long long)s_ti[i] + h;
+      s_k1[i] = (unsigned long long)at < (unsigned long long)a.m
+                    ? a.rank[at] + 1
+                    : 0;
+    }
+    __syncthreads();
+    sort_groups<T_ITEMS>(
+        u, [&](int i) { return i == 0 || s_k0[i] != s_k0[i - 1]; },
+        [&](int i) { return s_ti[i]; }, s_k1, s_ts, s_ge,
+        reinterpret_cast<unsigned long long*>(s_ts), sagg);
+    unsigned fb, ub;
+    rank_starts<T_ITEMS>(u, s_k1, s_ge, &fb, &ub);
+    StartCount tot;
+    const StartCount ex = block_scan<false, StartCountOp>(
+        StartCount{top_row(q0, fb), __popc(ub)}, StartCountOp::identity(),
+        fagg, &tot);
+    int F = ex.f, c = ex.cnt;
+    int keep_t[T_ITEMS], keep_r[T_ITEMS];
+#pragma unroll
+    for (int x = 0; x < T_ITEMS; ++x) {
+      keep_t[x] = keep_r[x] = 0;
+      const int q = q0 + x;
+      if (q >= u) break;
+      const int g0 = int(s_ge[q] & 0xffffu);
+      if (fb >> x & 1u) F = q;
+      const int tq = s_ts[q], k = s_k0[q];
+      const int rank = int(unsigned(k) + unsigned(F - g0));
+      if (F != g0 && unsigned(tq) < unsigned(a.m)) a.rank[tq] = rank;
+      if (ub >> x & 1u) {
+        keep_t[x] = tq;
+        keep_r[x] = rank;
+      } else {
+        const int place = int(unsigned(k) + unsigned(q - g0));
+        if (unsigned(place) < unsigned(a.m)) a.sa[place] = tq;
+      }
+    }
+    __syncthreads();   // every read of the slice and every rank written
+#pragma unroll
+    for (int x = 0; x < T_ITEMS; ++x) {
+      if (q0 + x >= u) break;
+      if (ub >> x & 1u) {
+        s_ti[c] = keep_t[x];
+        s_k0[c] = keep_r[x];
+        ++c;
+      }
+    }
+    u = tot.cnt;
+    ++rounds;
+    h <<= 1;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    a.top[0] = u;
+    a.top[1] = *a.fault;
+    a.top[2] = 0;
+    a.top[3] = rounds;
+  }
+  for (int i = threadIdx.x; i < min(u, a.cap); i += C_THREADS) {
+    a.ti_n[i] = s_ti[i];
+    a.k0_n[i] = s_k0[i];
   }
 }
 
@@ -1063,6 +1784,15 @@ long long cursors_at(long long R) {
 
 int bins_of(int m, int shift) { return ((m - 1) >> shift) + 1; }
 
+long long comp_tiles(long long u) { return (u + C_TILE - 1) / C_TILE; }
+
+// the compacted round's scratch: the byte offset of the tiles' states of
+// comp_round_kernel (0), comp_pick_kernel (1), comp_large_kernel (2)
+long long comp_slots_at(int which, long long u) {
+  const long long states = 16 * comp_tiles(u);   // CountFault
+  return 64 + which * states;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1250,6 +1980,7 @@ int dense_rank_launch(int mode, const void* order, const void* s0,
   char* sc = static_cast<char*>(scratch);
   a.ticket = reinterpret_cast<unsigned*>(sc);
   a.top = reinterpret_cast<int*>(sc + 4);
+  a.large = reinterpret_cast<int*>(sc + 12);
   a.fault = static_cast<const int*>(fault);
   a.slots = reinterpret_cast<unsigned long long*>(sc + 16);
   a.cursors = reinterpret_cast<int*>(sc + cursors_at(n));
@@ -1290,47 +2021,167 @@ int dense_rank_launch(int mode, const void* order, const void* s0,
   return int(cudaGetLastError());
 }
 
-// A compacted round's rank step: dense_rank_comp_kernel over the u sorted
-// rows of the slice (perm, s0: u int32; k1, ti: the slice's key 1 and
-// text positions, u int32, by slice row), rank and sa: m int32 (written at
-// the slice's positions and places), the next slice into ti_n and k0_n
-// (cap int32 each; ti_n not ti), then its key 1 at shift h into k1 (h 0:
-// not). 1 <= u <= m < 2^30; the scratch as sa_round_scratch_bytes(u, m,
-// shift) for any valid shift, zeroed. Writes the unresolved count and the
-// fault word's copy at scratch + 4 and + 8.
-int dense_rank_comp_launch(const void* perm, const void* s0, void* k1,
-                           const void* ti, void* rank, void* sa, void* ti_n,
-                           void* k0_n, int cap, long long h, int u, int m,
-                           void* scratch, const void* fault, void* stream) {
-  if (u < 1 || m < u || m >= (1 << 30) || cap < 0 || h < 0 || ti_n == ti ||
-      (cap > 0 && (!ti_n || !k0_n)))
+// The compacted rounds' scratch (zeroed by the caller): the round's
+// ticket (0), the four words the host reads (4: the next slice's rows,
+// the fault word's copy, its rows in large groups, the rounds run), the
+// pick's ticket (20), the large step's (24) and its count and fault copy
+// (28), then the tiles' states of comp_round_kernel, comp_pick_kernel and
+// comp_large_kernel.
+long long dense_rank_comp_scratch_bytes(long long u) {
+  return (comp_slots_at(2, u) + 24 * tiles_of(u) + 127) / 128 * 128;
+}
+
+// The compacted round's tile, and the largest group a block sorts by
+// counting (for the checks at their edges).
+int dense_rank_comp_tile() { return C_TILE; }
+int dense_rank_comp_small() { return C_SMALL; }
+
+// The large-group path's pick (run before its sort when large > 0): the
+// rows of the slice (ti, k0, k1: u int32 each, key 0 nondecreasing) in
+// groups larger than C_CAP, in slice order, into p_k0, p_k1, p_ti (large
+// int32 each). A count other than ``large`` ORs COUNT_FAULT into fault.
+int dense_rank_comp_pick_launch(const void* ti, const void* k0,
+                                const void* k1, int u, int large, void* p_k0,
+                                void* p_k1, void* p_ti, void* scratch,
+                                void* fault, void* stream) {
+  if (u < 1 || large < 1 || large > u || !p_k0 || !p_k1 || !p_ti)
+    return int(cudaErrorInvalidValue);
+  CompArgs a{};
+  a.ti = static_cast<const int*>(ti);
+  a.k0 = static_cast<const int*>(k0);
+  a.k1 = static_cast<int*>(const_cast<void*>(k1));
+  a.u = u;
+  a.large = large;
+  a.p_k0 = static_cast<int*>(p_k0);
+  a.p_k1 = static_cast<int*>(p_k1);
+  a.p_ti = static_cast<int*>(p_ti);
+  char* sc = static_cast<char*>(scratch);
+  a.ticket = reinterpret_cast<unsigned*>(sc + 20);
+  a.fault = static_cast<int*>(fault);
+  a.slots = reinterpret_cast<unsigned long long*>(sc + comp_slots_at(1, u));
+  comp_pick_kernel<<<int(comp_tiles(u)), C_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return int(cudaGetLastError());
+}
+
+// A compacted round's rank step: the slice (ti, k0, k1: u int32 each, key
+// 0 nondecreasing, groups contiguous, key 1 the round's), rank and sa (m
+// int32, written at the slice's positions and the resolved rows'
+// places), the next slice into ti_n and k0_n (cap int32 each, not ti or
+// k0; cap >= u), then its key 1 at shift h into k1 (h 0: not). With
+// large > 0 rows in groups larger than C_CAP, first their step
+// (comp_large_kernel) on the picked rows (p_k1, p_ti, large int32 each)
+// in the order l_perm of their stable sort by (key 0, key 1), l_s0 the
+// sorted key 0, into l_ti, l_k0, l_g (large int32 each). 1 <= u <= m <
+// 2^30; the scratch as dense_rank_comp_scratch_bytes(u), zeroed (the
+// pick's too); fault the sorts' fault word.
+int dense_rank_comp_launch(const void* ti, const void* k0, void* k1,
+                           void* rank, void* sa, int m, void* ti_n,
+                           void* k0_n, int cap, int u, int large,
+                           const void* l_perm, const void* l_s0,
+                           const void* p_k1, const void* p_ti, void* l_ti,
+                           void* l_k0, void* l_g, long long h, void* scratch,
+                           void* fault, void* stream) {
+  if (u < 1 || m < u || m >= (1 << 30) || cap < u || h < 0 || large < 0 ||
+      large > u || ti_n == ti || k0_n == k0 || !ti_n || !k0_n ||
+      (large && (!l_perm || !l_s0 || !p_k1 || !p_ti || !l_ti || !l_k0 ||
+                 !l_g)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RankArgs a{};
-  a.order = static_cast<const int*>(perm);
-  a.s0 = static_cast<const int*>(s0);
-  a.key1 = static_cast<const int*>(k1);
+  char* sc = static_cast<char*>(scratch);
+  cudaError_t err;
+  if (large) {
+    RankArgs r{};
+    r.order = static_cast<const int*>(l_perm);
+    r.s0 = static_cast<const int*>(l_s0);
+    r.key1 = static_cast<const int*>(p_k1);
+    r.ti = static_cast<const int*>(p_ti);
+    r.rank = static_cast<int*>(rank);
+    r.sa = static_cast<int*>(sa);
+    r.ti_n = static_cast<int*>(l_ti);
+    r.k0_n = static_cast<int*>(l_k0);
+    r.g_n = static_cast<int*>(l_g);
+    r.large = reinterpret_cast<int*>(sc + 12);
+    r.cap = large;
+    r.n = large;
+    r.m = m;
+    r.vec = aligned16(l_perm) && aligned16(l_s0);
+    r.ticket = reinterpret_cast<unsigned*>(sc + 24);
+    r.top = reinterpret_cast<int*>(sc + 28);
+    r.fault = static_cast<const int*>(fault);
+    r.slots = reinterpret_cast<unsigned long long*>(sc + comp_slots_at(2, u));
+    comp_large_kernel<<<int(tiles_of(large)), THREADS, 0, s>>>(r);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  CompArgs a{};
   a.ti = static_cast<const int*>(ti);
+  a.k0 = static_cast<const int*>(k0);
+  a.k1 = static_cast<int*>(k1);
   a.rank = static_cast<int*>(rank);
   a.sa = static_cast<int*>(sa);
   a.ti_n = static_cast<int*>(ti_n);
   a.k0_n = static_cast<int*>(k0_n);
-  a.cap = cap;
-  a.n = u;
+  a.u = u;
   a.m = m;
-  a.vec = aligned16(perm) && aligned16(s0);
-  char* sc = static_cast<char*>(scratch);
+  a.cap = cap;
+  a.large = large;
+  a.l_ti = static_cast<const int*>(l_ti);
+  a.l_k0 = static_cast<const int*>(l_k0);
+  a.l_g = static_cast<const int*>(l_g);
+  a.l_count = reinterpret_cast<const int*>(sc + 28);
   a.ticket = reinterpret_cast<unsigned*>(sc);
   a.top = reinterpret_cast<int*>(sc + 4);
-  a.fault = static_cast<const int*>(fault);
-  a.slots = reinterpret_cast<unsigned long long*>(sc + 16);
-  dense_rank_comp_kernel<<<int(tiles_of(u)), THREADS, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || h == 0 || cap == 0) return int(err);
+  a.fault = static_cast<int*>(fault);
+  a.slots = reinterpret_cast<unsigned long long*>(sc + comp_slots_at(0, u));
+  const int smem = 3 * (C_TILE + C_ROWS) * 4;
+  err = cudaFuncSetAttribute(comp_round_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return int(err);
+  comp_round_kernel<<<int(comp_tiles(u)), C_THREADS, smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || h == 0) return int(err);
   const int blocks = int(min((cap + KEYS_THREADS - 1ll) / KEYS_THREADS,
                              4096ll));
   slice_keys_kernel<<<blocks, KEYS_THREADS, 0, s>>>(
       a.ti_n, a.rank, static_cast<int*>(k1), a.top, cap, m, h);
+  return int(cudaGetLastError());
+}
+
+// The compacted rounds' tail: every round from the slice (ti, k0: u <=
+// C_CAP int32 each, as dense_rank_comp_launch takes them; its key 1
+// gathered here, round by round, at shifts h, 2h, ...) until none is
+// left or ``rounds`` have run, in one block; rank and sa as there; a slice
+// left then into ti_n, k0_n (cap int32 each). The scratch as
+// dense_rank_comp_scratch_bytes(u), zeroed; its words at 4 as there.
+int dense_rank_comp_tail_launch(const void* ti, const void* k0, void* rank,
+                                void* sa, int m, void* ti_n, void* k0_n,
+                                int cap, int u, long long h, int rounds,
+                                void* scratch, void* fault, void* stream) {
+  if (u < 1 || u > C_CAP || m < u || m >= (1 << 30) || h < 1 ||
+      rounds < 1 || cap < 0 || (cap && (!ti_n || !k0_n)))
+    return int(cudaErrorInvalidValue);
+  CompArgs a{};
+  a.ti = static_cast<const int*>(ti);
+  a.k0 = static_cast<const int*>(k0);
+  a.rank = static_cast<int*>(rank);
+  a.sa = static_cast<int*>(sa);
+  a.ti_n = static_cast<int*>(ti_n);
+  a.k0_n = static_cast<int*>(k0_n);
+  a.u = u;
+  a.m = m;
+  a.cap = cap;
+  a.top = reinterpret_cast<int*>(static_cast<char*>(scratch) + 4);
+  a.fault = static_cast<int*>(fault);
+  a.h = h;
+  a.rounds = rounds;
+  const int smem = 5 * C_CAP * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      comp_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  comp_tail_kernel<<<1, C_THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

@@ -12,6 +12,7 @@
     python3 tools/profile_slice.py --mesh      # mesh routes, every card
     python3 tools/profile_slice.py --merge-stages [SHAPE] [--parent DIR]
     python3 tools/profile_slice.py --merge-kernels [SHAPE] [--parent DIR]
+    python3 tools/profile_slice.py --comp-groups  # compacted round by group size
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -154,6 +155,14 @@ checkout, e.g. ``_export/parent`` from ``git archive``) it also times
 that checkout's tail_good_join, run_merge, bucket_sums and running_fill
 against this tree's on the same inputs, parent, this, this, parent,
 after checking that their outputs are equal.
+
+The comp-groups mode runs dense_rank_comp's compacted round on made
+slices of the 500 Mchar merge's first compacted round (9 602 118 rows of
+m = 36 051 597) in groups of 2 .. 8192 rows: as committed, and with its
+shared-memory sort by counting only and by the bitonic network only
+(edits of sa_round.cu built beside it), each held to the plain round and
+timed alone and with its wrapper, beside radix_sort of the whole slice
+(the large path's sort): one ``comp_groups`` line a group size.
 
 Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
 JAX.
@@ -975,21 +984,27 @@ def _unresolved(rank) -> int:
 
 
 def head_string_split(dm, idx, merge) -> dict:
-    """One merge with head_string_sa taken apart by round: each sort
-    (rows sorted, device-synced ms) and each rank step (the sort's end to
-    the next sort or to the round's one host read, ``_read_top`` or an
-    older checkout's ``_largest``), the rows left unresolved after each
-    round (the read's count, or for an older checkout counted from the
-    round's ranks after the merge), the rounds, k_star, the host's reads
-    of device values and the rest (the compaction of the real suffixes,
-    the shifted keys, the glue)."""
+    """One merge with head_string_sa taken apart by call (a call ends at
+    its one host read, ``_read_round``, or an older checkout's
+    ``_read_top`` or ``_largest``; the tail's call runs several rounds):
+    its sort if it has one (rows sorted, device-synced ms) and its rank
+    step (the sort's end, or the read before, to the end of the call's
+    read), the wrapper's host time of a compacted call (``comp_rank``,
+    ``comp_tail``, unsynced: the launch's host cost) and the read's own ms
+    (the wait for the card and the copy), the rows the call took and left
+    unresolved (the read's count, or for an older checkout counted from
+    the round's ranks after the merge) and the rounds it ran, the rounds,
+    k_star, the host's reads of device values and the rest (the
+    compaction of the real suffixes, the shifted keys, the glue)."""
     marks, whole, sa_out, ranks = [], [], [], []
     reads = {"n": 0}
     sad, hs, sort0 = (idx.suffix_array_device, dm.head_string_sa_dev,
                       idx.stable_argsort)
-    read_name = "_read_top" if hasattr(idx, "_read_top") else "_largest"
+    read_name = next(k for k in ("_read_round", "_read_top", "_largest")
+                     if hasattr(idx, k))
     read0 = getattr(idx, read_name)
     rank0 = idx.dense_rank
+    comps = [k for k in ("comp_rank", "comp_tail") if hasattr(idx, k)]
 
     def now():
         torch.cuda.synchronize()
@@ -1002,8 +1017,10 @@ def head_string_split(dm, idx, merge) -> dict:
         return out
 
     def read(top):
+        t0 = time.perf_counter()
         got = read0(top)
-        marks.append(("read", now(), got))
+        t1 = time.perf_counter()
+        marks.append(("read", now(), got, (t1 - t0) * 1e3))
         return got
 
     def rank(*a, **kw):
@@ -1012,33 +1029,52 @@ def head_string_split(dm, idx, merge) -> dict:
             ranks.append(out[0])
         return out
 
+    def timed(fn):
+        def comp(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            marks.append(("comp", (time.perf_counter() - t0) * 1e3))
+            return out
+        return comp
+
     def sa_dev(*a, **kw):
+        t0 = now()
         out = sad(*a, **kw)
-        sa_out.append((a[1], out[3], out[2] is not None))
+        sa_out.append((a[1], out[3], out[2] is not None, t0))
         return out
 
     def counted(*a, **kw):
         with _host_reads(reads):
             return hs(*a, **kw)
-    with _Patched((idx, "stable_argsort", sort), (idx, read_name, read),
-                  (idx, "dense_rank", rank),
-                  (idx, "suffix_array_device", sa_dev),
-                  (dm, "head_string_sa_dev", _synced(counted, whole))):
+    patched = [(idx, "stable_argsort", sort), (idx, read_name, read),
+               (idx, "dense_rank", rank),
+               (idx, "suffix_array_device", sa_dev),
+               (dm, "head_string_sa_dev", _synced(counted, whole))]
+    patched += [(idx, k, timed(getattr(idx, k))) for k in comps]
+    with _Patched(*patched):
         merge()
-    L, k_star, hist = sa_out[0]
-    # the suffix sort's own marks: the last sort is the real suffixes'
-    # compaction's, if any, after the last read
-    rounds = []
-    for i, m in enumerate(marks):
-        if m[0] != "sort":
+    L, k_star, hist, start = sa_out[0]
+    # a round ends at its read; the sorts after the last read are the
+    # real suffixes' compaction's
+    rounds, cur, t_prev, rows = [], [], start, L
+    for m in marks:
+        if m[0] != "read":
+            cur.append(m)
             continue
-        nxt = marks[i + 1] if i + 1 < len(marks) else None
-        if nxt is None:
-            break
-        step_end = nxt[1]
-        rounds.append({"rows_sorted": m[3], "sort_ms": (m[2] - m[1]) * 1e3,
-                       "rank_step_ms": (step_end - m[2]) * 1e3,
-                       "read": nxt[2] if nxt[0] == "read" else None})
+        sorts = [c for c in cur if c[0] == "sort"]
+        host = [c[1] for c in cur if c[0] == "comp"]
+        step0 = sorts[-1][2] if sorts else t_prev
+        word, run = (m[2][0], m[2][2]) if isinstance(m[2], (tuple, list)) \
+            else (m[2], 1)
+        rounds.append({
+            "rows": rows, "rounds": run,
+            "rows_sorted": sum(c[3] for c in sorts),
+            "sort_ms": sum((c[2] - c[1]) * 1e3 for c in sorts),
+            "rank_step_ms": (m[1] - step0) * 1e3,
+            "wrapper_host_ms": sum(host) if host else None,
+            "read_ms": m[3], "read": word})
+        rows = word
+        cur, t_prev = [], m[1]
     if read_name == "_largest":
         for r, rk in zip(rounds, ranks):
             r["unresolved"] = _unresolved(rk)
@@ -1049,7 +1085,8 @@ def head_string_split(dm, idx, merge) -> dict:
     steps = sum(r["rank_step_ms"] for r in rounds)
     levels = idx.n_levels(L)
     return {"L": L, "levels": levels, "k_star": int(k_star),
-            "rounds": len(rounds), "history": hist,
+            "rounds": sum(r["rounds"] for r in rounds), "calls": len(rounds),
+            "history": hist,
             "history_bytes": 4 * levels * L if hist else 0,
             "wall_ms": whole[0], "sorts_ms": sorts, "rank_steps_ms": steps,
             "rest_ms": whole[0] - sorts - steps,
@@ -1060,22 +1097,32 @@ def head_string_split(dm, idx, merge) -> dict:
 # text edits of sa_round.cu (each text must occur once) that take a part
 # of the rank steps out, for timing only (their outputs are wrong):
 # key 1 read in sorted-row order instead of through the order (the full
-# step's cost less its key-1 gather); the compacted step's rank stores,
-# its suffix-array stores, its slice stores, its key-1 and text-position
-# reads through the order (read in order), its look-back (each tile its
-# own prefix); the full group-start step's slice stores and look-back
+# step's cost less its key-1 gather); the compacted round's rank stores,
+# its suffix-array stores, its next-slice stores, its look-back (each
+# tile its own prefix) and its counting sort (every row kept in place);
+# the full group-start step's slice stores; the compacted round's sort
+# by counting only or by the bitonic network only
 RANK_VARIANTS = {
     "key1_in_order": (("__ldcs(a.key1 + src[j])", "__ldcs(a.key1 + r0 + j)"),),
-    "comp_no_rank": (("      a.rank[tt[j]] = rank;", "      ;"),),
-    "comp_no_sa": (("      a.sa[place] = tt[j];", "      ;"),),
-    "comp_no_slice": (("        a.ti_n[run.cnt] = tt[j];\n"
-                       "        a.k0_n[run.cnt] = rank;", "        ;"),),
-    "comp_in_order": (("    k1[j] = j < n ? __ldg(a.key1 + src[j]) : 0;\n"
-                       "    tt[j] = j < n ? __ldg(a.ti + src[j]) : 0;",
-                       "    k1[j] = j < n ? __ldg(a.key1 + r0 + j) : 0;\n"
-                       "    tt[j] = j < n ? __ldg(a.ti + r0 + j) : 0;"),),
-    "comp_no_lookback": (("CompOp::combine(lookback<CompOp>(a.slots, t, tot), "
-                          "ex)", "ex"),),
+    "comp_no_rank": (("    if ((o >> 30 & 1u) && unsigned(tq) < unsigned(a.m)) "
+                      "a.rank[tq] = s_k1[q];\n", ""),),
+    "comp_no_sa": (("    if (!(o >> 31) && (o & NO_PLACE) != NO_PLACE) "
+                    "a.sa[o & NO_PLACE] = tq;\n", ""),),
+    "comp_no_slice": (("    if ((o >> 31) && d < a.cap) {\n"
+                       "      a.ti_n[d] = s_ts[q];\n"
+                       "      a.k0_n[d] = s_k1[q];\n    }", ""),),
+    "comp_no_lookback": (("lookback<CountFaultOp>(a.slots, t, agg)",
+                          "CountFault{0, 0}"),),
+    "comp_no_count": (("        for (int j = g0; j < g1; ++j) {\n"
+                       "          const int kj = s_k1[j];\n"
+                       "          c += kj < k || (kj == k && j < i);\n"
+                       "        }", "        c = i - g0;"),),
+    # sort_groups by counting whatever a block's largest group, or by its
+    # bitonic network whatever (--comp-groups)
+    "groups_count": (("constexpr int C_SMALL = ",
+                      "constexpr int C_SMALL = (1 << 30) + 0 * "),),
+    "groups_bitonic": (("constexpr int C_SMALL = ",
+                        "constexpr int C_SMALL = 0 * "),),
     "start_no_slice": (("          a.ti_n[run.cnt] = src[j];\n"
                         "          a.k0_n[run.cnt] = rk[j];", "          ;"),),
 }
@@ -1222,20 +1269,44 @@ def capture_rank_step(idx, merge):
     return got[0]
 
 
-def comp_split(K, idx, merge, root: pathlib.Path) -> None:
-    """The head string's first full step and its compacted steps (every
-    round after the first), each as the dispatch runs it (5 calls between
-    CUDA events, on copies of its inputs) and by kernel (torch.profiler),
-    the first compacted one also with each compacted-step edit of
-    RANK_VARIANTS: ``first_split`` and ``comp_split`` lines."""
-    if not hasattr(idx, "comp_rank"):
-        return
-    got, first, comp0 = [], [], idx.comp_rank
-    rank0 = idx.dense_rank
+GROUP_EDGES = (256, 1024, 2048, 4096, 8192)
 
-    def comp(*a, **kw):
-        got.append([_clone(v) for v in a[:8]])   # its scratch left out
-        return comp0(*a, **kw)
+
+def group_stats(k0) -> dict:
+    """The groups of a compacted round's slice (runs of equal key 0 in
+    sorted order, ``k0``): their count, the largest, the row-weighted
+    mean size (sum of squares over rows) and the rows in groups larger
+    than each of GROUP_EDGES."""
+    _, size = torch.unique_consecutive(k0, return_counts=True)
+    size = size.long()
+    return {"groups": int(size.numel()), "largest": int(size.max()),
+            "row_weighted_mean": float((size * size).sum() / size.sum()),
+            **{f"rows_in_groups_gt_{e}": int(size[size > e].sum())
+               for e in GROUP_EDGES}}
+
+
+def comp_split(K, idx, merge, root: pathlib.Path) -> None:
+    """The head string's first full step and its compacted calls (every
+    round after the first, and the tail), each as the dispatch runs it (5
+    calls between CUDA events, on copies of its inputs), alone
+    (chip_smoke.dense_rank_comp_launch) and by kernel (torch.profiler),
+    with its slice's groups (group_stats), the first compacted round also
+    with each compacted-round edit of RANK_VARIANTS: ``first_split`` and
+    ``comp_split`` lines."""
+    if not hasattr(idx, "comp_tail"):
+        return
+    got, first = [], []
+    comp0, tail0, rank0 = idx.comp_rank, idx.comp_tail, idx.dense_rank
+
+    def comp(slice_, u, large, rank, sa, nxt_slice, shift, work=None):
+        got.append(cs.comp_clone(slice_, u, large, rank, sa, nxt_slice,
+                                 shift, 0))
+        return comp0(slice_, u, large, rank, sa, nxt_slice, shift, work)
+
+    def tail(slice_, u, rank, sa, nxt_slice, shift, rounds, work=None):
+        got.append(cs.comp_clone(slice_, u, 0, rank, sa, nxt_slice, shift,
+                                 rounds))
+        return tail0(slice_, u, rank, sa, nxt_slice, shift, rounds, work)
 
     def rank(*a, **kw):
         if not first:
@@ -1243,7 +1314,8 @@ def comp_split(K, idx, merge, root: pathlib.Path) -> None:
                          {k: _clone(v) for k, v in kw.items()
                           if k != "work"}))
         return rank0(*a, **kw)
-    with _Patched((idx, "comp_rank", comp), (idx, "dense_rank", rank)):
+    with _Patched((idx, "comp_rank", comp), (idx, "comp_tail", tail),
+                  (idx, "dense_rank", rank)):
         merge()
     a, kw = first[0]
     call = lambda: idx.dense_rank(*a, **kw)
@@ -1253,19 +1325,102 @@ def comp_split(K, idx, merge, root: pathlib.Path) -> None:
     if lib is not None:
         out["start_no_slice"] = _with_lib(K, lib, call)
     print("first_split " + json.dumps(out), flush=True)
-    for i, a in enumerate(got):
-        perm, s0, k1, ti, rank, sa, ns, shift = a
-        call = lambda: idx.comp_rank(perm, s0, k1.clone(), ti, rank.clone(),
-                                     sa.clone(), _clone(ns), shift)
-        out = {"step": i, "rows": int(perm.numel()),
-               "m": int(rank.numel()), "ms": cs.cuda_ms(call, 5),
+    for i, args in enumerate(got):
+        sl, u, large, rk, sa, ns, shift, rounds = args
+        if rounds:
+            call = lambda: idx.comp_tail(_clone(sl), u, rk.clone(),
+                                         sa.clone(), _clone(ns), shift,
+                                         rounds)
+        else:
+            call = lambda: idx.comp_rank(_clone(sl), u, large, rk.clone(),
+                                         sa.clone(), _clone(ns), shift)
+        out = {"step": i, "rows": u, "large": large, "tail_rounds": rounds,
+               "m": int(rk.numel()), "ms": cs.cuda_ms(call, 5),
+               "alone_ms": (cs.alone_ms(*cs.dense_rank_comp_launch(K, args,
+                                                                  5))
+                            if not large else None),
                "kernels_ms": _kernel_device_ms(call),
-               "copy_24B_ms": cs.copy_ms(24 * int(perm.numel()))}
+               "copy_bound_ms": cs.copy_ms(cs.comp_step_bytes(
+                   args, cs.comp_step_run(cs._kernel_and_plain(K, idx)[3],
+                                          args))),
+               **group_stats(sl[1])}
         if i == 0:
             for name, lib in rank_variant_libs(K, root).items():
                 if name.startswith("comp_"):
                     out[name] = _with_lib(K, lib, call)
         print("comp_split " + json.dumps(out), flush=True)
+
+
+# made slices of the 500 Mchar merge's first compacted round (9 602 118
+# of 36 051 597 rows: PERF.md §5) in groups of each size
+COMP_GROUP_SIZES = (2, 4, 8, 12, 16, 24, 32, 48, 64, 128, 256, 1024, 4096,
+                    8192)
+COMP_GROUP_ROWS, COMP_GROUP_M = 9_602_118, 36_051_597
+
+
+def comp_groups_main(root: pathlib.Path) -> None:
+    """dense_rank_comp's round on made slices of COMP_GROUP_ROWS rows of m
+    = COMP_GROUP_M in groups of each of COMP_GROUP_SIZES rows (key 0 the
+    group's start, key 1 drawn from 1 .. g / 2 + 1 for groups of g rows,
+    so ties stay; distinct text positions; seeded): this tree's kernel,
+    and sort_groups by counting only and by the bitonic network only
+    (RANK_VARIANTS), each held to the plain round (exact, every output)
+    and timed alone (chip_smoke.dense_rank_comp_launch) and with its
+    wrapper (chip_smoke.comp_wrapper_ms; groups above the cap take the
+    large path, pick, radix_sort and comp_large_kernel first); beside it
+    radix_sort of the whole slice by (key 0, key 1), what the large path
+    sorts for each of its rows: ``comp_groups`` lines."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.index import device as idx
+    from cmsbwt_tpu_torch.ops.sort import fault_word
+    libs = {"this": K.load()["sa_round"]}
+    libs.update((name, lib) for name, lib in
+                rank_variant_libs(K, root).items()
+                if name.startswith("groups_"))
+    _, _, kern, plain = cs._kernel_and_plain(K, idx)
+    u, m = COMP_GROUP_ROWS, COMP_GROUP_M
+    fault = fault_word("cuda:0")
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    fill = lambda k: torch.full((k,), -7, dtype=torch.int32, device="cuda")
+    for g in COMP_GROUP_SIZES:
+        rng = np.random.default_rng(g)
+        sizes = np.full(u // g, g, np.int64)
+        if u % g:
+            sizes = np.r_[sizes, u % g]
+        k0 = np.repeat(np.cumsum(np.r_[0, sizes[:-1]]), sizes)
+        k1 = rng.integers(1, g // 2 + 2, u)
+        ti = rng.permutation(m)[:u]
+        rank = rng.integers(0, m, m)
+        rank[ti] = k0
+        large = int(sizes[sizes > K.COMP_CAP].sum())
+        args = ((dev(ti), dev(k0), dev(k1)), u, large, dev(rank), fill(m),
+                (fill(u), fill(u)), 16, 0)
+        want = cs.comp_step_run(plain, args)
+        out = {"group_rows": g, "rows": u, "m": m, "large": large,
+               "unresolved": int(want[0][0])}
+        saved = K.load()["sa_round"]
+        try:
+            for name, lib in libs.items():
+                K.load()["sa_round"] = lib
+                got = cs.comp_step_run(kern, args)
+                if not all(a.shape == b.shape and torch.equal(a, b)
+                           for a, b in zip(want, got)):
+                    raise SystemExit(f"comp_groups: {name} differs from the "
+                                     f"plain round at groups of {g}")
+                out[name] = {"wrapper_ms": cs.comp_wrapper_ms(K, args)}
+                if not large:
+                    out[name]["alone_ms"] = cs.alone_ms(
+                        *cs.dense_rank_comp_launch(K, args, 5))
+        finally:
+            K.load()["sa_round"] = saved
+        keys = (args[0][1], args[0][2])
+        out["radix_sort_ms"] = cs.library_ms(
+            lambda: K.radix_sort_cuda(keys, (m.bit_length(),
+                                             (m + 1).bit_length()), fault,
+                                      values=True), 5)
+        print("comp_groups " + json.dumps(out), flush=True)
+    from cmsbwt_tpu_torch.ops.sort import check_faults
+    check_faults("cuda:0")
 
 
 def final_sa_sort(idx, merge) -> None:
@@ -1752,6 +1907,11 @@ def main() -> int:
                     "primary and 500 Mchars (or at SHAPE alone), against "
                     "their plain versions and timed; with --parent, its "
                     "kernels against this tree's")
+    ap.add_argument("--comp-groups", action="store_true",
+                    help="dense_rank_comp's round on made slices of the 500 "
+                    "Mchar merge's first compacted round in groups of "
+                    "2 .. 8192 rows: by counting, by the bitonic network, "
+                    "as committed, and the large path's sort")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -1775,6 +1935,8 @@ def main() -> int:
     try:
         if args.mesh:
             mesh_main()
+        elif args.comp_groups:
+            comp_groups_main(ROOT)
         elif args.merge_stages is not None:
             merge_stages_main(args.merge_stages or None, args.parent)
         elif args.merge_kernels is not None:
