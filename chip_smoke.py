@@ -96,8 +96,10 @@ every phase passed):
    --backend (auto), plain and -r, bytes equal to the reference tool's,
    the backend its .log names printed, and that route's kernels
    (ROUTE_KERNELS) must have carried it; the CMSBWT model on cuda,
-   transform(backend="jump"), "dense" and "jump" again, each .bwt equal to
-   the reference tool's, the device index built once; ms_dense on the
+   transform(backend="jump"), "dense" and "jump" again on the device
+   merge, then "jump" and "dense" with merge_backend "host" (no
+   merge_device phase, the host merge's kernels counted), each .bwt equal
+   to the reference tool's, the device index built once; ms_dense on the
    200 Kbp workload against the jump scan's heads expanded per position
    (ops/ms_device.ms_scan_device): pos, length and is_head equal at every
    position, smaller at the heads; --parallel --block-chars 4194304
@@ -170,7 +172,22 @@ every phase passed):
    a host merge may launch both rank kernels); the
    jump scan's index build launches dense_rank too; the
    sharded merge and the dense scan launch running_fill; no run launches
-   a plain version.
+   a plain version. The device writer's rle_pack and bwt_expand
+   (io/output: rle_pack_reference, bwt_expand_reference) on made run
+   lists at their tiles' edges (output_cases: R = 0, 1, a record tile and
+   a scan tile +- 1, three tiles + 5, 2^22 + 3, sums at an output tile
+   +- 1, a leading char-0 run, runs longer than three output tiles, views
+   off the 16-byte frame) and on the three faults (a length of 0, two
+   neighbours of one char, lengths that do not sum to sn: the kernel's
+   fault word equal to the plain version's, the dispatch raising), and
+   on the primary and 500 Mchar merges' runs (MergeCapture), timed alone,
+   with the wrapper, beside Tensor.copy_ of the bound's bytes and, for
+   bwt_expand, torch.repeat_interleave. Every CLI run and model
+   transform that merged on the device wrote its output through one
+   rle_pack (.rl_bwt) or bwt_expand (.bwt) launch and downloaded no run
+   array (engine/device_merge.RUN_DOWNLOADS); phases 5, 8 and 9 print
+   each such run's write_output phase with the writer's R, bytes, kernel
+   ms and staging copy seconds (io/output.LAST_WRITE).
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
@@ -196,12 +213,15 @@ int64 rows (forward max), and tail_good_join, tail_exact_credit,
 run_merge, pair_expand, dense_rank and dense_rank_comp on the 500
 Mchar merge's inputs (the last three also at primary, and alone_ms and
 copy_ms). library_ms is
-one 1-D torch.cummax for running_fill and three Tensor.index_add_ for
-bucket_sums; no single PyTorch call computes any of the other functions,
-so theirs is null. running_fill's and bucket_sums' rows also
-give alone_ms (the launches alone) and copy_ms (Tensor.copy_ of the same
-bytes); running_fill's ``flag_fill`` the joint sort's first flag fill at
-both shapes. radix_sort's ``sites`` hold the dense scan's sorts too
+one 1-D torch.cummax for running_fill, three Tensor.index_add_ for
+bucket_sums and torch.repeat_interleave for bwt_expand; no single
+PyTorch call computes any of the other functions, so theirs is null.
+rle_pack's and bwt_expand's rows give the 500 Mchar merge's runs and,
+under ``primary``, the primary merge's; their bounds count 14 B a run
+(rle_pack) and 5 B a run plus sn (bwt_expand). running_fill's and
+bucket_sums' rows also give alone_ms (the launches alone) and copy_ms
+(Tensor.copy_ of the same bytes); running_fill's ``flag_fill`` the
+joint sort's first flag fill at both shapes. radix_sort's ``sites`` hold the dense scan's sorts too
 (marked "(dense)"). sa_round's row gives the first full round of the 500
 Mchar run's first block, then every round at primary (``rounds``), and
 the seed mode at both (``seed``); no PyTorch call computes its function,
@@ -211,6 +231,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import filecmp
 import importlib.abc
 import json
@@ -261,12 +282,14 @@ ROUTE_KERNELS = {"jump": ("ms_jump_scan", "radix_hist", "radix_pass",
 # device merge launches tail_exact_credit once per merge with exact pairs,
 # dense_rank in its head string's suffix sort's first round (and
 # dense_rank_comp once a compacted round or tail after it, when it
-# reaches one) and
-# pair_expand in tail_good
+# reaches one),
+# pair_expand in tail_good, and its writer rle_pack once per .rl_bwt and
+# bwt_expand once per .bwt (or model transform's bytes)
 MERGE_KERNELS = {"device": ("running_fill", "tail_good_join",
                             "tail_exact_credit", "bucket_sums", "run_merge",
                             "radix_hist", "radix_pass", "compact",
-                            "dense_rank", "dense_rank_comp", "pair_expand"),
+                            "dense_rank", "dense_rank_comp", "pair_expand",
+                            "rle_pack", "bwt_expand"),
                  "sharded": ("running_fill",), "host": (), "none": ()}
 # kernels a route or a merge engine may launch: the native route builds
 # its index on the card when the index cache misses, and the host merge
@@ -1156,7 +1179,8 @@ class MergeCapture:
 
         def runs(*a):
             self.runs = a
-            return self.orig[2](*a)
+            self.run_out = self.orig[2](*a)
+            return self.run_out
 
         def exact(*a):
             self.exact = a
@@ -1970,6 +1994,185 @@ def pair_expand_case(tag: str, cls: dict, pairs: dict, slot_base, n: int,
     return r
 
 
+# run_output.cu's tiles: rle_pack's records a block, bwt_expand's runs a
+# scan tile and output bytes a block
+OUT_PACK_TILE = 512
+OUT_ENDS_TILE = 4096
+OUT_EXP_TILE = 16384
+OUT_CHARS = np.array([2, 65, 67, 71, 84], np.uint8)   # separator, ACGT
+
+
+def made_runs(R: int, seed: int, sn: int | None = None, lead0=False,
+              long_every: int = 0):
+    """A merged run list of R runs on the card (int32 lengths 1-12, uint8
+    chars from OUT_CHARS, neighbours different): with ``lead0`` the first
+    run's char is 0 (the tool's prevChar start), with ``long_every`` every
+    such run is 3 output tiles + 5 long, and with ``sn`` the last run's
+    length is set so that the lengths sum to sn (at least 1)."""
+    rng = np.random.default_rng(seed)
+    ln = rng.integers(1, 13, R).astype(np.int64)
+    if long_every:
+        ln[::long_every] = 3 * OUT_EXP_TILE + 5
+    steps = rng.integers(1, len(OUT_CHARS), R)
+    idx = np.cumsum(steps) % len(OUT_CHARS)
+    ch = OUT_CHARS[idx]
+    if lead0 and R:
+        ch[0] = 0
+    if sn is not None and R:
+        ln[-1] = sn - int(ln[:-1].sum())
+        if ln[-1] < 1:
+            fail(f"made_runs: sn {sn} below {R} runs' lengths")
+    return (torch.from_numpy(ln.astype(np.int32)).cuda(),
+            torch.from_numpy(ch).cuda())
+
+
+def output_pair(K, out_mod, rl, rc, rle: bool, sn: int):
+    """The kernel's and the plain version's (output, fault) on one run
+    list, synchronised."""
+    if rle:
+        got = K.rle_pack_cuda(rl, rc)
+        want = out_mod.rle_pack_reference(rl, rc)
+    else:
+        got = K.bwt_expand_cuda(rl, rc, sn)
+        want = out_mod.bwt_expand_reference(rl, rc, sn)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def output_cases() -> int:
+    """rle_pack and bwt_expand against their plain versions on the card
+    (exact, bytes and fault word) on made run lists at their tiles'
+    edges: R = 0 (rle_pack's single (0, 0) record), 1, a record tile and a
+    scan tile +- 1, three tiles + 5, 2^22 + 3; sums at an output tile +-
+    1; a leading char-0 run; runs longer than three output tiles; views
+    off the 16-byte frame; and the faults: a length of 0, two neighbours
+    of one char, lengths that do not sum to sn (the dispatch must raise).
+    Returns the cases held."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.io import output as out_mod
+    t0 = time.perf_counter()
+    cases = []
+    for R in (1, 2, OUT_PACK_TILE - 1, OUT_PACK_TILE, OUT_PACK_TILE + 1,
+              3 * OUT_PACK_TILE + 5, OUT_ENDS_TILE - 1, OUT_ENDS_TILE,
+              OUT_ENDS_TILE + 1, 3 * OUT_ENDS_TILE + 5, (1 << 22) + 3):
+        cases.append((f"R={R}", made_runs(R, R)))
+    for sn in (OUT_EXP_TILE - 1, OUT_EXP_TILE, OUT_EXP_TILE + 1,
+               3 * OUT_EXP_TILE + 7):
+        cases.append((f"sn={sn}", made_runs(sn // 7, sn, sn=sn)))
+    cases.append(("lead0", made_runs(5000, 7, lead0=True)))
+    cases.append(("long_runs", made_runs(3000, 8, long_every=97)))
+    rl, rc = made_runs(OUT_ENDS_TILE + 3, 9)
+    cases.append(("views", (rl[1:], rc[1:])))
+    held = 0
+    for name, (rl, rc) in cases:
+        sn = int(rl.to(torch.int64).sum())
+        for rle in (True, False):
+            (g, gf), (w, wf) = output_pair(K, out_mod, rl, rc, rle, sn)
+            if not (torch.equal(g, w) and int(gf[0]) == int(wf[0]) == 0):
+                fail(f"{'rle_pack' if rle else 'bwt_expand'}[{name}]: the "
+                     "kernel differs from its plain version (or faults)")
+            held += 1
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    (g, gf), (w, wf) = output_pair(K, out_mod, empty, empty.to(torch.uint8),
+                                   True, 0)
+    if not (torch.equal(g, w) and g.numel() == 9 and not int(g.sum())
+            and int(gf[0]) == 0):
+        fail("rle_pack[R=0]: not the single (0, 0) record")
+    held += 1
+    # faults: the kernel's word equal to the plain version's, and the
+    # dispatch raising
+    rl, rc = made_runs(3 * OUT_ENDS_TILE + 5, 11)
+    sn = int(rl.to(torch.int64).sum())
+    zero, dup = rl.clone(), rc.clone()
+    zero[OUT_ENDS_TILE + 7] = 0
+    dup[2 * OUT_PACK_TILE] = dup[2 * OUT_PACK_TILE - 1]
+    for name, a, b, rle, n in (
+            ("zero_length", zero, rc, True, sn),
+            ("zero_length", zero, rc, False, sn - int(rl[OUT_ENDS_TILE + 7])),
+            ("same_char", rl, dup, True, sn),
+            ("sum_short", rl, rc, False, sn + 1),
+            ("sum_long", rl, rc, False, sn - 1)):
+        (g, gf), (w, wf) = output_pair(K, out_mod, a, b, rle, n)
+        kname = "rle_pack" if rle else "bwt_expand"
+        if int(gf[0]) == 0 or int(gf[0]) != int(wf[0]):
+            fail(f"{kname}[{name}]: fault word {int(gf[0])}, plain "
+                 f"{int(wf[0])}")
+        try:
+            (out_mod.rle_pack(a, b) if rle else out_mod.bwt_expand(a, b, n))
+        except RuntimeError:
+            held += 1
+        else:
+            fail(f"{kname}[{name}]: the dispatch did not raise")
+    log(f"output cases: {held} held (exact) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return held
+
+
+def output_launch(K, rl, rc, rle: bool, sn: int):
+    """rle_pack's or bwt_expand's C entry point with its outputs made
+    beforehand; returns (launch(scratch), scratch bytes)."""
+    lib = K.load()["run_output"]
+    R = rl.numel()
+    if rle:
+        out = torch.empty(9 * max(R, 1), dtype=torch.uint8, device="cuda")
+
+        def launch(scratch):
+            if lib.rle_pack_launch(_p(rl), _p(rc), R, _p(out), _p(scratch),
+                                   _stream()):
+                fail("rle_pack launch failed")
+        return launch, int(lib.run_output_scratch_bytes(0))
+    out = torch.empty(sn, dtype=torch.uint8, device="cuda")
+    ends = torch.empty(R, dtype=torch.int32, device="cuda")
+
+    def launch(scratch):
+        if lib.bwt_expand_launch(_p(rl), _p(rc), R, sn, _p(ends), _p(out),
+                                 _p(scratch), _stream()):
+            fail("bwt_expand launch failed")
+    return launch, int(lib.run_output_scratch_bytes(R))
+
+
+def output_case(tag: str, rl, rc, rle: bool) -> dict:
+    """rle_pack (``rle``) or bwt_expand against its plain version (exact)
+    on a merge's run list, timed with its wrapper (its allocations and
+    memsets included), alone, beside Tensor.copy_ of the bound's bytes
+    (rle_pack: 5 B a run read, 9 written; bwt_expand: 5 B a run read, sn
+    written) and, for bwt_expand, beside torch.repeat_interleave."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.io import output as out_mod
+    R = rl.numel()
+    sn = int(rl.to(torch.int64).sum())
+    name = "rle_pack" if rle else "bwt_expand"
+    moved = 14 * R if rle else 5 * R + sn
+    if rle:
+        kern, plain = (lambda: K.rle_pack_cuda(rl, rc),
+                       lambda: out_mod.rle_pack_reference(rl, rc))
+    else:
+        kern, plain = (lambda: K.bwt_expand_cuda(rl, rc, sn),
+                       lambda: out_mod.bwt_expand_reference(rl, rc, sn))
+    r = compare(name, tag, name + "_reference", kern, plain,
+                f"R={R} runs, sn={sn}", moved)
+    want = r.pop("outputs")
+    if int(want[1][0]):
+        fail(f"{name}[{tag}]: the merge's run list breaks the record rule")
+    r["alone_ms"] = alone_ms(*output_launch(K, rl, rc, rle, sn))
+    r["copy_ms"] = copy_ms(moved)
+    r["library_ms"] = None
+    if not rle:
+        library = lambda: torch.repeat_interleave(rc, rl)
+        if not torch.equal(library(), want[0]):
+            fail(f"{name}[{tag}]: torch.repeat_interleave differs from the "
+                 "plain version")
+        r["library_ms"] = library_ms(library, 5)
+    r["rows"], r["sn"] = R, sn
+    log(f"kernel {name}[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
+        f"wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
+        f"{r['copy_ms']:.3f} ms"
+        + ("" if rle else f", torch.repeat_interleave "
+           f"{r['library_ms']:.3f} ms")
+        + f", bound {r['bound_ms']:.4f} ms")
+    return r
+
+
 def merge_kernel_cases(tag: str, cap: MergeCapture,
                        scan_sorts: SortCapture,
                        index_rank: IndexRankCapture) -> dict:
@@ -2060,6 +2263,10 @@ def merge_kernel_cases(tag: str, cap: MergeCapture,
     out["dense_rank_comp_tail"] = dense_rank_comp_case(
         f"{tag} tail", cap.tail, "the head string's tail (one block)")
     out["pair_expand"] = pair_expand_case(tag, *cap.expand)
+    # the output file's bytes of the merge's runs
+    rl, rc, _ = cap.run_out
+    out["rle_pack"] = output_case(tag, rl, rc, True)
+    out["bwt_expand"] = output_case(tag, rl, rc, False)
     k_s, len_s, chr_s = cap.runs
     out["run_merge"] = compare(
         "run_merge", tag, "_run_merge_reference",
@@ -2198,6 +2405,7 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
     from cmsbwt_tpu_torch import CMSBWT
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.index import device as idev
+    from cmsbwt_tpu_torch.io import output as out_mod
     from cmsbwt_tpu_torch.ops import ms_dense as md
     from cmsbwt_tpu_torch.ops.ms_device import ms_scan_device
     from cmsbwt_tpu_torch.parallel import blocked as pb
@@ -2207,7 +2415,8 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
     run_cli(None, "auto_default", merge="auto")
     log(f"auto[primary]: the default CLI ran backend {paths[-1][0]}")
 
-    # the model: the device index built once over three transforms
+    # the model: the device index built once over five transforms, three
+    # on the device merge and two on the host merge (merge_backend 'host')
     built = []
     orig = idev.build_device_index
 
@@ -2218,8 +2427,14 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
     try:
         ref_path, coll_path = lst.read_text().split()
         model = CMSBWT(ref_path, device="cuda")
-        for tag, be in (("model_jump", "jump"), ("model_dense", "dense"),
-                        ("model_jump_again", "jump")):
+        for tag, be, engine in (
+                ("model_jump", "jump", "device"),
+                ("model_dense", "dense", "device"),
+                ("model_jump_again", "jump", "device"),
+                ("model_jump_host", "jump", "host"),
+                ("model_dense_host", "dense", "host")):
+            model.config = dataclasses.replace(model.config,
+                                               merge_backend=engine)
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2230,12 +2445,18 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
                      "reference tool's")
             log(f"model[{tag}]: bytes equal to the reference tool's; wall "
                 f"{wall:.2f} s; phases ms " + json.dumps(
-                    {k: round(t * 1e3, 1) for k, t in res.timer.phases}))
-            check_counts(be, tag, 1, "host")
+                    {k: round(t * 1e3, 1) for k, t in res.timer.phases})
+                + " write " + json.dumps(out_mod.LAST_WRITE))
+            if ("merge_device" in dict(res.timer.phases)) != (
+                    engine == "device"):
+                fail(f"{tag}: the model did not merge on the {engine} merge")
+            out_mod.LAST_WRITE.clear()
+            check_counts(be, tag, 1, engine,
+                         plain_writes=int(engine == "device"))
         del model, res
     finally:
         idev.build_device_index = orig
-    log(f"model: device index built {len(built)} time(s) over 3 transforms")
+    log(f"model: device index built {len(built)} time(s) over 5 transforms")
     if len(built) != 1:
         fail("CMSBWT built its device index more than once")
     torch.cuda.empty_cache()
@@ -2717,6 +2938,19 @@ def merge_row(row, name, source, replaces, merge_cases, also=()):
                **extra)
 
 
+def output_row(row, name, replaces, merge_cases):
+    """The kernels line's row of a run_output.cu kernel on the 500 Mchar
+    and the primary merge's runs, with its alone, copy_ and (bwt_expand)
+    torch.repeat_interleave times at both."""
+    big, prim = merge_cases["500M"][name], merge_cases["primary"][name]
+    keys = ("rows", "sn", "ms", "alone_ms", "plain_ms", "library_ms",
+            "copy_ms", "bound_ms")
+    return row(name, "cmsbwt_tpu_torch/kernels/csrc/run_output.cu",
+               replaces, [big, prim], big["library_ms"], alone_ms=big[
+                   "alone_ms"], copy_ms=big["copy_ms"], rows=big["rows"],
+               sn=big["sn"], primary={k: prim[k] for k in keys})
+
+
 def main() -> int:
     started = time.perf_counter()
     # phase 1: device
@@ -2756,10 +2990,11 @@ def run_phases(card: str, kind: str, started: float) -> int:
     from cmsbwt_tpu_torch.ops import sort as srt
     from cmsbwt_tpu_torch.utils.buckets import bucket_size
     # the plain versions' call counts
+    from cmsbwt_tpu_torch.io import output as out_mod
     PLAIN_CALLS = (js.REFERENCE_CALLS, md.REFERENCE_CALLS,
                    mj.REFERENCE_CALLS, fill.REFERENCE_CALLS,
                    dmg.REFERENCE_CALLS, srt.REFERENCE_CALLS,
-                   idx.REFERENCE_CALLS)
+                   idx.REFERENCE_CALLS, out_mod.REFERENCE_CALLS)
 
     # phase 2: build
     kernels.load()
@@ -2839,21 +3074,26 @@ def run_phases(card: str, kind: str, started: float) -> int:
 
     def reset_counts():
         kernels.reset_launch_counts()
-        exact_merges[0] = comp_steps[0] = 0
+        exact_merges[0] = comp_steps[0] = dmg.RUN_DOWNLOADS[0] = 0
         for calls in PLAIN_CALLS:
             for k in calls:
                 calls[k] = 0
 
-    def check_counts(backend, tag, runs, engine, tries=None, scanned=True):
+    def check_counts(backend, tag, runs, engine, tries=None, scanned=True,
+                     rle_writes=0, plain_writes=0):
         """The launch counts since reset_counts(): each kernel of the
         backend's scan (unless ``scanned`` is False: the scan was skipped)
         and of the merge ``engine`` launched, no other, no plain version;
-        recorded as a path."""
+        a device merge's writer launched once per output it wrote
+        (``rle_writes`` .rl_bwt, ``plain_writes`` .bwt) and no run array
+        downloaded; recorded as a path."""
+        writes = {"rle_pack": rle_writes, "bwt_expand": plain_writes}
         mine = tuple(k for k in dict.fromkeys(
             (ROUTE_KERNELS[backend] if scanned else ())
             + MERGE_KERNELS[engine])
             if (k != "tail_exact_credit" or exact_merges[0])
-            and (k != "dense_rank_comp" or comp_steps[0]))
+            and (k != "dense_rank_comp" or comp_steps[0])
+            and writes.get(k, 1))
         may = mine + tuple(k for e in (backend, *engine.split("/"))
                            for k in MAY_LAUNCH.get(e, ()))
         counts = dict(kernels.LAUNCHES)
@@ -2880,6 +3120,14 @@ def run_phases(card: str, kind: str, started: float) -> int:
         if counts["dense_rank_comp"] != comp_steps[0]:
             fail(f"{tag}: dense_rank_comp did not carry every compacted "
                  f"head-string step ({comp_steps[0]})")
+        if engine == "device" and (
+                any(counts[k] != w for k, w in writes.items())
+                or dmg.RUN_DOWNLOADS[0]):
+            fail(f"{tag}: the device merge's writer launched rle_pack "
+                 f"{counts['rle_pack']} and bwt_expand "
+                 f"{counts['bwt_expand']} times for {rle_writes} .rl_bwt "
+                 f"and {plain_writes} .bwt, and downloaded "
+                 f"{dmg.RUN_DOWNLOADS[0]} run lists")
         paths.append((backend, tag, runs, counts, tries, engine, mine))
         return counts
 
@@ -2919,6 +3167,11 @@ def run_phases(card: str, kind: str, started: float) -> int:
             if backend == "native" and "scan_engine: native" not in text:
                 fail(f"{tag}: the .log does not name the native scan engine")
             phases = json.dumps(phases_from_log(out.with_suffix(".log")))
+            if "\nmerge_device: " in text:
+                # the device merge's writer: R, bytes, the kernel and the
+                # staging copy
+                phases += " write " + json.dumps(out_mod.LAST_WRITE)
+                out_mod.LAST_WRITE.clear()
             if want is None:
                 log(f"slice[{tag},{fmt}]: wall {wall:.2f} s; phases ms "
                     + phases)
@@ -2941,9 +3194,12 @@ def run_phases(card: str, kind: str, started: float) -> int:
         engine = "/".join(sorted(engines))
         if engine != want_merge:
             fail(f"{tag}: the {engine} merge ran, expected {want_merge}")
+        dev = engine == "device"
         return check_counts(
             backend, tag, len(formats), engine,
-            len(blocks.tries) - tries0 if blocks else None, scanned)
+            len(blocks.tries) - tries0 if blocks else None, scanned,
+            rle_writes=dev * sum(formats),
+            plain_writes=dev * (len(formats) - sum(formats)))
 
     run_cli("jump", "jump")
 
@@ -2971,7 +3227,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
                     f"jump lanes={lanes}")
 
     # the host merge against the device merge on the jump scan's heads
-    from cmsbwt_tpu_torch.engine.device_merge import \
+    from cmsbwt_tpu_torch.engine.device_merge import download_runs, \
         merge_heads_device_resident
     jres = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
     times = {"device": [], "host": []}
@@ -2987,6 +3243,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
             dev = merge_heads_device_resident(jres, coll.d, False)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            dev = (*download_runs(*dev[:2]), dev[2])
             log(f"merge[primary]: device {ms:.1f} ms")
         times[turn].append(ms)
     want_runs = normalized_runs(host[0], host[1])
@@ -3004,6 +3261,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
         mj.ms_jump_heads(x_aug, coll.sx, "cuda")
     with MergeCapture() as cap:
         again = merge_heads_device_resident(jres, coll.d, False)
+    again = (*download_runs(*again[:2]), again[2])
     if not all(np.array_equal(a, b) for a, b in zip(again, dev)):
         fail("the device merge's runs differ between two runs")
     merge_cases = {"primary": merge_kernel_cases("primary", cap,
@@ -3216,9 +3474,11 @@ def run_phases(card: str, kind: str, started: float) -> int:
     bucket_sums_cases()
     sort_cases()
     rank_cases()
+    output_cases()
     for name in ("running_fill", "tail_good_join", "tail_exact_credit",
                  "bucket_sums", "run_merge", "radix_sort", "compact",
-                 "dense_rank", "dense_rank_comp", "pair_expand"):
+                 "dense_rank", "dense_rank_comp", "pair_expand", "rle_pack",
+                 "bwt_expand"):
         for tag, res in merge_cases.items():
             r = res[name]
             log(f"merge kernel {name}[{tag}]: {r['ms']:.3f} ms, plain "
@@ -3310,6 +3570,10 @@ def run_phases(card: str, kind: str, started: float) -> int:
                   ("dense_rank_comp_tail",)),
         merge_row(row, "pair_expand", csrc + "pair_expand.cu",
                   "cmsbwt_tpu/engine/device_merge.py:359", merge_cases),
+        output_row(row, "rle_pack", "cmsbwt_tpu/engine/device_merge.py:717",
+                   merge_cases),
+        output_row(row, "bwt_expand", "cmsbwt_tpu/engine/merge.py:171",
+                   merge_cases),
         row("sa_round", csrc + "sa_round.cu",
             "cmsbwt_tpu/ops/joint_sa.py:244", rounds
             + [jt.seed for jt in joint.values()],

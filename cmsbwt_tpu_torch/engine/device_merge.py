@@ -67,6 +67,10 @@ REFERENCE_CALLS = {"_pair_expand_reference": 0,
                    "_tail_good_join_reference": 0,
                    "_exact_credit_reference": 0, "_bucket_sums_reference": 0,
                    "_run_merge_reference": 0}
+# downloads of a merge's run arrays to the host (download_runs): none on
+# the device-merge routes, whose runs reach the host only as the output
+# file's bytes (io/output.py)
+RUN_DOWNLOADS = [0]
 
 
 def sn_bound() -> int:
@@ -936,7 +940,10 @@ def merge_device(head_t, head_pos, head_len, head_smaller, head_char,
                  ref_sa, ref_isa, ref_bwt, h: int, n: int, sn: int, d: int,
                  rle_quirk: bool, want_counter: bool = True):
     """Full downstream merge on the device of its inputs; returns
-    (run_len int64, run_char uint8, counter int64[h+1] or None) as numpy.
+    (run_len int32[R], run_char uint8[R], counter int64[h+1] numpy or
+    None): the runs where they lie on the device (merged, every length > 0
+    and neighbouring chars different, as io/output's writers take them;
+    download_runs gives them as the host writers take them).
 
     Inputs: heads padded to h_pad (valid prefix h, stream order), the
     reference index padded to n_pad, zero pads. ``want_counter`` gates the
@@ -979,11 +986,9 @@ def merge_device(head_t, head_pos, head_len, head_smaller, head_char,
             e_pidx, e_fnd, src_cls, n_exact, h, h_pad,
             bucket_size(n_exact), bucket_size(max(exact_members, 1)))
         mark("tail_exact")
-    rl_d, rc_d, n_runs = runs_emit_dev(
+    rl, rc, n_runs = runs_emit_dev(
         cls, sa_ord, slot_base, counter, tails_cnt, bwt_heads,
         ref_sa, ref_isa, ref_bwt, d, n, h_pad, n_pad, rle_quirk)
-    rl = rl_d.cpu().numpy().astype(np.int64)
-    rc = rc_d.cpu().numpy()
     mark("runs_emit(R=%d)" % n_runs)
     # counterSmallerThanHead, slot-indexed (debug artifact parity,
     # ref :919-924); host layout is int64[h+1]
@@ -992,10 +997,19 @@ def merge_device(head_t, head_pos, head_len, head_smaller, head_char,
     return rl, rc, counter_np
 
 
+def download_runs(run_len, run_char):
+    """A device run list as the host writers take it (run_len int64,
+    run_char uint8 numpy arrays); counted in RUN_DOWNLOADS."""
+    RUN_DOWNLOADS[0] += 1
+    return (run_len.cpu().numpy().astype(np.int64),
+            run_char.cpu().numpy())
+
+
 def merge_heads_device_resident(dres, d: int, rle_quirk: bool,
                                 want_counter: bool = True):
     """Merge a DeviceHeadsResult (ops/ms_jump.ms_jump_heads) where it lies:
-    the head records and reference index are already in merge layout."""
+    the head records and reference index are already in merge layout; the
+    runs stay on the device (merge_device)."""
     _check_sn(int(dres.sn))
     return merge_device(
         dres.head_t, dres.head_pos, dres.head_len, dres.head_smaller,

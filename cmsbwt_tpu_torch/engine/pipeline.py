@@ -19,7 +19,7 @@ cmsbwt_tpu/engine/pipeline.py:
 * backend=device: build_device_index -> ms_scan_device (the jump scan's
   heads expanded to every position) -> compute_bwt_arrays (the host merge)
 * backend=native: the host reference index (device-built on a card,
-  cached on disk) -> ms_scan_native (native/cmsbwt_scan.cpp; the spec scan
+  cached on disk) -> ms_scan_native (io/csrc/cmsbwt_scan.cpp; the spec scan
   when g++ cannot build it) -> the host merge
 * backend=host: the host index (cached) -> ms_scan_collection (the
   per-phrase spec scan) -> the host merge
@@ -32,7 +32,10 @@ cmsbwt_tpu/engine/pipeline.py:
   host indexes) -> the native int64 scan (the spec scan for backend=host)
   -> the host merge; only backend auto and host run it
 
-then _write_outputs, whose ``.log`` names the backend that ran. The merge
+then _write_outputs, whose ``.log`` names the backend that ran. The device
+merge's runs stay on its device, and the output file's bytes are made
+there and copied into the file (io/output.write_runs); the host and
+sharded merges write through the native writers. The merge
 engine of the jump and dense routes follows the JAX rules with ``cuda`` in
 the role of an accelerator and ``cpu`` in that of a CPU-only process
 (_choose_merge); on a card, 'auto' also takes the host merge above the
@@ -51,7 +54,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -77,15 +79,37 @@ AUTO_DENSE_MIN_CHARS = 2_000_000
 AUTO_CPU_JUMP_LANES = 1024
 
 
-@dataclass
 class PipelineResult:
-    run_len: np.ndarray
-    run_char: np.ndarray
-    d: int
-    sn: int
-    h: int
-    counter: np.ndarray | None = None  # counterSmallerThanHead (debug artifact)
-    engine: str | None = None          # the native branch's scan engine
+    """A merge's runs and what the ``.log`` reports. ``device_runs``: the
+    device merge's (run_len int32, run_char uint8) tensors where the merge
+    left them, which _write_outputs encodes on their device
+    (io/output.write_runs); ``run_len`` (int64) and ``run_char`` (uint8)
+    are numpy arrays, downloaded from ``device_runs`` at their first
+    read."""
+
+    def __init__(self, run_len: np.ndarray | None = None,
+                 run_char: np.ndarray | None = None, d: int = 0, sn: int = 0,
+                 h: int = 0, counter: np.ndarray | None = None,
+                 engine: str | None = None, device_runs=None):
+        self._runs = (run_len, run_char)
+        self.d, self.sn, self.h = d, sn, h
+        self.counter = counter    # counterSmallerThanHead (debug artifact)
+        self.engine = engine      # the native branch's scan engine
+        self.device_runs = device_runs
+
+    def _host_runs(self) -> tuple:
+        if self._runs[0] is None and self.device_runs is not None:
+            from .device_merge import download_runs
+            self._runs = download_runs(*self.device_runs)
+        return self._runs
+
+    @property
+    def run_len(self) -> np.ndarray:
+        return self._host_runs()[0]
+
+    @property
+    def run_char(self) -> np.ndarray:
+        return self._host_runs()[1]
 
 
 def resolve_device(device) -> torch.device:
@@ -310,29 +334,47 @@ def compute_bwt(cfg: Config, device) -> dict:
                                   window=cfg.skip_window, index=dindex,
                                   timer=timer)
         del dindex
-    if engine == "sharded":
-        return finish(merge_from_heads_sharded(x_aug, heads, coll.d, coll.sn,
-                                               rq, device, timer))
-    if follower or heads is None:
+    if engine != "sharded" and (follower or heads is None):
         return finish(None)
+    held = [heads]
+    del heads
+    return finish(merge_heads(engine, x_aug, held, coll, rq, device, timer,
+                              buf, want_counter=n < cfg.small_ref_threshold))
+
+
+def merge_heads(engine: str, x_aug: np.ndarray, held: list, coll, rq: bool,
+                device, timer: PhaseTimer, buffer_bytes: int,
+                want_counter: bool = False) -> PipelineResult | None:
+    """The jump and dense routes' merge on ``engine`` (_choose_merge) of
+    the heads in ``held`` (a one-item list, emptied here so that the
+    heads' memory goes once they are no longer needed): a DeviceHeadsResult
+    or a host DenseHeadsResult, None on the sharded merge's other ranks.
+
+    'sharded': merge_from_heads_sharded. 'host': the heads downloaded and
+    merged by merge_from_heads. 'device': the heads uploaded when on the
+    host, merged where they lie (phase ``merge_device``), the runs left on
+    the device (PipelineResult.device_runs)."""
     from ..ops.ms_dense import DenseHeadsResult
+    heads = held.pop()
+    n = len(x_aug)
+    if engine == "sharded":
+        return merge_from_heads_sharded(x_aug, heads, coll.d, coll.sn, rq,
+                                        device, timer)
     if engine == "host":
-        dl = (heads if isinstance(heads, DenseHeadsResult)
-              else download_heads_result(heads, n))
+        if not isinstance(heads, DenseHeadsResult):
+            heads = download_heads_result(heads, n)
+        index, hh = dense_result_to_inputs(x_aug, heads)
         del heads
-        index, hh = dense_result_to_inputs(x_aug, dl)
-        result = merge_from_heads(index, hh, coll.d, coll.sn, rq, device,
-                                  timer, buffer_bytes=buf)
-        return finish(result)
+        return merge_from_heads(index, hh, coll.d, coll.sn, rq, device,
+                                timer, buffer_bytes=buffer_bytes)
     from .device_merge import merge_heads_device_resident
     if isinstance(heads, DenseHeadsResult):
         heads = upload_heads_result(heads, n, device)
     with timer.phase("merge_device"), maybe_torch_trace("merge_device"):
         run_len, run_char, counter = merge_heads_device_resident(
-            heads, coll.d, rq, want_counter=n < cfg.small_ref_threshold)
-    result = PipelineResult(run_len=run_len, run_char=run_char, d=coll.d,
-                            sn=coll.sn, h=heads.h, counter=counter)
-    return finish(result)
+            heads, coll.d, rq, want_counter=want_counter)
+    return PipelineResult(d=coll.d, sn=coll.sn, h=heads.h, counter=counter,
+                          device_runs=(run_len, run_char))
 
 
 def merge_from_heads_sharded(x_aug: np.ndarray, dres, d: int, sn: int,
@@ -542,7 +584,7 @@ def _rank0_says(device, local: bool) -> bool:
 
 
 def _native_heads(index: ReferenceIndex, coll, timer: PhaseTimer):
-    """Heads of the native OpenMP PLCP-skip scan (native/cmsbwt_scan.cpp),
+    """Heads of the native OpenMP PLCP-skip scan (io/csrc/cmsbwt_scan.cpp),
     or of the host spec scan when g++ cannot build it (host code either
     way); returns (HeadArrays, the engine that ran)."""
     with timer.phase("ms_scan"):
@@ -703,12 +745,17 @@ def _write_outputs(cfg: Config, outname: str, n: int,
 
     with timer.phase("write_output"):
         out_path = outname + (".rl_bwt" if cfg.rle else ".bwt")
-        wrote = (native.write_rle_native(out_path, result.run_len,
-                                         result.run_char)
-                 if cfg.rle else
-                 native.write_plain_native(out_path, result.run_len,
-                                           result.run_char))
-        if wrote:
+        if result.device_runs is not None:
+            # the device merge's runs: the file's bytes made on their
+            # device and copied into the file
+            from ..io.output import write_runs
+            nbytes = write_runs(out_path, *result.device_runs, rle=cfg.rle,
+                                sn=result.sn)
+        elif (native.write_rle_native(out_path, result.run_len,
+                                      result.run_char)
+              if cfg.rle else
+              native.write_plain_native(out_path, result.run_len,
+                                        result.run_char)):
             nbytes = os.path.getsize(out_path)
         else:  # numpy writers when no C++ toolchain is present
             data = (merge_mod.runs_to_rle if cfg.rle

@@ -12,7 +12,7 @@ in ``index/device.py``:
 * PLCP skip bound: ``max(LCP[ISA[i]], LCP[ISA[i]+1])`` (ref :272-274)
 * PSV/NSV: device queries use the sparse tables of ``index/device.py`` and
   the native engine a three-level block-minima structure
-  (``native/cmsbwt_scan.cpp``); the methods here are simple vector scans
+  (``io/csrc/cmsbwt_scan.cpp``); the methods here are simple vector scans
   serving as the test oracle.
 """
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """ctypes bindings for the native runtimes — the port's copy of
-cmsbwt_tpu/io/native.py: the IO runtime (native/cmsbwt_io.cpp: parse,
-writers, and the host merge's parallel sorts, searches, tail walk and run
-expansion) and the MS scan engine (native/cmsbwt_scan.cpp, the ``native``
-backend).
+cmsbwt_tpu/io/native.py: the IO runtime (csrc/cmsbwt_io.cpp: parse,
+the host and sharded merges' writers, and the host merge's parallel
+sorts, searches, tail walk and run expansion) and the MS scan engine
+(csrc/cmsbwt_scan.cpp, the ``native`` backend). Both sources are the
+port's own copies of the JAX package's native/ files, beside this module.
 
 Each shared library is built on demand with g++ into ``$CMSBWT_NATIVE_DIR``
 (default: ``build/`` beside this file); every entry point has a numpy
@@ -23,7 +24,8 @@ _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
 
-_SRC = pathlib.Path(__file__).resolve().parents[2] / "native" / "cmsbwt_io.cpp"
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+_SRC = CSRC / "cmsbwt_io.cpp"
 
 
 def _build_dir() -> pathlib.Path:
@@ -295,15 +297,14 @@ def fill_class_ranks_native(member_off, member_head, rank_value, pseudo_cls,
 
 
 # ---------------------------------------------------------------------------
-# Native MS scan engine (native/cmsbwt_scan.cpp) — separate library so the
+# Native MS scan engine (csrc/cmsbwt_scan.cpp) — separate library so the
 # IO runtime stays loadable without it
 # ---------------------------------------------------------------------------
 
 _SCAN_LOCK = threading.Lock()
 _SCAN_LIB = None
 _SCAN_TRIED = False
-_SCAN_SRC = pathlib.Path(__file__).resolve().parents[2] / "native" / \
-    "cmsbwt_scan.cpp"
+_SCAN_SRC = CSRC / "cmsbwt_scan.cpp"
 
 
 def get_scan_lib():

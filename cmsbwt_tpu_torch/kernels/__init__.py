@@ -32,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
            "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
            "tail_exact_credit.cu", "radix_sort.cu", "compact.cu",
-           "sa_round.cu", "pair_expand.cu")
+           "sa_round.cu", "pair_expand.cu", "run_output.cu")
 # the largest group a compacted round of the head string's suffix sort
 # sorts in shared memory, and the largest slice its tail runs in one block
 # (sa_round.cu's C_CAP, passed to every build; index/device.COMP_CAP)
@@ -46,7 +46,8 @@ LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
             "running_fill": 0, "tail_good_join": 0, "bucket_sums": 0,
             "run_merge": 0, "tail_exact_credit": 0, "radix_hist": 0,
             "radix_pass": 0, "compact": 0, "sa_round": 0, "dense_rank": 0,
-            "dense_rank_comp": 0, "pair_expand": 0}
+            "dense_rank_comp": 0, "pair_expand": 0, "rle_pack": 0,
+            "bwt_expand": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -176,6 +177,15 @@ def _bind(libs: dict) -> None:
     lib = libs["pair_expand"]
     lib.pair_expand_launch.restype = I
     lib.pair_expand_launch.argtypes = [P] * 10 + [I, I, I, I, LL] + [P] * 6
+    lib = libs["run_output"]
+    lib.run_output_scratch_bytes.restype = LL
+    lib.run_output_scratch_bytes.argtypes = [LL]
+    lib.run_output_fault_offset.restype = LL
+    lib.run_output_fault_offset.argtypes = []
+    lib.rle_pack_launch.restype = I
+    lib.rle_pack_launch.argtypes = [P, P, LL, P, P, P]
+    lib.bwt_expand_launch.restype = I
+    lib.bwt_expand_launch.argtypes = [P, P, LL, LL, P, P, P, P]
 
 
 def load() -> dict:
@@ -1228,3 +1238,68 @@ def pair_expand_cuda(pos, length, key_k, isa_next, size, smaller, pair_lo,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch("pair_expand", err)
     return key1, key2f, srcidx, pay, src_cls
+
+
+def _runs_checked(run_len, run_char) -> int:
+    dev = run_len.device
+    R = int(run_len.shape[0])
+    _check("run_len", run_len, torch.int32, (R,), dev)
+    _check("run_char", run_char, torch.uint8, (R,), dev)
+    if R >= 2**31 - 1:
+        raise ValueError(f"run_output: {R} runs (at most 2^31 - 2)")
+    return R
+
+
+def _fault_view(lib, scratch: torch.Tensor) -> torch.Tensor:
+    at = int(lib.run_output_fault_offset())
+    return scratch[at:at + 4].view(torch.int32)
+
+
+def rle_pack_cuda(run_len, run_char):
+    """Launch ``rle_pack`` on a merged run list (CUDA int32[R] lengths,
+    uint8[R] chars): returns (uint8[9 * max(R, 1)], the .rl_bwt's records,
+    fault int32[1]); the fault word is not 0 when a length is not positive
+    or a char equals its predecessor's (io/output.check_fault reads it).
+    Same contract as io/output.rle_pack_reference; the wrapper does not
+    synchronise."""
+    dev = run_len.device
+    R = _runs_checked(run_len, run_char)
+    lib = load()["run_output"]
+    out = torch.empty(9 * max(R, 1), dtype=torch.uint8, device=dev)
+    # the fault word starts at 0
+    scratch = torch.zeros(int(lib.run_output_scratch_bytes(0)),
+                          dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.rle_pack_launch(_ptr(run_len), _ptr(run_char), R,
+                                  _ptr(out), _ptr(scratch),
+                                  ctypes.c_void_p(stream))
+    _launch("rle_pack", err)
+    return out, _fault_view(lib, scratch)
+
+
+def bwt_expand_cuda(run_len, run_char, sn: int):
+    """Launch ``bwt_expand`` on a merged run list (CUDA int32[R] lengths,
+    uint8[R] chars, R >= 1) whose lengths sum to ``sn``: returns
+    (uint8[sn], the .bwt's bytes, fault int32[1]); the fault word is not 0
+    when a length is not positive or the lengths do not sum to sn. Same
+    contract as io/output.bwt_expand_reference; the wrapper does not
+    synchronise. The run ends (int32[R]) and the look-back's scratch are
+    made here."""
+    dev = run_len.device
+    R = _runs_checked(run_len, run_char)
+    if not (R >= 1 and 1 <= sn < 2**31):
+        raise ValueError(f"bwt_expand: {R} runs, sn {sn}")
+    lib = load()["run_output"]
+    out = torch.empty(sn, dtype=torch.uint8, device=dev)
+    ends = torch.empty(R, dtype=torch.int32, device=dev)
+    # the look-back's ticket and states and the fault word start at 0
+    scratch = torch.zeros(int(lib.run_output_scratch_bytes(R)),
+                          dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.bwt_expand_launch(_ptr(run_len), _ptr(run_char), R, sn,
+                                    _ptr(ends), _ptr(out), _ptr(scratch),
+                                    ctypes.c_void_p(stream))
+    _launch("bwt_expand", err)
+    return out, _fault_view(lib, scratch)

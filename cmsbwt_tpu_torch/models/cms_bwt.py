@@ -5,14 +5,21 @@ cmsbwt_tpu/models/cms_bwt.py.
 host index for the native and host backends, the device index for the
 jump and device backends), and ``transform`` computes the BWT of one
 collection after another against it: one pangenome reference, many
-batches of haplotypes. Every backend ends in the host merge, as in the
-JAX package, or, after the jump and dense scans with the config's
-merge_backend 'sharded', in the sharded merge over the mesh's ranks
-(engine/pipeline.merge_from_heads_sharded). It is a plain class, not a
-torch.nn.Module: it holds indexes, not parameters.
+batches of haplotypes. The jump and dense scans merge on the engine the
+pipeline's rule picks from the config's merge_backend
+(engine/pipeline._choose_merge: the device merge for 'auto' on a card
+and for jump on the CPU, the host merge, or the sharded merge over the
+mesh's ranks, engine/pipeline.merge_from_heads_sharded); the other
+backends end in the host merge, as in the JAX package (whose model
+always merges on the host: the engines' runs are equal). After the
+device merge, ``encode`` makes the output's bytes on the runs' device
+(io/output.encode_runs: the rle_pack and bwt_expand kernels on a card)
+and downloads only them. It is a plain class, not a torch.nn.Module: it
+holds indexes, not parameters.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -99,31 +106,25 @@ class CMSBWT:
         timer = PhaseTimer()
         rq = rle and cfg.replicate_reference_rle_quirk
         buf = cfg.buffer_gib << 30
-        dev, n = self.device, len(self.x_aug)
+        dev = self.device
         if backend in ("dense", "jump"):
+            from ..engine.device_merge import sn_bound
+            engine = pipeline_mod._choose_merge(
+                dataclasses.replace(cfg, backend=backend), dev, coll.sn,
+                coll.sn >= sn_bound())
             with timer.phase("ms_scan"):
                 if backend == "dense":
                     from ..ops.ms_dense import ms_dense_heads_on_device
-                    dres = ms_dense_heads_on_device(self.x_aug, coll.sx, dev)
+                    held = [ms_dense_heads_on_device(self.x_aug, coll.sx,
+                                                     dev)]
                 else:
                     from ..ops.ms_jump import ms_jump_heads
-                    dres = ms_jump_heads(self.x_aug, coll.sx, dev,
-                                         lanes=cfg.lanes,
-                                         window=cfg.skip_window,
-                                         index=self.device_index)
-                sharded = cfg.merge_backend == "sharded"
-                if not sharded:
-                    dres = pipeline_mod.download_heads_result(dres, n)
-            if sharded:
-                result = pipeline_mod.merge_from_heads_sharded(
-                    self.x_aug, dres, coll.d, coll.sn, rq, dev, timer)
-            else:
-                index, heads = pipeline_mod.dense_result_to_inputs(
-                    self.x_aug, dres)
-                result = pipeline_mod.merge_from_heads(
-                    index, heads, coll.d, coll.sn, rq, dev, timer,
-                    buffer_bytes=buf)
-            del dres
+                    held = [ms_jump_heads(self.x_aug, coll.sx, dev,
+                                          lanes=cfg.lanes,
+                                          window=cfg.skip_window,
+                                          index=self.device_index)]
+            result = pipeline_mod.merge_heads(engine, self.x_aug, held, coll,
+                                              rq, dev, timer, buf)
         elif backend == "device":
             from ..index.device import export_reference_index
             from ..ops.ms_device import ms_scan_device
@@ -146,8 +147,14 @@ class CMSBWT:
         else:
             raise ValueError(f"unknown backend {backend!r}")
         with timer.phase("encode"):
-            runs = (result.run_len, result.run_char)
-            rle_bytes = merge_mod.runs_to_rle(*runs) if rle else None
-            bwt_bytes = None if rle else merge_mod.runs_to_plain(*runs)
+            if result.device_runs is not None:
+                from ..io.output import encode_runs
+                data = encode_runs(*result.device_runs, rle=rle,
+                                   sn=result.sn)
+                rle_bytes, bwt_bytes = (data, None) if rle else (None, data)
+            else:
+                runs = (result.run_len, result.run_char)
+                rle_bytes = merge_mod.runs_to_rle(*runs) if rle else None
+                bwt_bytes = None if rle else merge_mod.runs_to_plain(*runs)
         return TransformResult(bwt=bwt_bytes, rle=rle_bytes, sn=result.sn,
                                heads=result.h, timer=timer)

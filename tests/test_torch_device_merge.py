@@ -34,8 +34,9 @@ def test_merge_matches_jax(case_idx, rle_quirk):
     jres, d = _jax_heads(case_idx)
     want = jm.merge_heads_device_resident(jres, d, rle_quirk,
                                           want_counter=True)
-    got = tm.merge_heads_device_resident(carry_heads(jres), d, rle_quirk,
-                                         want_counter=True)
+    run_len, run_char, counter = tm.merge_heads_device_resident(
+        carry_heads(jres), d, rle_quirk, want_counter=True)
+    got = (*tm.download_runs(run_len, run_char), counter)
     for name, a, b in zip(("run_len", "run_char", "counter"), want, got):
         assert_same(a, b, name)
 

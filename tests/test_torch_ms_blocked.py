@@ -290,7 +290,8 @@ def test_merge_of_loaded_blocks_matches_jax(cid, rle_quirk, tmp_path,
         x, sx, "cpu", block, 64, TD.BlockCheckpoints(str(tmp_path), "f",
                                                       block))
     assert calls["n"] == 0
-    got = TM.merge_heads_device_resident(heads, d, rle_quirk,
-                                         want_counter=True)
+    run_len, run_char, counter = TM.merge_heads_device_resident(
+        heads, d, rle_quirk, want_counter=True)
+    got = (*TM.download_runs(run_len, run_char), counter)
     for name, a, b in zip(("run_len", "run_char", "counter"), want, got):
         assert_same(a, b, name)

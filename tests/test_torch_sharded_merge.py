@@ -18,7 +18,8 @@ from cmsbwt_tpu import cli as jax_cli
 from cmsbwt_tpu.parallel.sharded_merge import \
     merge_heads_sharded as jax_merge_sharded
 from cmsbwt_tpu_torch import cli
-from cmsbwt_tpu_torch.engine.device_merge import merge_heads_device_resident
+from cmsbwt_tpu_torch.engine.device_merge import download_runs, \
+    merge_heads_device_resident
 from cmsbwt_tpu_torch.engine.pipeline import download_heads_result
 from cmsbwt_tpu_torch.ops.ms_dense import ms_dense_heads_on_device
 from torch_cases import CASE_IDS, CASES, collection
@@ -97,7 +98,7 @@ def _port(R: int, work):
 @pytest.mark.parametrize("cid", IDS)
 def test_sharded_matches_device_merge(work, R, cid, rq):
     x, sx, d, res = _case(cid)
-    rl0, rc0, _ = merge_heads_device_resident(res, d, rq)
+    rl0, rc0 = download_runs(*merge_heads_device_resident(res, d, rq)[:2])
     rl, rc = _port(R, work)[(cid, rq)]
     assert rl.dtype == np.int64 and rc.dtype == np.uint8
     np.testing.assert_array_equal(rl, rl0)

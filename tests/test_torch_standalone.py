@@ -148,6 +148,28 @@ assert not [m for m in sys.modules
     assert port == (tmp_path / "jax.bwt").read_bytes()
 
 
+def test_port_builds_only_its_own_sources():
+    """Every C++ and CUDA source the port compiles lies under
+    cmsbwt_tpu_torch/: io/native.py's two native runtimes (its own copies
+    of the JAX package's native/ files) and kernels/__init__.py's SOURCES
+    with the headers they share; no module of the port names a directory
+    ``native`` as a path."""
+    import re
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.io import native
+    port = (ROOT / "cmsbwt_tpu_torch").resolve()
+    built = [native._SRC, native._SCAN_SRC] + [
+        kernels.CSRC / s for s in kernels.SOURCES] + sorted(
+            kernels.CSRC.glob("*.cuh"))
+    assert len(built) == len(kernels.SOURCES) + 3
+    for src in built:
+        src = pathlib.Path(src).resolve()
+        assert src.is_file(), src
+        assert src.is_relative_to(port), src
+    for f in port.rglob("*.py"):
+        assert not re.search(r"[\"']native[\"']\s*/", f.read_text()), f
+
+
 def test_config_matches_jax_config():
     """Same field names, in the same order, with the same defaults."""
     ours = [(f.name, f.default) for f in dataclasses.fields(Config)]

@@ -13,6 +13,7 @@
     python3 tools/profile_slice.py --merge-stages [SHAPE] [--parent DIR]
     python3 tools/profile_slice.py --merge-kernels [SHAPE] [--parent DIR]
     python3 tools/profile_slice.py --comp-groups  # compacted round by group size
+    python3 tools/profile_slice.py --output [SHAPE] [--parent DIR] [--step0]
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -164,12 +165,35 @@ shared-memory sort by counting only and by the bitonic network only
 timed alone and with its wrapper, beside radix_sort of the whole slice
 (the large path's sort): one ``comp_groups`` line a group size.
 
-Works in _profile_work/ (gitignored) and deletes it. Imports nothing of
-JAX.
+The output mode times the end of the device merge and the output write
+at the primary and 500 Mchar shapes (``--output primary`` or ``500M`` for
+one), one child process a turn that imports the package from one
+checkout: this tree, or with ``--parent DIR`` parent, this, this,
+parent. Each turn runs the jump CLI ``--runs`` times (default 2) per
+shape with ``-r --no-rle-quirk`` and, at primary, plain too: every run's
+wall seconds, .log phases and output sha1 (``cli_run`` lines), the bytes
+held equal across the trees; then an ``output_ab summary {json}`` line
+with every run's wall, merge_device and write_output by shape, format
+and tree. ``--step0`` first runs step 0 in the parent's package (this
+tree's without ``--parent``): per shape parse's three parts (the native
+read and copy, io/fasta's np.nonzero of the separators,
+validate_collection's masks), the jump scan's heads, one device merge to
+warm up, then one whose run list it keeps as run_merge hands it back
+(the list's download timed apart: the two ``.cpu()`` copies and the
+int64 widening), R, the .rl_bwt's size (9 B a run), the host writer's
+time on those runs (io/native.write_rle_native) and one ``f.write`` of
+the .rl_bwt's bytes and of sn bytes from pinned memory (warm page cache;
+nothing synced to the disk): ``step0`` lines, then the jump -r CLI once.
+
+Each child of a turn (merge-stages, output) builds the native runtimes
+into a directory of its tree's own (CMSBWT_NATIVE_DIR), so no turn loads
+another tree's build. Works in _profile_work/ (gitignored) and deletes
+it. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import pathlib
@@ -188,6 +212,13 @@ import chip_smoke as cs  # noqa: E402  (also blocks JAX imports)
 
 WORK = ROOT / "_profile_work"
 SWEEP = (4096, 8192, 16384, 32768, 65536, 131072)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
 
 
 def profiled(fn, rows: int = 22) -> None:
@@ -567,7 +598,7 @@ def mesh_main() -> None:
     mesh mode)."""
     import resource
     from cmsbwt_tpu_torch import kernels
-    from cmsbwt_tpu_torch.engine.device_merge import \
+    from cmsbwt_tpu_torch.engine.device_merge import download_runs, \
         merge_heads_device_resident
     from cmsbwt_tpu_torch.engine.pipeline import (load_inputs,
                                                   upload_heads_result)
@@ -600,8 +631,8 @@ def mesh_main() -> None:
         jres = mj.ms_jump_heads(x, coll.sx, "cuda")
         dev = []
         for _ in range(3):
-            want, s = _timed(lambda: merge_heads_device_resident(
-                jres, coll.d, False))
+            want, s = _timed(lambda: download_runs(
+                *merge_heads_device_resident(jres, coll.d, False)[:2]))
             dev.append(round(s, 4))
         print(f"mesh[primary]: h={jres.h} device merge s {dev}", flush=True)
         out = {"h": jres.h, "device_merge_s": dev}
@@ -683,8 +714,9 @@ def mesh_main() -> None:
         for turn in ("device", "sharded", "sharded", "device"):
             if turn == "device":
                 up = upload_heads_result(b, len(x), "cuda")
-                got, s = _timed(lambda: merge_heads_device_resident(
-                    up, coll.d, False, want_counter=False))
+                got, s = _timed(lambda: download_runs(
+                    *merge_heads_device_resident(up, coll.d, False,
+                                                 want_counter=False)[:2]))
                 del up
             else:
                 got, s, last = sharded(b, coll, len(x), R)
@@ -914,22 +946,189 @@ def merge_stages_main(only: str | None, parent: pathlib.Path | None) -> None:
     for tag, root in turns:
         spec = json.dumps({"root": str(root), "shapes": shapes, "tag": tag,
                            "full": parent is None})
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, __file__, "--merge-child", spec],
-                           capture_output=True, text=True, timeout=1500)
-        sys.stdout.write(r.stdout)
-        sys.stderr.write(r.stderr[-6000:])
-        if r.returncode:
-            raise SystemExit(f"merge_stages: the {tag} child failed "
-                             f"({r.returncode})")
-        print(f"turn {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
-        for line in r.stdout.splitlines():
+        for line in _turn_child(tag, ["--merge-child", spec]):
             for key in ("merge_run", "cli_run"):
                 if line.startswith(key + " {"):
                     d = json.loads(line[len(key) + 1:])
                     summary.setdefault(d.pop("shape"), {}).setdefault(
                         d.pop("tag"), {}).setdefault(key, []).append(d)
     print("merge_stages summary " + json.dumps(summary), flush=True)
+
+
+def _turn_child(tag: str, args: list, timeout: int = 1500) -> list:
+    """One turn's child process (this script with ``args``), its native
+    runtimes built into the turn's tree's own directory; echoes its
+    output and returns its stdout lines."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, CMSBWT_NATIVE_DIR=str(WORK / f"native_{tag}"))
+    r = subprocess.run([sys.executable, __file__, *args], env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    sys.stdout.write(r.stdout)
+    sys.stderr.write(r.stderr[-6000:])
+    if r.returncode:
+        raise SystemExit(f"the {tag} child failed ({r.returncode})")
+    print(f"turn {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return r.stdout.splitlines()
+
+
+def output_main(only: str | None, parent: pathlib.Path | None,
+                step0: bool, runs: int) -> None:
+    """The output mode (see the module's docstring)."""
+    gpu = card()
+    shapes = []
+    for name, seed, ref_len, docs, snp in MERGE_SHAPES:
+        if only and name not in only.split(","):
+            continue
+        t0 = time.perf_counter()
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        print(f"wrote {name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        shapes.append((name, str(lst)))
+    print(f"host: {cs.host_cpu(WORK)}", flush=True)
+    roots = {"this": ROOT, "parent": parent.resolve() if parent else None}
+    if step0:
+        tag = "parent" if parent else "this"
+        _turn_child(tag, ["--output-child", json.dumps({
+            "step0": True, "root": str(roots[tag]), "shapes": shapes,
+            "tag": tag, "card": gpu, "runs": 1})])
+    turns = ["this"] if parent is None else [
+        "parent", "this", "this", "parent"]
+    summary, digests = {}, {}
+    for tag in turns:
+        for line in _turn_child(tag, ["--output-child", json.dumps({
+                "step0": False, "root": str(roots[tag]), "shapes": shapes,
+                "tag": tag, "card": gpu, "runs": runs})]):
+            if not line.startswith("cli_run {"):
+                continue
+            d = json.loads(line.split(" ", 1)[1])
+            digests.setdefault((d["shape"], d["format"]), set()).add(
+                d["sha1"])
+            ph = d["phases_ms"]
+            summary.setdefault(f"{d['shape']} {d['format']}", {}).setdefault(
+                tag, []).append({"wall_s": d["wall_s"],
+                                 "merge_device_ms": ph.get("merge_device"),
+                                 "write_output_ms": ph.get("write_output")})
+    same = all(len(v) == 1 for v in digests.values())
+    print("output_ab summary " + json.dumps(
+        {"card": gpu, "same_bytes": same, "runs": summary}), flush=True)
+    if not same:
+        raise SystemExit("the trees wrote different bytes")
+
+
+def _sync_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def output_child(spec: dict) -> None:
+    """One turn of output_main: the package imported from spec["root"];
+    step 0 per shape when spec["step0"], then the CLI runs."""
+    sys.path.insert(0, spec["root"])
+    from cmsbwt_tpu_torch import cli, kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    print(f"child {spec['tag']}: package "
+          f"{pathlib.Path(dm.__file__).parents[1]}", flush=True)
+    kernels.load()
+    for name, lst in spec["shapes"]:
+        if spec["step0"]:
+            output_step0(dm, name, lst, spec["card"])
+            formats = [("-r", "--no-rle-quirk")]
+        else:
+            formats = [("-r", "--no-rle-quirk")] + (
+                [()] if name == "primary" else [])
+        for flags in formats:
+            for i in range(spec["runs"]):
+                out = WORK / f"cli_{name}_{spec['tag']}_{i}"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if cli.main([lst, "-o", str(out), "--device", "cuda",
+                             "--backend", "jump", *flags]):
+                    raise SystemExit("cli failed")
+                wall = time.perf_counter() - t0
+                data = out.with_suffix(".rl_bwt" if flags else ".bwt")
+                print("cli_run " + json.dumps({
+                    "shape": name, "tag": spec["tag"], "run": i,
+                    "card": spec["card"], "format": data.suffix[1:],
+                    "wall_s": wall, "bytes": data.stat().st_size,
+                    "sha1": hashlib.sha1(data.read_bytes()).hexdigest(),
+                    "phases_ms": cs.phases_from_log(
+                        out.with_suffix(".log"))}), flush=True)
+                for f in WORK.glob(out.name + ".*"):
+                    f.unlink()
+
+
+def output_step0(dm, name: str, lst: str, gpu: str) -> None:
+    """Step 0 of the output mode at one shape (see the module's
+    docstring): one ``step0 {json}`` line."""
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.io import fasta, native
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    ref_path, coll_path = fasta.read_input_list(lst)
+    limit = fasta.collection_sn_limit(coll_path, 1 << 64)
+    t0 = time.perf_counter()
+    sx, _ = native.parse_collection_native(coll_path, limit)
+    t1 = time.perf_counter()
+    seps = np.nonzero(sx == fasta.SEPARATOR)[0].astype(np.int64)
+    t2 = time.perf_counter()
+    bad = (sx < fasta.ALPHABET_AUGMENT_LO) | (sx >= fasta.ALPHABET_AUGMENT_HI)
+    bad &= sx != fasta.SEPARATOR
+    if np.any(bad):
+        raise SystemExit(f"{name}: a collection byte outside [3, 128)")
+    t3 = time.perf_counter()
+    parse = {"native_read_copy_s": t1 - t0, "nonzero_s": t2 - t1,
+             "validate_masks_s": t3 - t2, "seps": len(seps)}
+    del sx, seps, bad
+    x_aug, coll = load_inputs(lst)
+    res, heads_s = _sync_s(lambda: mj.ms_jump_heads(x_aug, coll.sx, "cuda"))
+    sn, d = coll.sn, coll.d
+    del coll
+    torch.cuda.empty_cache()
+    merge = lambda: dm.merge_heads_device_resident(res, d, False,
+                                                   want_counter=False)
+    merge()
+    kept = {}
+
+    def keep(*a):
+        kept["out"] = orig(*a)
+        return kept["out"]
+    orig = dm.run_merge
+    dm.run_merge = keep
+    try:
+        _, merge_s = _sync_s(merge)
+    finally:
+        dm.run_merge = orig
+    rl_d, rc_d, R = kept["out"]
+    rl, dl_len_s = _sync_s(lambda: rl_d.cpu().numpy().astype(np.int64))
+    rc, dl_chr_s = _sync_s(lambda: rc_d.cpu().numpy())
+    path = WORK / f"step0_{name}.rl_bwt"
+    t0 = time.perf_counter()
+    if not native.write_rle_native(str(path), rl, rc):
+        raise SystemExit("the native RLE writer could not be built")
+    writer_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    path.unlink()
+    writes = {}
+    for what, nb in (("rl_bwt", size), ("bwt", sn)):
+        pinned = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+        pinned.fill_(65)
+        view = memoryview(pinned.numpy())
+        t0 = time.perf_counter()
+        with open(WORK / f"write_{what}", "wb") as f:
+            f.write(view)
+        writes[f"f_write_{what}_s"] = time.perf_counter() - t0
+        (WORK / f"write_{what}").unlink()
+        del pinned, view
+    print("step0 " + json.dumps({
+        "shape": name, "card": gpu, "sn": sn, "h": res.h, "R": R,
+        "rl_bwt_bytes": size, "parse": parse, "jump_heads_s": heads_s,
+        "merge_device_s": merge_s, "download_run_len_s": dl_len_s,
+        "download_run_char_s": dl_chr_s, "host_rle_writer_s": writer_s,
+        **writes}), flush=True)
+    del res, rl_d, rc_d, kept, rl, rc
+    torch.cuda.empty_cache()
 
 
 def _synced(fn, sink: list):
@@ -1912,6 +2111,17 @@ def main() -> int:
                     "Mchar merge's first compacted round in groups of "
                     "2 .. 8192 rows: by counting, by the bitonic network, "
                     "as committed, and the large path's sort")
+    ap.add_argument("--output", nargs="?", const="", default=None,
+                    metavar="SHAPE",
+                    help="the jump CLI's merge_device and write_output at "
+                    "primary and 500 Mchars (or at SHAPE alone); with "
+                    "--parent in turns with its checkout's")
+    ap.add_argument("--step0", action="store_true",
+                    help="with --output: first the output's step 0 in "
+                    "--parent's package (this tree's without it)")
+    ap.add_argument("--runs", type=int, default=2,
+                    help="with --output: CLI runs a turn per shape and "
+                    "format")
     ap.add_argument("--cli-only", action="store_true",
                     help="jump route: the CLI runs alone")
     ap.add_argument("--parent", type=pathlib.Path, default=None,
@@ -1920,16 +2130,18 @@ def main() -> int:
                     "shapes; with --merge-stages, its merges in turns with "
                     "this tree's; alone, its jump CLI against this tree's")
     ap.add_argument("--merge-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--output-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.merge_child:
         merge_child(json.loads(args.merge_child))
         return 0
+    if args.output_child:
+        output_child(json.loads(args.output_child))
+        return 0
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    print(card(), flush=True)
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ.setdefault("CMSBWT_NATIVE_DIR", str(WORK / "native"))
     try:
@@ -1937,6 +2149,9 @@ def main() -> int:
             mesh_main()
         elif args.comp_groups:
             comp_groups_main(ROOT)
+        elif args.output is not None:
+            output_main(args.output or None, args.parent, args.step0,
+                        args.runs)
         elif args.merge_stages is not None:
             merge_stages_main(args.merge_stages or None, args.parent)
         elif args.merge_kernels is not None:
