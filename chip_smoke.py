@@ -177,12 +177,15 @@ every phase passed):
    lists at their tiles' edges (output_cases: R = 0, 1, a record tile and
    a scan tile +- 1, three tiles + 5, 2^22 + 3, sums at an output tile
    +- 1, a leading char-0 run, runs longer than three output tiles, views
-   off the 16-byte frame) and on the three faults (a length of 0, two
-   neighbours of one char, lengths that do not sum to sn: the kernel's
-   fault word equal to the plain version's, the dispatch raising), and
-   on the primary and 500 Mchar merges' runs (MergeCapture), timed alone,
-   with the wrapper, beside Tensor.copy_ of the bound's bytes and, for
-   bwt_expand, torch.repeat_interleave. Every CLI run and model
+   off the 16-byte frame, a tile of T one-byte runs, sn = 3T in one-byte
+   runs, one run of 2^22 + 3, runs across every tile start) and on the
+   three faults (a length of 0, two neighbours of one char, lengths that
+   do not sum to sn, by one and by three tiles: the kernel's fault word
+   equal to the plain version's, the dispatch raising), and on the
+   primary and 500 Mchar merges' runs (MergeCapture), timed alone, with
+   the wrapper, beside Tensor.copy_ of the bound's bytes and, for
+   bwt_expand, torch.repeat_interleave and its scan and expansion each
+   alone. Every CLI run and model
    transform that merged on the device wrote its output through one
    rle_pack (.rl_bwt) or bwt_expand (.bwt) launch and downloaded no run
    array (engine/device_merge.RUN_DOWNLOADS); phases 5, 8 and 9 print
@@ -218,7 +221,9 @@ bucket_sums and torch.repeat_interleave for bwt_expand; no single
 PyTorch call computes any of the other functions, so theirs is null.
 rle_pack's and bwt_expand's rows give the 500 Mchar merge's runs and,
 under ``primary``, the primary merge's; their bounds count 14 B a run
-(rle_pack) and 5 B a run plus sn (bwt_expand). running_fill's and
+(rle_pack) and 5 B a run plus sn (bwt_expand), and bwt_expand's its
+scan's and its expansion's launches alone (starts_alone_ms,
+tiles_alone_ms). running_fill's and
 bucket_sums' rows also give alone_ms (the launches alone) and copy_ms
 (Tensor.copy_ of the same bytes); running_fill's ``flag_fill`` the
 joint sort's first flag fill at both shapes. radix_sort's ``sites`` hold the dense scan's sorts too
@@ -1997,7 +2002,7 @@ def pair_expand_case(tag: str, cls: dict, pairs: dict, slot_base, n: int,
 # run_output.cu's tiles: rle_pack's records a block, bwt_expand's runs a
 # scan tile and output bytes a block
 OUT_PACK_TILE = 512
-OUT_ENDS_TILE = 4096
+OUT_SCAN_TILE = 8192
 OUT_EXP_TILE = 16384
 OUT_CHARS = np.array([2, 65, 67, 71, 84], np.uint8)   # separator, ACGT
 
@@ -2026,6 +2031,16 @@ def made_runs(R: int, seed: int, sn: int | None = None, lead0=False,
             torch.from_numpy(ch).cuda())
 
 
+def runs_of(lengths, seed: int):
+    """A merged run list on the card with the given lengths, its chars
+    from OUT_CHARS with neighbours different."""
+    rng = np.random.default_rng(seed)
+    ch = OUT_CHARS[np.cumsum(rng.integers(1, len(OUT_CHARS), len(lengths)))
+                   % len(OUT_CHARS)]
+    return (torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(ch).cuda())
+
+
 def output_pair(K, out_mod, rl, rc, rle: bool, sn: int):
     """The kernel's and the plain version's (output, fault) on one run
     list, synchronised."""
@@ -2045,24 +2060,34 @@ def output_cases() -> int:
     edges: R = 0 (rle_pack's single (0, 0) record), 1, a record tile and a
     scan tile +- 1, three tiles + 5, 2^22 + 3; sums at an output tile +-
     1; a leading char-0 run; runs longer than three output tiles; views
-    off the 16-byte frame; and the faults: a length of 0, two neighbours
-    of one char, lengths that do not sum to sn (the dispatch must raise).
+    off the 16-byte frame; bwt_expand's tile edges: a tile of T
+    one-byte runs (the most runs a tile reads: T + 1), sn = 3T in one-byte
+    runs, one run of the whole collection (R = 1, sn = 2^22 + 3), runs
+    that cross every tile start; and the faults: a length of 0, two
+    neighbours of one char, lengths that do not sum to sn, short by three
+    tiles and more (tile starts left unwritten; the dispatch must raise).
     Returns the cases held."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.io import output as out_mod
     t0 = time.perf_counter()
     cases = []
     for R in (1, 2, OUT_PACK_TILE - 1, OUT_PACK_TILE, OUT_PACK_TILE + 1,
-              3 * OUT_PACK_TILE + 5, OUT_ENDS_TILE - 1, OUT_ENDS_TILE,
-              OUT_ENDS_TILE + 1, 3 * OUT_ENDS_TILE + 5, (1 << 22) + 3):
+              3 * OUT_PACK_TILE + 5, OUT_SCAN_TILE - 1, OUT_SCAN_TILE,
+              OUT_SCAN_TILE + 1, 3 * OUT_SCAN_TILE + 5, (1 << 22) + 3):
         cases.append((f"R={R}", made_runs(R, R)))
     for sn in (OUT_EXP_TILE - 1, OUT_EXP_TILE, OUT_EXP_TILE + 1,
                3 * OUT_EXP_TILE + 7):
         cases.append((f"sn={sn}", made_runs(sn // 7, sn, sn=sn)))
     cases.append(("lead0", made_runs(5000, 7, lead0=True)))
     cases.append(("long_runs", made_runs(3000, 8, long_every=97)))
-    rl, rc = made_runs(OUT_ENDS_TILE + 3, 9)
+    rl, rc = made_runs(OUT_SCAN_TILE + 3, 9)
     cases.append(("views", (rl[1:], rc[1:])))
+    T = OUT_EXP_TILE
+    cases.append(("one_byte_tile", runs_of([3] + [1] * (2 * T) + [5], 12)))
+    cases.append(("sn=3T_one_byte", runs_of([1] * (3 * T), 13)))
+    cases.append(("one_run", runs_of([(1 << 22) + 3], 14)))
+    cases.append(("cross_tiles", runs_of([T // 2] + [T] * 6 + [T // 2 + 5],
+                                         15)))
     held = 0
     for name, (rl, rc) in cases:
         sn = int(rl.to(torch.int64).sum())
@@ -2081,16 +2106,17 @@ def output_cases() -> int:
     held += 1
     # faults: the kernel's word equal to the plain version's, and the
     # dispatch raising
-    rl, rc = made_runs(3 * OUT_ENDS_TILE + 5, 11)
+    rl, rc = made_runs(3 * OUT_SCAN_TILE + 5, 11)
     sn = int(rl.to(torch.int64).sum())
     zero, dup = rl.clone(), rc.clone()
-    zero[OUT_ENDS_TILE + 7] = 0
+    zero[OUT_SCAN_TILE + 7] = 0
     dup[2 * OUT_PACK_TILE] = dup[2 * OUT_PACK_TILE - 1]
     for name, a, b, rle, n in (
             ("zero_length", zero, rc, True, sn),
-            ("zero_length", zero, rc, False, sn - int(rl[OUT_ENDS_TILE + 7])),
+            ("zero_length", zero, rc, False, sn - int(rl[OUT_SCAN_TILE + 7])),
             ("same_char", rl, dup, True, sn),
             ("sum_short", rl, rc, False, sn + 1),
+            ("sum_short_tiles", rl, rc, False, sn + 3 * OUT_EXP_TILE + 5),
             ("sum_long", rl, rc, False, sn - 1)):
         (g, gf), (w, wf) = output_pair(K, out_mod, a, b, rle, n)
         kname = "rle_pack" if rle else "bwt_expand"
@@ -2108,9 +2134,11 @@ def output_cases() -> int:
     return held
 
 
-def output_launch(K, rl, rc, rle: bool, sn: int):
+def output_launch(K, rl, rc, rle: bool, sn: int, part: str = "all"):
     """rle_pack's or bwt_expand's C entry point with its outputs made
-    beforehand; returns (launch(scratch), scratch bytes)."""
+    beforehand; returns (launch(scratch), scratch bytes). ``part`` times
+    one of bwt_expand's kernels alone: "starts" its scan, "tiles" its
+    expansion (from the tile starts of one scan made here first)."""
     lib = K.load()["run_output"]
     R = rl.numel()
     if rle:
@@ -2120,15 +2148,30 @@ def output_launch(K, rl, rc, rle: bool, sn: int):
             if lib.rle_pack_launch(_p(rl), _p(rc), R, _p(out), _p(scratch),
                                    _stream()):
                 fail("rle_pack launch failed")
-        return launch, int(lib.run_output_scratch_bytes(0))
+        return launch, int(lib.run_output_scratch_bytes(0, 0))
     out = torch.empty(sn, dtype=torch.uint8, device="cuda")
-    ends = torch.empty(R, dtype=torch.int32, device="cuda")
+    scratch_bytes = int(lib.run_output_scratch_bytes(R, sn))
+    if part == "tiles":
+        # one scan's tile starts, read by every launch
+        starts = torch.zeros(scratch_bytes, dtype=torch.uint8,
+                             device="cuda")
+        if lib.bwt_expand_starts_launch(_p(rl), R, sn, _p(starts),
+                                        _stream()):
+            fail("bwt_expand's scan launch failed")
 
     def launch(scratch):
-        if lib.bwt_expand_launch(_p(rl), _p(rc), R, sn, _p(ends), _p(out),
-                                 _p(scratch), _stream()):
-            fail("bwt_expand launch failed")
-    return launch, int(lib.run_output_scratch_bytes(R))
+        if part == "starts":
+            err = lib.bwt_expand_starts_launch(_p(rl), R, sn, _p(scratch),
+                                               _stream())
+        elif part == "tiles":
+            err = lib.bwt_expand_tiles_launch(_p(rl), _p(rc), R, sn, _p(out),
+                                              _p(starts), _stream())
+        else:
+            err = lib.bwt_expand_launch(_p(rl), _p(rc), R, sn, _p(out),
+                                        _p(scratch), _stream())
+        if err:
+            fail(f"bwt_expand ({part}) launch failed")
+    return launch, 16 if part == "tiles" else scratch_bytes
 
 
 def output_case(tag: str, rl, rc, rle: bool) -> dict:
@@ -2136,7 +2179,8 @@ def output_case(tag: str, rl, rc, rle: bool) -> dict:
     on a merge's run list, timed with its wrapper (its allocations and
     memsets included), alone, beside Tensor.copy_ of the bound's bytes
     (rle_pack: 5 B a run read, 9 written; bwt_expand: 5 B a run read, sn
-    written) and, for bwt_expand, beside torch.repeat_interleave."""
+    written) and, for bwt_expand, beside torch.repeat_interleave, with its
+    scan and its expansion also timed alone."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.io import output as out_mod
     R = rl.numel()
@@ -2158,6 +2202,9 @@ def output_case(tag: str, rl, rc, rle: bool) -> dict:
     r["copy_ms"] = copy_ms(moved)
     r["library_ms"] = None
     if not rle:
+        for part in ("starts", "tiles"):
+            r[f"{part}_alone_ms"] = alone_ms(*output_launch(K, rl, rc, rle,
+                                                            sn, part))
         library = lambda: torch.repeat_interleave(rc, rl)
         if not torch.equal(library(), want[0]):
             fail(f"{name}[{tag}]: torch.repeat_interleave differs from the "
@@ -2167,8 +2214,9 @@ def output_case(tag: str, rl, rc, rle: bool) -> dict:
     log(f"kernel {name}[{tag}]: alone {r['alone_ms']:.3f} ms, as the "
         f"wrapper runs it {r['ms']:.3f} ms, copy_ of the bound's bytes "
         f"{r['copy_ms']:.3f} ms"
-        + ("" if rle else f", torch.repeat_interleave "
-           f"{r['library_ms']:.3f} ms")
+        + ("" if rle else f" (its scan {r['starts_alone_ms']:.3f} ms, its "
+           f"expansion {r['tiles_alone_ms']:.3f} ms alone), "
+           f"torch.repeat_interleave {r['library_ms']:.3f} ms")
         + f", bound {r['bound_ms']:.4f} ms")
     return r
 
@@ -2944,11 +2992,14 @@ def output_row(row, name, replaces, merge_cases):
     torch.repeat_interleave times at both."""
     big, prim = merge_cases["500M"][name], merge_cases["primary"][name]
     keys = ("rows", "sn", "ms", "alone_ms", "plain_ms", "library_ms",
-            "copy_ms", "bound_ms")
+            "copy_ms", "bound_ms") + (
+                ("starts_alone_ms", "tiles_alone_ms")
+                if name == "bwt_expand" else ())
     return row(name, "cmsbwt_tpu_torch/kernels/csrc/run_output.cu",
                replaces, [big, prim], big["library_ms"], alone_ms=big[
                    "alone_ms"], copy_ms=big["copy_ms"], rows=big["rows"],
-               sn=big["sn"], primary={k: prim[k] for k in keys})
+               sn=big["sn"], primary={k: prim[k] for k in keys},
+               **{k: big[k] for k in keys[8:]})
 
 
 def main() -> int:

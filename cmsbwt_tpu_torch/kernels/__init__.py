@@ -179,13 +179,17 @@ def _bind(libs: dict) -> None:
     lib.pair_expand_launch.argtypes = [P] * 10 + [I, I, I, I, LL] + [P] * 6
     lib = libs["run_output"]
     lib.run_output_scratch_bytes.restype = LL
-    lib.run_output_scratch_bytes.argtypes = [LL]
+    lib.run_output_scratch_bytes.argtypes = [LL, LL]
     lib.run_output_fault_offset.restype = LL
     lib.run_output_fault_offset.argtypes = []
     lib.rle_pack_launch.restype = I
     lib.rle_pack_launch.argtypes = [P, P, LL, P, P, P]
     lib.bwt_expand_launch.restype = I
-    lib.bwt_expand_launch.argtypes = [P, P, LL, LL, P, P, P, P]
+    lib.bwt_expand_launch.argtypes = [P, P, LL, LL, P, P, P]
+    lib.bwt_expand_starts_launch.restype = I
+    lib.bwt_expand_starts_launch.argtypes = [P, LL, LL, P, P]
+    lib.bwt_expand_tiles_launch.restype = I
+    lib.bwt_expand_tiles_launch.argtypes = [P, P, LL, LL, P, P, P]
 
 
 def load() -> dict:
@@ -1267,7 +1271,7 @@ def rle_pack_cuda(run_len, run_char):
     lib = load()["run_output"]
     out = torch.empty(9 * max(R, 1), dtype=torch.uint8, device=dev)
     # the fault word starts at 0
-    scratch = torch.zeros(int(lib.run_output_scratch_bytes(0)),
+    scratch = torch.zeros(int(lib.run_output_scratch_bytes(0, 0)),
                           dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -1284,7 +1288,7 @@ def bwt_expand_cuda(run_len, run_char, sn: int):
     (uint8[sn], the .bwt's bytes, fault int32[1]); the fault word is not 0
     when a length is not positive or the lengths do not sum to sn. Same
     contract as io/output.bwt_expand_reference; the wrapper does not
-    synchronise. The run ends (int32[R]) and the look-back's scratch are
+    synchronise. The look-back's scratch and the output tiles' starts are
     made here."""
     dev = run_len.device
     R = _runs_checked(run_len, run_char)
@@ -1292,14 +1296,14 @@ def bwt_expand_cuda(run_len, run_char, sn: int):
         raise ValueError(f"bwt_expand: {R} runs, sn {sn}")
     lib = load()["run_output"]
     out = torch.empty(sn, dtype=torch.uint8, device=dev)
-    ends = torch.empty(R, dtype=torch.int32, device=dev)
-    # the look-back's ticket and states and the fault word start at 0
-    scratch = torch.zeros(int(lib.run_output_scratch_bytes(R)),
+    # the look-back's ticket and states, the fault word and the tile
+    # starts (a tile no run covers keeps run 0) start at 0
+    scratch = torch.zeros(int(lib.run_output_scratch_bytes(R, sn)),
                           dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.bwt_expand_launch(_ptr(run_len), _ptr(run_char), R, sn,
-                                    _ptr(ends), _ptr(out), _ptr(scratch),
+                                    _ptr(out), _ptr(scratch),
                                     ctypes.c_void_p(stream))
     _launch("bwt_expand", err)
     return out, _fault_view(lib, scratch)

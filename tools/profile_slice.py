@@ -12,7 +12,9 @@
     python3 tools/profile_slice.py --mesh      # mesh routes, every card
     python3 tools/profile_slice.py --merge-stages [SHAPE] [--parent DIR]
     python3 tools/profile_slice.py --merge-kernels [SHAPE] [--parent DIR]
+    python3 tools/profile_slice.py --merge-kernels --parent DIR --step0
     python3 tools/profile_slice.py --comp-groups  # compacted round by group size
+    python3 tools/profile_slice.py --expand-variants [SHAPE]  # bwt_expand knobs
     python3 tools/profile_slice.py --output [SHAPE] [--parent DIR] [--step0]
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
@@ -153,9 +155,15 @@ int64 rows (``int64_big``) and on the dense scan's PLCP fill at primary
 and ecoli_dense (``primary_dense``, ``ecoli_dense``; SHAPE, a comma
 list, keeps some of these names). With ``--parent DIR`` (an older
 checkout, e.g. ``_export/parent`` from ``git archive``) it also times
-that checkout's tail_good_join, run_merge, bucket_sums and running_fill
-against this tree's on the same inputs, parent, this, this, parent,
-after checking that their outputs are equal.
+that checkout's tail_good_join, run_merge, bucket_sums, running_fill,
+bwt_expand and rle_pack (the control) against this tree's on the same
+inputs, parent, this, this, parent, after checking that their outputs
+are equal. ``--step0`` also takes apart the parent's bwt_expand (this
+tree's without ``--parent``) where it is the ends-array design: its
+run_output.cu copied under _profile_work/ with one C entry point for
+each of run_ends_kernel and bwt_expand_kernel appended, built with the
+port's flags, and each kernel timed alone on the merge's runs
+(``step0 bwt_expand split`` lines).
 
 The comp-groups mode runs dense_rank_comp's compacted round on made
 slices of the 500 Mchar merge's first compacted round (9 602 118 rows of
@@ -164,6 +172,15 @@ shared-memory sort by counting only and by the bitonic network only
 (edits of sa_round.cu built beside it), each held to the plain round and
 timed alone and with its wrapper, beside radix_sort of the whole slice
 (the large path's sort): one ``comp_groups`` line a group size.
+
+The expand-variants mode builds this tree's run_output.cu once for each
+of EXPAND_VARIANTS (text edits of its block and batch constants, and
+diagnostic ones that take a part out), prints each
+build's registers and spills, and on the runs of one device merge at
+primary and 500 Mchars (``--expand-variants primary`` or ``500M`` for
+one) holds each but the diagnostic ones to bwt_expand_reference and
+times its scan, its expansion and both alone, the variants in order and
+then in reverse (``expand_variant`` lines).
 
 The output mode times the end of the device merge and the output write
 at the primary and 500 Mchar shapes (``--output primary`` or ``500M`` for
@@ -1901,8 +1918,293 @@ DENSE_FILL_SHAPES = (("primary_dense", 42, 2_000_000, 10, 0.01),
                      ("ecoli_dense", 42, 5_000_000, 20, 0.01))
 
 
+# The ends-array bwt_expand taken apart: a C entry point for each of its
+# two kernels, appended to a copy of its run_output.cu
+EXPAND_SPLIT = r"""
+extern "C" int step0_ends_launch(const void* len, long long R, long long sn,
+                                 void* ends, void* scratch, void* stream) {
+  run_ends_kernel<<<int((R + ENDS_TILE - 1) / ENDS_TILE), ENDS_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(len), R, sn, static_cast<int*>(ends),
+      static_cast<unsigned char*>(scratch));
+  return int(cudaGetLastError());
+}
+extern "C" int step0_expand_launch(const void* ends, const void* chr,
+                                   long long R, long long sn, void* out,
+                                   void* stream) {
+  bwt_expand_kernel<<<int((sn + EXP_TILE - 1) / EXP_TILE), EXP_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ends), static_cast<const unsigned char*>(chr),
+      R, sn, static_cast<unsigned char*>(out));
+  return int(cudaGetLastError());
+}
+"""
+
+
+def expand_split(K, root: pathlib.Path, tag: str, rl, rc,
+                 reps: int = 5) -> None:
+    """Step 0: ``root``'s bwt_expand, when it is the ends-array design's
+    two kernels (run_ends_kernel writing int32 ends, then
+    bwt_expand_kernel searching them), each timed alone on the run list
+    (rl, rc) and the whole launch beside them, its output held to
+    bwt_expand_reference: one ``step0 bwt_expand split`` line."""
+    import ctypes
+    from cmsbwt_tpu_torch.io import output as out_mod
+    text = (root / "cmsbwt_tpu_torch/kernels/csrc/run_output.cu").read_text()
+    if "run_ends_kernel" not in text:
+        print(f"step0[{tag}]: {root}'s bwt_expand has no run_ends_kernel; "
+              "no split", flush=True)
+        return
+    d = WORK / "expand_split"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "run_output_split.cu").write_text(text + EXPAND_SPLIT)
+    so = d / "librun_output_split.so"
+    if not so.exists():
+        r = subprocess.run([K._nvcc(), *K.NVCC_FLAGS,
+                            f"-I{root / 'cmsbwt_tpu_torch/kernels/csrc'}",
+                            "-o", str(so), str(d / "run_output_split.cu")],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise SystemExit(f"nvcc failed on the split:\n{r.stdout}"
+                             f"{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    lib.run_output_scratch_bytes.restype = LL
+    lib.run_output_scratch_bytes.argtypes = [LL]
+    lib.step0_ends_launch.argtypes = [P, LL, LL, P, P, P]
+    lib.step0_expand_launch.argtypes = [P, P, LL, LL, P, P]
+    R = rl.numel()
+    sn = int(rl.to(torch.int64).sum())
+    ends = torch.empty(R, dtype=torch.int32, device="cuda")
+    out = torch.empty(sn, dtype=torch.uint8, device="cuda")
+    p = cs._p
+
+    def ends_launch(scratch):
+        if lib.step0_ends_launch(p(rl), R, sn, p(ends), p(scratch),
+                                 cs._stream()):
+            raise SystemExit("step0: run_ends_kernel launch failed")
+
+    def expand_launch():
+        if lib.step0_expand_launch(p(ends), p(rc), R, sn, p(out),
+                                   cs._stream()):
+            raise SystemExit("step0: bwt_expand_kernel launch failed")
+
+    def both(scratch):
+        ends_launch(scratch)
+        expand_launch()
+    scratch_bytes = int(lib.run_output_scratch_bytes(R))
+    line = {"shape": tag, "root": str(root), "R": R, "sn": sn,
+            "card": card(),
+            "run_ends_alone_ms": cs.alone_ms(ends_launch, scratch_bytes,
+                                             reps)}
+    expand_launch()
+    line["expand_alone_ms"] = cs.cuda_ms(expand_launch, reps)
+    line["both_alone_ms"] = cs.alone_ms(both, scratch_bytes, reps)
+    want = out_mod.bwt_expand_reference(rl, rc, sn)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise SystemExit(f"step0[{tag}]: the split's output differs from "
+                         "bwt_expand_reference")
+    line["ends_bytes"] = 4 * R
+    line["copy_of_ends_round_trip_ms"] = cs.copy_ms(8 * R)
+    print("step0 bwt_expand split " + json.dumps(line), flush=True)
+
+
+def output_launch(K, rl, rc, rle: bool, sn: int):
+    """chip_smoke.output_launch for this tree's run_output library or an
+    older checkout's (the ends-array design's: a scratch size of R alone,
+    bwt_expand given an ends array)."""
+    lib = K.load()["run_output"]
+    if len(lib.run_output_scratch_bytes.argtypes) == 2:
+        return cs.output_launch(K, rl, rc, rle, sn)
+    R = rl.numel()
+    p = cs._p
+    if rle:
+        out = torch.empty(9 * max(R, 1), dtype=torch.uint8, device="cuda")
+
+        def launch(scratch):
+            if lib.rle_pack_launch(p(rl), p(rc), R, p(out), p(scratch),
+                                   cs._stream()):
+                raise SystemExit("rle_pack launch failed")
+        return launch, int(lib.run_output_scratch_bytes(0))
+    out = torch.empty(sn, dtype=torch.uint8, device="cuda")
+    ends = torch.empty(R, dtype=torch.int32, device="cuda")
+
+    def launch(scratch):
+        if lib.bwt_expand_launch(p(rl), p(rc), R, sn, p(ends), p(out),
+                                 p(scratch), cs._stream()):
+            raise SystemExit("bwt_expand launch failed")
+    return launch, int(lib.run_output_scratch_bytes(R))
+
+
+def output_ab(tag: str, rl, rc, old, reps: int) -> None:
+    """rle_pack (the control) and bwt_expand of an older checkout's
+    kernels module ``old`` and this tree's on one run list: outputs and
+    fault words equal, then both timed in turns, alone and as each
+    wrapper runs it."""
+    from cmsbwt_tpu_torch import kernels
+    sn = int(rl.to(torch.int64).sum())
+    for kname in ("rle_pack", "bwt_expand"):
+        rle = kname == "rle_pack"
+        fn = ((lambda k: k.rle_pack_cuda(rl, rc)) if rle
+              else (lambda k: k.bwt_expand_cuda(rl, rc, sn)))
+        a, b = fn(old), fn(kernels)
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and int(a[1][0]) == int(b[1][0])
+                == 0):
+            raise SystemExit(f"{kname}[{tag}]: the parent's kernel and this "
+                             "tree's differ")
+        del a, b
+        ab_turns(tag, kname, old, {
+            "alone": lambda k: cs.alone_ms(*output_launch(k, rl, rc, rle,
+                                                          sn)),
+            "as the wrapper runs it": lambda k: cs.cuda_ms(lambda: fn(k),
+                                                           reps)})
+
+
+# bwt_expand's variants by name: text edits of run_output.cu (its block
+# and batch constants, or a part taken out); "committed" builds the source
+# as it stands. A "diag_" variant takes a part out (its output is not the
+# .bwt), so that the difference of its times from the committed one's is
+# that part's cost.
+EXPAND_VARIANTS = {
+    "committed": [],
+    "exp_min_blocks_6": [("constexpr int EXP_MIN_BLOCKS = 8;",
+                          "constexpr int EXP_MIN_BLOCKS = 6;")],
+    "scan_min_blocks_4": [("constexpr int SCAN_MIN_BLOCKS = 6;",
+                           "constexpr int SCAN_MIN_BLOCKS = 4;")],
+    "exp_512_threads": [("constexpr int EXP_THREADS = 256;",
+                         "constexpr int EXP_THREADS = 512;"),
+                        ("constexpr int EXP_MIN_BLOCKS = 8;",
+                         "constexpr int EXP_MIN_BLOCKS = 4;")],
+    "load_batch_4": [("constexpr int LOAD_BATCH = 8;",
+                      "constexpr int LOAD_BATCH = 4;")],
+    # the lengths again from L1 in every slice
+    "reload": [("  if (per <= LOAD_BATCH) {", "  if (false) {")],
+    # every tile through the one-run path with its slices' loads skipped:
+    # the tile starts read and the stores
+    "diag_stores": [("if (first_end >= nbytes) {", "if (true) {"),
+                    ("for (int j = j0; j < j1; j += LOAD_BATCH) {",
+                     "for (int j = j0; j < 0; j += LOAD_BATCH) {")],
+    # no run marks the tile
+    "diag_no_marks": [("    if (lo < hi) {\n      const unsigned char c",
+                       "    if (lo > hi + EXP_TILE) {\n      const "
+                       "unsigned char c")],
+}
+
+
+def expand_variant_libs(K) -> dict:
+    """Each EXPAND_VARIANTS build of this tree's run_output.cu (its edits
+    applied to a copy, the source's headers on the include path), compiled
+    at once by
+    parallel nvcc processes with the port's flags and bound with the
+    committed library's signatures; prints each build's registers and
+    spills (ptxas): {name: library}."""
+    import ctypes
+    text = (K.CSRC / "run_output.cu").read_text()
+    d = WORK / "expand_variants"
+    d.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, edits in EXPAND_VARIANTS.items():
+        src = text
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise SystemExit(f"expand variant {name}: its edit does not "
+                                 "fit")
+            src = src.replace(old, new)
+        (d / f"{name}.cu").write_text(src)
+        jobs[name] = subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, f"-I{K.CSRC}", "-o",
+             str(d / f"lib{name}.so"), str(d / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    committed = K.load()["run_output"]
+    libs = {}
+    for name, proc in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on variant {name}:\n{out}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                print(f"expand_variant {name} ptxas: {line.strip()}",
+                      flush=True)
+        lib = ctypes.CDLL(str(d / f"lib{name}.so"))
+        for fname, f in vars(committed).items():
+            if isinstance(f, ctypes._CFuncPtr):
+                g = getattr(lib, fname)
+                g.restype, g.argtypes = f.restype, f.argtypes
+        libs[name] = lib
+    return libs
+
+
+def expand_variants_main(only: str | None, reps: int = 5) -> None:
+    """bwt_expand's EXPAND_VARIANTS on the runs of one device merge of the
+    jump scan's heads at each shape of MERGE_SHAPES (SHAPE keeps some):
+    each but the diag_ ones held to bwt_expand_reference (bytes and fault
+    word), then timed
+    alone (its scan, its expansion, both) in two rounds, the variants in
+    order and then in reverse: one ``expand_variant`` line a variant and
+    round."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.engine import device_merge as dm
+    from cmsbwt_tpu_torch.engine.pipeline import load_inputs
+    from cmsbwt_tpu_torch.io import output as out_mod
+    from cmsbwt_tpu_torch.ops import ms_jump as mj
+    libs = expand_variant_libs(kernels)
+    gpu = card()
+    for name, seed, ref_len, docs, snp in MERGE_SHAPES:
+        if only and name not in only.split(","):
+            continue
+        lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        x_aug, coll = load_inputs(str(lst))
+        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+        del x_aug
+        rl, rc, _ = dm.merge_heads_device_resident(res, coll.d, False,
+                                                   want_counter=False)
+        del res
+        torch.cuda.empty_cache()
+        sn = int(rl.to(torch.int64).sum())
+        # the runs' lengths by power-of-two bucket: runs and bytes
+        bucket = torch.log2(rl.double()).floor().long()
+        runs_by = torch.bincount(bucket, minlength=32)
+        bytes_by = torch.bincount(bucket, weights=rl.double(), minlength=32)
+        print("expand_runs " + json.dumps({
+            "shape": name, "R": rl.numel(), "sn": sn,
+            "runs_by_log2_len": runs_by.tolist(),
+            "bytes_by_log2_len": [int(x) for x in bytes_by.tolist()],
+            "max_len": int(rl.max())}), flush=True)
+        want = out_mod.bwt_expand_reference(rl, rc, sn)[0]
+        saved = kernels.load()["run_output"]
+        try:
+            for v, lib in libs.items():
+                if v.startswith("diag_"):
+                    continue
+                kernels.load()["run_output"] = lib
+                got, fault = kernels.bwt_expand_cuda(rl, rc, sn)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want) or int(fault[0]):
+                    raise SystemExit(f"expand variant {v}[{name}]: differs "
+                                     "from bwt_expand_reference")
+            del got, fault
+            names = list(libs)
+            for rnd, order in enumerate((names, names[::-1])):
+                for v in order:
+                    kernels.load()["run_output"] = libs[v]
+                    line = {"shape": name, "variant": v, "round": rnd,
+                            "card": gpu, "R": rl.numel(), "sn": sn}
+                    for part in ("starts", "tiles", "all"):
+                        line[f"{part}_alone_ms"] = cs.alone_ms(
+                            *cs.output_launch(kernels, rl, rc, False, sn,
+                                              part), reps)
+                    print("expand_variant " + json.dumps(line), flush=True)
+        finally:
+            kernels.load()["run_output"] = saved
+        del rl, rc, want
+        torch.cuda.empty_cache()
+        shutil.rmtree(WORK / name)
+
+
 def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
-                       reps: int = 5) -> None:
+                       reps: int = 5, step0: bool = False) -> None:
     """The device merge's kernels on the inputs one merge of the jump
     scan's heads gives them (chip_smoke.MergeCapture), at each shape of
     MERGE_SHAPES: each against its plain version (exact) and timed
@@ -1912,9 +2214,11 @@ def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
     every fill of that merge; then running_fill at 2^29 + 1 int64 rows
     (``int64_big``) and on the dense scan's PLCP fill at the shapes of
     DENSE_FILL_SHAPES. With ``parent``, its tail_good_join, run_merge,
-    bucket_sums and running_fill are timed against this tree's on the
-    same inputs, in turns (parent, this, this, parent; ``reps`` launches
-    each), after their outputs were found equal."""
+    bucket_sums, running_fill, rle_pack and bwt_expand are timed against
+    this tree's on the same inputs, in turns (parent, this, this, parent;
+    ``reps`` launches each), after their outputs were found equal; with
+    ``step0``, the parent's bwt_expand (this tree's without ``parent``)
+    is taken apart on the merge's runs first (expand_split)."""
     from cmsbwt_tpu_torch import kernels
     from cmsbwt_tpu_torch.engine import device_merge as dm
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
@@ -1927,7 +2231,9 @@ def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
             continue
         lst = cs.write_workload(WORK / name, seed, ref_len, docs, snp)
         x_aug, coll = load_inputs(str(lst))
-        res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
+        with cs.SortCapture() as scan_sorts, \
+                cs.IndexRankCapture() as index_rank:
+            res = mj.ms_jump_heads(x_aug, coll.sx, "cuda")
         del x_aug
         with cs.MergeCapture() as cap:
             torch.cuda.synchronize()
@@ -1939,7 +2245,10 @@ def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
         del res
         torch.cuda.empty_cache()
-        out = cs.merge_kernel_cases(name, cap)
+        if step0:
+            expand_split(kernels, parent or ROOT, name, *cap.run_out[:2])
+        out = cs.merge_kernel_cases(name, cap, scan_sorts, index_rank)
+        del scan_sorts, index_rank
         print(f"merge_kernels[{name}] " + json.dumps(out), flush=True)
         for i, (v, op, rev) in enumerate(cap.fills):
             fill_case(f"{name}_fill{i}", v, op, rev, old, reps)
@@ -1962,6 +2271,7 @@ def merge_kernels_main(only: str | None, parent: pathlib.Path | None,
             ab_turns(name, "bucket_sums", old, {
                 "alone": lambda k: cs.alone_ms(
                     *cs.bucket_sums_launch(k, *cap.sums))})
+            output_ab(name, *cap.run_out[:2], old, reps)
         del cap
         torch.cuda.empty_cache()
         shutil.rmtree(WORK / name)
@@ -2106,6 +2416,11 @@ def main() -> int:
                     "primary and 500 Mchars (or at SHAPE alone), against "
                     "their plain versions and timed; with --parent, its "
                     "kernels against this tree's")
+    ap.add_argument("--expand-variants", nargs="?", const="", default=None,
+                    metavar="SHAPE",
+                    help="bwt_expand's compile-time variants on a merge's "
+                    "runs at primary and 500 Mchars (or at SHAPE alone), "
+                    "held to the plain version and timed alone")
     ap.add_argument("--comp-groups", action="store_true",
                     help="dense_rank_comp's round on made slices of the 500 "
                     "Mchar merge's first compacted round in groups of "
@@ -2118,7 +2433,9 @@ def main() -> int:
                     "--parent in turns with its checkout's")
     ap.add_argument("--step0", action="store_true",
                     help="with --output: first the output's step 0 in "
-                    "--parent's package (this tree's without it)")
+                    "--parent's package (this tree's without it); with "
+                    "--merge-kernels: the ends-array bwt_expand taken "
+                    "apart")
     ap.add_argument("--runs", type=int, default=2,
                     help="with --output: CLI runs a turn per shape and "
                     "format")
@@ -2154,8 +2471,11 @@ def main() -> int:
                         args.runs)
         elif args.merge_stages is not None:
             merge_stages_main(args.merge_stages or None, args.parent)
+        elif args.expand_variants is not None:
+            expand_variants_main(args.expand_variants or None)
         elif args.merge_kernels is not None:
-            merge_kernels_main(args.merge_kernels or None, args.parent)
+            merge_kernels_main(args.merge_kernels or None, args.parent,
+                               step0=args.step0)
         elif args.routes is not None:
             routes_main(args.routes or None, args.backends)
         elif args.host_merge:
