@@ -191,6 +191,21 @@ every phase passed):
    array (engine/device_merge.RUN_DOWNLOADS); phases 5, 8 and 9 print
    each such run's write_output phase with the writer's R, bytes, kernel
    ms and staging copy seconds (io/output.LAST_WRITE).
+12. parse — the collection parse's CUDA fasta_parse against its plain
+   version (io/parse.parse_collection_reference) on the card, exact (SX
+   and the window's zero bytes, sn, the separators, the first bad
+   offset): on made files (parse_files: the CPU tests' cases, cuts among
+   headers and at lines' ends, a 2 inside a line, bad bytes, and the
+   kernel's tile edges: a newline tile +- 1 byte, a header and a line
+   across three tiles, tiles with no '\n', a line tile +- 1 lines, a copy
+   warp's and a copy block's bytes +- 1) at windows 64 and 1, and on the
+   primary and 500 Mchar collection files as the pipeline reads them
+   (io/parse.read_raw, timed), timed with the wrapper, alone and beside
+   Tensor.copy_ of the bound's bytes. Every CLI run and every
+   CMSBWT.transform of a path (phases 5-10) parsed its collection through
+   one fasta_parse launch and no host parse (io/fasta.HOST_PARSES), and
+   on the jump route SX went neither up (ops/ms_jump.SX_UPLOADS) nor down
+   (io/fasta.SX_DOWNLOADS).
 
 Imports nothing of JAX or of the JAX package (an import hook refuses
 ``jax``, ``jaxlib`` and ``cmsbwt_tpu``, so the port is shown to stand
@@ -219,6 +234,9 @@ copy_ms). library_ms is
 one 1-D torch.cummax for running_fill, three Tensor.index_add_ for
 bucket_sums and torch.repeat_interleave for bwt_expand; no single
 PyTorch call computes any of the other functions, so theirs is null.
+fasta_parse's row gives the 500 Mchar collection file and, under
+``primary``, the primary's; its bound counts the file read once and SX
+written once, and no PyTorch call parses lines (library_ms null).
 rle_pack's and bwt_expand's rows give the 500 Mchar merge's runs and,
 under ``primary``, the primary merge's; their bounds count 14 B a run
 (rle_pack) and 5 B a run plus sn (bwt_expand), and bwt_expand's its
@@ -2513,7 +2531,7 @@ def phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
     x2, c2 = load_inputs(str(k200k))
     reset_counts()
     dm = md.ms_dense(x2, c2.sx, "cuda")
-    check_counts("dense", "ms_dense", 1, "none")
+    check_counts("dense", "ms_dense", 1, "none", parsed=False)
     dv = ms_scan_device(idev.build_device_index(x2, "cuda"), c2.sx, "cuda")
     heads = dv.is_head
     same = (np.array_equal(dm.pos, dv.pos)
@@ -2567,7 +2585,7 @@ def phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll) -> None:
     mres = ms_dense_heads_mesh(x_aug, coll.sx, bc, device="cuda")
     wall = time.perf_counter() - t0
     blocks = -(-coll.sn // bc)
-    counts = check_counts("dense", "mesh_scan", 1, "none")
+    counts = check_counts("dense", "mesh_scan", 1, "none", parsed=False)
     if ranks == 1 and not (counts["lcp_lift"] == counts["dense_neighbors"]
                            >= blocks):
         fail(f"the mesh scan's {blocks} blocks launched {counts}")
@@ -2944,6 +2962,214 @@ def rank_cases() -> int:
     return cases
 
 
+# fasta_parse.cu's tiles: raw bytes a newline tile, lines a line tile,
+# output bytes a copy warp and a copy block
+PARSE_NL_TILE = 16384
+PARSE_LINE_TILE = 2048
+PARSE_WARP = 2048
+PARSE_COPY_TILE = 16384
+PARSE_WINDOW = 64           # Config.skip_window, the jump scan's window
+NO_CUT = 1 << 62
+
+
+def _lines(n: int, width: int, seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    return b"".join(rng.choice(acgt, width).tobytes() + b"\n"
+                    for _ in range(n))
+
+
+def parse_files() -> list:
+    """(name, bytes, sn_limits) of the made files parse_cases holds the
+    kernel to its plain version on: the CPU tests' cases (the cut, the EOF
+    separator, a 2 in a line, bad bytes, empty and header-only files, no
+    '\n', an unterminated last line, 1-byte and 100 000-byte lines), and
+    the kernel's tile edges: files of a newline tile +- 1 byte, a header
+    and a line across three tiles, tiles with no '\n', a line tile +- 1
+    lines, output ranges of a copy warp and a copy block +- 1 byte, 60-byte
+    lines off the 16-byte frame."""
+    T = PARSE_NL_TILE
+    cut = b">a\nAAAA\nCCCC\n>b\nGGGG\nTT\n"
+    files = [
+        ("leading_header", b">a\nACGT\n>b\nGGTT\n", (NO_CUT,)),
+        ("unterminated", b">a\nACGT\nGGG", (NO_CUT, 7)),
+        ("no_header", b"ACGT\nGGTT\n", (NO_CUT,)),
+        ("empty_line_flush", b"AC\n\nGT\n", (NO_CUT,)),
+        ("prefix", b">a\nAAAA\nCCCC\nGGGG\n", (8, 6, 300)),
+        ("carriage_return", b">a\r\nAC\rGT\r\n>b\nTT\r\n", (NO_CUT, 5)),
+        ("separator_in_line", b">a\nAC\x02GT\n>b\nTTA\n", (NO_CUT,)),
+        ("empty_file", b"", (NO_CUT, 1)),
+        ("headers_only", b">a\n>b\n>c\n", (NO_CUT, 2)),
+        ("no_newline", b"ACGT" * 5000, (NO_CUT,)),
+        ("empty_lines", b"\n\n\n", (NO_CUT, 2)),
+        ("cuts", cut, tuple(range(-1, 20))),
+        ("one_byte_lines", b">a\n" + b"A\n" * 50, (NO_CUT, 20)),
+        ("line_100000", b">a\n" + b"C" * 100_000 + b"\n>b\nAC\n",
+         (NO_CUT, 50_000, 100_002)),
+        ("bad_bytes", b">a\nAC\x00GT\n>\xff\nA\x01\x80\xff\n", (NO_CUT, 4)),
+        ("bad_after_cut", b">a\nACGT\nA\x00\n", (5,)),
+    ]
+    for d in (-1, 0, 1):
+        body = _lines(T // 61 + 2, 60, 10 + d)
+        files.append((f"newline_tile{d:+d}", body[:T + d], (NO_CUT,)))
+    files += [
+        ("header_over_tiles", b">" + b"h" * (3 * T + 5) + b"\nACGT\n"
+         + _lines(5, 60, 3), (NO_CUT, 3 * T)),
+        ("line_over_three_tiles", b">a\n" + b"G" * (3 * T + 5) + b"\n>b\n"
+         + _lines(3, 60, 4), (NO_CUT, 2 * T + 7, 3 * T + 7)),
+        ("tiles_without_newline", b"A" * (5 * T + 3) + b"\n" * 3,
+         (NO_CUT,)),
+        ("off_frame_60", b">header7\n" + _lines(2000, 60, 5),
+         (NO_CUT, 65_537)),
+    ]
+    for d in (-1, 0, 1):
+        files.append((f"line_tile{d:+d}", b"A\n" * (PARSE_LINE_TILE + d),
+                      (NO_CUT, PARSE_LINE_TILE)))
+        # SX of exactly a copy warp's and a copy block's bytes + d (one
+        # doc: its header's separator, its bytes, the EOF separator)
+        for what, size in (("copy_warp", PARSE_WARP),
+                           ("copy_block", PARSE_COPY_TILE)):
+            files.append((f"{what}{d:+d}", b">x\n" + b"T" * (size + d - 2)
+                          + b"\n", (NO_CUT, size)))
+    return files
+
+
+def parse_pair(raw, sn_limit: int, window: int):
+    """(kernel, plain) callables of the parse on ``raw``: the dispatch
+    io/parse.parse_collection_dev as the main path runs it (fasta_parse on
+    the card) and parse_collection_reference, each as (SX with its window
+    of zero bytes, int64[3]: sn, separators, first bad offset)."""
+    from cmsbwt_tpu_torch.io import parse as P
+
+    def out(p):
+        return (p.sx_padded, torch.tensor([p.sn, p.n_separators, p.bad],
+                                          dtype=torch.int64))
+    return (lambda: out(P.parse_collection_dev(raw, sn_limit, window)),
+            lambda: out(P.parse_collection_reference(raw, sn_limit, window)))
+
+
+def parse_cases() -> int:
+    """fasta_parse against its plain version on the card (exact: SX and
+    its window's zero bytes, sn, separators, the first bad offset) on
+    parse_files(), each at its cuts and windows 64 and 1; returns the
+    cases held."""
+    t0 = time.perf_counter()
+    n = 0
+    for name, data, lims in parse_files():
+        raw = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(
+            "cuda") if data else torch.zeros(0, dtype=torch.uint8,
+                                            device="cuda")
+        for lim in lims:
+            for window in (PARSE_WINDOW, 1):
+                kern, plain = parse_pair(raw, lim, window)
+                got, want = kern(), plain()
+                if got[0].shape != want[0].shape or not torch.equal(
+                        got[0], want[0]) or not torch.equal(got[1], want[1]):
+                    fail(f"fasta_parse[{name}, sn_limit={lim}, window="
+                         f"{window}]: (sn, separators, bad) "
+                         f"{got[1].tolist()} against the plain version's "
+                         f"{want[1].tolist()}, or other bytes")
+                n += 1
+    log(f"kernel fasta_parse: {n} made cases exact against "
+        f"parse_collection_reference ({time.perf_counter() - t0:.1f} s)")
+    return n
+
+
+def parse_parts(launch, scratch_bytes: int, reps: int = 3) -> dict:
+    """fasta_parse's five kernels' mean device ms a launch (torch.profiler
+    over ``reps`` alone launches; the memsets of the result words apart),
+    or {} when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    scratch = [torch.zeros(max(scratch_bytes, 16), dtype=torch.uint8,
+                           device="cuda") for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for sc in scratch:
+            launch(sc)
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        for k in ("count_kernel", "newline_kernel", "line_kernel",
+                  "finish_kernel", "copy_kernel"):
+            if k in e.key and us:
+                parts[k] = parts.get(k, 0.0) + us / 1e3 / reps
+    return parts
+
+
+def parse_case(tag: str, path: pathlib.Path) -> dict:
+    """fasta_parse against its plain version (exact) on a collection file
+    the smoke wrote, read onto the card as the pipeline reads it
+    (io/parse.read_raw, timed), then timed with the wrapper (the dispatch
+    as the main path runs it: the line count read back between its two C
+    calls, the buffers made), alone (the two C calls into buffers made
+    before the events, each launch on its own zeroed scratch) and beside
+    Tensor.copy_ of the bound's bytes (the file read once, SX written
+    once)."""
+    from cmsbwt_tpu_torch import kernels as K
+    from cmsbwt_tpu_torch.io import parse as P
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = P.read_raw(str(path), "cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    read = dict(P.LAST_READ)
+    F = raw.numel()
+    kern, plain = parse_pair(raw, F, PARSE_WINDOW)
+    sn = int(plain()[1][0])
+    r = compare("fasta_parse", tag, "parse_collection_reference", kern,
+                plain, f"F={F} bytes, sn={sn}", F + sn)
+    r.pop("outputs")
+    L, res = K.fasta_parse_lines(raw)
+    work = K.fasta_parse_work(raw, L, res, PARSE_WINDOW)
+    lib = K.load()["fasta_parse"]
+
+    def launch(scratch):
+        w = work._replace(scratch=scratch)
+        if lib.fasta_parse_count_launch(_p(raw), F, _p(w.res), _stream()) \
+                or K.fasta_parse_run(raw, F, PARSE_WINDOW, w):
+            fail("fasta_parse launch failed")
+    r["alone_ms"] = alone_ms(launch, work.scratch.numel())
+    if int(work.res[1]) != sn:
+        fail(f"fasta_parse[{tag}]: alone, sn {int(work.res[1])} against {sn}")
+    r["parts_ms"] = parse_parts(launch, work.scratch.numel())
+    r["copy_ms"] = copy_ms(F + sn)
+    r["library_ms"] = None
+    r.update(bytes=F, sn=sn, lines=L, read_s=read_s, read=read)
+    log(f"kernel fasta_parse[{tag}]: file read onto the card {read_s:.3f} s "
+        f"({json.dumps(read)}); alone {r['alone_ms']:.3f} ms, with the "
+        f"wrapper {r['ms']:.3f} ms, copy_ of the bound's bytes "
+        f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms; {L} lines; "
+        f"its kernels (ms a launch) {json.dumps(r['parts_ms'])}")
+    del raw, work
+    torch.cuda.empty_cache()
+    return r
+
+
+def parse_row(paths, parsed: dict) -> dict:
+    """The kernels line's row of fasta_parse: its launches in every path
+    (one per CLI run and per CMSBWT.transform of a path), its times on the
+    500 Mchar collection file and, under ``primary``, on the primary's."""
+    big, prim = parsed["500M"], parsed["primary"]
+    keys = ("bytes", "sn", "lines", "ms", "alone_ms", "plain_ms", "copy_ms",
+            "bound_ms", "read_s", "parts_ms")
+    return {"name": "fasta_parse", "route": "cuda",
+            "source": "cmsbwt_tpu_torch/kernels/csrc/fasta_parse.cu",
+            "replaces": "cmsbwt_tpu/io/fasta.py:114",
+            "launches": sum(c["fasta_parse"] for *_, c, _, _, _ in paths),
+            "launches_by_run": [
+                {"run": tag, "cli_runs": k, "launches": c["fasta_parse"]}
+                for _, tag, k, c, _, _, _ in paths],
+            "max_abs_err": max(big["err"], prim["err"]), "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            **{k: big[k] for k in ("alone_ms", "copy_ms", "bytes", "sn",
+                                   "lines", "read_s", "parts_ms")},
+            "primary": {k: prim[k] for k in keys}}
+
+
 def sort_row(row, name, source, replaces, merge_cases, counted, keys):
     """The kernels line's row of a sort kernel: its 500 Mchar and primary
     merge cases, with its alone and copy_ times and the extra ``keys`` of
@@ -3041,11 +3267,18 @@ def run_phases(card: str, kind: str, started: float) -> int:
     from cmsbwt_tpu_torch.ops import sort as srt
     from cmsbwt_tpu_torch.utils.buckets import bucket_size
     # the plain versions' call counts
+    from cmsbwt_tpu_torch.io import fasta
     from cmsbwt_tpu_torch.io import output as out_mod
+    from cmsbwt_tpu_torch.io import parse
     PLAIN_CALLS = (js.REFERENCE_CALLS, md.REFERENCE_CALLS,
                    mj.REFERENCE_CALLS, fill.REFERENCE_CALLS,
                    dmg.REFERENCE_CALLS, srt.REFERENCE_CALLS,
-                   idx.REFERENCE_CALLS, out_mod.REFERENCE_CALLS)
+                   idx.REFERENCE_CALLS, out_mod.REFERENCE_CALLS,
+                   parse.REFERENCE_CALLS)
+    # the host parses and SX's trips between host and card
+    SX_COUNTS = {"host_parses": fasta.HOST_PARSES,
+                 "sx_downloads": fasta.SX_DOWNLOADS,
+                 "sx_uploads": mj.SX_UPLOADS}
 
     # phase 2: build
     kernels.load()
@@ -3126,18 +3359,23 @@ def run_phases(card: str, kind: str, started: float) -> int:
     def reset_counts():
         kernels.reset_launch_counts()
         exact_merges[0] = comp_steps[0] = dmg.RUN_DOWNLOADS[0] = 0
+        for c in SX_COUNTS.values():
+            c[0] = 0
         for calls in PLAIN_CALLS:
             for k in calls:
                 calls[k] = 0
 
     def check_counts(backend, tag, runs, engine, tries=None, scanned=True,
-                     rle_writes=0, plain_writes=0):
+                     rle_writes=0, plain_writes=0, parsed=True):
         """The launch counts since reset_counts(): each kernel of the
         backend's scan (unless ``scanned`` is False: the scan was skipped)
         and of the merge ``engine`` launched, no other, no plain version;
         a device merge's writer launched once per output it wrote
         (``rle_writes`` .rl_bwt, ``plain_writes`` .bwt) and no run array
-        downloaded; recorded as a path."""
+        downloaded; the collection parsed on the card by one fasta_parse
+        launch per run (``parsed``: the path parsed its file) and no host
+        parse; on the jump route SX neither uploaded nor downloaded;
+        recorded as a path."""
         writes = {"rle_pack": rle_writes, "bwt_expand": plain_writes}
         mine = tuple(k for k in dict.fromkeys(
             (ROUTE_KERNELS[backend] if scanned else ())
@@ -3145,8 +3383,9 @@ def run_phases(card: str, kind: str, started: float) -> int:
             if (k != "tail_exact_credit" or exact_merges[0])
             and (k != "dense_rank_comp" or comp_steps[0])
             and writes.get(k, 1))
-        may = mine + tuple(k for e in (backend, *engine.split("/"))
-                           for k in MAY_LAUNCH.get(e, ()))
+        may = mine + ("fasta_parse",) + tuple(
+            k for e in (backend, *engine.split("/"))
+            for k in MAY_LAUNCH.get(e, ()))
         counts = dict(kernels.LAUNCHES)
         plain = {k: v for calls in PLAIN_CALLS for k, v in calls.items()}
         log(f"slice[{tag}]: kernel launches {counts}; plain calls {plain}"
@@ -3154,7 +3393,18 @@ def run_phases(card: str, kind: str, started: float) -> int:
             + f"; merge {engine}"
             + (f" ({exact_merges[0]} with exact pairs)"
                if engine == "device" else "")
-            + f"; {comp_steps[0]} compacted head-string steps")
+            + f"; {comp_steps[0]} compacted head-string steps; "
+            + json.dumps({k: c[0] for k, c in SX_COUNTS.items()}))
+        if counts["fasta_parse"] != (runs if parsed else 0) \
+                or SX_COUNTS["host_parses"][0]:
+            fail(f"{tag}: fasta_parse launched {counts['fasta_parse']} "
+                 f"times over {runs} runs and the host parsed "
+                 f"{SX_COUNTS['host_parses'][0]} times (expected "
+                 f"{runs if parsed else 0} and none)")
+        if backend == "jump" and (SX_COUNTS["sx_uploads"][0]
+                                  or SX_COUNTS["sx_downloads"][0]):
+            fail(f"{tag}: the jump route moved SX between host and card "
+                 + json.dumps({k: c[0] for k, c in SX_COUNTS.items()}))
         if any(plain.values()):
             fail(f"{tag}: a plain version ran on the card's main path")
         if any(counts[k] < 1 for k in mine) or any(
@@ -3536,6 +3786,13 @@ def run_phases(card: str, kind: str, started: float) -> int:
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
     log(f"merge kernels: phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    # phase 12: the collection parse against its plain version
+    t12 = time.perf_counter()
+    parse_cases()
+    parsed = {tag: parse_case(tag, WORK / d / "coll.fa")
+              for tag, d in (("primary", "primary"), ("500M", "ecoli_rle"))}
+    log(f"parse: phase 12 took {time.perf_counter() - t12:.1f} s")
+
     def row(name, source, replaces, res, library_ms=None, counted=None,
             **extra):
         # every run that launches this kernel (``counted``: the launch
@@ -3625,6 +3882,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
                    merge_cases),
         output_row(row, "bwt_expand", "cmsbwt_tpu/engine/merge.py:171",
                    merge_cases),
+        parse_row(paths, parsed),
         row("sa_round", csrc + "sa_round.cu",
             "cmsbwt_tpu/ops/joint_sa.py:244", rounds
             + [jt.seed for jt in joint.values()],

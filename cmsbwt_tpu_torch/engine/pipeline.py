@@ -1,7 +1,8 @@
 """End-to-end pipeline of the port — the counterpart of
 cmsbwt_tpu/engine/pipeline.py:
 
-* backend=jump: parse (io/fasta.py) -> build_device_index -> ms_jump_heads
+* backend=jump: parse (io/parse.py, on the run's device) ->
+  build_device_index -> ms_jump_heads, on SX where the parse left it
   (the CUDA ``ms_jump_scan`` kernel on a CUDA device) -> the device merge
   (merge_heads_device_resident), the host merge (merge_from_heads) or the
   sharded merge (merge_from_heads_sharded)
@@ -134,18 +135,25 @@ def _check_route(cfg: Config, device: torch.device) -> None:
 
 
 def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
-                timer: PhaseTimer | None = None):
-    """The augmented reference (uint8) and the parsed, validated collection
-    named by an input-list file; ``timer`` records load_reference and
+                timer: PhaseTimer | None = None, device="cuda",
+                window: int = Config.skip_window):
+    """The augmented reference (uint8, on the host) and the parsed,
+    validated collection named by an input-list file, the collection parsed
+    on ``device`` (io/parse.load_collection: the ``fasta_parse`` kernel on
+    a card, its plain version on the CPU) and its SX left there with
+    ``window`` zero bytes after it; ``timer`` records load_reference and
     parse_collection."""
+    from ..io.parse import load_collection
     timer = timer or PhaseTimer()
+    device = resolve_device(device)
     ref_path, coll_path = fasta.read_input_list(filename)
     with timer.phase("load_reference"):
         x_aug = fasta.augment_reference(fasta.load_reference_bytes(ref_path))
     sn_limit = fasta.collection_sn_limit(coll_path, prefix_length)
     with timer.phase("parse_collection"):
-        coll = fasta.parse_collection(coll_path, sn_limit)
-        fasta.validate_collection(coll)
+        coll = load_collection(coll_path, sn_limit, device, window)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     return x_aug, coll
 
 
@@ -215,7 +223,8 @@ def compute_bwt(cfg: Config, device) -> dict:
 
     timer = PhaseTimer()
     outname = cfg.resolved_outname()
-    x_aug, coll = load_inputs(cfg.filename, cfg.prefix_length, timer)
+    x_aug, coll = load_inputs(cfg.filename, cfg.prefix_length, timer,
+                              device, cfg.skip_window)
     n = len(x_aug)
     # references at or above the int32 index bound (the reference tool's
     # own cap, ref CMS-BWT-functions.cpp:246, CMS-BWT.h:44) take the
@@ -330,7 +339,7 @@ def compute_bwt(cfg: Config, device) -> dict:
             # the CPU (AUTO_CPU_JUMP_LANES)
             lanes = min(lanes, AUTO_CPU_JUMP_LANES)
         with maybe_torch_trace("ms_scan"):
-            heads = ms_jump_heads(x_aug, coll.sx, device, lanes=lanes,
+            heads = ms_jump_heads(x_aug, coll, device, lanes=lanes,
                                   window=cfg.skip_window, index=dindex,
                                   timer=timer)
         del dindex

@@ -26,7 +26,6 @@ empty document (exactly as the reference does).
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
 
 import numpy as np
 
@@ -92,19 +91,65 @@ def augment_reference(ref: bytes) -> np.ndarray:
     return out
 
 
-@dataclass
 class Collection:
-    """Parsed collection: concatenated docs with separators."""
+    """Parsed collection: concatenated docs with separators.
 
-    sx: np.ndarray        # uint8, length sn; separator-terminated docs
-    sn: int               # == len(sx)
-    n_separators: int     # == D - 1 in reference terms (D starts at 1)
-    doc_starts: np.ndarray  # int64 start offset of every document (incl. empty ones)
-    sep_positions: np.ndarray  # int64 position of each separator in sx
+    Built from numpy arrays (``sx``, ``doc_starts``, ``sep_positions``), or
+    from SX on a device (``sx_dev``: uint8[sn + window], SX then ``window``
+    zero bytes, as io/parse.py leaves it for the jump scan). ``sx`` is then
+    downloaded at its first read (counted in SX_DOWNLOADS), and
+    ``sep_positions`` and ``doc_starts`` are made from it as the native
+    parse makes them: ``np.nonzero(sx == SEPARATOR)``."""
+
+    def __init__(self, sx: np.ndarray | None = None, sn: int | None = None,
+                 n_separators: int = 0,
+                 doc_starts: np.ndarray | None = None,
+                 sep_positions: np.ndarray | None = None, *,
+                 sx_dev=None, window: int = 0):
+        if sx is None and sx_dev is None:
+            raise ValueError("Collection: give sx or sx_dev")
+        self._sx = sx
+        self.sn = int(len(sx) if sn is None else sn)  # == len(sx)
+        self.n_separators = int(n_separators)  # == D - 1 in reference terms
+        self._doc_starts = doc_starts   # int64 start of every document
+        self._sep_positions = sep_positions   # int64 separator positions
+        self.sx_dev = sx_dev
+        self.window = int(window)
+
+    @property
+    def sx(self) -> np.ndarray:
+        """uint8[sn]: separator-terminated docs."""
+        if self._sx is None:
+            SX_DOWNLOADS[0] += 1
+            self._sx = self.sx_dev[:self.sn].cpu().numpy()
+        return self._sx
+
+    @property
+    def sep_positions(self) -> np.ndarray:
+        if self._sep_positions is None:
+            self._sep_positions = np.nonzero(
+                self.sx == SEPARATOR)[0].astype(np.int64)
+        return self._sep_positions
+
+    @property
+    def doc_starts(self) -> np.ndarray:
+        if self._doc_starts is None:
+            sep = self.sep_positions
+            self._doc_starts = np.concatenate(
+                [np.zeros(1, np.int64), sep[:-1] + 1]) \
+                if self.n_separators else np.zeros(0, np.int64)
+        return self._doc_starts
 
     @property
     def d(self) -> int:  # reference's D
         return self.n_separators + 1
+
+
+# host parses of a collection file (parse_collection), and downloads of a
+# device SX (Collection.sx): on a card the pipeline parses on the device
+# (io/parse.py), and the jump route reads SX there
+HOST_PARSES = [0]
+SX_DOWNLOADS = [0]
 
 
 def _getline_lines(data: bytes) -> list[bytes]:
@@ -118,20 +163,17 @@ def parse_collection(path: str, sn_limit: int,
 
     ``sn_limit`` is the reference's ``_sn`` = min(file size, prefixLength)
     (ref :220-226). Truncation and the EOF tail block follow the reference.
-    Uses the native C++ parser when available (io/native.py).
+    Uses the native C++ parser when available (io/native.py). Counted in
+    HOST_PARSES.
     """
+    HOST_PARSES[0] += 1
     if use_native:
         from .native import parse_collection_native
         res = parse_collection_native(path, sn_limit)
         if res is not None:
             sx, n_seps = res
-            sep_positions = np.nonzero(sx == SEPARATOR)[0].astype(np.int64)
-            doc_starts = np.concatenate(
-                [np.zeros(1, np.int64), sep_positions[:-1] + 1]) \
-                if n_seps else np.zeros(0, np.int64)
-            return Collection(sx=sx, sn=len(sx), n_separators=n_seps,
-                              doc_starts=doc_starts,
-                              sep_positions=sep_positions)
+            # sep_positions and doc_starts from np.nonzero(sx == SEPARATOR)
+            return Collection(sx=sx, sn=len(sx), n_separators=n_seps)
     with open(path, "rb") as f:
         data = f.read()
     return _parse_collection_impl(_getline_lines(data), sn_limit)
@@ -200,6 +242,10 @@ def validate_collection(coll: Collection) -> None:
     bad &= sx != SEPARATOR
     if np.any(bad):
         pos = int(np.argmax(bad))
-        raise ValueError(
-            f"collection byte {int(sx[pos])} at offset {pos} outside [3,128); "
+        raise ValueError(bad_byte_message(int(sx[pos]), pos))
+
+
+def bad_byte_message(byte: int, pos: int) -> str:
+    """validate_collection's error for ``byte`` at offset ``pos`` of SX."""
+    return (f"collection byte {byte} at offset {pos} outside [3,128); "
             "the reference tool has undefined behavior for such inputs")

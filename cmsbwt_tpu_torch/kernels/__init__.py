@@ -32,7 +32,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ms_jump_scan.cu", "lcp_lift.cu", "dense_neighbors.cu",
            "running_fill.cu", "tail_good_join.cu", "run_merge.cu",
            "tail_exact_credit.cu", "radix_sort.cu", "compact.cu",
-           "sa_round.cu", "pair_expand.cu", "run_output.cu")
+           "sa_round.cu", "pair_expand.cu", "run_output.cu",
+           "fasta_parse.cu")
 # the largest group a compacted round of the head string's suffix sort
 # sorts in shared memory, and the largest slice its tail runs in one block
 # (sa_round.cu's C_CAP, passed to every build; index/device.COMP_CAP)
@@ -47,7 +48,7 @@ LAUNCHES = {"ms_jump_scan": 0, "lcp_lift": 0, "dense_neighbors": 0,
             "run_merge": 0, "tail_exact_credit": 0, "radix_hist": 0,
             "radix_pass": 0, "compact": 0, "sa_round": 0, "dense_rank": 0,
             "dense_rank_comp": 0, "pair_expand": 0, "rle_pack": 0,
-            "bwt_expand": 0}
+            "bwt_expand": 0, "fasta_parse": 0}
 BUILD = {"seconds": None, "path": None, "log": ""}
 
 _lock = threading.Lock()
@@ -190,6 +191,16 @@ def _bind(libs: dict) -> None:
     lib.bwt_expand_starts_launch.argtypes = [P, LL, LL, P, P]
     lib.bwt_expand_tiles_launch.restype = I
     lib.bwt_expand_tiles_launch.argtypes = [P, P, LL, LL, P, P, P]
+    lib = libs["fasta_parse"]
+    lib.fasta_parse_scratch_bytes.restype = LL
+    lib.fasta_parse_scratch_bytes.argtypes = [LL, LL]
+    lib.fasta_parse_result_words.restype = LL
+    lib.fasta_parse_result_words.argtypes = []
+    lib.fasta_parse_count_launch.restype = I
+    lib.fasta_parse_count_launch.argtypes = [P, LL, P, P]
+    lib.fasta_parse_launch.restype = I
+    lib.fasta_parse_launch.argtypes = [P, LL, LL, ctypes.c_ulonglong, LL] + [
+        P] * 6 + [LL, P]
 
 
 def load() -> dict:
@@ -1307,3 +1318,84 @@ def bwt_expand_cuda(run_len, run_char, sn: int):
                                     ctypes.c_void_p(stream))
     _launch("bwt_expand", err)
     return out, _fault_view(lib, scratch)
+
+
+class ParseWork(NamedTuple):
+    """One fasta_parse call's buffers: the line records (nl int64[L], off
+    int64[L + 1], flags uint8[L]), the zeroed look-back scratch, the
+    result words and the output (F + window bytes)."""
+
+    L: int
+    nl: torch.Tensor
+    off: torch.Tensor
+    flags: torch.Tensor
+    scratch: torch.Tensor
+    res: torch.Tensor
+    out: torch.Tensor
+
+
+def fasta_parse_lines(raw) -> tuple:
+    """fasta_parse's first C call on a file's raw bytes (CUDA uint8[F],
+    16-byte aligned): the result words set and the file's '\\n' count
+    L read back (a synchronisation); returns (L, the result words)."""
+    dev = raw.device
+    F = int(raw.numel())
+    _check("raw", raw, torch.uint8, (F,), dev)
+    lib = load()["fasta_parse"]
+    res = torch.empty(int(lib.fasta_parse_result_words()),
+                      dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.fasta_parse_count_launch(_ptr(raw), F, _ptr(res),
+                                           ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fasta_parse's count launch failed: CUDA error "
+                           f"{err}")
+    return int(res[0]), res
+
+
+def fasta_parse_work(raw, L: int, res, window: int) -> ParseWork:
+    """The buffers of fasta_parse's second C call for a file of L lines."""
+    dev = raw.device
+    F = int(raw.numel())
+    lib = load()["fasta_parse"]
+    e = lambda n, dt: torch.empty(n, dtype=dt, device=dev)
+    return ParseWork(
+        L=L, nl=e(L, torch.int64), off=e(L + 1, torch.int64),
+        flags=e(L, torch.uint8),
+        scratch=torch.zeros(int(lib.fasta_parse_scratch_bytes(F, L)),
+                            dtype=torch.uint8, device=dev),
+        res=res, out=e(max(F + window, 1), torch.uint8))
+
+
+def fasta_parse_run(raw, sn_limit: int, window: int, work: ParseWork) -> int:
+    """fasta_parse's second C call into ``work``'s buffers (the result
+    words as fasta_parse_lines set them); returns the CUDA error, 0 when
+    the kernels launched."""
+    lib = load()["fasta_parse"]
+    F = int(raw.numel())
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    with torch.cuda.device(raw.device):
+        return lib.fasta_parse_launch(
+            _ptr(raw), F, work.L, ctypes.c_ulonglong(sn_limit), window,
+            _ptr(work.nl), _ptr(work.off), _ptr(work.flags),
+            _ptr(work.scratch), _ptr(work.res), _ptr(work.out),
+            F + window, ctypes.c_void_p(stream))
+
+
+def fasta_parse_cuda(raw, sn_limit: int, window: int):
+    """Launch ``fasta_parse`` on a collection file's raw bytes (CUDA
+    uint8[F], 16-byte aligned): ``sn_limit`` the reference's _sn (0: no
+    cut), ``window`` the zero bytes after SX. Returns (out uint8[F +
+    window], whose first sn + window bytes are SX and the zero bytes, the
+    result words int64[8]: sn at 1, the separators at 2, the first bad
+    offset at 5, -1 for none). Same contract as
+    io/parse.parse_collection_reference; reads the line count back
+    between its two C calls and does not synchronise after the second."""
+    if window < 0 or not 0 <= sn_limit < 2**64:
+        raise ValueError(f"fasta_parse: window {window}, sn_limit "
+                         f"{sn_limit}")
+    L, res = fasta_parse_lines(raw)
+    work = fasta_parse_work(raw, L, res, window)
+    _launch("fasta_parse", fasta_parse_run(raw, sn_limit, window, work))
+    return work.out, res

@@ -84,24 +84,28 @@ class CMSBWT:
     def transform(self, collection: str | fasta.Collection,
                   rle: bool = False,
                   backend: Optional[str] = None) -> TransformResult:
-        """The collection's BWT against the held reference: ``backend``
+        """The collection's BWT against the held reference (a path, parsed
+        on the model's device, or a fasta.Collection): ``backend``
         (default the config's), 'auto' resolved by the pipeline's rule
         (engine/pipeline.auto_backend) with the collection's length in
         place of its file's size, as the JAX package resolves it here."""
         cfg = self.config
         if isinstance(collection, str):
+            # parsed and validated on the model's device (io/parse.py)
+            from ..io.parse import load_collection
             sn_limit = fasta.collection_sn_limit(collection,
                                                  cfg.prefix_length)
-            coll = fasta.parse_collection(collection, sn_limit)
+            coll = load_collection(collection, sn_limit, self.device,
+                                   cfg.skip_window)
         else:
             coll = collection
-        fasta.validate_collection(coll)
+            fasta.validate_collection(coll)
         backend = backend or cfg.backend
         if backend == "auto":
             from ..io.native import get_scan_lib
             cpu = self.device.type == "cpu"
             backend = pipeline_mod.auto_backend(
-                len(coll.sx), self.device.type,
+                coll.sn, self.device.type,
                 cpu and get_scan_lib() is not None)
         timer = PhaseTimer()
         rq = rle and cfg.replicate_reference_rle_quirk
@@ -119,7 +123,7 @@ class CMSBWT:
                                                      dev)]
                 else:
                     from ..ops.ms_jump import ms_jump_heads
-                    held = [ms_jump_heads(self.x_aug, coll.sx, dev,
+                    held = [ms_jump_heads(self.x_aug, coll, dev,
                                           lanes=cfg.lanes,
                                           window=cfg.skip_window,
                                           index=self.device_index)]

@@ -48,6 +48,9 @@ STATE_FIELDS = ("t", "length", "lb", "rb", "pos", "fin", "done", "nrec",
 
 # calls of the plain scan (the CUDA wrapper keeps its own launch count)
 REFERENCE_CALLS = {"ms_jump_scan_reference": 0}
+# uploads of a host SX for the scan (split_lanes); a Collection parsed on
+# the scan's device uploads none
+SX_UPLOADS = [0]
 
 
 def _bs_rounds(n: int) -> int:
@@ -447,16 +450,33 @@ class LaneSplit:
                                self.ends_dev.device)
 
 
-def split_lanes(sx: np.ndarray, lanes: int, window: int, device) -> LaneSplit:
-    """Cut ``sx`` into at most ``lanes`` equal chunks (the last may be
-    short) and upload it padded for the scan's window compares."""
-    sn = int(len(sx))
+def padded_sx(sx, window: int, device) -> tuple:
+    """(SX with ``window`` zero bytes after it on ``device``, sn) of a
+    numpy SX (uploaded, counted in SX_UPLOADS) or of a Collection: its
+    device SX as it lies when the parse left it on ``device`` with at
+    least ``window`` zero bytes, else its host SX uploaded."""
+    device = torch.device(device)
+    dev_sx = getattr(sx, "sx_dev", None)
+    if dev_sx is not None and sx.window >= window \
+            and dev_sx.device.type == device.type \
+            and device.index in (None, dev_sx.device.index):
+        return dev_sx[:sx.sn + window], sx.sn
+    host = np.asarray(sx.sx if hasattr(sx, "sx_dev") else sx, np.uint8)
+    SX_UPLOADS[0] += 1
+    return torch.from_numpy(np.concatenate(
+        [host, np.zeros(window, np.uint8)])).to(device), int(len(host))
+
+
+def split_lanes(sx, lanes: int, window: int, device) -> LaneSplit:
+    """Cut SX (a numpy array or a fasta.Collection) into at most ``lanes``
+    equal chunks (the last may be short), padded for the scan's window
+    compares on ``device`` (padded_sx: a Collection's device SX as it
+    lies)."""
+    sx_padded, sn = padded_sx(sx, window, device)
     lanes = max(1, min(lanes, sn))
     chunk_len = -(-sn // lanes)
     starts = (np.arange(lanes) * chunk_len).astype(np.int32)
     ends = np.minimum(starts + chunk_len, sn).astype(np.int32)
-    sx_padded = torch.from_numpy(np.concatenate(
-        [np.asarray(sx, np.uint8), np.zeros(window, np.uint8)])).to(device)
     return LaneSplit(lanes=lanes, chunk_len=chunk_len, starts=starts,
                      ends=ends, ends_dev=torch.from_numpy(ends).to(device),
                      sx_padded=sx_padded, cap=_initial_cap(chunk_len))
@@ -526,13 +546,14 @@ def _ref_pad(sa, isa, bwt, n: int, n_pad: int):
     return pad(sa), pad(isa), pad(bwt)
 
 
-def ms_jump_heads(x_aug: np.ndarray, sx: np.ndarray, device,
+def ms_jump_heads(x_aug: np.ndarray, sx, device,
                   lanes: int = 4096, window: int = 64,
                   index: DeviceIndex | None = None,
                   timer=None) -> DeviceHeadsResult:
-    """Run the jump scan end to end on ``device``; returns a
-    DeviceHeadsResult ready for engine/device_merge. ``timer`` (a
-    PhaseTimer) records the jump_index, ms_scan and compact phases."""
+    """Run the jump scan end to end on ``device`` over ``sx``, a numpy SX
+    or a fasta.Collection (its device SX read where the parse left it);
+    returns a DeviceHeadsResult ready for engine/device_merge. ``timer``
+    (a PhaseTimer) records the jump_index, ms_scan and compact phases."""
     device = torch.device(device)
 
     def phase(name):
@@ -544,7 +565,6 @@ def ms_jump_heads(x_aug: np.ndarray, sx: np.ndarray, device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    sn = int(len(sx))
     with phase("jump_index"):
         if index is None:
             index = build_device_index(np.asarray(x_aug), device)
@@ -554,6 +574,7 @@ def ms_jump_heads(x_aug: np.ndarray, sx: np.ndarray, device,
     with phase("ms_scan"):
         split = split_lanes(sx, lanes, window, device)
         sx_dev, cap = split.sx_padded, split.cap
+        sn = int(sx_dev.shape[0]) - window
         while True:
             state = ms_jump_scan(index.x_padded, index.sa, index.isa,
                                  tables, sx_dev,

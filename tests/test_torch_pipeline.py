@@ -235,8 +235,14 @@ def test_parallel_on_more_than_one_card_raises(tmp_path, monkeypatch):
     ported, is the mesh scan: with two cards (the count monkeypatched, to
     reach the decision on the CPU) the CLI hands the scan and the sharded
     merge to two ranks, which run here as gloo ranks on the CPU; bytes
-    equal to the JAX CLI's --parallel run."""
+    equal to the JAX CLI's --parallel run. The collection, which the
+    pipeline parses on the run's device, is read onto the CPU (the plain
+    parse), as no card is here."""
+    from cmsbwt_tpu_torch.io import parse
     from cmsbwt_tpu_torch.parallel import distributed
+    read_raw = parse.read_raw
+    monkeypatch.setattr(parse, "read_raw",
+                        lambda path, device: read_raw(path, "cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)

@@ -190,14 +190,17 @@ parent. Each turn runs the jump CLI ``--runs`` times (default 2) per
 shape with ``-r --no-rle-quirk`` and, at primary, plain too: every run's
 wall seconds, .log phases and output sha1 (``cli_run`` lines), the bytes
 held equal across the trees; then an ``output_ab summary {json}`` line
-with every run's wall, merge_device and write_output by shape, format
-and tree. ``--step0`` first runs step 0 in the parent's package (this
-tree's without ``--parent``): per shape parse's three parts (the native
-read and copy, io/fasta's np.nonzero of the separators,
-validate_collection's masks), the jump scan's heads, one device merge to
-warm up, then one whose run list it keeps as run_merge hands it back
-(the list's download timed apart: the two ``.cpu()`` copies and the
-int64 widening), R, the .rl_bwt's size (9 B a run), the host writer's
+with every run's wall, parse_collection, merge_device and write_output
+by shape, format and tree. ``--step0`` first runs step 0 in the parent's
+package (this tree's without ``--parent``, and then in this tree's too
+with it): per shape parse's three parts (the native read and copy,
+io/fasta's np.nonzero of the separators, validate_collection's masks)
+and, in a tree that parses on the card, the device parse's (the file
+into the pinned staging, the upload, fasta_parse with its wrapper, all
+of io/parse.load_collection; twice each), the jump scan's heads, one
+device merge to warm up, then one whose run list it keeps as run_merge
+hands it back (the list's download timed apart: the two ``.cpu()``
+copies and the int64 widening), R, the .rl_bwt's size (9 B a run), the host writer's
 time on those runs (io/native.write_rle_native) and one ``f.write`` of
 the .rl_bwt's bytes and of sn bytes from pinned memory (warm page cache;
 nothing synced to the disk): ``step0`` lines, then the jump -r CLI once.
@@ -1004,10 +1007,10 @@ def output_main(only: str | None, parent: pathlib.Path | None,
     print(f"host: {cs.host_cpu(WORK)}", flush=True)
     roots = {"this": ROOT, "parent": parent.resolve() if parent else None}
     if step0:
-        tag = "parent" if parent else "this"
-        _turn_child(tag, ["--output-child", json.dumps({
-            "step0": True, "root": str(roots[tag]), "shapes": shapes,
-            "tag": tag, "card": gpu, "runs": 1})])
+        for tag in (["parent", "this"] if parent else ["this"]):
+            _turn_child(tag, ["--output-child", json.dumps({
+                "step0": True, "root": str(roots[tag]), "shapes": shapes,
+                "tag": tag, "card": gpu, "runs": 1})])
     turns = ["this"] if parent is None else [
         "parent", "this", "this", "parent"]
     summary, digests = {}, {}
@@ -1022,9 +1025,11 @@ def output_main(only: str | None, parent: pathlib.Path | None,
                 d["sha1"])
             ph = d["phases_ms"]
             summary.setdefault(f"{d['shape']} {d['format']}", {}).setdefault(
-                tag, []).append({"wall_s": d["wall_s"],
-                                 "merge_device_ms": ph.get("merge_device"),
-                                 "write_output_ms": ph.get("write_output")})
+                tag, []).append({
+                    "wall_s": d["wall_s"],
+                    "parse_collection_ms": ph.get("parse_collection"),
+                    "merge_device_ms": ph.get("merge_device"),
+                    "write_output_ms": ph.get("write_output")})
     same = all(len(v) == 1 for v in digests.values())
     print("output_ab summary " + json.dumps(
         {"card": gpu, "same_bytes": same, "runs": summary}), flush=True)
@@ -1077,6 +1082,36 @@ def output_child(spec: dict) -> None:
                     f.unlink()
 
 
+def device_parse_split(coll_path: str, limit: int) -> dict:
+    """The device parse's parts in a tree that has it (io/parse.py; none
+    in an older tree): the file into the pinned staging (the reads'
+    seconds), its upload (the rest of read_raw, the last copy's end
+    included), the kernel through its dispatch (the line count read back
+    between its two C calls) and all of load_collection, twice each."""
+    try:
+        from cmsbwt_tpu_torch.io import parse as P
+    except ImportError:
+        return {}
+    out = {}
+    for turn in range(2):
+        raw, total_s = _sync_s(lambda: P.read_raw(coll_path, "cuda"))
+        read = dict(P.LAST_READ)
+        p, kernel_s = _sync_s(lambda: P.parse_collection_dev(raw, limit,
+                                                             64))
+        sn = p.sn
+        del raw, p
+        _, load_s = _sync_s(lambda: P.load_collection(coll_path, limit,
+                                                      "cuda", 64))
+        out[f"device_{turn}"] = {
+            "file_to_staging_s": read["read_s"],
+            "upload_s": total_s - read["read_s"],
+            "read_raw_s": total_s, "stage_s": read["stage_s"],
+            "kernel_with_wrapper_s": kernel_s,
+            "load_collection_s": load_s, "sn": sn}
+        torch.cuda.empty_cache()
+    return out
+
+
 def output_step0(dm, name: str, lst: str, gpu: str) -> None:
     """Step 0 of the output mode at one shape (see the module's
     docstring): one ``step0 {json}`` line."""
@@ -1096,8 +1131,10 @@ def output_step0(dm, name: str, lst: str, gpu: str) -> None:
         raise SystemExit(f"{name}: a collection byte outside [3, 128)")
     t3 = time.perf_counter()
     parse = {"native_read_copy_s": t1 - t0, "nonzero_s": t2 - t1,
-             "validate_masks_s": t3 - t2, "seps": len(seps)}
+             "validate_masks_s": t3 - t2, "seps": len(seps),
+             "page_cache": "warm: the file was written by this run"}
     del sx, seps, bad
+    parse.update(device_parse_split(coll_path, limit))
     x_aug, coll = load_inputs(lst)
     res, heads_s = _sync_s(lambda: mj.ms_jump_heads(x_aug, coll.sx, "cuda"))
     sn, d = coll.sn, coll.d
