@@ -196,11 +196,16 @@ every phase passed):
    and the window's zero bytes, sn, the separators, the first bad
    offset): on made files (parse_files: the CPU tests' cases, cuts among
    headers and at lines' ends, a 2 inside a line, bad bytes, and the
-   kernel's tile edges: a newline tile +- 1 byte, a header and a line
-   across three tiles, tiles with no '\n', a line tile +- 1 lines, a copy
-   warp's and a copy block's bytes +- 1) at windows 64 and 1, and on the
-   primary and 500 Mchar collection files as the pipeline reads them
-   (io/parse.read_raw, timed), timed with the wrapper, alone and beside
+   kernel's 32 KB tile edges: a tile +- 1 byte, a header and a line
+   across three tiles, tiles with no '\n', a '\n' as each tile's last
+   byte, 1-byte lines, SX of a tile's bytes +- 1, an unwrapped line over
+   five tiles, a 2 at a tile edge, bad bytes past the cut and in the
+   tail, flushing lines over a tile edge before the cut line, cuts at
+   tile edges) at windows 64 and 1, and on the primary and 500 Mchar
+   collection files and the 500 Mchar collection written one line a
+   document (unwrapped), as the pipeline reads them (io/parse.read_raw,
+   timed), timed with the wrapper, alone, by part (torch.profiler: the
+   scratch head's memset, the tile pass, the finish) and beside
    Tensor.copy_ of the bound's bytes. Every CLI run and every
    CMSBWT.transform of a path (phases 5-10) parsed its collection through
    one fasta_parse launch and no host parse (io/fasta.HOST_PARSES), and
@@ -235,8 +240,9 @@ one 1-D torch.cummax for running_fill, three Tensor.index_add_ for
 bucket_sums and torch.repeat_interleave for bwt_expand; no single
 PyTorch call computes any of the other functions, so theirs is null.
 fasta_parse's row gives the 500 Mchar collection file and, under
-``primary``, the primary's; its bound counts the file read once and SX
-written once, and no PyTorch call parses lines (library_ms null).
+``primary`` and ``unwrapped``, the primary's and the unwrapped 500 Mchar
+file's; its bound counts the file read once and SX written once, and no
+PyTorch call parses lines (library_ms null).
 rle_pack's and bwt_expand's rows give the 500 Mchar merge's runs and,
 under ``primary``, the primary merge's; their bounds count 14 B a run
 (rle_pack) and 5 B a run plus sn (bwt_expand), and bwt_expand's its
@@ -434,13 +440,15 @@ def _wrap(b: bytes, width: int = 60) -> bytes:
 
 def write_workload(d: pathlib.Path, seed: int, ref_len: int, n_docs: int,
                    snp: float, doc_len: int | None = None,
-                   n_run: int = 0) -> pathlib.Path:
+                   n_run: int = 0, width: int = 60) -> pathlib.Path:
     """Reference and collection FASTA files plus their input list, made as
     bench.py's make_workload makes them (uniform ACGT reference; each
     document a copy with max(1, ref_len * snp) random substitutions, none
     when snp is 0), so seed 42 at 2 Mbp x 10 docs x 1% is its primary.
     ``n_run`` > 0 overwrites a run of that many N bytes at a random place
-    in each document (the dense scan then takes its narrow seed)."""
+    in each document (the dense scan then takes its narrow seed). The
+    collection's lines hold ``width`` bytes; 0 writes each document on one
+    line (an unwrapped FASTA)."""
     d.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -455,7 +463,9 @@ def write_workload(d: pathlib.Path, seed: int, ref_len: int, n_docs: int,
             if n_run:
                 at = int(rng.integers(0, ref_len - n_run))
                 arr[at:at + n_run] = ord("N")
-            f.write(b">doc%d\n" % i + _wrap(arr[:doc_len].tobytes()) + b"\n")
+            body = arr[:doc_len].tobytes()
+            f.write(b">doc%d\n" % i + (_wrap(body, width) if width else body)
+                    + b"\n")
     lst = d / "input.txt"
     lst.write_text(f"{d / 'ref.fa'}\n{d / 'coll.fa'}\n")
     return lst
@@ -2962,12 +2972,10 @@ def rank_cases() -> int:
     return cases
 
 
-# fasta_parse.cu's tiles: raw bytes a newline tile, lines a line tile,
-# output bytes a copy warp and a copy block
-PARSE_NL_TILE = 16384
-PARSE_LINE_TILE = 2048
-PARSE_WARP = 2048
-PARSE_COPY_TILE = 16384
+# fasta_parse.cu's tile of raw bytes (fasta_parse_tile_bytes(), checked
+# in parse_cases) and its chunk, a thread's 16-byte load
+PARSE_TILE = 32768
+PARSE_CHUNK = 16
 PARSE_WINDOW = 64           # Config.skip_window, the jump scan's window
 NO_CUT = 1 << 62
 
@@ -2984,11 +2992,14 @@ def parse_files() -> list:
     kernel to its plain version on: the CPU tests' cases (the cut, the EOF
     separator, a 2 in a line, bad bytes, empty and header-only files, no
     '\n', an unterminated last line, 1-byte and 100 000-byte lines), and
-    the kernel's tile edges: files of a newline tile +- 1 byte, a header
-    and a line across three tiles, tiles with no '\n', a line tile +- 1
-    lines, output ranges of a copy warp and a copy block +- 1 byte, 60-byte
-    lines off the 16-byte frame."""
-    T = PARSE_NL_TILE
+    the kernel's tile edges: files of a tile +- 1 byte, a header and a
+    line across three tiles, tiles with no '\n', a '\n' as every tile's
+    last byte, 1-byte lines over a tile +- 1 byte, SX of a tile's bytes
+    +- 1, an unwrapped line over five tiles, a 2 on both sides of a tile
+    edge, bad bytes past the cut and in the unterminated tail of a
+    multi-tile file, flushing lines across a tile edge before the cut
+    line, cuts at a tile's edge, 60-byte lines off the 16-byte frame."""
+    T = PARSE_TILE
     cut = b">a\nAAAA\nCCCC\n>b\nGGGG\nTT\n"
     files = [
         ("leading_header", b">a\nACGT\n>b\nGGTT\n", (NO_CUT,)),
@@ -3012,6 +3023,12 @@ def parse_files() -> list:
     for d in (-1, 0, 1):
         body = _lines(T // 61 + 2, 60, 10 + d)
         files.append((f"newline_tile{d:+d}", body[:T + d], (NO_CUT,)))
+        files.append((f"one_byte_lines_tile{d:+d}", b"A\n" * (T // 2)
+                      + b"C" * (d + 1), (NO_CUT, T // 2)))
+        # SX of exactly a tile's bytes + d (one doc: its header's
+        # separator, its bytes, the EOF separator)
+        files.append((f"sx_tile{d:+d}", b">x\n" + b"T" * (T + d - 2)
+                      + b"\n", (NO_CUT, T)))
     files += [
         ("header_over_tiles", b">" + b"h" * (3 * T + 5) + b"\nACGT\n"
          + _lines(5, 60, 3), (NO_CUT, 3 * T)),
@@ -3019,18 +3036,21 @@ def parse_files() -> list:
          + _lines(3, 60, 4), (NO_CUT, 2 * T + 7, 3 * T + 7)),
         ("tiles_without_newline", b"A" * (5 * T + 3) + b"\n" * 3,
          (NO_CUT,)),
+        ("newline_at_tile_end", b">" + b"h" * 62 + b"\n"
+         + _lines(3 * T // 64, 63, 6), (NO_CUT, T - 100, T + 1)),
+        ("unwrapped_over_five_tiles", b">d0\n" + _lines(1, 5 * T + 9, 7)
+         + b">d1\n" + _lines(1, 77, 8), (NO_CUT, 2 * T, 5 * T + 10)),
+        ("separator_at_tile_edge", b">a\n" + b"A" * (T - 4) + b"\x02\x02"
+         + b"C" * 100 + b"\n>b\n\x02GT\n", (NO_CUT, T - 3, T - 1)),
+        ("bad_past_cut_and_in_tail", b">a\n" + b"A" * (T + 5) + b"\x00"
+         + b"A" * 10 + b"\n>b\nGG\xff", (T // 2, T + 4, T + 5, NO_CUT)),
+        ("flushes_over_tile_edge", b"A" * (T - 3) + b"\n" + b">h\n\n" * 5
+         + b"GGTT\n", tuple(range(T - 3, T + 14, 2))),
+        ("cuts_at_tile_edges", b">a\n" + _lines(1, 3 * T, 9),
+         (T - 1, T, T + 1, T + 2, 2 * T, 2 * T + 1)),
         ("off_frame_60", b">header7\n" + _lines(2000, 60, 5),
          (NO_CUT, 65_537)),
     ]
-    for d in (-1, 0, 1):
-        files.append((f"line_tile{d:+d}", b"A\n" * (PARSE_LINE_TILE + d),
-                      (NO_CUT, PARSE_LINE_TILE)))
-        # SX of exactly a copy warp's and a copy block's bytes + d (one
-        # doc: its header's separator, its bytes, the EOF separator)
-        for what, size in (("copy_warp", PARSE_WARP),
-                           ("copy_block", PARSE_COPY_TILE)):
-            files.append((f"{what}{d:+d}", b">x\n" + b"T" * (size + d - 2)
-                          + b"\n", (NO_CUT, size)))
     return files
 
 
@@ -3053,6 +3073,11 @@ def parse_cases() -> int:
     its window's zero bytes, sn, separators, the first bad offset) on
     parse_files(), each at its cuts and windows 64 and 1; returns the
     cases held."""
+    from cmsbwt_tpu_torch import kernels as K
+    tile = int(K.load()["fasta_parse"].fasta_parse_tile_bytes())
+    if tile != PARSE_TILE:
+        fail(f"fasta_parse: a {tile}-byte tile, the made files assume "
+             f"{PARSE_TILE}")
     t0 = time.perf_counter()
     n = 0
     for name, data, lims in parse_files():
@@ -3076,11 +3101,11 @@ def parse_cases() -> int:
 
 
 def parse_parts(launch, scratch_bytes: int, reps: int = 3) -> dict:
-    """fasta_parse's five kernels' mean device ms a launch (torch.profiler
-    over ``reps`` alone launches; the memsets of the result words apart),
-    or {} when the profiler sees no device time."""
+    """fasta_parse's parts in mean device ms a launch (torch.profiler over
+    ``reps`` alone launches): the scratch head's memset, the tile pass and
+    the finish; {} when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
-    scratch = [torch.zeros(max(scratch_bytes, 16), dtype=torch.uint8,
+    scratch = [torch.empty(max(scratch_bytes, 16), dtype=torch.uint8,
                            device="cuda") for _ in range(reps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3092,10 +3117,11 @@ def parse_parts(launch, scratch_bytes: int, reps: int = 3) -> dict:
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0)
-        for k in ("count_kernel", "newline_kernel", "line_kernel",
-                  "finish_kernel", "copy_kernel"):
+        for k, name in (("parse_tile_kernel", "tile_pass"),
+                        ("parse_finish_kernel", "finish"),
+                        ("Memset", "memset")):
             if k in e.key and us:
-                parts[k] = parts.get(k, 0.0) + us / 1e3 / reps
+                parts[name] = parts.get(name, 0.0) + us / 1e3 / reps
     return parts
 
 
@@ -3103,11 +3129,10 @@ def parse_case(tag: str, path: pathlib.Path) -> dict:
     """fasta_parse against its plain version (exact) on a collection file
     the smoke wrote, read onto the card as the pipeline reads it
     (io/parse.read_raw, timed), then timed with the wrapper (the dispatch
-    as the main path runs it: the line count read back between its two C
-    calls, the buffers made), alone (the two C calls into buffers made
-    before the events, each launch on its own zeroed scratch) and beside
-    Tensor.copy_ of the bound's bytes (the file read once, SX written
-    once)."""
+    as the main path runs it: the buffers made, one C call, the result
+    words read back once), alone (the C call into buffers made before the
+    events) and beside Tensor.copy_ of the bound's bytes (the file read
+    once, SX written once)."""
     from cmsbwt_tpu_torch import kernels as K
     from cmsbwt_tpu_torch.io import parse as P
     torch.cuda.synchronize()
@@ -3122,18 +3147,16 @@ def parse_case(tag: str, path: pathlib.Path) -> dict:
     r = compare("fasta_parse", tag, "parse_collection_reference", kern,
                 plain, f"F={F} bytes, sn={sn}", F + sn)
     r.pop("outputs")
-    L, res = K.fasta_parse_lines(raw)
-    work = K.fasta_parse_work(raw, L, res, PARSE_WINDOW)
-    lib = K.load()["fasta_parse"]
+    work = K.fasta_parse_work(raw, PARSE_WINDOW)
 
     def launch(scratch):
-        w = work._replace(scratch=scratch)
-        if lib.fasta_parse_count_launch(_p(raw), F, _p(w.res), _stream()) \
-                or K.fasta_parse_run(raw, F, PARSE_WINDOW, w):
+        if K.fasta_parse_run(raw, F, PARSE_WINDOW,
+                             work._replace(scratch=scratch)):
             fail("fasta_parse launch failed")
     r["alone_ms"] = alone_ms(launch, work.scratch.numel())
     if int(work.res[1]) != sn:
         fail(f"fasta_parse[{tag}]: alone, sn {int(work.res[1])} against {sn}")
+    L = int(work.res[0])
     r["parts_ms"] = parse_parts(launch, work.scratch.numel())
     r["copy_ms"] = copy_ms(F + sn)
     r["library_ms"] = None
@@ -3142,7 +3165,7 @@ def parse_case(tag: str, path: pathlib.Path) -> dict:
         f"({json.dumps(read)}); alone {r['alone_ms']:.3f} ms, with the "
         f"wrapper {r['ms']:.3f} ms, copy_ of the bound's bytes "
         f"{r['copy_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms; {L} lines; "
-        f"its kernels (ms a launch) {json.dumps(r['parts_ms'])}")
+        f"its parts (ms a launch) {json.dumps(r['parts_ms'])}")
     del raw, work
     torch.cuda.empty_cache()
     return r
@@ -3151,8 +3174,10 @@ def parse_case(tag: str, path: pathlib.Path) -> dict:
 def parse_row(paths, parsed: dict) -> dict:
     """The kernels line's row of fasta_parse: its launches in every path
     (one per CLI run and per CMSBWT.transform of a path), its times on the
-    500 Mchar collection file and, under ``primary``, on the primary's."""
-    big, prim = parsed["500M"], parsed["primary"]
+    500 Mchar collection file and, under ``primary`` and ``unwrapped``, on
+    the primary's and on the 500 Mchar collection written one line a
+    document."""
+    big = parsed["500M"]
     keys = ("bytes", "sn", "lines", "ms", "alone_ms", "plain_ms", "copy_ms",
             "bound_ms", "read_s", "parts_ms")
     return {"name": "fasta_parse", "route": "cuda",
@@ -3162,12 +3187,14 @@ def parse_row(paths, parsed: dict) -> dict:
             "launches_by_run": [
                 {"run": tag, "cli_runs": k, "launches": c["fasta_parse"]}
                 for _, tag, k, c, _, _, _ in paths],
-            "max_abs_err": max(big["err"], prim["err"]), "ms": big["ms"],
-            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": max(r["err"] for r in parsed.values()),
+            "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
             **{k: big[k] for k in ("alone_ms", "copy_ms", "bytes", "sn",
                                    "lines", "read_s", "parts_ms")},
-            "primary": {k: prim[k] for k in keys}}
+            **{tag: {k: parsed[tag][k] for k in keys}
+               for tag in ("primary", "unwrapped")}}
 
 
 def sort_row(row, name, source, replaces, merge_cases, counted, keys):
@@ -3281,6 +3308,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
                  "sx_uploads": mj.SX_UPLOADS}
 
     # phase 2: build
+    log(f"phase 2 starts at {time.perf_counter() - started:.1f} s")
     kernels.load()
     log(f"build: {kernels.BUILD['seconds']:.2f} s -> {kernels.BUILD['path']}")
     entry = ""
@@ -3293,6 +3321,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
             log(f"build: {entry}: {line.strip()}")
 
     # phase 3: the scan kernel against its plain version
+    log(f"phase 3 starts at {time.perf_counter() - started:.1f} s")
     k200k = write_workload(WORK / "k200k", 1, 200_000, 8, 0.01)
     kernel_case("200Kbp_x8_snp1%", k200k, expect_viol=False)
     kernel_case("200Kbp_x8_snp1%_cap8", k200k, cap=8, expect_viol=True)
@@ -3306,6 +3335,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
     prim = kernel_case("primary_2Mbp_x10", lst, sweep=(32768, 131072))
 
     # phase 4: the dense kernels against their plain versions
+    log(f"phase 4 starts at {time.perf_counter() - started:.1f} s")
     dense, joint = {}, {}
     for name, klst in (
             ("primary_2Mbp_x10", lst),
@@ -3330,6 +3360,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
     oracle = reference_outputs(lst)
 
     # phase 5: the jump slice through the CLI, kernel launches counted
+    log(f"phase 5 starts at {time.perf_counter() - started:.1f} s")
     # (backend, tag, CLI runs, launch counts, block tries, merge engine,
     # the kernels the path launches)
     paths = []
@@ -3570,6 +3601,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
     del jres, host, dev, want_runs, again, cap, scan_sorts, index_rank
 
     # phase 6: the dense slice through the CLI, kernel launches counted
+    log(f"phase 6 starts at {time.perf_counter() - started:.1f} s")
     run_cli("dense", "dense")
     os.environ["CMSBWT_PROFILE"] = "1"
     log("dense stages (device-synced marks, stderr):")
@@ -3607,6 +3639,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
     torch.cuda.empty_cache()
 
     # phase 7: the blocked dense scan at the primary shape
+    log(f"phase 7 starts at {time.perf_counter() - started:.1f} s")
     bc = 4 << 20
     with BlockLog(md) as blk:
         run_cli("dense", "dense_blocked", ["--block-chars", str(bc)],
@@ -3665,6 +3698,7 @@ def run_phases(card: str, kind: str, started: float) -> int:
     torch.cuda.empty_cache()
 
     # phase 8: 500 Mchars, above the card, blocks chosen by the guard
+    log(f"phase 8 starts at {time.perf_counter() - started:.1f} s")
     t0 = time.perf_counter()
     big = write_workload(WORK / "ecoli_rle", 42, 5_000_000, BIG_DOCS, 0.01)
     log(f"big: wrote 5 Mbp x {BIG_DOCS} docs in "
@@ -3762,13 +3796,16 @@ def run_phases(card: str, kind: str, started: float) -> int:
     del xb, cb
 
     # phase 9: auto, the model API, ms_dense and --parallel
+    log(f"phase 9 starts at {time.perf_counter() - started:.1f} s")
     phase9(run_cli, check_counts, reset_counts, check_heads, paths, lst,
            oracle, k200k, x_aug, coll)
 
     # phase 10: the mesh modules on the card's ranks
+    log(f"phase 10 starts at {time.perf_counter() - started:.1f} s")
     phase10(run_cli, check_counts, reset_counts, lst, x_aug, coll)
 
     # phase 11: the device merge's kernels against their plain versions
+    log(f"phase 11 starts at {time.perf_counter() - started:.1f} s")
     # (their primary and 500 Mchar cases ran in phases 5 and 8)
     t11 = time.perf_counter()
     fills = fill_cases()
@@ -3787,10 +3824,20 @@ def run_phases(card: str, kind: str, started: float) -> int:
     log(f"merge kernels: phase 11 took {time.perf_counter() - t11:.1f} s")
 
     # phase 12: the collection parse against its plain version
+    log(f"phase 12 starts at {time.perf_counter() - started:.1f} s")
     t12 = time.perf_counter()
     parse_cases()
     parsed = {tag: parse_case(tag, WORK / d / "coll.fa")
               for tag, d in (("primary", "primary"), ("500M", "ecoli_rle"))}
+    # the 500 Mchar collection again, one line a document
+    t0 = time.perf_counter()
+    write_workload(WORK / "unwrapped", 42, 5_000_000, BIG_DOCS, 0.01,
+                   width=0)
+    log(f"parse: wrote the unwrapped collection in "
+        f"{time.perf_counter() - t0:.1f} s")
+    parsed["unwrapped"] = parse_case("unwrapped",
+                                     WORK / "unwrapped" / "coll.fa")
+    shutil.rmtree(WORK / "unwrapped")
     log(f"parse: phase 12 took {time.perf_counter() - t12:.1f} s")
 
     def row(name, source, replaces, res, library_ms=None, counted=None,

@@ -193,14 +193,14 @@ def _bind(libs: dict) -> None:
     lib.bwt_expand_tiles_launch.argtypes = [P, P, LL, LL, P, P, P]
     lib = libs["fasta_parse"]
     lib.fasta_parse_scratch_bytes.restype = LL
-    lib.fasta_parse_scratch_bytes.argtypes = [LL, LL]
+    lib.fasta_parse_scratch_bytes.argtypes = [LL]
     lib.fasta_parse_result_words.restype = LL
     lib.fasta_parse_result_words.argtypes = []
-    lib.fasta_parse_count_launch.restype = I
-    lib.fasta_parse_count_launch.argtypes = [P, LL, P, P]
+    lib.fasta_parse_tile_bytes.restype = LL
+    lib.fasta_parse_tile_bytes.argtypes = []
     lib.fasta_parse_launch.restype = I
-    lib.fasta_parse_launch.argtypes = [P, LL, LL, ctypes.c_ulonglong, LL] + [
-        P] * 6 + [LL, P]
+    lib.fasta_parse_launch.argtypes = [P, LL, ctypes.c_ulonglong, LL, P, P, P,
+                                       LL, P]
 
 
 def load() -> dict:
@@ -1321,66 +1321,42 @@ def bwt_expand_cuda(run_len, run_char, sn: int):
 
 
 class ParseWork(NamedTuple):
-    """One fasta_parse call's buffers: the line records (nl int64[L], off
-    int64[L + 1], flags uint8[L]), the zeroed look-back scratch, the
-    result words and the output (F + window bytes)."""
+    """One fasta_parse call's buffers: the scratch (the look-back's and
+    the tiles' records; the C call zeroes what needs it), the result
+    words and the output (F + window bytes)."""
 
-    L: int
-    nl: torch.Tensor
-    off: torch.Tensor
-    flags: torch.Tensor
     scratch: torch.Tensor
     res: torch.Tensor
     out: torch.Tensor
 
 
-def fasta_parse_lines(raw) -> tuple:
-    """fasta_parse's first C call on a file's raw bytes (CUDA uint8[F],
-    16-byte aligned): the result words set and the file's '\\n' count
-    L read back (a synchronisation); returns (L, the result words)."""
+def fasta_parse_work(raw, window: int) -> ParseWork:
+    """The buffers of fasta_parse's C call on a file's raw bytes (CUDA
+    uint8[F], 16-byte aligned), made with torch.empty: no synchronisation."""
     dev = raw.device
     F = int(raw.numel())
     _check("raw", raw, torch.uint8, (F,), dev)
     lib = load()["fasta_parse"]
-    res = torch.empty(int(lib.fasta_parse_result_words()),
-                      dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.fasta_parse_count_launch(_ptr(raw), F, _ptr(res),
-                                           ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"fasta_parse's count launch failed: CUDA error "
-                           f"{err}")
-    return int(res[0]), res
-
-
-def fasta_parse_work(raw, L: int, res, window: int) -> ParseWork:
-    """The buffers of fasta_parse's second C call for a file of L lines."""
-    dev = raw.device
-    F = int(raw.numel())
-    lib = load()["fasta_parse"]
     e = lambda n, dt: torch.empty(n, dtype=dt, device=dev)
     return ParseWork(
-        L=L, nl=e(L, torch.int64), off=e(L + 1, torch.int64),
-        flags=e(L, torch.uint8),
-        scratch=torch.zeros(int(lib.fasta_parse_scratch_bytes(F, L)),
-                            dtype=torch.uint8, device=dev),
-        res=res, out=e(max(F + window, 1), torch.uint8))
+        scratch=e(max(int(lib.fasta_parse_scratch_bytes(F)), 16),
+                  torch.uint8),
+        res=e(int(lib.fasta_parse_result_words()), torch.int64),
+        out=e(max(F + window, 1), torch.uint8))
 
 
 def fasta_parse_run(raw, sn_limit: int, window: int, work: ParseWork) -> int:
-    """fasta_parse's second C call into ``work``'s buffers (the result
-    words as fasta_parse_lines set them); returns the CUDA error, 0 when
-    the kernels launched."""
+    """fasta_parse's C call (its tile pass and its finish) into ``work``'s
+    buffers on the current stream; returns the CUDA error, 0 when the
+    kernels launched."""
     lib = load()["fasta_parse"]
     F = int(raw.numel())
     stream = torch.cuda.current_stream(raw.device).cuda_stream
     with torch.cuda.device(raw.device):
         return lib.fasta_parse_launch(
-            _ptr(raw), F, work.L, ctypes.c_ulonglong(sn_limit), window,
-            _ptr(work.nl), _ptr(work.off), _ptr(work.flags),
-            _ptr(work.scratch), _ptr(work.res), _ptr(work.out),
-            F + window, ctypes.c_void_p(stream))
+            _ptr(raw), F, ctypes.c_ulonglong(sn_limit), window,
+            _ptr(work.scratch), _ptr(work.res), _ptr(work.out), F + window,
+            ctypes.c_void_p(stream))
 
 
 def fasta_parse_cuda(raw, sn_limit: int, window: int):
@@ -1388,14 +1364,13 @@ def fasta_parse_cuda(raw, sn_limit: int, window: int):
     uint8[F], 16-byte aligned): ``sn_limit`` the reference's _sn (0: no
     cut), ``window`` the zero bytes after SX. Returns (out uint8[F +
     window], whose first sn + window bytes are SX and the zero bytes, the
-    result words int64[8]: sn at 1, the separators at 2, the first bad
-    offset at 5, -1 for none). Same contract as
-    io/parse.parse_collection_reference; reads the line count back
-    between its two C calls and does not synchronise after the second."""
+    result words int64[8]: the '\\n' count at 0, sn at 1, the separators
+    at 2, the first bad offset at 5, -1 for none). Same contract as
+    io/parse.parse_collection_reference; one C call on the current
+    stream, no synchronisation and no read back."""
     if window < 0 or not 0 <= sn_limit < 2**64:
         raise ValueError(f"fasta_parse: window {window}, sn_limit "
                          f"{sn_limit}")
-    L, res = fasta_parse_lines(raw)
-    work = fasta_parse_work(raw, L, res, window)
+    work = fasta_parse_work(raw, window)
     _launch("fasta_parse", fasta_parse_run(raw, sn_limit, window, work))
-    return work.out, res
+    return work.out, work.res

@@ -16,6 +16,7 @@
     python3 tools/profile_slice.py --comp-groups  # compacted round by group size
     python3 tools/profile_slice.py --expand-variants [SHAPE]  # bwt_expand knobs
     python3 tools/profile_slice.py --output [SHAPE] [--parent DIR] [--step0]
+    python3 tools/profile_slice.py --parse-variants  # fasta_parse's design
 
 The jump mode, at the bench's primary shape (2 Mbp reference x 10 docs at
 1% SNP), prints, each on its own lines:
@@ -182,6 +183,16 @@ one) holds each but the diagnostic ones to bwt_expand_reference and
 times its scan, its expansion and both alone, the variants in order and
 then in reverse (``expand_variant`` lines).
 
+The parse-variants mode builds this tree's fasta_parse.cu once for each
+of PARSE_VARIANTS (text edits: its look-back's next ticket
+taken before the tile's prefix is known, 16 KB tiles, the '>' and bad-byte
+masks always exact, and diagnostic ones that take a part out), prints
+each build's registers and spills, and on the 500 Mchar collection file,
+the same collection written one line a document and the primary's holds
+each but the diagnostic ones to parse_collection_reference and times it
+alone, the variants in order and then in reverse (``parse_variant``
+lines).
+
 The output mode times the end of the device merge and the output write
 at the primary and 500 Mchar shapes (``--output primary`` or ``500M`` for
 one), one child process a turn that imports the package from one
@@ -191,13 +202,19 @@ shape with ``-r --no-rle-quirk`` and, at primary, plain too: every run's
 wall seconds, .log phases and output sha1 (``cli_run`` lines), the bytes
 held equal across the trees; then an ``output_ab summary {json}`` line
 with every run's wall, parse_collection, merge_device and write_output
-by shape, format and tree. ``--step0`` first runs step 0 in the parent's
-package (this tree's without ``--parent``, and then in this tree's too
-with it): per shape parse's three parts (the native read and copy,
+by shape, format and tree. ``--step0`` first times fasta_parse on each
+shape's collection file and on the 500 Mchar collection written one line
+a document, alone and with its wrapper, this tree's and, with
+``--parent``, that checkout's in turns, parent, this, this, parent, after
+holding both to the plain version (``parse_ab`` lines); then it runs
+step 0 in the parent's package (this tree's without ``--parent``, and
+then in this tree's too with it): per shape parse's three parts (the
+native read and copy,
 io/fasta's np.nonzero of the separators, validate_collection's masks)
 and, in a tree that parses on the card, the device parse's (the file
-into the pinned staging, the upload, fasta_parse with its wrapper, all
-of io/parse.load_collection; twice each), the jump scan's heads, one
+into the pinned staging, the upload, fasta_parse with its wrapper and
+the wrapper's parts, the kernel alone, all of io/parse.load_collection;
+twice each), the jump scan's heads, one
 device merge to warm up, then one whose run list it keeps as run_merge
 hands it back (the list's download timed apart: the two ``.cpu()``
 copies and the int64 widening), R, the .rl_bwt's size (9 B a run), the host writer's
@@ -1007,6 +1024,7 @@ def output_main(only: str | None, parent: pathlib.Path | None,
     print(f"host: {cs.host_cpu(WORK)}", flush=True)
     roots = {"this": ROOT, "parent": parent.resolve() if parent else None}
     if step0:
+        parse_ab(roots["parent"], shapes)
         for tag in (["parent", "this"] if parent else ["this"]):
             _turn_child(tag, ["--output-child", json.dumps({
                 "step0": True, "root": str(roots[tag]), "shapes": shapes,
@@ -1082,16 +1100,50 @@ def output_child(spec: dict) -> None:
                     f.unlink()
 
 
+def _parse_launcher(K, raw, limit: int, window: int = 64):
+    """(launch(scratch), scratch bytes): one tree's fasta_parse on ``raw``
+    into buffers made beforehand, with nothing read back (``K``: a
+    kernels module). The line-records design (a tree with
+    ``fasta_parse_lines``) sizes its records from the newline count it
+    reads back first, so its launch is that count's C call and the
+    second C call."""
+    F = int(raw.numel())
+    if hasattr(K, "fasta_parse_lines"):
+        L, res = K.fasta_parse_lines(raw)
+        work = K.fasta_parse_work(raw, L, res, window)
+        lib = K.load()["fasta_parse"]
+
+        def launch(scratch):
+            w = work._replace(scratch=scratch)
+            if lib.fasta_parse_count_launch(cs._p(raw), F, cs._p(w.res),
+                                            cs._stream()) \
+                    or K.fasta_parse_run(raw, limit, window, w):
+                raise SystemExit("fasta_parse launch failed")
+    else:
+        work = K.fasta_parse_work(raw, window)
+
+        def launch(scratch):
+            if K.fasta_parse_run(raw, limit, window,
+                                 work._replace(scratch=scratch)):
+                raise SystemExit("fasta_parse launch failed")
+    return launch, int(work.scratch.numel())
+
+
 def device_parse_split(coll_path: str, limit: int) -> dict:
     """The device parse's parts in a tree that has it (io/parse.py; none
     in an older tree): the file into the pinned staging (the reads'
     seconds), its upload (the rest of read_raw, the last copy's end
-    included), the kernel through its dispatch (the line count read back
-    between its two C calls) and all of load_collection, twice each."""
+    included), the kernel through its dispatch (host clock, synced), its
+    wrapper's parts (the buffers made and the C calls launched, the
+    result words read back; the line-records design also its newline
+    count's C call and read back first), the kernel alone (CUDA events
+    around its C calls into buffers made before) and all of
+    load_collection, twice each."""
     try:
         from cmsbwt_tpu_torch.io import parse as P
     except ImportError:
         return {}
+    from cmsbwt_tpu_torch import kernels as K
     out = {}
     for turn in range(2):
         raw, total_s = _sync_s(lambda: P.read_raw(coll_path, "cuda"))
@@ -1099,17 +1151,87 @@ def device_parse_split(coll_path: str, limit: int) -> dict:
         p, kernel_s = _sync_s(lambda: P.parse_collection_dev(raw, limit,
                                                              64))
         sn = p.sn
-        del raw, p
+        del p
+        parts = {}
+        if hasattr(K, "fasta_parse_lines"):
+            (L, res), parts["count_and_read_back_s"] = _sync_s(
+                lambda: K.fasta_parse_lines(raw))
+            work, parts["buffers_s"] = _sync_s(
+                lambda: K.fasta_parse_work(raw, L, res, 64))
+        else:
+            work, parts["buffers_s"] = _sync_s(
+                lambda: K.fasta_parse_work(raw, 64))
+        _, parts["launch_s"] = _sync_s(
+            lambda: K.fasta_parse_run(raw, limit, 64, work))
+        _, parts["read_back_s"] = _sync_s(lambda: work.res.cpu())
+        del work
+        alone = cs.alone_ms(*_parse_launcher(K, raw, limit))
+        del raw
         _, load_s = _sync_s(lambda: P.load_collection(coll_path, limit,
                                                       "cuda", 64))
         out[f"device_{turn}"] = {
             "file_to_staging_s": read["read_s"],
             "upload_s": total_s - read["read_s"],
             "read_raw_s": total_s, "stage_s": read["stage_s"],
-            "kernel_with_wrapper_s": kernel_s,
+            "kernel_with_wrapper_s": kernel_s, "wrapper_parts": parts,
+            "kernel_alone_ms": alone,
             "load_collection_s": load_s, "sn": sn}
         torch.cuda.empty_cache()
     return out
+
+
+def parse_ab(parent: pathlib.Path | None, shapes: list, reps: int = 5
+             ) -> None:
+    """fasta_parse of this tree against an older checkout's (``parent``,
+    its kernels module loaded beside this tree's) on each shape's
+    collection file and on the 500 Mchar collection written one line a
+    document (``unwrapped``): both held to parse_collection_reference
+    (exact), then each timed alone (CUDA events around its C calls into
+    buffers made before) and with the wrapper (its fasta_parse_cuda and
+    the result words read back, as io/parse.parse_collection_dev runs
+    it), parent, this, this, parent (this tree alone without
+    ``parent``): ``parse_ab`` lines."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.io import parse as P
+    kernels.load()
+    old = parent_merge_kernels(parent) if parent else None
+    cs.write_workload(WORK / "unwrapped", 42, 5_000_000, 100, 0.01, width=0)
+    files = [(name, str(pathlib.Path(lst).parent / "coll.fa"))
+             for name, lst in shapes] + [
+        ("unwrapped", str(WORK / "unwrapped" / "coll.fa"))]
+    trees = [("this", kernels)] if old is None else [
+        ("parent", old), ("this", kernels), ("this", kernels),
+        ("parent", old)]
+    for name, path in files:
+        raw = P.read_raw(path, "cuda")
+        F = int(raw.numel())
+        want = P.parse_collection_reference(raw, F, 64)
+        for who, K in trees[:2]:
+            out, res = K.fasta_parse_cuda(raw, F, 64)
+            r = res.cpu().tolist()
+            if r[1] != want.sn or r[2] != want.n_separators or \
+                    r[5] != want.bad or not torch.equal(
+                        out[:want.sn + 64], want.sx_padded):
+                raise SystemExit(f"parse_ab[{name}]: {who}'s fasta_parse "
+                                 "differs from the plain version")
+            del out, res
+        sn = want.sn
+        del want
+        line = {"shape": name, "bytes": F, "sn": sn, "card": card(),
+                "bound_ms": cs.bound_ms(F + sn), "turns": []}
+        for who, K in trees:
+            line["turns"].append({
+                "tree": who,
+                "alone_ms": cs.alone_ms(*_parse_launcher(K, raw, F),
+                                        reps),
+                "with_wrapper_ms": cs.cuda_ms(
+                    lambda: K.fasta_parse_cuda(raw, F, 64)[1].cpu(), reps)})
+        print("parse_ab " + json.dumps(line), flush=True)
+        del raw
+        torch.cuda.empty_cache()
+    shutil.rmtree(WORK / "unwrapped")
+    del old
+    torch.cuda.empty_cache()
 
 
 def output_step0(dm, name: str, lst: str, gpu: str) -> None:
@@ -2130,31 +2252,30 @@ EXPAND_VARIANTS = {
 }
 
 
-def expand_variant_libs(K) -> dict:
-    """Each EXPAND_VARIANTS build of this tree's run_output.cu (its edits
-    applied to a copy, the source's headers on the include path), compiled
-    at once by
-    parallel nvcc processes with the port's flags and bound with the
-    committed library's signatures; prints each build's registers and
-    spills (ptxas): {name: library}."""
+def variant_libs(K, stem: str, variants: dict, tag: str) -> dict:
+    """Each build of this tree's ``stem``.cu in ``variants`` ({name: its
+    text edits}, applied to a copy, the source's headers on the include
+    path), compiled at once by parallel nvcc processes with the port's
+    flags and bound with the committed library's signatures; prints each
+    build's registers and spills (ptxas) as ``tag`` lines: {name:
+    library}."""
     import ctypes
-    text = (K.CSRC / "run_output.cu").read_text()
-    d = WORK / "expand_variants"
+    text = (K.CSRC / f"{stem}.cu").read_text()
+    d = WORK / f"{tag}s"
     d.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, edits in EXPAND_VARIANTS.items():
+    for name, edits in variants.items():
         src = text
         for old, new in edits:
             if src.count(old) != 1:
-                raise SystemExit(f"expand variant {name}: its edit does not "
-                                 "fit")
+                raise SystemExit(f"{tag} {name}: its edit does not fit")
             src = src.replace(old, new)
         (d / f"{name}.cu").write_text(src)
         jobs[name] = subprocess.Popen(
             [K._nvcc(), *K.NVCC_FLAGS, f"-I{K.CSRC}", "-o",
              str(d / f"lib{name}.so"), str(d / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    committed = K.load()["run_output"]
+    committed = K.load()[stem]
     libs = {}
     for name, proc in jobs.items():
         out = proc.communicate()[0]
@@ -2162,8 +2283,7 @@ def expand_variant_libs(K) -> dict:
             raise SystemExit(f"nvcc failed on variant {name}:\n{out}")
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
-                print(f"expand_variant {name} ptxas: {line.strip()}",
-                      flush=True)
+                print(f"{tag} {name} ptxas: {line.strip()}", flush=True)
         lib = ctypes.CDLL(str(d / f"lib{name}.so"))
         for fname, f in vars(committed).items():
             if isinstance(f, ctypes._CFuncPtr):
@@ -2171,6 +2291,89 @@ def expand_variant_libs(K) -> dict:
                 g.restype, g.argtypes = f.restype, f.argtypes
         libs[name] = lib
     return libs
+
+
+# fasta_parse.cu's variants (text edits); diag_ ones compute something
+# else and are timed only
+_PARSE_TAKE_BODY = """      const int tn = int(atomicAdd(ticket, 1u));
+      s_next = tn;
+      if (tn < tiles) fetch_tile(raw, F, tn, smem + (buf ^ 1) * TILE,
+                                 &bars[buf ^ 1]);
+"""
+_PARSE_TAKE = "    if (threadIdx.x == 0) {\n" + _PARSE_TAKE_BODY + "    }\n"
+_PARSE_TOP = ("    __syncthreads();                             "
+              "// s_next read by all\n    if (threadIdx.x == 0) {\n")
+PARSE_VARIANTS = {
+    "committed": [],
+    # the next ticket taken (and its copy issued) as the tile starts
+    "ticket_early": [(_PARSE_TAKE, ""),
+                     (_PARSE_TOP, _PARSE_TOP + _PARSE_TAKE_BODY)],
+    "tile_16k": [("constexpr int THREADS = 512;",
+                  "constexpr int THREADS = 256;")],
+    "exact_masks": [("  if (__any_sync(FULL, odd != 0)) {", "  if (true) {")],
+    # each tile's prefix taken as known (the identity): no look-back wait
+    "diag_no_lookback": [("           agg.f >> 31));",
+                          "           agg.f >> 31), true);")],
+    # no chunk packs or writes its bytes
+    "diag_no_pack": [("      if (__popc(D) <= 2) {",
+                      "      if (D > 0xffffu) {"),
+                     ("      } else {\n        // many bytes dropped",
+                      "      } else if (D > 0xffffu) {\n        // many bytes "
+                      "dropped")],
+}
+
+
+def parse_variants_main(reps: int = 5) -> None:
+    """fasta_parse's PARSE_VARIANTS on the 500 Mchar collection file, the
+    same collection written one line a document and the primary's: each
+    but the diag_ ones held to parse_collection_reference (exact), then
+    timed alone in two rounds, the variants in order and then in reverse:
+    one ``parse_variant`` line a shape, variant and round."""
+    from cmsbwt_tpu_torch import kernels
+    from cmsbwt_tpu_torch.io import parse as P
+    libs = variant_libs(kernels, "fasta_parse", PARSE_VARIANTS,
+                        "parse_variant")
+    gpu = card()
+    files = []
+    for name, seed, ref_len, docs, snp in MERGE_SHAPES:
+        cs.write_workload(WORK / name, seed, ref_len, docs, snp)
+        files.append((name, WORK / name / "coll.fa"))
+    cs.write_workload(WORK / "unwrapped", 42, 5_000_000, 100, 0.01, width=0)
+    files.append(("unwrapped", WORK / "unwrapped" / "coll.fa"))
+    saved = kernels.load()["fasta_parse"]
+    try:
+        for name, path in files:
+            raw = P.read_raw(str(path), "cuda")
+            F = int(raw.numel())
+            want = P.parse_collection_reference(raw, F, 64)
+            for v, lib in libs.items():
+                if v.startswith("diag_"):
+                    continue
+                kernels.load()["fasta_parse"] = lib
+                out, res = kernels.fasta_parse_cuda(raw, F, 64)
+                r = res.cpu().tolist()
+                if r[1] != want.sn or r[2] != want.n_separators or \
+                        r[5] != want.bad or not torch.equal(
+                            out[:want.sn + 64], want.sx_padded):
+                    raise SystemExit(f"parse variant {v}[{name}]: differs "
+                                     "from parse_collection_reference")
+                del out, res
+            sn = want.sn
+            del want
+            names = list(libs)
+            for rnd, order in enumerate((names, names[::-1])):
+                for v in order:
+                    kernels.load()["fasta_parse"] = libs[v]
+                    print("parse_variant " + json.dumps({
+                        "shape": name, "variant": v, "round": rnd,
+                        "card": gpu, "bytes": F, "sn": sn,
+                        "bound_ms": cs.bound_ms(F + sn),
+                        "alone_ms": cs.alone_ms(*_parse_launcher(
+                            kernels, raw, F), reps)}), flush=True)
+            del raw
+            torch.cuda.empty_cache()
+    finally:
+        kernels.load()["fasta_parse"] = saved
 
 
 def expand_variants_main(only: str | None, reps: int = 5) -> None:
@@ -2186,7 +2389,8 @@ def expand_variants_main(only: str | None, reps: int = 5) -> None:
     from cmsbwt_tpu_torch.engine.pipeline import load_inputs
     from cmsbwt_tpu_torch.io import output as out_mod
     from cmsbwt_tpu_torch.ops import ms_jump as mj
-    libs = expand_variant_libs(kernels)
+    libs = variant_libs(kernels, "run_output", EXPAND_VARIANTS,
+                        "expand_variant")
     gpu = card()
     for name, seed, ref_len, docs, snp in MERGE_SHAPES:
         if only and name not in only.split(","):
@@ -2458,6 +2662,10 @@ def main() -> int:
                     help="bwt_expand's compile-time variants on a merge's "
                     "runs at primary and 500 Mchars (or at SHAPE alone), "
                     "held to the plain version and timed alone")
+    ap.add_argument("--parse-variants", action="store_true",
+                    help="fasta_parse's compile-time variants on the 500 "
+                    "Mchar, unwrapped and primary collection files, held "
+                    "to the plain version and timed alone")
     ap.add_argument("--comp-groups", action="store_true",
                     help="dense_rank_comp's round on made slices of the 500 "
                     "Mchar merge's first compacted round in groups of "
@@ -2501,6 +2709,8 @@ def main() -> int:
     try:
         if args.mesh:
             mesh_main()
+        elif args.parse_variants:
+            parse_variants_main()
         elif args.comp_groups:
             comp_groups_main(ROOT)
         elif args.output is not None:
