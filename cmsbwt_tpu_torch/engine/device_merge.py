@@ -53,7 +53,7 @@ import torch
 from ..ops.fill import running_fill, running_fill_reference
 from ..ops.sort import check_faults, compact, key_bits, stable_argsort
 from ..utils.buckets import bucket_size
-from ..utils.timing import stage_timer
+from ..utils.timing import count, span
 
 INT_MAX = 2**31 - 1
 I64_BIG = 1 << 62
@@ -947,53 +947,58 @@ def merge_device(head_t, head_pos, head_len, head_smaller, head_char,
 
     Inputs: heads padded to h_pad (valid prefix h, stream order), the
     reference index padded to n_pad, zero pads. ``want_counter`` gates the
-    counter download, needed only for the small-path debug artifact."""
+    counter download, needed only for the small-path debug artifact.
+    Each stage is a span ``merge.<stage>``; the sizes are counted as
+    ``merge.tail_pairs`` (P), ``merge.exact`` and ``merge.runs`` (R)."""
     # tail_good_dev packs (class key)*(n+1)+isa and a tie flag into one
     # int64 sort key: needs 2n(n+1) < 2^61
     if n >= 1 << 30:
         raise ValueError("device merge supports references < 2^30 chars")
-    mark = stage_timer(head_t.device)
     h_pad = int(head_t.shape[0])
     n_pad = int(ref_sa.shape[0])
-    to_next, isa_next, succ = fixup_dev(head_t, head_pos, head_len, h,
-                                        ref_isa, h_pad)
-    tails_cnt = tail_counts_dev(head_pos, to_next, h, h_pad, n_pad)
-    mark("fixup")
-    cls = group_dev(head_pos, head_len, head_smaller, to_next, isa_next,
-                    h, n, h_pad)
-    mark("group")
-    rank_to_head, sa_ord, cls_of_slot = class_ranks_dev(
-        cls, ref_isa, h, d, n, h_pad)
-    cls["cls_of_slot"] = cls_of_slot
-    head_to_rank = head_string_sa_dev(rank_to_head, h, h_pad)
-    mark("head_string_sa")
-    final_rank, bwt_heads, succ_rank, member_rank_sorted = rank_heads_dev(
-        cls, head_to_rank, head_char, succ, h, h_pad)
-    slot_base = cls["member_off"]
-    mark("rank_heads")
-    pairs = tail_pairs_count_dev(cls, h_pad)
-    total_pairs = pairs["total"]
+    with span("merge.fixup"):
+        to_next, isa_next, succ = fixup_dev(head_t, head_pos, head_len, h,
+                                            ref_isa, h_pad)
+        tails_cnt = tail_counts_dev(head_pos, to_next, h, h_pad, n_pad)
+    with span("merge.group"):
+        cls = group_dev(head_pos, head_len, head_smaller, to_next, isa_next,
+                        h, n, h_pad)
+    with span("merge.head_string_sa"):
+        rank_to_head, sa_ord, cls_of_slot = class_ranks_dev(
+            cls, ref_isa, h, d, n, h_pad)
+        cls["cls_of_slot"] = cls_of_slot
+        head_to_rank = head_string_sa_dev(rank_to_head, h, h_pad)
+    with span("merge.rank_heads"):
+        final_rank, bwt_heads, succ_rank, member_rank_sorted = \
+            rank_heads_dev(cls, head_to_rank, head_char, succ, h, h_pad)
+        slot_base = cls["member_off"]
+    with span("merge.tail_pairs_count"):
+        pairs = tail_pairs_count_dev(cls, h_pad)
+        total_pairs = pairs["total"]
+    count("merge.tail_pairs", total_pairs)
     if total_pairs >= 1 << 30:  # tail_good_dev's 63-bit pair pack
         raise ValueError("tail pair volume exceeds the int32 device merge")
     p_pad = bucket_size(total_pairs + 1)
-    mark("tail_pairs_count(P=%d)" % total_pairs)
-    counter, n_exact, exact_members, e_pidx, e_fnd, src_cls = \
-        tail_good_dev(cls, pairs, slot_base, h, n, h_pad, p_pad)
-    mark("tail_good(exact=%d)" % n_exact)
+    with span("merge.tail_good"):
+        counter, n_exact, exact_members, e_pidx, e_fnd, src_cls = \
+            tail_good_dev(cls, pairs, slot_base, h, n, h_pad, p_pad)
+    count("merge.exact", n_exact)
     if n_exact:
-        counter = tail_exact_dev(
-            counter, cls, pairs, slot_base, member_rank_sorted, cls_of_slot,
-            e_pidx, e_fnd, src_cls, n_exact, h, h_pad,
-            bucket_size(n_exact), bucket_size(max(exact_members, 1)))
-        mark("tail_exact")
-    rl, rc, n_runs = runs_emit_dev(
-        cls, sa_ord, slot_base, counter, tails_cnt, bwt_heads,
-        ref_sa, ref_isa, ref_bwt, d, n, h_pad, n_pad, rle_quirk)
-    mark("runs_emit(R=%d)" % n_runs)
+        with span("merge.tail_exact"):
+            counter = tail_exact_dev(
+                counter, cls, pairs, slot_base, member_rank_sorted,
+                cls_of_slot, e_pidx, e_fnd, src_cls, n_exact, h, h_pad,
+                bucket_size(n_exact), bucket_size(max(exact_members, 1)))
+    with span("merge.runs_emit"):
+        rl, rc, n_runs = runs_emit_dev(
+            cls, sa_ord, slot_base, counter, tails_cnt, bwt_heads,
+            ref_sa, ref_isa, ref_bwt, d, n, h_pad, n_pad, rle_quirk)
+    count("merge.runs", n_runs)
     # counterSmallerThanHead, slot-indexed (debug artifact parity,
     # ref :919-924); host layout is int64[h+1]
-    counter_np = (counter[: h + 1].cpu().numpy().astype(np.int64)
-                  if want_counter else None)
+    with span("merge.counter"):
+        counter_np = (counter[: h + 1].cpu().numpy().astype(np.int64)
+                      if want_counter else None)
     return rl, rc, counter_np
 
 

@@ -62,7 +62,7 @@ import torch
 from ..config import UINT64_MAX, Config
 from ..index.host import ReferenceIndex, build_reference_index
 from ..io import fasta, native
-from ..utils.timing import PhaseTimer, maybe_torch_trace
+from ..utils.timing import PhaseTimer
 from . import heads as heads_mod
 from . import merge as merge_mod
 from . import ranking as ranking_mod
@@ -306,7 +306,7 @@ def compute_bwt(cfg: Config, device) -> dict:
         with timer.phase("build_index"):
             dindex = build_device_index(x_aug, device)
             index = export_reference_index(dindex, x_aug)
-        with timer.phase("ms_scan"), maybe_torch_trace("ms_scan"):
+        with timer.phase("ms_scan"):
             dev = ms_scan_device(dindex, coll.sx, device, lanes=cfg.lanes,
                                  window=cfg.skip_window)
         del dindex
@@ -338,10 +338,9 @@ def compute_bwt(cfg: Config, device) -> dict:
             # the JAX rule: the accelerator's lane default over-subscribes
             # the CPU (AUTO_CPU_JUMP_LANES)
             lanes = min(lanes, AUTO_CPU_JUMP_LANES)
-        with maybe_torch_trace("ms_scan"):
-            heads = ms_jump_heads(x_aug, coll, device, lanes=lanes,
-                                  window=cfg.skip_window, index=dindex,
-                                  timer=timer)
+        heads = ms_jump_heads(x_aug, coll, device, lanes=lanes,
+                              window=cfg.skip_window, index=dindex,
+                              timer=timer)
         del dindex
     if engine != "sharded" and (follower or heads is None):
         return finish(None)
@@ -379,7 +378,7 @@ def merge_heads(engine: str, x_aug: np.ndarray, held: list, coll, rq: bool,
     from .device_merge import merge_heads_device_resident
     if isinstance(heads, DenseHeadsResult):
         heads = upload_heads_result(heads, n, device)
-    with timer.phase("merge_device"), maybe_torch_trace("merge_device"):
+    with timer.phase("merge_device"):
         run_len, run_char, counter = merge_heads_device_resident(
             heads, coll.d, rq, want_counter=want_counter)
     return PipelineResult(d=coll.d, sn=coll.sn, h=heads.h, counter=counter,
@@ -403,7 +402,7 @@ def merge_from_heads_sharded(x_aug: np.ndarray, dres, d: int, sn: int,
               "ref_sa", "ref_isa", "ref_bwt")
     arrays = [getattr(dres, f) if dres is not None else None for f in fields]
     h = dres.h if dres is not None else 0
-    with timer.phase("merge_sharded"), maybe_torch_trace("merge_sharded"):
+    with timer.phase("merge_sharded"):
         out = merge_heads_sharded(*arrays, h, len(x_aug), sn, d, rle_quirk,
                                   n_devices=n_devices, device=device)
     if out is None:
@@ -543,7 +542,7 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
         # while the global head t is assembled in int64 on the host
         cap = max(min(cfg.chunk_cap_bytes // 8, sn_bound() // 2), 1 << 12)
         block_chars = min(block_chars, cap) if block_chars else cap
-    with timer.phase("ms_scan"), maybe_torch_trace("ms_scan"):
+    with timer.phase("ms_scan"):
         if bundle is not None:
             h, sn_b, rho = (int(bundle.pop(k))
                             for k in ("h", "sn", "irreducible"))

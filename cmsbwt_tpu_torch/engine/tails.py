@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..index.host import ReferenceIndex
+from ..utils.timing import count, span
 from .heads import ClassArrays
 from .ranking import RankedHeads
 
@@ -56,12 +57,17 @@ def _combine_key(key_k: np.ndarray, isa_next: np.ndarray, n: int) -> np.ndarray:
 def position_tails(index: ReferenceIndex, classes: ClassArrays,
                    ranked: RankedHeads,
                    buffer_bytes: int | None = None) -> np.ndarray:
-    """Return counterSmallerThanHead (int64 [h+1], slot-indexed)."""
-    import os
-    import sys
-    import time
-    profile = bool(os.environ.get("CMSBWT_PROFILE"))
-    t0 = time.time()
+    """Return counterSmallerThanHead (int64 [h+1], slot-indexed). Span
+    ``tails``; counters ``tails.pairs`` and ``tails.exact`` (the numpy
+    path) or ``tails.good``, ``tails.bad`` and ``tails.skip`` (the native
+    walk's)."""
+    with span("tails"):
+        return _position_tails(index, classes, ranked, buffer_bytes)
+
+
+def _position_tails(index: ReferenceIndex, classes: ClassArrays,
+                    ranked: RankedHeads,
+                    buffer_bytes: int | None) -> np.ndarray:
     n = index.n
     h = len(ranked.member_rank_sorted)
     counter = np.zeros(h + 1, dtype=np.int64)
@@ -87,10 +93,8 @@ def position_tails(index: ReferenceIndex, classes: ClassArrays,
                                        cls_lo, cls_hi, n, h)
         if native is not None:
             counter, stats = native
-            if profile:
-                print(f"#   tails(native): total={time.time() - t0:.2f}s "
-                      f"good={stats[0]} bad={stats[1]} skip={stats[2]}",
-                      file=sys.stderr)
+            for k, v in zip(("good", "bad", "skip"), stats):
+                count("tails." + k, int(v))
             return counter
 
     # enumerate (class, interesting bucket) pairs
@@ -102,9 +106,7 @@ def position_tails(index: ReferenceIndex, classes: ClassArrays,
     total = int(cnt.sum())
     if total == 0:
         return counter
-    if profile:
-        print(f"#   tails: classes={classes.n_classes} pairs={total} "
-              f"setup={time.time() - t0:.2f}s", file=sys.stderr)
+    count("tails.pairs", total)
 
     # -b–bounded batching: each pair costs ~64 bytes of intermediates
     budget_pairs = max(_MIN_BATCH_PAIRS, int(buffer_bytes or (2 << 30)) // 64)
@@ -119,9 +121,7 @@ def position_tails(index: ReferenceIndex, classes: ClassArrays,
             classes, ranked, counter, bucket_pos, cls_lo, cls_hi,
             lo, hi, cnt, n, h, c0, c1, packed)
         c0 = c1
-    if profile:
-        print(f"#   tails: total={time.time() - t0:.2f}s exact={n_exact}",
-              file=sys.stderr)
+    count("tails.exact", n_exact)
     return counter
 
 

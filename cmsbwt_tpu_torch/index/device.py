@@ -44,6 +44,7 @@ import torch
 from ..kernels import COMP_CAP
 from ..ops.sort import (COUNT_FAULT, fault_word, key_bits, raise_faults,
                         stable_argsort)
+from ..utils.timing import span
 
 INT_MAX = 2**31 - 1
 I32 = torch.int32
@@ -492,12 +493,20 @@ def _index_tail(x, sa, isa, lcp, n: int):
 
 
 def build_device_index(x_aug: np.ndarray, device) -> DeviceIndex:
-    n = len(x_aug)
-    x = torch.from_numpy(np.ascontiguousarray(x_aug, np.uint8)).to(device)
-    sa, isa, history, _ = suffix_array_device(x, n)
-    lcp = lcp_device(sa, history, n)
-    del history
-    plcp, bwt, jump, x_padded = _index_tail(x, sa, isa, lcp, n)
+    """The reference index on ``device``. Span ``index.build``: the upload,
+    then ``index.sa`` (the doubling rounds), ``index.lcp`` and
+    ``index.tail`` (PLCP, BWT, sparse table)."""
+    with span("index.build"):
+        n = len(x_aug)
+        x = torch.from_numpy(np.ascontiguousarray(x_aug, np.uint8)).to(
+            device)
+        with span("index.sa"):
+            sa, isa, history, _ = suffix_array_device(x, n)
+        with span("index.lcp"):
+            lcp = lcp_device(sa, history, n)
+        del history
+        with span("index.tail"):
+            plcp, bwt, jump, x_padded = _index_tail(x, sa, isa, lcp, n)
     return DeviceIndex(x_padded=x_padded, n=n, sa=sa, isa=isa, lcp=lcp,
                        plcp=plcp, bwt=bwt, jump=jump)
 

@@ -29,6 +29,12 @@ write overlaps the copy and nothing but the staging pair is pinned.
 ``write_runs`` writes the file that way and ``encode_runs`` returns the
 bytes (the model API); ``LAST_WRITE`` keeps the last call's runs, bytes
 and times.
+
+Spans (utils/timing.py): ``encode.kernel`` (rle_pack or bwt_expand and
+its fault word), ``encode.download`` (copy_out; its waits for a chunk's
+copy under ``encode.download.wait``, ``sink``'s calls under
+``encode.download.take``) and ``encode.tobytes`` (encode_runs's second
+host copy); counters ``encode.bytes`` and ``encode.download.chunks``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..utils.timing import count, span
 
 # one staging buffer; two are pinned per process. Pinning is paid by the
 # first write of every process (each CLI run): 2 x 64 MiB took ~80 ms on
@@ -184,11 +192,19 @@ def copy_out(buf: torch.Tensor, sink) -> int:
     their count. A CUDA tensor goes through the pinned staging pair:
     chunk k + 1 is copied on a side stream while ``sink`` takes chunk k.
     A CPU tensor is handed over in chunks of STAGE_BYTES."""
+    with span("encode.download"):
+        n = _copy_out(buf, sink)
+    count("encode.download.chunks", (n + STAGE_BYTES - 1) // STAGE_BYTES)
+    return n
+
+
+def _copy_out(buf: torch.Tensor, sink) -> int:
     n = int(buf.numel())
     if buf.device.type != "cuda":
         view = memoryview(buf.numpy())
         for off in range(0, n, STAGE_BYTES):
-            sink(view[off:off + STAGE_BYTES])
+            with span("encode.download.take"):
+                sink(view[off:off + STAGE_BYTES])
         return n
     st = _stage(buf.device)
     side = st["stream"]
@@ -211,9 +227,11 @@ def copy_out(buf: torch.Tensor, sink) -> int:
             if k + 1 < chunks:
                 # its buffer held chunk k - 1, which sink has taken
                 enqueue(k + 1)
-            st["done"][k % 2].synchronize()
+            with span("encode.download.wait"):
+                st["done"][k % 2].synchronize()
             m = min(STAGE_BYTES, n - k * STAGE_BYTES)
-            sink(memoryview(st["bufs"][k % 2].numpy())[:m])
+            with span("encode.download.take"):
+                sink(memoryview(st["bufs"][k % 2].numpy())[:m])
     return n
 
 
@@ -223,8 +241,10 @@ def encode(run_len: torch.Tensor, run_char: torch.Tensor, rle: bool,
     rle_pack's records (``rle``) or bwt_expand's chars; recorded in
     LAST_WRITE."""
     t0 = time.perf_counter()
-    buf = (rle_pack(run_len, run_char) if rle
-           else bwt_expand(run_len, run_char, sn))
+    with span("encode.kernel"):
+        buf = (rle_pack(run_len, run_char) if rle
+               else bwt_expand(run_len, run_char, sn))
+    count("encode.bytes", int(buf.numel()))
     LAST_WRITE.clear()
     LAST_WRITE.update(runs=int(run_len.shape[0]), bytes=int(buf.numel()),
                       rle=rle, encode_ms=(time.perf_counter() - t0) * 1e3)
@@ -258,4 +278,5 @@ def encode_runs(run_len: torch.Tensor, run_char: torch.Tensor, rle: bool,
         at[0] += len(chunk)
     copy_out(buf, take)
     LAST_WRITE["copy_s"] = time.perf_counter() - t0
-    return host.tobytes()
+    with span("encode.tobytes"):
+        return host.tobytes()

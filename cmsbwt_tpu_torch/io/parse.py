@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import ALPHABET_AUGMENT_HI, ALPHABET_AUGMENT_LO, SEPARATOR
+from ..utils.timing import count, span
 from . import fasta
 
 NEWLINE, HEADER = 0x0A, 0x3E   # '\n', '>'
@@ -55,10 +56,21 @@ class Parsed(NamedTuple):
 def read_raw(path: str, device) -> torch.Tensor:
     """The file's bytes as a uint8 tensor on ``device``; on a card read in
     chunks through the pinned staging pair, each chunk's copy overlapping
-    the next chunk's read."""
+    the next chunk's read. Span ``parse.read``: the file's reads under
+    ``parse.read.file``, the waits for a chunk's copy under
+    ``parse.read.wait``; counters ``parse.bytes``, ``parse.read.chunks``."""
     dev = torch.device(device)
-    if dev.type == "cpu":
-        return torch.from_numpy(np.fromfile(path, dtype=np.uint8))
+    with span("parse.read"):
+        if dev.type == "cpu":
+            with span("parse.read.file"):
+                raw = np.fromfile(path, dtype=np.uint8)
+            count("parse.bytes", int(raw.size))
+            count("parse.read.chunks", 1)
+            return torch.from_numpy(raw)
+        return _read_raw_cuda(path, dev)
+
+
+def _read_raw_cuda(path: str, dev: torch.device) -> torch.Tensor:
     from .output import STAGE_BYTES, _stage
     t0 = time.perf_counter()
     size = os.path.getsize(path)
@@ -67,33 +79,40 @@ def read_raw(path: str, device) -> torch.Tensor:
     stage_s = time.perf_counter() - t0
     side, bufs, done = st["stream"], st["bufs"], st["done"]
     read_s = 0.0
+    chunks = 0
     with st["lock"], open(path, "rb", buffering=0) as f:
         # the side stream writes raw after the current stream made it
         side.wait_stream(torch.cuda.current_stream(dev))
         for k, off in enumerate(range(0, size, STAGE_BYTES)):
             m = min(STAGE_BYTES, size - off)
             if k >= 2:
-                done[k % 2].synchronize()   # chunk k - 2 has left it
+                with span("parse.read.wait"):
+                    done[k % 2].synchronize()   # chunk k - 2 has left it
             view = memoryview(bufs[k % 2].numpy())[:m]
             t1 = time.perf_counter()
-            got = 0
-            while got < m:
-                n = f.readinto(view[got:])
-                if not n:
-                    raise OSError(f"{path}: file ended at {off + got} of "
-                                  f"{size} bytes")
-                got += n
+            with span("parse.read.file"):
+                got = 0
+                while got < m:
+                    n = f.readinto(view[got:])
+                    if not n:
+                        raise OSError(f"{path}: file ended at {off + got} "
+                                      f"of {size} bytes")
+                    got += n
             read_s += time.perf_counter() - t1
             with torch.cuda.stream(side):
                 raw[off:off + m].copy_(bufs[k % 2][:m], non_blocking=True)
                 done[k % 2].record(side)
+            chunks += 1
         torch.cuda.current_stream(dev).wait_stream(side)
         raw.record_stream(side)
-        for e in done:      # the pair is free for the next reader or writer
-            e.synchronize()
+        with span("parse.read.wait"):
+            for e in done:  # the pair is free for the next reader or writer
+                e.synchronize()
     LAST_READ.clear()
     LAST_READ.update(bytes=size, read_s=read_s, stage_s=stage_s,
                      total_s=time.perf_counter() - t0)
+    count("parse.bytes", size)
+    count("parse.read.chunks", chunks)
     return raw
 
 
@@ -109,12 +128,14 @@ def parse_collection_dev(raw: torch.Tensor, sn_limit: int,
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
     dev = raw.device.type
     if dev == "cpu":
-        return parse_collection_reference(raw, sn_limit, window)
+        with span("parse.kernel"):
+            return parse_collection_reference(raw, sn_limit, window)
     if dev != "cuda":
         raise ValueError(f"parse_collection_dev: unsupported device {dev!r}")
     from ..kernels import fasta_parse_cuda
-    out, res = fasta_parse_cuda(raw, _limit(sn_limit), window)
-    words = res.cpu().tolist()
+    with span("parse.kernel"):
+        out, res = fasta_parse_cuda(raw, _limit(sn_limit), window)
+        words = res.cpu().tolist()
     sn, seps, bad = words[1], words[2], words[5]
     sx = out[:sn + window]
     if 2 * (sn + window) < out.numel():
@@ -192,6 +213,7 @@ def load_collection(path: str, sn_limit: int, device,
     raw = read_raw(path, device)
     p = parse_collection_dev(raw, sn_limit, window)
     del raw
+    count("sn", p.sn)
     if p.bad >= 0:
         raise ValueError(fasta.bad_byte_message(
             int(p.sx_padded[p.bad]), p.bad))

@@ -31,7 +31,7 @@ from ..engine import pipeline as pipeline_mod
 from ..engine.ms_host import MSArrays
 from ..index.host import ReferenceIndex
 from ..io import fasta
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, span
 
 
 @dataclass
@@ -53,12 +53,13 @@ class CMSBWT:
         pre-augmented uint8 array."""
         self.config = config or Config()
         self.device = pipeline_mod.resolve_device(device)
-        if isinstance(reference, str):
-            reference = fasta.load_reference_bytes(reference)
-        if isinstance(reference, (bytes, bytearray)):
-            self.x_aug = fasta.augment_reference(bytes(reference))
-        else:
-            self.x_aug = np.asarray(reference, dtype=np.uint8)
+        with span("index.load"):
+            if isinstance(reference, str):
+                reference = fasta.load_reference_bytes(reference)
+            if isinstance(reference, (bytes, bytearray)):
+                self.x_aug = fasta.augment_reference(bytes(reference))
+            else:
+                self.x_aug = np.asarray(reference, dtype=np.uint8)
         self._host_index: Optional[ReferenceIndex] = None
         self._device_index = None
 
@@ -88,7 +89,13 @@ class CMSBWT:
         on the model's device, or a fasta.Collection): ``backend``
         (default the config's), 'auto' resolved by the pipeline's rule
         (engine/pipeline.auto_backend) with the collection's length in
-        place of its file's size, as the JAX package resolves it here."""
+        place of its file's size, as the JAX package resolves it here.
+        The call is the span ``transform``."""
+        with span("transform"):
+            return self._transform(collection, rle, backend)
+
+    def _transform(self, collection, rle: bool,
+                   backend: Optional[str]) -> TransformResult:
         cfg = self.config
         if isinstance(collection, str):
             # parsed and validated on the model's device (io/parse.py)

@@ -33,7 +33,7 @@ import torch
 
 from ..config import SEPARATOR
 from ..utils.buckets import bucket_size
-from ..utils.timing import stage_timer
+from ..utils.timing import count, span
 from .fill import running_fill
 from .joint_sa import joint_suffix_array, lcp_lift
 from .sort import check_faults, key_bits, stable_argsort
@@ -403,42 +403,47 @@ def upload_bytes(a: np.ndarray, size: int, device) -> torch.Tensor:
 
 
 def _dense_stages(x_u8, sx_u8, n: int, sn: int, sep_base: int, wide: bool,
-                  mark):
+                  prefix: str):
     """The joint string of the padded reference and collection bytes and
     the stages from the joint sort to the per-position MS, each tensor
-    freed once the next stage no longer needs it. Returns (b, pos, length,
-    smaller, ref_sa, ref_isa, rho)."""
+    freed once the next stage no longer needs it, each a span
+    ``<prefix><stage>``; rho counted in ``dense.rho``. Returns (b, pos,
+    length, smaller, ref_sa, ref_isa, rho)."""
     n_pad, sn_pad = x_u8.shape[0], sx_u8.shape[0]
     m = n_pad + sn_pad
-    b, sp = _build_joint_core(x_u8, sx_u8, n, sn, sep_base, n_pad, sn_pad)
-    mark("build_joint")
-    sa, isa, hist, packs, _, split_lv = joint_suffix_array(b, sp, m, wide)
-    mark("joint_sa")
-    stats, ai_all, bi_all, lv_all = _irreducible_slots(
-        b, sp, sa, isa, split_lv, n, sn, m, n_pad)
-    del sp, split_lv
-    rho, lmax = _lift_rows(stats)
-    check_faults(b.device)    # the sorts since the last round's read
-    mark("irreducible(rho=%d)" % rho)
-    # one lift over the rho irreducible rows replaces the JAX package's
-    # per-level _lift_orchestrated (the CUDA lcp_lift kernel on a card)
-    ai = ai_all[:rho]
-    h = lcp_lift(hist, packs, ai, bi_all[:rho], lv_all[:rho], m, lmax)
-    del hist, packs, bi_all, lv_all
-    mark("lift")
-    ell = _fill_ell(h, ai, isa, m)
-    del ai_all, ai, h, isa
-    mark("fill_ell")
-    pred_pos, succ_pos, av, bv = _neighbors(sa, ell, n, m)
-    del ell
-    mark("neighbors")
-    pos, length, smaller, ref_sa, ref_isa = _assemble(
-        sa, pred_pos, succ_pos, av, bv, n, sn, m, n_pad, sn_pad)
-    mark("assemble")
+    with span(prefix + "build_joint"):
+        b, sp = _build_joint_core(x_u8, sx_u8, n, sn, sep_base, n_pad,
+                                  sn_pad)
+    with span(prefix + "joint_sa"):
+        sa, isa, hist, packs, _, split_lv = joint_suffix_array(b, sp, m,
+                                                               wide)
+    with span(prefix + "irreducible"):
+        stats, ai_all, bi_all, lv_all = _irreducible_slots(
+            b, sp, sa, isa, split_lv, n, sn, m, n_pad)
+        del sp, split_lv
+        rho, lmax = _lift_rows(stats)
+        check_faults(b.device)    # the sorts since the last round's read
+    count("dense.rho", rho)
+    with span(prefix + "lift"):
+        # one lift over the rho irreducible rows replaces the JAX
+        # package's per-level _lift_orchestrated (the CUDA lcp_lift kernel
+        # on a card)
+        ai = ai_all[:rho]
+        h = lcp_lift(hist, packs, ai, bi_all[:rho], lv_all[:rho], m, lmax)
+        del hist, packs, bi_all, lv_all
+    with span(prefix + "fill_ell"):
+        ell = _fill_ell(h, ai, isa, m)
+        del ai_all, ai, h, isa
+    with span(prefix + "neighbors"):
+        pred_pos, succ_pos, av, bv = _neighbors(sa, ell, n, m)
+        del ell
+    with span(prefix + "assemble"):
+        pos, length, smaller, ref_sa, ref_isa = _assemble(
+            sa, pred_pos, succ_pos, av, bv, n, sn, m, n_pad, sn_pad)
     return b, pos, length, smaller, ref_sa, ref_isa, rho
 
 
-def _unblocked_scan(x_aug: np.ndarray, sx: np.ndarray, device, mark):
+def _unblocked_scan(x_aug: np.ndarray, sx: np.ndarray, device):
     """The unblocked scan up to its postprocess, on ``device``: the whole
     collection as one joint string, emitting all sn positions with no
     previous pos and the collection's last byte before the first (cyclic).
@@ -450,11 +455,11 @@ def _unblocked_scan(x_aug: np.ndarray, sx: np.ndarray, device, mark):
     sx_u8 = upload_bytes(sx, sn_pad, device)
     wide = wide_seed_ok(x_u8[:n], sx_u8[:sn], m)
     b, pos, length, smaller, ref_sa, ref_isa, rho = _dense_stages(
-        x_u8, sx_u8, n, sn, 0, wide, mark)
+        x_u8, sx_u8, n, sn, 0, wide, "dense.")
     del sx_u8
-    post = _postprocess_block(b, pos, length, smaller, n, sn, -2,
-                              int(sx[sn - 1]), n_pad, sn_pad)
-    mark("postprocess")
+    with span("dense.postprocess"):
+        post = _postprocess_block(b, pos, length, smaller, n, sn, -2,
+                                  int(sx[sn - 1]), n_pad, sn_pad)
     return b, post[:5], post[5], ref_sa, ref_isa, rho, (n_pad, sn_pad, m)
 
 
@@ -463,22 +468,23 @@ def ms_dense_heads_on_device(x_aug: np.ndarray, sx: np.ndarray,
     """Dense MS of ``sx`` (non-empty) against ``x_aug`` on ``device`` whose
     result stays there for the device merge; only scalars (rho, h) reach
     the host. Equal to the JAX ms_dense_heads_on_device field for field.
-    CMSBWT_PROFILE=1 prints device-synced stage marks."""
+    Each stage is a span ``dense.<stage>`` (utils/timing.py); counter
+    ``heads``."""
     device = torch.device(device)
-    mark = stage_timer(device)
     n, sn = len(x_aug), len(sx)
     b, (pos, length, smaller, is_head, char), h, ref_sa, ref_isa, rho, \
-        (n_pad, sn_pad, _) = _unblocked_scan(x_aug, sx, device, mark)
+        (n_pad, sn_pad, _) = _unblocked_scan(x_aug, sx, device)
     h_pad = bucket_size(h + 1)
     ch_pad = min(h_pad, sn_pad + 1)
-    heads = _compact_heads_raw(pos, length, smaller, is_head, char, sn_pad,
-                               ch_pad)
-    del pos, length, smaller, is_head, char
-    mark("compact")
-    (t, pos_h, len_h, sml_h, chr_h, ref_sa, ref_isa,
-     ref_bwt) = _finish_for_merge(*heads, ref_sa, ref_isa, b, n, h, h_pad,
-                                  n_pad)
-    mark("finish")
+    with span("dense.compact"):
+        heads = _compact_heads_raw(pos, length, smaller, is_head, char,
+                                   sn_pad, ch_pad)
+        del pos, length, smaller, is_head, char
+    with span("dense.finish"):
+        (t, pos_h, len_h, sml_h, chr_h, ref_sa, ref_isa,
+         ref_bwt) = _finish_for_merge(*heads, ref_sa, ref_isa, b, n, h,
+                                      h_pad, n_pad)
+    count("heads", h)
     return DeviceHeadsResult(
         head_t=t, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
         head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,
@@ -517,7 +523,7 @@ def ms_dense(x_aug: np.ndarray, sx: np.ndarray, device="cuda",
     device = torch.device(device)
     n, sn = len(x_aug), len(sx)
     _, (pos, length, smaller, is_head, _), _, ref_sa, ref_isa, rho, \
-        (_, _, m) = _unblocked_scan(x_aug, sx, device, stage_timer(device))
+        (_, _, m) = _unblocked_scan(x_aug, sx, device)
     cut = lambda a, k: a[:k].cpu().numpy()
     ref_sa, ref_isa = cut(ref_sa, n), cut(ref_isa, n)
     ref_bwt = np.where(ref_sa > 0,
@@ -580,24 +586,9 @@ def block_pad(block_chars: int, ctx: int, window: np.ndarray) -> int:
     return bs_pad
 
 
-# stage marks of _dense_stages under the JAX blocked scan's names; the
-# unnamed ones fold into the next named one
-_BLOCK_MARKS = {"build_joint": "blk_build", "joint_sa": "blk_jsa",
-                "irreducible": "blk_irr", "fill_ell": "blk_lift",
-                "assemble": "blk_nbr_asm"}
-
-
-def _block_marks(mark):
-    def blk(name):
-        stage, paren, rest = name.partition("(")
-        if stage in _BLOCK_MARKS:
-            mark("  " + _BLOCK_MARKS[stage] + paren + rest)
-    return blk
-
-
 def _scan_block(x_u8, sx: np.ndarray, n: int, *, b0: int, end: int,
                 emit_len: int, bs_pad: int, sep_base: int, prev_pos0: int,
-                prev_b0: int, mark):
+                prev_b0: int):
     """One try of one block: the collection window sx[b0:end] against the
     resident reference ``x_u8``, the wide seed where the JAX predicate
     allows it for this window. Returns None when a match may have been cut by
@@ -606,16 +597,16 @@ def _scan_block(x_u8, sx: np.ndarray, n: int, *, b0: int, end: int,
     of the block is freed on return."""
     n_pad = x_u8.shape[0]
     window = end - b0
-    sx_u8 = upload_bytes(sx[b0:end], bs_pad, x_u8.device)
-    mark("    blk_put")
+    with span("dense.block.put"):
+        sx_u8 = upload_bytes(sx[b0:end], bs_pad, x_u8.device)
     wide = wide_seed_ok(x_u8[:n], sx_u8[:window], n_pad + bs_pad)
     b, pos, length, smaller, ref_sa, ref_isa, rho = _dense_stages(
-        x_u8, sx_u8, n, window, sep_base, wide, _block_marks(mark))
+        x_u8, sx_u8, n, window, sep_base, wide, "dense.block.")
     del sx_u8
-    pos, length, smaller, is_head, char, h, viol, last_pos = \
-        _postprocess_block(b, pos, length, smaller, n, emit_len, prev_pos0,
-                           prev_b0, n_pad, bs_pad)
-    mark("  blk_post")
+    with span("dense.block.post"):
+        pos, length, smaller, is_head, char, h, viol, last_pos = \
+            _postprocess_block(b, pos, length, smaller, n, emit_len,
+                               prev_pos0, prev_b0, n_pad, bs_pad)
     if viol and end < len(sx):
         return None
     heads = _compact_heads_raw(pos, length, smaller, is_head, char, bs_pad,
@@ -625,8 +616,7 @@ def _scan_block(x_u8, sx: np.ndarray, n: int, *, b0: int, end: int,
 
 def _block_with_retries(x_u8, sx: np.ndarray, n: int, b0: int,
                         emit_len: int, block_chars: int, ctx: int,
-                        sep_base: int, prev_pos0: int, prev_b0: int,
-                        mark):
+                        sep_base: int, prev_pos0: int, prev_b0: int):
     """_scan_block with the adaptive context: doubled until no match
     reaches the window's end, or the window reaches the collection's."""
     while True:
@@ -634,8 +624,7 @@ def _block_with_retries(x_u8, sx: np.ndarray, n: int, b0: int,
         out = _scan_block(
             x_u8, sx, n, b0=b0, end=end, emit_len=emit_len,
             bs_pad=block_pad(block_chars, ctx, sx[b0:end]),
-            sep_base=sep_base, prev_pos0=prev_pos0, prev_b0=prev_b0,
-            mark=mark)
+            sep_base=sep_base, prev_pos0=prev_pos0, prev_b0=prev_b0)
         if out is not None:
             return out
         print(f"#   block@{b0}: context overflow, retry ctx {ctx} -> "
@@ -776,10 +765,10 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
     With ``to_host`` (the route for collections at or above the int32
     bound) each block's heads go to the host once, t offset by the block
     start in int64 there, and the result is a host DenseHeadsResult: no
-    tensor on the device holds a global position. CMSBWT_PROFILE=1 prints
-    device-synced per-block stage marks."""
+    tensor on the device holds a global position. Each block is a span
+    ``dense.block`` with its stages under ``dense.block.<stage>``; counters
+    ``dense.blocks`` and ``heads``."""
     device = torch.device(device)
-    mark = stage_timer(device)
     n, sn = len(x_aug), len(sx)
     ctx_chars = _default_ctx(block_chars, ctx_chars)
     sep_cum = _SepCounter(sx)
@@ -792,47 +781,48 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
     total_rho = 0
     b0 = 0
     while b0 < sn:
-        emit_len = min(block_chars, sn - b0)
-        saved = checkpoint.load(b0) if checkpoint else None
-        heads = None
-        if saved is not None:
-            part, rho, last_pos, rsa, risa = saved
-            part = chain_block(part, b0, prev_pos0)
-            mark("  blk_load")
-        else:
-            sep_base = sep_cum.before(b0)
-            mark("    blk_sep")
-            heads, h_b, rho, last_pos, rsa, risa = _block_with_retries(
-                x_u8, sx, n, b0, emit_len, block_chars, ctx_chars, sep_base,
-                prev_pos0, prev_b0, mark)
-            # blocks are in stream order: a block's heads are its first h_b
-            # rows
-            heads = tuple(a[:h_b] for a in heads)
-            part = (_heads_to_host(heads, b0) if checkpoint or to_host
-                    else None)
+        with span("dense.block"):
+            emit_len = min(block_chars, sn - b0)
+            with span("dense.block.load"):
+                saved = checkpoint.load(b0) if checkpoint else None
+            heads = None
+            if saved is not None:
+                part, rho, last_pos, rsa, risa = saved
+                part = chain_block(part, b0, prev_pos0)
+            else:
+                with span("dense.block.sep"):
+                    sep_base = sep_cum.before(b0)
+                heads, h_b, rho, last_pos, rsa, risa = _block_with_retries(
+                    x_u8, sx, n, b0, emit_len, block_chars, ctx_chars,
+                    sep_base, prev_pos0, prev_b0)
+                # blocks are in stream order: a block's heads are its first
+                # h_b rows
+                heads = tuple(a[:h_b] for a in heads)
+                part = (_heads_to_host(heads, b0) if checkpoint or to_host
+                        else None)
+                if ref_sa is None:
+                    rsa = rsa[:n].cpu().numpy()
+                    risa = risa[:n].cpu().numpy()
+                if checkpoint:
+                    first = b0 == 0
+                    checkpoint.save(b0, part, rho, last_pos,
+                                    rsa if first else None,
+                                    risa if first else None)
+            total_rho += rho
+            if to_host:
+                parts.append(part)
+            elif heads is None:
+                parts.append(_part_to_device(part, device))
+            else:
+                parts.append((heads[0] + b0,) + heads[1:])
             if ref_sa is None:
-                rsa, risa = rsa[:n].cpu().numpy(), risa[:n].cpu().numpy()
-            if checkpoint:
-                first = b0 == 0
-                checkpoint.save(b0, part, rho, last_pos,
-                                rsa if first else None,
-                                risa if first else None)
-        total_rho += rho
-        if to_host:
-            parts.append(part)
-        elif heads is None:
-            parts.append(_part_to_device(part, device))
-        else:
-            parts.append((heads[0] + b0,) + heads[1:])
-        if ref_sa is None:
-            ref_sa, ref_isa = rsa, risa
-        del heads, part, rsa, risa
-        prev_pos0 = last_pos
-        prev_b0 = int(sx[b0 + emit_len - 1])
-        b0 += emit_len
-        progress.update(emit_len)
-        mark("block@%d(h=%d)" % (b0, len(parts[-1][0]) if not to_host
-                                 else len(parts[-1]["t"])))
+                ref_sa, ref_isa = rsa, risa
+            del heads, part, rsa, risa
+            prev_pos0 = last_pos
+            prev_b0 = int(sx[b0 + emit_len - 1])
+            b0 += emit_len
+            progress.update(emit_len)
+        count("dense.blocks", 1)
 
     if device.type == "cuda":
         # the cached segments were cut for a block's peak; what runs next
@@ -840,25 +830,27 @@ def ms_dense_heads_blocked_on_device(x_aug: np.ndarray, sx: np.ndarray,
         torch.cuda.empty_cache()
     if to_host:
         cat = lambda k: np.concatenate([p[k] for p in parts])
-        head_t = cat("t")
+        with span("dense.concat_blocks"):
+            head_t = cat("t")
         ref_bwt = np.where(ref_sa > 0, x_aug[np.maximum(ref_sa - 1, 0)],
                            np.uint8(0)).astype(np.uint8)
-        mark("concat_blocks(h=%d)" % len(head_t))
+        count("heads", len(head_t))
         return DenseHeadsResult(
             head_t=head_t, head_pos=cat("pos"), head_len=cat("length"),
             head_smaller=cat("smaller"), head_char=cat("char"),
             ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt, h=len(head_t),
             sn=sn, irreducible=total_rho)
-    cols = [torch.cat([p[k] for p in parts]) for k in range(5)]
-    del parts
-    h = int(cols[0].shape[0])
+    with span("dense.concat_blocks"):
+        cols = [torch.cat([p[k] for p in parts]) for k in range(5)]
+        del parts
+        h = int(cols[0].shape[0])
+    count("heads", h)
     h_pad = bucket_size(h + 1)
-    mark("concat_blocks(h=%d)" % h)
-    (t, pos_h, len_h, sml_h, chr_h, ref_sa, ref_isa,
-     ref_bwt) = _finish_for_merge(*cols, _ref_to_device(ref_sa, n_pad, device),
-                                  _ref_to_device(ref_isa, n_pad, device),
-                                  x_u8, n, h, h_pad, n_pad)
-    mark("finish_for_merge")
+    with span("dense.finish_for_merge"):
+        (t, pos_h, len_h, sml_h, chr_h, ref_sa, ref_isa,
+         ref_bwt) = _finish_for_merge(
+            *cols, _ref_to_device(ref_sa, n_pad, device),
+            _ref_to_device(ref_isa, n_pad, device), x_u8, n, h, h_pad, n_pad)
     return DeviceHeadsResult(
         head_t=t, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
         head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,

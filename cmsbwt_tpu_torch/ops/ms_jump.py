@@ -27,7 +27,6 @@ The scan has two forms with one contract:
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +36,7 @@ from ..config import SEPARATOR
 from ..index.device import (DeviceIndex, build_device_index,
                             sparse_table_levels)
 from ..utils.buckets import bucket_size
+from ..utils.timing import count, span
 from .ms_dense import DeviceHeadsResult
 from .sort import check_faults, key_bits, stable_argsort
 
@@ -552,26 +552,27 @@ def ms_jump_heads(x_aug: np.ndarray, sx, device,
                   timer=None) -> DeviceHeadsResult:
     """Run the jump scan end to end on ``device`` over ``sx``, a numpy SX
     or a fasta.Collection (its device SX read where the parse left it);
-    returns a DeviceHeadsResult ready for engine/device_merge. ``timer``
-    (a PhaseTimer) records the jump_index, ms_scan and compact phases."""
+    returns a DeviceHeadsResult ready for engine/device_merge. Spans
+    ``scan.tables``, ``scan.kernel`` (the scan's launches, capacity retries
+    included, counted in ``scan.attempts``) and ``scan.compact``; counter
+    ``heads``. ``timer`` (a PhaseTimer) records the same spans as its
+    jump_index, ms_scan and compact phases."""
     device = torch.device(device)
 
-    def phase(name):
-        if timer is None:
-            return contextlib.nullcontext()
-        return timer.phase(name)
+    def phase(name, sub):
+        return timer.phase(name, sub) if timer is not None else span(sub)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    with phase("jump_index"):
+    with phase("jump_index", "scan.tables"):
         if index is None:
             index = build_device_index(np.asarray(x_aug), device)
         n = index.n
         tables = scan_tables(index)
         sync()
-    with phase("ms_scan"):
+    with phase("ms_scan", "scan.kernel"):
         split = split_lanes(sx, lanes, window, device)
         sx_dev, cap = split.sx_padded, split.cap
         sn = int(sx_dev.shape[0]) - window
@@ -580,13 +581,14 @@ def ms_jump_heads(x_aug: np.ndarray, sx, device,
                                  tables, sx_dev,
                                  split.init_state(n, cap), split.ends_dev,
                                  n=n, sn=sn, cap=cap, window=window)
+            count("scan.attempts", 1)
             if not bool(state["viol"].any()):
                 break
             cap = bucket_size(cap * 2 + 1)
             if cap > max(2 * split.chunk_len, 1024):
                 raise RuntimeError("ms_jump: record capacity runaway")
         sync()
-    with phase("compact"):
+    with phase("compact", "scan.compact"):
         total = int(state["nrec"].to(torch.int64).sum())
         h_pad = min(bucket_size(total + 1), split.lanes * cap)
         t_h, pos_h, len_h, sml_h, chr_h, h = _compact_candidates(
@@ -600,6 +602,7 @@ def ms_jump_heads(x_aug: np.ndarray, sx, device,
             t_h, pos_h, len_h, sml_h, chr_h = (
                 a[:hb] for a in (t_h, pos_h, len_h, sml_h, chr_h))
         sync()
+    count("heads", h)
     return DeviceHeadsResult(
         head_t=t_h, head_pos=pos_h, head_len=len_h, head_smaller=sml_h,
         head_char=chr_h, ref_sa=ref_sa, ref_isa=ref_isa, ref_bwt=ref_bwt,

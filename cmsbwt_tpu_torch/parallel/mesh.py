@@ -29,7 +29,7 @@ import torch.distributed as dist
 from ..config import SEPARATOR
 from ..ops import ms_dense as md
 from ..utils.buckets import bucket_size
-from ..utils.timing import stage_timer
+from ..utils.timing import span
 from . import distributed
 from .dist import bcast_array, bcast_object, gather_rows, send_recv
 
@@ -50,62 +50,67 @@ def _ring(g, last_pos: int) -> int:
 def _mesh_rank(g, inputs):
     """One rank of ms_dense_heads_mesh; ``inputs`` (rank 0's): x_aug, sx,
     (block_chars, ctx_chars, checkpoint)."""
-    mark = stage_timer(g.device) if g.rank == 0 else (lambda name: None)
-    x_aug, sx, params = inputs if g.rank == 0 else (None, None, None)
-    block_chars, ctx, ckpt = bcast_object(g, params)
-    ctx = md._default_ctx(block_chars, ctx)
-    x_aug = bcast_array(g, np.asarray(x_aug, np.uint8) if g.rank == 0 else None)
-    sx = bcast_array(g, np.asarray(sx, np.uint8) if g.rank == 0 else None)
-    n, sn = len(x_aug), len(sx)
-    x_u8 = md.upload_bytes(x_aug, bucket_size(n), g.device)
-    seps = md._SepCounter(sx)
-    starts = list(range(0, sn, block_chars))
-    parts, ref_sa, ref_isa, total_rho = [], None, None, 0
-    carry = -2                        # rank 0: the block before its next
-    mark("mesh_setup")
+    with span("mesh.setup"):
+        x_aug, sx, params = inputs if g.rank == 0 else (None, None, None)
+        block_chars, ctx, ckpt = bcast_object(g, params)
+        ctx = md._default_ctx(block_chars, ctx)
+        x_aug = bcast_array(g, np.asarray(x_aug, np.uint8)
+                            if g.rank == 0 else None)
+        sx = bcast_array(g, np.asarray(sx, np.uint8)
+                         if g.rank == 0 else None)
+        n, sn = len(x_aug), len(sx)
+        x_u8 = md.upload_bytes(x_aug, bucket_size(n), g.device)
+        seps = md._SepCounter(sx)
+        starts = list(range(0, sn, block_chars))
+        parts, ref_sa, ref_isa, total_rho = [], None, None, 0
+        carry = -2                    # rank 0: the block before its next
     for w0 in range(0, len(starts), g.size):
-        bi = w0 + g.rank
-        part, rho, last_pos = None, 0, -2
-        if bi < len(starts):
-            b0 = starts[bi]
-            emit = min(block_chars, sn - b0)
-            saved = ckpt.load(b0) if ckpt else None
-            if saved is not None:
-                part, rho, last_pos, rsa, risa = saved
-            else:
-                heads, h_b, rho, last_pos, rsa, risa = md._block_with_retries(
-                    x_u8, sx, n, b0, emit, block_chars, ctx, seps.before(b0),
-                    -2, SEPARATOR if b0 == 0 else int(sx[b0 - 1]), mark)
-                part = md._heads_to_host(tuple(a[:h_b] for a in heads), b0)
-                del heads
+        with span("mesh.wave"):
+            bi = w0 + g.rank
+            part, rho, last_pos = None, 0, -2
+            if bi < len(starts):
+                b0 = starts[bi]
+                emit = min(block_chars, sn - b0)
+                saved = ckpt.load(b0) if ckpt else None
+                if saved is not None:
+                    part, rho, last_pos, rsa, risa = saved
+                else:
+                    heads, h_b, rho, last_pos, rsa, risa = \
+                        md._block_with_retries(
+                            x_u8, sx, n, b0, emit, block_chars, ctx,
+                            seps.before(b0), -2,
+                            SEPARATOR if b0 == 0 else int(sx[b0 - 1]))
+                    part = md._heads_to_host(
+                        tuple(a[:h_b] for a in heads), b0)
+                    del heads
+                    if b0 == 0:
+                        rsa = rsa[:n].cpu().numpy()
+                        risa = risa[:n].cpu().numpy()
+                    if ckpt:
+                        ckpt.save(b0, part, rho, last_pos,
+                                  rsa if b0 == 0 else None,
+                                  risa if b0 == 0 else None)
                 if b0 == 0:
-                    rsa, risa = rsa[:n].cpu().numpy(), risa[:n].cpu().numpy()
-                if ckpt:
-                    ckpt.save(b0, part, rho, last_pos,
-                              rsa if b0 == 0 else None,
-                              risa if b0 == 0 else None)
-            if b0 == 0:
-                ref_sa, ref_isa = rsa, risa
-        prev = _ring(g, last_pos)
-        if g.rank == 0:
-            prev, carry = carry, prev
-        if part is not None:
-            part = md.chain_block(part, starts[bi], prev)
-        # wave health: the wave's irreducible rows and heads, summed
-        h_b = len(part["t"]) if part is not None else 0
-        health = torch.tensor([rho, h_b], dtype=I64, device=g.device)
-        if g.size > 1:
-            dist.all_reduce(health)
-        total_rho += int(health[0])
-        cols = torch.zeros((h_b, 5), dtype=I64, device=g.device)
-        if h_b:
-            cols[:] = torch.from_numpy(np.stack(
-                [part[k].astype(np.int64) for k in md._PART_KEYS], 1)).to(
-                    g.device)
-        got = gather_rows(g, cols, h_b)
-        if got is not None:
-            parts.append(got.cpu().numpy())
-        mark("mesh_wave@%d(h=%d)" % (w0, int(health[1])))
+                    ref_sa, ref_isa = rsa, risa
+            prev = _ring(g, last_pos)
+            if g.rank == 0:
+                prev, carry = carry, prev
+            if part is not None:
+                part = md.chain_block(part, starts[bi], prev)
+            # wave health: the wave's irreducible rows and heads, summed
+            h_b = len(part["t"]) if part is not None else 0
+            health = torch.tensor([rho, h_b], dtype=I64, device=g.device)
+            if g.size > 1:
+                dist.all_reduce(health)
+            total_rho += int(health[0])
+            cols = torch.zeros((h_b, 5), dtype=I64, device=g.device)
+            if h_b:
+                cols[:] = torch.from_numpy(np.stack(
+                    [part[k].astype(np.int64) for k in md._PART_KEYS],
+                    1)).to(g.device)
+            got = gather_rows(g, cols, h_b)
+            if got is not None:
+                parts.append(got.cpu().numpy())
     if g.rank != 0:
         return None
     allh = (np.concatenate(parts) if parts

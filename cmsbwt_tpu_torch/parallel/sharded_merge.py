@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.timing import stage_timer
+from ..utils.timing import count, span
 from . import distributed
 from .dist import (all_sum, bcast_object, dcummax, dcummin_rev,
                    dcumsum, dgather, dscatter, dscatter_rows, dshift, dsort,
@@ -555,56 +555,58 @@ def _runs_emit(g, cls, sa_ord, slot_base, counter, tails_cnt, bwt_heads,
 def _merge_rank(g, inputs):
     """One rank of merge_heads_sharded: ``inputs`` (rank 0's) are the head
     records, the reference index and (h, n, sn, d, rle_quirk)."""
-    mark = stage_timer(g.device) if g.rank == 0 else (lambda name: None)
-    arrays, meta = inputs if g.rank == 0 else (None, None)
-    h, n, sn, d, rle_quirk = bcast_object(g, meta)
-    R = g.size
-    lh = -(-max(h + 2, 16) // R)
-    ln_ = -(-max(n + 2, 16) // R)
-    a = arrays or [None] * 8
-    t, pos, ln, smaller, char = (shard(g, x, lh, 0, h) for x in a[:5])
-    ref_sa, ref_isa, ref_bwt = (shard(g, x, ln_, 0, n) for x in a[5:])
-    del arrays, a, inputs
-    rounds = 1
-    while (1 << rounds) < max(lh * R, 2):
-        rounds += 1
-    mark("shm_shard")
-
-    to_next, isa_next, succ = _fixup(g, t, pos, ln, h, ref_isa)
-    tails_cnt = _tail_counts(g, pos, to_next, h, ln_)
-    cls = _group(g, t, pos, ln, smaller, to_next, isa_next, h, n)
-    del t, pos, ln, smaller, to_next, isa_next
-    mark("shm_fixup_group")
-    rank_to_head, sa_ord, cls_of_slot = _class_ranks(g, cls, ref_isa, h, d, n)
-    cls["cls_of_slot"] = cls_of_slot
-    head_to_rank = _head_string_sa(g, rank_to_head, h, rounds)
-    del rank_to_head
-    mark("shm_rank_sa")
-    _, bwt_heads, _, member_rank_sorted = _rank_heads(
-        g, cls, head_to_rank, char, succ, h)
-    del head_to_rank, char, succ
-    slot_base = cls["member_off"]
-    pairs = _tail_pairs_count(g, cls)
-    mark("shm_pairs(P=%d)" % pairs["total"])
+    with span("shm.shard"):
+        arrays, meta = inputs if g.rank == 0 else (None, None)
+        h, n, sn, d, rle_quirk = bcast_object(g, meta)
+        R = g.size
+        lh = -(-max(h + 2, 16) // R)
+        ln_ = -(-max(n + 2, 16) // R)
+        a = arrays or [None] * 8
+        t, pos, ln, smaller, char = (shard(g, x, lh, 0, h) for x in a[:5])
+        ref_sa, ref_isa, ref_bwt = (shard(g, x, ln_, 0, n) for x in a[5:])
+        del arrays, a, inputs
+        rounds = 1
+        while (1 << rounds) < max(lh * R, 2):
+            rounds += 1
+    with span("shm.fixup_group"):
+        to_next, isa_next, succ = _fixup(g, t, pos, ln, h, ref_isa)
+        tails_cnt = _tail_counts(g, pos, to_next, h, ln_)
+        cls = _group(g, t, pos, ln, smaller, to_next, isa_next, h, n)
+        del t, pos, ln, smaller, to_next, isa_next
+    with span("shm.rank_sa"):
+        rank_to_head, sa_ord, cls_of_slot = _class_ranks(g, cls, ref_isa, h,
+                                                         d, n)
+        cls["cls_of_slot"] = cls_of_slot
+        head_to_rank = _head_string_sa(g, rank_to_head, h, rounds)
+        del rank_to_head
+    with span("shm.pairs"):
+        _, bwt_heads, _, member_rank_sorted = _rank_heads(
+            g, cls, head_to_rank, char, succ, h)
+        del head_to_rank, char, succ
+        slot_base = cls["member_off"]
+        pairs = _tail_pairs_count(g, cls)
+    count("shm.tail_pairs", pairs["total"])
     lp = -(-max(pairs["total"], 16) // R)
-    counter, n_exact, exact_members, e_pidx, e_fnd, src_cls = _tail_good(
-        g, cls, pairs, slot_base, n, lp)
-    mark("shm_tail_good(exact=%d)" % n_exact)
+    with span("shm.tail_good"):
+        counter, n_exact, exact_members, e_pidx, e_fnd, src_cls = \
+            _tail_good(g, cls, pairs, slot_base, n, lp)
+    count("shm.exact", n_exact)
     if n_exact:
         lm = -(-max(exact_members, 16) // R)
-        counter = counter + _tail_exact(
-            g, cls, pairs, slot_base, member_rank_sorted, cls_of_slot,
-            e_pidx, e_fnd, src_cls, n_exact, h, lm)
-        mark("shm_tail_exact")
+        with span("shm.tail_exact"):
+            counter = counter + _tail_exact(
+                g, cls, pairs, slot_base, member_rank_sorted, cls_of_slot,
+                e_pidx, e_fnd, src_cls, n_exact, h, lm)
     del e_pidx, e_fnd, src_cls, member_rank_sorted, pairs
-    rl, rc, n_runs = _runs_emit(g, cls, sa_ord, slot_base, counter,
-                                tails_cnt, bwt_heads, ref_sa, ref_isa,
-                                ref_bwt, d, n, rle_quirk)
-    mark("shm_runs(R=%d)" % n_runs)
-    le = rl.shape[0]
-    mine = min(max(n_runs - g.rank * le, 0), le)
-    runs = gather_rows(g, torch.stack([rl, rc], 1), mine)
-    mark("shm_gather")
+    with span("shm.runs"):
+        rl, rc, n_runs = _runs_emit(g, cls, sa_ord, slot_base, counter,
+                                    tails_cnt, bwt_heads, ref_sa, ref_isa,
+                                    ref_bwt, d, n, rle_quirk)
+    count("shm.runs", n_runs)
+    with span("shm.gather"):
+        le = rl.shape[0]
+        mine = min(max(n_runs - g.rank * le, 0), le)
+        runs = gather_rows(g, torch.stack([rl, rc], 1), mine)
     if runs is None:
         return None
     runs = runs.cpu().numpy()

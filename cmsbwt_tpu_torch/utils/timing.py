@@ -1,21 +1,35 @@
-"""Phase and stage timing and tracing for the port.
+"""Spans and counters of the port, and the per-phase timer of a run.
+
+One recorder, three exporters of the same spans:
+
+* ``span(name)`` (a context manager) times its block on the host and adds
+  the seconds and one call to this thread's table ``SPANS[name] =
+  [seconds, calls]``, keyed by the full dotted name the caller gives
+  (``merge.fixup``, ``parse.read.file``). It never synchronises the card.
+* While ``torch.profiler`` records, a span opens
+  ``record_function("cmsbwt." + name)`` instead: a ``user_annotation``
+  event on the same clock as the card's kernels in the exported trace, so
+  that the card's work and its idle gaps can be charged to the innermost
+  span around them. Its time there carries the profiler's cost, so it is
+  left out of the table, which holds the spans run with the profiler off.
+  With the profiler off no ``record_function`` is entered.
+* With CMSBWT_PROFILE set (read at each span's end), a span synchronises
+  the card at its end and prints ``#   <name>: <ms> ms`` to stderr: the
+  device-synced stage times of ``_stage_timer`` in
+  cmsbwt_tpu/ops/ms_dense.py. Only then does a span synchronise.
+
+``count(name, n)`` adds ``n`` to this thread's ``COUNTS[name]``; sizes
+known only on the host (heads, tail pairs, runs) are counted there, and
+with CMSBWT_PROFILE set each count prints ``#   <name>: <n>`` to stderr
+beside the spans' lines. ``reset()`` clears both tables of the thread
+(one job's spans and counts are read between two resets).
 
 ``PhaseTimer`` is the port's copy of the one in cmsbwt_tpu/utils/timing.py:
-the per-phase wall times a run writes to its ``.log``.
-
-``stage_timer`` is the counterpart of ``_stage_timer`` in
-cmsbwt_tpu/ops/ms_dense.py: per-stage wall times printed to stderr when
-CMSBWT_PROFILE=1. Its clock is thread-local (one pipeline per thread does
-not restart another's window) and, on CUDA, each mark synchronises the
-device first so a stage is charged for its own kernels.
-
-``maybe_torch_trace`` is the counterpart of ``maybe_jax_trace``
-(cmsbwt_tpu/utils/timing.py): a torch.profiler trace of one phase, written
-under CMSBWT_TRACE_DIR when that is set.
+the per-phase wall times a run writes to its ``.log``. Each of its phases
+is a span, of the phase's name unless the caller names the span.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 import threading
@@ -23,20 +37,107 @@ import time
 
 import torch
 
-_clock = threading.local()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _Tables(threading.local):
+    def __init__(self):
+        self.spans = {}     # name -> [host seconds, calls]
+        self.counts = {}    # name -> total
+
+
+_tls = _Tables()
+
+
+def __getattr__(name: str):
+    """``SPANS`` and ``COUNTS``: the calling thread's tables."""
+    if name == "SPANS":
+        return _tls.spans
+    if name == "COUNTS":
+        return _tls.counts
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def reset() -> None:
+    """Clear this thread's spans and counts."""
+    _tls.spans.clear()
+    _tls.counts.clear()
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to this thread's ``COUNTS[name]``."""
+    c = _tls.counts
+    c[name] = c.get(name, 0) + n
+    if os.environ.get("CMSBWT_PROFILE"):
+        print(f"#   {name}: {n}", file=sys.stderr)
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class span:
+    """``with span(name):`` records the block's host seconds under
+    ``SPANS[name]``, or in the profiler's trace while it records (see the
+    module's docstring). ``seconds`` holds the block's time after it."""
+
+    __slots__ = ("name", "seconds", "_t0", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self._rf = None
+        if _profiling():
+            self._rf = torch.profiler.record_function("cmsbwt." + self.name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        profile = os.environ.get("CMSBWT_PROFILE")
+        if profile:
+            _sync()
+        dt = time.perf_counter() - self._t0
+        if profile:
+            print(f"#   {self.name}: {dt * 1e3:.1f} ms", file=sys.stderr)
+        self.seconds = dt
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            return False
+        row = _tls.spans.get(self.name)
+        if row is None:
+            _tls.spans[self.name] = [dt, 1]
+        else:
+            row[0] += dt
+            row[1] += 1
+        return False
+
+
+class _Phase(span):
+    __slots__ = ("phase", "phases")
+
+    def __init__(self, name: str, phase: str, phases: list):
+        super().__init__(name)
+        self.phase = phase
+        self.phases = phases
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.phases.append((self.phase, self.seconds))
+        return False
 
 
 class PhaseTimer:
     def __init__(self):
         self.phases: list[tuple[str, float]] = []
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases.append((name, time.perf_counter() - t0))
+    def phase(self, name: str, span_name: str | None = None) -> span:
+        """A span ``span_name`` (default ``name``) whose seconds are
+        appended to ``phases`` under ``name``."""
+        return _Phase(span_name or name, name, self.phases)
 
     def total(self) -> float:
         return sum(t for _, t in self.phases)
@@ -45,42 +146,3 @@ class PhaseTimer:
         lines = [f"{n}: {t * 1000:.1f} ms" for n, t in self.phases]
         lines.append(f"total: {self.total() * 1000:.1f} ms")
         return "\n".join(lines)
-
-
-def stage_timer(device=None):
-    """Return ``mark(name)``: print the time since the previous mark on
-    this thread (no-op unless CMSBWT_PROFILE is set)."""
-    if not os.environ.get("CMSBWT_PROFILE"):
-        return lambda name: None
-    cuda = torch.device(device).type == "cuda" if device is not None \
-        else False
-    if cuda:
-        torch.cuda.synchronize()
-    _clock.t = time.perf_counter()
-
-    def mark(name):
-        if cuda:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        print(f"#   {name}: {(now - _clock.t) * 1e3:.1f} ms",
-              file=sys.stderr)
-        _clock.t = now
-    return mark
-
-
-@contextlib.contextmanager
-def maybe_torch_trace(phase: str):
-    """torch.profiler chrome trace of one phase when CMSBWT_TRACE_DIR is
-    set (view in chrome://tracing or Perfetto)."""
-    trace_dir = os.environ.get("CMSBWT_TRACE_DIR")
-    if not trace_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(trace_dir, phase + ".json"))

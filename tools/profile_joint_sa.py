@@ -26,8 +26,9 @@ guard chooses, narrow seed, as phase 8 of chip_smoke.py and
 5. ms_dense._irreducible_slots on the outputs, timed;
 6. with ``--cli``, the dense CLI once on the 500M shape (``-r
    --no-rle-quirk``, the guard's blocks, CMSBWT_PROFILE=1): its
-   ``ms_scan`` phase and each block's ``blk_jsa`` mark, and
-   ``concat_blocks`` (the cache emptied after the last block), and
+   ``ms_scan`` phase and each block's ``dense.block.joint_sa`` span,
+   and ``dense.concat_blocks`` (the cache emptied after the last block),
+   and
    each ``torch.cuda.empty_cache`` call's ms and the segments it freed.
 
 With ``--split`` each shape's first full round's rank step is taken
@@ -603,8 +604,9 @@ def cli_500m(root: pathlib.Path, lst: str, tag: str) -> None:
         rf"{name}[^:]*: ([0-9.]+) ms", marks)]
     print("dense_cli " + json.dumps({
         "tag": tag, "wall_s": wall, "phases_ms": phases,
-        "blk_jsa_ms": get("blk_jsa"), "blk_irr_ms": get("blk_irr"),
-        "concat_blocks_ms": get("concat_blocks"),
+        "blk_jsa_ms": get("dense.block.joint_sa"),
+        "blk_irr_ms": get("dense.block.irreducible"),
+        "concat_blocks_ms": get("dense.concat_blocks"),
         "empty_cache_ms_segments": empties}), flush=True)
     for f in WORK.glob(f"cli_{tag}*"):
         f.unlink()
