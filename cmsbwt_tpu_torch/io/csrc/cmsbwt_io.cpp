@@ -1,6 +1,7 @@
 // Native runtime IO of the PyTorch port: the streaming collection
-// parser, the output writers of the host and sharded merge routes, and
-// the host merge's parallel sorts, searches, tail walk and run expansion
+// parser, the output writers of the host and sharded merge routes, the
+// host merge's parallel sorts, searches, tail walk and run expansion, and
+// the device writer's copy into the returned bytes (cms_copy_into)
 // (cmsbwt_tpu_torch/io/native.py). The host-side runtime that the
 // reference implements in C++ (parsing: CMS-BWT-functions.cpp:344-559,
 // writers: :939-1085), kept off the Python interpreter.
@@ -8,7 +9,8 @@
 // The port's own copy of the JAX package's native/cmsbwt_io.cpp, the
 // same in behaviour: the host merge's files stay byte for byte those of
 // the JAX package. The device merge writes its files through the card
-// instead (cmsbwt_tpu_torch/io/output.py).
+// instead (cmsbwt_tpu_torch/io/output.py); cms_copy_into, its host copy,
+// is the port's own.
 //
 // Exposed as a C ABI consumed via ctypes (no pybind11 in the image).
 #include <cstdint>
@@ -387,4 +389,59 @@ extern "C" int64_t cms_fill_class_ranks(int64_t n_classes,
       rank_to_head[member_head[k]] = v;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The output's one host copy (io/output.encode_runs): n bytes of a pinned
+// staging chunk at src copied to dst + off, where dst is a Python bytes
+// object of dst_bytes made uninitialised. The copy cannot go: the result
+// is pageable memory that the bytes object owns. What costs is the first
+// touch of its pages, so with the first chunk (off == 0) the result's
+// 2 MiB-aligned interior is advised MADV_HUGEPAGE (this process's own
+// memory; nothing happens where the host's transparent hugepages are
+// `never`), and nthreads threads each copy, and so fault, their own slice
+// of the chunk, cut at 2 MiB boundaries of dst (at 4 KiB ones where the
+// slices are smaller). Returns the threads of the copy.
+// ---------------------------------------------------------------------------
+#include <sys/mman.h>
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
+extern "C" int64_t cms_copy_into(uint8_t *dst, int64_t dst_bytes,
+                                 int64_t off, const uint8_t *src, int64_t n,
+                                 int32_t nthreads) {
+  const uintptr_t huge = (uintptr_t)2 << 20;
+  const uintptr_t base = (uintptr_t)dst;
+#ifdef MADV_HUGEPAGE
+  if (off == 0) {
+    const uintptr_t lo = (base + huge - 1) & ~(huge - 1);
+    const uintptr_t hi = (base + (uintptr_t)dst_bytes) & ~(huge - 1);
+    if (hi > lo) madvise((void *)lo, hi - lo, MADV_HUGEPAGE);
+  }
+#endif
+  const uintptr_t a = base + (uintptr_t)off, b = a + (uintptr_t)n;
+  int64_t used = 1;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(nthreads < 1 ? 1 : nthreads)
+  {
+    const int64_t T = omp_get_num_threads(), t = omp_get_thread_num();
+    // thread k's slice starts at its share of n, moved down to a page
+    // boundary of dst: a huge page's where the slices hold one, so that
+    // no two threads fault one huge page
+    const uintptr_t page = (uintptr_t)(n / T) >= huge ? huge : 4096;
+    auto cut = [&](int64_t k) -> uintptr_t {
+      if (k >= T) return b;
+      const uintptr_t p = (a + (uintptr_t)(n * k / T)) & ~(page - 1);
+      return p < a ? a : p;
+    };
+    const uintptr_t s = cut(t), e = cut(t + 1);
+    if (e > s) memcpy((void *)s, src + (s - a), e - s);
+    if (t == 0) used = T;
+  }
+#else
+  (void)nthreads;
+  memcpy((void *)a, src, (size_t)(b - a));
+#endif
+  return used;
 }

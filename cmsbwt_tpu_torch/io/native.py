@@ -1,14 +1,16 @@
 """ctypes bindings for the native runtimes — the port's copy of
 cmsbwt_tpu/io/native.py: the IO runtime (csrc/cmsbwt_io.cpp: parse,
-the host and sharded merges' writers, and the host merge's parallel
-sorts, searches, tail walk and run expansion) and the MS scan engine
+the host and sharded merges' writers, the host merge's parallel sorts,
+searches, tail walk and run expansion, and the device writer's copy into
+its result) and the MS scan engine
 (csrc/cmsbwt_scan.cpp, the ``native`` backend). Both sources are the
 port's own copies of the JAX package's native/ files, beside this module.
 
 Each shared library is built on demand with g++ into ``$CMSBWT_NATIVE_DIR``
 (default: ``build/`` beside this file); every entry point has a numpy
 fallback (io/fasta.py, engine/merge.py, engine/tails.py, the spec scan of
-engine/ms_host.py) so the port works without a toolchain.
+engine/ms_host.py; the copy's is ``ctypes.memmove`` in io/output.py) so
+the port works without a toolchain.
 """
 from __future__ import annotations
 
@@ -126,6 +128,28 @@ def write_rle_native(path: str, run_len: np.ndarray,
         path.encode(), rl.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         rc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(rl))
     return r >= 0
+
+
+def copy_into_native(dst: int, dst_bytes: int, off: int, src: int, n: int,
+                     threads: int):
+    """The device writer's host copy (``cms_copy_into``, the GIL released
+    as ctypes releases it): ``n`` bytes at address ``src`` to ``dst + off``
+    of a result of ``dst_bytes`` at ``dst``, by ``threads`` threads; the
+    first chunk (``off == 0``) advises the result's 2 MiB-aligned interior
+    MADV_HUGEPAGE before its pages are touched. Returns the threads of the
+    copy, or None (nothing copied) without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if not hasattr(lib, "_copy_into_bound"):
+        lib.cms_copy_into.restype = ctypes.c_int64
+        lib.cms_copy_into.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+        lib._copy_into_bound = True
+    if not (0 <= off and 0 < n and off + n <= dst_bytes):
+        raise ValueError(f"copy_into: {n} bytes at {off} of {dst_bytes}")
+    return int(lib.cms_copy_into(dst, dst_bytes, off, src, n, threads))
 
 
 def position_tails_native(classes, cls_combo, slot_base, member_rank,

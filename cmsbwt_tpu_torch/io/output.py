@@ -27,17 +27,26 @@ pinned staging pair made once per process (2 x STAGE_BYTES): chunk k + 1
 is copied on a side stream while ``sink`` takes chunk k, so the file
 write overlaps the copy and nothing but the staging pair is pinned.
 ``write_runs`` writes the file that way and ``encode_runs`` returns the
-bytes (the model API); ``LAST_WRITE`` keeps the last call's runs, bytes
-and times.
+bytes (the model API) in one host copy: a ``bytes`` object of the
+output's size is made once, uninitialised, and each staged chunk is
+copied straight to its offset in it by a few threads of the native
+library (io/native.copy_into_native), which first advises the result
+into huge pages. That copy cannot go: the result is pageable memory the
+``bytes`` owns, and pinning the output's size every call costs more than
+the copy. ``LAST_WRITE`` keeps the last call's runs, bytes and times.
 
 Spans (utils/timing.py): ``encode.kernel`` (rle_pack or bwt_expand and
 its fault word), ``encode.download`` (copy_out; its waits for a chunk's
 copy under ``encode.download.wait``, ``sink``'s calls under
-``encode.download.take``) and ``encode.tobytes`` (encode_runs's second
-host copy); counters ``encode.bytes`` and ``encode.download.chunks``.
+``encode.download.take``: encode_runs's copy into its result); counters
+``encode.bytes``, ``encode.download.chunks`` and ``encode.result.threads``
+(the threads of encode_runs's copy; 0 where nothing went through the
+native library: its ``ctypes.memmove`` fallback, an empty output).
 """
 from __future__ import annotations
 
+import ctypes
+import os
 import threading
 import time
 
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from ..utils.timing import count, span
+from . import native
 
 # one staging buffer; two are pinned per process. Pinning is paid by the
 # first write of every process (each CLI run): 2 x 64 MiB took ~80 ms on
@@ -52,6 +62,12 @@ from ..utils.timing import count, span
 # copy's rate while the file write of the chunk before it runs
 STAGE_BYTES = 16 << 20
 REC = 9                  # an .rl_bwt record: uint64 LE length, char
+# encode_runs's copy into its result: a thread copies, and faults, at
+# least one huge page of a chunk. On the H100's host the first touch of
+# fresh pages is the cost, and more than 4 threads took it no faster
+# (374 MB: 1 thread 152-158 ms, 2 94-102, 4 79-96, 8 82-103; PERF.md)
+RESULT_SLICE = 2 << 20
+RESULT_MAX_THREADS = 4
 LEN_FAULT, CHAR_FAULT, SUM_FAULT = 1, 2, 4   # run_output.cu's fault bits
 
 # calls of the plain versions (the CUDA wrappers keep their own launch
@@ -64,6 +80,14 @@ LAST_WRITE: dict = {}
 
 _lock = threading.Lock()
 _staging: dict = {}
+
+# CPython's C API: a bytes object of n bytes left uninitialised, and the
+# address of its buffer
+_new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p,
+                               ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_bytes_at = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
 
 
 def check_fault(fault, what: str) -> None:
@@ -264,19 +288,41 @@ def write_runs(path: str, run_len: torch.Tensor, run_char: torch.Tensor,
     return n
 
 
+def result_threads(chunk: int) -> int:
+    """Threads of encode_runs's copy of a ``chunk``-byte chunk: one per
+    RESULT_SLICE of it, no more than the CPUs this process may run on,
+    at most RESULT_MAX_THREADS, at least one."""
+    return max(1, min(len(os.sched_getaffinity(0)), chunk // RESULT_SLICE,
+                      RESULT_MAX_THREADS))
+
+
 def encode_runs(run_len: torch.Tensor, run_char: torch.Tensor, rle: bool,
                 sn: int) -> bytes:
     """The .rl_bwt (``rle``) or .bwt bytes of a merged run list, encoded
-    where the runs lie and brought to the host through copy_out."""
+    where the runs lie and brought to the host through copy_out with one
+    host copy: each staged chunk goes straight to its offset in the
+    returned ``bytes``, made uninitialised and filled before anything
+    sees it (a new object every call). The native library copies with
+    ``result_threads`` threads and advises the result into huge pages
+    first; without it, ``ctypes.memmove`` copies on this thread."""
     buf = encode(run_len, run_char, rle, sn)
     t0 = time.perf_counter()
-    host = np.empty(int(buf.numel()), dtype=np.uint8)
-    at = [0]
+    n = int(buf.numel())
+    out = _new_bytes(None, n)
+    dst = _bytes_at(out)
+    threads = result_threads(min(n, STAGE_BYTES))
+    at, used = 0, 0
 
     def take(chunk):
-        host[at[0]:at[0] + len(chunk)] = np.frombuffer(chunk, np.uint8)
-        at[0] += len(chunk)
+        nonlocal at, used
+        src = np.frombuffer(chunk, np.uint8).ctypes.data
+        got = native.copy_into_native(dst, n, at, src, len(chunk), threads)
+        if got is None:
+            ctypes.memmove(dst + at, src, len(chunk))
+        else:
+            used = max(used, got)
+        at += len(chunk)
     copy_out(buf, take)
+    count("encode.result.threads", used)
     LAST_WRITE["copy_s"] = time.perf_counter() - t0
-    with span("encode.tobytes"):
-        return host.tobytes()
+    return out

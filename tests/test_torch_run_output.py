@@ -13,11 +13,14 @@ char-0 run, runs longer than a kernel tile, R at the kernels' tile sizes
 +- 1); the faults (an unmerged list, a length of 0, lengths that do not
 sum to sn) raise and write no file; the CLI on --device cpu writes
 through this path bytes equal to the JAX CLI's, with no run array
-downloaded; CMSBWT.transform's bytes on this path equal the JAX model's.
+downloaded; CMSBWT.transform's bytes on this path equal the JAX model's;
+encode_runs's one host copy, native or by ctypes.memmove, gives a new
+bytes object equal to the JAX writers' at every chunking.
 Tolerance: exact bytes."""
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -37,7 +40,8 @@ from cmsbwt_tpu_torch.cli import main as port_main
 from cmsbwt_tpu_torch.config import Config
 from cmsbwt_tpu_torch.engine import device_merge as tm
 from cmsbwt_tpu_torch.engine import pipeline as tp
-from cmsbwt_tpu_torch.io import output
+from cmsbwt_tpu_torch.io import native, output
+from cmsbwt_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -200,6 +204,94 @@ def test_copy_out_chunks(tmp_path, monkeypatch):
         output.LAST_WRITE["bytes"] == n
     assert output.encode_runs(t_len, t_chr, rle=True, sn=n) == \
         runs_to_rle(ln, ch)
+
+
+def _vm_flags(addr):
+    """The VmFlags of this process's mapping that holds ``addr``."""
+    lo = None
+    for line in open("/proc/self/smaps"):
+        head = line.split()[0]
+        if "-" in head and ":" not in head:
+            a, b = (int(x, 16) for x in head.split("-"))
+            lo = a <= addr < b
+        elif lo and head == "VmFlags:":
+            return line.split()[1:]
+    return None
+
+
+@pytest.fixture(params=["native", "memmove"])
+def copy_route(request, monkeypatch):
+    """encode_runs's copy into its result: the native library's threads, or
+    ctypes.memmove with the library made unavailable."""
+    if request.param == "memmove":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    else:
+        assert native.get_lib() is not None, "the native library did not build"
+    return request.param
+
+
+@pytest.mark.parametrize("rle,R,stage", [
+    (True, 1000, 1000),          # 9 000 bytes: 9 whole chunks
+    (True, 1001, 1000),          # 9 009 bytes: a short last chunk
+    (True, 0, 1000),             # R = 0: the single (0, 0) record
+    (False, 700, 1000),          # the .bwt, a short last chunk
+    (True, 600_000, 1 << 20),    # 5.4 MB: whole huge pages of the result
+    (False, 900_000, 1 << 20),   # the .bwt, 5.8 MB
+], ids=["rle_exact", "rle_ragged", "rle_one_record", "plain_ragged",
+        "rle_above_huge", "plain_above_huge"])
+def test_encode_runs_one_copy_into_bytes(monkeypatch, copy_route, rle, R,
+                                         stage):
+    """encode_runs returns a bytes object equal byte for byte to the JAX
+    writers' (runs_to_rle / runs_to_plain) at every chunking, by either
+    copy; the native copy runs result_threads threads (several here: a
+    small RESULT_SLICE), counted in encode.result.threads, and advises the
+    result's aligned interior into huge pages where the host has them."""
+    monkeypatch.setattr(output, "STAGE_BYTES", stage)
+    monkeypatch.setattr(output, "RESULT_SLICE", 64)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(8)))
+    ln, ch = _made_runs(R, R + 3)
+    t_len, t_chr = _as_torch(ln, ch)
+    timing.reset()
+    out = output.encode_runs(t_len, t_chr, rle=rle, sn=int(ln.sum()))
+    assert type(out) is bytes
+    assert out == (runs_to_rle(ln, ch) if rle else runs_to_plain(ln, ch))
+    threads = timing.COUNTS["encode.result.threads"]
+    assert threads == ((1 if R == 0 else output.RESULT_MAX_THREADS)
+                       if copy_route == "native" else 0)
+    huge = 2 << 20
+    base = output._bytes_at(out)
+    interior = (base + huge - 1) // huge * huge
+    if (copy_route == "native" and interior + huge <= base + len(out) and
+            os.path.exists("/sys/kernel/mm/transparent_hugepage/enabled")):
+        assert "hg" in _vm_flags(interior)
+
+
+def test_encode_runs_returns_a_new_object_each_call(copy_route):
+    """Two calls in a row give two distinct bytes objects, and the second
+    leaves the first as it was: nothing is pooled between calls."""
+    ln, ch = _made_runs(5000, 1)
+    ln2 = np.roll(ln, 7)
+    ch2 = CHARS[(np.searchsorted(CHARS, ch) + 1) % len(CHARS)]
+    first = output.encode_runs(*_as_torch(ln, ch), rle=True,
+                               sn=int(ln.sum()))
+    second = output.encode_runs(*_as_torch(ln2, ch2), rle=True,
+                                sn=int(ln2.sum()))
+    assert first is not second and len(first) == len(second)
+    assert first == runs_to_rle(ln, ch)
+    assert second == runs_to_rle(ln2, ch2) != first
+
+
+@pytest.mark.parametrize("cpus,chunk,want", [
+    (8, 16 << 20, 4),        # the 16 MiB chunk on an 8-CPU host: the cap
+    (2, 16 << 20, 2),        # fewer CPUs than the cap
+    (8, 5 << 20, 2),         # a chunk of two whole huge pages
+    (8, 1000, 1),            # a small chunk: one thread
+])
+def test_result_threads_follow_cpus_and_chunk(monkeypatch, cpus, chunk,
+                                              want):
+    monkeypatch.setattr(os, "sched_getaffinity",
+                        lambda pid: set(range(cpus)))
+    assert output.result_threads(chunk) == want
 
 
 def test_pipeline_result_downloads_when_read():

@@ -54,7 +54,6 @@ NESTING = {
     "encode.kernel": "encode",
     "encode.download": "encode",
     "encode.download.take": "encode.download",
-    "encode.tobytes": "encode",
 }
 # spans only a card's route has: the waits for a staged chunk's copy
 CARD_ONLY = {"parse.read.wait": "parse.read",
@@ -62,7 +61,7 @@ CARD_ONLY = {"parse.read.wait": "parse.read",
 MERGE_STAGES = [n for n, p in NESTING.items() if p == "merge_device"]
 COUNTERS = ["parse.bytes", "sn", "parse.read.chunks", "scan.attempts",
             "heads", "merge.tail_pairs", "merge.exact", "merge.runs",
-            "encode.bytes", "encode.download.chunks"]
+            "encode.bytes", "encode.download.chunks", "encode.result.threads"]
 
 
 @pytest.fixture(scope="module")
@@ -233,6 +232,8 @@ def test_counters_agree_with_the_call(files):
     assert c["parse.bytes"] == pathlib.Path(files[1]).stat().st_size
     assert c["scan.attempts"] >= 1
     assert c["parse.read.chunks"] == c["encode.download.chunks"] == 1
+    # one thread copies a result smaller than a huge page
+    assert c["encode.result.threads"] == 1
     assert 0 <= c["merge.exact"] <= c["merge.tail_pairs"]
 
 
