@@ -29,6 +29,13 @@ def rle_pack_bytes(runs: int) -> int:
     return 14 * runs
 
 
+def bwt_expand_bytes(runs: int, sn: int) -> int:
+    """run_output.cu's tile_starts and bwt_expand: a run's int32 length and
+    its byte read, the .bwt's sn chars written once: 5 bytes a run and 1 a
+    char."""
+    return 5 * runs + sn
+
+
 def share_pct(moved: int, seconds: float) -> float | None:
     """The roofline share in %, or None where the kernel took no time in
     the trace (it did not run there)."""

@@ -16,7 +16,7 @@ def root(tmp_path_factory):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["tiny_e", "tiny_s"])
+@pytest.mark.parametrize("cell", benchtools.tiny_cells())
 @pytest.mark.parametrize("trace", [False, True])
 def test_tiny_cells_on_the_card(card, root, cell, trace):
     from portbench import guard, harness

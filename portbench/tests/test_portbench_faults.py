@@ -1,10 +1,11 @@
 """The check that decides ``correct``, shown to fail: each fault a cell
-can have, planted under the timed path of a tiny run on the CPU, and the
-control (the program's own RLE-quirk path, which breaks the configuration's
-exact .rl_bwt), all come out not correct. (One chip: no exchange between
-chips to leave out.) Every job reads a new version of its files, so a
-program that hands back an answer it kept, by path or from the job
-before, is caught."""
+can have, planted under the timed path of the tiny stand-in of every cell
+on the CPU, and the control (portbench/control.py: the program's own
+RLE-quirk path, which breaks the configuration's exact .rl_bwt; for a
+.bwt, the reference with its separators out of document order), all come
+out not correct. (One chip: no exchange between chips to leave out.)
+Every job reads a new version of its files, so a program that hands back
+an answer it kept, by path or from the job before, is caught."""
 import dataclasses
 import json
 
@@ -12,6 +13,9 @@ import pytest
 
 import benchtools
 from cmsbwt_tpu_torch.models.cms_bwt import CMSBWT
+from portbench import control
+
+CELLS = benchtools.tiny_cells()
 
 
 @pytest.fixture(scope="module")
@@ -62,14 +66,15 @@ def altered(orig):
     """One byte of the answer altered where it is produced."""
     def transform(self, collection, rle=False, backend=None):
         r = orig(self, collection, rle=rle, backend=backend)
-        b = bytearray(r.rle)
+        key = "rle" if rle else "bwt"
+        b = bytearray(getattr(r, key))
         b[len(b) // 2] ^= 0x01
-        return dataclasses.replace(r, rle=bytes(b))
+        return dataclasses.replace(r, **{key: bytes(b)})
     return transform
 
 
 @pytest.mark.parametrize("fault", [stale, half, altered, by_path])
-@pytest.mark.parametrize("cell", ["tiny_e", "tiny_s"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(root, cell, fault, monkeypatch):
     monkeypatch.setattr(CMSBWT, "transform", fault(CMSBWT.transform))
     line = benchtools.run_tiny(root, cell, seconds=0.3)
@@ -94,3 +99,25 @@ def test_control_is_not_correct(root, cell, traffic):
         path.write_text(saved)
     assert line["correct"] is False
     assert line["checks"]["mismatch_bytes"]["value"] > 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_cell_has_a_control_that_fails(root, cell):
+    """The control control.py runs for the cell, in the program's place."""
+    line = control.run(root, cell, 2**31 + 13, 0.3, device="cpu")
+    assert line["correct"] is False
+    assert line["checks"]["mismatch_bytes"]["value"] > 0
+
+
+def test_unordered_separators_change_the_bwt():
+    """The .bwt control's sort differs from the reference's on the first
+    row: there the reference's BWT holds SX's last separator, the control's
+    a document's last byte."""
+    import torch
+    from portbench import reference
+    sx = torch.frombuffer(bytearray(b"\x02ACGT\x02ACGA\x02"),
+                          dtype=torch.uint8)
+    want = reference.bwt(sx)
+    got = control.unordered_bwt(sx)
+    assert sorted(got.tolist()) == sorted(want.tolist())
+    assert int(want[0]) == reference.SEPARATOR != int(got[0])

@@ -1,4 +1,6 @@
-"""The result's line of a run, driven on the CPU at tiny sizes."""
+"""The result's line of a run, driven on the CPU at tiny sizes: the tiny
+stand-in of every cell of BENCHMARK.json (benchtools.stand_ins), read when
+the tests are collected."""
 import json
 
 import pytest
@@ -6,6 +8,7 @@ import pytest
 import benchtools
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
+CELLS = benchtools.tiny_cells()
 
 
 @pytest.fixture(scope="module")
@@ -13,7 +16,7 @@ def root(tmp_path_factory):
     return benchtools.tiny_copy(tmp_path_factory.mktemp("bench"))
 
 
-@pytest.mark.parametrize("cell", ["tiny_e", "tiny_s"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_untraced_line(root, cell, capsys):
     line = benchtools.run_tiny(root, cell)
     assert list(line) == KEYS                 # checks come last
@@ -40,7 +43,7 @@ def test_untraced_line(root, cell, capsys):
                         "check failed_jobs 0 limit 0"]
 
 
-@pytest.mark.parametrize("cell", ["tiny_e", "tiny_s"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_traced_line(root, cell):
     line = benchtools.run_tiny(root, cell, trace=True)
     assert list(line) == KEYS[:5] + ["breakdown", "checks"]

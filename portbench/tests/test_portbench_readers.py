@@ -171,8 +171,36 @@ def test_trace_readers():
         100 * (1 - 570 / 2000))
 
 
+def test_bwt_expand_roofline():
+    """The plain writer's two kernels over the traced .bwt jobs' runs and
+    chars; .rl_bwt jobs and the untraced ones count nothing."""
+    t = Trace.from_events([
+        ev("user_annotation", JOB_SPAN, 0, 1000),
+        ev("user_annotation", JOB_SPAN, 1000, 1000),
+        ev("kernel", "void (anonymous namespace)::tile_starts_kernel(int "
+           "const*, long long, int, long long, int2*, unsigned char*)",
+           100, 30),
+        ev("kernel", "(anonymous namespace)::bwt_expand_kernel(int const*)",
+           130, 90),
+        ev("kernel", "tile_starts_kernel()", 1100, 20),
+        ev("kernel", "bwt_expand_kernel()", 1120, 60),
+        ev("kernel", "rle_pack_kernel()", 1500, 40)])
+    run = made_run(t)
+    for j in run.jobs:
+        j.rle = False
+    run.jobs[1].rle = True
+    moved = roofline.bwt_expand_bytes(10, 1000)
+    assert moved == 5 * 10 + 1000
+    assert read("bwt_expand_roofline", run) == pytest.approx(
+        100 * moved / roofline.HBM_BYTES_PER_S / 200e-6)
+    # no .bwt job traced: nothing to read, not 0
+    run.jobs[0].rle = True
+    assert read("bwt_expand_roofline", run) is None
+
+
 @pytest.mark.parametrize("name", ["sort_ms", "fasta_parse_roofline",
-                                  "rle_pack_roofline", "device_idle_pct"])
+                                  "rle_pack_roofline", "device_idle_pct",
+                                  "bwt_expand_roofline"])
 def test_nothing_to_read_gives_nothing(name):
     assert read(name, made_run()) is None
     empty = Trace.from_events([ev("user_annotation", JOB_SPAN, 0, 10)])

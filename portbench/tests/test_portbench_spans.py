@@ -231,11 +231,15 @@ def test_a_program_without_the_table_gives_nothing(name, monkeypatch,
 
 @pytest.mark.parametrize("name", NEW)
 def test_listed_with_their_cells(name):
+    """Each lists the cells it was made for (the index's readers only the
+    cell that builds the index a job); cells added later may join."""
     m = {m["name"]: m for m in benchtools.bench()["per_layer"]}[name]
     assert m["moves"] == "chars_per_s"
     want = (["ecoli100_r"] if name.startswith("index")
             else ["ecoli100_r", "sars10k_r"])
-    assert m["workloads"] == want
+    assert m["workloads"][:len(want)] == want
+    if name.startswith("index"):
+        assert "sars10k_r" not in m["workloads"]
 
 
 def test_traced_jump_run_reports_them(tmp_path, capsys):
