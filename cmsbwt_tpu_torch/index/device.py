@@ -44,7 +44,7 @@ import torch
 from ..kernels import COMP_CAP
 from ..ops.sort import (COUNT_FAULT, fault_word, key_bits, raise_faults,
                         stable_argsort)
-from ..utils.timing import span
+from ..utils.timing import count, span
 
 INT_MAX = 2**31 - 1
 I32 = torch.int32
@@ -355,7 +355,12 @@ def _suffix_array_starts(x: torch.Tensor, n: int, bound: int):
     round over the unresolved rows only (a slice of their text positions,
     ranks and key 1, carried from round to round, with no sort), the
     rounds from a slice of COMP_CAP rows or fewer in one call. One host
-    read a call."""
+    read a call. Spans ``sa.round0`` (the first round), ``sa.comp`` (each
+    compacted round) and ``sa.tail`` (the tail call), each up to its host
+    read; counters ``sa.comp_rounds`` (the compacted rounds run, the
+    tail's among them), ``sa.comp_rows`` (the rows each compacted call
+    starts from) and ``sa.large_rows`` (those in groups larger than
+    COMP_CAP), counted once a sort."""
     dev = x.device
     levels = n_levels(n)
     work = _rank_work(n, 1, dev, levels - 2)
@@ -365,24 +370,34 @@ def _suffix_array_starts(x: torch.Tensor, n: int, bound: int):
     xi = x.to(I32)
     torch.add(xi[1:], 1, out=nxt[:n - 1])
     # round 0 (shift 1): level 1's ranks, JAX's rank1
-    _, sa, top = _dense_rank((xi, nxt), (bound, bound + 1), rank, shift=2,
-                             slice_=(ti, k0, k1), work=work)
-    del xi, nxt
-    u, large, _ = _read_round(top)
+    with span("sa.round0"):
+        _, sa, top = _dense_rank((xi, nxt), (bound, bound + 1), rank,
+                                 shift=2, slice_=(ti, k0, k1), work=work)
+        del xi, nxt
+        u, large, _ = _read_round(top)
     # each round's slice holds at most the round before's rows
     ti_n, k0_n = (torch.empty(max(u, 1), dtype=I32, device=dev)
                   for _ in range(2))
     k = 1                                      # round k: shift 2^k
+    n_rounds = n_rows = n_large = 0
     while u and k < levels - 1:
-        if u <= COMP_CAP:
-            top = comp_tail((ti, k0, k1), u, rank, sa, (ti_n, k0_n), 1 << k,
-                            levels - 1 - k, work)
-        else:
-            top = comp_rank((ti, k0, k1), u, large, rank, sa, (ti_n, k0_n),
-                            2 << k, work)
-            ti, ti_n, k0, k0_n = ti_n, ti, k0_n, k0
-        u, large, rounds = _read_round(top)
+        n_rows += u
+        tail = u <= COMP_CAP
+        with span("sa.tail" if tail else "sa.comp"):
+            if tail:
+                top = comp_tail((ti, k0, k1), u, rank, sa, (ti_n, k0_n),
+                                1 << k, levels - 1 - k, work)
+            else:
+                n_large += large
+                top = comp_rank((ti, k0, k1), u, large, rank, sa,
+                                (ti_n, k0_n), 2 << k, work)
+                ti, ti_n, k0, k0_n = ti_n, ti, k0_n, k0
+            u, large, rounds = _read_round(top)
+        n_rounds += rounds
         k += rounds
+    count("sa.comp_rounds", n_rounds)
+    count("sa.comp_rows", n_rows)
+    count("sa.large_rows", n_large)
     return sa, rank, None, levels if u else k
 
 

@@ -44,6 +44,7 @@ NESTING = {
     "merge.fixup": "merge_device",
     "merge.group": "merge_device",
     "merge.head_string_sa": "merge_device",
+    "sa.round0": "merge.head_string_sa",
     "merge.rank_heads": "merge_device",
     "merge.tail_pairs_count": "merge_device",
     "merge.tail_good": "merge_device",
@@ -60,7 +61,8 @@ CARD_ONLY = {"parse.read.wait": "parse.read",
              "encode.download.wait": "encode.download"}
 MERGE_STAGES = [n for n, p in NESTING.items() if p == "merge_device"]
 COUNTERS = ["parse.bytes", "sn", "parse.read.chunks", "scan.attempts",
-            "heads", "merge.tail_pairs", "merge.exact", "merge.runs",
+            "heads", "sa.comp_rounds", "sa.comp_rows", "sa.large_rows",
+            "merge.tail_pairs", "merge.exact", "merge.runs",
             "encode.bytes", "encode.download.chunks", "encode.result.threads"]
 
 
