@@ -2,11 +2,15 @@
 read into device memory, then made into SX there.
 
 * ``read_raw(path, device)`` reads the file into one device buffer of its
-  size, in chunks through io/output.py's pinned staging pair (one per
-  process, made by whichever of reading and writing comes first): chunk
-  k + 1 is read from the file while chunk k is copied on a side stream.
-  On the CPU it is the file's bytes. ``LAST_READ`` keeps the last call's
-  bytes and times.
+  size. On a card ``_read_ring`` reads it in chunks of READ_CHUNK by
+  ``read_threads`` reader threads (``os.preadv``, which releases the GIL;
+  one pool a thread count, made at first use) into a ring of 2 slots a
+  reader, pinned once per process: chunk k goes into slot k mod S, the
+  calling thread copies the chunks onto the card in file order on a side
+  stream and hands a slot to a reader again only once its copy has
+  ended, so reads run up to S chunks ahead of the copies. On the CPU it
+  is the file's bytes. ``LAST_READ`` keeps the last call's bytes and
+  times.
 * ``parse_collection_dev(raw, sn_limit, window)`` picks by the device of
   ``raw``: the CUDA kernel ``fasta_parse`` (kernels/csrc/fasta_parse.cu)
   for a CUDA tensor, ``parse_collection_reference`` for a CPU tensor.
@@ -28,7 +32,9 @@ the EOF separator), with sn_limit <= 0 as no cut.
 from __future__ import annotations
 
 import os
+import threading
 import time
+from concurrent import futures
 from typing import NamedTuple
 
 import numpy as np
@@ -40,10 +46,24 @@ from . import fasta
 
 NEWLINE, HEADER = 0x0A, 0x3E   # '\n', '>'
 REFERENCE_CALLS = {"parse_collection_reference": 0}
-# the last read_raw on a card: bytes, the file reads' seconds into the
-# staging pair (read_s), the whole call's (total_s, the last copy's end
-# included) and the staging pair's making (stage_s)
+# the card's read: chunks of READ_CHUNK bytes, at most READ_MAX_THREADS
+# readers and 2 ring slots a reader (READ_SLOTS pinned slots, 64 MiB). On
+# the H100's host (8 CPUs) a warm 508 MB file took 98 ms to one reader in
+# 8 MiB chunks, 25 to 4, 17 to 8 (4 MiB and 16 MiB chunks alike); onto the
+# card, copies included, 4 readers of 8 MiB chunks took 32 ms against the
+# one-thread read's 107, and 8 readers no less: the calling thread, which
+# launches the copies, then shares the CPUs with them (PERF.md)
+READ_CHUNK = 8 << 20
+READ_MAX_THREADS = 4
+READ_SLOTS = 2 * READ_MAX_THREADS
+# the last read_raw on a card: bytes, the caller's waits for the chunks'
+# reads (read_s), the whole call's seconds (total_s, the last copy's end
+# included) and the output buffer's and the ring's making (stage_s)
 LAST_READ: dict = {}
+
+_lock = threading.Lock()
+_rings: dict = {}      # device index -> the pinned ring, made at first use
+_pools: dict = {}      # thread count -> the readers, made at first use
 
 
 class Parsed(NamedTuple):
@@ -55,10 +75,12 @@ class Parsed(NamedTuple):
 
 def read_raw(path: str, device) -> torch.Tensor:
     """The file's bytes as a uint8 tensor on ``device``; on a card read in
-    chunks through the pinned staging pair, each chunk's copy overlapping
-    the next chunk's read. Span ``parse.read``: the file's reads under
-    ``parse.read.file``, the waits for a chunk's copy under
-    ``parse.read.wait``; counters ``parse.bytes``, ``parse.read.chunks``."""
+    chunks by several readers into the pinned ring, each chunk's copy
+    overlapping the reads of the chunks after it (``_read_ring``). Span
+    ``parse.read``: the waits for a chunk's read under
+    ``parse.read.file``, the waits for a slot's copy under
+    ``parse.read.wait``; counters ``parse.bytes``, ``parse.read.chunks``,
+    ``parse.read.threads`` (the readers; 1 on the CPU)."""
     dev = torch.device(device)
     with span("parse.read"):
         if dev.type == "cpu":
@@ -66,53 +88,145 @@ def read_raw(path: str, device) -> torch.Tensor:
                 raw = np.fromfile(path, dtype=np.uint8)
             count("parse.bytes", int(raw.size))
             count("parse.read.chunks", 1)
+            count("parse.read.threads", 1)
             return torch.from_numpy(raw)
         return _read_raw_cuda(path, dev)
 
 
+def read_threads(chunks: int) -> int:
+    """Readers of a file of ``chunks`` chunks: one a chunk, no more than
+    the CPUs this process may run on, at most READ_MAX_THREADS, at least
+    one."""
+    return max(1, min(len(os.sched_getaffinity(0)), chunks,
+                      READ_MAX_THREADS))
+
+
+def _readers(threads: int) -> futures.ThreadPoolExecutor:
+    """The pool of ``threads`` readers, made at first use and kept for the
+    process."""
+    with _lock:
+        pool = _pools.get(threads)
+        if pool is None:
+            pool = _pools[threads] = futures.ThreadPoolExecutor(
+                threads, thread_name_prefix="cmsbwt-read")
+        return pool
+
+
+def _ring(dev: torch.device) -> dict:
+    """The pinned ring of READ_SLOTS chunks, an event a slot and a side
+    stream for ``dev``, made at first use and kept for the process."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _lock:
+        ring = _rings.get(key)
+        if ring is None:
+            with torch.cuda.device(key):
+                buf = torch.empty(READ_SLOTS * READ_CHUNK, dtype=torch.uint8,
+                                  pin_memory=True)
+                bufs = list(buf.split(READ_CHUNK))
+                ring = _rings[key] = {
+                    "bufs": bufs, "views": [b.numpy() for b in bufs],
+                    "done": [torch.cuda.Event() for _ in bufs],
+                    "stream": torch.cuda.Stream(),
+                    # one read at a time through the ring
+                    "lock": threading.Lock()}
+        return ring
+
+
+def _read_ring(path: str, size: int, chunk: int, slots: list, threads: int,
+               put, wait_slot) -> float:
+    """Read the first ``size`` bytes of ``path`` in chunks of ``chunk``
+    through the ring ``slots`` (S writable buffers of ``chunk`` bytes):
+    chunk k is read into slot k mod S by one of ``threads`` readers (on
+    this thread for one reader or one chunk), and once it is read
+    ``put(slot, offset, bytes)`` is called, in file order, on this
+    thread. A slot is handed to a reader again only after
+    ``wait_slot(slot)`` has returned, and every slot used is waited for
+    before the call returns. Returns the seconds this thread waited for
+    the reads (span ``parse.read.file``; ``wait_slot`` runs under
+    ``parse.read.wait``). A file shorter than ``size`` raises OSError, and
+    so does, as the reader raised it, a read that fails, each after every
+    read in flight has ended."""
+    n = -(-size // chunk)
+    S = len(slots)
+    lag = 1 if S > 1 else 0     # chunk k's copy overlaps chunk k + 1's wait
+    pool = _readers(threads) if threads > 1 and n > 1 else None
+    pending: dict = {}
+    read_s = 0.0
+    with open(path, "rb", buffering=0) as f:
+        fd = f.fileno()
+
+        def read(k):
+            off = k * chunk
+            view = memoryview(slots[k % S])[:min(chunk, size - off)]
+            got = 0
+            while got < len(view):
+                r = os.preadv(fd, [view[got:]], off + got)
+                if not r:
+                    break
+                got += r
+            return got
+
+        def start(k):
+            pending[k] = pool.submit(read, k) if pool else k
+
+        try:
+            for k in range(min(S, n)):
+                start(k)
+            for k in range(n):
+                off = k * chunk
+                m = min(chunk, size - off)
+                with span("parse.read.file") as sp:
+                    p = pending.pop(k)
+                    got = p.result() if pool else read(p)
+                read_s += sp.seconds
+                if got < m:
+                    raise OSError(f"{path}: file ended at {off + got} "
+                                  f"of {size} bytes")
+                put(k % S, off, m)
+                j = k - lag
+                if j >= 0 and j + S < n:
+                    with span("parse.read.wait"):
+                        wait_slot(j % S)
+                    start(j + S)
+        finally:
+            if pool:
+                # after an error: no reader may write into a slot later
+                futures.wait(pending.values())
+            with span("parse.read.wait"):
+                for s in range(min(S, n)):
+                    wait_slot(s)
+    return read_s
+
+
 def _read_raw_cuda(path: str, dev: torch.device) -> torch.Tensor:
-    from .output import STAGE_BYTES, _stage
     t0 = time.perf_counter()
     size = os.path.getsize(path)
     raw = torch.empty(size, dtype=torch.uint8, device=dev)
-    st = _stage(dev)
+    ring = _ring(dev)
     stage_s = time.perf_counter() - t0
-    side, bufs, done = st["stream"], st["bufs"], st["done"]
-    read_s = 0.0
-    chunks = 0
-    with st["lock"], open(path, "rb", buffering=0) as f:
+    chunks = -(-size // READ_CHUNK)
+    threads = read_threads(chunks)
+    side, bufs, done = ring["stream"], ring["bufs"], ring["done"]
+
+    def put(s, off, m):
+        with torch.cuda.stream(side):
+            raw[off:off + m].copy_(bufs[s][:m], non_blocking=True)
+            done[s].record(side)
+
+    with ring["lock"]:
         # the side stream writes raw after the current stream made it
         side.wait_stream(torch.cuda.current_stream(dev))
-        for k, off in enumerate(range(0, size, STAGE_BYTES)):
-            m = min(STAGE_BYTES, size - off)
-            if k >= 2:
-                with span("parse.read.wait"):
-                    done[k % 2].synchronize()   # chunk k - 2 has left it
-            view = memoryview(bufs[k % 2].numpy())[:m]
-            t1 = time.perf_counter()
-            with span("parse.read.file"):
-                got = 0
-                while got < m:
-                    n = f.readinto(view[got:])
-                    if not n:
-                        raise OSError(f"{path}: file ended at {off + got} "
-                                      f"of {size} bytes")
-                    got += n
-            read_s += time.perf_counter() - t1
-            with torch.cuda.stream(side):
-                raw[off:off + m].copy_(bufs[k % 2][:m], non_blocking=True)
-                done[k % 2].record(side)
-            chunks += 1
+        read_s = _read_ring(path, size, READ_CHUNK,
+                            ring["views"][:2 * threads], threads, put,
+                            lambda s: done[s].synchronize())
         torch.cuda.current_stream(dev).wait_stream(side)
         raw.record_stream(side)
-        with span("parse.read.wait"):
-            for e in done:  # the pair is free for the next reader or writer
-                e.synchronize()
     LAST_READ.clear()
     LAST_READ.update(bytes=size, read_s=read_s, stage_s=stage_s,
                      total_s=time.perf_counter() - t0)
     count("parse.bytes", size)
     count("parse.read.chunks", chunks)
+    count("parse.read.threads", threads)
     return raw
 
 

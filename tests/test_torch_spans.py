@@ -60,8 +60,9 @@ NESTING = {
 CARD_ONLY = {"parse.read.wait": "parse.read",
              "encode.download.wait": "encode.download"}
 MERGE_STAGES = [n for n, p in NESTING.items() if p == "merge_device"]
-COUNTERS = ["parse.bytes", "sn", "parse.read.chunks", "scan.attempts",
-            "heads", "sa.comp_rounds", "sa.comp_rows", "sa.large_rows",
+COUNTERS = ["parse.bytes", "sn", "parse.read.chunks", "parse.read.threads",
+            "scan.attempts", "heads", "sa.comp_rounds", "sa.comp_rows",
+            "sa.large_rows",
             "merge.tail_pairs", "merge.exact", "merge.runs",
             "encode.bytes", "encode.download.chunks", "encode.result.threads"]
 
@@ -234,6 +235,8 @@ def test_counters_agree_with_the_call(files):
     assert c["parse.bytes"] == pathlib.Path(files[1]).stat().st_size
     assert c["scan.attempts"] >= 1
     assert c["parse.read.chunks"] == c["encode.download.chunks"] == 1
+    # the CPU route reads the file on the calling thread
+    assert c["parse.read.threads"] == 1
     # one thread copies a result smaller than a huge page
     assert c["encode.result.threads"] == 1
     assert 0 <= c["merge.exact"] <= c["merge.tail_pairs"]
