@@ -1,53 +1,51 @@
 """End-to-end pipeline of the port — the counterpart of
-cmsbwt_tpu/engine/pipeline.py:
+cmsbwt_tpu/engine/pipeline.py. Both entry points, compute_bwt (the CLI)
+and models/cms_bwt.CMSBWT.transform, parse the collection and hand it to
+run_collection, the one route, which picks the backend, its guards and
+the merge engine, and runs:
 
-* backend=jump: parse (io/parse.py, on the run's device) ->
-  build_device_index -> ms_jump_heads, on SX where the parse left it
-  (the CUDA ``ms_jump_scan`` kernel on a CUDA device) -> the device merge
-  (merge_heads_device_resident), the host merge (merge_from_heads) or the
-  sharded merge (merge_from_heads_sharded)
-* backend=dense: parse -> the ``dense_heads`` checkpoint bundle when one is
-  saved, else ms_dense_heads_on_device, or ms_dense_heads_blocked_on_device
-  for ``dense_block_chars``, when the memory guard finds that the unblocked
-  scan does not fit, with ``dense_parallel`` on one device (the JAX
-  package's block size; the blocks' order does not matter there), with
-  ``checkpoint_dir`` (each finished block saved; unblocked, the whole
-  collection is one block), and for collections at or above the int32
-  bound (heads to the host block by block, int64 t) (joint suffix sort;
-  the CUDA ``lcp_lift`` and ``dense_neighbors`` kernels on a CUDA device);
-  ``dense_parallel`` over R > 1 ranks is the mesh scan
-  (parallel/mesh.ms_dense_heads_mesh) -> the device, host or sharded merge
-* backend=device: build_device_index -> ms_scan_device (the jump scan's
-  heads expanded to every position) -> compute_bwt_arrays (the host merge)
-* backend=native: the host reference index (device-built on a card,
-  cached on disk) -> ms_scan_native (io/csrc/cmsbwt_scan.cpp; the spec scan
-  when g++ cannot build it) -> the host merge
-* backend=host: the host index (cached) -> ms_scan_collection (the
+* backend=jump: the device index -> ms_jump_heads on SX where the parse
+  left it (the CUDA ``ms_jump_scan`` kernel on a card), phase ``ms_scan``
+* backend=dense: the ``dense_heads`` checkpoint bundle when one is saved,
+  else ms_dense_heads_on_device, or ms_dense_heads_blocked_on_device for
+  ``dense_block_chars``, when the memory guard finds that the unblocked
+  scan does not fit, with ``dense_parallel`` (the JAX package's block
+  size), with ``checkpoint_dir`` (each finished block saved; unblocked,
+  the collection is one block) and for collections at or above the int32
+  bound (heads to the host block by block, int64 t); ``dense_parallel``
+  over R > 1 ranks is the mesh scan (parallel/mesh.ms_dense_heads_mesh)
+* jump and dense then merge on _choose_merge's engine: the JAX rules with
+  ``cuda`` as the accelerator and ``cpu`` as a CPU-only process, and on a
+  card the host merge above the device merge's memory ceiling
+  (device_merge.MERGE_BYTES_PER_CHAR), where merge_backend='device' is
+  refused before the scan: the device merge (merge_heads_device_resident,
+  its runs left on the card), the host merge (merge_from_heads) or the
+  sharded merge (merge_from_heads_sharded; never auto's choice)
+* backend=device: the device index -> ms_scan_device (the jump scan's
+  heads expanded to every position) -> the host merge
+* backend=native: the host index -> ms_scan_native
+  (io/csrc/cmsbwt_scan.cpp; the spec scan when g++ cannot build it) -> the
+  host merge; backend=host: the host index -> ms_scan_collection (the
   per-phrase spec scan) -> the host merge
 * backend=auto: one of the above, chosen after parsing (auto_backend): on
   ``cpu`` by the JAX package's rule, on ``cuda`` by the rule measured on
   the H100 (PERF.md §5)
 * a reference at or above the giant threshold (the int32 bound, or
-  CMSBWT_GIANT_THRESHOLD): the sharded int64 index
-  (parallel/sharded_index.build_sharded_reference_index, cached like the
-  host indexes) -> the native int64 scan (the spec scan for backend=host)
-  -> the host merge; only backend auto and host run it
+  CMSBWT_GIANT_THRESHOLD; backend auto and host only): the sharded int64
+  index -> the native int64 scan (the spec scan for host) -> the host merge
 
-then _write_outputs, whose ``.log`` names the backend that ran. The device
-merge's runs stay on its device, and the output file's bytes are made
-there and copied into the file (io/output.write_runs); the host and
-sharded merges write through the native writers. The merge
-engine of the jump and dense routes follows the JAX rules with ``cuda`` in
-the role of an accelerator and ``cpu`` in that of a CPU-only process
-(_choose_merge); on a card, 'auto' also takes the host merge above the
-device merge's memory ceiling (device_merge.MERGE_BYTES_PER_CHAR), where
-merge_backend='device' is refused before the scan. 'auto' never takes the
-sharded merge, as in the JAX package.
+The callers differ only in the indexes they give the route: compute_bwt
+builds them for the run (phase ``build_index``; the host index through
+the on-disk cache), CMSBWT holds them across transforms. compute_bwt then
+writes the outputs (_write_outputs; the ``.log`` names the backend that
+ran): the device merge's runs are encoded on the card and copied into the
+file (io/output.write_runs), the host and sharded merges' written by the
+native writers.
 
 The mesh steps (the sharded index, the mesh scan, the sharded merge) run
 over R ranks (parallel/distributed): a launcher's processes, or ranks this
 process starts, one per visible card on ``cuda`` (one rank on ``cpu``).
-Under a launcher every process runs compute_bwt; the ranks other than 0
+Under a launcher every process runs the route; the ranks other than 0
 join the mesh steps and write nothing. Nothing falls back from a device
 call.
 """
@@ -127,13 +125,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_route(cfg: Config, device: torch.device) -> None:
-    if cfg.backend not in BACKENDS + ("auto",):
-        raise ValueError(f"unknown backend {cfg.backend!r}")
-    if cfg.merge_backend not in MERGE_BACKENDS:
-        raise ValueError(f"unknown merge_backend {cfg.merge_backend!r}")
-
-
 def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
                 timer: PhaseTimer | None = None, device="cuda",
                 window: int = Config.skip_window):
@@ -152,8 +143,7 @@ def load_inputs(filename: str, prefix_length: int = UINT64_MAX,
     sn_limit = fasta.collection_sn_limit(coll_path, prefix_length)
     with timer.phase("parse_collection"):
         coll = load_collection(coll_path, sn_limit, device, window)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
     return x_aug, coll
 
 
@@ -217,45 +207,117 @@ def compute_bwt(cfg: Config, device) -> dict:
     launcher's group only rank 0 writes the outputs; the other ranks join
     the mesh steps and return with ``out_path`` None."""
     device = resolve_device(device)
-    _check_route(cfg, device)
-    from ..parallel import distributed
-    from .device_merge import sn_bound
-
     timer = PhaseTimer()
-    outname = cfg.resolved_outname()
     x_aug, coll = load_inputs(cfg.filename, cfg.prefix_length, timer,
                               device, cfg.skip_window)
     n = len(x_aug)
+    # auto reads the collection file's size, cut to the prefix
+    _, coll_path = fasta.read_input_list(cfg.filename)
+    coll_chars = min(os.path.getsize(coll_path), cfg.prefix_length)
+    backend, result = run_collection(
+        cfg, x_aug, coll, device, timer,
+        _RunIndexes(cfg, x_aug, device, timer), coll_chars,
+        want_counter=n < cfg.small_ref_threshold)
+    if result is None:
+        return {"out_path": None, "bytes": 0, "timer": timer,
+                "result": None, "backend": backend}
+    return _write_outputs(dataclasses.replace(cfg, backend=backend),
+                          cfg.resolved_outname(), n, result, timer)
+
+
+class _RunIndexes:
+    """compute_bwt's indexes for run_collection: each built when the route
+    asks for it, in phase ``build_index``."""
+
+    def __init__(self, cfg: Config, x_aug: np.ndarray, device,
+                 timer: PhaseTimer):
+        self.cfg, self.x_aug, self.device, self.timer = (cfg, x_aug, device,
+                                                         timer)
+
+    @property
+    def device_index(self):
+        from ..index.device import build_device_index
+        with self.timer.phase("build_index"):
+            dindex = build_device_index(self.x_aug, self.device)
+            _sync(self.device)
+        return dindex
+
+    def host_index(self, giant: bool) -> ReferenceIndex | None:
+        """_build_host_index_fast's index through the on-disk cache (the
+        checkpoint directory when given, else
+        Config.resolved_index_cache_dir()): the JAX package's directory
+        and fingerprint, so the two packages share it."""
+        from ..utils.checkpoint import CheckpointManager, file_stamp
+        cfg, x_aug, device = self.cfg, self.x_aug, self.device
+        with self.timer.phase("build_index"):
+            cache_root = cfg.checkpoint_dir or cfg.resolved_index_cache_dir()
+            mgr = fp = None
+            if cache_root:
+                ref_path, _ = fasta.read_input_list(cfg.filename)
+                mgr = CheckpointManager(cache_root)
+                fp = mgr.fingerprint(ref=file_stamp(ref_path), giant=giant,
+                                     phase="ref_index")
+                cached = mgr.load("ref_index", fp)
+                hit = cached is not None
+                if giant:
+                    hit = _rank0_says(device, hit)
+                if hit:
+                    # a rank that missed rank 0's fresh save: rank 0 goes
+                    # on alone
+                    return (_index_from_arrays(x_aug, cached)
+                            if cached is not None else None)
+            index = _build_host_index_fast(x_aug, device, giant)
+            if mgr is not None and index is not None:
+                mgr.save("ref_index", fp, {
+                    "sa": index.sa, "isa": index.isa, "lcp": index.lcp,
+                    "plcp": index.plcp, "bwt": index.bwt})
+        return index
+
+    def dense_fingerprint(self, coll) -> str:
+        """The JAX pipeline's checkpoint fingerprint of a dense run (its
+        pipeline.py:327-330): the two input files' stamps and the
+        prefix."""
+        from ..utils.checkpoint import CheckpointManager, file_stamp
+        ref_path, coll_path = fasta.read_input_list(self.cfg.filename)
+        return CheckpointManager.fingerprint(
+            ref=file_stamp(ref_path), coll=file_stamp(coll_path),
+            prefix=self.cfg.prefix_length, phase="dense_heads")
+
+
+def run_collection(cfg: Config, x_aug: np.ndarray, coll, device,
+                   timer: PhaseTimer, indexes, coll_chars: int,
+                   want_counter: bool = False
+                   ) -> tuple[str, PipelineResult | None]:
+    """The route of both entry points: the backend that runs (cfg.backend,
+    or auto's choice from ``coll_chars``), its guards, its scan and its
+    merge over a parsed collection on ``device``. ``indexes`` gives the
+    reference's indexes (CMSBWT holds them, compute_bwt builds them for
+    the run): its ``device_index``, ``host_index(giant)`` (None on the
+    ranks other than 0 of a sharded build) and ``dense_fingerprint(coll)``,
+    the key of the dense route's checkpoints. ``want_counter``: the device
+    merge also makes the counter debug artifact (the CLI's). Returns the
+    backend that ran and the merge's result, None on a launcher's rank
+    other than 0."""
+    from ..parallel import distributed
+    from .device_merge import sn_bound
+    if cfg.backend not in BACKENDS + ("auto",):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.merge_backend not in MERGE_BACKENDS:
+        raise ValueError(f"unknown merge_backend {cfg.merge_backend!r}")
     # references at or above the int32 index bound (the reference tool's
     # own cap, ref CMS-BWT-functions.cpp:246, CMS-BWT.h:44) take the
     # sharded int64 index; the threshold can be lowered to run the route
     # at toy scale
-    giant = n >= giant_threshold()
-    if giant and cfg.backend not in ("auto", "host"):
-        raise ValueError(
-            f"reference is {n} chars (>= the int32 index bound "
-            f"{giant_threshold()}): backend={cfg.backend} uses int32 device "
-            "paths (the reference tool's own cap); giant references run "
-            "backend=auto or host through the sharded int64 index")
-    # auto resolves after parsing, as in the JAX package
+    giant = len(x_aug) >= giant_threshold()
     auto = cfg.backend == "auto"
-    cfg = dataclasses.replace(cfg, backend=(
-        ("host" if cfg.backend == "host" or native.get_scan_lib() is None
-         else "native") if giant else _resolve_backend(cfg, device)))
+    backend = _resolve_backend(cfg, device, coll_chars, giant)
     # a launcher's rank other than 0: joins the mesh steps, writes nothing
     follower = distributed.process_index() != 0
-
-    def finish(result: PipelineResult | None) -> dict:
-        if follower or result is None:
-            return {"out_path": None, "bytes": 0, "timer": timer,
-                    "result": None, "backend": cfg.backend}
-        return _write_outputs(cfg, outname, n, result, timer)
-
     if coll.sn == 0:
         # empty collection -> empty BWT (the reference emits nothing)
-        return finish(PipelineResult(run_len=np.zeros(0, np.int64),
-                                     run_char=np.zeros(0, np.uint8),
-                                     d=coll.d, sn=0, h=0))
+        return backend, None if follower else PipelineResult(
+            run_len=np.zeros(0, np.int64), run_char=np.zeros(0, np.uint8),
+            d=coll.d)
     # collections at/above the int32 bound (the reference's sn is uint64,
     # ref CMS-BWT.h:26,46) take the int64-safe route: the blocked dense
     # scan with heads assembled on the host, then the host (or sharded)
@@ -267,87 +329,80 @@ def compute_bwt(cfg: Config, device) -> dict:
                 f"collection has {coll.sn} chars (>= the int32 device-merge "
                 f"bound {sn_bound()}): merge_backend='device' cannot run "
                 "it; use merge_backend=auto/host/sharded")
-        if cfg.backend in ("jump", "device") and not auto:
+        if backend in ("jump", "device") and not auto:
             raise ValueError(
                 f"collection has {coll.sn} chars (>= the int32 bound "
-                f"{sn_bound()}): backend={cfg.backend} uses int32 device "
+                f"{sn_bound()}): backend={backend} uses int32 device "
                 "scans; use backend=dense (blocked), native or host")
-        if cfg.backend in ("jump", "device"):
+        if backend in ("jump", "device"):
             # auto's device scans: the blocked int64 route
-            cfg = dataclasses.replace(cfg, backend="dense")
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
+            backend = "dense"
+    cfg = dataclasses.replace(cfg, backend=backend)
     rq = cfg.rle and cfg.replicate_reference_rle_quirk
     buf = cfg.buffer_gib << 30
-    if cfg.backend in ("host", "native"):
+    if backend in ("host", "native"):
         if follower and not giant:
-            return finish(None)
-        with timer.phase("build_index"):
-            index = _host_index(cfg, x_aug, device, giant)
+            return backend, None
+        index = indexes.host_index(giant)
         if index is None or follower:
-            return finish(None)
-        if cfg.backend == "host":
-            result = compute_bwt_arrays(index, coll, rq, device, timer=timer,
-                                        buffer_bytes=buf)
-        else:
-            heads, engine = _native_heads(index, coll, timer)
-            result = merge_from_heads(index, heads, coll.d, coll.sn, rq,
-                                      device, timer, buffer_bytes=buf)
-            result.engine = engine
-        return finish(result)
-    if cfg.backend == "device":
+            return backend, None
+        if backend == "host":
+            return backend, compute_bwt_arrays(index, coll, rq, device,
+                                               timer=timer, buffer_bytes=buf)
+        heads, engine = _native_heads(index, coll, timer)
+        result = merge_from_heads(index, heads, coll.d, coll.sn, rq, device,
+                                  timer, buffer_bytes=buf)
+        result.engine = engine
+        return backend, result
+    if backend == "device":
         if follower:
-            return finish(None)
-        from ..index.device import build_device_index, export_reference_index
+            return backend, None
+        from ..index.device import export_reference_index
         from ..ops.ms_device import ms_scan_device
-        with timer.phase("build_index"):
-            dindex = build_device_index(x_aug, device)
-            index = export_reference_index(dindex, x_aug)
+        dindex = indexes.device_index
+        index = export_reference_index(dindex, x_aug)
         with timer.phase("ms_scan"):
             dev = ms_scan_device(dindex, coll.sx, device, lanes=cfg.lanes,
                                  window=cfg.skip_window)
-        del dindex
         ms = MSArrays(pos=dev.pos, length=dev.length, smaller=dev.smaller,
                       is_head=dev.is_head)
-        result = compute_bwt_arrays(index, coll, rq, device, ms=ms,
-                                    timer=timer, buffer_bytes=buf)
-        return finish(result)
+        return backend, compute_bwt_arrays(index, coll, rq, device, ms=ms,
+                                           timer=timer, buffer_bytes=buf)
 
     # jump and dense: the merge engine is chosen before the scan, so that
     # a device merge the card cannot hold is refused before any work
     engine = _choose_merge(cfg, device, coll.sn, sn_big)
     ranks = distributed.n_ranks(device)
-    mesh_scan = cfg.backend == "dense" and cfg.dense_parallel and ranks > 1
+    mesh_scan = backend == "dense" and cfg.dense_parallel and ranks > 1
     if follower and not mesh_scan and engine != "sharded":
-        return finish(None)
+        return backend, None
     heads = None
-    if cfg.backend == "dense" and (mesh_scan or not follower):
-        heads = _dense_heads(cfg, device, x_aug, coll, sn_big, timer, sync,
-                             ranks)
+    if backend == "dense" and (mesh_scan or not follower):
+        heads = _dense_heads(cfg, device, x_aug, coll, sn_big, timer,
+                             indexes, ranks)
     elif not follower:
-        from ..index.device import build_device_index
         from ..ops.ms_jump import ms_jump_heads
-        with timer.phase("build_index"):
-            dindex = build_device_index(x_aug, device)
-            sync()
         lanes = cfg.lanes
         if auto and device.type == "cpu":
             # the JAX rule: the accelerator's lane default over-subscribes
             # the CPU (AUTO_CPU_JUMP_LANES)
             lanes = min(lanes, AUTO_CPU_JUMP_LANES)
-        heads = ms_jump_heads(x_aug, coll, device, lanes=lanes,
-                              window=cfg.skip_window, index=dindex,
-                              timer=timer)
+        dindex = indexes.device_index
+        with timer.phase("ms_scan"):
+            heads = ms_jump_heads(x_aug, coll, device, lanes=lanes,
+                                  window=cfg.skip_window, index=dindex)
         del dindex
     if engine != "sharded" and (follower or heads is None):
-        return finish(None)
+        return backend, None
     held = [heads]
     del heads
-    return finish(merge_heads(engine, x_aug, held, coll, rq, device, timer,
-                              buf, want_counter=n < cfg.small_ref_threshold))
+    return backend, merge_heads(engine, x_aug, held, coll, rq, device, timer,
+                                buf, want_counter=want_counter)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def merge_heads(engine: str, x_aug: np.ndarray, held: list, coll, rq: bool,
@@ -462,8 +517,9 @@ def _choose_merge(cfg: Config, device: torch.device, sn: int,
 
 def auto_backend(coll_chars: int, device_type: str, native_ok: bool) -> str:
     """The backend ``auto`` runs, from what a run knows once its inputs
-    are parsed: the collection file's chars (cut to the prefix), the
-    device type and whether the native scan library is built.
+    are parsed: the collection's chars (the CLI's: its file's size cut to
+    the prefix; the model's: its sn), the device type and whether the
+    native scan library is built.
 
     ``cpu`` is the JAX package's rule for a CPU-only process, decision for
     decision (its pipeline.py:735-749): the native scan when the library
@@ -482,8 +538,8 @@ def auto_backend(coll_chars: int, device_type: str, native_ok: bool) -> str:
     native library changes the choice, nor do sn and n, and the JAX
     package's accelerator rule (the native scan below the probe's 0.72,
     else dense: TPU measurements) is not copied. Collections of 2^31
-    chars or more take the blocked dense scan in compute_bwt, as the JAX
-    package turns its device routes there."""
+    chars or more take the blocked dense scan in run_collection, as the
+    JAX package turns its device routes there."""
     if device_type == "cpu":
         if native_ok:
             return "native"
@@ -491,24 +547,37 @@ def auto_backend(coll_chars: int, device_type: str, native_ok: bool) -> str:
     return "jump"
 
 
-def _resolve_backend(cfg: Config, device: torch.device) -> str:
-    """cfg.backend, or auto_backend's choice for 'auto' (the native
-    library is looked up, and built, only where the rule reads it: on the
-    CPU)."""
+def _resolve_backend(cfg: Config, device: torch.device, coll_chars: int,
+                     giant: bool = False) -> str:
+    """The backend run_collection runs: cfg.backend, or auto_backend's
+    choice for 'auto' from ``coll_chars`` (the native library is looked
+    up, and built, only where the rule reads it: on the CPU); for a
+    ``giant`` reference the native int64 scan, or the spec scan for
+    backend=host or without the native library (the other backends'
+    int32 device paths refuse it)."""
+    if giant:
+        if cfg.backend not in ("auto", "host"):
+            raise ValueError(
+                f"reference is at or above the int32 index bound "
+                f"{giant_threshold()}: backend={cfg.backend} uses int32 "
+                "device paths (the reference tool's own cap); giant "
+                "references run backend=auto or host through the sharded "
+                "int64 index")
+        host = cfg.backend == "host" or native.get_scan_lib() is None
+        return "host" if host else "native"
     if cfg.backend != "auto":
         return cfg.backend
-    _, coll_path = fasta.read_input_list(cfg.filename)
-    coll_chars = min(os.path.getsize(coll_path), cfg.prefix_length)
     native_ok = device.type == "cpu" and native.get_scan_lib() is not None
     return auto_backend(coll_chars, device.type, native_ok)
 
 
 def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
-                 timer: PhaseTimer, sync, ranks: int = 1):
+                 timer: PhaseTimer, indexes, ranks: int = 1):
     """The dense route's heads: the ``dense_heads`` bundle of a
-    checkpoint directory when one is saved there (by either package; no
-    scan), else the scan, whose result is saved as that bundle with the
-    JAX package's keys, dtypes and slicing. A DeviceHeadsResult, or a host
+    checkpoint directory when one is saved there under
+    ``indexes.dense_fingerprint`` (by either package; no scan), else the
+    scan, whose result is saved as that bundle with the JAX package's
+    keys, dtypes and slicing. A DeviceHeadsResult, or a host
     DenseHeadsResult for a loaded bundle, for the int64 route and for the
     mesh scan (dense_parallel over ``ranks`` > 1; None on the ranks other
     than 0)."""
@@ -519,7 +588,7 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
     mgr = fp = bundle = None
     if cfg.checkpoint_dir:
         mgr = CheckpointManager(cfg.checkpoint_dir)
-        fp = _dense_fingerprint(cfg)
+        fp = indexes.dense_fingerprint(coll)
         bundle = mgr.load("dense_heads", fp)
         if cfg.dense_parallel and ranks > 1:
             if not _rank0_says(device, bundle is not None):
@@ -563,7 +632,7 @@ def _dense_heads(cfg: Config, device, x_aug: np.ndarray, coll, sn_big: bool,
                 to_host=sn_big)
         else:
             heads = md.ms_dense_heads_on_device(x_aug, coll.sx, device)
-        sync()
+        _sync(device)
         if mgr is not None and heads is not None:
             dl = (heads if isinstance(heads, md.DenseHeadsResult)
                   else download_heads_result(heads, n))
@@ -610,48 +679,16 @@ def _native_heads(index: ReferenceIndex, coll, timer: PhaseTimer):
             isa_next=z(), succ=z(), h=len(t)), "native"
 
 
-def _host_index(cfg: Config, x_aug: np.ndarray, device,
-                giant: bool = False) -> ReferenceIndex | None:
-    """The host ReferenceIndex of the host and native backends, through
-    the on-disk cache (the checkpoint directory when given, else
-    Config.resolved_index_cache_dir()): the JAX package's directory and
-    fingerprint, so the two packages share it. A ``giant`` reference's is
-    the sharded int64 build over the mesh's ranks, which returns it on
-    rank 0 and None on the others."""
-    from ..utils.checkpoint import CheckpointManager, file_stamp
-    cache_root = cfg.checkpoint_dir or cfg.resolved_index_cache_dir()
-    mgr = fp = None
-    if cache_root:
-        ref_path, _ = fasta.read_input_list(cfg.filename)
-        mgr = CheckpointManager(cache_root)
-        fp = mgr.fingerprint(ref=file_stamp(ref_path), giant=giant,
-                             phase="ref_index")
-        cached = mgr.load("ref_index", fp)
-        hit = cached is not None
-        if giant:
-            hit = _rank0_says(device, hit)
-        if hit:
-            # a rank that missed rank 0's fresh save: rank 0 goes on alone
-            return (_index_from_arrays(x_aug, cached) if cached is not None
-                    else None)
+def _build_host_index_fast(x_aug: np.ndarray, device,
+                           giant: bool = False) -> ReferenceIndex | None:
+    """The host ReferenceIndex of the native and host backends: a
+    ``giant`` reference's is the sharded int64 build over the mesh's
+    ranks, which returns it on rank 0 and None on the others; else built
+    on the card (device doubling + one download) when the run is on
+    ``cuda``, else on the host."""
     if giant:
         from ..parallel.sharded_index import build_sharded_reference_index
-        index = build_sharded_reference_index(x_aug, device=device)
-    elif cfg.backend == "native":
-        index = _build_host_index_fast(x_aug, device)
-    else:
-        index = build_reference_index(x_aug)
-    if mgr is not None and index is not None:
-        mgr.save("ref_index", fp, {
-            "sa": index.sa, "isa": index.isa, "lcp": index.lcp,
-            "plcp": index.plcp, "bwt": index.bwt})
-    return index
-
-
-def _build_host_index_fast(x_aug: np.ndarray, device) -> ReferenceIndex:
-    """Host ReferenceIndex for the native scan engine: built on the card
-    (device doubling + one download) when the run is on ``cuda``, else on
-    the host."""
+        return build_sharded_reference_index(x_aug, device=device)
     if device.type == "cuda":
         from ..index.device import build_reference_index_device
         return build_reference_index_device(x_aug, device)
@@ -728,16 +765,6 @@ def dense_result_to_inputs(x_aug: np.ndarray, dres):
         isa_next=np.zeros(dres.h, np.int64),
         succ=np.zeros(dres.h, np.int64), h=dres.h)
     return index, heads
-
-
-def _dense_fingerprint(cfg: Config) -> str:
-    """The JAX pipeline's checkpoint fingerprint of a dense run (its
-    pipeline.py:327-330): the two input files' stamps and the prefix."""
-    from ..utils.checkpoint import CheckpointManager, file_stamp
-    ref_path, coll_path = fasta.read_input_list(cfg.filename)
-    return CheckpointManager.fingerprint(
-        ref=file_stamp(ref_path), coll=file_stamp(coll_path),
-        prefix=cfg.prefix_length, phase="dense_heads")
 
 
 def _write_outputs(cfg: Config, outname: str, n: int,

@@ -1,25 +1,26 @@
 """The CMS-BWT transform as an object — the counterpart of
 cmsbwt_tpu/models/cms_bwt.py.
 
-``CMSBWT`` holds one reference and its indexes, built once and kept (the
-host index for the native and host backends, the device index for the
-jump and device backends), and ``transform`` computes the BWT of one
-collection after another against it: one pangenome reference, many
-batches of haplotypes. The jump and dense scans merge on the engine the
-pipeline's rule picks from the config's merge_backend
-(engine/pipeline._choose_merge: the device merge for 'auto' on a card
-and for jump on the CPU, the host merge, or the sharded merge over the
-mesh's ranks, engine/pipeline.merge_from_heads_sharded); the other
-backends end in the host merge, as in the JAX package (whose model
-always merges on the host: the engines' runs are equal). After the
-device merge, ``encode`` makes the output's bytes on the runs' device
-(io/output.encode_runs: the rle_pack and bwt_expand kernels on a card)
-and downloads only them. It is a plain class, not a torch.nn.Module: it
-holds indexes, not parameters.
+``CMSBWT`` holds one reference and its indexes, built once at their first
+use and kept (the host index for the native and host backends, the device
+index for the jump and device backends), and ``transform`` computes the
+BWT of one collection after another against it: one pangenome reference,
+many batches of haplotypes. A transform parses the collection and runs
+the CLI's route (engine/pipeline.run_collection) with the held indexes:
+the same backends, guards and merge engines. The jump and dense scans
+merge on the engine _choose_merge picks from the config's merge_backend
+(the device merge for 'auto' on a card and for jump on the CPU, the host
+merge, or the sharded merge over the mesh's ranks); the other backends
+end in the host merge. The JAX package's model always merges on the host:
+the engines' runs are equal. After the device merge, ``encode`` makes the
+output's bytes on the runs' device (io/output.encode_runs: the rle_pack
+and bwt_expand kernels on a card) and downloads only them. It is a plain
+class, not a torch.nn.Module: it holds indexes, not parameters.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,7 +29,6 @@ import numpy as np
 from ..config import Config
 from ..engine import merge as merge_mod
 from ..engine import pipeline as pipeline_mod
-from ..engine.ms_host import MSArrays
 from ..index.host import ReferenceIndex
 from ..io import fasta
 from ..utils.timing import PhaseTimer, span
@@ -45,7 +45,10 @@ class TransformResult:
 
 class CMSBWT:
     """Reference-indexed BWT constructor for repetitive collections, on
-    ``device`` (``cuda`` or ``cpu``; ``cuda`` without a card raises)."""
+    ``device`` (``cuda`` or ``cpu``; ``cuda`` without a card raises). It
+    is the route's ``indexes`` (engine/pipeline.run_collection): each
+    index built at its first use, under no phase and with no disk cache,
+    and kept."""
 
     def __init__(self, reference: bytes | str | np.ndarray,
                  config: Optional[Config] = None, device="cuda"):
@@ -66,10 +69,16 @@ class CMSBWT:
     @property
     def index(self) -> ReferenceIndex:
         """The host reference index, built once (on the card when the
-        model runs on one, as the native backend builds it)."""
+        model runs on one)."""
+        return self.host_index(False)
+
+    def host_index(self, giant: bool) -> Optional[ReferenceIndex]:
+        """The host reference index, built once: a ``giant`` reference's
+        is the sharded int64 build (None on a launcher's ranks other than
+        0)."""
         if self._host_index is None:
             self._host_index = pipeline_mod._build_host_index_fast(
-                self.x_aug, self.device)
+                self.x_aug, self.device, giant)
         return self._host_index
 
     @property
@@ -81,6 +90,15 @@ class CMSBWT:
             from ..index.device import build_device_index
             self._device_index = build_device_index(self.x_aug, self.device)
         return self._device_index
+
+    def dense_fingerprint(self, coll: fasta.Collection) -> str:
+        """The key of a dense transform's checkpoints (config
+        checkpoint_dir): the reference's and the collection's bytes, as
+        the model may hold neither as a file."""
+        from ..utils.checkpoint import CheckpointManager
+        return CheckpointManager.fingerprint(
+            ref=hashlib.sha256(self.x_aug).hexdigest(),
+            coll=hashlib.sha256(coll.sx).hexdigest(), phase="dense_heads")
 
     def transform(self, collection: str | fasta.Collection,
                   rle: bool = False,
@@ -96,7 +114,8 @@ class CMSBWT:
 
     def _transform(self, collection, rle: bool,
                    backend: Optional[str]) -> TransformResult:
-        cfg = self.config
+        cfg = dataclasses.replace(self.config, rle=rle,
+                                  backend=backend or self.config.backend)
         if isinstance(collection, str):
             # parsed and validated on the model's device (io/parse.py)
             from ..io.parse import load_collection
@@ -107,56 +126,13 @@ class CMSBWT:
         else:
             coll = collection
             fasta.validate_collection(coll)
-        backend = backend or cfg.backend
-        if backend == "auto":
-            from ..io.native import get_scan_lib
-            cpu = self.device.type == "cpu"
-            backend = pipeline_mod.auto_backend(
-                coll.sn, self.device.type,
-                cpu and get_scan_lib() is not None)
         timer = PhaseTimer()
-        rq = rle and cfg.replicate_reference_rle_quirk
-        buf = cfg.buffer_gib << 30
-        dev = self.device
-        if backend in ("dense", "jump"):
-            from ..engine.device_merge import sn_bound
-            engine = pipeline_mod._choose_merge(
-                dataclasses.replace(cfg, backend=backend), dev, coll.sn,
-                coll.sn >= sn_bound())
-            with timer.phase("ms_scan"):
-                if backend == "dense":
-                    from ..ops.ms_dense import ms_dense_heads_on_device
-                    held = [ms_dense_heads_on_device(self.x_aug, coll.sx,
-                                                     dev)]
-                else:
-                    from ..ops.ms_jump import ms_jump_heads
-                    held = [ms_jump_heads(self.x_aug, coll, dev,
-                                          lanes=cfg.lanes,
-                                          window=cfg.skip_window,
-                                          index=self.device_index)]
-            result = pipeline_mod.merge_heads(engine, self.x_aug, held, coll,
-                                              rq, dev, timer, buf)
-        elif backend == "device":
-            from ..index.device import export_reference_index
-            from ..ops.ms_device import ms_scan_device
-            index = export_reference_index(self.device_index, self.x_aug)
-            with timer.phase("ms_scan"):
-                ms = ms_scan_device(self.device_index, coll.sx, dev,
-                                    lanes=cfg.lanes, window=cfg.skip_window)
-            result = pipeline_mod.compute_bwt_arrays(
-                index, coll, rq, dev, timer=timer, buffer_bytes=buf,
-                ms=MSArrays(pos=ms.pos, length=ms.length,
-                            smaller=ms.smaller, is_head=ms.is_head))
-        elif backend == "native":
-            heads, _ = pipeline_mod._native_heads(self.index, coll, timer)
-            result = pipeline_mod.merge_from_heads(
-                self.index, heads, coll.d, coll.sn, rq, dev, timer,
-                buffer_bytes=buf)
-        elif backend == "host":
-            result = pipeline_mod.compute_bwt_arrays(
-                self.index, coll, rq, dev, timer=timer, buffer_bytes=buf)
-        else:
-            raise ValueError(f"unknown backend {backend!r}")
+        _, result = pipeline_mod.run_collection(
+            cfg, self.x_aug, coll, self.device, timer, self, coll.sn)
+        if result is None:
+            # a launcher's rank other than 0 joined the mesh steps
+            return TransformResult(bwt=None, rle=None, sn=coll.sn, heads=0,
+                                   timer=timer)
         with timer.phase("encode"):
             if result.device_runs is not None:
                 from ..io.output import encode_runs

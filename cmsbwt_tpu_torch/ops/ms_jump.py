@@ -548,31 +548,26 @@ def _ref_pad(sa, isa, bwt, n: int, n_pad: int):
 
 def ms_jump_heads(x_aug: np.ndarray, sx, device,
                   lanes: int = 4096, window: int = 64,
-                  index: DeviceIndex | None = None,
-                  timer=None) -> DeviceHeadsResult:
+                  index: DeviceIndex | None = None) -> DeviceHeadsResult:
     """Run the jump scan end to end on ``device`` over ``sx``, a numpy SX
     or a fasta.Collection (its device SX read where the parse left it);
     returns a DeviceHeadsResult ready for engine/device_merge. Spans
     ``scan.tables``, ``scan.kernel`` (the scan's launches, capacity retries
     included, counted in ``scan.attempts``) and ``scan.compact``; counter
-    ``heads``. ``timer`` (a PhaseTimer) records the same spans as its
-    jump_index, ms_scan and compact phases."""
+    ``heads``."""
     device = torch.device(device)
-
-    def phase(name, sub):
-        return timer.phase(name, sub) if timer is not None else span(sub)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    with phase("jump_index", "scan.tables"):
+    with span("scan.tables"):
         if index is None:
             index = build_device_index(np.asarray(x_aug), device)
         n = index.n
         tables = scan_tables(index)
         sync()
-    with phase("ms_scan", "scan.kernel"):
+    with span("scan.kernel"):
         split = split_lanes(sx, lanes, window, device)
         sx_dev, cap = split.sx_padded, split.cap
         sn = int(sx_dev.shape[0]) - window
@@ -588,7 +583,7 @@ def ms_jump_heads(x_aug: np.ndarray, sx, device,
             if cap > max(2 * split.chunk_len, 1024):
                 raise RuntimeError("ms_jump: record capacity runaway")
         sync()
-    with phase("compact", "scan.compact"):
+    with span("scan.compact"):
         total = int(state["nrec"].to(torch.int64).sum())
         h_pad = min(bucket_size(total + 1), split.lanes * cap)
         t_h, pos_h, len_h, sml_h, chr_h, h = _compact_candidates(

@@ -26,7 +26,7 @@ beside the spans' lines. ``reset()`` clears both tables of the thread
 
 ``PhaseTimer`` is the port's copy of the one in cmsbwt_tpu/utils/timing.py:
 the per-phase wall times a run writes to its ``.log``. Each of its phases
-is a span, of the phase's name unless the caller names the span.
+is a span of the phase's name.
 """
 from __future__ import annotations
 
@@ -117,16 +117,15 @@ class span:
 
 
 class _Phase(span):
-    __slots__ = ("phase", "phases")
+    __slots__ = ("phases",)
 
-    def __init__(self, name: str, phase: str, phases: list):
+    def __init__(self, name: str, phases: list):
         super().__init__(name)
-        self.phase = phase
         self.phases = phases
 
     def __exit__(self, *exc):
         super().__exit__(*exc)
-        self.phases.append((self.phase, self.seconds))
+        self.phases.append((self.name, self.seconds))
         return False
 
 
@@ -134,10 +133,9 @@ class PhaseTimer:
     def __init__(self):
         self.phases: list[tuple[str, float]] = []
 
-    def phase(self, name: str, span_name: str | None = None) -> span:
-        """A span ``span_name`` (default ``name``) whose seconds are
-        appended to ``phases`` under ``name``."""
-        return _Phase(span_name or name, name, self.phases)
+    def phase(self, name: str) -> span:
+        """A span ``name`` whose seconds are appended to ``phases``."""
+        return _Phase(name, self.phases)
 
     def total(self) -> float:
         return sum(t for _, t in self.phases)

@@ -101,25 +101,24 @@ def test_cuda_branch_holds_the_route_table(shape, native_ok):
     assert tpl.auto_backend(chars, "cuda", native_ok) == fastest
 
 
-def test_cuda_auto_builds_no_native_library(tmp_path, monkeypatch):
+def test_cuda_auto_builds_no_native_library(monkeypatch):
     """auto on a card never looks the native library up (nor builds it
     with g++): the rule does not read it."""
     def looked_up():
         raise AssertionError("auto on cuda looked up the native library")
     monkeypatch.setattr(tnative, "get_scan_lib", looked_up)
-    lst, _ = _inputs(tmp_path)
-    cfg = Config(filename=str(lst))
-    assert tpl._resolve_backend(cfg, torch.device("cuda")) == "jump"
+    for chars in (10_000, 500_000_101):
+        assert tpl._resolve_backend(Config(), torch.device("cuda"),
+                                    chars) == "jump"
 
 
 @pytest.mark.parametrize("backend", ["jump", "dense", "device", "native",
                                      "host"])
-def test_explicit_backend_is_not_resolved(tmp_path, backend):
-    lst, _ = _inputs(tmp_path)
+def test_explicit_backend_is_not_resolved(backend):
     for dev in ("cpu", "cuda"):
-        assert tpl._resolve_backend(Config(filename=str(lst),
-                                           backend=backend),
-                                    torch.device(dev)) == backend
+        for chars in (10_000, 500_000_101):
+            assert tpl._resolve_backend(Config(backend=backend),
+                                        torch.device(dev), chars) == backend
 
 
 def _inputs(tmp_path, seed=5, ref_len=700, docs=5):
@@ -159,7 +158,9 @@ def test_auto_jump_caps_cpu_lanes(tmp_path, monkeypatch):
     """tests/test_round2_aux.py's auto -> jump case (AUTO_DENSE_MIN_CHARS
     lowered to 1, no native library): the port's auto run scans with
     min(lanes, AUTO_CPU_JUMP_LANES) = 1024 lanes (an explicit jump run
-    keeps its lanes), and its bytes equal the JAX package's auto run."""
+    keeps its lanes), and so does an auto CMSBWT.transform on the CPU;
+    their bytes equal the JAX package's auto run."""
+    from cmsbwt_tpu_torch import CMSBWT
     from cmsbwt_tpu_torch.ops import ms_jump
     for mod in (jpl, tpl):
         monkeypatch.setattr(mod, "AUTO_DENSE_MIN_CHARS", 1)
@@ -179,8 +180,10 @@ def test_auto_jump_caps_cpu_lanes(tmp_path, monkeypatch):
                       "cpu")
     compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "e"),
                        backend="jump"), "cpu")
+    ref_path, coll_path = lst.read_text().split()
+    model = CMSBWT(ref_path, device="cpu").transform(coll_path)
     assert got["backend"] == want["backend"] == "jump"
-    assert lanes == [1024, Config().lanes]
+    assert lanes == [1024, Config().lanes, 1024]
     assert (tmp_path / "t.bwt").read_bytes() == \
         (tmp_path / "j.bwt").read_bytes() == \
-        (tmp_path / "e.bwt").read_bytes()
+        (tmp_path / "e.bwt").read_bytes() == model.bwt

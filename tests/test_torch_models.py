@@ -3,9 +3,17 @@ against the JAX package's: the twins of tests/test_models.py's three tests
 on the CPU; every backend's bytes (plain and run-length) equal to those of
 the JAX package's CMSBWT on the same reference and collection; each index
 built once over several transforms; the sharded merge after the jump and
-dense scans; the package exports CMSBWT lazily, as the JAX package does. Inputs are made with numpy from seeds. Tolerance:
+dense scans; the package exports CMSBWT lazily, as the JAX package does.
+The model runs the CLI's route (engine/pipeline.run_collection): every
+backend's bytes equal the file compute_bwt writes, and the model keeps
+the CLI's memory guard, int64 route, CPU lane cap (test_torch_auto.py)
+and dense checkpoints. Inputs are made with numpy from seeds. Tolerance:
 exact bytes."""
 from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -15,6 +23,7 @@ from helpers import brute_multidoc_bwt, make_fasta, mutate, random_dna
 from cmsbwt_tpu.models.cms_bwt import CMSBWT as JaxCMSBWT
 from cmsbwt_tpu_torch import CMSBWT
 from cmsbwt_tpu_torch.config import Config
+from cmsbwt_tpu_torch.engine.pipeline import compute_bwt
 from cmsbwt_tpu_torch.io import fasta
 
 torch.set_num_threads(1)
@@ -96,6 +105,110 @@ def test_transform_matches_jax(tmp_path, backend, rle):
                                                      backend=backend)
     assert (got.bwt, got.rle, got.sn, got.heads) == \
         (want.bwt, want.rle, want.sn, want.heads)
+
+
+@pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])
+@pytest.mark.parametrize("backend", [None, "jump", "dense", "device",
+                                     "native", "host"])
+def test_transform_matches_compute_bwt(tmp_path, monkeypatch, backend, rle):
+    """One route for both entry points: CMSBWT.transform's bytes, sn and
+    head count equal those of compute_bwt's run on the same files with the
+    same backend (None: the config's auto, resolved alike)."""
+    monkeypatch.setenv("CMSBWT_INDEX_CACHE", str(tmp_path / "cache"))
+    ref, coll = _collection(tmp_path, 5, dup=True)
+    ref_path = tmp_path / "ref.txt"
+    ref_path.write_bytes(ref)
+    lst = tmp_path / "input.txt"
+    lst.write_text(f"{ref_path}\n{coll}\n")
+    cfg = dataclasses.replace(LANES8, backend=backend or "auto")
+    out = compute_bwt(dataclasses.replace(
+        cfg, filename=str(lst), outname=str(tmp_path / "t"), rle=rle), "cpu")
+    got = CMSBWT(ref, cfg, device="cpu").transform(coll, rle=rle,
+                                                  backend=backend)
+    assert (got.rle if rle else got.bwt) == \
+        pathlib.Path(out["out_path"]).read_bytes()
+    assert (got.sn, got.heads) == (out["result"].sn, out["result"].h)
+
+
+def _spy_blocked(monkeypatch):
+    """The calls of the blocked dense scan: (block_chars, to_host)."""
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    calls = []
+    orig = md.ms_dense_heads_blocked_on_device
+
+    def spy(*a, **kw):
+        calls.append((a[3], kw.get("to_host")))
+        return orig(*a, **kw)
+    monkeypatch.setattr(md, "ms_dense_heads_blocked_on_device", spy)
+    return calls
+
+
+def test_model_hbm_guard_runs_dense_in_blocks(tmp_path, monkeypatch):
+    """A tiny CMSBWT_HBM_GB budget makes the memory guard stream the
+    model's dense scan in blocks (the guard's 8 Mi-char floor), as it does
+    the CLI's; the bytes equal the unblocked transform's."""
+    ref, coll = _collection(tmp_path, 5)
+    calls = _spy_blocked(monkeypatch)
+    model = CMSBWT(ref, LANES8, device="cpu")
+    want = model.transform(coll, backend="dense").bwt
+    assert calls == []          # no budget on the CPU: unblocked
+    monkeypatch.setenv("CMSBWT_HBM_GB", "0.000001")
+    assert model.transform(coll, backend="dense").bwt == want
+    assert calls == [(8 << 20, False)]
+
+
+@pytest.mark.parametrize("backend", ["auto", "jump"])
+def test_model_sn_bound_route(tmp_path, monkeypatch, backend):
+    """Above the int32 bound (CMSBWT_SN_BOUND=1000) the model takes the
+    CLI's route: auto (no native library and AUTO_DENSE_MIN_CHARS lowered
+    to 1, so the CPU rule picks jump) turns to the blocked dense scan with
+    heads on the host (4096-char blocks) and the host merge, bytes equal
+    to the host backend's; an explicit jump is refused."""
+    from cmsbwt_tpu_torch.engine import pipeline as tpl
+    from cmsbwt_tpu_torch.io import native as tnative
+    monkeypatch.setattr(tnative, "get_scan_lib", lambda: None)
+    monkeypatch.setattr(tpl, "AUTO_DENSE_MIN_CHARS", 1)
+    ref, coll = _collection(tmp_path, 21)
+    model = CMSBWT(ref, LANES8, device="cpu")
+    want = model.transform(coll, backend="host").bwt
+    calls = _spy_blocked(monkeypatch)
+    monkeypatch.setenv("CMSBWT_SN_BOUND", "1000")
+    if backend == "jump":
+        with pytest.raises(ValueError, match="int32"):
+            model.transform(coll, backend=backend)
+        assert calls == []
+        return
+    res = model.transform(coll, backend=backend)
+    assert res.bwt == want
+    assert calls == [(4096, True)]
+    phases = [n for n, _ in res.timer.phases]
+    assert "head_fixup" in phases and "merge_device" not in phases
+
+
+def test_model_dense_checkpoint_resumes(tmp_path, monkeypatch):
+    """A checkpoint_dir in the model's config: a dense transform saves the
+    whole run's dense_heads bundle, keyed by the reference's and the
+    collection's bytes; a second model resumes from it with no scan, and
+    another collection is not served from it."""
+    from cmsbwt_tpu_torch.ops import ms_dense as md
+    ref, coll = _collection(tmp_path, 5)
+    other = tmp_path / "other.fa"
+    other.write_bytes(pathlib.Path(coll).read_bytes()[:1500])
+    cfg = dataclasses.replace(LANES8, checkpoint_dir=str(tmp_path / "ck"))
+    want = CMSBWT(ref, cfg, device="cpu").transform(coll, backend="dense")
+    assert any(f.startswith("dense_heads.")
+               for f in os.listdir(tmp_path / "ck"))
+
+    def scanned(*a, **k):
+        raise AssertionError("the resuming transform scanned")
+    for name in ("ms_dense_heads_on_device",
+                 "ms_dense_heads_blocked_on_device"):
+        monkeypatch.setattr(md, name, scanned)
+    model = CMSBWT(ref, cfg, device="cpu")
+    got = model.transform(coll, backend="dense")
+    assert (got.bwt, got.sn, got.heads) == (want.bwt, want.sn, want.heads)
+    with pytest.raises(AssertionError, match="scanned"):
+        model.transform(str(other), backend="dense")
 
 
 @pytest.mark.parametrize("rle", [False, True], ids=["plain", "rle"])

@@ -201,27 +201,29 @@ def test_counts_print_nothing_without_cmsbwt_profile(monkeypatch, capsys):
     assert timing.COUNTS["merge.runs"] == 7
 
 
-def test_a_timer_makes_each_scan_stage_one_span(files):
-    """With a PhaseTimer (the CLI's route) the jump scan's stages are its
-    phases jump_index, ms_scan and compact, each recorded once under its
-    stage's span and under no second name."""
-    from cmsbwt_tpu_torch.io import fasta
-    from cmsbwt_tpu_torch.index.device import build_device_index
-    from cmsbwt_tpu_torch.ops.ms_jump import ms_jump_heads
-    x = fasta.augment_reference(fasta.load_reference_bytes(str(files[0])))
-    sx = fasta.parse_collection(str(files[1]), 1 << 60).sx
-    index = build_device_index(x, "cpu")
-    timer = timing.PhaseTimer()
+def test_a_timer_makes_each_scan_stage_one_span(files, tmp_path):
+    """The CLI's route (compute_bwt) times the jump scan as the model
+    does: one phase ``ms_scan`` whose seconds cover the spans
+    scan.tables, scan.kernel and scan.compact, each recorded once; the
+    stages are no phases of their own."""
+    from cmsbwt_tpu_torch.config import Config
+    from cmsbwt_tpu_torch.engine.pipeline import compute_bwt
+    lst = tmp_path / "input.txt"
+    lst.write_text(f"{files[0]}\n{files[1]}\n")
     timing.reset()
-    res = ms_jump_heads(x, sx, "cpu", lanes=8, index=index, timer=timer)
-    assert [n for n, _ in timer.phases] == ["jump_index", "ms_scan",
-                                            "compact"]
-    assert set(timing.SPANS) == {"scan.tables", "scan.kernel",
-                                 "scan.compact"}
-    for (_, s), sub in zip(timer.phases, ["scan.tables", "scan.kernel",
-                                          "scan.compact"]):
-        assert timing.SPANS[sub] == [s, 1]
-    assert timing.COUNTS["heads"] == res.h
+    out = compute_bwt(Config(filename=str(lst), outname=str(tmp_path / "t"),
+                             backend="jump", lanes=8), "cpu")
+    phases = out["timer"].phases
+    assert [n for n, _ in phases] == [
+        "load_reference", "parse_collection", "build_index", "ms_scan",
+        "merge_device", "write_output"]
+    scan = dict(phases)["ms_scan"]
+    assert timing.SPANS["ms_scan"] == [scan, 1]
+    stages = ["scan.tables", "scan.kernel", "scan.compact"]
+    for sub in stages:
+        assert timing.SPANS[sub][1] == 1
+    assert sum(timing.SPANS[sub][0] for sub in stages) <= scan
+    assert timing.COUNTS["heads"] == out["result"].h
 
 
 def test_counters_agree_with_the_call(files):
